@@ -6,10 +6,12 @@ reference's ``engine/scheduler.py:_step``): filter masks, first-fail reason
 counts, raw scores, the normalizer reductions, selectHost and the bind into
 the carry. ``_step`` below is the plain torch twin of the reference's step
 for the ops this package runs — the plain-fit ops (unschedulable, class
-node affinity, class taints, host ports, fit per resource) and soft
-PodTopologySpread on both of its carries (the per-domain ``dom_count`` and
-the per-node ``group_count``). Every other gate raises NotImplementedError
-naming the ROADMAP item that ports it.
+node affinity, class taints, host ports, fit per resource), required pod
+affinity and anti-affinity (both directions, the ``slot_paint`` and the
+dense form), hard and soft PodTopologySpread on both of its carries (the
+per-domain ``dom_count`` and the per-node ``group_count``) and the
+interpod preference score with its ``pref_paint`` carry. Every other gate
+raises NotImplementedError naming the ROADMAP item that ports it.
 
 On a CUDA device ``schedule_pods`` runs the pod loop in the hand-written
 kernel ``csrc/plain_step.cu`` (``kernels/step.py``); the plain step runs
@@ -32,7 +34,7 @@ from open_simulator_tpu_torch.encode.snapshot import (
     SnapshotArrays,
 )
 from open_simulator_tpu_torch.ops import filters, scores
-from open_simulator_tpu_torch.ops.domains import hoist_active_stats
+from open_simulator_tpu_torch.ops.domains import ActiveHoist, hoist_active_stats
 
 # fp32 everywhere, and no TF32 in the prefix fold's matmuls: encoded counts
 # and requests go up to 2^24, and TF32 keeps integers exact only to 2^11.
@@ -112,10 +114,6 @@ class EngineConfig(NamedTuple):
 
 # gate -> the ROADMAP item that ports it (queue 1 unless noted)
 _UNSUPPORTED = (
-    ("enable_pod_affinity", "queue 1, item 2 (inter-pod slice)"),
-    ("enable_anti_affinity", "queue 1, item 2 (inter-pod slice)"),
-    ("enable_spread_hard", "queue 1, item 2 (inter-pod slice)"),
-    ("enable_pref", "queue 1, item 2 (inter-pod slice)"),
     ("enable_gpu", "queue 1, item 3 (device-resource slice)"),
     ("enable_storage", "queue 1, item 3 (device-resource slice)"),
     ("enable_vol_static", "queue 1, item 3 (device-resource slice)"),
@@ -141,9 +139,9 @@ def check_supported(cfg: EngineConfig) -> None:
 class SimState:
     """The carry — the reference's twelve ``SimState`` arrays as tensors.
     A lane-batched carry has a leading [S] axis on every field. This
-    package's step reads and writes headroom, ports_used and one of
-    group_count / dom_count; the rest stay zero until their ops are
-    ported."""
+    package's step reads and writes headroom, ports_used, group_count /
+    dom_count, term_block and pref_paint; the rest stay zero until their
+    ops are ported."""
 
     headroom: torch.Tensor      # [N, R] f32 = alloc - used
     group_count: torch.Tensor   # [N, S] bf16 | f32
@@ -223,9 +221,12 @@ def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
     """Fold the first k pods (all forced binds) into the carry at once —
     what k steps of the forced fast path would do. fp32 one-hot matmuls
     with TF32 off: the 0/1 weights and integer-valued requests keep every
-    sum exact below 2^24, so the fold equals the sequential binds."""
+    sum exact below 2^24, so the fold equals the sequential binds. The
+    anti-affinity term paint and the preferred-term paint go through the
+    same-domain rows ``sd_all`` of the reference's ``_apply_prefix_chunk``."""
     f32 = torch.float32
     n = arrs.alloc.shape[0]
+    k1 = arrs.topo_onehot.shape[0]
     for lo in range(0, k, _PREFIX_CHUNK):
         hi = min(lo + _PREFIX_CHUNK, k)
         idx = arrs.forced_node[lo:hi].long()
@@ -242,36 +243,112 @@ def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
         ports = state.ports_used
         if cfg.enable_ports:
             ports = ports | ((oh.T @ arrs.ports[lo:hi].to(f32)) > 0)
+        term, pref = state.term_block, state.pref_paint
+        if cfg.enable_anti_affinity or cfg.enable_pref:
+            # sd_all[key][pod, node]: nodes sharing pod i's node's domain
+            sd_all = [oh] + [arrs.topo_onehot[kk][idx] @ arrs.topo_onehot[kk].T
+                             for kk in range(k1)]
+        if cfg.enable_anti_affinity:
+            own = arrs.own_terms[lo:hi].to(f32)                   # [c, T]
+            paint = torch.zeros((n, own.shape[1]), dtype=f32, device=oh.device)
+            for kk in range(len(sd_all)):
+                mask_t = (arrs.term_key == kk).to(f32)
+                paint = paint + sd_all[kk].T @ (own * mask_t[None, :])
+            term = term + paint.to(term.dtype)
+        if cfg.enable_pref:
+            t2_n = state.pref_paint.shape[1]
+            for a in range(arrs.pref_group.shape[1]):
+                w = arrs.pref_weight[lo:hi, a] * arrs.pref_valid[lo:hi, a].to(f32)
+                key_a = arrs.pref_key[lo:hi, a]
+                sd_a = torch.zeros_like(sd_all[0])
+                for kk in range(len(sd_all)):
+                    sd_a = sd_a + sd_all[kk] * (key_a == kk).to(f32)[:, None]
+                col = torch.nn.functional.one_hot(arrs.pref_tid[lo:hi, a].long(), t2_n).to(f32)
+                pref = pref + sd_a.T @ (col * w[:, None])
         state = dataclasses.replace(state, headroom=headroom, group_count=gc,
+                                    term_block=term, pref_paint=pref,
                                     dom_count=dom, ports_used=ports)
     return state
 
 
-def score_rows(cfg: EngineConfig) -> Tuple[bool, bool, bool, bool]:
+def score_rows(cfg: EngineConfig) -> Tuple[bool, bool, bool, bool, bool]:
     """Which normalized score rows the step adds: node affinity, taint
-    toleration, soft spread, Simon. A zero weight or a gated-off op drops
-    its row entirely (the reference's ``use_*`` gates)."""
+    toleration, interpod preference, soft spread, Simon. A zero weight or
+    a gated-off op drops its row entirely (the reference's ``use_*``
+    gates)."""
     return (bool(cfg.w_node_aff) and cfg.enable_node_aff_score,
             bool(cfg.w_taint) and cfg.enable_taint_score,
+            bool(cfg.w_interpod) and cfg.enable_pref,
             bool(cfg.w_spread) and cfg.enable_spread_soft,
             bool(cfg.w_simon))
 
 
+def _column_reads(arrs: SnapshotArrays, host: Dict[str, np.ndarray],
+                  gc: torch.Tensor, p: int):
+    """The batched carry-column read: the pod's [aff | anti | spread]
+    selector-group columns of group_count as f32 [N, Q], each column's
+    domain sums per non-hostname key [K1, D, Q], the per-node domain count
+    [N, Q] (hostname-keyed columns read themselves) and the key presence
+    [Q, N]. Integer counts: every sum is exact."""
+    f32 = torch.float32
+    dev = gc.device
+    gid = np.concatenate([host["aff_group"][p], host["anti_group"][p],
+                          host["spread_group"][p]]).astype(np.int64)
+    gkey = np.concatenate([host["aff_key"][p], host["anti_key"][p],
+                           host["spread_key"][p]]).astype(np.int64)
+    colsf = gc[:, torch.from_numpy(np.maximum(gid, 0)).to(dev)].to(f32)  # [N, Q]
+    k1s = arrs.topo_onehot.shape[0]
+    pd_list = []
+    back = None
+    for kk in range(k1s):
+        ohk = arrs.topo_onehot[kk]                                      # [N, D]
+        pdk = ohk.T @ colsf                                             # [D, Q]
+        pd_list.append(pdk)
+        bk = ohk @ pdk                                                  # [N, Q]
+        if k1s == 1:
+            back = bk
+        else:
+            sel = torch.from_numpy((np.maximum(gkey - 1, 0) == kk).astype(np.float32)).to(dev)
+            back = bk * sel[None, :] if back is None else back + bk * sel[None, :]
+    is_host = torch.from_numpy(gkey == 0).to(dev)
+    dc_all = colsf if back is None else torch.where(is_host[None, :], colsf, back)
+    nh_all = arrs.has_key[torch.from_numpy(np.maximum(gkey, 0)).to(dev)] > 0   # [Q, N]
+    pd_stack = torch.stack(pd_list) if pd_list else None                # [K1, D, Q]
+    return colsf, dc_all, nh_all, pd_stack
+
+
 def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tensor,
-          cfg: EngineConfig, log_dom: torch.Tensor, inv_alloc: torch.Tensor,
+          cfg: EngineConfig, hoist: ActiveHoist, inv_alloc: torch.Tensor,
           state: SimState, p: int):
     """One pod's scheduleOne: the plain torch twin of the reference's
     ``_step`` for this package's ops. `arrs` holds tensors on the step's
-    device; `host` holds the per-pod scalars as numpy (forced node, class,
-    spread slots), so static per-pod choices branch on the host the way
-    the reference's gates select code. Returns (state, (node, fail_counts,
+    device; `host` holds the per-pod slot arrays as numpy (forced node,
+    class, selector groups, keys, term ids), so static per-pod choices
+    branch on the host the way the reference's gates select code. `hoist`
+    is one lane's ActiveHoist. Returns (state, (node, fail_counts,
     feasible)) with the outputs as device tensors."""
     n_nodes = arrs.alloc.shape[0]
     dev = active.device
     f32 = torch.float32
+    big = 3.4e38
     true_v = torch.ones((n_nodes,), dtype=torch.bool, device=dev)
     cid = int(host["class_id"][p])
     req = arrs.req[p]
+
+    def t(a):  # a host per-pod row -> a tensor on the step's device
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def fill(v):
+        return torch.full((n_nodes,), v, dtype=f32, device=dev)
+
+    gc = state.group_count if cfg.needs_group_count else None
+    gcr = gc is not None and (cfg.enable_pod_affinity or cfg.enable_anti_affinity
+                              or cfg.enable_spread)
+    a_w = host["aff_group"].shape[1]
+    b_w = host["anti_group"].shape[1]
+    cs_n = host["spread_group"].shape[1]
+    if gcr:
+        colsf, dc_all, nh_all, pd_stack = _column_reads(arrs, host, gc, p)
 
     ok_unsched = ~arrs.unschedulable if cfg.enable_unsched else true_v
     ok_aff = arrs.class_affinity[cid] if cfg.enable_class_aff else true_v
@@ -280,49 +357,116 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
                 if cfg.enable_ports else true_v)
     fit = filters.fit_per_resource(state.headroom, req)            # [N, R]
 
-    # PodTopologySpread, soft constraints: score pass 1. Slots that are
-    # not soft add where(False, .., 0.0) = +0.0 in the reference; they are
-    # skipped here (spread_raw only ever holds sums of nonnegative terms).
-    spread_raw = torch.zeros((n_nodes,), dtype=f32, device=dev)
-    spread_node_ok = true_v
-    any_soft = False
-    if cfg.enable_spread_soft:
-        k1_static = arrs.topo_onehot.shape[0]
-        for c in range(host["spread_group"].shape[1]):
-            if not (host["spread_valid"][p, c] and not host["spread_hard"][p, c]):
-                continue
-            kid = int(host["spread_key"][p, c])
-            g = int(host["spread_group"][p, c])
-            k1i = max(kid - 1, 0)
-            if cfg.needs_group_count:
-                # batched column read of the reference (one column here):
-                # hostname -> the node's own count, else the domain total
-                # broadcast back through the one-hot (exact integers)
-                colsf = state.group_count[:, g].to(f32)
-                back = None
-                for kk in range(k1_static):
-                    ohk = arrs.topo_onehot[kk]
-                    bk = ohk @ (ohk.T @ colsf)
-                    if k1_static == 1:
-                        back = bk
-                    else:
-                        sel = float(k1i == kk)
-                        back = bk * sel if back is None else back + bk * sel
-                dc = colsf if (back is None or kid == 0) else back
+    # InterPodAffinity required terms off the batched domain sums
+    # (semantics: filters.pod_affinity_ok, with the first-pod bootstrap)
+    ok_pod_aff = true_v
+    if cfg.enable_pod_affinity and a_w:
+        dc_a = dc_all[:, :a_w]
+        totals = torch.sum(colsf[:, :a_w], dim=0)
+        term_ok = nh_all[:a_w].T & ((dc_a > 0) | ((totals == 0) & t(host["aff_self"][p]))[None, :])
+        ok_pod_aff = torch.all(torch.where(t(host["aff_valid"][p])[None, :], term_ok, True), dim=1)
+    ok_pod_anti = true_v
+    if cfg.enable_anti_affinity:
+        if cfg.slot_paint:
+            hit = host["hit_tid"][p]
+            if hit.shape[0]:
+                tc = state.term_block[:, t(np.maximum(hit, 0).astype(np.int64))]
+                blocked = torch.any(t(hit >= 0)[None, :] & (tc > 0), dim=1)
             else:
-                # dom_count path: the tiny [K1, D, S] per-domain table
-                kk = 0 if k1_static == 1 else k1i
-                dc = arrs.topo_onehot[kk] @ state.dom_count[kk, :, g]
-            w = log_dom[kid]
-            spread_raw = spread_raw + (dc * w + (float(host["spread_skew"][p, c]) - 1.0))
-            spread_node_ok = spread_node_ok & (arrs.has_key[kid] > 0)
-            any_soft = True
+                blocked = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
+        else:
+            blocked = filters.anti_blocked_dense(state.term_block, arrs.hit_terms[p])
+        if b_w:
+            dc_b = dc_all[:, a_w:a_w + b_w]
+            fwd_ok = torch.all(torch.where(t(host["anti_valid"][p])[None, :], dc_b == 0, True),
+                               dim=1)
+        else:
+            fwd_ok = true_v
+        ok_pod_anti = fwd_ok & ~blocked
+
+    # PodTopologySpread: the domain counts are shared between the
+    # DoNotSchedule filter (skew against the eligible-domain minimum) and
+    # the ScheduleAnyway score pass 1. Soft slots that do not apply add
+    # where(False, .., 0.0) = +0.0 in the reference and are skipped here
+    # (spread_raw only ever holds sums of nonnegative terms).
+    spread_raw = fill(0.0)
+    spread_node_ok = true_v
+    ok_spread = true_v
+    any_soft = False
+    valid_s = host["spread_valid"][p]
+    hard_s = valid_s & host["spread_hard"][p]
+    soft_s = valid_s & ~host["spread_hard"][p]
+    skey = host["spread_key"][p]
+    if cfg.enable_spread and gc is not None:
+        s0 = a_w + b_w
+        if cs_n and cfg.enable_spread_hard:
+            dc_s = dc_all[:, s0:s0 + cs_n]
+            k1sel = np.maximum(skey - 1, 0).astype(np.int64)
+            if pd_stack is not None:
+                pd_sel = pd_stack[t(k1sel), :, t(np.arange(s0, s0 + cs_n))]     # [Cs, D]
+                dhas_sel = hoist.domain_has[cid, t(k1sel)]                       # [Cs, D]
+                min_other = torch.min(torch.where(dhas_sel, pd_sel, big), dim=1).values
+            else:
+                min_other = torch.zeros((cs_n,), dtype=f32, device=dev)
+            min_host = torch.min(torch.where(hoist.elig_host[cid][:, None],
+                                             colsf[:, s0:s0 + cs_n], big), dim=0).values
+            min_val = torch.where(t(skey == 0), min_host, min_other)
+            min_val = torch.where(hoist.any_elig[cid, t(skey.astype(np.int64))], min_val, 0.0)
+            if cfg.slot_paint:
+                m_gid = host["match_gid"][p]
+                self_raw = np.any((m_gid[:, None] >= 0)
+                                  & (m_gid[:, None] == host["spread_group"][p][None, :]), axis=0)
+            else:
+                self_raw = host["match_groups"][p][host["spread_group"][p]]
+            self_m = t((self_raw & valid_s).astype(np.float32))
+            skew = dc_s + self_m[None, :] - min_val[None, :]
+            term_ok = nh_all[s0:s0 + cs_n].T & (skew <= t(host["spread_skew"][p])[None, :])
+            ok_spread = torch.all(torch.where(t(hard_s)[None, :], term_ok, True), dim=1)
+        if cfg.enable_spread_soft:
+            for c in range(cs_n):
+                if not soft_s[c]:
+                    continue
+                w = hoist.log_dom[int(skey[c])]
+                spread_raw = spread_raw + (dc_all[:, s0 + c] * w
+                                           + (float(host["spread_skew"][p, c]) - 1.0))
+                spread_node_ok = spread_node_ok & nh_all[s0 + c]
+                any_soft = True
+    elif cfg.enable_spread:
+        # dom_count path (no [N, S] carry): non-hostname spread reads the
+        # tiny [K1, D, S] per-domain table
+        k1_static = arrs.topo_onehot.shape[0]
+        for c in range(cs_n):
+            if not (hard_s[c] and cfg.enable_spread_hard) and not (
+                    soft_s[c] and cfg.enable_spread_soft):
+                continue
+            kid = int(skey[c])
+            g = int(host["spread_group"][p, c])
+            kk = 0 if k1_static == 1 else max(kid - 1, 0)
+            dcol = state.dom_count[kk, :, g]                       # [D]
+            dc = arrs.topo_onehot[kk] @ dcol
+            node_has = arrs.has_key[kid] > 0
+            if hard_s[c] and cfg.enable_spread_hard:
+                dhas = hoist.domain_has[cid, kk]
+                min_val = torch.min(torch.where(dhas, dcol, big))
+                min_val = torch.where(hoist.any_elig[cid, kid], min_val, 0.0)
+                if cfg.slot_paint:
+                    self_m = bool(np.any(host["match_gid"][p] == g))
+                else:
+                    self_m = bool(host["match_groups"][p, g])
+                skew = dc + float(self_m) - min_val
+                ok_spread = ok_spread & node_has & (skew <= float(host["spread_skew"][p, c]))
+            if soft_s[c] and cfg.enable_spread_soft:
+                w = hoist.log_dom[kid]
+                spread_raw = spread_raw + (dc * w + (float(host["spread_skew"][p, c]) - 1.0))
+                spread_node_ok = spread_node_ok & node_has
+                any_soft = True
 
     op_masks = [ok_unsched, ok_aff, ok_taint, ok_ports]
     op_masks += [fit[:, r] for r in range(cfg.n_resources)]
-    # pod-aff, anti-aff, hard spread, gpu, storage and the five volume rows
-    # are gated off in this package's step: constant-true rows
-    op_masks += [true_v] * 10
+    op_masks += [ok_pod_aff, ok_pod_anti, ok_spread]
+    # gpu, storage and the five volume rows are gated off in this
+    # package's step: constant-true rows
+    op_masks += [true_v] * 7
     if cfg.fail_reasons:
         ops_ok = torch.stack(op_masks)                             # [OPS, N]
         mask = active & torch.all(ops_ok, dim=0)
@@ -338,15 +482,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
                 mask = mask & m
         fail_counts = torch.zeros((0,), dtype=torch.int32, device=dev)
 
-    big = 3.4e38
-    use_na, use_tt, use_sp, use_si = score_rows(cfg)
+    use_na, use_tt, use_ip, use_sp, use_si = score_rows(cfg)
 
     score = scores.resource_scores_fused(
         state.headroom, inv_alloc, req, cfg.cpu_mem_idx,
         cfg.w_balanced, cfg.w_least, cfg.w_most)
-
-    def fill(v):
-        return torch.full((n_nodes,), v, dtype=f32, device=dev)
 
     # the reference's one variadic min-reduce, row by row (min is exact in
     # any order; maxima ride as minima of the negation)
@@ -356,6 +496,15 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     if use_tt:
         raw_tt = arrs.class_taint_prefer[cid]
         hi_tt = -torch.min(torch.where(mask, -raw_tt, fill(0.0)))
+    if use_ip:
+        # existing pods' preferred terms toward this pod (the weighted
+        # domain paint), then this pod's own preferred terms
+        existing = state.pref_paint @ arrs.hit_pref[p].to(f32)
+        raw_ip = scores.interpod_preference_raw(
+            gc, arrs.topo_onehot, arrs.has_key, host["pref_group"][p], host["pref_key"][p],
+            host["pref_weight"][p], host["pref_valid"][p], extra_raw=existing)
+        ip_lo = torch.min(torch.where(mask, raw_ip, fill(big)))
+        ip_hi = -torch.min(torch.where(mask, -raw_ip, fill(big)))
     if use_sp:
         sp_scored = mask & spread_node_ok
         sp_lo = torch.min(torch.where(sp_scored, spread_raw, fill(big)))
@@ -369,6 +518,8 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         score = score + cfg.w_node_aff * scores.max_apply(raw_na, hi_na)
     if use_tt:
         score = score + cfg.w_taint * scores.max_apply(raw_tt, hi_tt, reverse=True)
+    if use_ip:
+        score = score + cfg.w_interpod * scores.minmax_apply(raw_ip, ip_lo, ip_hi)
     if use_sp:
         score = score + cfg.w_spread * scores.spread_apply(
             spread_raw, sp_lo, sp_hi, spread_node_ok, any_soft)
@@ -397,31 +548,82 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     else:
         final_node = unbound
 
-    # bind: dense one-hot updates, as the reference (-1 -> all-zero row)
+    # bind: dense one-hot updates, or in-place column updates under
+    # slot_paint, as the reference (-1 -> an all-zero row; each column is
+    # touched at most once per pod, so both forms add the same values)
+    bound_f = (final_node >= 0).to(f32)
+    safe_node = torch.clamp_min(final_node, 0).long()
     onehot_n = (iota == final_node).to(f32)
     headroom = state.headroom - onehot_n[:, None] * req[None, :]
     group_count = state.group_count
-    if cfg.needs_group_count:
-        group_count = group_count + (
-            onehot_n[:, None] * arrs.match_groups[p].to(f32)[None, :]
-        ).to(group_count.dtype)
     dom_count = state.dom_count
+    m_gid = host["match_gid"][p]
+    if cfg.needs_group_count:
+        if cfg.slot_paint:
+            group_count = group_count.clone()
+            for g_raw in m_gid:
+                gid = max(int(g_raw), 0)
+                group_count[:, gid] = group_count[:, gid] + (
+                    onehot_n * float(g_raw >= 0)).to(group_count.dtype)
+        else:
+            group_count = group_count + (
+                onehot_n[:, None] * arrs.match_groups[p].to(f32)[None, :]
+            ).to(group_count.dtype)
     if cfg.maintain_dom_count:
-        safe_node = torch.clamp_min(final_node, 0).long()
-        bound = (final_node >= 0).to(f32)
-        dom_row = arrs.topo_onehot[:, safe_node, :] * bound                 # [K1, D]
-        dom_count = dom_count + (
-            dom_row[:, :, None] * arrs.match_groups[p].to(f32)[None, None, :])
+        dom_row = arrs.topo_onehot[:, safe_node, :] * bound_f              # [K1, D]
+        if cfg.slot_paint:
+            dom_count = dom_count.clone()
+            for g_raw in m_gid:
+                gid = max(int(g_raw), 0)
+                dom_count[:, :, gid] = dom_count[:, :, gid] + dom_row * float(g_raw >= 0)
+        else:
+            dom_count = dom_count + (
+                dom_row[:, :, None] * arrs.match_groups[p].to(f32)[None, None, :])
     ports_used = state.ports_used
     if cfg.enable_ports:
         ports_used = ports_used | ((onehot_n[:, None] > 0) & arrs.ports[p][None, :])
+
+    # sd_all [K, N]: the nodes sharing the bound node's domain under every
+    # key (hostname: the node itself; a node without the key: none)
+    if cfg.enable_anti_affinity or cfg.enable_pref:
+        sd_list = [onehot_n]
+        for kk in range(arrs.topo_onehot.shape[0]):
+            oh = arrs.topo_onehot[kk]
+            sd_list.append(oh @ oh[safe_node] * bound_f)
+        sd_all = torch.stack(sd_list)
+    term_block = state.term_block
+    if cfg.enable_anti_affinity:
+        cdt = term_block.dtype
+        if cfg.slot_paint:
+            term_block = term_block.clone()
+            for t_raw in host["own_tid"][p]:
+                tid = max(int(t_raw), 0)
+                col = sd_all[int(host["term_key"][tid])] * float(t_raw >= 0)
+                term_block[:, tid] = term_block[:, tid] + col.to(cdt)
+        else:
+            paint = sd_all[arrs.term_key.long()].T * arrs.own_terms[p].to(f32)[None, :]
+            term_block = term_block + paint.to(cdt)
+    pref_paint = state.pref_paint
+    if cfg.enable_pref:
+        pref_paint = pref_paint.clone()
+        for a in range(host["pref_tid"].shape[1]):
+            tcol = int(host["pref_tid"][p, a])
+            w = arrs.pref_weight[p, a] * arrs.pref_valid[p, a].to(f32)
+            pref_paint[:, tcol] = pref_paint[:, tcol] + sd_all[int(host["pref_key"][p, a])] * w
     new_state = dataclasses.replace(state, headroom=headroom, group_count=group_count,
+                                    term_block=term_block, pref_paint=pref_paint,
                                     dom_count=dom_count, ports_used=ports_used)
     return new_state, (final_node, fail_counts, feasible_n)
 
 
+# what the plain step reads on the host: the per-pod scalars and slot rows
+# (and term_key, the [T] topology key of each anti-affinity term)
 STEP_HOST_FIELDS = ("class_id", "forced_node", "spread_group", "spread_key",
-                    "spread_skew", "spread_hard", "spread_valid")
+                    "spread_skew", "spread_hard", "spread_valid", "match_groups",
+                    "match_gid", "aff_group", "aff_key", "aff_valid", "aff_self",
+                    "anti_group", "anti_key", "anti_valid", "own_tid", "hit_tid",
+                    "term_key", "pref_group", "pref_key", "pref_weight", "pref_valid",
+                    "pref_tid")
 
 
 def inv_alloc_of(alloc: torch.Tensor) -> torch.Tensor:
@@ -429,6 +631,11 @@ def inv_alloc_of(alloc: torch.Tensor) -> torch.Tensor:
     pos = alloc > 0
     return torch.where(pos, torch.ones_like(alloc) / torch.where(pos, alloc, torch.ones_like(alloc)),
                        torch.zeros_like(alloc))
+
+
+def hoist_of(arrs: SnapshotArrays, active: torch.Tensor) -> ActiveHoist:
+    """The ActiveHoist of an [S, N] active mask over tensor-valued `arrs`."""
+    return hoist_active_stats(arrs.topo_onehot, arrs.has_key, arrs.class_affinity, active)
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
@@ -455,10 +662,10 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
         state = init_state(arrs_t, cfg)
     if k:
         state = apply_forced_prefix(arrs_t, cfg, state, k)
-    log_dom = hoist_active_stats(arrs_t.topo_onehot, active_t[None, :]).log_dom
+    hoist = hoist_of(arrs_t, active_t[None, :])
     lanes = SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS})
     node, fail_counts, feasible = step_kernels.plain_step(
-        arrs_t, active_t[None, :], log_dom, inv_alloc_of(arrs_t.alloc), lanes,
+        arrs_t, active_t[None, :], hoist, inv_alloc_of(arrs_t.alloc), lanes,
         cfg, k, n_pods)
     state = SimState(**{f: getattr(lanes, f)[0] for f in STATE_FIELDS})
     node, fail_counts, feasible = node[0], fail_counts[0], feasible[0]

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from open_simulator_tpu_torch.ops.domains import domain_count
+
 MAX_SCORE = 100.0
 
 
@@ -94,3 +96,25 @@ def spread_apply(raw: torch.Tensor, s_min: torch.Tensor, s_max: torch.Tensor,
                        torch.full_like(s_max, 100.0)) * soft
     c1 = s_max + s_min
     return torch.where(node_ok, base + (c1 - raw) * inv, torch.zeros_like(raw))
+
+
+def interpod_preference_raw(group_count: torch.Tensor, topo_onehot: torch.Tensor,
+                            has_key: torch.Tensor, pref_group, pref_key, pref_weight,
+                            pref_valid, extra_raw: torch.Tensor = None) -> torch.Tensor:
+    """InterPodAffinity score pass 1: per valid preferred term of the
+    incoming pod, weight x (#matching pods in the node's domain), zero on
+    nodes without the key, summed onto `extra_raw` (the existing pods'
+    direction, ``pref_paint @ hit_pref``) in slot order. Weights and
+    counts are integers, so every sum is exact below 2^24."""
+    f32 = torch.float32
+    n = group_count.shape[0]
+    raw = (torch.zeros((n,), dtype=f32, device=group_count.device)
+           if extra_raw is None else extra_raw)
+    for a in range(len(pref_group)):
+        if not bool(pref_valid[a]):
+            continue
+        vec = group_count[:, int(pref_group[a])].to(f32)
+        dc = domain_count(vec, pref_key[a], topo_onehot)
+        node_has = (has_key[int(pref_key[a])] > 0).to(f32)
+        raw = raw + (float(pref_weight[a]) * dc) * node_has
+    return raw

@@ -120,13 +120,11 @@ def test_lanes_equal_single_lane_runs():
     n = snap.n_nodes
     masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0])
     active = torch.from_numpy(masks)
-    from open_simulator_tpu_torch.ops.domains import hoist_active_stats
-
-    log_dom = hoist_active_stats(arrs.topo_onehot, active).log_dom
+    hoist = tsched.hoist_of(arrs, active)
     base = tsched.apply_forced_prefix(arrs, cfg, tsched.init_state(arrs, cfg), cfg.forced_prefix)
     lanes = tsched.SimState(**{f: torch.stack([getattr(base, f)] * 2)
                                for f in tsched.STATE_FIELDS})
-    node, fail, feas = tstep.plain_step(arrs, active, log_dom, tsched.inv_alloc_of(arrs.alloc),
+    node, fail, feas = tstep.plain_step(arrs, active, hoist, tsched.inv_alloc_of(arrs.alloc),
                                         lanes, cfg, cfg.forced_prefix, snap.n_pods)
     for s in range(2):
         out = tsched.schedule_pods(snap.arrays, masks[s], cfg, device="cpu")

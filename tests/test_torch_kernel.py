@@ -6,8 +6,10 @@ card and no JAX. There, from the repository root:
     python -m pytest --noconftest -q tests/test_torch_kernel.py
 
 runs the card-only tests (marked ``cuda``): the kernel against the plain
-torch step, bit for bit, on both spread carries and on lanes. Without
-CUDA they skip with the reason; the binding checks run everywhere.
+torch step, bit for bit, on both spread carries, on the rich synthetic
+cluster (pod affinity, anti-affinity in the slot and the dense form, hard
+spread, the interpod preference) and on lanes. Without CUDA they skip
+with the reason; the binding checks run everywhere.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from open_simulator_tpu_torch.engine import scheduler as sched
 from open_simulator_tpu_torch.k8s.loader import make_valid_node
 from open_simulator_tpu_torch.k8s.objects import Node, Pod
 from open_simulator_tpu_torch.kernels import build, step
-from open_simulator_tpu_torch.ops.domains import hoist_active_stats
 from open_simulator_tpu_torch.testing.synthetic import soft_spread_cluster, synthetic_snapshot
 
 SOURCE = os.path.join(build.CSRC_DIR, "plain_step.cu")
@@ -53,7 +54,8 @@ def test_ctypes_struct_matches_the_c_struct():
 def test_flag_bits_match_the_c_constants():
     src = Path(SOURCE).read_text(encoding="utf-8")
     bits = dict(re.findall(r"constexpr int (F_\w+) = 1 << (\d+);", src))
-    assert len(bits) == 15
+    assert len(bits) == 21
+    assert set(bits) == {n for n in dir(step) if n.startswith("F_")}
     for name, shift in bits.items():
         assert getattr(step, name) == 1 << int(shift), name
 
@@ -80,12 +82,30 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     cfg = sched.make_config(snap)
     arrs = sched.device_arrays(snap.arrays, "cpu")
     active = torch.ones((1, 4), dtype=torch.bool)
-    log_dom = hoist_active_stats(arrs.topo_onehot, active).log_dom
+    hoist = sched.hoist_of(arrs, active)
     st = sched.init_state(arrs, cfg)
     lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
     with pytest.raises(ValueError, match="not on the card"):
-        step.plain_step_cuda(arrs, active, log_dom, sched.inv_alloc_of(arrs.alloc),
+        step.plain_step_cuda(arrs, active, hoist, sched.inv_alloc_of(arrs.alloc),
                              lanes, cfg, 0, 8)
+
+
+def test_kernel_wrapper_refuses_widths_over_shared_memory(monkeypatch):
+    """The per-domain column sums live in the block's shared memory; widths
+    that do not fit raise before anything is launched, naming the need."""
+    snap = synthetic_snapshot(8, 16, rich=True)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    active = torch.ones((1, 8), dtype=torch.bool)
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
+    q = sum(getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group", "spread_group",
+                                                "pref_group"))
+    need = step.smem_bytes(cfg.n_ops, q, arrs.topo_onehot.shape[2], arrs.spread_group.shape[1])
+    monkeypatch.setattr(step, "_SMEM_LIMIT", need - 1)
+    with pytest.raises(ValueError, match=f"need {need} bytes of shared memory"):
+        step.plain_step_cuda(arrs, active, sched.hoist_of(arrs, active),
+                             sched.inv_alloc_of(arrs.alloc), lanes, cfg, 0, 16)
 
 
 def test_kernel_wrapper_checks_indices():
@@ -114,33 +134,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
+RICH_CASES = {
+    "rich": dict(),
+    "rich-dense": dict(slot_paint=False),
+    "rich-f32-no-reasons": dict(compact_carry=False, fail_reasons=False),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["hostname-bf16", "hostname-f32", "zone-region", "synthetic"])
+@pytest.mark.parametrize("case", ["hostname-bf16", "hostname-f32", "zone-region", "synthetic",
+                                  "rich", "rich-dense", "rich-bound", "rich-f32-no-reasons"])
 def test_kernel_equals_plain_step_on_card(cuda_device, case):
     """Two lanes with different active masks: the kernel and the plain
     torch step give the same outputs and carry, bit for bit."""
+    overrides = {"compact_carry": False} if case == "hostname-f32" else RICH_CASES.get(case, {})
     if case == "synthetic":
         snap = synthetic_snapshot(96, 512, bound=0.2)
+    elif case.startswith("rich"):
+        snap = synthetic_snapshot(96, 512, rich=True, bound=0.3 if case == "rich-bound" else 0.0)
     else:
         snap = _soft_spread(96, 512, hostname=case != "zone-region")
-    cfg = sched.make_config(snap, **({"compact_carry": False} if case == "hostname-f32" else {}))
+    cfg = sched.make_config(snap, **overrides)
     arrs = sched.device_arrays(snap.arrays, cuda_device)
     masks = np.stack([np.ones(snap.n_nodes, bool), np.arange(snap.n_nodes) % 3 != 0])
     active = torch.from_numpy(masks).to(cuda_device)
-    log_dom = hoist_active_stats(arrs.topo_onehot, active).log_dom
+    hoist = sched.hoist_of(arrs, active)
     inv = sched.inv_alloc_of(arrs.alloc)
     base = sched.apply_forced_prefix(arrs, cfg, sched.init_state(arrs, cfg), cfg.forced_prefix)
     runs = []
     for fn in (step.plain_step_cuda, step.plain_step_torch):
         lanes = sched.SimState(**{f: torch.stack([getattr(base, f)] * 2).contiguous()
                                   for f in sched.STATE_FIELDS})
-        outs = fn(arrs, active, log_dom, inv, lanes, cfg, cfg.forced_prefix, snap.n_pods)
+        outs = fn(arrs, active, hoist, inv, lanes, cfg, cfg.forced_prefix, snap.n_pods)
         torch.cuda.synchronize()
         runs.append((outs, lanes))
     (out_k, st_k), (out_p, st_p) = runs
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
-    for f in ("headroom", "group_count", "dom_count", "ports_used"):
+    for f in ("headroom", "group_count", "dom_count", "ports_used", "term_block", "pref_paint"):
         assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
     assert (out_k[0] >= 0).any()
 

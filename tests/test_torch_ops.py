@@ -194,7 +194,8 @@ def test_hoist_log_dom(seed):
     has_key = np.concatenate([np.ones((1, n), np.float32), (dom >= 0).astype(np.float32)])
     cls = rng.rand(3, n) < 0.9
     active = rng.rand(n) < (0.3 + 0.2 * seed)
-    ht = tdom.hoist_active_stats(torch.from_numpy(topo), torch.from_numpy(active))
+    ht = tdom.hoist_active_stats(torch.from_numpy(topo), torch.from_numpy(has_key),
+                                 torch.from_numpy(cls), torch.from_numpy(active))
     for hj in (eager(jdom.hoist_active_stats, topo, has_key, cls, active),
                jax.jit(jdom.hoist_active_stats)(topo, has_key, cls, active)):
         same(hj.dom_counts, ht.dom_counts)

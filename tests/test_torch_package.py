@@ -92,7 +92,6 @@ def test_simulate_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("name,gate", [
-    ("config", "enable_anti_affinity"),
     ("stateful", "enable_vol_static"),
 ])
 def test_unported_example_configs_raise(name, gate):
@@ -100,17 +99,19 @@ def test_unported_example_configs_raise(name, gate):
         tcore.simulate(*tp.load("torch", name), device="cpu")
 
 
-def test_rich_synthetic_raises_naming_the_gate():
+def test_rich_synthetic_with_gpu_raises_naming_the_item():
+    """The inter-pod gates run; a gate of a later slice still raises."""
     snap = synthetic_snapshot(16, 64, rich=True)
-    cfg = tsched.make_config(snap)
-    with pytest.raises(NotImplementedError, match="enable_pod_affinity.*ROADMAP queue 1, item 2"):
+    cfg = tsched.make_config(snap, enable_gpu=True)
+    assert cfg.enable_pod_affinity and cfg.enable_anti_affinity and cfg.enable_pref
+    with pytest.raises(NotImplementedError, match="enable_gpu.*ROADMAP queue 1, item 3"):
         tsched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("override", [
     dict(explain_topk=3), dict(tie_break_seed=7), dict(traced_weights=True),
     dict(enable_gpu=True), dict(enable_storage=True), dict(enable_pv_match=True),
-    dict(enable_vol_limits=True), dict(enable_spread_hard=True), dict(enable_pref=True),
+    dict(enable_vol_limits=True),
 ])
 def test_every_unported_gate_raises(override):
     snap = synthetic_snapshot(8, 16)
@@ -160,7 +161,8 @@ def test_log_dom_is_computed_from_counts():
     topo = torch.zeros((1, 4, 2))
     topo[0, :2, 0] = 1
     topo[0, 2:, 1] = 1
-    h = hoist_active_stats(topo, torch.tensor([True, True, False, False]))
+    h = hoist_active_stats(topo, torch.ones((2, 4)), torch.ones((1, 4), dtype=torch.bool),
+                           torch.tensor([True, True, False, False]))
     assert h.dom_counts.tolist() == [2.0, 1.0]
     # against a float64 log, to f32 rounding; the bit-exact check against
     # the reference's log is in test_torch_ops.py

@@ -30,6 +30,7 @@ CONFIGS = {
     "controlplane": ("cluster/control-plane", [("payments", "apps/payments")]),
     "stateful": ("cluster/stateful", [("stateful", "apps/stateful")]),
     "config": ("cluster/demo", [("webstack", "apps/webstack")]),
+    "constraints": ("cluster/demo", [("constraints", "apps/constraints")]),
 }
 
 PKGS = {"jax": (jloader, jcore, jsnapshot), "torch": (tloader, tcore, tsnapshot)}
@@ -85,7 +86,7 @@ def run_torch(arrs_fields: dict, active, cfg, state=None):
     return outs, convert.state_to_numpy(out.state)
 
 
-CARRY = ("headroom", "dom_count", "group_count", "ports_used", "term_block")
+CARRY = ("headroom", "dom_count", "group_count", "ports_used", "term_block", "pref_paint")
 
 
 def assert_same(outs_j, st_j, outs_t, st_t):
