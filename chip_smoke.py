@@ -9,8 +9,10 @@ then drives the main paths — ``core.simulate()`` on the north-star cluster
 (5,120 nodes x 51,200 pods, the reference's ``synthetic_snapshot`` shape)
 and on its rich twin (the reference's ``northstar-rich``: host ports, pod
 affinity, anti-affinity, hard and hostname spread, the interpod
-preference, taints) — and checks that each ran through the kernels and
-that its answer is right.
+preference, taints), then the capacity plan on both (the reference bench's
+64-lane north-star sweep, its bisection, and the example plans through the
+CLI) — and checks that each ran through the kernels and that its answer
+is right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
@@ -18,23 +20,35 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
 2. the kernel build, one nvcc per source, started together;
 3. kernel vs plain step, exact equality of node, fail counts, feasible
    counts and the final carry (headroom, dom_count, group_count,
-   ports_used, term_block, pref_paint), on: the synthetic cluster at
-   1,024 x 10,240 with mid-sequence forced pods (dom_count carry); a
-   512 x 4,096 cluster with hostname and zone soft spread, taints,
-   unschedulable nodes, host ports and a leading nodeName run
+   ports_used, term_block, pref_paint), each side starting its lanes from
+   the template carry through its lane prologue, on: the synthetic
+   cluster at 1,024 x 10,240 with mid-sequence forced pods (dom_count
+   carry); a 512 x 4,096 cluster with hostname and zone soft spread,
+   taints, unschedulable nodes, host ports and a leading nodeName run
    (group_count carry); that cluster as one 4-lane launch with a
    different active mask per lane; the rich cluster at 1,024 x 10,240
    with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in the
    dense form (slot_paint off); and the rich cluster at 512 x 1,024 as one
    4-lane launch;
-4. the main paths, non-rich then rich: launch counts reset, ``simulate()``
-   at full size, counts read; then the kernel timed on the path's arrays
-   (its placements must equal simulate()'s), the kernel and the plain
-   step compared over the first 2,048 pods from a fresh carry and over the
-   last 2,048 from the kernel's own carry, and on the rich path a host
-   check that no pod shares its node with a pod its hostname
+4. the simulate() paths, non-rich then rich: launch counts reset,
+   ``simulate()`` at full size, counts read; then the kernel timed on the
+   path's arrays (its placements must equal simulate()'s), the kernel and
+   the plain step compared over the first 2,048 pods from the template and
+   over the last 2,048 from the kernel's own carry, and on the rich path
+   a host check that no pod shares its node with a pod its hostname
    anti-affinity term names;
-5. one JSON line describing each kernel, then the device line.
+5. the capacity paths, non-rich then rich, at 5,120 + 64 nodes x 51,200
+   pods: launch counts reset, ``capacity_sweep`` over the bench's 64
+   counts, counts read (one 64-lane launch); the launch timed alone, with
+   peak device memory; lanes at counts 0, 21, 42 and 63 against one-lane
+   launches, bit for bit; the 64-lane hoist and the forced-prefix fold
+   of 4,096 pods timed (the fold held equal to the kernel's carry after
+   those pods); the kernel against the plain step over the first 2,048
+   pods of lanes 0 and 63; ``capacity_bisect`` (8 lanes) against the
+   sweep's answer under a CPU limit that puts it inside (0, 64); then the
+   ``config``, ``constraints``, ``controlplane`` and ``morepods`` plans
+   through the CLI on the card and on the CPU, with the same output;
+6. one JSON line describing each kernel, then the device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
 nonzero and prints no result.
@@ -42,6 +56,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +71,14 @@ PEAK_F32_S = 67e12
 # pods of the main paths' kernel-vs-plain comparison (the plain step costs
 # milliseconds a pod on the card)
 PARITY_PREFIX = 2048
+# the capacity phase: the reference bench's north-star sweep (64 lanes,
+# 64 new-node slots) and the count its bisection is set to find
+CAPACITY_LANES = 64
+BISECT_TARGET = 37
+# pods of the full-width forced-prefix fold (one fold chunk)
+FOLD_PODS = 4096
+CLI_CONFIGS = ("config.yaml", "constraints-config.yaml", "controlplane-config.yaml",
+               "morepods-config.yaml")
 
 
 _T0 = time.perf_counter()
@@ -72,14 +95,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def lanes_state(sched, arrs, cfg, n_lanes):
-    """Fresh carry with the forced prefix folded in, stacked for n_lanes."""
+def template_of(sched, arrs, cfg):
+    """The template carry every lane starts from: the fresh carry with the
+    forced prefix folded in (the kernel's lane prologue copies it into
+    each lane's slice)."""
     st = sched.init_state(arrs, cfg)
     if cfg.forced_prefix:
         st = sched.apply_forced_prefix(arrs, cfg, st, cfg.forced_prefix)
-    return sched.SimState(**{f: getattr(st, f)[None].repeat(
-        (n_lanes,) + (1,) * getattr(st, f).dim()).contiguous()
-        for f in sched.STATE_FIELDS})
+    return sched.SimState(**{f: getattr(st, f).contiguous() for f in sched.STATE_FIELDS})
 
 
 def clone_state(sched, st):
@@ -103,8 +126,10 @@ def compare(torch, out_k, out_p, st_k, st_p):
 def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, start=None):
     """Kernel vs plain step on the card, from the same carry, over the pods
     after the forced prefix (the first `n_pods` of them if set). The carry
-    is fresh, or with `start` = (first pod, lane-stacked state) that state.
-    Returns (plain seconds, kernel seconds, max abs error, kernel outputs)."""
+    is the template, written into new (unset) lane buffers by each side's
+    lane prologue, or with `start` = (first pod, lane-stacked state) that
+    state. Returns (plain seconds, kernel seconds, max abs error, kernel
+    outputs)."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     arrs = sched.device_arrays(arrs_np, dev)
@@ -114,18 +139,20 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
     hoist = sched.hoist_of(arrs, active)
     inv = sched.inv_alloc_of(arrs.alloc)
     if start is None:
-        p0, base = cfg.forced_prefix, lanes_state(sched, arrs, cfg, active.shape[0])
+        p0, tmpl = cfg.forced_prefix, template_of(sched, arrs, cfg)
+        st_k = sched.lane_carry(tmpl, active.shape[0])
+        st_p = sched.lane_carry(tmpl, active.shape[0])
     else:
-        p0, base = start
+        (p0, base), tmpl = start, None
+        st_k, st_p = clone_state(sched, base), clone_state(sched, base)
     p1 = arrs.req.shape[0] if n_pods is None else min(p0 + n_pods, arrs.req.shape[0])
-    st_k, st_p = clone_state(sched, base), clone_state(sched, base)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1)
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, p0, p1)
+    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, p0, p1, template=tmpl)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
     equal, err = compare(torch, out_k, out_p, st_k, st_p)
@@ -142,11 +169,28 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
 def step_work(sched, a, cfg, p0, p1, out):
     """(bytes, operations) the step function needs for pods [p0, p1) of
     one lane, given that run's outputs `out` = (node [P'], fail counts
-    [P', OPS], feasible counts [P']) as numpy.
+    [P', OPS], feasible counts [P']) as numpy."""
+    shared, lane, ops = _work_parts(sched, a, cfg, p0, p1, out)
+    return shared + lane, ops
+
+
+def lanes_work(sched, a, cfg, p0, p1, outs):
+    """(bytes, operations) of one launch over several lanes, `outs` holding
+    each lane's outputs as numpy: the node and pod rows and the template
+    carry are read once for all lanes, each lane's tables, carry and
+    outputs are its own, and the operations add up lane by lane."""
+    parts = [_work_parts(sched, a, cfg, p0, p1, o) for o in outs]
+    return parts[0][0] + sum(pt[1] for pt in parts), sum(pt[2] for pt in parts)
+
+
+def _work_parts(sched, a, cfg, p0, p1, out):
+    """(bytes shared by every lane, bytes of this lane, operations of this
+    lane) for pods [p0, p1), from the lane's outputs `out`.
 
     Bytes: every input read once and every output written once — node
-    rows, pod rows and term lists, the hoisted eligibility tables, the
-    carry read and written, the outputs. Operations: counted from the
+    rows, pod rows and term lists and the starting carry (shared), the
+    lane's hoisted eligibility tables, its final carry and its outputs.
+    Operations: counted from the
     kernel's source for this run's data, under the launch's gates.
     Per (pod, node): one add per carry column phase 0b reads (the
     non-hostname columns, plus hostname affinity and hard-spread
@@ -216,22 +260,8 @@ def step_work(sched, a, cfg, p0, p1, out):
                     + (pref_hits + 3 * pref_v + 6) * use_ip + (4 * soft + 2) * use_sp
                     + (4 * r + 7) * use_si)
 
-    # the bind's paints: a term under key k > 0 costs a compare per node and
-    # an add per node of the bound node's domain; under the hostname key, one add
-    has = a.topo_onehot.any(2)
-    node_dom = np.where(has, a.topo_onehot.argmax(2), -1)              # [K1, N]
-    dsize = a.topo_onehot.sum(1).astype(np.int64)                       # [K1, D]
     placed = node >= 0
-    dom_at = node_dom[:, np.where(placed, node, 0)].T                    # [P', K1]
-    size_at = np.where(dom_at >= 0, dsize[np.arange(k1)[None, :], np.maximum(dom_at, 0)], 0)
-    cost = np.concatenate([np.ones((steps, 1), np.int64), n + size_at], 1)  # [P', K]
-    paints = np.zeros(steps, np.int64)
-    if cfg.enable_anti_affinity:
-        own = a.own_terms[sl].astype(np.int64)
-        paints += (own * cost[:, a.term_key.astype(np.int64)]).sum(1)
-    if cfg.enable_pref:
-        keys = a.pref_key[sl].astype(np.int64)
-        paints += (a.pref_valid[sl] * np.take_along_axis(cost, keys, 1)).sum(1)
+    paints = _paint_ops(a, cfg, sl, node, per_node_compare=True)
     ops = int((per_pod + filters + feas * per_feasible + placed * (r + paints)).sum())
 
     node_bytes = n * r * 4 + n + c * n * 10 + n * 4 + k1 * n * 4 + k * n + t * 4
@@ -240,9 +270,88 @@ def step_work(sched, a, cfg, p0, p1, out):
     carry = (n * r * 4 + n * pt + k1 * d * sg * 4 + n * sg * gcb
              + (n * t * gcb if cfg.enable_anti_affinity else 0)
              + (n * t2 * 4 if cfg.enable_pref else 0))
-    lane_bytes = n + k * 4 + c * n + c * k1 * d + c * k + 2 * carry
-    out_bytes = steps * (4 + 4 + cfg.n_ops * 4)
-    return node_bytes + pod_bytes + lane_bytes + out_bytes, ops
+    lane_bytes = n + k * 4 + c * n + c * k1 * d + c * k + carry
+    out_bytes = steps * (4 + 4 + (cfg.n_ops * 4 if cfg.fail_reasons else 0))
+    return node_bytes + pod_bytes + carry, lane_bytes + out_bytes, ops
+
+
+def _paint_ops(a, cfg, sl, node, per_node_compare):
+    """[P'] operations of each pod's anti-affinity and preferred-term
+    paints: a term under a key k > 0 costs an add per node of the bound
+    node's domain (and, in the kernel, a compare per node to find them);
+    under the hostname key, one add."""
+    import numpy as np
+
+    n = a.alloc.shape[0]
+    k1 = a.topo_onehot.shape[0]
+    steps = len(node)
+    has = a.topo_onehot.any(2)
+    node_dom = np.where(has, a.topo_onehot.argmax(2), -1)              # [K1, N]
+    dsize = a.topo_onehot.sum(1).astype(np.int64)                       # [K1, D]
+    placed = node >= 0
+    dom_at = node_dom[:, np.where(placed, node, 0)].T                    # [P', K1]
+    size_at = np.where(dom_at >= 0, dsize[np.arange(k1)[None, :], np.maximum(dom_at, 0)], 0)
+    cost = np.concatenate([np.ones((steps, 1), np.int64),
+                           size_at + (n if per_node_compare else 0)], 1)  # [P', K]
+    paints = np.zeros(steps, np.int64)
+    if cfg.enable_anti_affinity:
+        own = a.own_terms[sl].astype(np.int64)
+        paints += (own * cost[:, a.term_key.astype(np.int64)]).sum(1)
+    if cfg.enable_pref:
+        keys = a.pref_key[sl].astype(np.int64)
+        paints += (a.pref_valid[sl] * np.take_along_axis(cost, keys, 1)).sum(1)
+    return paints
+
+
+def fold_work(a, cfg, k):
+    """(bytes, operations) of folding the first k pods (forced binds) into
+    a carry — what ``apply_forced_prefix`` computes. Bytes: the k pods'
+    forced node, requests, groups, ports, terms and preferred terms, the
+    one-hot domain table and the carry, each read once, and the carry
+    written once. Operations: the sequential binds' own — per bound pod R
+    subtractions, one add per matched group (and per matched group and
+    non-hostname key on the dom_count carry), one or per port, and the
+    paints (an add per node of the bound node's domain, one under the
+    hostname key)."""
+    import numpy as np
+
+    node = np.asarray(a.forced_node[:k], dtype=np.int64)
+    n, r = a.alloc.shape
+    k1, _, d = a.topo_onehot.shape
+    sg, pt = a.match_groups.shape[1], a.ports.shape[1]
+    t, t2, ap = a.own_terms.shape[1], a.hit_pref.shape[1], a.pref_group.shape[1]
+    gcb = _gc_bytes(cfg)
+    sl = slice(0, k)
+    placed = node >= 0
+    groups = a.match_groups[sl].sum(1).astype(np.int64)
+    per_pod = (r + groups * cfg.needs_group_count + groups * k1 * cfg.maintain_dom_count
+               + a.ports[sl].sum(1).astype(np.int64) * cfg.enable_ports
+               + _paint_ops(a, cfg, sl, node, per_node_compare=False))
+    ops = int((placed * per_pod).sum())
+    carry = (n * r * 4 + n * pt + k1 * d * sg * 4 + n * sg * gcb
+             + (n * t * gcb if cfg.enable_anti_affinity else 0)
+             + (n * t2 * 4 if cfg.enable_pref else 0))
+    pod_bytes = k * (4 + r * 4 + sg + pt + t + ap * 13)
+    return pod_bytes + k1 * n * d * 4 + 2 * carry, ops
+
+
+def hoist_work(a, n_lanes):
+    """(bytes, operations) of ``hoist_active_stats`` for S lanes. Bytes:
+    the one-hot domain table, key presence, class affinity and the masks
+    read once; the domain counts, log_dom and the three eligibility
+    tables written once. Operations, per lane: one add per node for the
+    active count, one test per (non-hostname key, node) for the domain
+    presence and one add per (key, domain) to count them, a log per key,
+    two ands per (class, key, node) for the eligibility, an or per
+    (class, non-hostname key, node) into domain_has and one per (class,
+    key, node) into any_elig."""
+    n = a.alloc.shape[0]
+    k1, _, d = a.topo_onehot.shape
+    c, k = a.class_affinity.shape[0], a.has_key.shape[0]
+    per_lane = n + k1 * n + k1 * d + k + 2 * c * k * n + c * k1 * n + c * k * n
+    nbytes = (k1 * n * d * 4 + k * n * 4 + c * n + n_lanes * n
+              + n_lanes * (k * 8 + c * n + c * k1 * d + c * k))
+    return nbytes, n_lanes * per_lane
 
 
 def _gc_bytes(cfg):
@@ -315,14 +424,14 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
     active = torch.from_numpy(snap.arrays.active).to(dev)[None]
     hoist = sched.hoist_of(arrs, active)
     inv = sched.inv_alloc_of(arrs.alloc)
-    base = lanes_state(sched, arrs, cfg, 1)
+    tmpl = template_of(sched, arrs, cfg)
+    st_k = sched.lane_carry(tmpl, 1)
     p0, p1 = cfg.forced_prefix, n_pods
     times = []
     for _ in range(3):
-        st_k = clone_state(sched, base)
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1)
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl)
         ev1.record()
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
@@ -354,17 +463,16 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
     plain_s, _, err, out_f = parity(torch, sched, step, f"{label}-first-{PARITY_PREFIX}",
                                     snap.arrays, cfg, snap.arrays.active, n_pods=PARITY_PREFIX)
     q1 = min(p0 + PARITY_PREFIX, p1)
-    st_k = clone_state(sched, base)
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ev0.record()
-    step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, q1)
+    step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, q1, template=tmpl)
     ev1.record()
     torch.cuda.synchronize()
     prefix_ms = ev0.elapsed_time(ev1)
     prefix = bound_of(step_work(sched, snap.arrays, cfg, p0, q1, lane0(out_f)))
     q_last = max(p1 - PARITY_PREFIX, p0)
-    st_mid = clone_state(sched, base)
-    step.plain_step_cuda(arrs, active, hoist, inv, st_mid, cfg, p0, q_last)
+    st_mid = sched.lane_carry(tmpl, 1)
+    step.plain_step_cuda(arrs, active, hoist, inv, st_mid, cfg, p0, q_last, template=tmpl)
     _, _, err_last, _ = parity(torch, sched, step, f"{label}-last-{p1 - q_last}",
                                snap.arrays, cfg, snap.arrays.active, start=(q_last, st_mid))
     for name, (nbytes, flops, bound_ms, bound_by) in (("whole run", full), ("first pods", prefix)):
@@ -382,6 +490,231 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
         "same_pods": {"pods": q1 - p0, "ms": prefix_ms, "plain_ms": plain_s * 1e3,
                       "bound_ms": prefix[2], "bound_by": prefix[3]},
     }
+
+
+def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
+    """The reference's capacity-sweep preset at full width: 5,120 nodes x
+    51,200 pods with 64 new-node slots, 64 lanes (counts min(i % 65, 64))
+    in one ``capacity_sweep`` launch; then the launch timed alone, lane
+    independence, the kernel against the plain step on two lanes, and the
+    bisection against the sweep."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    snap = synthetic_snapshot(5120, 51200, max_new=CAPACITY_LANES, rich=rich)
+    cfg = sched.make_config(snap)
+    n_pods = snap.n_pods
+    counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
+    log(f"capacity {label}: snapshot {snap.n_real_nodes}+{snap.n_nodes - snap.n_real_nodes} "
+        f"nodes x {n_pods} pods built in {time.perf_counter() - t_phase:.1f}s")
+
+    # the main path: one capacity_sweep, counts read just after
+    for name in step.LAUNCHES:
+        step.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = sweep.capacity_sweep(snap, cfg, counts, device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(step.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["plain_step"] != 1:
+        raise SystemExit(f"capacity {label}: plain_step launched {launches} times, not once")
+    if plan.nodes_per_scenario.shape != (CAPACITY_LANES, n_pods) or not all(plan.all_scheduled):
+        raise SystemExit(f"capacity {label}: the sweep did not schedule every pod in every lane")
+
+    # the launch alone, as the sweep makes it (fail_reasons off)
+    scfg = cfg._replace(fail_reasons=False)
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    masks_np = sweep.active_masks_for_counts(snap, counts)
+    masks = torch.from_numpy(masks_np).to(dev)
+    hoist = sched.hoist_of(arrs, masks)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, scfg)
+    carry = sched.lane_carry(tmpl, CAPACITY_LANES)
+    p0 = scfg.forced_prefix
+    times = []
+    for _ in range(3):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = step.plain_step_cuda(arrs, masks, hoist, inv, carry, scfg, p0, n_pods,
+                                   template=tmpl)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    kernel_ms = min(times)
+    if not np.array_equal(out[0].cpu().numpy(), plan.nodes_per_scenario[:, p0:]):
+        raise SystemExit(f"capacity {label}: the timed launch and the sweep disagree")
+    lane_pods = CAPACITY_LANES * (n_pods - p0)
+    log(f"capacity {label}: capacity_sweep wall_s={sweep_s:.3f} launches={launches} "
+        f"kernel ms={kernel_ms:.3f} (min of {len(times)}: {[round(t, 3) for t in times]}) "
+        f"lane_pods_per_s={lane_pods / (kernel_ms / 1e3):.1f} host share of the sweep "
+        f"{1 - kernel_ms / (sweep_s * 1e3):.4f} peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+
+    # lane independence: lanes at counts 0, 21, 42, 63 against one-lane launches
+    for s_i in (0, 21, 42, 63):
+        one = sched.lane_carry(tmpl, 1)
+        out1 = step.plain_step_cuda(arrs, masks[s_i:s_i + 1], sched.hoist_of(arrs, masks[s_i:s_i + 1]),
+                                    inv, one, scfg, p0, n_pods, template=tmpl)
+        same = all(torch.equal(a[s_i], b[0]) for a, b in zip(out, out1))
+        same &= all(torch.equal(getattr(carry, f)[s_i], getattr(one, f)[0])
+                    for f in sched.STATE_FIELDS)
+        if not same:
+            raise SystemExit(f"capacity {label}: lane {s_i} differs from its one-lane launch")
+    log(f"capacity {label}: lanes at counts 0, 21, 42, 63 equal one-lane launches bit for bit "
+        "(node, feasible, every carry field)")
+
+    # the side work of the launch: the 64-lane hoist, and the forced-prefix
+    # fold at full width — the first FOLD_PODS pods pinned to the nodes
+    # lane 63 gave them, folded at once; its carry must equal the kernel's
+    # after those pods, and its torch.matmul calls are replayed alone
+    hoist_ms = min(cuda_ms(torch, lambda: sched.hoist_of(arrs, masks)) for _ in range(3))
+    hoist_b = bound_of(hoist_work(snap.arrays, CAPACITY_LANES))
+    if p0:
+        raise SystemExit(f"capacity {label}: expected no nodeName prefix on the synthetic cluster")
+    forced = snap.arrays.forced_node.copy()
+    forced[:FOLD_PODS] = plan.nodes_per_scenario[-1, :FOLD_PODS]
+    pinned = dataclasses.replace(snap.arrays, forced_node=forced)
+    arrs_f = sched.device_arrays(pinned, dev)
+    fcfg = scfg._replace(forced_prefix=FOLD_PODS)
+    fresh = sched.init_state(arrs_f, fcfg)
+    folded = []
+    fold_ms = min(cuda_ms(torch, lambda: folded.append(
+        sched.apply_forced_prefix(arrs_f, fcfg, fresh, FOLD_PODS))) for _ in range(3))
+    log_mm = MatmulLog(torch)
+    with log_mm:
+        sched.apply_forced_prefix(arrs_f, fcfg, fresh, FOLD_PODS)
+    mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
+    one = sched.lane_carry(tmpl, 1)
+    step.plain_step_cuda(arrs, masks[-1:], sched.hoist_of(arrs, masks[-1:]), inv, one, scfg,
+                         0, FOLD_PODS, template=tmpl)
+    if not all(torch.equal(getattr(folded[-1], f), getattr(one, f)[0]) for f in step.KERNEL_CARRY):
+        raise SystemExit(f"capacity {label}: the fold of {FOLD_PODS} pods and the kernel's "
+                         "carry after them differ")
+    fold_b = bound_of(fold_work(pinned, fcfg, FOLD_PODS))
+    del folded, log_mm
+    log(f"capacity {label}: hoist_active_stats over {CAPACITY_LANES} lanes {hoist_ms:.3f} ms, "
+        f"bound {hoist_b[2]:.4f} ms ({hoist_b[3]}: bytes={hoist_b[0]} ops={hoist_b[1]}); "
+        f"apply_forced_prefix of {FOLD_PODS} pods {fold_ms:.3f} ms, its torch.matmul calls "
+        f"alone {mm_ms:.3f} ms, bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
+        f"ops={fold_b[1]}); the fold equals the kernel's carry after those pods")
+
+    # the bound: this run's filter and feasible counts, from a reasons-on
+    # launch (its placements are the sweep's)
+    rcfg = cfg._replace(fail_reasons=True)
+    out_r = step.plain_step_cuda(arrs, masks, hoist, inv, sched.lane_carry(tmpl, CAPACITY_LANES),
+                                 rcfg, p0, n_pods, template=tmpl)
+    if not torch.equal(out_r[0], out[0]):
+        raise SystemExit(f"capacity {label}: reasons on and off placed pods differently")
+    outs = [tuple(x[s_i].cpu().numpy() for x in out_r) for s_i in range(CAPACITY_LANES)]
+    del out_r
+    bound = bound_of(lanes_work(sched, snap.arrays, scfg, p0, n_pods, outs))
+    log(f"capacity {label}: bound of the 64-lane launch: bytes={bound[0]} ops={bound[1]} "
+        f"-> {bound[2]:.4f} ms, {bound[3]}; feasible pairs "
+        f"{sum(int(o[2].sum()) for o in outs)}")
+
+    # kernel vs plain over the first pods of the lanes at counts 0 and 63
+    two = masks_np[[0, CAPACITY_LANES - 1]]
+    plain_s, kern_s, err, _ = parity(torch, sched, step, f"capacity-{label}-lanes-0-63",
+                                     snap.arrays, scfg, two, n_pods=PARITY_PREFIX)
+
+    # bisection: a CPU limit that puts the answer inside (0, 64)
+    occ = plan.cpu_occupancy_pct
+    limit = (occ[BISECT_TARGET - 1] + occ[BISECT_TARGET]) / 2
+    want = min(c for c, o, ok in zip(plan.counts, occ, plan.all_scheduled) if ok and o <= limit)
+    if not 0 < want < CAPACITY_LANES:
+        raise SystemExit(f"capacity {label}: the limit {limit} does not put the answer inside")
+    before = step.LAUNCHES["plain_step"]
+    t0 = time.perf_counter()
+    bis = sweep.capacity_bisect(snap, cfg, CAPACITY_LANES,
+                                sweep.SweepThresholds(max_cpu_pct=limit), lanes=8, device="cuda")
+    torch.cuda.synchronize()
+    bis_s = time.perf_counter() - t0
+    rounds = step.LAUNCHES["plain_step"] - before
+    row = bis.nodes_per_scenario[bis.counts.index(bis.best_count)] if bis.best_count else None
+    if bis.best_count != want or not np.array_equal(row, plan.nodes_per_scenario[counts.index(want)]):
+        raise SystemExit(f"capacity {label}: bisection found {bis.best_count}, the sweep {want}")
+    log(f"capacity {label}: max_cpu_pct={limit!r} -> sweep best {want}; capacity_bisect(lanes=8) "
+        f"best {bis.best_count} in {rounds} rounds, {len(bis.counts)} probes, wall_s={bis_s:.3f} "
+        f"({bis_s / rounds:.3f} s per round); phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "lanes": CAPACITY_LANES, "launches": launches["plain_step"], "pods": n_pods - p0,
+        "ms": kernel_ms, "ms_runs": times, "bound_ms": bound[2], "bound_by": bound[3],
+        "lane_pods_per_s": lane_pods / (kernel_ms / 1e3), "sweep_s": sweep_s,
+        "peak_mem_bytes": peak, "max_abs_err": err,
+        "same_pods": {"lanes": 2, "pods": PARITY_PREFIX, "ms": kern_s * 1e3,
+                      "plain_ms": plain_s * 1e3},
+        "bisect": {"max_cpu_pct": limit, "best_count": bis.best_count, "rounds": rounds,
+                   "probes": len(bis.counts), "wall_s": bis_s},
+        "hoist": {"lanes": CAPACITY_LANES, "ms": hoist_ms, "bound_ms": hoist_b[2],
+                  "bound_by": hoist_b[3]},
+        "prefix_fold": {"pods": FOLD_PODS, "ms": fold_ms, "library_ms": mm_ms,
+                        "bound_ms": fold_b[2], "bound_by": fold_b[3]},
+    }
+
+
+class MatmulLog:
+    """Records the operands of every torch.matmul / @ issued while it is
+    active, so the same products can be timed alone."""
+
+    def __init__(self, torch):
+        import torch.overrides
+
+        class _Mode(torch.overrides.TorchFunctionMode):
+            def __torch_function__(mode, func, types, args=(), kwargs=None):
+                if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__):
+                    self.calls.append((args[0], args[1]))
+                return func(*args, **(kwargs or {}))
+
+        self.torch, self.calls, self._mode = torch, [], _Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+    def replay(self):
+        for x, y in self.calls:
+            self.torch.matmul(x, y)
+
+
+def cuda_ms(torch, fn):
+    """Milliseconds of fn() on the card's current stream (CUDA events)."""
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1)
+
+
+def cli_plans(torch, loader, cli_main):
+    """The example capacity plans through the CLI, on the card and on the
+    CPU: the same stdout and exit code."""
+    import contextlib
+    import io
+
+    for name in CLI_CONFIGS:
+        path = os.path.join(HERE, "examples", name)
+        runs = []
+        for device in ("cuda", "cpu"):
+            loader._RAND.seed(20260729)  # the new-node names' generator
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["apply", "-f", path, "--max-new-nodes", "16", "--device", device])
+            torch.cuda.synchronize()
+            runs.append((rc, buf.getvalue(), time.perf_counter() - t0))
+        (rc_k, out_k, s_k), (rc_c, out_c, s_c) = runs
+        log(f"cli {name}: rc={rc_k}/{rc_c} card {s_k:.2f}s cpu {s_c:.2f}s: "
+            f"{out_k.splitlines()[0] if out_k else ''}")
+        if rc_k != 0 or (rc_k, out_k) != (rc_c, out_c):
+            raise SystemExit(f"cli {name}: the card and the CPU printed different plans")
 
 
 def lane0(out):
@@ -413,7 +746,10 @@ def main() -> int:
         from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
         from open_simulator_tpu_torch.k8s.objects import Node, Pod
         from open_simulator_tpu_torch.encode.snapshot import encode_cluster
+        from open_simulator_tpu_torch.cli.main import main as cli_main
+        from open_simulator_tpu_torch.k8s import loader
         from open_simulator_tpu_torch.kernels import build, step
+        from open_simulator_tpu_torch.parallel import sweep
         from open_simulator_tpu_torch.testing.synthetic import (
             soft_spread_cluster, synthetic_objects, synthetic_snapshot)
     except ImportError as e:
@@ -495,7 +831,17 @@ def main() -> int:
     for label, rich in (("northstar", False), ("northstar-rich", True)):
         paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, rich)
 
-    # ---- 5. results
+    # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
+    # the example plans through the CLI on the card and on the CPU
+    for label, rich in (("northstar", False), ("northstar-rich", True)):
+        paths[f"capacity-{label}-64"] = capacity_path(torch, sched, step, sweep,
+                                                      synthetic_snapshot, label, rich)
+    t0 = time.perf_counter()
+    cli_plans(torch, loader, cli_main)
+    log(f"cli: {len(CLI_CONFIGS)} plans on the card and on the CPU agree "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # ---- 6. results
     # ms, plain_ms and bound_ms cover the same pods: the rich path's first
     # PARITY_PREFIX; each path's whole run is under "paths"
     rich_p = paths["northstar-rich"]
@@ -504,6 +850,7 @@ def main() -> int:
         "name": "plain_step", "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
         "replaces": "open_simulator_tpu/engine/scheduler.py:745",
+        "lane_prologue_replaces": "open_simulator_tpu/engine/exec_cache.py:491",
         "launches": rich_p["launches"],
         "max_abs_err": max(errs + [p["max_abs_err"] for p in paths.values()]),
         "pods": same["pods"], "ms": same["ms"], "plain_ms": same["plain_ms"],
@@ -511,8 +858,9 @@ def main() -> int:
         "paths": paths,
         "parity": "bit-exact vs the plain step on synthetic 1024x10240, inline "
                   "512x4096, 4 lanes, rich 1024x10240 bound 0.1, rich 512x4096 dense, "
-                  f"rich 512x1024 4 lanes, and the first and last {PARITY_PREFIX} pods "
-                  "of both main paths",
+                  f"rich 512x1024 4 lanes, the first and last {PARITY_PREFIX} pods "
+                  f"of both main paths, and the first {PARITY_PREFIX} pods of lanes 0 "
+                  "and 63 of both capacity sweeps",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -293,18 +293,15 @@ def simulate(
     preemption=True enables the DefaultPreemption pass in the reference,
     which does nothing unless pod priorities differ; priorities that
     differ raise NotImplementedError here until preemption is ported.
-    New-node template slots (``max_new_nodes``) raise likewise: they are
-    the capacity plan's lanes.
+    New-node template slots (``encode_options.max_new_nodes``) are encoded
+    inactive, as in the reference: they are the capacity plan's lanes
+    (``parallel/sweep.py``), and a plain simulate() leaves them empty.
 
     validate=True runs the admission pass first, so malformed specs raise
     a structured SimulationError instead of a traceback from encode."""
     t0 = time.perf_counter()
     config_overrides = dict(config_overrides or {})
     preemption = preemption and not config_overrides.pop("_disable_preemption", False)
-    if encode_options is not None and encode_options.max_new_nodes > 0:
-        raise NotImplementedError(
-            "new-node lanes (max_new_nodes) are not ported yet "
-            "(ROADMAP queue 1, item 5: lanes and the capacity plan)")
     nodes = [make_valid_node(n) for n in cluster.nodes]
     cluster = _with_nodes(cluster, nodes)
     if validate:

@@ -23,8 +23,17 @@
 // nodes strided over threads), the pod loop inside the kernel, and
 // __syncthreads() between phases. A lane's carry belongs to one block, so
 // the scan needs no grid-wide sync. At S=1 this occupies 1 of the card's 132
-// SMs; a lane spread over a thread-block cluster (distributed shared memory
-// for the cross-node reductions) is later work.
+// SMs, at the capacity sweep's 64 lanes 64 of them; a lane spread over a
+// thread-block cluster (distributed shared memory for the cross-node
+// reductions) is later work.
+//
+// The lane prologue (F_TEMPLATE; replaces the reference's vmapped lanes,
+// open_simulator_tpu/engine/exec_cache.py:batched_lane_fn, and its fresh
+// lane state, :_fresh_lane_state): every lane starts from one [N, ...]
+// template carry, the fresh carry with the forced prefix folded in. Each
+// block first writes its lane's slice of the [S, ...] carry from the
+// template, then runs the pod loop, so the launcher needs no S-fold copy
+// on the host and a sweep round can reuse the previous round's carry.
 //
 // The reverse anti-affinity verdict reads only the pod's hit-term columns
 // (a host-built list, the nonzeros of hit_terms): "any hit column > 0" over
@@ -77,6 +86,7 @@ constexpr int F_SPH = 1 << 17;         // hard spread (DoNotSchedule) filter row
 constexpr int F_IP = 1 << 18;          // interpod preference score
 constexpr int F_PREF = 1 << 19;        // preferred-term paint (pref_paint carry)
 constexpr int F_TB_BF16 = 1 << 20;     // term_block stored bfloat16
+constexpr int F_TEMPLATE = 1 << 21;    // lane prologue: carry slices from the template
 // the gates of the inter-pod slice: a launch that sets none of them runs
 // the kernel's instantiation without their code (and its registers)
 constexpr int kInterpodFlags = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF;
@@ -143,9 +153,16 @@ struct StepArgs {
   void* group_count;                  // [S, N, Sg] carry, bf16 or f32
   void* term_block;                   // [S, N, T] carry, bf16 or f32
   float* pref_paint;                  // [S, N, T2] carry
+  // the template carry every lane starts from (F_TEMPLATE; else unused)
+  const float* tmpl_headroom;         // [N, R]
+  const uint8_t* tmpl_ports_used;     // [N, Pt]
+  const float* tmpl_dom_count;        // [K1, D, Sg]
+  const void* tmpl_group_count;       // [N, Sg], the carry's dtype
+  const void* tmpl_term_block;        // [N, T], the carry's dtype
+  const float* tmpl_pref_paint;       // [N, T2]
   // outputs, pod axis p - p0
   int32_t* out_node;                  // [S, P']
-  int32_t* out_fail;                  // [S, P', OPS]
+  int32_t* out_fail;                  // [S, P', OPS], only under F_FAIL
   int32_t* out_feasible;              // [S, P']
   // scratch
   float* scratch;                     // [S, 4, N] base score, spread raw, Simon raw, interpod raw
@@ -192,6 +209,20 @@ __device__ __forceinline__ void cnt_inc(void* p, size_t idx, bool bf16) {
 }
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// the block copies n bytes, 16 at a time where both ends and n allow it
+__device__ void block_copy(void* dst, const void* src, size_t n) {
+  const size_t tid = threadIdx.x;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | n) & 15) == 0) {
+    uint4* d = static_cast<uint4*>(dst);
+    const uint4* s = static_cast<const uint4*>(src);
+    for (size_t i = tid; i < n / 16; i += kThreads) d[i] = s[i];
+  } else {
+    uint8_t* d = static_cast<uint8_t*>(dst);
+    const uint8_t* s = static_cast<const uint8_t*>(src);
+    for (size_t i = tid; i < n; i += kThreads) d[i] = s[i];
+  }
+}
 
 // selector group and topology key of the pod's carry column q, over the
 // concatenated [aff | anti | spread | pref] slot axis
@@ -305,6 +336,20 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
   float* sc_simon = sc_base + 2 * (size_t)N;
   float* sc_ip = sc_base + 3 * (size_t)N;
   uint8_t* sc_flag = a.scratch_flags + (size_t)lane * N;
+
+  // ---- the lane prologue: this lane's carry slice from the template
+  if (a.flags & F_TEMPLATE) {
+    const size_t gc_el = bf16 ? 2 : 4, tb_el = tb_bf16 ? 2 : 4;
+    block_copy(headroom, a.tmpl_headroom, (size_t)N * R * sizeof(float));
+    block_copy(ports_used, a.tmpl_ports_used, (size_t)N * PT);
+    block_copy(dom_count, a.tmpl_dom_count, (size_t)a.k1 * D * SG * sizeof(float));
+    block_copy(static_cast<uint8_t*>(a.group_count) + gc_base * gc_el, a.tmpl_group_count,
+               (size_t)N * SG * gc_el);
+    block_copy(static_cast<uint8_t*>(a.term_block) + tb_base * tb_el, a.tmpl_term_block,
+               (size_t)N * a.t * tb_el);
+    block_copy(pref_paint, a.tmpl_pref_paint, (size_t)N * a.t2 * sizeof(float));
+    __syncthreads();
+  }
 
   for (int p = a.p0; p < a.p1; ++p) {
     const int j = p - a.p0;

@@ -13,9 +13,11 @@ per-domain ``dom_count`` and the per-node ``group_count``) and the
 interpod preference score with its ``pref_paint`` carry. Every other gate
 raises NotImplementedError naming the ROADMAP item that ports it.
 
-On a CUDA device ``schedule_pods`` runs the pod loop in the hand-written
-kernel ``csrc/plain_step.cu`` (``kernels/step.py``); the plain step runs
-only for CPU tensors, and as the yardstick the kernel is held equal to.
+``schedule_lanes`` runs S lanes (active masks) in one launch and
+``schedule_pods`` is its one-lane case. On a CUDA device the pod loop is
+the hand-written kernel ``csrc/plain_step.cu`` (``kernels/step.py``); the
+plain step runs only for CPU tensors, and as the yardstick the kernel is
+held equal to.
 """
 
 from __future__ import annotations
@@ -638,44 +640,93 @@ def hoist_of(arrs: SnapshotArrays, active: torch.Tensor) -> ActiveHoist:
     return hoist_active_stats(arrs.topo_onehot, arrs.has_key, arrs.class_affinity, active)
 
 
-def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
-                  state: Optional[SimState] = None, device=None) -> ScheduleOutput:
-    """Schedule the pod sequence; return assignments, reason counts and
-    the final carry. `arrs` and `active` are host numpy (the encoder's
-    output); the work runs on `device` (None = the card).
+def lane_carry(template: SimState, n_lanes: int,
+               carry: Optional[SimState] = None) -> SimState:
+    """The [S, ...] output carry of an S-lane launch: `carry` (an earlier
+    round's, reused as the buffer, as the reference donates its carry) if
+    it has the lanes' shapes and dtypes, else a new one. Its contents do
+    not matter: the lane prologue overwrites every lane."""
+    want = {f: ((n_lanes,) + tuple(getattr(template, f).shape), getattr(template, f).dtype)
+            for f in STATE_FIELDS}
+    if carry is None:
+        dev = template.headroom.device
+        return SimState(**{f: torch.empty(shape, dtype=dt, device=dev)
+                           for f, (shape, dt) in want.items()})
+    for f, (shape, dt) in want.items():
+        got = getattr(carry, f)
+        if tuple(got.shape) != shape or got.dtype != dt or got.device != template.headroom.device:
+            raise ValueError(f"carry.{f} is {got.dtype}{tuple(got.shape)} on {got.device}, "
+                             f"expected {dt}{shape} on {template.headroom.device}")
+    return carry
 
-    Equals the reference's ``schedule_pods(..., waves=None)``: the leading
-    run of forced binds (``cfg.forced_prefix``) folds into the carry first
-    and gets zero reason and feasible counts, then every later pod runs
-    the step. A passed-in `state` is a resumed carry and skips the fold.
-    On CUDA the step loop is the ``plain_step`` kernel; on the CPU it is
-    the plain torch step."""
+
+def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
+                   device=None, carry: Optional[SimState] = None,
+                   state: Optional[SimState] = None) -> ScheduleOutput:
+    """Schedule the pod sequence once per lane of the [S, N] bool `masks`
+    (each lane's active nodes) in one launch; return [S]-batched
+    assignments, reason counts, feasible counts and carries. `arrs` is
+    host numpy (the encoder's output); the work runs on `device` (None =
+    the card).
+
+    The port of the reference's lane launch (``engine/exec_cache.py:
+    run_batched_cached`` over ``batched_lane_fn`` with ``_fresh_lane_state``)
+    without its compile cache. Every lane starts from one template: the
+    fresh carry with the leading run of forced binds (``cfg.forced_prefix``)
+    folded in once — the fold reads no active mask, so it is the same for
+    every lane — or, given, the resumed carry `state` (no fold). The
+    prefix pods get their forced node and zero reason and feasible counts;
+    every later pod runs the step. `carry`, an earlier launch's [S, ...]
+    output state, is reused as this launch's output buffer. With
+    ``cfg.fail_reasons`` off the fail counts are a zero-stride view (no
+    [S, P, OPS] buffer). On CUDA the step loop is one ``plain_step`` kernel
+    launch for all lanes; on the CPU it is the plain torch step."""
     from open_simulator_tpu_torch.kernels import step as step_kernels
 
     check_supported(cfg)
     dev = resolve_device(device)
-    n_pods = arrs.req.shape[0]
+    masks = np.asarray(masks, dtype=bool)
+    if masks.ndim != 2 or masks.shape[1] != arrs.alloc.shape[0]:
+        raise ValueError(f"masks must be [S, {arrs.alloc.shape[0]}], got {masks.shape}")
+    n_lanes, n_pods = masks.shape[0], arrs.req.shape[0]
     arrs_t = device_arrays(arrs, dev)
-    active_t = torch.from_numpy(np.asarray(active, dtype=bool)).to(dev)
-    k = min(cfg.forced_prefix, n_pods) if state is None else 0
+    masks_t = torch.from_numpy(masks).to(dev)
     if state is None:
-        state = init_state(arrs_t, cfg)
-    if k:
-        state = apply_forced_prefix(arrs_t, cfg, state, k)
-    hoist = hoist_of(arrs_t, active_t[None, :])
-    lanes = SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS})
+        k = min(cfg.forced_prefix, n_pods)
+        template = init_state(arrs_t, cfg)
+        if k:
+            template = apply_forced_prefix(arrs_t, cfg, template, k)
+    else:
+        k = 0
+        template = state
+    template = SimState(**{f: getattr(template, f).to(dev).contiguous() for f in STATE_FIELDS})
+    carry = lane_carry(template, n_lanes, carry)
     node, fail_counts, feasible = step_kernels.plain_step(
-        arrs_t, active_t[None, :], hoist, inv_alloc_of(arrs_t.alloc), lanes,
-        cfg, k, n_pods)
-    state = SimState(**{f: getattr(lanes, f)[0] for f in STATE_FIELDS})
-    node, fail_counts, feasible = node[0], fail_counts[0], feasible[0]
+        arrs_t, masks_t, hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc), carry,
+        cfg, k, n_pods, template=template)
     if k:
-        node = torch.cat([arrs_t.forced_node[:k].to(torch.int32), node])
-        feasible = torch.cat([torch.zeros(k, dtype=torch.int32, device=dev), feasible])
-        fail_counts = torch.cat([torch.zeros((k, cfg.n_ops), dtype=torch.int32, device=dev),
-                                 fail_counts])
-    return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible,
-                          state=state)
+        node = torch.cat([arrs_t.forced_node[:k].to(torch.int32).expand(n_lanes, k), node], 1)
+        feasible = torch.cat([torch.zeros((n_lanes, k), dtype=torch.int32, device=dev),
+                              feasible], 1)
+    if not cfg.fail_reasons:
+        fail_counts = step_kernels.no_fail_counts(n_lanes, n_pods, cfg.n_ops, dev)
+    elif k:
+        fail_counts = torch.cat([torch.zeros((n_lanes, k, cfg.n_ops), dtype=torch.int32,
+                                             device=dev), fail_counts], 1)
+    return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible, state=carry)
+
+
+def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
+                  state: Optional[SimState] = None, device=None) -> ScheduleOutput:
+    """Schedule the pod sequence on one [N] active mask; return
+    assignments, reason counts and the final carry: ``schedule_lanes`` at
+    one lane. Equals the reference's ``schedule_pods(..., waves=None)``. A
+    passed-in `state` is a resumed carry and skips the prefix fold."""
+    out = schedule_lanes(arrs, np.asarray(active, dtype=bool)[None], cfg, device=device,
+                         state=state)
+    return ScheduleOutput(node=out.node[0], fail_counts=out.fail_counts[0],
+                          feasible=out.feasible[0],
+                          state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}))
 
 
 def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:

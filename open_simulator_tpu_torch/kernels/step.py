@@ -6,13 +6,22 @@ All three take the same arguments::
 
     (arrs, active [S, N] bool, hoist (a lane-batched ActiveHoist),
      inv_alloc [N, R] f32, state (a lane-batched SimState, updated in
-     place), cfg, p0, p1)
+     place), cfg, p0, p1, template=None)
 
 and return ``(node [S, P'] i32, fail_counts [S, P', OPS] i32,
 feasible [S, P'] i32)`` for the pods ``p0 <= p < p1`` (P' = p1 - p0).
 ``arrs`` is the snapshot as tensors on the step's device
 (``engine.scheduler.device_arrays``); ``hoist`` is
 ``engine.scheduler.hoist_of(arrs, active)``.
+
+With a ``template`` (one [N, ...] SimState), every lane of ``state`` is
+first overwritten with it — the lane prologue, the port of the
+reference's fresh lane state: ``state`` is then only the output buffer,
+and a caller can hand in the previous round's carry. The plain version
+of the prologue is ``template[None].expand(S, ...)`` copied into it.
+
+With ``cfg.fail_reasons`` off no [S, P', OPS] buffer exists: the
+returned fail counts are a zero-stride view of one zero.
 
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
@@ -22,7 +31,7 @@ other. ``LAUNCHES["plain_step"]`` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,6 +53,7 @@ F_NA, F_TT, F_SP, F_SI = 32, 64, 128, 256
 F_BAL, F_LEAST, F_MOST = 512, 1024, 2048
 F_GC, F_DOM, F_GC_BF16 = 4096, 8192, 16384
 F_AFF, F_ANTI, F_SPH, F_IP, F_PREF, F_TB_BF16 = 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20
+F_TEMPLATE = 1 << 21
 
 _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "class_node_aff_score", "class_taint_prefer", "spec_id", "spec_alloc",
@@ -54,7 +64,13 @@ _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "own_idx", "pref_group", "pref_key", "pref_weight", "pref_valid", "pref_tid",
          "hit_pref", "active", "log_dom", "elig_host", "domain_has", "any_elig",
          "headroom", "ports_used", "dom_count", "group_count", "term_block",
-         "pref_paint", "out_node", "out_fail", "out_feasible", "scratch", "scratch_flags")
+         "pref_paint", "tmpl_headroom", "tmpl_ports_used", "tmpl_dom_count",
+         "tmpl_group_count", "tmpl_term_block", "tmpl_pref_paint", "out_node",
+         "out_fail", "out_feasible", "scratch", "scratch_flags")
+# the carry fields the kernel reads and writes (the lane prologue copies
+# these; the launcher copies the rest, which no ported op touches)
+KERNEL_CARRY = ("headroom", "ports_used", "dom_count", "group_count", "term_block",
+                "pref_paint")
 _INTS = ("n", "r", "c", "u", "k", "k1", "d", "sg", "pt", "cs", "a", "b", "ap", "t",
          "t2", "ops", "s", "p0", "p1", "ci", "mi", "flags")
 _FLOATS = ("w_bal", "w_least", "w_most", "w_na", "w_tt", "w_ip", "w_sp", "w_si")
@@ -82,27 +98,44 @@ Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-               p0: int, p1: int) -> Outputs:
+               p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
     plain torch step for CPU tensors."""
     if active.device.type == "cuda":
-        return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1)
+        return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template)
     if active.device.type == "cpu":
-        return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1)
+        return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template)
     raise ValueError(f"no plain_step for device {active.device}")
+
+
+def copy_template(state: SimState, template: SimState, fields=STATE_FIELDS) -> None:
+    """The plain version of the lane prologue: `fields` of every lane of
+    `state` become the template's."""
+    for f in fields:
+        lanes = getattr(state, f)
+        lanes.copy_(getattr(template, f)[None].expand_as(lanes))
+
+
+def no_fail_counts(n_lanes: int, n_pods: int, n_ops: int, device) -> torch.Tensor:
+    """The [S, P, OPS] fail counts of a run without reason accounting: a
+    zero-stride view of one int32 zero, so nothing of that size exists."""
+    return torch.zeros((), dtype=torch.int32, device=device).expand(n_lanes, n_pods, n_ops)
 
 
 def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                     p0: int, p1: int) -> Outputs:
+                     p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
     """The plain version: lane by lane, pod by pod through the torch twin
     of the reference step (``engine.scheduler._step``), on any device."""
     scheduler.check_supported(cfg)
     dev = active.device
-    host = {f: getattr(arrs, f).cpu().numpy() for f in STEP_HOST_FIELDS}
     n_lanes, n_out = active.shape[0], p1 - p0
+    if template is not None:
+        copy_template(state, template)
+    host = {f: getattr(arrs, f).cpu().numpy() for f in STEP_HOST_FIELDS}
     node = torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev)
-    fail = torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=torch.int32, device=dev)
+    fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=torch.int32, device=dev)
+            if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
     feas = torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev)
     for s in range(n_lanes):
         st = SimState(**{f: getattr(state, f)[s] for f in STATE_FIELDS})
@@ -132,8 +165,8 @@ def node_domains(topo_onehot: torch.Tensor) -> torch.Tensor:
                        torch.full_like(has, -1, dtype=torch.long)).to(torch.int32)
 
 
-def _flags(cfg: EngineConfig, state: SimState) -> int:
-    fl = 0
+def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
+    fl = F_TEMPLATE if template else 0
     fl |= F_UNSCHED if cfg.enable_unsched else 0
     fl |= F_CLASS_AFF if cfg.enable_class_aff else 0
     fl |= F_CLASS_TAINT if cfg.enable_class_taint else 0
@@ -189,9 +222,10 @@ def _check_index(name: str, t: torch.Tensor, bound: int) -> None:
 
 def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                    p0: int, p1: int) -> Outputs:
+                    p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
     """Launch the ``plain_step`` kernel: one block per lane, the pod loop
-    inside the kernel, the carry updated in place on the current stream."""
+    inside the kernel, the carry updated in place on the current stream
+    (with a `template`, first written from it by the lane prologue)."""
     scheduler.check_supported(cfg)
     dev = active.device
     n, r = arrs.alloc.shape
@@ -212,8 +246,10 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
             f"{smem_bytes(ops, q, d, cs)} bytes of shared memory, over the "
             f"block's {_SMEM_LIMIT}")
     if n_out <= 0:
+        if template is not None:
+            copy_template(state, template)
         empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-        return empty, torch.zeros((n_lanes, 0, ops), dtype=torch.int32, device=dev), empty
+        return empty, no_fail_counts(n_lanes, 0, ops, dev), empty
     soft = arrs.spread_valid & ~arrs.spread_hard
     hard = arrs.spread_valid & arrs.spread_hard
     _check_index("class_id", arrs.class_id, n_cls)
@@ -294,19 +330,27 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         term_block=_check("term_block", state.term_block, tb_dt, (n_lanes, n, t_w)),
         pref_paint=_check("pref_paint", state.pref_paint, torch.float32, (n_lanes, n, t2)),
         out_node=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
-        out_fail=torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev),
         out_feasible=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
         scratch=torch.empty((n_lanes, 4, n), dtype=torch.float32, device=dev),
         scratch_flags=torch.empty((n_lanes, n), dtype=torch.uint8, device=dev),
     )
+    if cfg.fail_reasons:
+        tensors["out_fail"] = torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev)
+    if template is not None:
+        for f in STATE_FIELDS:
+            _check(f"template {f}", getattr(template, f), getattr(state, f).dtype,
+                   getattr(state, f).shape[1:])
+        copy_template(state, template, [f for f in STATE_FIELDS if f not in KERNEL_CARRY])
+        tensors.update({f"tmpl_{f}": getattr(template, f) for f in KERNEL_CARRY})
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"plain_step: {name} is on {t.device}, not {dev}")
     args = StepArgs(
-        **{f: tensors[f].data_ptr() for f in _PTRS},
+        **{f: (tensors[f].data_ptr() if f in tensors else None) for f in _PTRS},
         n=n, r=r, c=n_cls, u=arrs.spec_alloc.shape[0], k=k, k1=k1, d=d, sg=sg, pt=pt,
         cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
-        ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1], flags=_flags(cfg, state),
+        ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
+        flags=_flags(cfg, state, template is not None),
         w_bal=cfg.w_balanced, w_least=cfg.w_least, w_most=cfg.w_most,
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
         w_si=cfg.w_simon)
@@ -319,4 +363,5 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     if err:
         raise RuntimeError(f"plain_step launch failed: CUDA error {err}")
     LAUNCHES["plain_step"] += 1
-    return tensors["out_node"], tensors["out_fail"], tensors["out_feasible"]
+    fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
+    return tensors["out_node"], fail, tensors["out_feasible"]

@@ -1,0 +1,121 @@
+"""The port's ``apply`` CLI prints the JAX package's report.
+
+For each example config with a ``newNode`` whose ops are ported
+(``config``, ``constraints``, ``controlplane``, ``morepods``), in both
+sweep modes, ``python -m open_simulator_tpu_torch.cli apply ... --device
+cpu`` writes the same stdout and exits with the same code as the
+reference's ``simon-tpu apply``. Both packages name the new-node slots
+from a seeded generator of their own, reseeded before each run. Also:
+``gpushare`` names the ROADMAP item that ports its ops, a bad config
+exits 1 with the reference's message, and the default device is the card.
+"""
+
+from __future__ import annotations
+
+import os
+
+import pytest
+import torch
+
+from open_simulator_tpu.cli.main import main as ref_main
+from open_simulator_tpu.k8s import loader as jloader
+from open_simulator_tpu_torch.apply.applier import Applier, ApplyOptions
+from open_simulator_tpu_torch.cli.main import main as port_main
+from open_simulator_tpu_torch.k8s import loader as tloader
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples")
+CONFIGS = ("config", "constraints", "controlplane", "morepods")
+
+
+def config_path(name: str) -> str:
+    return os.path.join(EXAMPLES, "config.yaml" if name == "config" else f"{name}-config.yaml")
+
+
+def run(main, argv, capsys):
+    for rand in (jloader._RAND, tloader._RAND):
+        rand.seed(20260729)
+    rc = main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.mark.parametrize("mode", ["bisect", "exhaustive"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_apply_stdout_equals_reference(name, mode, capsys):
+    argv = ["apply", "-f", config_path(name), "--max-new-nodes", "16", "--sweep-mode", mode]
+    rc_ref, out_ref, _ = run(ref_main, argv, capsys)
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert (rc, err) == (rc_ref, "")
+    assert out == out_ref
+    assert "=== Pods ===" in out
+    if name == "morepods":
+        assert rc == 0 and "requires 3 new node(s)" in out and "(new)" in out
+
+
+def test_gpushare_names_the_device_resource_slice(capsys):
+    with pytest.raises(NotImplementedError, match="enable_gpu.*ROADMAP queue 1, item 3"):
+        Applier(ApplyOptions(config_path=config_path("gpushare"), max_new_nodes=4,
+                             device="cpu")).run()
+    rc, out, err = run(port_main, ["apply", "-f", config_path("gpushare"), "--device", "cpu"],
+                       capsys)
+    assert rc == 1 and out == "" and "ROADMAP queue 1, item 3" in err
+
+
+def test_bad_config_exits_1_with_the_reference_message(tmp_path, capsys):
+    (tmp_path / "bad.yaml").write_text("apiVersion: v1\nkind: Pod\n")
+    argv = ["apply", "-f", str(tmp_path / "bad.yaml")]
+    rc_ref, _, err_ref = run(ref_main, argv, capsys)
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert rc == rc_ref == 1 and out == ""
+    assert err == err_ref and "expected apiVersion simon/v1alpha1" in err
+
+
+@pytest.mark.parametrize("flag", [["-i"], ["--default-scheduler-config", "x.yaml"],
+                                  ["--compile-cache-dir", "c"], ["--resume", "last"],
+                                  ["--trace-out", "t.json"], ["--ledger-dir", "l"]])
+def test_unported_options_name_their_item(flag, capsys):
+    rc, _, err = run(port_main, ["apply", "-f", config_path("morepods"), "--device", "cpu"]
+                     + flag, capsys)
+    assert rc == 1 and "not ported yet (ROADMAP queue 1, item" in err
+
+
+def test_default_device_is_the_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = run(port_main, ["apply", "-f", config_path("morepods")], capsys)
+    assert rc == 1 and out == "" and "CUDA is not available" in err
+
+
+def test_output_file(tmp_path, capsys):
+    out_file = tmp_path / "report.txt"
+    rc, out, _ = run(port_main, ["apply", "-f", config_path("config"), "--max-new-nodes", "2",
+                                 "--device", "cpu", "--output-file", str(out_file)], capsys)
+    assert rc == 0 and out == ""
+    assert "=== Nodes ===" in out_file.read_text()
+
+
+def test_chart_apps_and_preemption_name_their_items(tmp_path):
+    """A chart app, and a decoded lane that would need the preemption
+    pass (unscheduled pods of differing priorities), raise naming the
+    ROADMAP item that ports them."""
+    with pytest.raises(NotImplementedError, match="chart apps.*ROADMAP queue 1, item 15"):
+        Applier(ApplyOptions(config_path=os.path.join(EXAMPLES, "chart-config.yaml"),
+                             device="cpu")).run()
+    for d in ("cluster", "apps"):
+        (tmp_path / d).mkdir()
+    node = ('apiVersion: v1\nkind: Node\nmetadata: {name: %s}\n'
+            'status:\n  allocatable: {cpu: "%s", memory: 4Gi, pods: "10"}\n')
+    pod = ('apiVersion: v1\nkind: Pod\nmetadata: {name: %s, namespace: default}\n'
+           'spec:\n  priority: %d\n  containers:\n  - name: c\n'
+           '    resources: {requests: {cpu: 1500m, memory: 1Gi}}\n')
+    (tmp_path / "cluster" / "node.yaml").write_text(node % ("n0", "2"))
+    (tmp_path / "cluster" / "high.yaml").write_text(pod % ("high", 100))
+    (tmp_path / "apps" / "low.yaml").write_text(pod % ("low", 0))
+    (tmp_path / "new.yaml").write_text(node % ("template", "1"))
+    (tmp_path / "c.yaml").write_text(
+        "apiVersion: simon/v1alpha1\nkind: Config\nmetadata: {name: t}\nspec:\n"
+        "  cluster: {customConfig: cluster}\n  appList:\n  - {name: low, path: apps}\n"
+        "  newNode: new.yaml\n")
+    with pytest.raises(NotImplementedError, match="preemption.*ROADMAP queue 1, item 4"):
+        Applier(ApplyOptions(config_path=str(tmp_path / "c.yaml"), max_new_nodes=2,
+                             device="cpu")).run()

@@ -8,8 +8,10 @@ card and no JAX. There, from the repository root:
 runs the card-only tests (marked ``cuda``): the kernel against the plain
 torch step, bit for bit, on both spread carries, on the rich synthetic
 cluster (pod affinity, anti-affinity in the slot and the dense form, hard
-spread, the interpod preference) and on lanes. Without CUDA they skip
-with the reason; the binding checks run everywhere.
+spread, the interpod preference), on lanes, on the lane prologue (lanes
+started from one template carry, with and without reason accounting) and
+through ``schedule_lanes``. Without CUDA they skip with the reason; the
+binding checks run everywhere.
 """
 
 from __future__ import annotations
@@ -49,12 +51,17 @@ def test_ctypes_struct_matches_the_c_struct():
     kinds = {"c_void_p": "ptr", "c_int": "int", "c_float": "float"}
     py_fields = [(name, kinds[ctype.__name__]) for name, ctype in step.StepArgs._fields_]
     assert py_fields == c_fields
+    # the lane prologue's template carry: one pointer per carry field the
+    # kernel reads and writes
+    assert [n for n, _ in c_fields if n.startswith("tmpl_")] == [
+        f"tmpl_{f}" for f in step.KERNEL_CARRY]
 
 
 def test_flag_bits_match_the_c_constants():
     src = Path(SOURCE).read_text(encoding="utf-8")
     bits = dict(re.findall(r"constexpr int (F_\w+) = 1 << (\d+);", src))
-    assert len(bits) == 21
+    assert len(bits) == 22
+    assert bits["F_TEMPLATE"] == "21"
     assert set(bits) == {n for n in dir(step) if n.startswith("F_")}
     for name, shift in bits.items():
         assert getattr(step, name) == 1 << int(shift), name
@@ -187,3 +194,68 @@ def test_schedule_pods_launches_the_kernel_on_card(cuda_device):
     assert torch.equal(out_gpu.node.cpu(), out_cpu.node)
     assert torch.equal(out_gpu.fail_counts.cpu(), out_cpu.fail_counts)
     assert torch.equal(out_gpu.state.headroom.cpu(), out_cpu.state.headroom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["synthetic-new8", "rich-new8", "hostname-prefix"])
+@pytest.mark.parametrize("fail_reasons", [True, False])
+def test_lane_prologue_equals_plain_on_card(cuda_device, case, fail_reasons):
+    """Five lanes started from one template by the kernel's prologue, into
+    carry buffers holding garbage, against the plain version of the
+    prologue: outputs and carries equal bit for bit; with reasons off no
+    fail-count buffer is made."""
+    if case == "hostname-prefix":
+        snap = _soft_spread(96, 384, hostname=True)
+    else:
+        snap = synthetic_snapshot(64, 384, max_new=8, rich=case.startswith("rich"))
+    cfg = sched.make_config(snap, fail_reasons=fail_reasons)
+    n = snap.n_nodes
+    rng = np.random.RandomState(11)
+    masks = np.stack([np.arange(n) < snap.n_real_nodes, np.ones(n, bool),
+                      np.arange(n) < snap.n_real_nodes + 3, rng.rand(n) < 0.8,
+                      np.arange(n) % 5 != 2])
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    if cfg.forced_prefix:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, cfg.forced_prefix)
+    tmpl = sched.SimState(**{f: getattr(tmpl, f).contiguous() for f in sched.STATE_FIELDS})
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 5)
+        for f in sched.STATE_FIELDS:
+            t = getattr(carry, f)
+            t.copy_(torch.randint(0, 7, t.shape, device=cuda_device).to(t.dtype))
+        outs = fn(arrs, active, hoist, inv, carry, cfg, cfg.forced_prefix, snap.n_pods,
+                  template=tmpl)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    (out_k, st_k), (out_p, st_p) = runs
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    if not fail_reasons:
+        assert out_k[1].stride() == (0, 0, 0)
+    assert len({tuple(r) for r in out_k[0].cpu().tolist()}) >= 3
+
+
+@pytest.mark.cuda
+def test_schedule_lanes_on_card_equals_cpu(cuda_device):
+    """schedule_lanes: one launch for all lanes on the card, equal to the
+    plain step on the CPU; a second launch reuses the first's carry."""
+    snap = synthetic_snapshot(64, 256, max_new=8, rich=True)
+    cfg = sched.make_config(snap, fail_reasons=False)
+    masks = np.stack([np.arange(snap.n_nodes) < snap.n_real_nodes + c for c in (0, 2, 5, 8)])
+    before = step.LAUNCHES["plain_step"]
+    first = sched.schedule_lanes(snap.arrays, masks[::-1].copy(), cfg)
+    gpu = sched.schedule_lanes(snap.arrays, masks, cfg, carry=first.state)
+    assert step.LAUNCHES["plain_step"] == before + 2
+    assert gpu.state.headroom.data_ptr() == first.state.headroom.data_ptr()
+    cpu = sched.schedule_lanes(snap.arrays, masks, cfg, device="cpu")
+    assert torch.equal(gpu.node.cpu(), cpu.node)
+    assert torch.equal(gpu.feasible.cpu(), cpu.feasible)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(gpu.state, f).cpu(), getattr(cpu.state, f)), f

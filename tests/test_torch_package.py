@@ -56,6 +56,54 @@ def test_importing_every_module_loads_no_jax_and_no_yaml():
     assert out.stdout.startswith("ok")
 
 
+_BLOCKER = (
+    "import sys\n"
+    "class Block:\n"
+    "    def __init__(self, names):\n"
+    "        self.names = names\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in self.names:\n"
+    "            raise ImportError(name + ' blocked')\n")
+
+SLICE_MODULES = ("open_simulator_tpu_torch.parallel.sweep",
+                 "open_simulator_tpu_torch.api.v1alpha1",
+                 "open_simulator_tpu_torch.report.tables",
+                 "open_simulator_tpu_torch.apply.applier",
+                 "open_simulator_tpu_torch.cli.main")
+
+
+def test_capacity_plan_modules_import_with_jax_and_yaml_blocked():
+    """The lane slice's modules (sweeps, config schema, report, applier,
+    CLI) import in an interpreter where jax, the JAX package and yaml
+    cannot be imported."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN + ('yaml',)!r}))\n"
+            + "import importlib\n"
+            + f"for m in {SLICE_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert set(SLICE_MODULES) <= set(all_modules())
+
+
+def test_apply_cli_runs_with_jax_blocked():
+    """``python -m open_simulator_tpu_torch.cli apply`` answers the
+    morepods capacity plan on the CPU with jax and the JAX package
+    blocked (yaml is allowed: it reads the config)."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN!r}))\n"
+            + "import runpy\n"
+            + "sys.argv = ['cli', 'apply', '-f', 'examples/morepods-config.yaml',\n"
+            + "            '--max-new-nodes', '16', '--device', 'cpu']\n"
+            + "runpy.run_module('open_simulator_tpu_torch.cli', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "cluster requires 3 new node(s)" in out.stdout
+
+
 def test_no_forbidden_import_in_source():
     bad = []
     for root, _dirs, files in os.walk(PKG_DIR):
@@ -142,9 +190,13 @@ def test_differing_priorities_and_new_node_lanes_raise():
     # equal priorities: the reference's preemption pass does nothing
     same = ClusterResources(nodes=[node], pods=[pod("a", 1000), pod("b", 1000)])
     assert len(tcore.simulate(same, [], device="cpu").scheduled_pods) == 2
-    with pytest.raises(NotImplementedError, match="max_new_nodes.*ROADMAP queue 1, item 5"):
-        tcore.simulate(same, [], device="cpu",
-                       encode_options=EncodeOptions(max_new_nodes=2, new_node_template=node))
+    # new-node template slots are the capacity plan's lanes (ported): a
+    # plain simulate() encodes them inactive and leaves them empty
+    res = tcore.simulate(same, [], device="cpu",
+                         encode_options=EncodeOptions(max_new_nodes=2, new_node_template=node))
+    assert res.snapshot.n_nodes == 3 and res.snapshot.n_real_nodes == 1
+    assert [ns.node.name for ns in res.node_status] == ["n0"]
+    assert {sp.node_name for sp in res.scheduled_pods} == {"n0"}
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -61,6 +61,15 @@ def fields(arrs) -> dict:
     return {f.name: np.asarray(getattr(arrs, f.name)) for f in dataclasses.fields(arrs)}
 
 
+def port_snapshot(snap) -> tsnapshot.ClusterSnapshot:
+    """A reference ClusterSnapshot as the port's: the same arrays through
+    convert, the same names and vocabularies (the objects stay the
+    reference's; the engine reads only the arrays and the counts)."""
+    kw = {f.name: getattr(snap, f.name) for f in dataclasses.fields(tsnapshot.ClusterSnapshot)}
+    kw["arrays"] = convert.snapshot_arrays_from_numpy(fields(snap.arrays))
+    return tsnapshot.ClusterSnapshot(**kw)
+
+
 def jax_state(state) -> dict:
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
