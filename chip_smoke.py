@@ -6,48 +6,59 @@
 Builds the package's CUDA kernels from ``open_simulator_tpu_torch/csrc``,
 holds each kernel bit for bit against its plain torch version on the card,
 then drives the main paths — ``core.simulate()`` on the north-star cluster
-(5,120 nodes x 51,200 pods, the reference's ``synthetic_snapshot`` shape)
-and on its rich twin (the reference's ``northstar-rich``: host ports, pod
+(5,120 nodes x 51,200 pods, the reference's ``synthetic_snapshot`` shape),
+on its rich twin (the reference's ``northstar-rich``: host ports, pod
 affinity, anti-affinity, hard and hostname spread, the interpod
-preference, taints), then the capacity plan on both (the reference bench's
-64-lane north-star sweep, its bisection, and the example plans through the
-CLI) — and checks that each ran through the kernels and that its answer
-is right.
+preference, taints) and on the device-resource cluster
+(``northstar-devres``: GPU share, open-local storage, WaitForFirstConsumer
+PVs, EBS attach limits with shared claims), then the capacity plan on all
+three (the reference bench's 64-lane north-star sweep, its bisection, and
+the example plans through the CLI) — and checks that each ran through the
+kernels and that its answer is right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
 1. the card's name and power limit (nvidia-smi);
-2. the kernel build, one nvcc per source, started together;
+2. the kernel build, one nvcc per source, started together, with ptxas's
+   registers and spills of each instantiation;
 3. kernel vs plain step, exact equality of node, fail counts, feasible
-   counts and the final carry (headroom, dom_count, group_count,
-   ports_used, term_block, pref_paint), each side starting its lanes from
-   the template carry through its lane prologue, on: the synthetic
-   cluster at 1,024 x 10,240 with mid-sequence forced pods (dom_count
-   carry); a 512 x 4,096 cluster with hostname and zone soft spread,
-   taints, unschedulable nodes, host ports and a leading nodeName run
-   (group_count carry); that cluster as one 4-lane launch with a
+   counts, GPU and PV picks and all twelve carry fields, each side
+   starting its lanes from the template carry through its lane prologue,
+   on: the synthetic cluster at 1,024 x 10,240 with mid-sequence forced
+   pods (dom_count carry); a 512 x 4,096 cluster with hostname and zone
+   soft spread, taints, unschedulable nodes, host ports and a leading
+   nodeName run (group_count carry); the same as one 4-lane launch with a
    different active mask per lane; the rich cluster at 1,024 x 10,240
-   with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in the
-   dense form (slot_paint off); and the rich cluster at 512 x 1,024 as one
-   4-lane launch;
-4. the simulate() paths, non-rich then rich: launch counts reset,
+   with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in
+   the dense form (slot_paint off); the rich cluster at 512 x 1,024 as
+   one 4-lane launch; and the first 2,048 pods of the device-resource cluster at
+   1,024 x 10,240 with 8 GPU node slots as one 4-lane launch (all six
+   device-resource gates, pods bound mid-sequence with pinned GPUs);
+4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
-   path's arrays (its placements must equal simulate()'s), the kernel and
-   the plain step compared over the first 2,048 pods from the template and
-   over the last 2,048 from the kernel's own carry, and on the rich path
-   a host check that no pod shares its node with a pod its hostname
-   anti-affinity term names;
-5. the capacity paths, non-rich then rich, at 5,120 + 64 nodes x 51,200
-   pods: launch counts reset, ``capacity_sweep`` over the bench's 64
-   counts, counts read (one 64-lane launch); the launch timed alone, with
-   peak device memory; lanes at counts 0, 21, 42 and 63 against one-lane
+   path's arrays (its placements, and on devres its GPU allocations, must
+   equal simulate()'s), the kernel and the plain step compared over the
+   first 2,048 pods from the template and over the last 2,048 from the
+   kernel's own carry; on the rich path a host check that no pod shares
+   its node with a pod its hostname anti-affinity term names; on the
+   devres path the six gates, every device-resource reason row but the
+   missing-PV one refusing nodes, and host checks of the PV bindings, the
+   GPU devices' memory and the nodes' EBS attachments;
+5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
+   51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
+   launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
+   counts read (one 64-lane launch); the launch timed alone, with peak
+   device memory; lanes at counts 0, 21, 42 and 63 against one-lane
    launches, bit for bit; the 64-lane hoist and the forced-prefix fold
-   of 4,096 pods timed (the fold held equal to the kernel's carry after
-   those pods); the kernel against the plain step over the first 2,048
+   (4,096 pods pinned where lane 63 put them; devres: the cluster's own
+   nodeName prefix) timed and held equal to the kernel's carry after
+   those pods; the kernel against the plain step over the first 2,048
    pods of lanes 0 and 63; ``capacity_bisect`` (8 lanes) against the
    sweep's answer under a CPU limit that puts it inside (0, 64); then the
-   ``config``, ``constraints``, ``controlplane`` and ``morepods`` plans
-   through the CLI on the card and on the CPU, with the same output;
+   ``config``, ``constraints``, ``controlplane``, ``morepods``,
+   ``gpushare`` (``--extended-resources gpu``, both sweep modes),
+   ``openlocal`` and ``stateful`` plans through the CLI on the card and on
+   the CPU, with the same output;
 6. one JSON line describing each kernel, then the device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
@@ -77,8 +88,16 @@ CAPACITY_LANES = 64
 BISECT_TARGET = 37
 # pods of the full-width forced-prefix fold (one fold chunk)
 FOLD_PODS = 4096
-CLI_CONFIGS = ("config.yaml", "constraints-config.yaml", "controlplane-config.yaml",
-               "morepods-config.yaml")
+# the full-size paths' nodes and pods
+NODES, PODS = 5120, 51200
+# (label, cluster kind) of the full-size paths
+PATHS = (("northstar", "plain"), ("northstar-rich", "rich"), ("northstar-devres", "devres"))
+# (config, extra arguments, sweep mode)
+CLI_CONFIGS = (("config.yaml", (), "bisect"), ("constraints-config.yaml", (), "bisect"),
+               ("controlplane-config.yaml", (), "bisect"), ("morepods-config.yaml", (), "bisect"),
+               ("gpushare-config.yaml", ("--extended-resources", "gpu"), "bisect"),
+               ("gpushare-config.yaml", ("--extended-resources", "gpu"), "exhaustive"),
+               ("openlocal-config.yaml", (), "bisect"), ("stateful-config.yaml", (), "bisect"))
 
 
 _T0 = time.perf_counter()
@@ -109,13 +128,12 @@ def clone_state(sched, st):
     return sched.SimState(**{f: getattr(st, f).clone() for f in sched.STATE_FIELDS})
 
 
-CARRY = ("headroom", "dom_count", "group_count", "ports_used", "term_block", "pref_paint")
-
-
 def compare(torch, out_k, out_p, st_k, st_p):
-    """(all equal, max abs difference over outputs and carry)."""
+    """(all equal, max abs difference over the outputs and the twelve carry
+    fields)."""
     equal, err = True, 0.0
-    pairs = list(zip(out_k, out_p)) + [(getattr(st_k, f), getattr(st_p, f)) for f in CARRY]
+    pairs = list(zip(out_k, out_p)) + [(getattr(st_k, f), getattr(st_p, f))
+                                       for f in type(st_k).__dataclass_fields__]
     for a, b in pairs:
         equal &= torch.equal(a, b)
         if a.numel():
@@ -263,16 +281,103 @@ def _work_parts(sched, a, cfg, p0, p1, out):
     placed = node >= 0
     paints = _paint_ops(a, cfg, sl, node, per_node_compare=True)
     ops = int((per_pod + filters + feas * per_feasible + placed * (r + paints)).sum())
+    d_rows = _devres_work(a, cfg, sl, node, feas, reach).values()
+    ops += sum(x[0] for x in d_rows)
+    d_shared, d_carry, d_out = (sum(x[i] for x in d_rows) for i in (1, 2, 3))
 
     node_bytes = n * r * 4 + n + c * n * 10 + n * 4 + k1 * n * 4 + k * n + t * 4
     pod_bytes = (steps * (r * 4 + 12 + pt + sg + cs * 14 + aw * 10 + bw * 9 + ap * 17 + t2 + 8)
                  + 4 * int(hits.sum() + rows(a.own_terms, cfg.enable_anti_affinity).sum()))
     carry = (n * r * 4 + n * pt + k1 * d * sg * 4 + n * sg * gcb
              + (n * t * gcb if cfg.enable_anti_affinity else 0)
-             + (n * t2 * 4 if cfg.enable_pref else 0))
+             + (n * t2 * 4 if cfg.enable_pref else 0)) + d_carry
     lane_bytes = n + k * 4 + c * n + c * k1 * d + c * k + carry
-    out_bytes = steps * (4 + 4 + (cfg.n_ops * 4 if cfg.fail_reasons else 0))
-    return node_bytes + pod_bytes + carry, lane_bytes + out_bytes, ops
+    out_bytes = steps * (4 + 4 + (cfg.n_ops * 4 if cfg.fail_reasons else 0)) + d_out
+    return node_bytes + pod_bytes + d_shared + carry, lane_bytes + out_bytes, ops
+
+
+def _devres_work(a, cfg, sl, node, feas, reach):
+    """{row: (operations, node and pod bytes, carry bytes, output bytes)}
+    of the device-resource ops for pods `sl`, counted from the kernel's
+    source under the launch's gates, for the rows "gpu", "storage" and
+    "volumes" (the static masks, the PV match and the attach limits) that
+    are on. Only the work the pod's own request needs is counted.
+
+    Per node that reaches a row (the feasible nodes plus those charged to
+    that row or a later one): GPU, for a pod with a request, 6 per device
+    + 4; storage, for a pod with an LVM or device request, 2 per VG + (V +
+    3) per LVM volume + E + 4E per device claim; the static masks, 3 tests
+    and the missing-PV test; the PV match, per claim 3 per admitted PV of
+    the node walked (the mean list length; the walk may stop earlier) + 1;
+    the attach limits, per key 2 + 3 per shared-volume slot (the PV walk
+    counts the pod's valid claims over the kernel's lists, which keep only
+    PVs a claim class can take). Per feasible node, for a pod with a GPU
+    request: the raw score, 2 per device + 4, its two normalizer updates
+    and its final add (4). Per bound pod: with a GPU request, the pick and
+    debit, 8 per device; with a storage request, the plan again with its
+    commit (+ V + E); the bound node's PV walk; the attach counts (as the
+    filter) and the presence writes."""
+    import numpy as np
+
+    steps = len(node)
+    n, r = a.alloc.shape
+    g, v, e = a.gpu_slot.shape[1], a.vg_cap.shape[1], a.sdev_cap.shape[1]
+    lv, ev, lw = a.lvm_req.shape[1], a.sdev_req.shape[1], a.wfc_ccid.shape[1]
+    lk, lsv, nsv = a.vol_limit_cap.shape[1], a.svol_id.shape[1], a.svol_key.shape[0]
+    n_pv, cc, cv = a.pv_node_ok.shape[0], a.pv_cand.shape[0], a.class_vol_node.shape[0]
+    placed = (node >= 0).astype(np.int64)
+    rows = {}
+    if cfg.enable_gpu:
+        gpu_pod = (a.gpu_cnt[sl] > 0).astype(np.int64)
+        ops = gpu_pod * (reach(7 + r) * (6 * g + 4) + feas * (2 * g + 4 + 6) + placed * 8 * g)
+        rows["gpu"] = (int(ops.sum()), n * 4 + n * g * 4 + steps * (9 + g * 4), n * g * 4,
+                       steps * g * 4)
+    if cfg.enable_storage:
+        vols = (a.lvm_req[sl] > 0).sum(1).astype(np.int64)
+        claims = (a.sdev_req[sl] > 0).sum(1).astype(np.int64)
+        plan = ((vols + claims) > 0) * (2 * v + vols * (v + 3) + e + claims * 4 * e)
+        ops = reach(8 + r) * plan + placed * (plan + ((vols + claims) > 0) * (v + e))
+        rows["storage"] = (int(ops.sum()), n * v * 4 + n * e * 5 + steps * (lv * 4 + ev * 5),
+                           n * v * 4 + n * e, 0)
+    ops = np.zeros(steps, np.int64)
+    shared = carry = out = 0
+    if cfg.enable_vol_static:
+        ops += reach(9 + r) * 3 + reach(12 + r)
+        shared += 3 * cv * n + steps * 5
+    if cfg.enable_pv_match:
+        # the admitted lists hold only PVs some claim class can take, and
+        # the walk runs for the pod's valid claims
+        nnz = int((a.pv_node_ok & a.pv_cand.any(0)[:, None]).sum())
+        walk = a.wfc_valid[sl].sum(1) * (3 * nnz / n + 1)
+        ops += np.round(reach(11 + r) * walk + placed * walk).astype(np.int64)
+        shared += (n + 1) * 4 + nnz * 4 + cc * n_pv + steps * lw * 5
+        carry += n_pv
+        out += steps * lw * 4
+    if cfg.enable_vol_limits:
+        per = lk * (2 + 3 * lsv)
+        ops += reach(13 + r) * per + placed * (per + lsv)
+        shared += n * lk * 4 + nsv * 4 + steps * (lk + lsv) * 4
+        carry += n * lk * 4 + (n * nsv if cfg.enable_vol_dedup else 0)
+    if cfg.enable_vol_static or cfg.enable_pv_match or cfg.enable_vol_limits:
+        rows["volumes"] = (int(ops.sum()), shared, carry, out)
+    return rows
+
+
+def devres_row_bounds(a, cfg, p0, p1, outs):
+    """{row: (bytes, ops, bound ms, what binds)} of each device-resource
+    row of `_devres_work` alone, over one launch whose lanes' outputs are
+    `outs` (numpy): the row's node and pod bytes and its starting carry
+    read once, each lane's final carry and outputs written once, the
+    operations added up lane by lane."""
+    import numpy as np
+
+    per = []
+    for o in outs:
+        node, fail, feas = (np.asarray(x, dtype=np.int64) for x in o)
+        per.append(_devres_work(a, cfg, slice(p0, p1), node, feas,
+                                lambda op, fail=fail, feas=feas: feas + fail[:, op:].sum(1)))
+    return {k: bound_of((per[0][k][1] + per[0][k][2] + sum(pl[k][2] + pl[k][3] for pl in per),
+                         sum(pl[k][0] for pl in per))) for k in per[0]}
 
 
 def _paint_ops(a, cfg, sl, node, per_node_compare):
@@ -310,8 +415,8 @@ def fold_work(a, cfg, k):
     one-hot domain table and the carry, each read once, and the carry
     written once. Operations: the sequential binds' own — per bound pod R
     subtractions, one add per matched group (and per matched group and
-    non-hostname key on the dom_count carry), one or per port, and the
-    paints (an add per node of the bound node's domain, one under the
+    non-hostname key on the dom_count carry), one or per port, one add per
+    attach-limit key, and the paints (an add per node of the bound node's domain, one under the
     hostname key)."""
     import numpy as np
 
@@ -324,14 +429,15 @@ def fold_work(a, cfg, k):
     sl = slice(0, k)
     placed = node >= 0
     groups = a.match_groups[sl].sum(1).astype(np.int64)
+    lk = a.vol_limit_cap.shape[1] if cfg.enable_vol_limits else 0
     per_pod = (r + groups * cfg.needs_group_count + groups * k1 * cfg.maintain_dom_count
-               + a.ports[sl].sum(1).astype(np.int64) * cfg.enable_ports
+               + a.ports[sl].sum(1).astype(np.int64) * cfg.enable_ports + lk
                + _paint_ops(a, cfg, sl, node, per_node_compare=False))
     ops = int((placed * per_pod).sum())
     carry = (n * r * 4 + n * pt + k1 * d * sg * 4 + n * sg * gcb
              + (n * t * gcb if cfg.enable_anti_affinity else 0)
-             + (n * t2 * 4 if cfg.enable_pref else 0))
-    pod_bytes = k * (4 + r * 4 + sg + pt + t + ap * 13)
+             + (n * t2 * 4 if cfg.enable_pref else 0) + n * lk * 4)
+    pod_bytes = k * (4 + r * 4 + sg + pt + t + ap * 13 + lk * 4)
     return pod_bytes + k1 * n * d * 4 + 2 * carry, ops
 
 
@@ -360,6 +466,68 @@ def _gc_bytes(cfg):
     return 2 if cfg.compact_carry else 4
 
 
+DEVRES_GATES = ("enable_gpu", "enable_storage", "enable_vol_static", "enable_pv_match",
+                "enable_vol_limits", "enable_vol_dedup")
+# the device-resource reason rows, after the R resources: GPU, storage,
+# volume node affinity, zone, binding, missing PV, attach limits
+DEVRES_ROWS = ("gpu", "storage", "vol_node", "vol_zone", "vol_bind", "pv_missing",
+               "vol_limits")
+
+
+def devres_checks(sched, snap, cfg, result, label):
+    """The device-resource path's own checks of simulate()'s answer: all
+    six gates on; every device-resource reason row but the missing-PV one
+    refuses nodes; and, on the host, from the decoded placements alone:
+    no PV bound twice and each bound local PV on its own node; no GPU
+    device past its memory where no pinned pod sits; no node past its 25
+    EBS attachments (unique claims)."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.testing.synthetic import EBS_NITRO_LIMIT
+
+    off = [g for g in DEVRES_GATES if not getattr(cfg, g)]
+    if off:
+        raise SystemExit(f"main path {label}: device-resource gates off: {off}")
+    r = snap.arrays.alloc.shape[1]
+    rows = result.fail_counts.sum(0)[7 + r:14 + r]
+    counts = dict(zip(DEVRES_ROWS, (int(x) for x in rows)))
+    log(f"main path {label}: first-fail refusals of the device-resource rows {counts}")
+    if any(counts[k] == 0 for k in DEVRES_ROWS if k != "pv_missing"):
+        raise SystemExit(f"main path {label}: a device-resource op refused no node")
+    node_of = result.placements()
+    pvs = list(result.volume_bindings.values())
+    if len(set(pvs)) != len(pvs) or not pvs:
+        raise SystemExit(f"main path {label}: a PV was bound twice (or none was bound)")
+    claim_pod = {}
+    for sp in result.scheduled_pods:
+        for v in (sp.pod.raw.get("spec") or {}).get("volumes") or []:
+            c = (v.get("persistentVolumeClaim") or {}).get("claimName")
+            if c:
+                claim_pod.setdefault(f"default/{c}", []).append(sp.pod.key)
+    for claim, pv in result.volume_bindings.items():
+        if not all(pv.startswith(f"local-{node_of[k]}-") for k in claim_pod[claim]):
+            raise SystemExit(f"main path {label}: {claim} bound to {pv} off its node")
+    pinned = {node_of[p.key] for p, f in zip(snap.pods, snap.arrays.gpu_has_forced)
+              if f and p.key in node_of}
+    used = {}
+    for sp in result.scheduled_pods:
+        mem, _ = sp.pod.gpu_request()
+        for d in result.gpu_assignments.get(sp.pod.key, []):
+            used[(sp.node_name, d)] = used.get((sp.node_name, d), 0) + mem
+    caps = {ns.node.name: ns.node.gpu_info()[1] for ns in result.node_status}
+    over = [(n, d) for (n, d), u in used.items() if n not in pinned and u > caps[n]]
+    attach = {}
+    for claim, keys in claim_pod.items():
+        if claim.startswith("default/ebs-") or claim.startswith("default/heavy-"):
+            for n in {node_of[k] for k in keys}:
+                attach[n] = attach.get(n, 0) + 1
+    log(f"main path {label}: host checks: {len(pvs)} PVs bound once each on their nodes; "
+        f"{len(used)} GPU devices in use, {len(over)} over capacity (nodes with a pinned pod "
+        f"skipped: {len(pinned)}); EBS attachments per node at most {max(attach.values())}")
+    if over or max(attach.values()) > EBS_NITRO_LIMIT or not np.all(np.isfinite(rows)):
+        raise SystemExit(f"main path {label}: host device-resource check failed")
+
+
 def anti_affinity_violations(result):
     """Independent host check of simulate()'s placements: pairs (pod,
     other pod on its node) where the pod's required hostname anti-affinity
@@ -384,11 +552,15 @@ def anti_affinity_violations(result):
     return bad, with_terms
 
 
-def main_path(torch, sched, step, simulate, cluster_of, label, rich):
-    """Drive simulate() on one full-size cluster with the launch counts
-    reset, then time and check the kernel on the path's arrays."""
+def main_path(torch, sched, step, simulate, cluster_of, label, kind):
+    """Drive simulate() on one full-size cluster (`kind` plain, rich or
+    devres) with the launch counts reset, then time and check the kernel
+    on the path's arrays."""
     t_phase = time.perf_counter()
-    cluster = cluster_of(rich)
+    rich = kind == "rich"
+    t0 = time.perf_counter()
+    cluster = cluster_of(kind)
+    log(f"main path {label}: cluster objects built in {time.perf_counter() - t0:.1f}s")
     for name in step.LAUNCHES:
         step.LAUNCHES[name] = 0
     torch.cuda.synchronize()
@@ -417,6 +589,8 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
             f"hostname term, {bad} violations")
         if bad or not with_terms:
             raise SystemExit(f"main path {label}: host anti-affinity check failed")
+    if kind == "devres":
+        devres_checks(sched, snap, cfg, result, label)
 
     # the kernel alone on the main path's arrays
     dev = torch.device("cuda")
@@ -440,6 +614,8 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
     kern_nodes = out_k[0][0].cpu().numpy()
     kern_placed = {snap.pods[i].key: snap.node_names[int(nd)]
                    for i, nd in enumerate(kern_nodes, start=p0) if nd >= 0}
+    kern_placed.update({snap.pods[i].key: snap.node_names[int(snap.arrays.forced_node[i])]
+                        for i in range(p0)})  # the nodeName prefix, folded
     if kern_placed != placed:
         raise SystemExit(f"main path {label}: the timed kernel run and simulate() "
                          "placed pods differently")
@@ -457,6 +633,16 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
         f"{[round(t, 3) for t in times]}) us_per_pod={kernel_ms * 1e3 / (p1 - p0):.3f} "
         f"feasible_pairs={feasible_pairs}")
     full = bound_of(step_work(sched, snap.arrays, cfg, p0, p1, lane0(out_k)))
+    rows = {}
+    if kind == "devres":
+        rows = devres_row_bounds(snap.arrays, cfg, p0, p1, [lane0(out_k)])
+        log_rows(label, rows)
+        gp = out_k[3][0].cpu().numpy()
+        got = {snap.pods[i].key: [d for d in range(gp.shape[1]) for _ in range(int(gp[i - p0, d]))]
+               for i in range(p0, p1) if gp[i - p0].any()}
+        if got != result.gpu_assignments:
+            raise SystemExit(f"main path {label}: the timed kernel run and simulate() "
+                             "allocated GPUs differently")
 
     # kernel vs plain over the first PARITY_PREFIX pods from a fresh carry,
     # both timed, and over the last PARITY_PREFIX pods from the kernel's carry
@@ -486,13 +672,13 @@ def main_path(torch, sched, step, simulate, cluster_of, label, rich):
         "launches": launches["plain_step"], "pods": p1 - p0, "ms": kernel_ms, "ms_runs": times,
         "us_per_pod": kernel_ms * 1e3 / (p1 - p0), "bound_ms": full[2], "bound_by": full[3],
         "max_abs_err": max(err, err_last), "simulate_s": wall, "engine_s": engine_s,
-        "scheduled": len(result.scheduled_pods),
+        "scheduled": len(result.scheduled_pods), **row_fields(rows),
         "same_pods": {"pods": q1 - p0, "ms": prefix_ms, "plain_ms": plain_s * 1e3,
                       "bound_ms": prefix[2], "bound_by": prefix[3]},
     }
 
 
-def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
+def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
     """The reference's capacity-sweep preset at full width: 5,120 nodes x
     51,200 pods with 64 new-node slots, 64 lanes (counts min(i % 65, 64))
     in one ``capacity_sweep`` launch; then the launch timed alone, lane
@@ -501,7 +687,7 @@ def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
     import numpy as np
 
     t_phase = time.perf_counter()
-    snap = synthetic_snapshot(5120, 51200, max_new=CAPACITY_LANES, rich=rich)
+    snap = snapshot_of(kind)
     cfg = sched.make_config(snap)
     n_pods = snap.n_pods
     counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
@@ -569,36 +755,46 @@ def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
 
     # the side work of the launch: the 64-lane hoist, and the forced-prefix
     # fold at full width — the first FOLD_PODS pods pinned to the nodes
-    # lane 63 gave them, folded at once; its carry must equal the kernel's
-    # after those pods, and its torch.matmul calls are replayed alone
+    # lane 63 gave them (devres: the cluster's own nodeName prefix, whose
+    # attach counts fold too), folded at once; its carry must equal the
+    # kernel's after those pods, and its torch.matmul calls are replayed
+    # alone
     hoist_ms = min(cuda_ms(torch, lambda: sched.hoist_of(arrs, masks)) for _ in range(3))
     hoist_b = bound_of(hoist_work(snap.arrays, CAPACITY_LANES))
-    if p0:
-        raise SystemExit(f"capacity {label}: expected no nodeName prefix on the synthetic cluster")
-    forced = snap.arrays.forced_node.copy()
-    forced[:FOLD_PODS] = plan.nodes_per_scenario[-1, :FOLD_PODS]
-    pinned = dataclasses.replace(snap.arrays, forced_node=forced)
+    if kind == "devres":
+        if not p0:
+            raise SystemExit(f"capacity {label}: expected a nodeName prefix")
+        n_fold, pinned = p0, snap.arrays
+    else:
+        if p0:
+            raise SystemExit(f"capacity {label}: expected no nodeName prefix on the "
+                             "synthetic cluster")
+        n_fold = FOLD_PODS
+        forced = snap.arrays.forced_node.copy()
+        forced[:n_fold] = plan.nodes_per_scenario[-1, :n_fold]
+        pinned = dataclasses.replace(snap.arrays, forced_node=forced)
     arrs_f = sched.device_arrays(pinned, dev)
-    fcfg = scfg._replace(forced_prefix=FOLD_PODS)
+    fcfg = scfg._replace(forced_prefix=n_fold)
     fresh = sched.init_state(arrs_f, fcfg)
     folded = []
     fold_ms = min(cuda_ms(torch, lambda: folded.append(
-        sched.apply_forced_prefix(arrs_f, fcfg, fresh, FOLD_PODS))) for _ in range(3))
+        sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold))) for _ in range(3))
     log_mm = MatmulLog(torch)
     with log_mm:
-        sched.apply_forced_prefix(arrs_f, fcfg, fresh, FOLD_PODS)
+        sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold)
     mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
-    one = sched.lane_carry(tmpl, 1)
-    step.plain_step_cuda(arrs, masks[-1:], sched.hoist_of(arrs, masks[-1:]), inv, one, scfg,
-                         0, FOLD_PODS, template=tmpl)
-    if not all(torch.equal(getattr(folded[-1], f), getattr(one, f)[0]) for f in step.KERNEL_CARRY):
-        raise SystemExit(f"capacity {label}: the fold of {FOLD_PODS} pods and the kernel's "
+    one = sched.lane_carry(fresh, 1)
+    step.plain_step_cuda(arrs, masks[-1:], sched.hoist_of(arrs, masks[-1:]), inv, one,
+                         scfg._replace(forced_prefix=0), 0, n_fold, template=fresh)
+    if not all(torch.equal(getattr(folded[-1], f), getattr(one, f)[0])
+               for f in sched.STATE_FIELDS):
+        raise SystemExit(f"capacity {label}: the fold of {n_fold} pods and the kernel's "
                          "carry after them differ")
-    fold_b = bound_of(fold_work(pinned, fcfg, FOLD_PODS))
+    fold_b = bound_of(fold_work(pinned, fcfg, n_fold))
     del folded, log_mm
     log(f"capacity {label}: hoist_active_stats over {CAPACITY_LANES} lanes {hoist_ms:.3f} ms, "
         f"bound {hoist_b[2]:.4f} ms ({hoist_b[3]}: bytes={hoist_b[0]} ops={hoist_b[1]}); "
-        f"apply_forced_prefix of {FOLD_PODS} pods {fold_ms:.3f} ms, its torch.matmul calls "
+        f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms, its torch.matmul calls "
         f"alone {mm_ms:.3f} ms, bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
         f"ops={fold_b[1]}); the fold equals the kernel's carry after those pods")
 
@@ -609,12 +805,14 @@ def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
                                  rcfg, p0, n_pods, template=tmpl)
     if not torch.equal(out_r[0], out[0]):
         raise SystemExit(f"capacity {label}: reasons on and off placed pods differently")
-    outs = [tuple(x[s_i].cpu().numpy() for x in out_r) for s_i in range(CAPACITY_LANES)]
+    outs = [tuple(x[s_i].cpu().numpy() for x in out_r[:3]) for s_i in range(CAPACITY_LANES)]
     del out_r
     bound = bound_of(lanes_work(sched, snap.arrays, scfg, p0, n_pods, outs))
     log(f"capacity {label}: bound of the 64-lane launch: bytes={bound[0]} ops={bound[1]} "
         f"-> {bound[2]:.4f} ms, {bound[3]}; feasible pairs "
         f"{sum(int(o[2].sum()) for o in outs)}")
+    rows = devres_row_bounds(snap.arrays, scfg, p0, n_pods, outs) if kind == "devres" else {}
+    log_rows(f"capacity {label}", rows)
 
     # kernel vs plain over the first pods of the lanes at counts 0 and 63
     two = masks_np[[0, CAPACITY_LANES - 1]]
@@ -644,16 +842,30 @@ def capacity_path(torch, sched, step, sweep, synthetic_snapshot, label, rich):
         "lanes": CAPACITY_LANES, "launches": launches["plain_step"], "pods": n_pods - p0,
         "ms": kernel_ms, "ms_runs": times, "bound_ms": bound[2], "bound_by": bound[3],
         "lane_pods_per_s": lane_pods / (kernel_ms / 1e3), "sweep_s": sweep_s,
-        "peak_mem_bytes": peak, "max_abs_err": err,
+        "peak_mem_bytes": peak, "max_abs_err": err, **row_fields(rows),
         "same_pods": {"lanes": 2, "pods": PARITY_PREFIX, "ms": kern_s * 1e3,
                       "plain_ms": plain_s * 1e3},
         "bisect": {"max_cpu_pct": limit, "best_count": bis.best_count, "rounds": rounds,
                    "probes": len(bis.counts), "wall_s": bis_s},
         "hoist": {"lanes": CAPACITY_LANES, "ms": hoist_ms, "bound_ms": hoist_b[2],
                   "bound_by": hoist_b[3]},
-        "prefix_fold": {"pods": FOLD_PODS, "ms": fold_ms, "library_ms": mm_ms,
+        "prefix_fold": {"pods": n_fold, "ms": fold_ms, "library_ms": mm_ms,
                         "bound_ms": fold_b[2], "bound_by": fold_b[3]},
     }
+
+
+def log_rows(label, rows):
+    for name, (nbytes, flops, bound_ms, bound_by) in rows.items():
+        log(f"{label}: bound of the {name} row alone: bytes={nbytes} ops={flops} "
+            f"-> {bound_ms:.5f} ms, {bound_by} (its time alone is not measured)")
+
+
+def row_fields(rows):
+    """The device-resource rows' bounds as JSON fields (none off devres)."""
+    if not rows:
+        return {}
+    return {"devres_rows": {k: {"bytes": b, "ops": o, "bound_ms": ms, "bound_by": by}
+                            for k, (b, o, ms, by) in rows.items()}}
 
 
 class MatmulLog:
@@ -699,7 +911,7 @@ def cli_plans(torch, loader, cli_main):
     import contextlib
     import io
 
-    for name in CLI_CONFIGS:
+    for name, extra, mode in CLI_CONFIGS:
         path = os.path.join(HERE, "examples", name)
         runs = []
         for device in ("cuda", "cpu"):
@@ -707,19 +919,22 @@ def cli_plans(torch, loader, cli_main):
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                rc = cli_main(["apply", "-f", path, "--max-new-nodes", "16", "--device", device])
+                rc = cli_main(["apply", "-f", path, "--max-new-nodes", "16", "--sweep-mode", mode,
+                               "--device", device, *extra])
             torch.cuda.synchronize()
             runs.append((rc, buf.getvalue(), time.perf_counter() - t0))
         (rc_k, out_k, s_k), (rc_c, out_c, s_c) = runs
-        log(f"cli {name}: rc={rc_k}/{rc_c} card {s_k:.2f}s cpu {s_c:.2f}s: "
-            f"{out_k.splitlines()[0] if out_k else ''}")
+        log(f"cli {name} {mode} {' '.join(extra)}: rc={rc_k}/{rc_c} card {s_k:.2f}s "
+            f"cpu {s_c:.2f}s: {out_k.splitlines()[0] if out_k else ''}")
         if rc_k != 0 or (rc_k, out_k) != (rc_c, out_c):
             raise SystemExit(f"cli {name}: the card and the CPU printed different plans")
+        if extra and "=== GPU ===" not in out_k:
+            raise SystemExit(f"cli {name}: no GPU table in the report")
 
 
 def lane0(out):
     """The kernel's (node, fail counts, feasible counts) of lane 0, as numpy."""
-    return tuple(x[0].cpu().numpy() for x in out)
+    return tuple(x[0].cpu().numpy() for x in out[:3])
 
 
 def bound_of(work):
@@ -751,7 +966,8 @@ def main() -> int:
         from open_simulator_tpu_torch.kernels import build, step
         from open_simulator_tpu_torch.parallel import sweep
         from open_simulator_tpu_torch.testing.synthetic import (
-            soft_spread_cluster, synthetic_objects, synthetic_snapshot)
+            device_resource_cluster, device_resource_snapshot, soft_spread_cluster,
+            synthetic_objects, synthetic_snapshot)
     except ImportError as e:
         print(f"chip_smoke: the open_simulator_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -822,20 +1038,40 @@ def main() -> int:
     if len({tuple(row.tolist()) for row in out_l[3][0].cpu()}) != 4:
         raise SystemExit("rich 4-lane launch: the lanes did not place pods differently")
 
+    # the device-resource cluster with mid-sequence pods bound by nodeName
+    # that carry pinned GPUs, as one launch of 4 lanes over 8 GPU slots
+    snap_g = device_resource_snapshot(1024, 10240, max_new=8)
+    cfg_g = sched.make_config(snap_g)
+    if not (all(getattr(cfg_g, g) for g in DEVRES_GATES) and cfg_g.forced_prefix
+            and (snap_g.arrays.forced_node[cfg_g.forced_prefix:] >= 0).any()):
+        raise SystemExit("parity input devres is not the device-resource path it should be")
+    n_g, r_g = snap_g.n_nodes, snap_g.n_real_nodes
+    lanes_g = np.stack([np.arange(n_g) < r_g, np.ones(n_g, bool), np.arange(n_g) < r_g + 3,
+                        np.concatenate([rng.rand(r_g) < 0.8, np.ones(n_g - r_g, bool)])])
+    errs.append(parity(torch, sched, step, "devres-1024x10240-4-lanes", snap_g.arrays, cfg_g,
+                       lanes_g, n_pods=PARITY_PREFIX)[2])
+
     # ---- 4. the main paths: simulate() at full size, through the kernel
-    def cluster_of(rich):
-        nodes, pods, _ = synthetic_objects(5120, 51200, rich=rich)
+    def cluster_of(kind):
+        if kind == "devres":
+            return device_resource_cluster(NODES, PODS)
+        nodes, pods, _ = synthetic_objects(NODES, PODS, rich=kind == "rich")
         return ClusterResources(nodes=nodes, pods=pods)
 
+    def snapshot_of(kind):
+        if kind == "devres":
+            return device_resource_snapshot(NODES, PODS, max_new=CAPACITY_LANES)
+        return synthetic_snapshot(NODES, PODS, max_new=CAPACITY_LANES, rich=kind == "rich")
+
     paths = {}
-    for label, rich in (("northstar", False), ("northstar-rich", True)):
-        paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, rich)
+    for label, kind in PATHS:
+        paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, kind)
 
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
-    for label, rich in (("northstar", False), ("northstar-rich", True)):
+    for label, kind in PATHS:
         paths[f"capacity-{label}-64"] = capacity_path(torch, sched, step, sweep,
-                                                      synthetic_snapshot, label, rich)
+                                                      snapshot_of, label, kind)
     t0 = time.perf_counter()
     cli_plans(torch, loader, cli_main)
     log(f"cli: {len(CLI_CONFIGS)} plans on the card and on the CPU agree "
@@ -857,10 +1093,14 @@ def main() -> int:
         "bound_ms": same["bound_ms"], "bound_by": same["bound_by"], "library_ms": None,
         "paths": paths,
         "parity": "bit-exact vs the plain step on synthetic 1024x10240, inline "
-                  "512x4096, 4 lanes, rich 1024x10240 bound 0.1, rich 512x4096 dense, "
-                  f"rich 512x1024 4 lanes, the first and last {PARITY_PREFIX} pods "
-                  f"of both main paths, and the first {PARITY_PREFIX} pods of lanes 0 "
-                  "and 63 of both capacity sweeps",
+                  "512x4096, the same in 4 lanes, rich 1024x10240 bound 0.1, rich "
+                  "512x4096 dense, "
+                  f"rich 512x1024 4 lanes, the first {PARITY_PREFIX} pods of devres "
+                  "1024x10240 in 4 lanes (8 GPU slots), "
+                  f"the first and last {PARITY_PREFIX} pods of the northstar, "
+                  "northstar-rich and northstar-devres main paths, and the first "
+                  f"{PARITY_PREFIX} pods of lanes 0 and 63 of the capacity-northstar-64, "
+                  "capacity-northstar-rich-64 and capacity-northstar-devres-64 sweeps",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

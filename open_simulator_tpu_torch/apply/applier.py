@@ -270,10 +270,14 @@ class Applier:
                 out.node[0].cpu().numpy(),
                 out.fail_counts[0].cpu().numpy(),
                 masks[idx],
+                gpu_pick=out.gpu_pick[0].cpu().numpy() if cfg.enable_gpu else None,
+                vol_pick=out.vol_pick[0].cpu().numpy() if cfg.enable_pv_match else None,
             )
         return decode_result(
             snapshot,
             plan.nodes_per_scenario[idx],
             plan.fail_counts[idx],
             masks[idx],
+            gpu_pick=plan.gpu_pick[idx] if plan.gpu_pick is not None else None,
+            vol_pick=plan.vol_pick[idx] if plan.vol_pick is not None else None,
         )

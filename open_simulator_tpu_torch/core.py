@@ -320,8 +320,11 @@ def simulate(
     out = schedule_pods(snapshot.arrays, active_np, cfg, device=device)
     node_assign = out.node.cpu().numpy()
     fail_counts = out.fail_counts.cpu().numpy()
+    gpu_pick = out.gpu_pick.cpu().numpy() if cfg.enable_gpu else None
+    vol_pick = out.vol_pick.cpu().numpy() if cfg.enable_pv_match else None
     elapsed = time.perf_counter() - t0
-    return decode_result(snapshot, node_assign, fail_counts, active_np, elapsed)
+    return decode_result(snapshot, node_assign, fail_counts, active_np, elapsed, gpu_pick,
+                         vol_pick=vol_pick)
 
 
 def _with_nodes(cluster: ClusterResources, nodes: List[Node]) -> ClusterResources:

@@ -4,7 +4,11 @@
 // Replaces: the XLA fusion of open_simulator_tpu/engine/scheduler.py:_step
 // (the body of the lax.scan in schedule_pods, scheduler.py:745-1449) for the
 // plain-fit ops, required pod affinity and anti-affinity, hard and soft
-// PodTopologySpread and the interpod preference score. The JAX package has
+// PodTopologySpread, the interpod preference score and the device-resource
+// ops (GPU share, open-local storage, the static volume masks,
+// WaitForFirstConsumer PV matching, attach limits and shared-volume dedup;
+// ops/gpu_share.py, ops/storage.py, ops/volumes.py and
+// scheduler.py:982-1044, :1392-1443 of the reference). The JAX package has
 // no Pallas kernel: on the TPU, XLA's fusion of _step is the kernel. Per
 // pod: the batched carry-column read (the pod's affinity, anti-affinity,
 // spread and preferred-term columns of group_count summed per domain), the
@@ -41,6 +45,19 @@
 // term_block @ hit_terms and its slot-form gather, without sweeping all T
 // columns per node.
 //
+// The device-resource ops run in a third instantiation (kDevRes), so
+// launches without them keep the code and registers they had. Each node's
+// thread walks its GPU devices, volume groups, devices and admitted PVs
+// serially, in ascending index: every "lowest index on ties" of the
+// reference (the single-GPU argmin, lvm_pack's argmax, device_match's
+// argmin, the first free PV) falls out of the walk. A node's admitted PVs
+// are a host-built list (the CSR of pv_node_ok's columns, ascending PV id:
+// the reference's capacity-ascending axis, keeping only PVs that are some
+// claim class's candidate), and the PVs a node's claims
+// have chosen so far sit in a per-thread array, so no [Npv, N] table is
+// swept. The bind recomputes the bound node's storage plan and PV picks
+// (the same values the filter pass found for that node) in one thread.
+//
 // Exactness: built with --fmad=false, and every float operation is an
 // explicit round-to-nearest intrinsic, so each one is the same IEEE
 // operation, in the same order, as in the plain torch step
@@ -62,7 +79,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
 constexpr float kNegInf = -3.4e38f;
-constexpr int kRows = 8;  // normalizer min-reduction rows
+constexpr int kRows = 10;  // normalizer min-reduction rows
+// widths the device-resource walks keep in registers (the launcher checks)
+constexpr int kMaxV = 8;    // volume groups per node
+constexpr int kMaxE = 32;   // exclusive devices per node (a bit mask)
+constexpr int kMaxLw = 8;   // WaitForFirstConsumer claims per pod
 
 // StepArgs.flags bits; mirrored in kernels/step.py
 constexpr int F_UNSCHED = 1 << 0;      // unschedulable filter row live
@@ -87,9 +108,18 @@ constexpr int F_IP = 1 << 18;          // interpod preference score
 constexpr int F_PREF = 1 << 19;        // preferred-term paint (pref_paint carry)
 constexpr int F_TB_BF16 = 1 << 20;     // term_block stored bfloat16
 constexpr int F_TEMPLATE = 1 << 21;    // lane prologue: carry slices from the template
-// the gates of the inter-pod slice: a launch that sets none of them runs
-// the kernel's instantiation without their code (and its registers)
+constexpr int F_GPU = 1 << 22;         // GPU-share filter, score, pick and debit
+constexpr int F_STORAGE = 1 << 23;     // open-local LVM and exclusive-device filter + plan
+constexpr int F_VOL_STATIC = 1 << 24;  // static volume class masks + missing-PV row
+constexpr int F_PV_MATCH = 1 << 25;    // WaitForFirstConsumer PV matching + pv_taken
+constexpr int F_VOL_LIMITS = 1 << 26;  // attach limits (vol_cnt carry)
+constexpr int F_VOL_DEDUP = 1 << 27;   // shared-volume dedup (svol_on_node carry)
+// the gates of the inter-pod and device-resource slices: a launch that
+// sets none of a slice's gates runs an instantiation without its code
+// (and its registers)
 constexpr int kInterpodFlags = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF;
+constexpr int kDevResFlags =
+    F_GPU | F_STORAGE | F_VOL_STATIC | F_PV_MATCH | F_VOL_LIMITS | F_VOL_DEDUP;
 
 // what a pod's carry column q needs from the column read (s_qneed bits)
 constexpr int kNeedDom = 1;   // per-domain sums (non-hostname key)
@@ -165,10 +195,56 @@ struct StepArgs {
   int32_t* out_fail;                  // [S, P', OPS], only under F_FAIL
   int32_t* out_feasible;              // [S, P']
   // scratch
-  float* scratch;                     // [S, 4, N] base score, spread raw, Simon raw, interpod raw
+  float* scratch;                     // [S, 5, N] base score, spread, Simon, interpod, GPU raw
   uint8_t* scratch_flags;             // [S, N] bit 0 feasible, bit 1 spread keys present
   int n, r, c, u, k, k1, d, sg, pt, cs, a, b, ap, t, t2, ops, s, p0, p1, ci, mi, flags;
   float w_bal, w_least, w_most, w_na, w_tt, w_ip, w_sp, w_si;
+  // the device-resource ops (kDevRes), after the fields of the other
+  // instantiations so that their layout is unchanged
+  const float* gpu_cap_mem;           // [N] per-device GPU memory
+  const float* gpu_slot;              // [N, G] 1 for a real device
+  const float* vg_cap;                // [N, V] volume-group capacity (MiB)
+  const float* sdev_cap;              // [N, E] exclusive-device capacity, 0 = none
+  const uint8_t* sdev_ssd;            // [N, E] device media is ssd
+  const int32_t* pv_ptr;              // [N+1] offsets into pv_idx
+  const int32_t* pv_idx;              // each node's admitted PVs, ascending id
+  const uint8_t* pv_cand;             // [Cc, Npv] candidate PVs of a claim class
+  const uint8_t* class_vol_node;      // [Cv, N] bound-PV node affinity
+  const uint8_t* class_vol_zone;      // [Cv, N] bound-PV zone labels
+  const uint8_t* class_vol_bind;      // [Cv, N] provisioning allowedTopologies
+  const float* vol_limit_cap;         // [N, Lk] attach limit per key
+  const int32_t* svol_key;            // [Nsv] limit key of each shared volume
+  // device-resource pod arrays
+  const float* gpu_mem;               // [P] per-device GPU memory request
+  const float* gpu_cnt;               // [P] devices wanted
+  const int32_t* gpu_forced;          // [P, G] pinned multiplicities (gpu-index)
+  const uint8_t* gpu_has_forced;      // [P]
+  const float* lvm_req;               // [P, Lv] LVM volume sizes, descending
+  const float* sdev_req;              // [P, Ev] exclusive-device claim sizes
+  const uint8_t* sdev_req_ssd;        // [P, Ev] the claim wants ssd
+  const int32_t* vol_cid;             // [P] volume class
+  const uint8_t* vol_pv_missing;      // [P] a bound claim names a missing PV
+  const int32_t* wfc_ccid;            // [P, Lw] claim class per WFC slot
+  const uint8_t* wfc_valid;           // [P, Lw]
+  const float* vol_limit_req;         // [P, Lk] attachments of unshared claims
+  const int32_t* svol_id;             // [P, Lsv] shared volumes mounted, -1 pad
+  // device-resource carries, their template, outputs
+  float* gpu_used;                    // [S, N, G] carry
+  float* vg_used;                     // [S, N, V] carry
+  uint8_t* sdev_taken;                // [S, N, E] carry (torch.bool storage)
+  uint8_t* pv_taken;                  // [S, Npv] carry (torch.bool storage)
+  float* vol_cnt;                     // [S, N, Lk] carry
+  uint8_t* svol_on_node;              // [S, N, Nsv] carry (torch.bool storage)
+  const float* tmpl_gpu_used;         // [N, G]
+  const float* tmpl_vg_used;          // [N, V]
+  const uint8_t* tmpl_sdev_taken;     // [N, E]
+  const uint8_t* tmpl_pv_taken;       // [Npv]
+  const float* tmpl_vol_cnt;          // [N, Lk]
+  const uint8_t* tmpl_svol_on_node;   // [N, Nsv]
+  int32_t* out_gpu_pick;              // [S, P', G], only under F_GPU
+  int32_t* out_vol_pick;              // [S, P', Lw], only under F_PV_MATCH
+  int g, v, e, lv, ev, npv, lw, lk, lsv, nsv;
+  float w_gpu;
 };
 
 }  // extern "C"
@@ -285,11 +361,275 @@ __device__ __forceinline__ bool same_domain(const StepArgs& a, int key, int fin,
   return df >= 0 && dom_of[m] == df;
 }
 
-template <bool kInterpod>
+// ---- the device-resource ops (kDevRes) ------------------------------------
+
+// one lane's device-resource carries
+struct DevLane {
+  float* gpu_used;      // [N, G]
+  float* vg_used;       // [N, V]
+  uint8_t* sdev_taken;  // [N, E]
+  uint8_t* pv_taken;    // [Npv]
+  float* vol_cnt;       // [N, Lk]
+  uint8_t* svol_on;     // [N, Nsv]
+};
+
+// GPU-share filter at node n (reference gpu_fit): a device present, the
+// node's total memory covers the per-GPU request, and the two-pointer
+// allocation succeeds (sum over devices of floor(idle/mem) >= cnt) unless
+// the pod is pinned. Pods without a GPU request pass.
+__device__ bool gpu_fits(const StepArgs& a, const DevLane& L, int p, int n) {
+  const float cnt = a.gpu_cnt[p];
+  if (!(cnt > 0.0f)) return true;
+  const float mem = a.gpu_mem[p];
+  const float mem_safe = mem > 0.0f ? mem : 1.0f;
+  const float cap = a.gpu_cap_mem[n];
+  const float* slot = a.gpu_slot + (size_t)n * a.g;
+  const float* used = L.gpu_used + (size_t)n * a.g;
+  float n_slots = 0.0f, fit = 0.0f;
+  for (int g = 0; g < a.g; ++g) {
+    n_slots = __fadd_rn(n_slots, slot[g]);
+    if (slot[g] > 0.0f)
+      fit = __fadd_rn(fit, floorf(__fdiv_rn(fmaxf(__fsub_rn(cap, used[g]), 0.0f), mem_safe)));
+  }
+  return n_slots > 0.0f && __fmul_rn(cap, n_slots) >= mem &&
+         (fit >= cnt || a.gpu_has_forced[p] != 0);
+}
+
+// the raw GPU-share score at node n (reference gpu_share_raw): the request
+// over the free memory left after it, clipped to [0, 1], x 100
+__device__ float gpu_raw(const StepArgs& a, const DevLane& L, int p, int n) {
+  const float cap = a.gpu_cap_mem[n];
+  const float* slot = a.gpu_slot + (size_t)n * a.g;
+  const float* used = L.gpu_used + (size_t)n * a.g;
+  float free_total = 0.0f;
+  for (int g = 0; g < a.g; ++g)
+    if (slot[g] > 0.0f) free_total = __fadd_rn(free_total, __fsub_rn(cap, used[g]));
+  const float want = __fmul_rn(a.gpu_mem[p], a.gpu_cnt[p]);
+  const float avail = __fsub_rn(free_total, want);
+  const float share = avail > 0.0f ? __fdiv_rn(want, avail) : (want > 0.0f ? 1.0f : 0.0f);
+  return __fmul_rn(clamp01(share), 100.0f);
+}
+
+// the pod's per-device multiplicities on node fin (reference
+// gpu_pick_devices): a pinned gpu-index verbatim, the tightest single
+// device (lowest id on ties) for one GPU, else the ascending two-pointer
+__device__ void gpu_pick(const StepArgs& a, const DevLane& L, int p, int fin, int32_t* out) {
+  const int G = a.g;
+  const float cnt = a.gpu_cnt[p], mem = a.gpu_mem[p];
+  const float on = cnt > 0.0f ? 1.0f : 0.0f;
+  const float cap = a.gpu_cap_mem[fin];
+  const float* slot = a.gpu_slot + (size_t)fin * G;
+  const float* used = L.gpu_used + (size_t)fin * G;
+  if (a.gpu_has_forced[p]) {
+    for (int g = 0; g < G; ++g)
+      out[g] = (int)__fmul_rn((float)a.gpu_forced[(size_t)p * G + g], on);
+    return;
+  }
+  if (cnt == 1.0f) {
+    int sel = -1;
+    float best = kBig;
+    for (int g = 0; g < G; ++g) {
+      const float free = __fsub_rn(cap, used[g]);
+      if (slot[g] > 0.0f && free >= mem && (sel < 0 || free < best)) {
+        sel = g;
+        best = free;
+      }
+    }
+    for (int g = 0; g < G; ++g) out[g] = (int)__fmul_rn(g == sel ? 1.0f : 0.0f, on);
+    return;
+  }
+  const float mem_safe = mem > 0.0f ? mem : 1.0f;
+  float total = 0.0f;
+  for (int g = 0; g < G; ++g)
+    if (slot[g] > 0.0f)
+      total = __fadd_rn(total, floorf(__fdiv_rn(fmaxf(__fsub_rn(cap, used[g]), 0.0f), mem_safe)));
+  const bool complete = total >= cnt;
+  float cum = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    const float sl = slot[g] > 0.0f
+        ? floorf(__fdiv_rn(fmaxf(__fsub_rn(cap, used[g]), 0.0f), mem_safe)) : 0.0f;
+    cum = __fadd_rn(cum, sl);
+    const float take = fminf(fmaxf(__fsub_rn(cnt, __fsub_rn(cum, sl)), 0.0f), sl);
+    out[g] = (int)__fmul_rn(complete ? take : 0.0f, on);
+  }
+}
+
+// open-local LVM packing at node n (reference lvm_pack): each volume,
+// largest first, into the most-free VG (the first on ties). With `add`,
+// the per-VG debit the bind applies.
+__device__ bool lvm_pack(const StepArgs& a, const DevLane& L, int p, int n, float* add) {
+  const int V = a.v;
+  float free[kMaxV];
+  for (int v = 0; v < V; ++v) {
+    free[v] = __fsub_rn(a.vg_cap[(size_t)n * V + v], L.vg_used[(size_t)n * V + v]);
+    if (add) add[v] = 0.0f;
+  }
+  bool ok = true;
+  for (int i = 0; i < a.lv; ++i) {
+    const float size = a.lvm_req[(size_t)p * a.lv + i];
+    if (!(size > 0.0f)) continue;  // a padded slot moves nothing
+    int slot = 0;
+    for (int v = 1; v < V; ++v)
+      if (free[v] > free[slot]) slot = v;
+    if (!(free[slot] >= size)) ok = false;
+    free[slot] = __fsub_rn(free[slot], size);
+    if (add) add[slot] = __fadd_rn(add[slot], size);
+  }
+  return ok;
+}
+
+// open-local exclusive devices at node n (reference device_match): each
+// claim takes the tightest free device of its media that holds it (the
+// lowest index on ties). With `take`, the devices taken, as a bit mask.
+__device__ bool device_match(const StepArgs& a, const DevLane& L, int p, int n, unsigned* take) {
+  const int E = a.e;
+  const float* cap = a.sdev_cap + (size_t)n * E;
+  const uint8_t* ssd = a.sdev_ssd + (size_t)n * E;
+  unsigned avail = 0, took = 0;
+  for (int e = 0; e < E; ++e)
+    if (!L.sdev_taken[(size_t)n * E + e] && cap[e] > 0.0f) avail |= 1u << e;
+  bool ok = true;
+  for (int j = 0; j < a.ev; ++j) {
+    const float size = a.sdev_req[(size_t)p * a.ev + j];
+    if (!(size > 0.0f)) continue;
+    const bool wants = a.sdev_req_ssd[(size_t)p * a.ev + j] != 0;
+    int pick = -1;
+    for (int e = 0; e < E; ++e)
+      if (((avail >> e) & 1u) && cap[e] >= size && (ssd[e] != 0) == wants &&
+          (pick < 0 || cap[e] < cap[pick]))
+        pick = e;
+    if (pick < 0) {
+      ok = false;
+      continue;
+    }
+    took |= 1u << pick;
+    avail &= ~(1u << pick);
+  }
+  if (take) *take = took;
+  return ok;
+}
+
+// WaitForFirstConsumer matching at node n (reference wfc_claims_ok): each
+// claim in turn takes the first free candidate among the node's admitted
+// PVs (ascending id = smallest fit) that no earlier claim of the pod chose.
+// A pod's valid slots come first (the launcher checks), and a padded slot
+// can only take a PV from the padded slots after it, so the walk stops at
+// the first padded slot: the verdict is the reference's.
+__device__ bool wfc_fits(const StepArgs& a, const uint8_t* pv_taken, int p, int n) {
+  int chosen[kMaxLw];
+  bool ok = true;
+  const int lo = a.pv_ptr[n], hi = a.pv_ptr[n + 1];
+  for (int j = 0; j < a.lw && a.wfc_valid[(size_t)p * a.lw + j]; ++j) {
+    const uint8_t* cand = a.pv_cand + (size_t)a.wfc_ccid[(size_t)p * a.lw + j] * a.npv;
+    int found = -1;
+    for (int i = lo; i < hi && found < 0; ++i) {
+      const int pv = a.pv_idx[i];
+      if (!cand[pv] || pv_taken[pv]) continue;
+      bool dup = false;
+      for (int c = 0; c < j; ++c) dup |= chosen[c] == pv;
+      if (!dup) found = pv;
+    }
+    chosen[j] = found;
+    if (found < 0) ok = false;
+  }
+  return ok;
+}
+
+// the pod's attach demand on node n under limit key k: its unshared
+// claims, then each shared volume not yet on the node (every mount when
+// dedup is off), in slot order
+__device__ float vol_demand(const StepArgs& a, const DevLane& L, int fl, int p, int n, int k) {
+  float dmd = a.vol_limit_req[(size_t)p * a.lk + k];
+  if (a.lsv) {
+    float sv = 0.0f;
+    for (int sl = 0; sl < a.lsv; ++sl) {
+      const int vid = a.svol_id[(size_t)p * a.lsv + sl];
+      const int vc = max(vid, 0);
+      const bool add = (fl & F_VOL_DEDUP) ? (vid >= 0 && !L.svol_on[(size_t)n * a.nsv + vc])
+                                         : vid >= 0;
+      sv = __fadd_rn(sv, (add && a.svol_key[vc] == k) ? 1.0f : 0.0f);
+    }
+    dmd = __fadd_rn(dmd, sv);
+  }
+  return dmd;
+}
+
+__device__ bool limits_ok(const StepArgs& a, const DevLane& L, int fl, int p, int n) {
+  for (int k = 0; k < a.lk; ++k)
+    if (!(__fadd_rn(L.vol_cnt[(size_t)n * a.lk + k], vol_demand(a, L, fl, p, n, k)) <=
+          a.vol_limit_cap[(size_t)n * a.lk + k]))
+      return false;
+  return true;
+}
+
+// the device-resource bind of pod p on node fin (-1: unbound), by one
+// thread: the GPU pick and debit, the storage plan's row, the PV picks,
+// the attach counts and the shared-volume presence; and the pod's
+// gpu_pick / vol_pick output rows
+__device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int fin, size_t o) {
+  if (fl & F_GPU) {
+    int32_t* gp = a.out_gpu_pick + o * a.g;
+    if (fin >= 0) {
+      gpu_pick(a, L, p, fin, gp);
+      float* used = L.gpu_used + (size_t)fin * a.g;
+      const float mem = a.gpu_mem[p];
+      for (int g = 0; g < a.g; ++g) used[g] = __fadd_rn(used[g], __fmul_rn((float)gp[g], mem));
+    } else {
+      for (int g = 0; g < a.g; ++g) gp[g] = 0;
+    }
+  }
+  int32_t* vp = (fl & F_PV_MATCH) ? a.out_vol_pick + o * a.lw : nullptr;
+  if (fin < 0) {
+    if (vp)
+      for (int j = 0; j < a.lw; ++j) vp[j] = -1;
+    return;
+  }
+  if (fl & F_STORAGE) {
+    float add[kMaxV];
+    unsigned take = 0;
+    lvm_pack(a, L, p, fin, add);
+    device_match(a, L, p, fin, &take);
+    float* vg = L.vg_used + (size_t)fin * a.v;
+    for (int v = 0; v < a.v; ++v) vg[v] = __fadd_rn(vg[v], add[v]);
+    for (int e = 0; e < a.e; ++e)
+      if ((take >> e) & 1u) L.sdev_taken[(size_t)fin * a.e + e] = 1;
+  }
+  if (vp) {
+    const int lo = a.pv_ptr[fin], hi = a.pv_ptr[fin + 1];
+    for (int j = 0; j < a.lw; ++j) {
+      vp[j] = -1;
+      if (!a.wfc_valid[(size_t)p * a.lw + j]) continue;  // an invalid slot takes nothing
+      const uint8_t* cand = a.pv_cand + (size_t)a.wfc_ccid[(size_t)p * a.lw + j] * a.npv;
+      for (int i = lo; i < hi; ++i) {
+        const int pv = a.pv_idx[i];
+        if (cand[pv] && !L.pv_taken[pv]) {
+          L.pv_taken[pv] = 1;
+          vp[j] = pv;
+          break;
+        }
+      }
+    }
+  }
+  if (fl & F_VOL_LIMITS) {
+    // the demand reads the presence carry before this pod's volumes join it
+    for (int k = 0; k < a.lk; ++k) {
+      float* cell = L.vol_cnt + (size_t)fin * a.lk + k;
+      *cell = __fadd_rn(*cell, vol_demand(a, L, fl, p, fin, k));
+    }
+    if (fl & F_VOL_DEDUP)
+      for (int sl = 0; sl < a.lsv; ++sl) {
+        const int vid = a.svol_id[(size_t)p * a.lsv + sl];
+        if (vid >= 0) L.svol_on[(size_t)fin * a.nsv + vid] = 1;
+      }
+  }
+}
+
+template <bool kInterpod, bool kDevRes>
 __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
-  // (+ interpod lo/hi)
-  constexpr int kLive = kInterpod ? kRows : kRows - 2;
+  // (+ interpod lo/hi) (+ GPU lo/hi)
+  constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
+  constexpr int kLive = kDevRes ? kRows : (kInterpod ? kRows - 2 : kRows - 4);
   const int N = a.n, R = a.r, D = a.d, SG = a.sg, PT = a.pt, CS = a.cs;
   const int Q = a.a + a.b + a.cs + a.ap;
   extern __shared__ int s_dyn[];
@@ -299,11 +639,11 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
   int* s_qmin = s_qtot + Q;        // [Q] column min over hostname-eligible nodes
   int* s_qneed = s_qmin + Q;       // [Q] kNeed* bits
   float* s_minval = reinterpret_cast<float*>(s_qneed + Q);  // [Cs] hard-spread minimum
-  __shared__ float s_redf[kRows][kWarps];
+  __shared__ float s_redf[kRowsT][kWarps];
   __shared__ int s_redc[kWarps];
   __shared__ float s_best[kWarps];
   __shared__ int s_bidx[kWarps];
-  __shared__ float s_fin[kRows];
+  __shared__ float s_fin[kRowsT];
   __shared__ int s_fin_cnt;
   __shared__ float s_top;
   __shared__ int s_sel;
@@ -312,6 +652,8 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
+  // (an instantiation without kDevRes is launched only when no
+  // device-resource flag is set, and reads none of them)
   const int fl = kInterpod ? a.flags : (a.flags & ~kInterpodFlags);
   const bool fail = fl & F_FAIL, use_sp = fl & F_SP, gc_path = fl & F_GC;
   const bool bf16 = fl & F_GC_BF16, tb_bf16 = fl & F_TB_BF16;
@@ -331,10 +673,16 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
   const size_t gc_base = (size_t)lane * N * SG;
   const size_t tb_base = (size_t)lane * N * a.t;
   float* pref_paint = a.pref_paint + (size_t)lane * N * a.t2;
-  float* sc_base = a.scratch + (size_t)lane * 4 * N;
+  float* sc_base = a.scratch + (size_t)lane * (kDevRes ? 5 : 4) * N;
   float* sc_spread = sc_base + N;
   float* sc_simon = sc_base + 2 * (size_t)N;
   float* sc_ip = sc_base + 3 * (size_t)N;
+  float* sc_gpu = sc_base + 4 * (size_t)N;
+  const DevLane L = kDevRes
+      ? DevLane{a.gpu_used + (size_t)lane * N * a.g, a.vg_used + (size_t)lane * N * a.v,
+                a.sdev_taken + (size_t)lane * N * a.e, a.pv_taken + (size_t)lane * a.npv,
+                a.vol_cnt + (size_t)lane * N * a.lk, a.svol_on_node + (size_t)lane * N * a.nsv}
+      : DevLane{};
   uint8_t* sc_flag = a.scratch_flags + (size_t)lane * N;
 
   // ---- the lane prologue: this lane's carry slice from the template
@@ -348,6 +696,14 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     block_copy(static_cast<uint8_t*>(a.term_block) + tb_base * tb_el, a.tmpl_term_block,
                (size_t)N * a.t * tb_el);
     block_copy(pref_paint, a.tmpl_pref_paint, (size_t)N * a.t2 * sizeof(float));
+    if constexpr (kDevRes) {
+      block_copy(L.gpu_used, a.tmpl_gpu_used, (size_t)N * a.g * sizeof(float));
+      block_copy(L.vg_used, a.tmpl_vg_used, (size_t)N * a.v * sizeof(float));
+      block_copy(L.sdev_taken, a.tmpl_sdev_taken, (size_t)N * a.e);
+      block_copy(L.pv_taken, a.tmpl_pv_taken, (size_t)a.npv);
+      block_copy(L.vol_cnt, a.tmpl_vol_cnt, (size_t)N * a.lk * sizeof(float));
+      block_copy(L.svol_on, a.tmpl_svol_on_node, (size_t)N * a.nsv);
+    }
     __syncthreads();
   }
 
@@ -364,6 +720,8 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     const uint8_t* ssoft = a.spread_soft + (size_t)p * CS;
     const uint8_t* shard = a.spread_hard + (size_t)p * CS;
     const uint8_t* elig_host = elig_host_l + (size_t)cid * N;
+    const int vcid = kDevRes ? a.vol_cid[p] : 0;
+    const bool pv_missing = kDevRes && a.vol_pv_missing[p];
     bool any_soft = false;
     if (use_sp)
       for (int c = 0; c < CS; ++c) any_soft |= ssoft[c] != 0;
@@ -451,7 +809,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
 
     // ---- phase 1: filters, first-fail histogram, raw scores, local minima
     float m_na = kBig, m_tt = kBig, m_slo = kBig, m_shi = kBig, m_ilo = kBig, m_ihi = kBig;
-    float m_plo = kBig, m_phi = kBig;
+    float m_plo = kBig, m_phi = kBig, m_glo = kBig, m_ghi = kBig;
     int cnt = 0;
     for (int it = 0; it < iters; ++it) {
       const int n = it * kThreads + tid;
@@ -532,6 +890,24 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
               break;
             }
           }
+        }
+        // the device-resource rows, in the reference's order: GPU,
+        // storage, volume node affinity, volume zone, volume binding (the
+        // static class row, then the PV match), missing PV, attach limits
+        if constexpr (kDevRes) {
+          if (ff < 0 && (fl & F_GPU) && !gpu_fits(a, L, p, n)) ff = 7 + R;
+          if (ff < 0 && (fl & F_STORAGE) &&
+              !(lvm_pack(a, L, p, n, nullptr) && device_match(a, L, p, n, nullptr)))
+            ff = 8 + R;
+          if (ff < 0 && (fl & F_VOL_STATIC)) {
+            const size_t cv = (size_t)vcid * N + n;
+            if (!a.class_vol_node[cv]) ff = 9 + R;
+            else if (!a.class_vol_zone[cv]) ff = 10 + R;
+            else if (!a.class_vol_bind[cv]) ff = 11 + R;
+          }
+          if (ff < 0 && (fl & F_PV_MATCH) && !wfc_fits(a, L.pv_taken, p, n)) ff = 11 + R;
+          if (ff < 0 && (fl & F_VOL_STATIC) && pv_missing) ff = 12 + R;
+          if (ff < 0 && (fl & F_VOL_LIMITS) && !limits_ok(a, L, fl, p, n)) ff = 13 + R;
         }
         const bool mask = act && ff < 0;
         if (act && ff >= 0) charged_op = ff;
@@ -620,6 +996,15 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
             m_ilo = fminf(m_ilo, raw_si);
             m_ihi = fminf(m_ihi, -raw_si);
           }
+          // GPU share: the request's share of the node's free GPU memory
+          if constexpr (kDevRes) {
+            if (fl & F_GPU) {
+              const float raw_gp = gpu_raw(a, L, p, n);
+              sc_gpu[n] = raw_gp;
+              m_glo = fminf(m_glo, raw_gp);
+              m_ghi = fminf(m_ghi, -raw_gp);
+            }
+          }
         }
         sc_flag[n] = flag;
       }
@@ -631,11 +1016,18 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
       }
     }
     {
-      const float mins[kRows] = {m_na, m_tt, m_slo, m_shi, m_ilo, m_ihi, m_plo, m_phi};
+      const float mins[kRows - 2] = {m_na, m_tt, m_slo, m_shi, m_ilo, m_ihi, m_plo, m_phi};
 #pragma unroll
-      for (int q = 0; q < kLive; ++q) {
+      for (int q = 0; q < (kDevRes ? kLive - 2 : kLive); ++q) {
         const float v = warp_min(mins[q]);
         if (lid == 0) s_redf[q][wid] = v;
+      }
+      if constexpr (kDevRes) {
+        const float glo = warp_min(m_glo), ghi = warp_min(m_ghi);
+        if (lid == 0) {
+          s_redf[kRows - 2][wid] = glo;
+          s_redf[kRows - 1][wid] = ghi;
+        }
       }
     }
     cnt = __reduce_add_sync(kFull, cnt);
@@ -652,7 +1044,8 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     __syncthreads();
 
     // ---- phase 2: normalizers, final score in the reference's add order
-    // (resources, node affinity, taint, interpod, spread, Simon), selectHost
+    // (resources, node affinity, taint, interpod, spread, Simon, GPU),
+    // selectHost
     const float hi_na = -s_fin[0];
     const float inv_na = hi_na > 0.0f ? __fdiv_rn(100.0f, hi_na) : 0.0f;
     const float hi_tt = -s_fin[1];
@@ -670,6 +1063,11 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     const float ip_lo = kInterpod ? s_fin[6] : 0.0f;
     const float ip_rng = kInterpod ? __fsub_rn(-s_fin[7], ip_lo) : 0.0f;
     const float inv_ip = ip_rng > 0.0f ? __fdiv_rn(100.0f, ip_rng) : 0.0f;
+    const float gp_lo = kDevRes ? s_fin[kRowsT - 2] : 0.0f;
+    const float gp_rng = kDevRes ? __fsub_rn(-s_fin[kRowsT - 1], gp_lo) : 0.0f;
+    const float inv_gp = gp_rng > 0.0f ? __fdiv_rn(100.0f, gp_rng) : 0.0f;
+    // a pod without a GPU request scores 0 on the GPU row
+    const float gp_w = kDevRes ? __fmul_rn(a.w_gpu, a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
 
     float best = -INFINITY;
     int bidx = 0x7fffffff;
@@ -698,6 +1096,11 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
         if (fl & F_SI)
           score = __fadd_rn(score, __fmul_rn(a.w_si, __fmul_rn(
               __fsub_rn(sc_simon[n], si_lo), inv_si)));
+        if constexpr (kDevRes) {
+          if (fl & F_GPU)
+            score = __fadd_rn(score, __fmul_rn(gp_w, __fmul_rn(
+                __fsub_rn(sc_gpu[n], gp_lo), inv_gp)));
+        }
         ms = score;
       }
       if (ms > best) {  // nodes ascend per thread: ties keep the lower index
@@ -789,6 +1192,9 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
         }
       }
     }
+    if constexpr (kDevRes) {
+      if (tid == 0) dev_bind(a, L, fl, p, fin, o);
+    }
     __syncthreads();
   }
 }
@@ -801,8 +1207,10 @@ extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   const int q = args->a + args->b + args->cs + args->ap;
   const size_t smem =
       (size_t)(args->ops + q * args->d + 3 * q) * sizeof(int) + (size_t)args->cs * sizeof(float);
-  void (*kernel)(StepArgs) = (args->flags & kInterpodFlags) ? plain_step_kernel<true>
-                                                           : plain_step_kernel<false>;
+  const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
+  void (*kernel)(StepArgs) =
+      devres ? (interpod ? plain_step_kernel<true, true> : plain_step_kernel<false, true>)
+             : (interpod ? plain_step_kernel<true, false> : plain_step_kernel<false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -9,9 +9,13 @@ for the ops this package runs — the plain-fit ops (unschedulable, class
 node affinity, class taints, host ports, fit per resource), required pod
 affinity and anti-affinity (both directions, the ``slot_paint`` and the
 dense form), hard and soft PodTopologySpread on both of its carries (the
-per-domain ``dom_count`` and the per-node ``group_count``) and the
-interpod preference score with its ``pref_paint`` carry. Every other gate
-raises NotImplementedError naming the ROADMAP item that ports it.
+per-domain ``dom_count`` and the per-node ``group_count``), the
+interpod preference score with its ``pref_paint`` carry, and the
+device-resource ops: GPU share (filter, score, device pick), open-local
+storage (LVM packing, exclusive devices), the static volume class masks,
+WaitForFirstConsumer PV matching, attach limits and shared-volume dedup.
+Every other gate raises NotImplementedError naming the ROADMAP item that
+ports it.
 
 ``schedule_lanes`` runs S lanes (active masks) in one launch and
 ``schedule_pods`` is its one-lane case. On a CUDA device the pod loop is
@@ -35,7 +39,7 @@ from open_simulator_tpu_torch.encode.snapshot import (
     ClusterSnapshot,
     SnapshotArrays,
 )
-from open_simulator_tpu_torch.ops import filters, scores
+from open_simulator_tpu_torch.ops import filters, gpu_share, scores, storage, volumes
 from open_simulator_tpu_torch.ops.domains import ActiveHoist, hoist_active_stats
 
 # fp32 everywhere, and no TF32 in the prefix fold's matmuls: encoded counts
@@ -116,12 +120,6 @@ class EngineConfig(NamedTuple):
 
 # gate -> the ROADMAP item that ports it (queue 1 unless noted)
 _UNSUPPORTED = (
-    ("enable_gpu", "queue 1, item 3 (device-resource slice)"),
-    ("enable_storage", "queue 1, item 3 (device-resource slice)"),
-    ("enable_vol_static", "queue 1, item 3 (device-resource slice)"),
-    ("enable_pv_match", "queue 1, item 3 (device-resource slice)"),
-    ("enable_vol_limits", "queue 1, item 3 (device-resource slice)"),
-    ("enable_vol_dedup", "queue 1, item 3 (device-resource slice)"),
     ("extensions", "queue 1, item 7 (remaining engine modes)"),
     ("explain_topk", "queue 1, item 7 (remaining engine modes)"),
     ("tie_break_seed", "queue 1, item 7 (remaining engine modes)"),
@@ -140,10 +138,7 @@ def check_supported(cfg: EngineConfig) -> None:
 @dataclass
 class SimState:
     """The carry — the reference's twelve ``SimState`` arrays as tensors.
-    A lane-batched carry has a leading [S] axis on every field. This
-    package's step reads and writes headroom, ports_used, group_count /
-    dom_count, term_block and pref_paint; the rest stay zero until their
-    ops are ported."""
+    A lane-batched carry has a leading [S] axis on every field."""
 
     headroom: torch.Tensor      # [N, R] f32 = alloc - used
     group_count: torch.Tensor   # [N, S] bf16 | f32
@@ -166,6 +161,8 @@ class ScheduleOutput(NamedTuple):
     node: torch.Tensor         # [P] i32, -1 = unscheduled
     fail_counts: torch.Tensor  # [P, OPS] i32
     feasible: torch.Tensor     # [P] i32 feasible-node count
+    gpu_pick: torch.Tensor     # [P, G] i32 per-device GPU multiplicities (G = 0 when gated off)
+    vol_pick: torch.Tensor     # [P, Lw] i32 PV id bound per WFC claim slot, -1 none (Lw = 0 off)
     state: SimState
 
 
@@ -224,6 +221,9 @@ def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
     what k steps of the forced fast path would do. fp32 one-hot matmuls
     with TF32 off: the 0/1 weights and integer-valued requests keep every
     sum exact below 2^24, so the fold equals the sequential binds. The
+    GPU, storage and WFC carries depend on the order of the binds, so
+    ``make_config`` cuts the prefix where a pod uses them; the attach
+    counts fold like the requests. The
     anti-affinity term paint and the preferred-term paint go through the
     same-domain rows ``sd_all`` of the reference's ``_apply_prefix_chunk``."""
     f32 = torch.float32
@@ -245,6 +245,9 @@ def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
         ports = state.ports_used
         if cfg.enable_ports:
             ports = ports | ((oh.T @ arrs.ports[lo:hi].to(f32)) > 0)
+        vol_cnt = state.vol_cnt
+        if cfg.enable_vol_limits:
+            vol_cnt = vol_cnt + oh.T @ arrs.vol_limit_req[lo:hi]
         term, pref = state.term_block, state.pref_paint
         if cfg.enable_anti_affinity or cfg.enable_pref:
             # sd_all[key][pod, node]: nodes sharing pod i's node's domain
@@ -269,7 +272,7 @@ def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
                 pref = pref + sd_a.T @ (col * w[:, None])
         state = dataclasses.replace(state, headroom=headroom, group_count=gc,
                                     term_block=term, pref_paint=pref,
-                                    dom_count=dom, ports_used=ports)
+                                    dom_count=dom, ports_used=ports, vol_cnt=vol_cnt)
     return state
 
 
@@ -328,7 +331,7 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     class, selector groups, keys, term ids), so static per-pod choices
     branch on the host the way the reference's gates select code. `hoist`
     is one lane's ActiveHoist. Returns (state, (node, fail_counts,
-    feasible)) with the outputs as device tensors."""
+    feasible, gpu_pick, vol_pick)) with the outputs as device tensors."""
     n_nodes = arrs.alloc.shape[0]
     dev = active.device
     f32 = torch.float32
@@ -463,12 +466,59 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
                 spread_node_ok = spread_node_ok & node_has
                 any_soft = True
 
+    # GPU share and open-local storage (the storage plan's bound-node row
+    # is committed at the bind)
+    gpu_mem, gpu_cnt = arrs.gpu_mem[p], arrs.gpu_cnt[p]
+    ok_gpu = (gpu_share.gpu_fit(state.gpu_used, arrs.gpu_cap_mem, arrs.gpu_slot, gpu_mem,
+                                gpu_cnt, arrs.gpu_has_forced[p])
+              if cfg.enable_gpu else true_v)
+    if cfg.enable_storage:
+        ok_storage, vg_add, sdev_take = storage.storage_fit_and_plan(
+            state.vg_used, arrs.vg_cap, state.sdev_taken, arrs.sdev_cap, arrs.sdev_ssd,
+            arrs.lvm_req[p], arrs.sdev_req[p], arrs.sdev_req_ssd[p])
+    else:
+        ok_storage = true_v
+
+    # VolumeBinding / VolumeZone: the static class masks, then the dynamic
+    # WaitForFirstConsumer PV matching over pv_taken
+    ok_vol_node = ok_vol_zone = ok_vol_bind = ok_pv_exist = true_v
+    if cfg.enable_vol_static:
+        vcid = int(host["vol_cid"][p])
+        ok_vol_node = arrs.class_vol_node[vcid]
+        ok_vol_zone = arrs.class_vol_zone[vcid]
+        ok_vol_bind = arrs.class_vol_bind[vcid]
+        ok_pv_exist = true_v & ~arrs.vol_pv_missing[p]
+    wfc_ccid, wfc_valid = host["wfc_ccid"][p], host["wfc_valid"][p]
+    if cfg.enable_pv_match:
+        wfc_ok = volumes.wfc_claims_ok(state.pv_taken, arrs.pv_cand, arrs.pv_node_ok,
+                                       wfc_ccid, wfc_valid)
+        ok_vol_bind = ok_vol_bind & wfc_ok if ok_vol_bind is not true_v else wfc_ok
+    # NodeVolumeLimits: attachments + demand within every limit key; the
+    # shared-claim slots add their demand too, deduped against the
+    # per-node presence carry (dedup-blind when the dedup gate is off)
+    svol = host["svol_id"][p]
+    if cfg.enable_vol_limits:
+        vol_demand = arrs.vol_limit_req[p][None, :]
+        lk_n = arrs.vol_limit_cap.shape[1]
+        if svol.shape[0]:
+            sv_extra = torch.zeros((n_nodes, lk_n), dtype=f32, device=dev)
+            for vid in svol:
+                vid = int(vid)
+                if cfg.enable_vol_dedup:
+                    add = (vid >= 0) & ~state.svol_on_node[:, max(vid, 0)]
+                else:
+                    add = torch.full((n_nodes,), vid >= 0, dtype=torch.bool, device=dev)
+                key_oh = torch.arange(lk_n, device=dev) == arrs.svol_key[max(vid, 0)]
+                sv_extra = sv_extra + add.to(f32)[:, None] * key_oh.to(f32)[None, :]
+            vol_demand = vol_demand + sv_extra
+        ok_vol_limits = torch.all(state.vol_cnt + vol_demand <= arrs.vol_limit_cap, dim=1)
+    else:
+        ok_vol_limits = true_v
+
     op_masks = [ok_unsched, ok_aff, ok_taint, ok_ports]
     op_masks += [fit[:, r] for r in range(cfg.n_resources)]
-    op_masks += [ok_pod_aff, ok_pod_anti, ok_spread]
-    # gpu, storage and the five volume rows are gated off in this
-    # package's step: constant-true rows
-    op_masks += [true_v] * 7
+    op_masks += [ok_pod_aff, ok_pod_anti, ok_spread, ok_gpu, ok_storage,
+                 ok_vol_node, ok_vol_zone, ok_vol_bind, ok_pv_exist, ok_vol_limits]
     if cfg.fail_reasons:
         ops_ok = torch.stack(op_masks)                             # [OPS, N]
         mask = active & torch.all(ops_ok, dim=0)
@@ -515,6 +565,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         raw_si = scores.simon_max_share_raw(arrs.spec_alloc, req)[arrs.spec_id.long()]
         si_lo = torch.min(torch.where(mask, raw_si, fill(big)))
         si_hi = -torch.min(torch.where(mask, -raw_si, fill(big)))
+    if cfg.enable_gpu:
+        raw_gp = gpu_share.gpu_share_raw(state.gpu_used, arrs.gpu_cap_mem, arrs.gpu_slot,
+                                         gpu_mem, gpu_cnt)
+        gp_lo = torch.min(torch.where(mask, raw_gp, fill(big)))
+        gp_hi = -torch.min(torch.where(mask, -raw_gp, fill(big)))
 
     if use_na:
         score = score + cfg.w_node_aff * scores.max_apply(raw_na, hi_na)
@@ -527,6 +582,10 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
             spread_raw, sp_lo, sp_hi, spread_node_ok, any_soft)
     if use_si:
         score = score + cfg.w_simon * scores.minmax_apply(raw_si, si_lo, si_hi)
+    if cfg.enable_gpu:
+        # a pod without a GPU request scores 0 on the GPU dimension
+        gp_w = torch.tensor(cfg.w_gpu, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
+        score = score + gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi)
 
     # selectHost: max, then the lowest index among exact maxima
     neg_inf = -3.4e38
@@ -612,10 +671,44 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
             tcol = int(host["pref_tid"][p, a])
             w = arrs.pref_weight[p, a] * arrs.pref_valid[p, a].to(f32)
             pref_paint[:, tcol] = pref_paint[:, tcol] + sd_all[int(host["pref_key"][p, a])] * w
-    new_state = dataclasses.replace(state, headroom=headroom, group_count=group_count,
-                                    term_block=term_block, pref_paint=pref_paint,
-                                    dom_count=dom_count, ports_used=ports_used)
-    return new_state, (final_node, fail_counts, feasible_n)
+
+    # the device-resource binds, on the bound node's row
+    gpu_used = state.gpu_used
+    if cfg.enable_gpu:
+        pick = gpu_share.gpu_pick_devices(
+            state.gpu_used[safe_node], arrs.gpu_cap_mem[safe_node], arrs.gpu_slot[safe_node],
+            gpu_mem, gpu_cnt, arrs.gpu_forced[p], arrs.gpu_has_forced[p])
+        pick = pick * (final_node >= 0).to(torch.int32)
+        gpu_used = gpu_used + onehot_n[:, None] * pick.to(f32)[None, :] * gpu_mem
+    else:
+        pick = torch.zeros((0,), dtype=torch.int32, device=dev)
+    vg_used, sdev_taken = state.vg_used, state.sdev_taken
+    if cfg.enable_storage:
+        vg_used = vg_used + onehot_n[:, None] * vg_add[safe_node][None, :]
+        sdev_taken = sdev_taken | ((onehot_n[:, None] > 0) & sdev_take[safe_node][None, :])
+    pv_taken = state.pv_taken
+    if cfg.enable_pv_match:
+        pv_taken, vol_pick = volumes.wfc_pick_for_node(
+            state.pv_taken, arrs.pv_cand, arrs.pv_node_ok[:, safe_node], wfc_ccid, wfc_valid,
+            bool(final_node >= 0))
+    else:
+        vol_pick = torch.zeros((0,), dtype=torch.int32, device=dev)
+    vol_cnt = state.vol_cnt
+    if cfg.enable_vol_limits:
+        # the filter's per-node demand: the bound row's increment is
+        # exactly the new attachments
+        vol_cnt = vol_cnt + onehot_n[:, None] * vol_demand
+    svol_on = state.svol_on_node
+    if cfg.enable_vol_limits and cfg.enable_vol_dedup:
+        nsv = svol_on.shape[1]
+        for vid in svol:
+            sv_oh = torch.arange(nsv, device=dev) == int(vid)
+            svol_on = svol_on | ((onehot_n[:, None] > 0) & sv_oh[None, :])
+    new_state = SimState(headroom=headroom, group_count=group_count, term_block=term_block,
+                         pref_paint=pref_paint, ports_used=ports_used, gpu_used=gpu_used,
+                         vg_used=vg_used, sdev_taken=sdev_taken, dom_count=dom_count,
+                         pv_taken=pv_taken, vol_cnt=vol_cnt, svol_on_node=svol_on)
+    return new_state, (final_node, fail_counts, feasible_n, pick, vol_pick)
 
 
 # what the plain step reads on the host: the per-pod scalars and slot rows
@@ -625,7 +718,7 @@ STEP_HOST_FIELDS = ("class_id", "forced_node", "spread_group", "spread_key",
                     "match_gid", "aff_group", "aff_key", "aff_valid", "aff_self",
                     "anti_group", "anti_key", "anti_valid", "own_tid", "hit_tid",
                     "term_key", "pref_group", "pref_key", "pref_weight", "pref_valid",
-                    "pref_tid")
+                    "pref_tid", "vol_cid", "wfc_ccid", "wfc_valid", "svol_id")
 
 
 def inv_alloc_of(alloc: torch.Tensor) -> torch.Tensor:
@@ -665,7 +758,8 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
                    state: Optional[SimState] = None) -> ScheduleOutput:
     """Schedule the pod sequence once per lane of the [S, N] bool `masks`
     (each lane's active nodes) in one launch; return [S]-batched
-    assignments, reason counts, feasible counts and carries. `arrs` is
+    assignments, reason counts, feasible counts, GPU and PV picks and
+    carries. `arrs` is
     host numpy (the encoder's output); the work runs on `device` (None =
     the card).
 
@@ -701,19 +795,25 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
         template = state
     template = SimState(**{f: getattr(template, f).to(dev).contiguous() for f in STATE_FIELDS})
     carry = lane_carry(template, n_lanes, carry)
-    node, fail_counts, feasible = step_kernels.plain_step(
+    node, fail_counts, feasible, gpu_pick, vol_pick = step_kernels.plain_step(
         arrs_t, masks_t, hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc), carry,
         cfg, k, n_pods, template=template)
     if k:
+        # the prefix holds no GPU or WFC pod (make_config cuts it there)
         node = torch.cat([arrs_t.forced_node[:k].to(torch.int32).expand(n_lanes, k), node], 1)
         feasible = torch.cat([torch.zeros((n_lanes, k), dtype=torch.int32, device=dev),
                               feasible], 1)
+        gpu_pick = torch.cat([torch.zeros((n_lanes, k, gpu_pick.shape[2]), dtype=torch.int32,
+                                          device=dev), gpu_pick], 1)
+        vol_pick = torch.cat([torch.full((n_lanes, k, vol_pick.shape[2]), -1,
+                                         dtype=torch.int32, device=dev), vol_pick], 1)
     if not cfg.fail_reasons:
         fail_counts = step_kernels.no_fail_counts(n_lanes, n_pods, cfg.n_ops, dev)
     elif k:
         fail_counts = torch.cat([torch.zeros((n_lanes, k, cfg.n_ops), dtype=torch.int32,
                                              device=dev), fail_counts], 1)
-    return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible, state=carry)
+    return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible,
+                          gpu_pick=gpu_pick, vol_pick=vol_pick, state=carry)
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
@@ -725,7 +825,8 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
     out = schedule_lanes(arrs, np.asarray(active, dtype=bool)[None], cfg, device=device,
                          state=state)
     return ScheduleOutput(node=out.node[0], fail_counts=out.fail_counts[0],
-                          feasible=out.feasible[0],
+                          feasible=out.feasible[0], gpu_pick=out.gpu_pick[0],
+                          vol_pick=out.vol_pick[0],
                           state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}))
 
 

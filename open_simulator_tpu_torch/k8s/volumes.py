@@ -107,15 +107,6 @@ def pv_admits_node(pv: PersistentVolume, node: Node) -> bool:
     return node_selector_terms_match(node.meta.labels, terms)
 
 
-def pv_zone_admits_node(pv: PersistentVolume, node: Node) -> bool:
-    """VolumeZone: every zone/region label on the PV must be matched by the
-    node's label (value within the PV's legacy __-separated set)."""
-    for key, allowed in pv.zone_labels().items():
-        if node.meta.labels.get(key) not in allowed:
-            return False
-    return True
-
-
 def _pv_matches_claim(pv: PersistentVolume, pvc: PersistentVolumeClaim,
                       claim_key: str) -> bool:
     """pvutil.FindMatchingVolume's static criteria (node affinity checked
@@ -206,6 +197,7 @@ def analyze_volumes(
         f"{p.meta.namespace or 'default'}/{p.meta.name}": p for p in pvcs
     }
     sc_index = {s.meta.name: s for s in storage_classes}
+    claim_refs = {p.claim_ref for p in pv_sorted}
 
     model = VolumeModel(pvs=pv_sorted, pod_volumes=[])
     cand_cache: Dict[str, int] = {}   # claim-spec fingerprint -> class id
@@ -269,8 +261,7 @@ def analyze_volumes(
                 ",".join(sorted(pvc.access_modes)),
                 f"{pvc.request_mib:.3f}",
                 repr(pvc.selector),
-                claim_key if any(
-                    p.claim_ref == claim_key for p in pv_sorted) else "",
+                claim_key if claim_key in claim_refs else "",
             ])
             cid = cand_cache.get(fp)
             if cid is None:
@@ -286,6 +277,48 @@ def analyze_volumes(
     return model
 
 
+def _label_index(nodes: Sequence[Node]) -> Dict[str, Dict[str, List[int]]]:
+    """label key -> value -> indices of the nodes carrying it."""
+    index: Dict[str, Dict[str, List[int]]] = {}
+    for j, node in enumerate(nodes):
+        for k, v in node.meta.labels.items():
+            index.setdefault(k, {}).setdefault(v, []).append(j)
+    return index
+
+
+def _label_in_mask(index, n: int, key: str, values) -> np.ndarray:
+    """[n] bool: the node has label `key` with a value in `values` (the
+    string values; no other value equals a label)."""
+    mask = np.zeros(n, dtype=bool)
+    by_value = index.get(key, {})
+    for v in values:
+        rows = by_value.get(v) if isinstance(v, str) else None
+        if rows:
+            mask[rows] = True
+    return mask
+
+
+def _in_terms_mask(index, n: int, terms) -> Optional[np.ndarray]:
+    """pv_admits_node over every node at once, for node-affinity terms
+    built only of ``In`` expressions (the local-PV and zonal-PV shape):
+    terms ORed, expressions ANDed, an empty term matching nothing. None
+    for any other shape, which the per-node evaluation then takes."""
+    if terms is None:
+        return np.ones(n, dtype=bool)
+    mask = np.zeros(n, dtype=bool)
+    for term in terms:
+        exprs = term.get("matchExpressions") or []
+        if term.get("matchFields") or any(e.get("operator", "In") != "In" for e in exprs):
+            return None
+        if not exprs:
+            continue
+        m = np.ones(n, dtype=bool)
+        for e in exprs:
+            m &= _label_in_mask(index, n, e.get("key", ""), e.get("values") or [])
+        mask |= m
+    return mask
+
+
 def build_volume_masks(
     model: VolumeModel,
     nodes: Sequence[Node],
@@ -296,17 +329,20 @@ def build_volume_masks(
     Returns (vol_cid [P], class_vol_node [Cv, N], class_vol_zone [Cv, N],
     class_vol_bind_static [Cv, N], pv_node_ok [Npv, N])."""
     n = len(nodes)
+    index = _label_index(nodes)
     pv_node_ok = np.ones((model.n_pvs, n), dtype=bool)
     for i, pv in enumerate(model.pvs):
+        fast = _in_terms_mask(index, n, pv.node_affinity_terms)
+        if fast is not None:
+            pv_node_ok[i] = fast
+            continue
         for j, node in enumerate(nodes):
             pv_node_ok[i, j] = pv_admits_node(pv, node)
     pv_zone_ok = np.ones((model.n_pvs, n), dtype=bool)
     for i, pv in enumerate(model.pvs):
-        zl = pv.zone_labels()
-        if not zl:
-            continue
-        for j, node in enumerate(nodes):
-            pv_zone_ok[i, j] = pv_zone_admits_node(pv, node)
+        for key, allowed in pv.zone_labels().items():
+            # VolumeZone: the node's label value lies in the PV's set
+            pv_zone_ok[i] &= _label_in_mask(index, n, key, allowed)
 
     vocab: Dict[bytes, int] = {}
     rows_node: List[np.ndarray] = []

@@ -9,7 +9,9 @@ All three take the same arguments::
      place), cfg, p0, p1, template=None)
 
 and return ``(node [S, P'] i32, fail_counts [S, P', OPS] i32,
-feasible [S, P'] i32)`` for the pods ``p0 <= p < p1`` (P' = p1 - p0).
+feasible [S, P'] i32, gpu_pick [S, P', G] i32, vol_pick [S, P', Lw] i32)``
+for the pods ``p0 <= p < p1`` (P' = p1 - p0); the picks have width 0
+when their gate (``enable_gpu``, ``enable_pv_match``) is off.
 ``arrs`` is the snapshot as tensors on the step's device
 (``engine.scheduler.device_arrays``); ``hoist`` is
 ``engine.scheduler.hoist_of(arrs, active)``.
@@ -54,6 +56,8 @@ F_BAL, F_LEAST, F_MOST = 512, 1024, 2048
 F_GC, F_DOM, F_GC_BF16 = 4096, 8192, 16384
 F_AFF, F_ANTI, F_SPH, F_IP, F_PREF, F_TB_BF16 = 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20
 F_TEMPLATE = 1 << 21
+F_GPU, F_STORAGE, F_VOL_STATIC = 1 << 22, 1 << 23, 1 << 24
+F_PV_MATCH, F_VOL_LIMITS, F_VOL_DEDUP = 1 << 25, 1 << 26, 1 << 27
 
 _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "class_node_aff_score", "class_taint_prefer", "spec_id", "spec_alloc",
@@ -66,14 +70,31 @@ _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "headroom", "ports_used", "dom_count", "group_count", "term_block",
          "pref_paint", "tmpl_headroom", "tmpl_ports_used", "tmpl_dom_count",
          "tmpl_group_count", "tmpl_term_block", "tmpl_pref_paint", "out_node",
-         "out_fail", "out_feasible", "scratch", "scratch_flags")
-# the carry fields the kernel reads and writes (the lane prologue copies
-# these; the launcher copies the rest, which no ported op touches)
+         "out_fail", "out_feasible", "scratch", "scratch_flags",
+         # the device-resource ops
+         "gpu_cap_mem", "gpu_slot", "vg_cap", "sdev_cap", "sdev_ssd", "pv_ptr", "pv_idx",
+         "pv_cand", "class_vol_node", "class_vol_zone", "class_vol_bind", "vol_limit_cap",
+         "svol_key", "gpu_mem", "gpu_cnt", "gpu_forced", "gpu_has_forced", "lvm_req",
+         "sdev_req", "sdev_req_ssd", "vol_cid", "vol_pv_missing", "wfc_ccid", "wfc_valid",
+         "vol_limit_req", "svol_id", "gpu_used", "vg_used", "sdev_taken", "pv_taken",
+         "vol_cnt", "svol_on_node", "tmpl_gpu_used", "tmpl_vg_used", "tmpl_sdev_taken",
+         "tmpl_pv_taken", "tmpl_vol_cnt", "tmpl_svol_on_node", "out_gpu_pick",
+         "out_vol_pick")
+_N_BASE_PTRS = _PTRS.index("gpu_cap_mem")
+# the carry fields the kernel's lane prologue copies from the template, in
+# the struct's order; the device-resource ones only in a launch that runs
+# their ops (otherwise the launcher copies them)
+DEVRES_CARRY = ("gpu_used", "vg_used", "sdev_taken", "pv_taken", "vol_cnt", "svol_on_node")
 KERNEL_CARRY = ("headroom", "ports_used", "dom_count", "group_count", "term_block",
-                "pref_paint")
+                "pref_paint") + DEVRES_CARRY
 _INTS = ("n", "r", "c", "u", "k", "k1", "d", "sg", "pt", "cs", "a", "b", "ap", "t",
-         "t2", "ops", "s", "p0", "p1", "ci", "mi", "flags")
-_FLOATS = ("w_bal", "w_least", "w_most", "w_na", "w_tt", "w_ip", "w_sp", "w_si")
+         "t2", "ops", "s", "p0", "p1", "ci", "mi", "flags", "g", "v", "e", "lv", "ev", "npv",
+         "lw", "lk", "lsv", "nsv")
+_N_BASE_INTS = _INTS.index("g")
+_FLOATS = ("w_bal", "w_least", "w_most", "w_na", "w_tt", "w_ip", "w_sp", "w_si", "w_gpu")
+# per-thread widths of the device-resource walks (kMaxV, kMaxE, kMaxLw in
+# the .cu)
+MAX_VG, MAX_DEVICES, MAX_WFC_CLAIMS = 8, 32, 8
 
 # the block's dynamic shared memory (227 KB per block on Hopper, less the
 # static reduction buffers): OPS + Q*D + 3*Q ints + Cs floats, where
@@ -88,12 +109,25 @@ def smem_bytes(ops: int, q: int, d: int, cs: int) -> int:
 
 
 class StepArgs(ctypes.Structure):
-    _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
-                + [(f, ctypes.c_int) for f in _INTS]
-                + [(f, ctypes.c_float) for f in _FLOATS])
+    # the C struct's order: the fields of the instantiations without the
+    # device-resource ops first (their layout unchanged), then the
+    # device-resource ones
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS[:_N_BASE_PTRS]]
+                + [(f, ctypes.c_int) for f in _INTS[:_N_BASE_INTS]]
+                + [(f, ctypes.c_float) for f in _FLOATS[:-1]]
+                + [(f, ctypes.c_void_p) for f in _PTRS[_N_BASE_PTRS:]]
+                + [(f, ctypes.c_int) for f in _INTS[_N_BASE_INTS:]]
+                + [(f, ctypes.c_float) for f in _FLOATS[-1:]])
 
 
-Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def pick_widths(arrs, cfg: EngineConfig) -> Tuple[int, int]:
+    """(G, Lw) of the gpu_pick / vol_pick outputs: 0 for a gated-off op,
+    so a launch carries no dead buffer."""
+    return (arrs.gpu_slot.shape[1] if cfg.enable_gpu else 0,
+            arrs.wfc_ccid.shape[1] if cfg.enable_pv_match else 0)
 
 
 def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
@@ -137,24 +171,27 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
     fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=torch.int32, device=dev)
             if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
     feas = torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev)
+    g_w, lw = pick_widths(arrs, cfg)
+    gpick = torch.empty((n_lanes, n_out, g_w), dtype=torch.int32, device=dev)
+    vpick = torch.empty((n_lanes, n_out, lw), dtype=torch.int32, device=dev)
     for s in range(n_lanes):
         st = SimState(**{f: getattr(state, f)[s] for f in STATE_FIELDS})
         lane_hoist = ActiveHoist(*(x[s] for x in hoist))
-        nodes, fails, feasible = [], [], []
+        rows = []
         for p in range(p0, p1):
-            st, (nd, fc, fe) = scheduler._step(
-                arrs, host, active[s], cfg, lane_hoist, inv_alloc, st, p)
-            nodes.append(nd)
-            fails.append(fc)
-            feasible.append(fe)
+            st, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, st, p)
+            rows.append(out)
         if n_out:
+            nodes, fails, feasible, gpus, vols = zip(*rows)
             node[s] = torch.stack(nodes)
             feas[s] = torch.stack(feasible)
+            gpick[s] = torch.stack(gpus)
+            vpick[s] = torch.stack(vols)
             if cfg.fail_reasons:
                 fail[s] = torch.stack(fails)
         for f in STATE_FIELDS:
             getattr(state, f)[s].copy_(getattr(st, f))
-    return node, fail, feas
+    return node, fail, feas, gpick, vpick
 
 
 def node_domains(topo_onehot: torch.Tensor) -> torch.Tensor:
@@ -189,7 +226,30 @@ def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
     fl |= F_SPH if cfg.enable_spread_hard else 0
     fl |= F_PREF if cfg.enable_pref else 0
     fl |= F_TB_BF16 if state.term_block.dtype == torch.bfloat16 else 0
+    fl |= F_GPU if cfg.enable_gpu else 0
+    fl |= F_STORAGE if cfg.enable_storage else 0
+    fl |= F_VOL_STATIC if cfg.enable_vol_static else 0
+    fl |= F_PV_MATCH if cfg.enable_pv_match else 0
+    fl |= F_VOL_LIMITS if cfg.enable_vol_limits else 0
+    fl |= F_VOL_DEDUP if cfg.enable_vol_dedup else 0
     return fl
+
+
+def devres_on(cfg: EngineConfig) -> bool:
+    """Does the launch run the device-resource instantiation?"""
+    return bool(cfg.enable_gpu or cfg.enable_storage or cfg.enable_vol_static
+                or cfg.enable_pv_match or cfg.enable_vol_limits or cfg.enable_vol_dedup)
+
+
+def admitted_pv_lists(pv_node_ok: torch.Tensor,
+                      pv_cand: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([Npv, N] bool, [Cc, Npv] bool) -> (ptr [N+1] i32, idx [nnz] i32):
+    each node's admitted PVs in ascending PV id (the capacity-ascending
+    axis, so the first free candidate in a list is the smallest that
+    fits), leaving out the PVs no claim class can take (bound volumes,
+    other classes): no claim ever finds those."""
+    wanted = pv_cand.any(dim=0) if pv_cand.shape[0] else torch.zeros_like(pv_node_ok[:, 0])
+    return term_lists((pv_node_ok & wanted[:, None]).T.contiguous())
 
 
 def term_lists(dense: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,16 +300,28 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     k = arrs.has_key.shape[0]
     ops = cfg.n_ops
     q = a_w + b_w + cs + ap
+    g_w, v_w, e_w = arrs.gpu_slot.shape[1], arrs.vg_cap.shape[1], arrs.sdev_cap.shape[1]
+    n_pv, lw, lk = arrs.pv_node_ok.shape[0], arrs.wfc_ccid.shape[1], arrs.vol_limit_cap.shape[1]
+    lsv, nsv = arrs.svol_id.shape[1], arrs.svol_key.shape[0]
+    gp_w, vp_w = pick_widths(arrs, cfg)
+    devres = devres_on(cfg)
     if smem_bytes(ops, q, d, cs) > _SMEM_LIMIT:
         raise ValueError(
             f"plain_step: {ops} ops + {q} carry columns x {d} domains need "
             f"{smem_bytes(ops, q, d, cs)} bytes of shared memory, over the "
             f"block's {_SMEM_LIMIT}")
+    for what, width, cap in (("volume groups per node", v_w, MAX_VG),
+                             ("exclusive devices per node", e_w, MAX_DEVICES),
+                             ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
+        if devres and width > cap:
+            raise ValueError(f"plain_step: {width} {what}, over the kernel's {cap}")
     if n_out <= 0:
         if template is not None:
             copy_template(state, template)
         empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-        return empty, no_fail_counts(n_lanes, 0, ops, dev), empty
+        return (empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
+                torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
+                torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev))
     soft = arrs.spread_valid & ~arrs.spread_hard
     hard = arrs.spread_valid & arrs.spread_hard
     _check_index("class_id", arrs.class_id, n_cls)
@@ -265,6 +337,14 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     _check_index("pref_key", arrs.pref_key[arrs.pref_valid], k)
     _check_index("pref_tid", arrs.pref_tid[arrs.pref_valid], t2)
     _check_index("term_key", arrs.term_key, k)
+    if devres:
+        _check_index("vol_cid", arrs.vol_cid, arrs.class_vol_node.shape[0])
+        _check_index("wfc_ccid", arrs.wfc_ccid, arrs.pv_cand.shape[0])
+        _check_index("svol_id", arrs.svol_id, nsv)
+        _check_index("svol_key", arrs.svol_key, lk)
+        if lw > 1 and bool((arrs.wfc_valid[:, 1:] & ~arrs.wfc_valid[:, :-1]).any()):
+            raise ValueError("plain_step: a pod's valid WaitForFirstConsumer slots must "
+                             "come before its padded ones")
 
     def u8(t):
         return t.to(torch.uint8).contiguous()
@@ -281,6 +361,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
             raise ValueError(f"plain_step: {name} dtype {dt}")
     hit_ptr, hit_idx = term_lists(arrs.hit_terms)
     own_ptr, own_idx = term_lists(arrs.own_terms)
+    pv_ptr, pv_idx = admitted_pv_lists(arrs.pv_node_ok, arrs.pv_cand)
     tensors = dict(
         inv_alloc=_check("inv_alloc", inv_alloc, torch.float32, (n, r)),
         unschedulable=u8(arrs.unschedulable),
@@ -317,8 +398,23 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         pref_valid=u8(arrs.pref_valid),
         pref_tid=i32(arrs.pref_tid),
         hit_pref=u8(arrs.hit_pref),
+        gpu_cap_mem=f32(arrs.gpu_cap_mem), gpu_slot=f32(arrs.gpu_slot),
+        vg_cap=f32(arrs.vg_cap), sdev_cap=f32(arrs.sdev_cap), sdev_ssd=u8(arrs.sdev_ssd),
+        pv_ptr=pv_ptr, pv_idx=pv_idx, pv_cand=u8(arrs.pv_cand),
+        class_vol_node=u8(arrs.class_vol_node), class_vol_zone=u8(arrs.class_vol_zone),
+        class_vol_bind=u8(arrs.class_vol_bind), vol_limit_cap=f32(arrs.vol_limit_cap),
+        svol_key=i32(arrs.svol_key),
+        gpu_mem=f32(arrs.gpu_mem), gpu_cnt=f32(arrs.gpu_cnt), gpu_forced=i32(arrs.gpu_forced),
+        gpu_has_forced=u8(arrs.gpu_has_forced), lvm_req=f32(arrs.lvm_req),
+        sdev_req=f32(arrs.sdev_req), sdev_req_ssd=u8(arrs.sdev_req_ssd),
+        vol_cid=i32(arrs.vol_cid), vol_pv_missing=u8(arrs.vol_pv_missing),
+        wfc_ccid=i32(arrs.wfc_ccid), wfc_valid=u8(arrs.wfc_valid),
+        vol_limit_req=f32(arrs.vol_limit_req), svol_id=i32(arrs.svol_id),
         active=u8(_check("active", active, torch.bool, (n_lanes, n))),
-        log_dom=_check("log_dom", hoist.log_dom, torch.float32, (n_lanes, k)),
+        # the hoist has one log per one-hot row plus the hostname's (K1 + 1,
+        # which is 2 where the hostname is the only key); keys run below K
+        log_dom=_check("log_dom", hoist.log_dom[:, :k].contiguous(), torch.float32,
+                       (n_lanes, k)),
         elig_host=u8(_check("elig_host", hoist.elig_host, torch.bool, (n_lanes, n_cls, n))),
         domain_has=u8(_check("domain_has", hoist.domain_has, torch.bool,
                              (n_lanes, n_cls, k1, d))),
@@ -329,9 +425,18 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         group_count=_check("group_count", state.group_count, gc_dt, (n_lanes, n, sg)),
         term_block=_check("term_block", state.term_block, tb_dt, (n_lanes, n, t_w)),
         pref_paint=_check("pref_paint", state.pref_paint, torch.float32, (n_lanes, n, t2)),
+        gpu_used=_check("gpu_used", state.gpu_used, torch.float32, (n_lanes, n, g_w)),
+        vg_used=_check("vg_used", state.vg_used, torch.float32, (n_lanes, n, v_w)),
+        sdev_taken=_check("sdev_taken", state.sdev_taken, torch.bool, (n_lanes, n, e_w)),
+        pv_taken=_check("pv_taken", state.pv_taken, torch.bool, (n_lanes, n_pv)),
+        vol_cnt=_check("vol_cnt", state.vol_cnt, torch.float32, (n_lanes, n, lk)),
+        svol_on_node=_check("svol_on_node", state.svol_on_node, torch.bool,
+                            (n_lanes, n, nsv)),
         out_node=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
         out_feasible=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
-        scratch=torch.empty((n_lanes, 4, n), dtype=torch.float32, device=dev),
+        out_gpu_pick=torch.empty((n_lanes, n_out, gp_w), dtype=torch.int32, device=dev),
+        out_vol_pick=torch.empty((n_lanes, n_out, vp_w), dtype=torch.int32, device=dev),
+        scratch=torch.empty((n_lanes, 5, n), dtype=torch.float32, device=dev),
         scratch_flags=torch.empty((n_lanes, n), dtype=torch.uint8, device=dev),
     )
     if cfg.fail_reasons:
@@ -340,8 +445,10 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         for f in STATE_FIELDS:
             _check(f"template {f}", getattr(template, f), getattr(state, f).dtype,
                    getattr(state, f).shape[1:])
-        copy_template(state, template, [f for f in STATE_FIELDS if f not in KERNEL_CARRY])
-        tensors.update({f"tmpl_{f}": getattr(template, f) for f in KERNEL_CARRY})
+        in_kernel = KERNEL_CARRY if devres else [f for f in KERNEL_CARRY
+                                                 if f not in DEVRES_CARRY]
+        copy_template(state, template, [f for f in STATE_FIELDS if f not in in_kernel])
+        tensors.update({f"tmpl_{f}": getattr(template, f) for f in in_kernel})
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"plain_step: {name} is on {t.device}, not {dev}")
@@ -351,9 +458,11 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
         ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
         flags=_flags(cfg, state, template is not None),
+        g=g_w, v=v_w, e=e_w, lv=arrs.lvm_req.shape[1], ev=arrs.sdev_req.shape[1], npv=n_pv,
+        lw=lw, lk=lk, lsv=lsv, nsv=nsv,
         w_bal=cfg.w_balanced, w_least=cfg.w_least, w_most=cfg.w_most,
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
-        w_si=cfg.w_simon)
+        w_si=cfg.w_simon, w_gpu=cfg.w_gpu)
     lib = build.load("plain_step")
     lib.plain_step_launch.argtypes = [ctypes.POINTER(StepArgs), ctypes.c_void_p]
     lib.plain_step_launch.restype = ctypes.c_int
@@ -364,4 +473,5 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         raise RuntimeError(f"plain_step launch failed: CUDA error {err}")
     LAUNCHES["plain_step"] += 1
     fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
-    return tensors["out_node"], fail, tensors["out_feasible"]
+    return (tensors["out_node"], fail, tensors["out_feasible"], tensors["out_gpu_pick"],
+            tensors["out_vol_pick"])

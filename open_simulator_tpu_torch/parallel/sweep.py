@@ -130,18 +130,32 @@ def _lane_stats(alloc, cpu_i, mem_i, vg_cap, has_storage, lane_active,
     return _LaneStats(ok, c_pct, m_pct, sat)
 
 
+class _Lanes(NamedTuple):
+    """One launch's lanes on the host (the state stays on the device)."""
+
+    nodes: np.ndarray              # [S, P] i32
+    fail: Optional[np.ndarray]     # [S, P, OPS], None without reasons
+    headroom: np.ndarray           # [S, N, R]
+    vg_used: np.ndarray            # [S, N, V]
+    gpu_pick: Optional[np.ndarray]  # [S, P, G] under enable_gpu
+    vol_pick: Optional[np.ndarray]  # [S, P, Lw] under enable_pv_match
+    state: object
+
+
 def _run_lanes(snapshot: ClusterSnapshot, masks: np.ndarray, cfg: EngineConfig,
-               device, carry=None):
-    """One launch over the lanes -> (nodes [S, P] i32, fail counts
-    [S, P, OPS] or None, headroom [S, N, R], vg_used [S, N, V], output
-    state) on the host, the state left on the device for the next round."""
+               device, carry=None) -> _Lanes:
+    """One launch over the lanes, hosted; the state is left on the device
+    for the next round."""
     out = schedule_lanes(snapshot.arrays, masks, cfg, device=device, carry=carry)
     headroom = out.state.headroom.cpu().numpy()
     if not np.all(np.isfinite(headroom)):
         raise FloatingPointError("capacity sweep: a lane's headroom is not finite")
-    fail = out.fail_counts.cpu().numpy() if cfg.fail_reasons else None
-    return (out.node.cpu().numpy(), fail, headroom, out.state.vg_used.cpu().numpy(),
-            out.state)
+    return _Lanes(out.node.cpu().numpy(),
+                  out.fail_counts.cpu().numpy() if cfg.fail_reasons else None,
+                  headroom, out.state.vg_used.cpu().numpy(),
+                  out.gpu_pick.cpu().numpy() if cfg.enable_gpu else None,
+                  out.vol_pick.cpu().numpy() if cfg.enable_pv_match else None,
+                  out.state)
 
 
 def _snapshot_stats(snapshot: ClusterSnapshot):
@@ -174,7 +188,8 @@ def capacity_sweep(
     _refuse_unported(mesh, retries, backoff_s, isolate_trials)
     masks = active_masks_for_counts(snapshot, counts)
     sweep_cfg = cfg if fail_reasons else cfg._replace(fail_reasons=False)
-    nodes, fail, headroom, vg_used, _ = _run_lanes(snapshot, masks, sweep_cfg, device)
+    lanes = _run_lanes(snapshot, masks, sweep_cfg, device)
+    nodes, fail, headroom, vg_used = lanes.nodes, lanes.fail, lanes.headroom, lanes.vg_used
     if fail is None:
         fail = np.zeros((len(counts), snapshot.n_pods, sweep_cfg.n_ops), dtype=np.int32)
     alloc, cpu_i, mem_i, vg_cap, has_storage = _snapshot_stats(snapshot)
@@ -202,6 +217,8 @@ def capacity_sweep(
         best_count=best,
         nodes_per_scenario=nodes,
         fail_counts=fail,
+        gpu_pick=lanes.gpu_pick,
+        vol_pick=lanes.vol_pick,
     )
 
 
@@ -260,15 +277,17 @@ def capacity_bisect(
             return
         cs = list(new) + [new[-1]] * (lanes - len(new))
         masks = active_masks_for_counts(snapshot, cs)
-        nodes, _, headroom, vg_used, state = _run_lanes(
-            snapshot, masks, sweep_cfg, device, carry=carry_holder["carry"])
-        carry_holder["carry"] = state
+        got = _run_lanes(snapshot, masks, sweep_cfg, device, carry=carry_holder["carry"])
+        carry_holder["carry"] = got.state
         for i, c in enumerate(cs):
             if c in records:
                 continue
             stats = _lane_stats(alloc, cpu_i, mem_i, vg_cap, has_storage, masks[i],
-                                nodes[i], headroom[i], vg_used[i], None, thresholds)
-            records[c] = dict(nodes=nodes[i], stats=stats)
+                                got.nodes[i], got.headroom[i], got.vg_used[i], None,
+                                thresholds)
+            records[c] = dict(nodes=got.nodes[i], stats=stats,
+                              gpu=None if got.gpu_pick is None else got.gpu_pick[i],
+                              vol=None if got.vol_pick is None else got.vol_pick[i])
 
     probe(_probe_ladder(max_new, lanes))
 
@@ -301,4 +320,7 @@ def capacity_bisect(
         best_count=hi,
         nodes_per_scenario=np.stack([records[c]["nodes"] for c in probed]),
         fail_counts=np.zeros((len(probed), snapshot.n_pods, cfg.n_ops), dtype=np.int32),
+        gpu_pick=(np.stack([records[c]["gpu"] for c in probed]) if cfg.enable_gpu else None),
+        vol_pick=(np.stack([records[c]["vol"] for c in probed])
+                  if cfg.enable_pv_match else None),
     )

@@ -13,6 +13,8 @@ hide regressions).
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 
 
@@ -234,3 +236,242 @@ def soft_spread_cluster(n_nodes: int, n_pods: int, seed: int = 0,
                                   "labels": {"app": app}},
                      "spec": spec})
     return nodes, pods
+
+
+EBS_LIMIT_KEY = "attachable-volumes-csi-ebs.csi.aws.com"
+# kube-scheduler 1.23's DefaultMaxEBSNitroVolumeLimit
+EBS_NITRO_LIMIT = 25
+_GIB = 1 << 30
+
+
+def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0):
+    """The device-resource cluster: plain manifest dicts (Nodes, Pods,
+    PersistentVolumeClaims, PersistentVolumes, one StorageClass), so each
+    package builds its own objects through ``demux_object``.
+
+    Nodes, by index i (the repository's examples, at scale):
+
+    * i % 4 == 0: GPU-share nodes, alternating 8 x 32 GiB (64 CPU,
+      256 Gi) and 4 x 16 GiB (32 CPU, 128 Gi) (``cluster/gpushare``);
+    * i % 4 == 1: open-local nodes with VGs of 100 and 50 GiB and devices
+      of 100 GiB hdd and 200 GiB ssd (``cluster/open-local/store-a.json``)
+      and two local PVs each, 20 and 100 GiB, on a no-provisioner
+      WaitForFirstConsumer class with hostname node affinity
+      (``cluster/stateful``);
+    * the rest: 16 CPU / 64 Gi workers; every 64th node (i % 64 == 2) is
+      already at its 25 EBS attachments: five pods bound to it by
+      ``spec.nodeName`` mount five EBS claims each.
+
+    Every node declares the EBS CSI attach limit of 25 and carries a zone
+    label (both the well-known key and the EBS driver's topology key).
+
+    Pods, after the bound ones, all with ``synthetic_objects``' cpu and
+    memory requests and its soft zone spread:
+
+    * i % 5 == 0 (20%): GPU share, 4-16 GiB per device; one in ten asks
+      for 2 or 4 devices; one in a hundred is bound to a GPU node with a
+      pinned ``gpu-index``;
+    * i % 20 == 1 (5%): one or two open-local LVM volumes of 5-40 GiB;
+    * i % 50 == 11 (2%): an exclusive hdd (20-100 GiB) or ssd (50-200
+      GiB) device;
+    * i % 25 == 3 (4%): a StatefulSet replica with one
+      WaitForFirstConsumer claim (5-20 GiB, so any local PV holds it) on
+      the local class;
+    * i % 20 == 7 (5%): a bound EBS claim whose PV is zonal (half pinned
+      by the CSI driver's node affinity, half by the zone label); a
+      quarter of them share their claim with the next such pod.
+
+    The groups are disjoint, apart from LVM pods that also take a device
+    (no GPU node holds local storage), and sized so that every pod fits
+    the cluster as it is: a capacity plan adds GPU nodes, which bring no
+    local storage or PVs.
+    """
+    rng = np.random.RandomState(seed)
+    zone_key, ebs_zone_key = "topology.kubernetes.io/zone", "topology.ebs.csi.aws.com/zone"
+    objs, pods, pvcs, pvs = [], [], [], []
+    zones = [f"z{rng.randint(4)}" for _ in range(n_nodes)]
+
+    def local_pv(name, node, gib):
+        return {"apiVersion": "v1", "kind": "PersistentVolume",
+                "metadata": {"name": name},
+                "spec": {"capacity": {"storage": f"{gib}Gi"}, "accessModes": ["ReadWriteOnce"],
+                         "storageClassName": "local-disks",
+                         "nodeAffinity": {"required": {"nodeSelectorTerms": [{
+                             "matchExpressions": [{"key": "kubernetes.io/hostname",
+                                                   "operator": "In", "values": [node]}]}]}}},
+                "status": {"phase": "Available"}}
+
+    def ebs_claim(claim, zone, by_affinity):
+        pv = {"apiVersion": "v1", "kind": "PersistentVolume",
+              "metadata": {"name": f"pv-{claim}", "labels": {}},
+              "spec": {"capacity": {"storage": "50Gi"}, "accessModes": ["ReadWriteOnce"],
+                       "storageClassName": "ebs-gp3",
+                       "csi": {"driver": "ebs.csi.aws.com", "volumeHandle": f"vol-{claim}"},
+                       "claimRef": {"namespace": "default", "name": claim}},
+              "status": {"phase": "Bound"}}
+        if by_affinity:
+            pv["spec"]["nodeAffinity"] = {"required": {"nodeSelectorTerms": [{
+                "matchExpressions": [{"key": ebs_zone_key, "operator": "In",
+                                      "values": [zone]}]}]}}
+        else:
+            pv["metadata"]["labels"][zone_key] = zone
+        pvs.append(pv)
+        pvcs.append({"apiVersion": "v1", "kind": "PersistentVolumeClaim",
+                     "metadata": {"name": claim, "namespace": "default"},
+                     "spec": {"accessModes": ["ReadWriteOnce"], "storageClassName": "ebs-gp3",
+                              "resources": {"requests": {"storage": "50Gi"}},
+                              "volumeName": f"pv-{claim}"},
+                     "status": {"phase": "Bound"}})
+
+    nodes = []
+    for i in range(n_nodes):
+        name = f"n{i}"
+        labels = {zone_key: zones[i], ebs_zone_key: zones[i], "kubernetes.io/hostname": name}
+        alloc = {"cpu": "16", "memory": "64Gi", "pods": 110, EBS_LIMIT_KEY: EBS_NITRO_LIMIT}
+        annotations = {}
+        if i % 4 == 0:
+            big = (i // 4) % 2 == 0
+            alloc.update({"cpu": "64" if big else "32", "memory": "256Gi" if big else "128Gi",
+                          "alibabacloud.com/gpu-count": "8" if big else "4",
+                          "alibabacloud.com/gpu-mem": "256" if big else "64"})
+            labels["alibabacloud.com/gpu-card-model"] = "A100" if big else "T4"
+        elif i % 4 == 1:
+            annotations["simon.tpu/node-local-storage"] = json.dumps({
+                "vgs": [{"name": "pool0", "capacity": str(100 * _GIB), "requested": "0"},
+                        {"name": "pool1", "capacity": str(50 * _GIB), "requested": "0"}],
+                "devices": [{"name": "/dev/vdb", "device": "/dev/vdb",
+                             "capacity": str(100 * _GIB), "mediaType": "hdd",
+                             "isAllocated": "false"},
+                            {"name": "/dev/vdc", "device": "/dev/vdc",
+                             "capacity": str(200 * _GIB), "mediaType": "ssd",
+                             "isAllocated": "false"}]})
+            pvs.append(local_pv(f"local-{name}-small", name, 20))
+            pvs.append(local_pv(f"local-{name}-big", name, 100))
+        nodes.append({"apiVersion": "v1", "kind": "Node",
+                      "metadata": {"name": name, "labels": labels, "annotations": annotations},
+                      "status": {"allocatable": alloc}})
+
+    def container(cpu=None, mem=None):
+        return {"name": "c", "resources": {"requests": {
+            "cpu": cpu or f"{rng.randint(100, 2000)}m",
+            "memory": mem or f"{rng.randint(64, 2048)}Mi"}}}
+
+    # the bound EBS-heavy pods come first (a cluster dump lists placed pods)
+    for i in range(2, n_nodes, 64):
+        for k in range(5):
+            claims = [f"heavy-{i}-{k}-{v}" for v in range(5)]
+            for c in claims:
+                ebs_claim(c, zones[i], by_affinity=True)
+            pods.append({"apiVersion": "v1", "kind": "Pod",
+                         "metadata": {"name": f"gw-{i}-{k}", "namespace": "default",
+                                      "labels": {"app": "ebs-gateway"}},
+                         "spec": {"nodeName": f"n{i}",
+                                  "containers": [container("100m", "128Mi")],
+                                  "volumes": [{"name": f"v{v}",
+                                               "persistentVolumeClaim": {"claimName": c}}
+                                              for v, c in enumerate(claims)]}})
+    gpu_nodes = list(range(0, n_nodes, 4))
+    ebs_shared = None
+    for i in range(n_pods - len(pods)):
+        app = f"a{i % 8}"
+        spec = {"containers": [container()],
+                "topologySpreadConstraints": [{
+                    "maxSkew": 5, "topologyKey": zone_key,
+                    "whenUnsatisfiable": "ScheduleAnyway",
+                    "labelSelector": {"matchLabels": {"app": app}}}]}
+        meta = {"name": f"p{i}", "namespace": "default", "labels": {"app": app},
+                "annotations": {}}
+        if i % 5 == 0:
+            cnt = 1 if (i // 5) % 10 else int(rng.choice([2, 4]))
+            meta["annotations"]["alibabacloud.com/gpu-mem"] = str(rng.randint(4, 17))
+            if cnt > 1:
+                meta["annotations"]["alibabacloud.com/gpu-count"] = str(cnt)
+            if (i // 5) % 100 == 37:
+                node = gpu_nodes[(i * 7) % len(gpu_nodes)]
+                spec["nodeName"] = f"n{node}"
+                meta["annotations"]["alibabacloud.com/gpu-index"] = "-".join(
+                    str((i + d) % 4) for d in range(cnt))
+        volumes = []
+        if i % 20 == 1:
+            volumes += [{"size": str(int(rng.randint(5, 41)) * _GIB), "kind": "LVM",
+                         "scName": "open-local-lvm"} for _ in range(1 + (i // 20) % 4 // 3)]
+        if i % 50 == 11:
+            ssd = (i // 50) % 2 == 1
+            gib = int(rng.randint(50, 201)) if ssd else int(rng.randint(20, 101))
+            volumes.append({"size": str(gib * _GIB), "kind": "SSD" if ssd else "HDD",
+                            "scName": "open-local-device-ssd" if ssd else "open-local-device-hdd"})
+        if volumes:
+            meta["annotations"]["simon.tpu/pod-local-storage"] = json.dumps({"volumes": volumes})
+        claims = []
+        if i % 25 == 3:
+            sts = f"db{i % 7}"
+            meta["name"] = f"{sts}-{i}"
+            meta["labels"]["statefulset.kubernetes.io/pod-name"] = meta["name"]
+            claim = f"data-{meta['name']}"
+            pvcs.append({"apiVersion": "v1", "kind": "PersistentVolumeClaim",
+                         "metadata": {"name": claim, "namespace": "default"},
+                         "spec": {"accessModes": ["ReadWriteOnce"],
+                                  "storageClassName": "local-disks",
+                                  "resources": {"requests": {
+                                      "storage": f"{int(rng.randint(5, 21))}Gi"}}}})
+            claims.append(claim)
+        if i % 20 == 7:
+            if ebs_shared is not None:
+                claims.append(ebs_shared)
+                ebs_shared = None
+            else:
+                claim = f"ebs-{i}"
+                ebs_claim(claim, f"z{(i // 20) % 4}", by_affinity=(i // 20) % 2 == 0)
+                claims.append(claim)
+                if (i // 20) % 4 == 1:
+                    ebs_shared = claim
+        if claims:
+            spec["volumes"] = [{"name": f"v{k}", "persistentVolumeClaim": {"claimName": c}}
+                               for k, c in enumerate(claims)]
+        pods.append({"apiVersion": "v1", "kind": "Pod", "metadata": meta, "spec": spec})
+    objs.append({"apiVersion": "storage.k8s.io/v1", "kind": "StorageClass",
+                 "metadata": {"name": "local-disks"},
+                 "provisioner": "kubernetes.io/no-provisioner",
+                 "volumeBindingMode": "WaitForFirstConsumer"})
+    return nodes + pods + pvcs + pvs + objs
+
+
+# the new-node template of examples/newnode/gpu.yaml
+GPU_NODE_TEMPLATE = {
+    "apiVersion": "v1", "kind": "Node",
+    "metadata": {"name": "gpu-template",
+                 "labels": {"kubernetes.io/os": "linux",
+                            "alibabacloud.com/gpu-card-model": "A100"}},
+    "status": {"allocatable": {"cpu": "64", "memory": "256Gi", "pods": "110",
+                               "alibabacloud.com/gpu-count": "8",
+                               "alibabacloud.com/gpu-mem": "256"}},
+}
+
+
+def device_resource_cluster(n_nodes: int, n_pods: int, seed: int = 0):
+    """``device_resource_manifests`` loaded into this package's
+    ClusterResources (what ``simulate()`` takes)."""
+    from open_simulator_tpu_torch.k8s.loader import ClusterResources, demux_object
+
+    cluster = ClusterResources()
+    for doc in device_resource_manifests(n_nodes, n_pods, seed):
+        demux_object(doc, cluster)
+    return cluster
+
+
+def device_resource_snapshot(n_nodes: int, n_pods: int, max_new: int = 0, seed: int = 0):
+    """The device-resource cluster encoded as ``simulate()`` encodes it,
+    with `max_new` slots of the GPU node template."""
+    from open_simulator_tpu_torch.core import build_pod_sequence, with_volume_objects
+    from open_simulator_tpu_torch.encode.snapshot import EncodeOptions, encode_cluster
+    from open_simulator_tpu_torch.k8s.loader import make_valid_node
+    from open_simulator_tpu_torch.k8s.objects import Node
+
+    cluster = device_resource_cluster(n_nodes, n_pods, seed)
+    cluster.nodes = [make_valid_node(n) for n in cluster.nodes]
+    opts = EncodeOptions()
+    if max_new:
+        opts = EncodeOptions(max_new_nodes=max_new, new_node_template=make_valid_node(
+            Node.from_dict(GPU_NODE_TEMPLATE)))
+    pods = build_pod_sequence(cluster, [])
+    return encode_cluster(cluster.nodes, pods, with_volume_objects(opts, cluster, []))

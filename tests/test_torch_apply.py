@@ -5,9 +5,12 @@ For each example config with a ``newNode`` whose ops are ported
 sweep modes, ``python -m open_simulator_tpu_torch.cli apply ... --device
 cpu`` writes the same stdout and exits with the same code as the
 reference's ``simon-tpu apply``. Both packages name the new-node slots
-from a seeded generator of their own, reseeded before each run. Also:
-``gpushare`` names the ROADMAP item that ports its ops, a bad config
-exits 1 with the reference's message, and the default device is the card.
+from a seeded generator of their own, reseeded before each run. The
+device-resource configs (``gpushare`` with ``--extended-resources gpu``,
+``openlocal``, ``stateful``) print the reference's report too, and the
+``gpushare`` capacity plans, with their GPU picks, have the reference's
+``plan_digest`` in both sweep modes. Also: a bad config exits 1 with the
+reference's message, and the default device is the card.
 """
 
 from __future__ import annotations
@@ -17,9 +20,18 @@ import os
 import pytest
 import torch
 
+import numpy as np
+
+import torch_parity as tp
 from open_simulator_tpu.cli.main import main as ref_main
+from open_simulator_tpu.encode.snapshot import EncodeOptions
+from open_simulator_tpu.engine import scheduler as jsched
 from open_simulator_tpu.k8s import loader as jloader
+from open_simulator_tpu.k8s.objects import Node as JNode
+from open_simulator_tpu.parallel import sweep as jsweep
+from open_simulator_tpu.telemetry.ledger import plan_digest
 from open_simulator_tpu_torch.apply.applier import Applier, ApplyOptions
+from open_simulator_tpu_torch.parallel import sweep as tsweep
 from open_simulator_tpu_torch.cli.main import main as port_main
 from open_simulator_tpu_torch.k8s import loader as tloader
 
@@ -53,13 +65,56 @@ def test_apply_stdout_equals_reference(name, mode, capsys):
         assert rc == 0 and "requires 3 new node(s)" in out and "(new)" in out
 
 
-def test_gpushare_names_the_device_resource_slice(capsys):
-    with pytest.raises(NotImplementedError, match="enable_gpu.*ROADMAP queue 1, item 3"):
-        Applier(ApplyOptions(config_path=config_path("gpushare"), max_new_nodes=4,
-                             device="cpu")).run()
-    rc, out, err = run(port_main, ["apply", "-f", config_path("gpushare"), "--device", "cpu"],
-                       capsys)
-    assert rc == 1 and out == "" and "ROADMAP queue 1, item 3" in err
+DEVRES = {"gpushare": ["--extended-resources", "gpu"], "openlocal": [], "stateful": []}
+
+
+@pytest.mark.parametrize("mode", ["bisect", "exhaustive"])
+@pytest.mark.parametrize("name", sorted(DEVRES))
+def test_device_resource_apply_equals_reference(name, mode, capsys):
+    argv = (["apply", "-f", config_path(name), "--max-new-nodes", "16", "--sweep-mode", mode]
+            + DEVRES[name])
+    rc_ref, out_ref, _ = run(ref_main, argv, capsys)
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert (rc, err) == (rc_ref, "")
+    assert out == out_ref
+    if name == "gpushare":
+        assert rc == 0 and "=== GPU ===" in out and "gpu-3" in out
+
+
+def _gpushare_plans(mode):
+    """The gpushare config's snapshot with 16 GPU template slots, through
+    both packages' sweeps in `mode` (reasons off, as apply runs them)."""
+    cluster, apps = tp.load("jax", "gpushare")
+    nodes = [jloader.make_valid_node(n) for n in cluster.nodes]
+    with open(os.path.join(EXAMPLES, "newnode", "gpu.yaml"), encoding="utf-8") as f:
+        doc = next(d for d in jloader.parse_yaml_documents(f.read()) if d)
+    template = jloader.make_valid_node(JNode.from_dict(doc))
+    cluster.nodes = nodes
+    pods = tp.jcore.build_pod_sequence(cluster, apps)
+    jloader._RAND.seed(20260729)
+    snap = tp.jsnapshot.encode_cluster(nodes, pods, EncodeOptions(
+        max_new_nodes=16, new_node_template=template))
+    jcfg = jsched.make_config(snap)
+    limit = jsweep.SweepThresholds(max_cpu_pct=30.0)
+    port, cfg = tp.port_snapshot(snap), tp.torch_cfg(jcfg)
+    if mode == "bisect":
+        return (jsweep.capacity_bisect(snap, jcfg, 16, limit),
+                tsweep.capacity_bisect(port, cfg, 16, limit, device="cpu"))
+    counts = list(range(17))
+    return (jsweep.capacity_sweep(snap, jcfg, counts, limit),
+            tsweep.capacity_sweep(port, cfg, counts, limit, device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["bisect", "exhaustive"])
+def test_gpushare_plan_digest_and_picks_equal_reference(mode):
+    ref, got = _gpushare_plans(mode)
+    assert got.counts == ref.counts and got.best_count == ref.best_count
+    assert got.satisfied == ref.satisfied and 0 < got.best_count < 16
+    for f in ("nodes_per_scenario", "gpu_pick"):
+        a, b = getattr(ref, f), getattr(got, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert got.vol_pick is None and ref.vol_pick is None
+    assert plan_digest(got) == plan_digest(ref)
 
 
 def test_bad_config_exits_1_with_the_reference_message(tmp_path, capsys):

@@ -124,8 +124,9 @@ def test_lanes_equal_single_lane_runs():
     base = tsched.apply_forced_prefix(arrs, cfg, tsched.init_state(arrs, cfg), cfg.forced_prefix)
     lanes = tsched.SimState(**{f: torch.stack([getattr(base, f)] * 2)
                                for f in tsched.STATE_FIELDS})
-    node, fail, feas = tstep.plain_step(arrs, active, hoist, tsched.inv_alloc_of(arrs.alloc),
-                                        lanes, cfg, cfg.forced_prefix, snap.n_pods)
+    node, fail, feas, _, _ = tstep.plain_step(arrs, active, hoist,
+                                              tsched.inv_alloc_of(arrs.alloc), lanes, cfg,
+                                              cfg.forced_prefix, snap.n_pods)
     for s in range(2):
         out = tsched.schedule_pods(snap.arrays, masks[s], cfg, device="cpu")
         k = cfg.forced_prefix

@@ -121,9 +121,9 @@ def test_rich_lanes_equal_single_lane_runs():
     base = tsched.init_state(arrs, cfg)
     lanes = tsched.SimState(**{f: torch.stack([getattr(base, f)] * 4)
                                for f in tsched.STATE_FIELDS})
-    node, fail, feas = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
-                                        tsched.inv_alloc_of(arrs.alloc), lanes, cfg, 0,
-                                        snap.n_pods)
+    node, fail, feas, _, _ = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
+                                              tsched.inv_alloc_of(arrs.alloc), lanes, cfg, 0,
+                                              snap.n_pods)
     for s in range(4):
         out = tsched.schedule_pods(snap.arrays, masks[s], cfg, device="cpu")
         np.testing.assert_array_equal(node[s].numpy(), out.node.numpy())

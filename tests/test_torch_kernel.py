@@ -8,9 +8,11 @@ card and no JAX. There, from the repository root:
 runs the card-only tests (marked ``cuda``): the kernel against the plain
 torch step, bit for bit, on both spread carries, on the rich synthetic
 cluster (pod affinity, anti-affinity in the slot and the dense form, hard
-spread, the interpod preference), on lanes, on the lane prologue (lanes
-started from one template carry, with and without reason accounting) and
-through ``schedule_lanes``. Without CUDA they skip with the reason; the
+spread, the interpod preference), on the device-resource cluster (GPU
+share, open-local storage, the volume masks, PV matching, attach limits
+and dedup, with mid-sequence pinned GPU pods), on lanes, on the lane
+prologue (lanes started from one template carry, with and without reason
+accounting) and through ``schedule_lanes``. Without CUDA they skip with the reason; the
 binding checks run everywhere.
 """
 
@@ -29,7 +31,11 @@ from open_simulator_tpu_torch.engine import scheduler as sched
 from open_simulator_tpu_torch.k8s.loader import make_valid_node
 from open_simulator_tpu_torch.k8s.objects import Node, Pod
 from open_simulator_tpu_torch.kernels import build, step
-from open_simulator_tpu_torch.testing.synthetic import soft_spread_cluster, synthetic_snapshot
+from open_simulator_tpu_torch.testing.synthetic import (
+    device_resource_snapshot,
+    soft_spread_cluster,
+    synthetic_snapshot,
+)
 
 SOURCE = os.path.join(build.CSRC_DIR, "plain_step.cu")
 
@@ -60,8 +66,8 @@ def test_ctypes_struct_matches_the_c_struct():
 def test_flag_bits_match_the_c_constants():
     src = Path(SOURCE).read_text(encoding="utf-8")
     bits = dict(re.findall(r"constexpr int (F_\w+) = 1 << (\d+);", src))
-    assert len(bits) == 22
-    assert bits["F_TEMPLATE"] == "21"
+    assert len(bits) == 28
+    assert bits["F_TEMPLATE"] == "21" and bits["F_VOL_DEDUP"] == "27"
     assert set(bits) == {n for n in dir(step) if n.startswith("F_")}
     for name, shift in bits.items():
         assert getattr(step, name) == 1 << int(shift), name
@@ -145,12 +151,17 @@ RICH_CASES = {
     "rich": dict(),
     "rich-dense": dict(slot_paint=False),
     "rich-f32-no-reasons": dict(compact_carry=False, fail_reasons=False),
+    "devres": dict(),
+    "devres-no-dedup-no-reasons": dict(enable_vol_dedup=False, fail_reasons=False),
+    "devres-f32-gpu-weight": dict(compact_carry=False, w_gpu=3.0),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hostname-bf16", "hostname-f32", "zone-region", "synthetic",
-                                  "rich", "rich-dense", "rich-bound", "rich-f32-no-reasons"])
+                                  "rich", "rich-dense", "rich-bound", "rich-f32-no-reasons",
+                                  "devres", "devres-no-dedup-no-reasons",
+                                  "devres-f32-gpu-weight"])
 def test_kernel_equals_plain_step_on_card(cuda_device, case):
     """Two lanes with different active masks: the kernel and the plain
     torch step give the same outputs and carry, bit for bit."""
@@ -159,6 +170,8 @@ def test_kernel_equals_plain_step_on_card(cuda_device, case):
         snap = synthetic_snapshot(96, 512, bound=0.2)
     elif case.startswith("rich"):
         snap = synthetic_snapshot(96, 512, rich=True, bound=0.3 if case == "rich-bound" else 0.0)
+    elif case.startswith("devres"):
+        snap = device_resource_snapshot(96, 768)
     else:
         snap = _soft_spread(96, 512, hostname=case != "zone-region")
     cfg = sched.make_config(snap, **overrides)
@@ -178,9 +191,12 @@ def test_kernel_equals_plain_step_on_card(cuda_device, case):
     (out_k, st_k), (out_p, st_p) = runs
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
-    for f in ("headroom", "group_count", "dom_count", "ports_used", "term_block", "pref_paint"):
+    for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
     assert (out_k[0] >= 0).any()
+    if case.startswith("devres"):
+        assert out_k[3].shape[2] == 8 and out_k[4].shape[2] == 1
+        assert (out_k[3] > 0).any() and (out_k[4] >= 0).any()
 
 
 @pytest.mark.cuda
@@ -197,7 +213,8 @@ def test_schedule_pods_launches_the_kernel_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["synthetic-new8", "rich-new8", "hostname-prefix"])
+@pytest.mark.parametrize("case", ["synthetic-new8", "rich-new8", "hostname-prefix",
+                                  "devres-new8"])
 @pytest.mark.parametrize("fail_reasons", [True, False])
 def test_lane_prologue_equals_plain_on_card(cuda_device, case, fail_reasons):
     """Five lanes started from one template by the kernel's prologue, into
@@ -206,6 +223,8 @@ def test_lane_prologue_equals_plain_on_card(cuda_device, case, fail_reasons):
     fail-count buffer is made."""
     if case == "hostname-prefix":
         snap = _soft_spread(96, 384, hostname=True)
+    elif case == "devres-new8":
+        snap = device_resource_snapshot(64, 512, max_new=8)
     else:
         snap = synthetic_snapshot(64, 384, max_new=8, rich=case.startswith("rich"))
     cfg = sched.make_config(snap, fail_reasons=fail_reasons)
@@ -259,3 +278,71 @@ def test_schedule_lanes_on_card_equals_cpu(cuda_device):
     assert torch.equal(gpu.feasible.cpu(), cpu.feasible)
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(gpu.state, f).cpu(), getattr(cpu.state, f)), f
+
+
+def _devres_launch_args(snap, **replace):
+    import dataclasses
+
+    arrays = dataclasses.replace(snap.arrays, **replace)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(arrays, "cpu")
+    active = torch.ones((1, snap.n_nodes), dtype=torch.bool)
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
+    return (arrs, active, sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc), lanes,
+            cfg, cfg.forced_prefix, snap.n_pods)
+
+
+def test_kernel_wrapper_refuses_devres_widths_and_slot_order(monkeypatch):
+    """The device-resource walks keep per-thread arrays: wider snapshots
+    raise naming the width; the PV walk stops at a pod's first padded
+    claim slot, so valid slots after a padded one are refused."""
+    snap = device_resource_snapshot(16, 64)
+    monkeypatch.setattr(step, "MAX_VG", 1)
+    with pytest.raises(ValueError, match="2 volume groups per node, over the kernel's 1"):
+        step.plain_step_cuda(*_devres_launch_args(snap))
+    monkeypatch.undo()
+    p = snap.n_pods
+    valid = np.zeros((p, 2), bool)
+    valid[3, 1] = True
+    with pytest.raises(ValueError, match="valid WaitForFirstConsumer slots must come before"):
+        step.plain_step_cuda(*_devres_launch_args(
+            snap, wfc_ccid=np.zeros((p, 2), np.int64), wfc_valid=valid))
+
+
+def test_admitted_pv_lists():
+    """Each node's PVs in ascending id, without the PVs no claim class
+    can take."""
+    node_ok = torch.tensor([[True, False, True], [True, True, False], [False, True, True],
+                            [True, True, True]])
+    cand = torch.tensor([[True, False, True, False], [False, False, True, False]])
+    ptr, idx = step.admitted_pv_lists(node_ok, cand)
+    lists = [idx[ptr[i]:ptr[i + 1]].tolist() for i in range(3)]
+    assert lists == [[0], [2], [0, 2]]
+    ptr, idx = step.admitted_pv_lists(node_ok, torch.zeros((0, 4), dtype=torch.bool))
+    assert ptr.tolist() == [0, 0, 0, 0] and idx.numel() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stateful", "gpushare", "openlocal"])
+def test_device_resource_examples_on_card(cuda_device, name):
+    """simulate() on the card gives the CPU's answer, GPU and PV picks
+    included. The stateful example's pods use no topology key but the
+    hostname, so the hoist has one log row more than there are keys: the
+    launcher passes the kernel the first K."""
+    from open_simulator_tpu_torch.api.v1alpha1 import load_config
+    from open_simulator_tpu_torch.apply.applier import (
+        build_apps_from_config, build_cluster_from_config)
+    from open_simulator_tpu_torch.core import simulate
+
+    examples = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "examples")
+    runs = []
+    for device in ("cuda", "cpu"):
+        cfg = load_config(os.path.join(examples, f"{name}-config.yaml"))
+        res = simulate(build_cluster_from_config(cfg, examples),
+                       build_apps_from_config(cfg, examples), device=device)
+        runs.append((res.placements(), {u.pod.key: u.reason for u in res.unscheduled_pods},
+                     res.volume_bindings, res.gpu_assignments))
+    assert runs[0] == runs[1]
+    assert runs[0][0]

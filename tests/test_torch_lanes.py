@@ -151,9 +151,9 @@ def test_lane_prologue_equals_fresh_lane_state_and_prefix(name):
     garbage = convert.state_from_numpy(tp.jax_state(used))
     active = torch.from_numpy(masks)
     n_pods = snap.n_pods
-    node, _, _ = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
-                                  tsched.inv_alloc_of(arrs.alloc), garbage, cfg, n_pods,
-                                  n_pods, template=template)
+    node = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
+                            tsched.inv_alloc_of(arrs.alloc), garbage, cfg, n_pods,
+                            n_pods, template=template)[0]
     assert node.shape == (masks.shape[0], 0)
     got = convert.state_to_numpy(garbage)
     for s, st in enumerate(ref):

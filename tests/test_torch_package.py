@@ -139,27 +139,8 @@ def test_simulate_defaults_to_the_card(monkeypatch):
     assert tsched.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("name,gate", [
-    ("stateful", "enable_vol_static"),
-])
-def test_unported_example_configs_raise(name, gate):
-    with pytest.raises(NotImplementedError, match=f"{gate}.*ROADMAP"):
-        tcore.simulate(*tp.load("torch", name), device="cpu")
-
-
-def test_rich_synthetic_with_gpu_raises_naming_the_item():
-    """The inter-pod gates run; a gate of a later slice still raises."""
-    snap = synthetic_snapshot(16, 64, rich=True)
-    cfg = tsched.make_config(snap, enable_gpu=True)
-    assert cfg.enable_pod_affinity and cfg.enable_anti_affinity and cfg.enable_pref
-    with pytest.raises(NotImplementedError, match="enable_gpu.*ROADMAP queue 1, item 3"):
-        tsched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
-
-
 @pytest.mark.parametrize("override", [
     dict(explain_topk=3), dict(tie_break_seed=7), dict(traced_weights=True),
-    dict(enable_gpu=True), dict(enable_storage=True), dict(enable_pv_match=True),
-    dict(enable_vol_limits=True),
 ])
 def test_every_unported_gate_raises(override):
     snap = synthetic_snapshot(8, 16)
@@ -167,6 +148,13 @@ def test_every_unported_gate_raises(override):
     gate = next(iter(override))
     with pytest.raises(NotImplementedError, match=f"EngineConfig.{gate} .*ROADMAP"):
         tsched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
+
+
+def test_only_the_remaining_engine_modes_are_refused():
+    """After the device-resource slice, the gates still to port are the
+    engine modes of ROADMAP queue 1, items 7 and 10."""
+    assert [g for g, _ in tsched._UNSUPPORTED] == [
+        "extensions", "explain_topk", "tie_break_seed", "traced_weights"]
 
 
 def test_make_config_turns_waves_off():

@@ -31,6 +31,8 @@ CONFIGS = {
     "stateful": ("cluster/stateful", [("stateful", "apps/stateful")]),
     "config": ("cluster/demo", [("webstack", "apps/webstack")]),
     "constraints": ("cluster/demo", [("constraints", "apps/constraints")]),
+    "gpushare": ("cluster/gpushare", [("training", "apps/training")]),
+    "openlocal": ("cluster/open-local", [("db", "apps/open-local")]),
 }
 
 PKGS = {"jax": (jloader, jcore, jsnapshot), "torch": (tloader, tcore, tsnapshot)}
@@ -79,7 +81,7 @@ def run_jax(snap, state=None, **overrides):
     cfg = jsched.make_config(snap, **overrides)
     out = jsched.schedule_pods(jsched.device_arrays(snap), jnp.asarray(snap.arrays.active),
                                cfg, state=state, waves=None)
-    outs = {k: np.asarray(getattr(out, k)) for k in ("node", "fail_counts", "feasible")}
+    outs = {k: np.asarray(getattr(out, k)) for k in OUTPUTS}
     return cfg, outs, jax_state(out.state)
 
 
@@ -91,15 +93,16 @@ def run_torch(arrs_fields: dict, active, cfg, state=None):
     """Port schedule_pods on the CPU -> (numpy outputs, numpy state)."""
     arrs = convert.snapshot_arrays_from_numpy(arrs_fields)
     out = tsched.schedule_pods(arrs, active, cfg, state=state, device="cpu")
-    outs = {k: getattr(out, k).numpy() for k in ("node", "fail_counts", "feasible")}
+    outs = {k: getattr(out, k).numpy() for k in OUTPUTS}
     return outs, convert.state_to_numpy(out.state)
 
 
-CARRY = ("headroom", "dom_count", "group_count", "ports_used", "term_block", "pref_paint")
+OUTPUTS = ("node", "fail_counts", "feasible", "gpu_pick", "vol_pick")
+CARRY = tsched.STATE_FIELDS
 
 
 def assert_same(outs_j, st_j, outs_t, st_t):
-    for k in ("node", "fail_counts", "feasible"):
+    for k in OUTPUTS:
         assert outs_j[k].dtype == outs_t[k].dtype, k
         np.testing.assert_array_equal(outs_j[k], outs_t[k], err_msg=k)
     for k in CARRY:
