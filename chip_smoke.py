@@ -33,33 +33,41 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    the dense form (slot_paint off); the rich cluster at 512 x 1,024 as
    one 4-lane launch; and the first 2,048 pods of the device-resource cluster at
    1,024 x 10,240 with 8 GPU node slots as one 4-lane launch (all six
-   device-resource gates, pods bound mid-sequence with pinned GPUs);
+   device-resource gates, pods bound mid-sequence with pinned GPUs); then
+   the edges of the launch geometry (one thread-block cluster per lane):
+   3 nodes (fewer than the cluster's blocks; rich and dom_count), the
+   device-resource cluster at 1,000 nodes (a ragged last slice) and the
+   rich cluster at 509 nodes as 3 lanes (an odd number of clusters); each
+   parity line prints the launch's cluster size, block size and slice;
 4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
    path's arrays (its placements, and on devres its GPU allocations, must
-   equal simulate()'s), the kernel and the plain step compared over the
-   first 2,048 pods from the template and over the last 2,048 from the
-   kernel's own carry; on the rich path a host check that no pod shares
-   its node with a pod its hostname anti-affinity term names; on the
-   devres path the six gates, every device-resource reason row but the
-   missing-PV one refusing nodes, and host checks of the PV bindings, the
-   GPU devices' memory and the nodes' EBS attachments;
+   equal simulate()'s), one more launch with the kernel's per-phase cycle
+   counts on (each phase's share printed), the kernel and the plain step
+   compared over the first 2,048 pods from the template and over the last
+   2,048 from the kernel's own carry; on the rich path a host check that
+   no pod shares its node with a pod its hostname anti-affinity term
+   names; on the devres path the six gates, every device-resource reason
+   row but the missing-PV one refusing nodes, and host checks of the PV
+   bindings, the GPU devices' memory and the nodes' EBS attachments;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
    counts read (one 64-lane launch); the launch timed alone, with peak
-   device memory; lanes at counts 0, 21, 42 and 63 against one-lane
-   launches, bit for bit; the 64-lane hoist and the forced-prefix fold
-   (4,096 pods pinned where lane 63 put them; devres: the cluster's own
-   nodeName prefix) timed and held equal to the kernel's carry after
-   those pods; the kernel against the plain step over the first 2,048
+   device memory, its geometry and its per-phase cycle shares; lanes at
+   counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
+   64-lane hoist and the forced-prefix fold (4,096 pods pinned where
+   lane 63 put them; devres: the cluster's own nodeName prefix) timed and
+   held equal to the kernel's carry after those pods; the kernel against the plain step over the first 2,048
    pods of lanes 0 and 63; ``capacity_bisect`` (8 lanes) against the
    sweep's answer under a CPU limit that puts it inside (0, 64); then the
    ``config``, ``constraints``, ``controlplane``, ``morepods``,
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
    the CPU, with the same output;
-6. one JSON line describing each kernel, then the device line.
+6. one JSON line describing each kernel (with each plain_step
+   instantiation's registers, stack and spills; a launched one that
+   spills fails the run), then the device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
 nonzero and prints no result.
@@ -173,15 +181,56 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
     out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, p0, p1, template=tmpl)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
+    plan = step.LAST_PLAN
     equal, err = compare(torch, out_k, out_p, st_k, st_p)
     n_sched = int((out_k[0] >= 0).sum())
     log(f"parity {label}: lanes={active.shape[0]} pods={p1 - p0} (after a {p0}-pod "
-        f"prefix) scheduled={n_sched} fail_counts_sum={int(out_k[1].sum())} "
+        f"prefix) {geometry(plan)} scheduled={n_sched} fail_counts_sum={int(out_k[1].sum())} "
         f"kernel_s={t_k:.4f} plain_s={t_p:.2f} equal={equal} max_abs_err={err} "
         f"phase_s={time.perf_counter() - t_phase:.1f}")
     if not equal:
         raise SystemExit(f"parity {label}: kernel and plain step disagree")
     return t_p, t_k, err, out_k
+
+
+# the instantiations plain_step<kInterpod, kDevRes> the main paths launch
+# (<1,1> is built but no path sets both slices' gates)
+LAUNCHED = ("<0,0>", "<1,0>", "<0,1>")
+
+
+def instantiations(build_log):
+    """{"<I,D>": {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes}} of each plain_step instantiation, from ptxas's
+    -v report in the build log."""
+    import re
+
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"plain_step_kernelILb([01])ELb([01])E", line)
+        if m:
+            name = f"<{m.group(1)},{m.group(2)}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = {"stack_bytes": int(m.group(1)), "spill_store_bytes": int(m.group(2)),
+                         "spill_load_bytes": int(m.group(3))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def geometry_fields(plan):
+    """One launch's geometry (kernels/step.LaunchPlan) as JSON fields."""
+    return {"cluster": plan.cluster, "threads": plan.threads, "slice": plan.slice_len,
+            "headroom_in_smem": plan.headroom, "smem_bytes": plan.smem,
+            "resident_clusters": plan.resident}
+
+
+def geometry(plan):
+    """One launch's geometry as the log prints it."""
+    return " ".join(f"{k}={v}" for k, v in geometry_fields(plan).items())
 
 
 def step_work(sched, a, cfg, p0, p1, out):
@@ -610,6 +659,7 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
     kernel_ms = min(times)
+    plan = step.LAST_PLAN
     placed = {sp.pod.key: sp.node_name for sp in result.scheduled_pods}
     kern_nodes = out_k[0][0].cpu().numpy()
     kern_placed = {snap.pods[i].key: snap.node_names[int(nd)]
@@ -621,6 +671,9 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
                          "placed pods differently")
     if not bool(torch.isfinite(st_k.headroom).all()) or bool((st_k.headroom < 0).any()):
         raise SystemExit(f"main path {label}: carry has non-finite or negative headroom")
+    phases = phase_run(torch, step, label, lambda cyc: step.plain_step_cuda(
+        arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl, phase_cycles=cyc),
+        1, p1 - p0, out_k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cuda")
@@ -631,7 +684,7 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
     feasible_pairs = int(out_k[2].sum())
     log(f"main path {label}: kernel ms={kernel_ms:.3f} (min of {len(times)}: "
         f"{[round(t, 3) for t in times]}) us_per_pod={kernel_ms * 1e3 / (p1 - p0):.3f} "
-        f"feasible_pairs={feasible_pairs}")
+        f"feasible_pairs={feasible_pairs} {geometry(plan)}")
     full = bound_of(step_work(sched, snap.arrays, cfg, p0, p1, lane0(out_k)))
     rows = {}
     if kind == "devres":
@@ -672,7 +725,8 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
         "launches": launches["plain_step"], "pods": p1 - p0, "ms": kernel_ms, "ms_runs": times,
         "us_per_pod": kernel_ms * 1e3 / (p1 - p0), "bound_ms": full[2], "bound_by": full[3],
         "max_abs_err": max(err, err_last), "simulate_s": wall, "engine_s": engine_s,
-        "scheduled": len(result.scheduled_pods), **row_fields(rows),
+        "scheduled": len(result.scheduled_pods), "phases": phases,
+        "geometry": geometry_fields(plan), **row_fields(rows),
         "same_pods": {"pods": q1 - p0, "ms": prefix_ms, "plain_ms": plain_s * 1e3,
                       "bound_ms": prefix[2], "bound_by": prefix[3]},
     }
@@ -731,6 +785,10 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
     kernel_ms = min(times)
+    plan_k = step.LAST_PLAN
+    phases = phase_run(torch, step, f"capacity {label}", lambda cyc: step.plain_step_cuda(
+        arrs, masks, hoist, inv, carry, scfg, p0, n_pods, template=tmpl, phase_cycles=cyc),
+        CAPACITY_LANES, n_pods - p0, out)
     if not np.array_equal(out[0].cpu().numpy(), plan.nodes_per_scenario[:, p0:]):
         raise SystemExit(f"capacity {label}: the timed launch and the sweep disagree")
     lane_pods = CAPACITY_LANES * (n_pods - p0)
@@ -738,7 +796,7 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         f"kernel ms={kernel_ms:.3f} (min of {len(times)}: {[round(t, 3) for t in times]}) "
         f"lane_pods_per_s={lane_pods / (kernel_ms / 1e3):.1f} host share of the sweep "
         f"{1 - kernel_ms / (sweep_s * 1e3):.4f} peak device memory "
-        f"{peak / 2**20:.1f} MiB")
+        f"{peak / 2**20:.1f} MiB {geometry(plan_k)}")
 
     # lane independence: lanes at counts 0, 21, 42, 63 against one-lane launches
     for s_i in (0, 21, 42, 63):
@@ -831,27 +889,52 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
                                 sweep.SweepThresholds(max_cpu_pct=limit), lanes=8, device="cuda")
     torch.cuda.synchronize()
     bis_s = time.perf_counter() - t0
+    plan_b = step.LAST_PLAN
     rounds = step.LAUNCHES["plain_step"] - before
     row = bis.nodes_per_scenario[bis.counts.index(bis.best_count)] if bis.best_count else None
     if bis.best_count != want or not np.array_equal(row, plan.nodes_per_scenario[counts.index(want)]):
         raise SystemExit(f"capacity {label}: bisection found {bis.best_count}, the sweep {want}")
     log(f"capacity {label}: max_cpu_pct={limit!r} -> sweep best {want}; capacity_bisect(lanes=8) "
         f"best {bis.best_count} in {rounds} rounds, {len(bis.counts)} probes, wall_s={bis_s:.3f} "
-        f"({bis_s / rounds:.3f} s per round); phase_s={time.perf_counter() - t_phase:.1f}")
+        f"({bis_s / rounds:.3f} s per round) {geometry(plan_b)}; "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
     return {
         "lanes": CAPACITY_LANES, "launches": launches["plain_step"], "pods": n_pods - p0,
         "ms": kernel_ms, "ms_runs": times, "bound_ms": bound[2], "bound_by": bound[3],
         "lane_pods_per_s": lane_pods / (kernel_ms / 1e3), "sweep_s": sweep_s,
-        "peak_mem_bytes": peak, "max_abs_err": err, **row_fields(rows),
+        "peak_mem_bytes": peak, "max_abs_err": err, "phases": phases,
+        "geometry": geometry_fields(plan_k), **row_fields(rows),
         "same_pods": {"lanes": 2, "pods": PARITY_PREFIX, "ms": kern_s * 1e3,
                       "plain_ms": plain_s * 1e3},
         "bisect": {"max_cpu_pct": limit, "best_count": bis.best_count, "rounds": rounds,
-                   "probes": len(bis.counts), "wall_s": bis_s},
+                   "probes": len(bis.counts), "wall_s": bis_s,
+                   "geometry": geometry_fields(plan_b)},
         "hoist": {"lanes": CAPACITY_LANES, "ms": hoist_ms, "bound_ms": hoist_b[2],
                   "bound_by": hoist_b[3]},
         "prefix_fold": {"pods": n_fold, "ms": fold_ms, "library_ms": mm_ms,
                         "bound_ms": fold_b[2], "bound_by": fold_b[3]},
     }
+
+
+def phase_run(torch, step, label, launch, n_lanes, n_pods, out):
+    """One more launch with the kernel's per-phase cycle counts on
+    (`launch(cycles)`); its outputs must equal `out`, the launch without
+    them. Logs and returns each phase's share of the cycles (thread 0 of
+    each block, summed over the pods and lanes), the cycles per pod and
+    lane, and the launch's time with the counters on."""
+    cyc = torch.zeros((n_lanes, len(step.PHASES)), dtype=torch.int64, device="cuda")
+    got = []
+    ms = cuda_ms(torch, lambda: got.append(launch(cyc)))
+    if not all(torch.equal(a, b) for a, b in zip(got[0], out)):
+        raise SystemExit(f"{label}: the launch with cycle counts placed pods differently")
+    per = cyc.sum(0).tolist()
+    total = sum(per)
+    shares = {name: c / total for name, c in zip(step.PHASES, per)}
+    log(f"{label}: phase shares of {total} cycles ({total / (n_lanes * n_pods):.1f} per pod "
+        f"and lane; launch with counters {ms:.3f} ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    return {"shares": shares, "cycles_per_lane_pod": total / (n_lanes * n_pods),
+            "ms_with_counters": ms}
 
 
 def log_rows(label, rows):
@@ -986,6 +1069,11 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
                 log(f"build {name}: {line.strip()}")
+    insts = instantiations(build.BUILD_LOG.get("plain_step", ""))
+    log(f"build plain_step instantiations: {insts}")
+    spilled = [k for k in LAUNCHED if k not in insts or insts[k]["spill_store_bytes"]]
+    if spilled:
+        raise SystemExit(f"build: plain_step {spilled} spill registers (or were not reported)")
 
     # ---- 3. kernel vs plain on the card
     errs = []
@@ -1051,6 +1139,29 @@ def main() -> int:
     errs.append(parity(torch, sched, step, "devres-1024x10240-4-lanes", snap_g.arrays, cfg_g,
                        lanes_g, n_pods=PARITY_PREFIX)[2])
 
+    # the edges of the launch geometry: fewer nodes than blocks in a
+    # cluster (empty slices), slices that leave a ragged last block, and an
+    # odd number of lanes (an odd number of clusters)
+    for label, snap_e, lanes_of, n_e in (
+            ("tiny-3-nodes-rich", synthetic_snapshot(3, 64, rich=True), 1, None),
+            ("tiny-3-nodes-dom_count", synthetic_snapshot(3, 64), 1, None),
+            ("ragged-devres-1000x2048", device_resource_snapshot(1000, 2048), 1, 1024),
+            ("odd-lanes-3-rich-509x1024", synthetic_snapshot(509, 1024, rich=True), 3, None)):
+        cfg_e = sched.make_config(snap_e)
+        n_e_nodes = snap_e.n_nodes
+        masks_e = np.stack([np.ones(n_e_nodes, bool), np.arange(n_e_nodes) % 3 != 1,
+                            rng.rand(n_e_nodes) < 0.75])[:lanes_of]
+        errs.append(parity(torch, sched, step, f"geometry-{label}", snap_e.arrays, cfg_e,
+                           masks_e, n_pods=n_e)[2])
+        plan_e = step.LAST_PLAN
+        short = n_e_nodes - (plan_e.cluster - 1) * plan_e.slice_len
+        if label.startswith("tiny") and not plan_e.cluster > n_e_nodes:
+            raise SystemExit(f"geometry {label}: cluster {plan_e.cluster} has no empty slice")
+        if label.startswith("ragged") and not 0 < short < plan_e.slice_len:
+            raise SystemExit(f"geometry {label}: the last slice is not ragged ({plan_e})")
+        if label.startswith("odd") and plan_e.cluster < 2:
+            raise SystemExit(f"geometry {label}: the 3 lanes ran without clusters ({plan_e})")
+
     # ---- 4. the main paths: simulate() at full size, through the kernel
     def cluster_of(kind):
         if kind == "devres":
@@ -1088,6 +1199,7 @@ def main() -> int:
         "replaces": "open_simulator_tpu/engine/scheduler.py:745",
         "lane_prologue_replaces": "open_simulator_tpu/engine/exec_cache.py:491",
         "launches": rich_p["launches"],
+        "instantiations": {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()},
         "max_abs_err": max(errs + [p["max_abs_err"] for p in paths.values()]),
         "pods": same["pods"], "ms": same["ms"], "plain_ms": same["plain_ms"],
         "bound_ms": same["bound_ms"], "bound_by": same["bound_by"], "library_ms": None,
@@ -1096,7 +1208,9 @@ def main() -> int:
                   "512x4096, the same in 4 lanes, rich 1024x10240 bound 0.1, rich "
                   "512x4096 dense, "
                   f"rich 512x1024 4 lanes, the first {PARITY_PREFIX} pods of devres "
-                  "1024x10240 in 4 lanes (8 GPU slots), "
+                  "1024x10240 in 4 lanes (8 GPU slots), the geometry edges (3 nodes rich "
+                  "and dom_count, the first 1024 pods of devres 1000x2048, rich 509x1024 "
+                  "in 3 lanes), "
                   f"the first and last {PARITY_PREFIX} pods of the northstar, "
                   "northstar-rich and northstar-devres main paths, and the first "
                   f"{PARITY_PREFIX} pods of lanes 0 and 63 of the capacity-northstar-64, "

@@ -18,26 +18,56 @@
 // maxima) and the bind into the lane's carry, including the anti-affinity
 // term paint and the preferred-term paint over the bound node's domain.
 //
-// What bounds it: latency, not bytes or operations. Each pod's pick depends
-// on the previous pod's bind, so the P pods form one dependent chain. Per pod
-// the block reads O(N*R) bytes of carry and node rows that stay in L1/L2, and
-// its time goes to the block-wide barriers and reductions between phases.
+// What bounds it on this card: latency, not bytes or operations (the
+// kernel runs thousands of times over its operations bound at one lane,
+// PERF.md). Each pod's pick depends on the previous pod's bind, so the P
+// pods of a lane form one dependent chain, and per pod each thread walks
+// its nodes through chains of dependent loads (a few thousand cycles a
+// node) between the cross-node reductions: a pod takes about the nodes a
+// thread walks times that, plus the reductions.
 //
-// Design, right and simple first: one thread block per lane (1,024 threads,
-// nodes strided over threads), the pod loop inside the kernel, and
-// __syncthreads() between phases. A lane's carry belongs to one block, so
-// the scan needs no grid-wide sync. At S=1 this occupies 1 of the card's 132
-// SMs, at the capacity sweep's 64 lanes 64 of them; a lane spread over a
-// thread-block cluster (distributed shared memory for the cross-node
-// reductions) is later work.
+// Design: one thread-block cluster of C blocks per lane (grid S x C,
+// launched with cudaLaunchKernelEx and a cluster dimension). The launcher
+// (kernels/step.py:plan_launch) takes the largest power of two C <= 16
+// whose S clusters the card holds at once (cudaOccupancyMaxActiveClusters),
+// so one lane spreads over up to 16 SMs and a thread holds one to a few
+// nodes. Block `rank` owns the contiguous node slice [rank*SL, (rank+1)*SL)
+// of its lane, so block rank order is node order. Each block reduces its
+// slice in shared memory (warp shuffles, then one shared atomic per warp),
+// and the cluster combines the blocks' partials through distributed shared
+// memory (cooperative_groups::this_cluster(), map_shared_rank), one
+// cluster.sync() per round: the per-domain column sums of phase 0b (on the
+// group_count path), then the normalizer minima, the feasible count and
+// the first-fail histogram, then the (score, lowest index) argmax. The
+// partials are double-buffered by pod parity: a block rewrites a buffer
+// only after every block has passed the next round's barrier, so each
+// round needs one cluster barrier. Minima, integer counts and the
+// lexicographic argmax give the same answer in any order. The raw scores
+// and feasibility flags of phase 1 stay in the block's shared memory for
+// phase 2 (no global scratch), and the block's slice of headroom lives in
+// shared memory for the whole launch when it fits (the launcher decides).
+// What stays: at one lane the two or three cluster rounds are about a
+// third of a pod; at 64 lanes (C = 2) each SM still walks 2,592 nodes, with
+// 12-14 warps (a spill-free build needs 112-163 registers a thread, which
+// caps a block at 512 threads, 384 with the device-resource walks).
+//
+// Ownership. A node's carry rows (headroom, ports, group_count, term_block,
+// pref_paint and the device-resource rows) are read and written only by the
+// block that owns the node: the bind, the term paint and the preferred-term
+// paint over the bound node's domain are done by each painted node's owner
+// thread, in slot order, and the device-resource bind by the block that owns
+// the bound node. The lane-wide state (dom_count [K1, D, Sg] and pv_taken
+// [Npv]) is held as one shared-memory replica per block: every block applies
+// the same adds in the same order, and rank 0 writes it back at the end, so
+// no barrier orders a bind before the next pod's reads across blocks.
 //
 // The lane prologue (F_TEMPLATE; replaces the reference's vmapped lanes,
 // open_simulator_tpu/engine/exec_cache.py:batched_lane_fn, and its fresh
 // lane state, :_fresh_lane_state): every lane starts from one [N, ...]
 // template carry, the fresh carry with the forced prefix folded in. Each
-// block first writes its lane's slice of the [S, ...] carry from the
-// template, then runs the pod loop, so the launcher needs no S-fold copy
-// on the host and a sweep round can reuse the previous round's carry.
+// block first writes its slice of the lane's carry (and its replicas) from
+// the template, then runs the pod loop, so the launcher needs no S-fold
+// copy on the host and a sweep round can reuse the previous round's carry.
 //
 // The reverse anti-affinity verdict reads only the pod's hit-term columns
 // (a host-built list, the nonzeros of hit_terms): "any hit column > 0" over
@@ -45,7 +75,7 @@
 // term_block @ hit_terms and its slot-form gather, without sweeping all T
 // columns per node.
 //
-// The device-resource ops run in a third instantiation (kDevRes), so
+// The device-resource ops run in their own instantiation (kDevRes), so
 // launches without them keep the code and registers they had. Each node's
 // thread walks its GPU devices, volume groups, devices and admitted PVs
 // serially, in ascending index: every "lowest index on ties" of the
@@ -58,6 +88,9 @@
 // swept. The bind recomputes the bound node's storage plan and PV picks
 // (the same values the filter pass found for that node) in one thread.
 //
+// Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
+// rank 0 reads clock64() at each phase boundary and sums over the pods.
+//
 // Exactness: built with --fmad=false, and every float operation is an
 // explicit round-to-nearest intrinsic, so each one is the same IEEE
 // operation, in the same order, as in the plain torch step
@@ -67,15 +100,22 @@
 // interpod raw sums and pref_paint hold integer-valued f32 (weights x
 // counts), exact below 2^24.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+// block size caps, so that ptxas keeps each instantiation in registers (no
+// spill): 128 registers a thread, 170 with the device-resource walks; the
+// launcher picks the block size under the cap (kernels/step.py:MAX_THREADS)
+constexpr int kMaxThreads = 512;
+constexpr int kMaxThreadsDevRes = 384;
+constexpr int kMaxCluster = 16;     // blocks per lane (16 is non-portable)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
 constexpr float kNegInf = -3.4e38f;
@@ -84,6 +124,9 @@ constexpr int kRows = 10;  // normalizer min-reduction rows
 constexpr int kMaxV = 8;    // volume groups per node
 constexpr int kMaxE = 32;   // exclusive devices per node (a bit mask)
 constexpr int kMaxLw = 8;   // WaitForFirstConsumer claims per pod
+// per-phase cycle counts (StepArgs.cycles): prologue, phase 0/0b/0c,
+// phase 1, the min/count reduction, phase 2, the argmax reduction, bind
+constexpr int kPhases = 7;
 
 // StepArgs.flags bits; mirrored in kernels/step.py
 constexpr int F_UNSCHED = 1 << 0;      // unschedulable filter row live
@@ -125,6 +168,9 @@ constexpr int kDevResFlags =
 constexpr int kNeedDom = 1;   // per-domain sums (non-hostname key)
 constexpr int kNeedTot = 2;   // the column's total (affinity bootstrap)
 constexpr int kNeedMin = 4;   // min over hostname-eligible nodes (hard spread)
+
+// StepArgs.res bits; mirrored in kernels/step.py
+constexpr int RES_HEADROOM = 1;  // the block's headroom slice lives in shared memory
 
 }  // namespace
 
@@ -194,9 +240,6 @@ struct StepArgs {
   int32_t* out_node;                  // [S, P']
   int32_t* out_fail;                  // [S, P', OPS], only under F_FAIL
   int32_t* out_feasible;              // [S, P']
-  // scratch
-  float* scratch;                     // [S, 5, N] base score, spread, Simon, interpod, GPU raw
-  uint8_t* scratch_flags;             // [S, N] bit 0 feasible, bit 1 spread keys present
   int n, r, c, u, k, k1, d, sg, pt, cs, a, b, ap, t, t2, ops, s, p0, p1, ci, mi, flags;
   float w_bal, w_least, w_most, w_na, w_tt, w_ip, w_sp, w_si;
   // the device-resource ops (kDevRes), after the fields of the other
@@ -245,6 +288,12 @@ struct StepArgs {
   int32_t* out_vol_pick;              // [S, P', Lw], only under F_PV_MATCH
   int g, v, e, lv, ev, npv, lw, lk, lsv, nsv;
   float w_gpu;
+  // [S, kPhases] cycles (clock64 on thread 0 of rank 0, summed over the
+  // pods), or null
+  long long* cycles;
+  // the launch geometry (kernels/step.py:plan_launch): cluster size,
+  // threads per block, nodes per block slice, residency bits (RES_*)
+  int cl, bt, sl, res;
 };
 
 }  // extern "C"
@@ -256,16 +305,41 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// max score, ties to the lowest node index
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+// an int whose order is the float's (no NaN): a < b iff fkey(a) < fkey(b),
+// so float minima combine through integer atomicMin
+__device__ __forceinline__ int fkey(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float fkey_inv(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// selectHost's order as one integer: the larger score first, then the lower
+// node index; 0 is below every node's key. A -0 score keys as +0, so equal
+// scores key equal.
+__device__ __forceinline__ unsigned long long pick_key(float v, int n) {
+  unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)(0x7fffffff - n);
+}
+
+__device__ __forceinline__ float pick_score(unsigned long long k) {
+  const unsigned u = (unsigned)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int pick_node(unsigned long long k) {
+  return 0x7fffffff - (int)(unsigned)(k & 0xffffffffu);
+}
+
+__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, o);
-    const int oi = __shfl_xor_sync(kFull, i, o);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
+    const unsigned long long w = __shfl_xor_sync(kFull, v, o);
+    v = w > v ? w : v;
   }
+  return v;
 }
 
 __device__ __forceinline__ float cnt_load(const void* p, size_t idx, bool bf16) {
@@ -286,18 +360,70 @@ __device__ __forceinline__ void cnt_inc(void* p, size_t idx, bool bf16) {
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
-// the block copies n bytes, 16 at a time where both ends and n allow it
+// the block copies n bytes, 16 or 4 at a time where both ends and n allow it
 __device__ void block_copy(void* dst, const void* src, size_t n) {
-  const size_t tid = threadIdx.x;
-  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | n) & 15) == 0) {
+  const size_t tid = threadIdx.x, stride = blockDim.x;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | n;
+  if ((align & 15) == 0) {
     uint4* d = static_cast<uint4*>(dst);
     const uint4* s = static_cast<const uint4*>(src);
-    for (size_t i = tid; i < n / 16; i += kThreads) d[i] = s[i];
+    for (size_t i = tid; i < n / 16; i += stride) d[i] = s[i];
+  } else if ((align & 3) == 0) {
+    uint32_t* d = static_cast<uint32_t*>(dst);
+    const uint32_t* s = static_cast<const uint32_t*>(src);
+    for (size_t i = tid; i < n / 4; i += stride) d[i] = s[i];
   } else {
     uint8_t* d = static_cast<uint8_t*>(dst);
     const uint8_t* s = static_cast<const uint8_t*>(src);
-    for (size_t i = tid; i < n; i += kThreads) d[i] = s[i];
+    for (size_t i = tid; i < n; i += stride) d[i] = s[i];
   }
+}
+
+// A block's dynamic shared memory: offsets of 4-byte words, then of bytes
+// after them. Mirrored in kernels/step.py:smem_bytes.
+struct Layout {
+  int fail;    // [2][OPS] first-fail histogram, by pod parity
+  int dpart;   // [2][Q*D + 2Q] column-read partials: sums, totals, minima
+  int merged;  // [Q*D + 2Q] the cluster's column sums, totals, minima
+  int qneed;   // [Q] kNeed* bits
+  int minval;  // [Cs] f32 hard-spread minimum
+  int dom;     // [K1*D*Sg] f32 dom_count replica (F_DOM)
+  int sc;      // [rows][SL] f32 raw scores of the block's nodes
+  int hr;      // [SL*R] f32 headroom slice (RES_HEADROOM)
+  int flag;    // byte offset: [SL] feasibility flags
+  int pv;      // byte offset: [Npv] pv_taken replica (device-resource, F_PV_MATCH)
+  int bytes;   // total
+};
+
+__host__ __device__ inline int score_rows(int flags) {
+  return 3 + ((flags & kInterpodFlags) ? 1 : 0) + ((flags & kDevResFlags) ? 1 : 0);
+}
+
+__host__ __device__ inline Layout layout_of(const StepArgs& a) {
+  const int q = a.a + a.b + a.cs + a.ap;
+  const int qd = q * a.d + 2 * q;
+  Layout l;
+  int w = 0;
+  l.fail = w;
+  w += 2 * a.ops;
+  l.dpart = w;
+  w += 2 * qd;
+  l.merged = w;
+  w += qd;
+  l.qneed = w;
+  w += q;
+  l.minval = w;
+  w += a.cs;
+  l.dom = w;
+  w += (a.flags & F_DOM) ? a.k1 * a.d * a.sg : 0;
+  l.sc = w;
+  w += score_rows(a.flags) * a.sl;
+  l.hr = w;
+  w += (a.res & RES_HEADROOM) ? a.sl * a.r : 0;
+  l.flag = 4 * w;
+  l.pv = l.flag + a.sl;
+  l.bytes = l.pv + (((a.flags & kDevResFlags) && (a.flags & F_PV_MATCH)) ? a.npv : 0);
+  return l;
 }
 
 // selector group and topology key of the pod's carry column q, over the
@@ -563,28 +689,31 @@ __device__ bool limits_ok(const StepArgs& a, const DevLane& L, int fl, int p, in
 }
 
 // the device-resource bind of pod p on node fin (-1: unbound), by one
-// thread: the GPU pick and debit, the storage plan's row, the PV picks,
-// the attach counts and the shared-volume presence; and the pod's
-// gpu_pick / vol_pick output rows
-__device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int fin, size_t o) {
+// thread of each block: the GPU pick and debit, the storage plan's row, the
+// attach counts and the shared-volume presence in the block that owns fin
+// (`own`); the PV picks in every block, each on its own replica of
+// pv_taken (the same walk, so the same picks); the pod's gpu_pick /
+// vol_pick output rows by the owner, or by rank 0 (`lead`) when unbound
+__device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int fin, size_t o,
+                         bool own, bool lead) {
   if (fl & F_GPU) {
     int32_t* gp = a.out_gpu_pick + o * a.g;
-    if (fin >= 0) {
+    if (fin >= 0 && own) {
       gpu_pick(a, L, p, fin, gp);
       float* used = L.gpu_used + (size_t)fin * a.g;
       const float mem = a.gpu_mem[p];
       for (int g = 0; g < a.g; ++g) used[g] = __fadd_rn(used[g], __fmul_rn((float)gp[g], mem));
-    } else {
+    } else if (fin < 0 && lead) {
       for (int g = 0; g < a.g; ++g) gp[g] = 0;
     }
   }
   int32_t* vp = (fl & F_PV_MATCH) ? a.out_vol_pick + o * a.lw : nullptr;
   if (fin < 0) {
-    if (vp)
+    if (vp && lead)
       for (int j = 0; j < a.lw; ++j) vp[j] = -1;
     return;
   }
-  if (fl & F_STORAGE) {
+  if ((fl & F_STORAGE) && own) {
     float add[kMaxV];
     unsigned take = 0;
     lvm_pack(a, L, p, fin, add);
@@ -597,20 +726,22 @@ __device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int
   if (vp) {
     const int lo = a.pv_ptr[fin], hi = a.pv_ptr[fin + 1];
     for (int j = 0; j < a.lw; ++j) {
-      vp[j] = -1;
-      if (!a.wfc_valid[(size_t)p * a.lw + j]) continue;  // an invalid slot takes nothing
-      const uint8_t* cand = a.pv_cand + (size_t)a.wfc_ccid[(size_t)p * a.lw + j] * a.npv;
-      for (int i = lo; i < hi; ++i) {
-        const int pv = a.pv_idx[i];
-        if (cand[pv] && !L.pv_taken[pv]) {
-          L.pv_taken[pv] = 1;
-          vp[j] = pv;
-          break;
+      int pick = -1;
+      if (a.wfc_valid[(size_t)p * a.lw + j]) {  // an invalid slot takes nothing
+        const uint8_t* cand = a.pv_cand + (size_t)a.wfc_ccid[(size_t)p * a.lw + j] * a.npv;
+        for (int i = lo; i < hi; ++i) {
+          const int pv = a.pv_idx[i];
+          if (cand[pv] && !L.pv_taken[pv]) {
+            L.pv_taken[pv] = 1;
+            pick = pv;
+            break;
+          }
         }
       }
+      if (own) vp[j] = pick;
     }
   }
-  if (fl & F_VOL_LIMITS) {
+  if ((fl & F_VOL_LIMITS) && own) {
     // the demand reads the presence carry before this pod's volumes join it
     for (int k = 0; k < a.lk; ++k) {
       float* cell = L.vol_cnt + (size_t)fin * a.lk + k;
@@ -625,90 +756,140 @@ __device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int
 }
 
 template <bool kInterpod, bool kDevRes>
-__global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs a) {
+__global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
+    plain_step_kernel(const StepArgs a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
   // (+ interpod lo/hi) (+ GPU lo/hi)
   constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
   constexpr int kLive = kDevRes ? kRows : (kInterpod ? kRows - 2 : kRows - 4);
+  // the raw-score rows in shared memory: base, spread, Simon (+ interpod) (+ GPU)
+  constexpr int kRowGpu = kInterpod ? 4 : 3;
+  cg::cluster_group cluster = cg::this_cluster();
   const int N = a.n, R = a.r, D = a.d, SG = a.sg, PT = a.pt, CS = a.cs;
   const int Q = a.a + a.b + a.cs + a.ap;
-  extern __shared__ int s_dyn[];
-  int* s_fail = s_dyn;             // [OPS] first-fail histogram
-  int* s_dacc = s_fail + a.ops;    // [Q, D] per-domain column sums
-  int* s_qtot = s_dacc + Q * D;    // [Q] column totals
-  int* s_qmin = s_qtot + Q;        // [Q] column min over hostname-eligible nodes
-  int* s_qneed = s_qmin + Q;       // [Q] kNeed* bits
-  float* s_minval = reinterpret_cast<float*>(s_qneed + Q);  // [Cs] hard-spread minimum
-  __shared__ float s_redf[kRowsT][kWarps];
-  __shared__ int s_redc[kWarps];
-  __shared__ float s_best[kWarps];
-  __shared__ int s_bidx[kWarps];
-  __shared__ float s_fin[kRowsT];
-  __shared__ int s_fin_cnt;
-  __shared__ float s_top;
-  __shared__ int s_sel;
-
-  const int lane = blockIdx.x;
+  const int QD = Q * D + 2 * Q;
+  const int C = a.cl, B = blockDim.x, SL = a.sl;
+  const int rank = (int)cluster.block_rank();
+  const int lane = blockIdx.x / C;
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
+  // this block's nodes [lo, hi): ascending slices, so rank order is node order
+  const int lo = min(rank * SL, N), hi = min(lo + SL, N);
+  const int iters = (hi - lo + B - 1) / B;
+  const Layout lay = layout_of(a);
+  extern __shared__ __align__(16) int s_dyn[];
+  int* const s_fail = s_dyn + lay.fail;
+  int* const s_dpart = s_dyn + lay.dpart;
+  int* const s_dacc = s_dyn + lay.merged;  // [Q, D], then the totals, then the minima
+  int* const s_qtot = s_dacc + Q * D;
+  int* const s_qmin = s_qtot + Q;
+  int* const s_qneed = s_dyn + lay.qneed;
+  float* const s_minval = reinterpret_cast<float*>(s_dyn + lay.minval);
+  float* const s_sc = reinterpret_cast<float*>(s_dyn + lay.sc);
+  uint8_t* const s_flag = reinterpret_cast<uint8_t*>(s_dyn) + lay.flag;
+  __shared__ int s_part[2][kRows + 1];     // the block's minima (fkey), feasible count
+  __shared__ unsigned long long s_key[2];  // the block's argmax key
+  __shared__ float s_fin[kRowsT];
+  __shared__ int s_fin_cnt;
+  __shared__ unsigned long long s_pick;
+  __shared__ long long s_cyc[kPhases + 1];  // the phases, then the last mark
+
   // (an instantiation without kDevRes is launched only when no
   // device-resource flag is set, and reads none of them)
   const int fl = kInterpod ? a.flags : (a.flags & ~kInterpodFlags);
   const bool fail = fl & F_FAIL, use_sp = fl & F_SP, gc_path = fl & F_GC;
   const bool bf16 = fl & F_GC_BF16, tb_bf16 = fl & F_TB_BF16;
+  const bool dom_rep = fl & F_DOM, hr_res = a.res & RES_HEADROOM;
+  const bool pv_rep = kDevRes && (fl & F_PV_MATCH);
   const int n_out = a.p1 - a.p0;
-  const int iters = (N + kThreads - 1) / kThreads;
   const int s_base = a.a + a.b;      // first spread column
   const int p_base = s_base + CS;    // first preferred-term column
+  const size_t nl = hi - lo;
 
   const uint8_t* active = a.active + (size_t)lane * N;
   const float* log_dom = a.log_dom + (size_t)lane * a.k;
   const uint8_t* elig_host_l = a.elig_host + (size_t)lane * a.c * N;
   const uint8_t* domain_has_l = a.domain_has + (size_t)lane * a.c * a.k1 * D;
   const uint8_t* any_elig_l = a.any_elig + (size_t)lane * a.c * a.k;
-  float* headroom = a.headroom + (size_t)lane * N * R;
+  float* const headroom_g = a.headroom + (size_t)lane * N * R;
+  // headroom row of node n: hr_l + (n - lo) * R, in shared memory or not
+  float* const hr_l = hr_res ? reinterpret_cast<float*>(s_dyn + lay.hr) : headroom_g + (size_t)lo * R;
   uint8_t* ports_used = a.ports_used + (size_t)lane * N * PT;
-  float* dom_count = a.dom_count + (size_t)lane * a.k1 * D * SG;
+  float* const dom_g = a.dom_count + (size_t)lane * a.k1 * D * SG;
+  float* const dom_count = dom_rep ? reinterpret_cast<float*>(s_dyn + lay.dom) : dom_g;
   const size_t gc_base = (size_t)lane * N * SG;
   const size_t tb_base = (size_t)lane * N * a.t;
   float* pref_paint = a.pref_paint + (size_t)lane * N * a.t2;
-  float* sc_base = a.scratch + (size_t)lane * (kDevRes ? 5 : 4) * N;
-  float* sc_spread = sc_base + N;
-  float* sc_simon = sc_base + 2 * (size_t)N;
-  float* sc_ip = sc_base + 3 * (size_t)N;
-  float* sc_gpu = sc_base + 4 * (size_t)N;
+  float* const sc_base = s_sc;
+  float* const sc_spread = s_sc + SL;
+  float* const sc_simon = s_sc + 2 * SL;
+  float* const sc_ip = s_sc + 3 * SL;
+  float* const sc_gpu = s_sc + kRowGpu * SL;
+  uint8_t* const pv_g = kDevRes ? a.pv_taken + (size_t)lane * a.npv : nullptr;
   const DevLane L = kDevRes
       ? DevLane{a.gpu_used + (size_t)lane * N * a.g, a.vg_used + (size_t)lane * N * a.v,
-                a.sdev_taken + (size_t)lane * N * a.e, a.pv_taken + (size_t)lane * a.npv,
+                a.sdev_taken + (size_t)lane * N * a.e,
+                pv_rep ? reinterpret_cast<uint8_t*>(s_dyn) + lay.pv : pv_g,
                 a.vol_cnt + (size_t)lane * N * a.lk, a.svol_on_node + (size_t)lane * N * a.nsv}
       : DevLane{};
-  uint8_t* sc_flag = a.scratch_flags + (size_t)lane * N;
 
-  // ---- the lane prologue: this lane's carry slice from the template
+  // the cycle counts: thread 0 of rank 0 charges the cycles since the last
+  // mark to phase k; with them on, each phase ends at a block barrier
+  const bool counted = a.cycles != nullptr;
+  const bool timed = counted && rank == 0 && tid == 0;
+  if (timed) {
+    for (int i = 0; i < kPhases; ++i) s_cyc[i] = 0;
+    s_cyc[kPhases] = clock64();
+  }
+  auto mark = [&](int k) {
+    if (timed) {
+      const long long t = clock64();
+      s_cyc[k] += t - s_cyc[kPhases];
+      s_cyc[kPhases] = t;
+    }
+  };
+
+  // ---- the lane prologue: this block's slice of the lane's carry (and its
+  // replicas of the lane-wide state) from the template, or the replicas and
+  // shared-memory rows from the lane's carry
   if (a.flags & F_TEMPLATE) {
     const size_t gc_el = bf16 ? 2 : 4, tb_el = tb_bf16 ? 2 : 4;
-    block_copy(headroom, a.tmpl_headroom, (size_t)N * R * sizeof(float));
-    block_copy(ports_used, a.tmpl_ports_used, (size_t)N * PT);
-    block_copy(dom_count, a.tmpl_dom_count, (size_t)a.k1 * D * SG * sizeof(float));
-    block_copy(static_cast<uint8_t*>(a.group_count) + gc_base * gc_el, a.tmpl_group_count,
-               (size_t)N * SG * gc_el);
-    block_copy(static_cast<uint8_t*>(a.term_block) + tb_base * tb_el, a.tmpl_term_block,
-               (size_t)N * a.t * tb_el);
-    block_copy(pref_paint, a.tmpl_pref_paint, (size_t)N * a.t2 * sizeof(float));
+    block_copy(hr_l, a.tmpl_headroom + (size_t)lo * R, nl * R * sizeof(float));
+    block_copy(ports_used + (size_t)lo * PT, a.tmpl_ports_used + (size_t)lo * PT, nl * PT);
+    block_copy(static_cast<uint8_t*>(a.group_count) + (gc_base + (size_t)lo * SG) * gc_el,
+               static_cast<const uint8_t*>(a.tmpl_group_count) + (size_t)lo * SG * gc_el,
+               nl * SG * gc_el);
+    block_copy(static_cast<uint8_t*>(a.term_block) + (tb_base + (size_t)lo * a.t) * tb_el,
+               static_cast<const uint8_t*>(a.tmpl_term_block) + (size_t)lo * a.t * tb_el,
+               nl * a.t * tb_el);
+    block_copy(pref_paint + (size_t)lo * a.t2, a.tmpl_pref_paint + (size_t)lo * a.t2,
+               nl * a.t2 * sizeof(float));
+    if (dom_rep || rank == 0)
+      block_copy(dom_count, a.tmpl_dom_count, (size_t)a.k1 * D * SG * sizeof(float));
     if constexpr (kDevRes) {
-      block_copy(L.gpu_used, a.tmpl_gpu_used, (size_t)N * a.g * sizeof(float));
-      block_copy(L.vg_used, a.tmpl_vg_used, (size_t)N * a.v * sizeof(float));
-      block_copy(L.sdev_taken, a.tmpl_sdev_taken, (size_t)N * a.e);
-      block_copy(L.pv_taken, a.tmpl_pv_taken, (size_t)a.npv);
-      block_copy(L.vol_cnt, a.tmpl_vol_cnt, (size_t)N * a.lk * sizeof(float));
-      block_copy(L.svol_on, a.tmpl_svol_on_node, (size_t)N * a.nsv);
+      block_copy(L.gpu_used + (size_t)lo * a.g, a.tmpl_gpu_used + (size_t)lo * a.g,
+                 nl * a.g * sizeof(float));
+      block_copy(L.vg_used + (size_t)lo * a.v, a.tmpl_vg_used + (size_t)lo * a.v,
+                 nl * a.v * sizeof(float));
+      block_copy(L.sdev_taken + (size_t)lo * a.e, a.tmpl_sdev_taken + (size_t)lo * a.e, nl * a.e);
+      block_copy(L.vol_cnt + (size_t)lo * a.lk, a.tmpl_vol_cnt + (size_t)lo * a.lk,
+                 nl * a.lk * sizeof(float));
+      block_copy(L.svol_on + (size_t)lo * a.nsv, a.tmpl_svol_on_node + (size_t)lo * a.nsv,
+                 nl * a.nsv);
+      if (pv_rep || rank == 0) block_copy(L.pv_taken, a.tmpl_pv_taken, (size_t)a.npv);
     }
-    __syncthreads();
+  } else {
+    if (hr_res) block_copy(hr_l, headroom_g + (size_t)lo * R, nl * R * sizeof(float));
+    if (dom_rep) block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
+    if (pv_rep) block_copy(L.pv_taken, pv_g, (size_t)a.npv);
   }
+  __syncthreads();
+  mark(0);
 
   for (int p = a.p0; p < a.p1; ++p) {
     const int j = p - a.p0;
+    const int par = j & 1;  // the pod's parity: which partial buffers it uses
     const float* req = a.req + (size_t)p * R;
     const int cid = a.class_id[p];
     const int forced = a.forced_node[p];
@@ -722,28 +903,35 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     const uint8_t* elig_host = elig_host_l + (size_t)cid * N;
     const int vcid = kDevRes ? a.vol_cid[p] : 0;
     const bool pv_missing = kDevRes && a.vol_pv_missing[p];
+    const size_t orow = (size_t)lane * n_out + j;  // the pod's output row
+    int* const fail_b = s_fail + par * a.ops;
+    int* const dpart = s_dpart + par * QD;
+    int* const part = s_part[par];
     bool any_soft = false;
     if (use_sp)
       for (int c = 0; c < CS; ++c) any_soft |= ssoft[c] != 0;
 
-    // ---- phase 0: zero the histograms, and what each carry column of
+    // ---- phase 0: zero this parity's partials (the other parity's may
+    // still be read by the other blocks), and what each carry column of
     // the pod needs from the batched column read
-    for (int i = tid; i < a.ops; i += kThreads) s_fail[i] = 0;
+    for (int i = tid; i < a.ops; i += B) fail_b[i] = 0;
+    if (tid <= kRows) part[tid] = tid < kRows ? INT_MAX : 0;
+    if (tid == 0) s_key[par] = 0;
     if (gc_path) {
-      for (int i = tid; i < Q * D; i += kThreads) s_dacc[i] = 0;
-      for (int q = tid; q < Q; q += kThreads) {
+      for (int i = tid; i < QD; i += B) dpart[i] = i < Q * D + Q ? 0 : INT_MAX;
+      for (int q = tid; q < Q; q += B) {
         int g, key;
         column_of(a, p, q, g, key);
         s_qneed[q] = column_need(a, fl, p, q, key);
-        s_qtot[q] = 0;
-        s_qmin[q] = INT_MAX;
       }
     }
     __syncthreads();
 
     // ---- phase 0b: the batched carry-column read (group_count path):
-    // per-domain sums, totals and eligible minima of the pod's columns,
-    // warp-aggregated integer adds and mins (exact in any order)
+    // each block's per-domain sums, totals and eligible minima of the
+    // pod's columns over its nodes (warp-aggregated integer adds and mins,
+    // exact in any order), then the cluster's, summed over the blocks'
+    // partials through distributed shared memory (round C)
     if (gc_path && Q) {
       for (int q = 0; q < Q; ++q) {
         const int need = s_qneed[q];
@@ -753,9 +941,9 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
         const int32_t* dom_of = key > 0 ? a.node_dom + (size_t)(key - 1) * N : nullptr;
         int tot = 0, mn = INT_MAX;
         for (int it = 0; it < iters; ++it) {
-          const int n = it * kThreads + tid;
+          const int n = lo + it * B + tid;
           int v = 0, dm = -1;
-          if (n < N) {
+          if (n < hi) {
             v = (int)cnt_load(a.group_count, gc_base + (size_t)n * SG + g, bf16);
             if (need & kNeedDom) dm = dom_of[n];
             if ((need & kNeedMin) && elig_host[n]) mn = min(mn, v);
@@ -764,17 +952,29 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
           if (need & kNeedDom) {
             const unsigned peers = __match_any_sync(kFull, dm);
             const int sum = __reduce_add_sync(peers, v);
-            if (dm >= 0 && sum && lid == __ffs(peers) - 1) atomicAdd(&s_dacc[q * D + dm], sum);
+            if (dm >= 0 && sum && lid == __ffs(peers) - 1) atomicAdd(&dpart[q * D + dm], sum);
           }
         }
         if (need & kNeedTot) {
           tot = __reduce_add_sync(kFull, tot);
-          if (lid == 0 && tot) atomicAdd(&s_qtot[q], tot);
+          if (lid == 0 && tot) atomicAdd(&dpart[Q * D + q], tot);
         }
         if (need & kNeedMin) {
           mn = __reduce_min_sync(kFull, mn);
-          if (lid == 0) atomicMin(&s_qmin[q], mn);
+          if (lid == 0) atomicMin(&dpart[Q * D + Q + q], mn);
         }
+      }
+      cluster.sync();
+      for (int i = tid; i < QD; i += B) {
+        const bool is_sum = i < Q * D, is_tot = !is_sum && i < Q * D + Q;
+        const int q = is_sum ? i / D : (is_tot ? i - Q * D : i - Q * D - Q);
+        if (!(s_qneed[q] & (is_sum ? kNeedDom : (is_tot ? kNeedTot : kNeedMin)))) continue;
+        int v = (is_sum || is_tot) ? 0 : INT_MAX;
+        for (int r = 0; r < C; ++r) {
+          const int x = cluster.map_shared_rank(dpart, r)[i];
+          v = (is_sum || is_tot) ? v + x : min(v, x);
+        }
+        s_dacc[i] = v;
       }
       __syncthreads();
     }
@@ -783,7 +983,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     // domains holding an eligible node (hostname: over eligible nodes),
     // 0 when no eligible node has the key
     if (fl & F_SPH) {
-      for (int c = tid; c < CS; c += kThreads) {
+      for (int c = tid; c < CS; c += B) {
         if (!shard[c]) continue;
         const int key = skey[c];
         float mv = kBig;
@@ -806,23 +1006,36 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
       }
       __syncthreads();
     }
+    mark(1);
 
-    // ---- phase 1: filters, first-fail histogram, raw scores, local minima
+    // ---- phase 1: filters, first-fail histogram, raw scores into shared
+    // memory, the block's minima
     float m_na = kBig, m_tt = kBig, m_slo = kBig, m_shi = kBig, m_ilo = kBig, m_ihi = kBig;
     float m_plo = kBig, m_phi = kBig, m_glo = kBig, m_ghi = kBig;
     int cnt = 0;
     for (int it = 0; it < iters; ++it) {
-      const int n = it * kThreads + tid;
+      const int n = lo + it * B + tid;
+      const int ln = n - lo;
       int charged_op = -1;
-      if (n < N) {
+      if (n < hi) {
+        // the node's inputs that depend on nothing else, loaded together
+        // ahead of the filter chain's branches (one latency, not several)
+        const size_t cn = (size_t)cid * N + n;
         const bool act = active[n] != 0;
-        const float* hr = headroom + (size_t)n * R;
+        const bool unsched = (fl & F_UNSCHED) && a.unschedulable[n];
+        const bool aff_ok = !(fl & F_CLASS_AFF) || a.class_affinity[cn];
+        const bool taint_ok = !(fl & F_CLASS_TAINT) || a.class_taint[cn];
+        const float na_score = (fl & F_NA) ? a.class_node_aff_score[cn] : 0.0f;
+        const float tt_prefer = (fl & F_TT) ? a.class_taint_prefer[cn] : 0.0f;
+        const float ia_c = a.inv_alloc[(size_t)n * R + a.ci], ia_m = a.inv_alloc[(size_t)n * R + a.mi];
+        const int spec = (fl & F_SI) ? a.spec_id[n] : 0;
+        const float* hr = hr_l + (size_t)ln * R;
         int ff = -1;
-        if ((fl & F_UNSCHED) && a.unschedulable[n]) {
+        if (unsched) {
           ff = 0;
-        } else if ((fl & F_CLASS_AFF) && !a.class_affinity[(size_t)cid * N + n]) {
+        } else if (!aff_ok) {
           ff = 1;
-        } else if ((fl & F_CLASS_TAINT) && !a.class_taint[(size_t)cid * N + n]) {
+        } else if (!taint_ok) {
           ff = 2;
         } else {
           if (fl & F_PORTS) {
@@ -912,14 +1125,13 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
         const bool mask = act && ff < 0;
         if (act && ff >= 0) charged_op = ff;
         uint8_t flag = mask ? 1 : 0;
-        if (fl & F_NA) m_na = fminf(m_na, mask ? -a.class_node_aff_score[(size_t)cid * N + n] : 0.0f);
-        if (fl & F_TT) m_tt = fminf(m_tt, mask ? -a.class_taint_prefer[(size_t)cid * N + n] : 0.0f);
+        if (fl & F_NA) m_na = fminf(m_na, mask ? -na_score : 0.0f);
+        if (fl & F_TT) m_tt = fminf(m_tt, mask ? -tt_prefer : 0.0f);
         if (mask) {
           ++cnt;
           // NodeResources: balanced + least (+ most) over free fractions
-          const float* ia = a.inv_alloc + (size_t)n * R;
-          const float h_c = __fmul_rn(__fsub_rn(hr[a.ci], req[a.ci]), ia[a.ci]);
-          const float h_m = __fmul_rn(__fsub_rn(hr[a.mi], req[a.mi]), ia[a.mi]);
+          const float h_c = __fmul_rn(__fsub_rn(hr[a.ci], req[a.ci]), ia_c);
+          const float h_m = __fmul_rn(__fsub_rn(hr[a.mi], req[a.mi]), ia_m);
           float base = 0.0f;
           if (fl & F_BAL)
             base = __fadd_rn(base, __fmul_rn(a.w_bal, __fmul_rn(
@@ -929,10 +1141,10 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
                 __fadd_rn(fmaxf(h_c, 0.0f), fmaxf(h_m, 0.0f)), 50.0f)));
           if (fl & F_MOST)
             base = __fadd_rn(base, __fmul_rn(a.w_most, __fmul_rn(__fadd_rn(
-                __fmul_rn(clamp01(__fsub_rn(1.0f, h_c)), ia[a.ci] > 0.0f ? 1.0f : 0.0f),
-                __fmul_rn(clamp01(__fsub_rn(1.0f, h_m)), ia[a.mi] > 0.0f ? 1.0f : 0.0f)),
+                __fmul_rn(clamp01(__fsub_rn(1.0f, h_c)), ia_c > 0.0f ? 1.0f : 0.0f),
+                __fmul_rn(clamp01(__fsub_rn(1.0f, h_m)), ia_m > 0.0f ? 1.0f : 0.0f)),
                 50.0f)));
-          sc_base[n] = base;
+          sc_base[ln] = base;
           // InterPodAffinity preference: the existing pods' weighted paint
           // at this pod's hit terms, then weight x domain count per term
           if (fl & F_IP) {
@@ -949,7 +1161,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
               const float hk = a.has_key[(size_t)key * N + n] ? 1.0f : 0.0f;
               raw = __fadd_rn(raw, __fmul_rn(__fmul_rn(a.pref_weight[o], dc), hk));
             }
-            sc_ip[n] = raw;
+            sc_ip[ln] = raw;
             m_plo = fminf(m_plo, raw);
             m_phi = fminf(m_phi, -raw);
           }
@@ -973,7 +1185,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
                                                __fsub_rn(sskew[c], 1.0f)));
               sok = sok && a.has_key[(size_t)kid * N + n];
             }
-            sc_spread[n] = sraw;
+            sc_spread[ln] = sraw;
             if (sok) {
               flag |= 2;
               m_slo = fminf(m_slo, sraw);
@@ -982,7 +1194,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
           }
           // Simon: max over resources of share(req, alloc - req), static alloc
           if (fl & F_SI) {
-            const float* sa = a.spec_alloc + (size_t)a.spec_id[n] * R;
+            const float* sa = a.spec_alloc + (size_t)spec * R;
             float mx = 0.0f;
             for (int r = 0; r < R; ++r) {
               const float avail = __fsub_rn(sa[r], req[r]);
@@ -992,7 +1204,7 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
               mx = r == 0 ? sh : fmaxf(mx, sh);
             }
             const float raw_si = __fmul_rn(mx, 100.0f);
-            sc_simon[n] = raw_si;
+            sc_simon[ln] = raw_si;
             m_ilo = fminf(m_ilo, raw_si);
             m_ihi = fminf(m_ihi, -raw_si);
           }
@@ -1000,48 +1212,64 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
           if constexpr (kDevRes) {
             if (fl & F_GPU) {
               const float raw_gp = gpu_raw(a, L, p, n);
-              sc_gpu[n] = raw_gp;
+              sc_gpu[ln] = raw_gp;
               m_glo = fminf(m_glo, raw_gp);
               m_ghi = fminf(m_ghi, -raw_gp);
             }
           }
         }
-        sc_flag[n] = flag;
+        s_flag[ln] = flag;
       }
       if (fail) {
         // warp-aggregated histogram add: one shared atomic per distinct op
         const unsigned peers = __match_any_sync(kFull, charged_op);
         if (charged_op >= 0 && lid == __ffs(peers) - 1)
-          atomicAdd(&s_fail[charged_op], __popc(peers));
+          atomicAdd(&fail_b[charged_op], __popc(peers));
       }
     }
     {
-      const float mins[kRows - 2] = {m_na, m_tt, m_slo, m_shi, m_ilo, m_ihi, m_plo, m_phi};
+      const float mins[kRows] = {m_na, m_tt, m_slo, m_shi, m_ilo, m_ihi, m_plo, m_phi, m_glo,
+                                 m_ghi};
 #pragma unroll
-      for (int q = 0; q < (kDevRes ? kLive - 2 : kLive); ++q) {
+      for (int q = 0; q < kLive; ++q) {
         const float v = warp_min(mins[q]);
-        if (lid == 0) s_redf[q][wid] = v;
-      }
-      if constexpr (kDevRes) {
-        const float glo = warp_min(m_glo), ghi = warp_min(m_ghi);
-        if (lid == 0) {
-          s_redf[kRows - 2][wid] = glo;
-          s_redf[kRows - 1][wid] = ghi;
-        }
+        if (lid == 0) atomicMin(&part[q], fkey(v));
       }
     }
     cnt = __reduce_add_sync(kFull, cnt);
-    if (lid == 0) s_redc[wid] = cnt;
-    __syncthreads();
+    if (lid == 0 && cnt) atomicAdd(&part[kRows], cnt);
+    if (counted) {
+      __syncthreads();
+      mark(2);
+    }
+
+    // ---- round A: the cluster's minima and feasible count (warp 0, one
+    // lane per block), and the first-fail histogram into the output (each
+    // op summed over the blocks by one thread of one block)
+    cluster.sync();
     if (wid == 0) {
+      const int* rp = lid < C ? cluster.map_shared_rank(part, lid) : nullptr;
+      int v[kLive];
+#pragma unroll
+      for (int q = 0; q < kLive; ++q) v[q] = rp ? rp[q] : INT_MAX;
+      const int c = __reduce_add_sync(kFull, rp ? rp[kRows] : 0);
+#pragma unroll
       for (int q = 0; q < kLive; ++q) {
-        const float v = warp_min(s_redf[q][lid]);
-        if (lid == 0) s_fin[q] = v;
+        const int mq = __reduce_min_sync(kFull, v[q]);
+        if (lid == 0) s_fin[q] = fkey_inv(mq);
       }
-      const int c = __reduce_add_sync(kFull, s_redc[lid]);
       if (lid == 0) s_fin_cnt = c;
     }
+    if (fail) {
+      const int t0 = B > 32 ? 32 : 0;  // past warp 0 where the block has more warps
+      for (int i = rank + (tid - t0) * C; tid >= t0 && i < a.ops; i += (B - t0) * C) {
+        int sum = 0;
+        for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(fail_b, r)[i];
+        a.out_fail[orow * a.ops + i] = sum;
+      }
+    }
     __syncthreads();
+    mark(3);
 
     // ---- phase 2: normalizers, final score in the reference's add order
     // (resources, node affinity, taint, interpod, spread, Simon, GPU),
@@ -1069,15 +1297,15 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
     // a pod without a GPU request scores 0 on the GPU row
     const float gp_w = kDevRes ? __fmul_rn(a.w_gpu, a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
 
-    float best = -INFINITY;
-    int bidx = 0x7fffffff;
+    unsigned long long best = 0;
     for (int it = 0; it < iters; ++it) {
-      const int n = it * kThreads + tid;
-      if (n >= N) break;
-      const uint8_t flag = sc_flag[n];
+      const int n = lo + it * B + tid;
+      if (n >= hi) break;
+      const int ln = n - lo;
+      const uint8_t flag = s_flag[ln];
       float ms = kNegInf;
       if (flag & 1) {
-        float score = sc_base[n];
+        float score = sc_base[ln];
         if (fl & F_NA)
           score = __fadd_rn(score, __fmul_rn(a.w_na, __fmul_rn(
               a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
@@ -1086,66 +1314,67 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
               a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
         if (fl & F_IP)
           score = __fadd_rn(score, __fmul_rn(a.w_ip, __fmul_rn(
-              __fsub_rn(sc_ip[n], ip_lo), inv_ip)));
+              __fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
         if (use_sp) {
           const float v = (flag & 2)
-              ? __fadd_rn(base_sp, __fmul_rn(__fsub_rn(c1, sc_spread[n]), inv_sp))
+              ? __fadd_rn(base_sp, __fmul_rn(__fsub_rn(c1, sc_spread[ln]), inv_sp))
               : 0.0f;
           score = __fadd_rn(score, __fmul_rn(a.w_sp, v));
         }
         if (fl & F_SI)
           score = __fadd_rn(score, __fmul_rn(a.w_si, __fmul_rn(
-              __fsub_rn(sc_simon[n], si_lo), inv_si)));
+              __fsub_rn(sc_simon[ln], si_lo), inv_si)));
         if constexpr (kDevRes) {
           if (fl & F_GPU)
             score = __fadd_rn(score, __fmul_rn(gp_w, __fmul_rn(
-                __fsub_rn(sc_gpu[n], gp_lo), inv_gp)));
+                __fsub_rn(sc_gpu[ln], gp_lo), inv_gp)));
         }
         ms = score;
       }
-      if (ms > best) {  // nodes ascend per thread: ties keep the lower index
-        best = ms;
-        bidx = n;
-      }
+      // nodes ascend per thread: a tie keys lower for the later node
+      const unsigned long long k = pick_key(ms, n);
+      if (k > best) best = k;
     }
-    warp_argmax(best, bidx);
-    if (lid == 0) {
-      s_best[wid] = best;
-      s_bidx[wid] = bidx;
+    best = warp_max_u64(best);
+    if (lid == 0 && best) atomicMax(&s_key[par], best);
+    if (counted) {
+      __syncthreads();
+      mark(4);
     }
-    __syncthreads();
-    if (wid == 0) {
-      float v = s_best[lid];
-      int i = s_bidx[lid];
-      warp_argmax(v, i);
-      if (lid == 0) {
-        s_top = v;
-        s_sel = i;
-      }
-    }
-    __syncthreads();
 
-    // ---- phase 3: forced-node fast path, outputs, bind
-    const bool any_feasible = s_top > kNegInf;
-    const int fin = forced >= 0 ? forced : ((forced == -1 && any_feasible) ? s_sel : -1);
-    const size_t o = (size_t)lane * n_out + j;
-    if (tid == 0) {
-      a.out_node[o] = fin;
-      a.out_feasible[o] = fail ? s_fin_cnt : 0;
+    // ---- round B: the cluster's (max score, lowest index) pick
+    cluster.sync();
+    if (wid == 0) {
+      const unsigned long long k = lid < C ? *cluster.map_shared_rank(&s_key[par], lid) : 0;
+      const unsigned long long top = warp_max_u64(k);
+      if (lid == 0) s_pick = top;
     }
-    if (fail)
-      for (int i = tid; i < a.ops; i += kThreads) a.out_fail[o * a.ops + i] = s_fail[i];
+    __syncthreads();
+    mark(5);
+
+    // ---- phase 3: forced-node fast path, outputs, bind. A node's rows are
+    // written by its owner block; the replicas by every block alike
+    const unsigned long long pick = s_pick;
+    const bool any_feasible = pick_score(pick) > kNegInf;
+    const int fin = forced >= 0 ? forced : ((forced == -1 && any_feasible) ? pick_node(pick) : -1);
+    const bool own = fin >= lo && fin < hi;
+    if (rank == 0 && tid == 0) {
+      a.out_node[orow] = fin;
+      a.out_feasible[orow] = fail ? s_fin_cnt : 0;
+    }
     if (fin >= 0) {
-      for (int i = tid; i < R; i += kThreads)
-        headroom[(size_t)fin * R + i] = __fsub_rn(headroom[(size_t)fin * R + i], req[i]);
-      if (fl & F_PORTS)
-        for (int i = tid; i < PT; i += kThreads)
-          if (pports[i]) ports_used[(size_t)fin * PT + i] = 1;
-      if (gc_path)
-        for (int i = tid; i < SG; i += kThreads)
-          if (match[i]) cnt_inc(a.group_count, gc_base + (size_t)fin * SG + i, bf16);
+      if (own) {
+        float* hf = hr_l + (size_t)(fin - lo) * R;
+        for (int i = tid; i < R; i += B) hf[i] = __fsub_rn(hf[i], req[i]);
+        if (fl & F_PORTS)
+          for (int i = tid; i < PT; i += B)
+            if (pports[i]) ports_used[(size_t)fin * PT + i] = 1;
+        if (gc_path)
+          for (int i = tid; i < SG; i += B)
+            if (match[i]) cnt_inc(a.group_count, gc_base + (size_t)fin * SG + i, bf16);
+      }
       if (fl & F_DOM) {
-        for (int i = tid; i < a.k1 * SG; i += kThreads) {
+        for (int i = tid; i < a.k1 * SG; i += B) {
           const int kk = i / SG, g = i % SG;
           if (!match[g]) continue;
           const int dm = a.node_dom[(size_t)kk * N + fin];
@@ -1156,17 +1385,18 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
         }
       }
       // the paints over the bound node's domain: each node's cells are
-      // written by the one thread that owns the node (m % kThreads), so a
-      // cell's adds run in the reference's slot order
+      // written by the one thread that owns the node ((m - lo) % B of the
+      // owner block), so a cell's adds run in the reference's slot order
+      const bool fin_thread = own && (fin - lo) % B == tid;
       if (fl & F_ANTI) {
         for (int i = a.own_ptr[p]; i < a.own_ptr[p + 1]; ++i) {
           const int t = a.own_idx[i];
           const int key = a.term_key[t];
           if (key == 0) {
-            if (fin % kThreads == tid) cnt_inc(a.term_block, tb_base + (size_t)fin * a.t + t, tb_bf16);
+            if (fin_thread) cnt_inc(a.term_block, tb_base + (size_t)fin * a.t + t, tb_bf16);
             continue;
           }
-          for (int m = tid; m < N; m += kThreads)
+          for (int m = lo + tid; m < hi; m += B)
             if (same_domain(a, key, fin, m)) cnt_inc(a.term_block, tb_base + (size_t)m * a.t + t, tb_bf16);
         }
       }
@@ -1178,13 +1408,13 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
           const int t = a.pref_tid[po];
           const float w = a.pref_weight[po];
           if (key == 0) {
-            if (fin % kThreads == tid) {
+            if (fin_thread) {
               float* cell = pref_paint + (size_t)fin * a.t2 + t;
               *cell = __fadd_rn(*cell, w);
             }
             continue;
           }
-          for (int m = tid; m < N; m += kThreads) {
+          for (int m = lo + tid; m < hi; m += B) {
             if (!same_domain(a, key, fin, m)) continue;
             float* cell = pref_paint + (size_t)m * a.t2 + t;
             *cell = __fadd_rn(*cell, w);
@@ -1193,29 +1423,105 @@ __global__ void __launch_bounds__(kThreads, 1) plain_step_kernel(const StepArgs 
       }
     }
     if constexpr (kDevRes) {
-      if (tid == 0) dev_bind(a, L, fl, p, fin, o);
+      if (tid == 0) dev_bind(a, L, fl, p, fin, orow, own, rank == 0);
     }
-    __syncthreads();
+    if (counted) __syncthreads();
+    mark(6);
+    // (the next pod's phase-0 barrier orders this bind before its reads)
   }
+
+  // write back what lived in shared memory: the headroom slice, and (rank
+  // 0; the replicas are equal) the lane-wide state
+  __syncthreads();
+  if (hr_res) block_copy(headroom_g + (size_t)lo * R, hr_l, nl * R * sizeof(float));
+  if (rank == 0 && dom_rep) block_copy(dom_g, dom_count, (size_t)a.k1 * D * SG * sizeof(float));
+  if (rank == 0 && pv_rep) block_copy(pv_g, L.pv_taken, (size_t)a.npv);
+  if (timed)
+    for (int i = 0; i < kPhases; ++i) a.cycles[(size_t)lane * kPhases + i] = s_cyc[i];
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+void (*kernel_of(const StepArgs* args))(StepArgs) {
+  const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
+  return devres ? (interpod ? plain_step_kernel<true, true> : plain_step_kernel<false, true>)
+                : (interpod ? plain_step_kernel<true, false> : plain_step_kernel<false, false>);
+}
+
+// the kernel's attributes for a launch of this geometry: a cluster over 8
+// blocks is non-portable, and over 48 KB of dynamic shared memory must be
+// asked for
+cudaError_t prepare(void (*kernel)(StepArgs), const StepArgs* args, size_t smem) {
+  cudaError_t e = cudaSuccess;
+  if (args->cl > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return e;
+}
+
+bool geometry_ok(const StepArgs* args) {
+  const int c = args->cl;
+  const int max_bt = (args->flags & kDevResFlags) ? kMaxThreadsDevRes : kMaxThreads;
+  return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&
+         args->bt <= max_bt && args->bt % 32 == 0 && args->sl >= 1 &&
+         (long long)args->sl * c >= args->n;
+}
+
+cudaLaunchConfig_t config_of(const StepArgs* args, size_t smem, cudaLaunchAttribute* attr,
+                             int n_clusters, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = args->cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_clusters * args->cl, 1, 1);
+  cfg.blockDim = dim3(args->bt, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream). Returns cudaGetLastError():
-// a refused launch never runs, so the caller must check it.
-extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
-  const int q = args->a + args->b + args->cs + args->ap;
-  const size_t smem =
-      (size_t)(args->ops + q * args->d + 3 * q) * sizeof(int) + (size_t)args->cs * sizeof(float);
-  const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
-  void (*kernel)(StepArgs) =
-      devres ? (interpod ? plain_step_kernel<true, true> : plain_step_kernel<false, true>)
-             : (interpod ? plain_step_kernel<true, false> : plain_step_kernel<false, false>);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// The dynamic shared memory a block of this launch needs (bytes).
+extern "C" int plain_step_smem(const StepArgs* args) { return layout_of(*args).bytes; }
+
+// How many clusters of args->cl blocks of args->bt threads the card holds
+// at once (cudaOccupancyMaxActiveClusters) into *n; 0 when it cannot place
+// one. Returns a CUDA error code.
+extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
+  *n = 0;
+  if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
+  void (*kernel)(StepArgs) = kernel_of(args);
+  const size_t smem = layout_of(*args).bytes;
+  cudaError_t e = prepare(kernel, args, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config_of(args, smem, &attr, 1, nullptr);
+  e = cudaOccupancyMaxActiveClusters(n, reinterpret_cast<const void*>(kernel), &cfg);
+  if (e != cudaSuccess) {
+    *n = 0;
+    cudaGetLastError();  // a size the card refuses is an answer (0), not a fault
   }
-  kernel<<<args->s, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaSuccess;
+}
+
+// Launch on `stream` (PyTorch's current stream): S clusters of args->cl
+// blocks. Returns cudaGetLastError(): a refused launch never runs, so the
+// caller must check it.
+extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
+  if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
+  void (*kernel)(StepArgs) = kernel_of(args);
+  const size_t smem = layout_of(*args).bytes;
+  cudaError_t e = prepare(kernel, args, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      config_of(args, smem, &attr, args->s, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, kernel, *args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

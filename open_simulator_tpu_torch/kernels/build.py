@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build, by kernel
+# ptxas report (registers, shared memory, spills) of each build, by kernel;
+# kept beside the library, so a reused build reports it too
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -55,6 +56,9 @@ def _target(name: str) -> Tuple[Path, Path]:
 def _start(name: str):
     src, out = _target(name)
     if out.exists():
+        report = out.with_suffix(".ptxas.txt")
+        if report.exists():
+            BUILD_LOG[name] = report.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -73,6 +77,7 @@ def _finish(name: str, started) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
     BUILD_LOG[name] = log
+    out.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -28,12 +28,18 @@ returned fail counts are a zero-stride view of one zero.
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
 other. ``LAUNCHES["plain_step"]`` counts the kernel's launches.
+
+The kernel runs each lane on a thread-block cluster: ``plan_launch``
+picks the cluster size, the block size and each block's node slice from
+the lane count, the node count and the card's occupancy answer, and
+``smem_bytes`` is the per-block shared-memory accounting it checks.
+``LAST_PLAN`` holds the geometry of the latest launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,6 +54,10 @@ from open_simulator_tpu_torch.kernels import build
 from open_simulator_tpu_torch.ops.domains import ActiveHoist
 
 LAUNCHES: Dict[str, int] = {"plain_step": 0}
+# the kernel's per-phase cycle counts (kPhases in the .cu), in order
+PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
+          "min/count reduction", "phase 2 score and argmax", "argmax reduction",
+          "phase 3 bind")
 
 # StepArgs.flags bits (csrc/plain_step.cu)
 F_UNSCHED, F_CLASS_AFF, F_CLASS_TAINT, F_PORTS, F_FAIL = 1, 2, 4, 8, 16
@@ -58,6 +68,10 @@ F_AFF, F_ANTI, F_SPH, F_IP, F_PREF, F_TB_BF16 = 1 << 15, 1 << 16, 1 << 17, 1 << 
 F_TEMPLATE = 1 << 21
 F_GPU, F_STORAGE, F_VOL_STATIC = 1 << 22, 1 << 23, 1 << 24
 F_PV_MATCH, F_VOL_LIMITS, F_VOL_DEDUP = 1 << 25, 1 << 26, 1 << 27
+INTERPOD_FLAGS = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF
+DEVRES_FLAGS = F_GPU | F_STORAGE | F_VOL_STATIC | F_PV_MATCH | F_VOL_LIMITS | F_VOL_DEDUP
+# StepArgs.res bits (csrc/plain_step.cu)
+RES_HEADROOM = 1
 
 _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "class_node_aff_score", "class_taint_prefer", "spec_id", "spec_alloc",
@@ -70,7 +84,7 @@ _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "headroom", "ports_used", "dom_count", "group_count", "term_block",
          "pref_paint", "tmpl_headroom", "tmpl_ports_used", "tmpl_dom_count",
          "tmpl_group_count", "tmpl_term_block", "tmpl_pref_paint", "out_node",
-         "out_fail", "out_feasible", "scratch", "scratch_flags",
+         "out_fail", "out_feasible",
          # the device-resource ops
          "gpu_cap_mem", "gpu_slot", "vg_cap", "sdev_cap", "sdev_ssd", "pv_ptr", "pv_idx",
          "pv_cand", "class_vol_node", "class_vol_zone", "class_vol_bind", "vol_limit_cap",
@@ -96,16 +110,114 @@ _FLOATS = ("w_bal", "w_least", "w_most", "w_na", "w_tt", "w_ip", "w_sp", "w_si",
 # the .cu)
 MAX_VG, MAX_DEVICES, MAX_WFC_CLAIMS = 8, 32, 8
 
-# the block's dynamic shared memory (227 KB per block on Hopper, less the
-# static reduction buffers): OPS + Q*D + 3*Q ints + Cs floats, where
-# Q = A + B + Cs + Ap is the pod's batched carry-column read
+# a block's dynamic shared memory budget (227 KB per block on Hopper, less
+# the static reduction buffers; what is left over serves as L1)
 _SMEM_LIMIT = 200 * 1024
+# the launch geometry's bounds (kMaxThreads, kMaxThreadsDevRes, kMaxCluster
+# in the .cu): block sizes under which each instantiation stays in
+# registers, and cluster sizes (over 8 blocks is non-portable, and the card
+# may refuse it)
+MAX_THREADS, MAX_THREADS_DEVRES = 512, 384
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 
-def smem_bytes(ops: int, q: int, d: int, cs: int) -> int:
-    """The kernel's dynamic shared memory for these widths (mirrors
-    plain_step_launch in the .cu)."""
-    return (ops + q * d + 3 * q + cs) * 4
+class SmemWidths(NamedTuple):
+    """The widths a block's shared memory grows with (kernel: layout_of)."""
+    ops: int    # first-fail histogram rows
+    q: int      # the pod's carry columns (A + B + Cs + Ap)
+    d: int      # domains per key
+    cs: int     # spread constraints
+    dom: int    # K1 * D * Sg, the dom_count replica (0 off the dom_count path)
+    rows: int   # raw-score rows: 3, + interpod, + GPU
+    r: int      # resources (the headroom row)
+    npv: int    # the pv_taken replica (0 without PV matching)
+
+
+def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool) -> int:
+    """A block's dynamic shared memory for these widths and a slice of
+    `slice_len` nodes, its headroom rows in shared memory or not (mirrors
+    layout_of in the .cu): the histogram and column-read partials twice
+    (by pod parity), the merged column read, the column needs, the
+    hard-spread minima, the dom_count replica, the slice's raw scores (and
+    headroom) as 4-byte words, then its flags and the pv_taken replica as
+    bytes."""
+    qd = w.q * w.d + 2 * w.q
+    words = (2 * w.ops + 3 * qd + w.q + w.cs + w.dom + w.rows * slice_len
+             + (slice_len * w.r if headroom else 0))
+    return 4 * words + slice_len + w.npv
+
+
+class LaunchPlan(NamedTuple):
+    """One launch's geometry: S clusters of `cluster` blocks of `threads`
+    threads; block `rank` of a lane owns nodes [rank * slice_len,
+    (rank + 1) * slice_len) (cut at N; trailing slices may be empty)."""
+    cluster: int
+    threads: int
+    slice_len: int
+    headroom: bool   # the block's headroom rows live in shared memory
+    smem: int        # dynamic shared memory per block (bytes)
+    resident: int    # clusters of this geometry the card holds at once
+
+
+def max_threads(flags: int) -> int:
+    """The block size cap of the instantiation these flags launch."""
+    return MAX_THREADS_DEVRES if flags & DEVRES_FLAGS else MAX_THREADS
+
+
+def block_geometry(n_nodes: int, cluster: int, cap: int = MAX_THREADS) -> Tuple[int, int]:
+    """(slice length, threads per block) of a lane of `n_nodes` nodes over
+    `cluster` blocks: ceil(N / C) nodes a block, and the fewest warps that
+    give each thread the same number of them (at most `cap`)."""
+    sl = max(1, _cdiv(n_nodes, cluster))
+    per = _cdiv(sl, cap)
+    return sl, max(32, 32 * _cdiv(_cdiv(sl, per), 32))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def node_slices(plan: LaunchPlan, n_nodes: int) -> List[Tuple[int, int]]:
+    """Each block rank's [lo, hi) node slice, in rank order."""
+    los = [min(r * plan.slice_len, n_nodes) for r in range(plan.cluster)]
+    return [(lo, min(lo + plan.slice_len, n_nodes)) for lo in los]
+
+
+def plan_launch(n_lanes: int, n_nodes: int, w: SmemWidths,
+                occupancy: Callable[[int, int, int, bool], int],
+                cap: int = MAX_THREADS) -> LaunchPlan:
+    """The launch geometry: the largest cluster size C in CLUSTER_SIZES
+    whose block fits its shared memory and whose `n_lanes` clusters the card
+    holds at once (`occupancy(C, threads, slice_len, headroom)`, the card's
+    cudaOccupancyMaxActiveClusters, 0 where it cannot place one); where no
+    size holds every lane at once, the smallest size that fits (its lanes
+    run in waves). Blocks have at most `cap` threads (``max_threads``).
+    The headroom rows go to shared memory where they fit. Raises
+    ValueError when no cluster size fits."""
+    fits = []
+    for c in CLUSTER_SIZES:
+        sl, threads = block_geometry(n_nodes, c, cap)
+        for hr in (True, False):
+            smem = smem_bytes(w, sl, hr)
+            if smem <= _SMEM_LIMIT:
+                break
+        else:
+            continue  # this size's slices do not fit
+        plan = LaunchPlan(c, threads, sl, hr, smem, occupancy(c, threads, sl, hr))
+        if plan.resident >= n_lanes:
+            return plan
+        fits.append(plan)
+    if not fits:
+        sl = block_geometry(n_nodes, CLUSTER_SIZES[0])[0]
+        need = smem_bytes(w, sl, False)
+        raise ValueError(
+            f"plain_step: {w.ops} ops, {w.q} carry columns x {w.d} domains and "
+            f"{sl}-node slices need {need} bytes of shared memory, over the block's "
+            f"{_SMEM_LIMIT}")
+    return fits[-1]
+
+
+LAST_PLAN: Optional[LaunchPlan] = None
 
 
 class StepArgs(ctypes.Structure):
@@ -117,7 +229,9 @@ class StepArgs(ctypes.Structure):
                 + [(f, ctypes.c_float) for f in _FLOATS[:-1]]
                 + [(f, ctypes.c_void_p) for f in _PTRS[_N_BASE_PTRS:]]
                 + [(f, ctypes.c_int) for f in _INTS[_N_BASE_INTS:]]
-                + [(f, ctypes.c_float) for f in _FLOATS[-1:]])
+                + [(f, ctypes.c_float) for f in _FLOATS[-1:]]
+                + [("cycles", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in ("cl", "bt", "sl", "res")])
 
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -280,12 +394,67 @@ def _check_index(name: str, t: torch.Tensor, bound: int) -> None:
         raise ValueError(f"plain_step: {name} holds {int(t.max())}, past its bound {bound}")
 
 
+def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
+    """The widths of a launch's shared memory under its StepArgs flags."""
+    k1, _, d = arrs.topo_onehot.shape
+    return SmemWidths(
+        ops=cfg.n_ops,
+        q=sum(getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group", "spread_group",
+                                                  "pref_group")),
+        d=d, cs=arrs.spread_group.shape[1],
+        dom=k1 * d * arrs.match_groups.shape[1] if flags & F_DOM else 0,
+        rows=3 + bool(flags & INTERPOD_FLAGS) + bool(flags & DEVRES_FLAGS),
+        r=arrs.alloc.shape[1],
+        npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0)
+
+
+def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
+             occupancy: Callable[[int, int, int, bool], int]) -> LaunchPlan:
+    """``plan_launch`` for a launch of these arrays under these flags."""
+    return plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
+                       max_threads(flags))
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("plain_step")
+    args_p = ctypes.POINTER(StepArgs)
+    lib.plain_step_launch.argtypes = [args_p, ctypes.c_void_p]
+    lib.plain_step_launch.restype = ctypes.c_int
+    lib.plain_step_clusters.argtypes = [args_p, ctypes.POINTER(ctypes.c_int)]
+    lib.plain_step_clusters.restype = ctypes.c_int
+    lib.plain_step_smem.argtypes = [args_p]
+    lib.plain_step_smem.restype = ctypes.c_int
+    return lib
+
+
+def _set_geometry(args: StepArgs, plan) -> None:
+    args.cl, args.bt, args.sl = plan.cluster, plan.threads, plan.slice_len
+    args.res = RES_HEADROOM if plan.headroom else 0
+
+
+def _card_occupancy(lib: ctypes.CDLL, args: StepArgs):
+    """plan_launch's occupancy answer on the current card."""
+    def occupancy(cluster: int, threads: int, slice_len: int, headroom: bool) -> int:
+        _set_geometry(args, LaunchPlan(cluster, threads, slice_len, headroom, 0, 0))
+        n = ctypes.c_int(0)
+        err = lib.plain_step_clusters(ctypes.byref(args), ctypes.byref(n))
+        if err:
+            raise RuntimeError(f"plain_step occupancy query failed: CUDA error {err}")
+        return n.value
+    return occupancy
+
+
 def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                    p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
-    """Launch the ``plain_step`` kernel: one block per lane, the pod loop
-    inside the kernel, the carry updated in place on the current stream
-    (with a `template`, first written from it by the lane prologue)."""
+                    p0: int, p1: int, template: Optional[SimState] = None,
+                    phase_cycles: Optional[torch.Tensor] = None) -> Outputs:
+    """Launch the ``plain_step`` kernel: one thread-block cluster per lane
+    (``plan_launch``), the pod loop inside the kernel, the carry updated in
+    place on the current stream (with a `template`, first written from it
+    by the lane prologue). Given `phase_cycles`, an [S, len(PHASES)] int64
+    tensor on the card, the kernel writes each lane's cycles per phase
+    into it."""
+    global LAST_PLAN
     scheduler.check_supported(cfg)
     dev = active.device
     n, r = arrs.alloc.shape
@@ -305,11 +474,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     lsv, nsv = arrs.svol_id.shape[1], arrs.svol_key.shape[0]
     gp_w, vp_w = pick_widths(arrs, cfg)
     devres = devres_on(cfg)
-    if smem_bytes(ops, q, d, cs) > _SMEM_LIMIT:
-        raise ValueError(
-            f"plain_step: {ops} ops + {q} carry columns x {d} domains need "
-            f"{smem_bytes(ops, q, d, cs)} bytes of shared memory, over the "
-            f"block's {_SMEM_LIMIT}")
+    flags = _flags(cfg, state, template is not None)
+    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
     for what, width, cap in (("volume groups per node", v_w, MAX_VG),
                              ("exclusive devices per node", e_w, MAX_DEVICES),
                              ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
@@ -436,11 +602,12 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         out_feasible=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
         out_gpu_pick=torch.empty((n_lanes, n_out, gp_w), dtype=torch.int32, device=dev),
         out_vol_pick=torch.empty((n_lanes, n_out, vp_w), dtype=torch.int32, device=dev),
-        scratch=torch.empty((n_lanes, 5, n), dtype=torch.float32, device=dev),
-        scratch_flags=torch.empty((n_lanes, n), dtype=torch.uint8, device=dev),
     )
     if cfg.fail_reasons:
         tensors["out_fail"] = torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev)
+    if phase_cycles is not None:
+        tensors["cycles"] = _check("phase_cycles", phase_cycles, torch.int64,
+                                   (n_lanes, len(PHASES)))
     if template is not None:
         for f in STATE_FIELDS:
             _check(f"template {f}", getattr(template, f), getattr(state, f).dtype,
@@ -457,21 +624,25 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         n=n, r=r, c=n_cls, u=arrs.spec_alloc.shape[0], k=k, k1=k1, d=d, sg=sg, pt=pt,
         cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
         ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
-        flags=_flags(cfg, state, template is not None),
+        flags=flags,
         g=g_w, v=v_w, e=e_w, lv=arrs.lvm_req.shape[1], ev=arrs.sdev_req.shape[1], npv=n_pv,
         lw=lw, lk=lk, lsv=lsv, nsv=nsv,
         w_bal=cfg.w_balanced, w_least=cfg.w_least, w_most=cfg.w_most,
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
-        w_si=cfg.w_simon, w_gpu=cfg.w_gpu)
-    lib = build.load("plain_step")
-    lib.plain_step_launch.argtypes = [ctypes.POINTER(StepArgs), ctypes.c_void_p]
-    lib.plain_step_launch.restype = ctypes.c_int
+        w_si=cfg.w_simon, w_gpu=cfg.w_gpu,
+        cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None)
+    lib = _library()
     with torch.cuda.device(dev):
+        plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args))
+        _set_geometry(args, plan)
+        if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
+            raise RuntimeError("plain_step: smem_bytes and the kernel's layout_of disagree")
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(f"plain_step launch failed: CUDA error {err}")
+        raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
     LAUNCHES["plain_step"] += 1
+    LAST_PLAN = plan
     fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
     return (tensors["out_node"], fail, tensors["out_feasible"], tensors["out_gpu_pick"],
             tensors["out_vol_pick"])

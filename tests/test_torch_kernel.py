@@ -12,8 +12,11 @@ spread, the interpod preference), on the device-resource cluster (GPU
 share, open-local storage, the volume masks, PV matching, attach limits
 and dedup, with mid-sequence pinned GPU pods), on lanes, on the lane
 prologue (lanes started from one template carry, with and without reason
-accounting) and through ``schedule_lanes``. Without CUDA they skip with the reason; the
-binding checks run everywhere.
+accounting), at the edges of the cluster geometry (fewer nodes than
+blocks, a ragged last slice, an odd number of lanes) and through
+``schedule_lanes``. Without CUDA they skip with the reason; the binding
+checks and the launch plan's tests (cluster size, block size, node
+slices, shared-memory accounting) run everywhere.
 """
 
 from __future__ import annotations
@@ -104,21 +107,122 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_wrapper_refuses_widths_over_shared_memory(monkeypatch):
-    """The per-domain column sums live in the block's shared memory; widths
-    that do not fit raise before anything is launched, naming the need."""
+    """The per-domain column sums, the raw scores of a block's node slice
+    and the replicas of the lane-wide carry live in the block's shared
+    memory; widths that do not fit even the largest cluster's slices raise
+    before anything is launched, naming the need."""
     snap = synthetic_snapshot(8, 16, rich=True)
     cfg = sched.make_config(snap)
     arrs = sched.device_arrays(snap.arrays, "cpu")
     active = torch.ones((1, 8), dtype=torch.bool)
     st = sched.init_state(arrs, cfg)
     lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
-    q = sum(getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group", "spread_group",
-                                                "pref_group"))
-    need = step.smem_bytes(cfg.n_ops, q, arrs.topo_onehot.shape[2], arrs.spread_group.shape[1])
+    widths = step.smem_widths(arrs, cfg, step._flags(cfg, lanes, False))
+    sl = step.block_geometry(8, step.CLUSTER_SIZES[0])[0]
+    need = step.smem_bytes(widths, sl, False)
     monkeypatch.setattr(step, "_SMEM_LIMIT", need - 1)
     with pytest.raises(ValueError, match=f"need {need} bytes of shared memory"):
         step.plain_step_cuda(arrs, active, sched.hoist_of(arrs, active),
                              sched.inv_alloc_of(arrs.alloc), lanes, cfg, 0, 16)
+
+
+# the card's answer to cudaOccupancyMaxActiveClusters in these tests: one
+# block per SM on 132 SMs, clusters inside GPCs of 16 or more SMs
+_OCCUPANCY = {16: 7, 8: 15, 4: 32, 2: 66, 1: 132}
+_WIDTHS = step.SmemWidths(ops=21, q=8, d=12, cs=2, dom=0, rows=4, r=4, npv=0)
+
+
+@pytest.mark.parametrize("n_lanes,n_nodes,cluster", [
+    (1, 5184, 16), (7, 5184, 16), (8, 5184, 8), (3, 509, 16), (64, 5184, 2),
+    (65, 5184, 2), (67, 5184, 1), (256, 5184, 1), (1, 3, 16), (1, 1000, 16),
+    (64, 20000, 2)])
+@pytest.mark.parametrize("cap", [step.MAX_THREADS, step.MAX_THREADS_DEVRES])
+def test_launch_plan_slices_cover_the_nodes(n_lanes, n_nodes, cluster, cap):
+    """The largest cluster size whose lanes the card holds at once (else
+    the smallest that fits); block slices cover 0..N-1 once, ascending in
+    rank order; every block has whole warps under the instantiation's cap
+    and as few nodes a thread as the cap allows."""
+    plan = step.plan_launch(n_lanes, n_nodes, _WIDTHS, lambda c, *_: _OCCUPANCY[c], cap)
+    assert plan.cluster == cluster
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.cluster & (plan.cluster - 1) == 0
+    slices = step.node_slices(plan, n_nodes)
+    assert len(slices) == plan.cluster
+    assert [n for lo, hi in slices for n in range(lo, hi)] == list(range(n_nodes))
+    assert all(a[1] <= b[0] for a, b in zip(slices, slices[1:]))
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= cap
+    per_thread = -(-plan.slice_len // plan.threads)
+    assert per_thread == -(-plan.slice_len // cap)
+    assert plan.smem == step.smem_bytes(_WIDTHS, plan.slice_len, plan.headroom)
+    assert plan.smem <= step._SMEM_LIMIT
+
+
+def test_launch_plan_empty_slices_when_nodes_are_fewer_than_blocks():
+    """N < C: the trailing blocks own no node; they still run (and take
+    part in every cluster reduction), with one warp each."""
+    plan = step.plan_launch(1, 3, _WIDTHS, lambda c, *_: _OCCUPANCY[c])
+    assert (plan.cluster, plan.slice_len, plan.threads) == (16, 1, 32)
+    assert step.node_slices(plan, 3) == [(0, 1), (1, 2), (2, 3)] + [(3, 3)] * 13
+
+
+def test_launch_plan_takes_8_when_the_card_will_not_place_16():
+    plan = step.plan_launch(1, 5184, _WIDTHS, lambda c, *_: 0 if c == 16 else _OCCUPANCY[c])
+    assert plan.cluster == 8 and plan.slice_len == 648 and plan.threads == 352
+
+
+@pytest.mark.parametrize("kind,cap", [("plain", step.MAX_THREADS), ("rich", step.MAX_THREADS),
+                                      ("devres", step.MAX_THREADS_DEVRES)])
+def test_block_size_cap_follows_the_instantiation(kind, cap):
+    """The launcher's plan for a snapshot: blocks as large as the
+    instantiation's cap allows, one node a thread where the slice fits."""
+    snap = (device_resource_snapshot(400, 96) if kind == "devres"
+            else synthetic_snapshot(2000, 64, rich=kind == "rich"))
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
+    flags = step._flags(cfg, lanes, True)
+    assert step.max_threads(flags) == cap
+    plan = step.plan_for(arrs, cfg, flags, 2, lambda c, *_: 0 if c > 1 else 132)
+    assert plan.cluster == 1 and plan.slice_len == snap.n_nodes
+    assert plan.threads == step.block_geometry(snap.n_nodes, 1, cap)[1]
+    assert plan.threads > cap // 2
+
+
+def test_launch_plan_keeps_headroom_in_shared_memory_where_it_fits():
+    """One lane per block (C = 1) at 5,184 nodes: with rich widths the
+    raw scores fit, the headroom rows do not; at C = 16 both do."""
+    w = _WIDTHS._replace(q=40, d=60, r=12)
+    at_16 = step.plan_launch(1, 5184, w, lambda c, *_: _OCCUPANCY[c])
+    assert at_16.cluster == 16 and at_16.headroom
+    at_1 = step.plan_launch(256, 5184, w, lambda c, *_: _OCCUPANCY[c])
+    assert at_1.cluster == 1 and not at_1.headroom
+    assert step.smem_bytes(w, 5184, True) > step._SMEM_LIMIT >= at_1.smem
+
+
+@pytest.mark.parametrize("what", ["columns", "nodes"])
+def test_launch_plan_refuses_widths_over_shared_memory(what):
+    """No cluster size fits: a ValueError names the need at 16 blocks."""
+    w = _WIDTHS._replace(q=300, d=200) if what == "columns" else _WIDTHS
+    n_nodes = 5184 if what == "columns" else 16 * 60000
+    with pytest.raises(ValueError, match="bytes of shared memory, over the block's"):
+        step.plan_launch(1, n_nodes, w, lambda c, *_: _OCCUPANCY[c])
+
+
+def test_smem_bytes_counts_the_kernel_layout():
+    """smem_bytes mirrors layout_of in the .cu: the partials twice, the
+    merged column read, the needs, the minima, the dom_count replica, the
+    slice's score rows (and headroom) as words, then flags and the
+    pv_taken replica as bytes."""
+    w = step.SmemWidths(ops=5, q=3, d=4, cs=2, dom=24, rows=5, r=6, npv=7)
+    qd = 3 * 4 + 2 * 3
+    words = 2 * 5 + 3 * qd + 3 + 2 + 24 + 5 * 10
+    assert step.smem_bytes(w, 10, False) == 4 * words + 10 + 7
+    assert step.smem_bytes(w, 10, True) == 4 * (words + 60) + 10 + 7
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    body = re.search(r"inline Layout layout_of\(const StepArgs& a\) \{(.*?)\n\}", src, re.S).group(1)
+    for part in ("2 * a.ops", "2 * qd", "w += qd", "w += q;", "w += a.cs", "a.k1 * a.d * a.sg",
+                 "score_rows(a.flags) * a.sl", "a.sl * a.r", "l.pv = l.flag + a.sl", "a.npv"):
+        assert part in body, part
 
 
 def test_kernel_wrapper_checks_indices():
@@ -197,6 +301,55 @@ def test_kernel_equals_plain_step_on_card(cuda_device, case):
     if case.startswith("devres"):
         assert out_k[3].shape[2] == 8 and out_k[4].shape[2] == 1
         assert (out_k[3] > 0).any() and (out_k[4] >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiny-3-rich", "tiny-3-dom_count", "ragged-devres",
+                                  "odd-lanes-3-rich"])
+def test_kernel_geometry_edges_on_card(cuda_device, case):
+    """The edges of the cluster geometry, bit for bit against the plain
+    step: fewer nodes than blocks (empty slices in every reduction), a
+    ragged last slice, an odd number of lanes (of clusters)."""
+    if case == "tiny-3-rich":
+        snap, n_lanes = synthetic_snapshot(3, 48, rich=True), 1
+    elif case == "tiny-3-dom_count":
+        snap, n_lanes = synthetic_snapshot(3, 48), 2
+    elif case == "ragged-devres":
+        snap, n_lanes = device_resource_snapshot(200, 512), 1
+    else:
+        snap, n_lanes = synthetic_snapshot(131, 384, rich=True), 3
+    cfg = sched.make_config(snap)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 1, np.arange(n) % 4 != 0])[:n_lanes]
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    if cfg.forced_prefix:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, cfg.forced_prefix)
+    tmpl = sched.SimState(**{f: getattr(tmpl, f).contiguous() for f in sched.STATE_FIELDS})
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, n_lanes)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, cfg.forced_prefix, snap.n_pods,
+                  template=tmpl)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    plan = step.LAST_PLAN
+    (out_k, st_k), (out_p, st_p) = runs
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    assert (out_k[0] >= 0).any()
+    slices = step.node_slices(plan, n)
+    if case.startswith("tiny"):
+        assert slices[-1] == (n, n)
+    elif case == "ragged-devres":
+        assert 0 < slices[-1][1] - slices[-1][0] < plan.slice_len or plan.cluster == 1
+    else:
+        assert plan.cluster > 1
 
 
 @pytest.mark.cuda
