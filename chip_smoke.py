@@ -11,10 +11,13 @@ on its rich twin (the reference's ``northstar-rich``: host ports, pod
 affinity, anti-affinity, hard and hostname spread, the interpod
 preference, taints) and on the device-resource cluster
 (``northstar-devres``: GPU share, open-local storage, WaitForFirstConsumer
-PVs, EBS attach limits with shared claims), then the capacity plan on all
-three (the reference bench's 64-lane north-star sweep, its bisection, and
-the example plans through the CLI) — and checks that each ran through the
-kernels and that its answer is right.
+PVs, EBS attach limits with shared claims), under the DefaultPreemption
+pass (``northstar-preempt``: priority classes, a disruption budget and
+critical pods that must evict) and through a ``Simulator`` session, then
+the capacity plan on the first three (the reference bench's 64-lane
+north-star sweep, its bisection, and the example plans through the
+CLI) — and checks that each ran through the kernels and that its answer
+is right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
@@ -31,9 +34,14 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    different active mask per lane; the rich cluster at 1,024 x 10,240
    with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in
    the dense form (slot_paint off); the rich cluster at 512 x 1,024 as
-   one 4-lane launch; and the first 2,048 pods of the device-resource cluster at
-   1,024 x 10,240 with 8 GPU node slots as one 4-lane launch (all six
-   device-resource gates, pods bound mid-sequence with pinned GPUs); then
+   one 4-lane launch; the first 2,048 pods of the device-resource
+   cluster at 1,024 x 10,240 with 8 GPU node slots as one 4-lane launch
+   (all six device-resource gates, pods bound mid-sequence with pinned
+   GPUs); the device-resource cluster at 1,024 x 2,048 with the inter-pod
+   constraints (``plain_step<1,1>``); the preemption columns (random
+   victims and nominations from a seed, among them inactive nodes, forced
+   pods, victims, -1 and out-of-range values) on a 512 x 1,024 input of
+   each of the four instantiations (their "+columns" builds); then
    the edges of the launch geometry (one thread-block cluster per lane):
    3 nodes (fewer than the cluster's blocks; rich and dom_count), the
    device-resource cluster at 1,000 nodes (a ragged last slice) and the
@@ -50,6 +58,21 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    names; on the devres path the six gates, every device-resource reason
    row but the missing-PV one refusing nodes, and host checks of the PV
    bindings, the GPU devices' memory and the nodes' EBS attachments;
+   then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
+   north-star cluster with PriorityClasses (batch, prod for one pod in
+   four, system), a minAvailable 90% budget over app=a0 and an app of 32
+   system pods of 12 CPU, counts read (one launch per pass: the first
+   without preemption columns, each rescan with them); each planning
+   round's host time, the events and victims; the invariants (each
+   preemptor on its nominated node, each victim -3 and decoded as
+   preempted, no other pod bound in the first pass moved); each pass's
+   kernel timed alone with its columns (and once with the cycle counters)
+   and held to the pass's placements; the final rescan's first and last
+   2,048 pods against the plain step with its columns; then a
+   ``Simulator`` session on the same
+   objects (``run_cluster``, one ``schedule_app`` per app), each call's
+   wall, prior placements kept except the victims, the final placements
+   equal to simulate()'s;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -58,9 +81,10 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
    lane 63 put them; devres: the cluster's own nodeName prefix) timed and
-   held equal to the kernel's carry after those pods; the kernel against the plain step over the first 2,048
-   pods of lanes 0 and 63; ``capacity_bisect`` (8 lanes) against the
-   sweep's answer under a CPU limit that puts it inside (0, 64); then the
+   held equal to the kernel's carry after those pods; the kernel against
+   the plain step over the first 2,048 pods of lanes 0 and 63;
+   ``capacity_bisect`` (8 lanes) against the sweep's answer under a CPU
+   limit that puts it inside (0, 64); then the
    ``config``, ``constraints``, ``controlplane``, ``morepods``,
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
@@ -98,6 +122,9 @@ BISECT_TARGET = 37
 FOLD_PODS = 4096
 # the full-size paths' nodes and pods
 NODES, PODS = 5120, 51200
+# the northstar-preempt path's last app: system pods of 12 CPU, more than
+# any node of the 16-CPU north-star cluster has free without evictions
+PREEMPTORS, SYSTEM_CPU = 32, "12"
 # (label, cluster kind) of the full-size paths
 PATHS = (("northstar", "plain"), ("northstar-rich", "rich"), ("northstar-devres", "devres"))
 # (config, extra arguments, sweep mode)
@@ -149,13 +176,16 @@ def compare(torch, out_k, out_p, st_k, st_p):
     return equal, err
 
 
-def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, start=None):
+def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, start=None,
+           columns=None):
     """Kernel vs plain step on the card, from the same carry, over the pods
     after the forced prefix (the first `n_pods` of them if set). The carry
     is the template, written into new (unset) lane buffers by each side's
     lane prologue, or with `start` = (first pod, lane-stacked state) that
-    state. Returns (plain seconds, kernel seconds, max abs error, kernel
-    outputs)."""
+    state. `columns` = (disabled, nominated) numpy [P] are the preemption
+    columns both sides read (`cfg.forced_prefix` 0: the columns turn the
+    fold off). Returns (plain seconds, kernel seconds, max abs error,
+    kernel outputs)."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     arrs = sched.device_arrays(arrs_np, dev)
@@ -172,20 +202,28 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
         (p0, base), tmpl = start, None
         st_k, st_p = clone_state(sched, base), clone_state(sched, base)
     p1 = arrs.req.shape[0] if n_pods is None else min(p0 + n_pods, arrs.req.shape[0])
+    cols = column_tensors(torch, columns)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl)
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl,
+                                 **cols)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, p0, p1, template=tmpl)
+    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, p0, p1, template=tmpl,
+                                  **cols)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
     plan = step.LAST_PLAN
     equal, err = compare(torch, out_k, out_p, st_k, st_p)
     n_sched = int((out_k[0] >= 0).sum())
+    extra = ""
+    if columns is not None:
+        extra = (f"victims={int(columns[0][p0:p1].sum())} nominated="
+                 f"{int((columns[1][p0:p1] >= 0).sum())} ")
     log(f"parity {label}: lanes={active.shape[0]} pods={p1 - p0} (after a {p0}-pod "
-        f"prefix) {geometry(plan)} scheduled={n_sched} fail_counts_sum={int(out_k[1].sum())} "
+        f"prefix) {extra}{geometry(plan)} scheduled={n_sched} "
+        f"fail_counts_sum={int(out_k[1].sum())} "
         f"kernel_s={t_k:.4f} plain_s={t_p:.2f} equal={equal} max_abs_err={err} "
         f"phase_s={time.perf_counter() - t_phase:.1f}")
     if not equal:
@@ -193,22 +231,38 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
     return t_p, t_k, err, out_k
 
 
-# the instantiations plain_step<kInterpod, kDevRes> the main paths launch
-# (<1,1> is built but no path sets both slices' gates)
-LAUNCHED = ("<0,0>", "<1,0>", "<0,1>")
+def column_tensors(torch, columns):
+    """(disabled, nominated) numpy -> the kernel wrappers' keyword
+    arguments on the card ({} for None)."""
+    import numpy as np
+
+    if columns is None:
+        return {}
+    dis, nom = columns
+    dev = torch.device("cuda")
+    return {"disabled": torch.from_numpy(np.ascontiguousarray(dis, dtype=bool)).to(dev),
+            "nominated": torch.from_numpy(np.ascontiguousarray(nom, dtype=np.int32)).to(dev)}
+
+
+# the instantiations plain_step<kInterpod, kDevRes, kCols> the run launches
+# (<1,1>: the device-resource cluster with the inter-pod constraints, a
+# parity input of phase 3; "+columns": a launch with the preemption
+# columns, the column parity inputs and northstar-preempt's rescans)
+LAUNCHED = tuple(f"<{i},{d}>{c}" for c in ("", "+columns") for i, d in ((0, 0), (1, 0), (0, 1),
+                                                                         (1, 1)))
 
 
 def instantiations(build_log):
-    """{"<I,D>": {registers, stack_bytes, spill_store_bytes,
-    spill_load_bytes}} of each plain_step instantiation, from ptxas's
-    -v report in the build log."""
+    """{"<I,D>" or "<I,D>+columns": {registers, stack_bytes,
+    spill_store_bytes, spill_load_bytes}} of each plain_step instantiation,
+    from ptxas's -v report in the build log."""
     import re
 
     out, name = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"plain_step_kernelILb([01])ELb([01])E", line)
+        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])E", line)
         if m:
-            name = f"<{m.group(1)},{m.group(2)}>"
+            name = f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -732,6 +786,240 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
     }
 
 
+def preempt_objects(n_nodes, n_pods):
+    """(cluster, apps) of the northstar-preempt path: the north-star
+    cluster (``synthetic_objects``) with three PriorityClasses — batch (0,
+    the global default), prod (1,000; one base pod in four) and system
+    (1,000,000) — a PodDisruptionBudget of minAvailable 90% over app=a0,
+    and one app of PREEMPTORS system pods of SYSTEM_CPU CPU each, more
+    than any node has free without evictions."""
+    from open_simulator_tpu_torch.core import AppResource
+    from open_simulator_tpu_torch.k8s.loader import ClusterResources
+    from open_simulator_tpu_torch.k8s.objects import Pod, PodDisruptionBudget, PriorityClass
+    from open_simulator_tpu_torch.testing.synthetic import synthetic_objects
+
+    nodes, pods, _ = synthetic_objects(n_nodes, n_pods)
+    for i, p in enumerate(pods):
+        if i % 4 == 0:
+            p.priority_class_name = "prod"
+    classes = [PriorityClass.from_dict({
+        "apiVersion": "scheduling.k8s.io/v1", "kind": "PriorityClass", "metadata": {"name": n},
+        "value": v, "globalDefault": n == "batch"})
+        for n, v in (("batch", 0), ("prod", 1000), ("system", 1_000_000))]
+    pdb = PodDisruptionBudget.from_dict({
+        "apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+        "metadata": {"name": "a0-budget", "namespace": "default"},
+        "spec": {"minAvailable": "90%", "selector": {"matchLabels": {"app": "a0"}}}})
+    system = [Pod.from_dict({
+        "metadata": {"name": f"system-{i}", "namespace": "default", "labels": {"app": "system"}},
+        "spec": {"priorityClassName": "system", "containers": [{
+            "name": "c", "resources": {"requests": {"cpu": SYSTEM_CPU, "memory": "4Gi"}}}]}})
+        for i in range(PREEMPTORS)]
+    cluster = ClusterResources(nodes=nodes, pods=pods, priority_classes=classes, pdbs=[pdb])
+    return cluster, [AppResource(name="system", resources=ClusterResources(pods=system))]
+
+
+class PassRecorder:
+    """While active: records each schedule_pods() call simulate() makes
+    (its preemption columns, copied, and its node output), the host clock
+    of each planning round, and run_with_preemption's result."""
+
+    def __init__(self, core, preemption):
+        self.core, self.preemption = core, preemption
+        self.passes, self.rounds, self.pre = [], [], None
+
+    def __enter__(self):
+        core, pre_mod = self.core, self.preemption
+        self._orig = (core.schedule_pods, pre_mod.plan_preemptions, pre_mod.run_with_preemption)
+        sp, plan, run = self._orig
+
+        def schedule_pods(*a, disabled=None, nominated=None, **kw):
+            out = sp(*a, disabled=disabled, nominated=nominated, **kw)
+            self.passes.append((None if disabled is None else disabled.copy(),
+                                None if nominated is None else nominated.copy(),
+                                out.node.cpu().numpy()))
+            return out
+
+        def plan_preemptions(*a, **kw):
+            t0 = time.perf_counter()
+            events = plan(*a, **kw)
+            self.rounds.append((time.perf_counter() - t0, len(events)))
+            return events
+
+        def run_with_preemption(*a, **kw):
+            out, self.pre = run(*a, **kw)
+            return out, self.pre
+
+        core.schedule_pods = schedule_pods
+        pre_mod.plan_preemptions = plan_preemptions
+        pre_mod.run_with_preemption = run_with_preemption
+        return self
+
+    def __exit__(self, *exc):
+        (self.core.schedule_pods, self.preemption.plan_preemptions,
+         self.preemption.run_with_preemption) = self._orig
+
+
+def preempt_path(torch, sched, step, core, preemption, label):
+    """simulate() under the DefaultPreemption pass at full size (the
+    first pass without columns, each rescan with them), with the launch
+    counts reset; then each pass's kernel timed alone with its columns,
+    the invariants, and the final rescan's first and last pods against
+    the plain step with the same columns."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cluster, apps = preempt_objects(NODES, PODS)
+    log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s")
+    for name in step.LAUNCHES:
+        step.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PassRecorder(core, preemption) as rec:
+        result = core.simulate(cluster, apps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(step.LAUNCHES)
+    snap = result.snapshot
+    n_pods = snap.n_pods
+    events = rec.pre.events
+    victims = sorted(v for ev in events for v in ev.victim_indices)
+    plan_s = [r[0] for r in rec.rounds]
+    log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"passes={len(rec.passes)} launches={launches} planning rounds (s, events)={rec.rounds} "
+        f"events={len(events)} victims={len(victims)} victims per event "
+        f"{[len(ev.victim_indices) for ev in events]} scheduled={len(result.scheduled_pods)} "
+        f"unscheduled={len(result.unscheduled_pods)}")
+    if launches["plain_step"] != len(rec.passes) or len(rec.passes) < 2:
+        raise SystemExit(f"main path {label}: {launches} launches for {len(rec.passes)} passes")
+    if not events:
+        raise SystemExit(f"main path {label}: no preemption event")
+
+    # the invariants: each preemptor on its nominated node, each victim -3
+    # and decoded as preempted, no other pod bound in the first pass moved
+    first, final = rec.passes[0][2], rec.passes[-1][2]
+    off = [ev.preemptor_index for ev in events if final[ev.preemptor_index] != ev.node_index]
+    reasons = {u.pod.key: u.reason for u in result.unscheduled_pods}
+    bad_victims = [v for v in victims if final[v] != -3 or not reasons.get(
+        snap.pods[v].key, "").startswith("preempted to admit higher-priority pod")]
+    keep = np.ones(n_pods, bool)
+    keep[victims] = False
+    moved = int(np.sum(keep & (first >= 0) & (final != first)))
+    placed_sys = sum(1 for p in snap.pods if p.meta.labels.get("app") == "system"
+                     and p.key in result.placements())
+    log(f"main path {label}: invariants: preemptors off their nominated node {len(off)}, "
+        f"victims not -3 or not decoded as preempted {len(bad_victims)}, bound pods moved "
+        f"{moved}; system pods placed {placed_sys} of {PREEMPTORS}; preempted_pod_keys "
+        f"{len(result.preempted_pod_keys)}")
+    if off or bad_victims or moved or len(result.preempted_pod_keys) != len(victims):
+        raise SystemExit(f"main path {label}: a preemption invariant failed")
+
+    # each pass's kernel alone, with its columns (CUDA events)
+    cfg = sched.make_config(snap)
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    pass_ms, pass_phases = [], []
+    for i, (dis, nom, node) in enumerate(rec.passes):
+        cols = None if dis is None and nom is None else (dis, nom)
+        pcfg = cfg if cols is None else cfg._replace(forced_prefix=0)
+        tmpl = template_of(sched, arrs, pcfg)
+        st = sched.lane_carry(tmpl, 1)
+        kw = column_tensors(torch, cols)
+        got = []
+        times = [cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
+            arrs, active, hoist, inv, st, pcfg, pcfg.forced_prefix, n_pods, template=tmpl,
+            **kw))) for _ in range(2)]
+        if not np.array_equal(got[-1][0][0].cpu().numpy(), node[pcfg.forced_prefix:]):
+            raise SystemExit(f"main path {label}: pass {i}'s kernel alone placed pods differently")
+        pass_ms.append(min(times))
+        pass_phases.append(phase_run(torch, step, f"{label} pass {i}", lambda cyc: (
+            step.plain_step_cuda(arrs, active, hoist, inv, st, pcfg, pcfg.forced_prefix, n_pods,
+                                 template=tmpl, phase_cycles=cyc, **kw)), 1,
+            n_pods - pcfg.forced_prefix, got[-1]))
+    log(f"main path {label}: kernel ms per pass (min of 2; pass 0 without columns) "
+        f"{[round(t, 3) for t in pass_ms]}; planner s per round {[round(t, 3) for t in plan_s]}; "
+        f"host share of the wall {1 - sum(pass_ms) / (wall * 1e3):.4f}")
+
+    # the final rescan's first and last pods against the plain step
+    dis, nom, _ = rec.passes[-1]
+    cols = (dis, nom)
+    pcfg = cfg._replace(forced_prefix=0)
+    plain_s, kern_s, err, _ = parity(torch, sched, step, f"{label}-first-{PARITY_PREFIX}",
+                                     snap.arrays, pcfg, snap.arrays.active,
+                                     n_pods=PARITY_PREFIX, columns=cols)
+    q_last = n_pods - PARITY_PREFIX
+    tmpl = template_of(sched, arrs, pcfg)
+    st_mid = sched.lane_carry(tmpl, 1)
+    step.plain_step_cuda(arrs, active, hoist, inv, st_mid, pcfg, 0, q_last, template=tmpl,
+                         **column_tensors(torch, cols))
+    _, _, err_last, _ = parity(torch, sched, step, f"{label}-last-{PARITY_PREFIX}", snap.arrays,
+                               pcfg, snap.arrays.active, start=(q_last, st_mid), columns=cols)
+    # the rescan's work: the normalizers and fail counts still see every
+    # feasible node (the uncut mask: the active nodes no filter charged),
+    # victims need none; plus the columns, one [P] read each and one
+    # scalar gather a pod
+    node_r, fail_r, _ = lane0(got[-1])
+    feas_r = np.where(dis, 0, int(snap.arrays.active.sum()) - fail_r.sum(1))
+    nbytes, ops = step_work(sched, snap.arrays, pcfg, 0, n_pods, (node_r, fail_r, feas_r))
+    full = bound_of((nbytes + 5 * n_pods, ops + n_pods))
+    log(f"main path {label}: bound of the final rescan: bytes={full[0]} ops={full[1]} -> "
+        f"{full[2]:.4f} ms, {full[3]}; the first {PARITY_PREFIX} pods: kernel "
+        f"{kern_s * 1e3:.3f} ms, plain step {plain_s * 1e3:.1f} ms; "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "launches": launches["plain_step"], "pods": n_pods, "ms": pass_ms[-1],
+        "pass_ms": pass_ms, "pass_phases": pass_phases, "planner_s": plan_s,
+        "events": len(events), "victims": len(victims),
+        "simulate_s": wall, "bound_ms": full[2], "bound_by": full[3],
+        "max_abs_err": max(err, err_last), "scheduled": len(result.scheduled_pods),
+        "placements": result.placements(),
+        "same_pods": {"pods": PARITY_PREFIX, "ms": kern_s * 1e3, "plain_ms": plain_s * 1e3},
+    }
+
+
+def session_path(torch, step, Simulator, label, reference):
+    """A Simulator session on the card: run_cluster on the base pods, then
+    schedule_app per app of the northstar-preempt path, the launch counts
+    reset before it; each call's wall; prior placements kept except the
+    victims, and the final placements equal to `reference`, simulate()'s
+    on the same objects."""
+    t_phase = time.perf_counter()
+    cluster, apps = preempt_objects(NODES, PODS)
+    for name in step.LAUNCHES:
+        step.LAUNCHES[name] = 0
+    sim = Simulator(cluster, device="cuda")
+    walls = []
+    t0 = time.perf_counter()
+    before = sim.run_cluster().placements()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    for app in apps:
+        t0 = time.perf_counter()
+        sim.schedule_app(app)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(step.LAUNCHES)
+    full = sim.cluster_status()
+    sim.close()
+    victims = set(full.preempted_pod_keys)
+    after = full.placements()
+    moved = [k for k, n in before.items() if k not in victims and after.get(k) != n]
+    same = after == reference
+    log(f"session {label}: {NODES} nodes x {PODS} pods + {PREEMPTORS} system pods: "
+        f"run_cluster wall_s={walls[0]:.3f}, schedule_app wall_s "
+        f"{[round(w, 3) for w in walls[1:]]}, launches={launches}, victims={len(victims)}, "
+        f"prior placements moved {len(moved)}, final placements equal simulate()'s: {same}; "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    if moved or not victims or not launches["plain_step"] or not same:
+        raise SystemExit(f"session {label}: the session lost prior placements or preempted "
+                         "nothing, or differs from simulate()")
+    return {"nodes": NODES, "pods": PODS, "launches": launches["plain_step"],
+            "walls_s": walls, "victims": len(victims)}
+
+
 def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
     """The reference's capacity-sweep preset at full width: 5,120 nodes x
     51,200 pods with 64 new-node slots, 64 lanes (counts min(i % 65, 64))
@@ -1039,7 +1327,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
+        from open_simulator_tpu_torch import core
         from open_simulator_tpu_torch.core import simulate
+        from open_simulator_tpu_torch.engine import preemption
+        from open_simulator_tpu_torch.simulator import Simulator
         from open_simulator_tpu_torch.engine import scheduler as sched
         from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
         from open_simulator_tpu_torch.k8s.objects import Node, Pod
@@ -1049,8 +1340,8 @@ def main() -> int:
         from open_simulator_tpu_torch.kernels import build, step
         from open_simulator_tpu_torch.parallel import sweep
         from open_simulator_tpu_torch.testing.synthetic import (
-            device_resource_cluster, device_resource_snapshot, soft_spread_cluster,
-            synthetic_objects, synthetic_snapshot)
+            device_resource_cluster, device_resource_snapshot, preemption_columns,
+            soft_spread_cluster, synthetic_objects, synthetic_snapshot)
     except ImportError as e:
         print(f"chip_smoke: the open_simulator_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -1139,6 +1430,44 @@ def main() -> int:
     errs.append(parity(torch, sched, step, "devres-1024x10240-4-lanes", snap_g.arrays, cfg_g,
                        lanes_g, n_pods=PARITY_PREFIX)[2])
 
+    # plain_step<1,1>: the device-resource cluster with the inter-pod
+    # constraints (every gate of both slices)
+    snap_x = device_resource_snapshot(1024, 2048, rich=True)
+    cfg_x = sched.make_config(snap_x)
+    arrs_x = sched.device_arrays(snap_x.arrays, torch.device("cuda"))
+    if not (step.instantiation(cfg_x, sched.init_state(arrs_x, cfg_x)) == "<1,1>"
+            and all(getattr(cfg_x, g) for g in DEVRES_GATES) and cfg_x.needs_group_count
+            and cfg_x.enable_pod_affinity and cfg_x.enable_anti_affinity):
+        raise SystemExit("parity input devres-rich does not run plain_step<1,1>")
+    del arrs_x
+    errs.append(parity(torch, sched, step, "devres-rich-1024x2048-<1,1>", snap_x.arrays, cfg_x,
+                       snap_x.arrays.active)[2])
+
+    # the preemption columns in each instantiation: random victims and
+    # nominations (feasible and inactive nodes, forced pods, victims, -1,
+    # negative and past-the-end values) from a seed, no prefix fold
+    column_inputs = (("<0,0>", synthetic_snapshot(512, 1024, bound=0.1)),
+                     ("<1,0>", synthetic_snapshot(512, 1024, rich=True, bound=0.1)),
+                     ("<0,1>", device_resource_snapshot(512, 1024)),
+                     ("<1,1>", device_resource_snapshot(512, 1024, rich=True)))
+    for seed, (inst, snap_c) in enumerate(column_inputs):
+        cfg_c = sched.make_config(snap_c, forced_prefix=0)
+        arrs_c = sched.device_arrays(snap_c.arrays, torch.device("cuda"))
+        if (step.instantiation(cfg_c, sched.init_state(arrs_c, cfg_c), columns=True)
+                != inst + "+columns"):
+            raise SystemExit(f"column parity input {inst} runs another instantiation")
+        del arrs_c
+        active_c = np.arange(snap_c.n_nodes) % 9 != 4
+        cols = preemption_columns(snap_c.arrays.forced_node, active_c, seed=seed)
+        out_c = parity(torch, sched, step, f"columns-{inst}-512x1024", snap_c.arrays, cfg_c,
+                       active_c, columns=cols)
+        errs.append(out_c[2])
+        node_c = out_c[3][0][0].cpu().numpy()
+        dis_c, nom_c = cols[0][:len(node_c)], cols[1][:len(node_c)]
+        held = (node_c == nom_c) & (nom_c >= 0) & (snap_c.arrays.forced_node[:len(node_c)] == -1)
+        if not ((node_c[dis_c] == -3).all() and (node_c[~dis_c] != -3).all() and held.any()):
+            raise SystemExit(f"column parity input {inst}: victims or nominations not applied")
+
     # the edges of the launch geometry: fewer nodes than blocks in a
     # cluster (empty slices), slices that leave a ragged last block, and an
     # odd number of lanes (an odd number of clusters)
@@ -1178,6 +1507,13 @@ def main() -> int:
     for label, kind in PATHS:
         paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, kind)
 
+    # ---- 4b. preemption: simulate() under the DefaultPreemption pass at
+    # full size, then a Simulator session on the same objects
+    pre_p = preempt_path(torch, sched, step, core, preemption, "northstar-preempt")
+    placements = pre_p.pop("placements")
+    pre_p["session"] = session_path(torch, step, Simulator, "northstar-preempt", placements)
+    paths["northstar-preempt"] = pre_p
+
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
     for label, kind in PATHS:
@@ -1208,11 +1544,16 @@ def main() -> int:
                   "512x4096, the same in 4 lanes, rich 1024x10240 bound 0.1, rich "
                   "512x4096 dense, "
                   f"rich 512x1024 4 lanes, the first {PARITY_PREFIX} pods of devres "
-                  "1024x10240 in 4 lanes (8 GPU slots), the geometry edges (3 nodes rich "
+                  "1024x10240 in 4 lanes (8 GPU slots), devres-rich 1024x2048 (<1,1>), "
+                  "the preemption columns (random victims and nominations from a seed) on "
+                  "512x1024 inputs of each instantiation (<0,0>, <1,0>, <0,1>, <1,1>, each "
+                  "+columns), "
+                  "the geometry edges (3 nodes rich "
                   "and dom_count, the first 1024 pods of devres 1000x2048, rich 509x1024 "
                   "in 3 lanes), "
                   f"the first and last {PARITY_PREFIX} pods of the northstar, "
-                  "northstar-rich and northstar-devres main paths, and the first "
+                  "northstar-rich and northstar-devres main paths and of the final rescan "
+                  "of northstar-preempt (its columns), and the first "
                   f"{PARITY_PREFIX} pods of lanes 0 and 63 of the capacity-northstar-64, "
                   "capacity-northstar-rich-64 and capacity-northstar-devres-64 sweeps",
     }]

@@ -7,10 +7,11 @@ cluster into the same arrays. The engine is rewritten in torch: a plain
 torch twin of the reference's scan step, and a hand-written CUDA kernel
 (``csrc/plain_step.cu``) that runs the whole pod loop on the card.
 
-Entry points (``core.simulate``, ``engine.scheduler.schedule_pods`` and
-``schedule_lanes``, ``parallel.sweep.capacity_sweep`` and
-``capacity_bisect``, and ``python -m open_simulator_tpu_torch.cli apply``)
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points (``core.simulate``, the ``simulator.Simulator`` session
+facade, ``engine.scheduler.schedule_pods`` and ``schedule_lanes``,
+``parallel.sweep.capacity_sweep`` and ``capacity_bisect``, and
+``python -m open_simulator_tpu_torch.cli apply``) run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -9,10 +9,12 @@ As in the JAX package (``open_simulator_tpu/apply/applier.py``), the
 add-node loop is the lane axis: ``parallel/sweep.py`` answers "minimum
 nodes to add" with lanes of one kernel launch per round, and the report
 decodes the chosen lane. The printed report is the reference's, line for
-line. Not ported yet, each raising NotImplementedError that names its
-ROADMAP item: ``--interactive``, chart apps, a ``kubeConfig`` cluster,
-``--default-scheduler-config``, the compile cache, sweep resume, and the
-preemption pass of the decoded lane.
+line. When the decoded lane leaves pods unscheduled and their priorities
+differ, that lane is re-run under the DefaultPreemption pass
+(``engine/preemption.py``), as in the reference. Not ported yet, each
+raising NotImplementedError that names its ROADMAP item:
+``--interactive``, chart apps, a ``kubeConfig`` cluster,
+``--default-scheduler-config``, the compile cache and sweep resume.
 
 Env knobs (reference: satisfyResourceSetting, apply.go:614-681):
   MaxCPU     max average cluster CPU occupancy %, default 100
@@ -33,7 +35,9 @@ from open_simulator_tpu_torch.core import (
     AppResource,
     SimulateResult,
     build_pod_sequence,
+    decode_output,
     decode_result,
+    host_schedule_fn,
     with_volume_objects,
 )
 from open_simulator_tpu_torch.encode.snapshot import EncodeOptions, encode_cluster
@@ -139,6 +143,7 @@ class Applier:
         self.base_dir = os.path.dirname(os.path.abspath(options.config_path))
         self.config.validate(self.base_dir)
         self._out = sys.stdout
+        self._pdbs = []
 
     def _thresholds(self) -> SweepThresholds:
         def env_pct(name: str) -> float:
@@ -188,6 +193,7 @@ class Applier:
         template = _load_new_node_template(
             os.path.join(self.base_dir, self.config.new_node) if self.config.new_node else ""
         )
+        self._pdbs = list(cluster.pdbs) + [p for a in apps for p in a.resources.pdbs]
         pods = build_pod_sequence(cluster, apps, use_greed=self.opts.use_greed)
         max_new = self.opts.max_new_nodes if template is not None else 0
         snapshot = encode_cluster(
@@ -256,9 +262,22 @@ class Applier:
         masks = active_masks_for_counts(snapshot, plan.counts)
         lane_has_unscheduled = bool(np.any(plan.nodes_per_scenario[idx] < 0))
         if lane_has_unscheduled and len({p.priority for p in snapshot.pods}) > 1:
-            raise NotImplementedError(
-                "preemption between pods of different priorities is not ported "
-                "yet (ROADMAP queue 1, item 4)")
+            # The chosen lane's placements and reasons reflect the
+            # PostFilter pass: the lane re-run through one-lane
+            # schedule_pods under run_with_preemption. A multi-victim
+            # preemption can shrink the scheduled count relative to the
+            # sweep lane, so this decode is the authoritative report.
+            import time
+
+            from open_simulator_tpu_torch.engine.preemption import run_with_preemption
+
+            lane_active = np.asarray(masks[idx])
+            t0 = time.perf_counter()
+            out, pre = run_with_preemption(
+                snapshot, lane_active,
+                host_schedule_fn(snapshot, lane_active, cfg, self.opts.device), list(self._pdbs))
+            return decode_output(snapshot, out, lane_active, cfg, time.perf_counter() - t0,
+                                 pre.preempted_by)
         if lane_has_unscheduled:
             # The sweep lanes run with fail_reasons off; the reported lane
             # needs real per-op counts, so re-run just this lane with the

@@ -2,9 +2,10 @@
 
 The host path is the reference's (``open_simulator_tpu/core.py``): make
 nodes valid, admit, expand workloads into the pod sequence, encode,
-make_config; then ``engine.scheduler.schedule_pods`` runs on the card, and
-``decode_result`` turns the assignments and reason counts into the
-reference's report.
+make_config; then ``engine.scheduler.schedule_pods`` runs on the card —
+under the DefaultPreemption pass (``engine/preemption.py``) when pod
+priorities differ — and ``decode_result`` turns the assignments and
+reason counts into the reference's report.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from open_simulator_tpu_torch.encode.snapshot import ClusterSnapshot, EncodeOptions, encode_cluster
 from open_simulator_tpu_torch.engine.queue import sort_pods_greedy
-from open_simulator_tpu_torch.engine.scheduler import make_config, schedule_pods
+from open_simulator_tpu_torch.engine.scheduler import ScheduleOutput, make_config, schedule_pods
 from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
 from open_simulator_tpu_torch.k8s.objects import ANNO_GPU_INDEX, Node, Pod
 from open_simulator_tpu_torch.models.expand import expand_app_resources, expand_cluster_pods
@@ -290,12 +291,13 @@ def simulate(
     """Run one full simulation on `device` (None = the card; "cpu" runs
     the plain torch step).
 
-    preemption=True enables the DefaultPreemption pass in the reference,
-    which does nothing unless pod priorities differ; priorities that
-    differ raise NotImplementedError here until preemption is ported.
-    New-node template slots (``encode_options.max_new_nodes``) are encoded
-    inactive, as in the reference: they are the capacity plan's lanes
-    (``parallel/sweep.py``), and a plain simulate() leaves them empty.
+    preemption=True enables the DefaultPreemption PostFilter pass (a no-op
+    unless some pods differ in priority): the first pass runs without
+    preemption columns, and each rescan passes the victims and
+    nominations. New-node template slots (``encode_options.max_new_nodes``)
+    are encoded inactive, as in the reference: they are the capacity
+    plan's lanes (``parallel/sweep.py``), and a plain simulate() leaves
+    them empty.
 
     validate=True runs the admission pass first, so malformed specs raise
     a structured SimulationError instead of a traceback from encode."""
@@ -309,22 +311,44 @@ def simulate(
 
         admit(cluster, apps)
     pods = build_pod_sequence(cluster, apps, use_greed=use_greed)
-    if preemption and len({p.priority for p in pods}) > 1:
-        raise NotImplementedError(
-            "preemption between pods of different priorities is not ported "
-            "yet (ROADMAP queue 1, item 4)")
     encode_options = with_volume_objects(encode_options, cluster, apps)
     snapshot = encode_cluster(nodes, pods, encode_options)
     cfg = make_config(snapshot, **config_overrides)
     active_np = np.asarray(snapshot.arrays.active)
-    out = schedule_pods(snapshot.arrays, active_np, cfg, device=device)
-    node_assign = out.node.cpu().numpy()
-    fail_counts = out.fail_counts.cpu().numpy()
-    gpu_pick = out.gpu_pick.cpu().numpy() if cfg.enable_gpu else None
-    vol_pick = out.vol_pick.cpu().numpy() if cfg.enable_pv_match else None
-    elapsed = time.perf_counter() - t0
-    return decode_result(snapshot, node_assign, fail_counts, active_np, elapsed, gpu_pick,
-                         vol_pick=vol_pick)
+    schedule_fn = host_schedule_fn(snapshot, active_np, cfg, device)
+    preempted_by: Optional[Dict[int, int]] = None
+    if preemption:
+        from open_simulator_tpu_torch.engine.preemption import run_with_preemption
+
+        pdbs = list(cluster.pdbs) + [p for a in apps for p in a.resources.pdbs]
+        out, pre = run_with_preemption(snapshot, active_np, schedule_fn, pdbs)
+        preempted_by = pre.preempted_by
+    else:
+        out = schedule_fn(None, None)
+    return decode_output(snapshot, out, active_np, cfg, time.perf_counter() - t0, preempted_by)
+
+
+def host_schedule_fn(snapshot: ClusterSnapshot, active: np.ndarray, cfg, device):
+    """``schedule_fn(disabled, nominated)`` as ``run_with_preemption``
+    calls it: one-lane ``schedule_pods`` on `device` with the preemption
+    columns, its per-pod outputs brought to the host (the carry stays on
+    the device)."""
+    def schedule_fn(disabled, nominated) -> ScheduleOutput:
+        out = schedule_pods(snapshot.arrays, active, cfg, device=device, disabled=disabled,
+                            nominated=nominated)
+        return out._replace(**{f: getattr(out, f).cpu() for f in out._fields if f != "state"})
+    return schedule_fn
+
+
+def decode_output(snapshot: ClusterSnapshot, out: ScheduleOutput, active: np.ndarray, cfg,
+                  elapsed_s: float = 0.0,
+                  preempted_by: Optional[Dict[int, int]] = None) -> SimulateResult:
+    """``decode_result`` of a host ``schedule_fn`` output (the GPU and PV
+    picks where their gates are on)."""
+    return decode_result(snapshot, out.node.numpy(), out.fail_counts.numpy(), active, elapsed_s,
+                         out.gpu_pick.numpy() if cfg.enable_gpu else None,
+                         preempted_by=preempted_by,
+                         vol_pick=out.vol_pick.numpy() if cfg.enable_pv_match else None)
 
 
 def _with_nodes(cluster: ClusterResources, nodes: List[Node]) -> ClusterResources:

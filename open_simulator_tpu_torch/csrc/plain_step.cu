@@ -88,6 +88,22 @@
 // swept. The bind recomputes the bound node's storage plan and PV picks
 // (the same values the filter pass found for that node) in one thread.
 //
+// The preemption columns (StepArgs.disabled / nominated, the reference's
+// _disabled and _nominated, scheduler.py:1223-1235, :1290-1297) are the
+// third template flag, kCols, set when either pointer is non-null: a
+// launch without them (the sweep, simulate()'s first pass) runs the code
+// it ran before the columns existed. They only mask values, so a pod with
+// either still runs every phase and every cluster barrier (the partials
+// are double-buffered by pod parity, and a block that skipped a round
+// would let a faster block overwrite a buffer a slower one still reads).
+// The two values are loaded with the pod's other scalars, so their
+// latency hides behind phases 0 and 1. Whether the nominated node is still feasible is
+// known only to the block that owns it: its phase-1 thread sets a bit in
+// the block's round-A partials, which every block gathers with the minima,
+// and phase 2 then keys only that node, so the pick is the nomination. A
+// victim's outputs are node -3 and zero reason and feasible counts, and it
+// binds nothing.
+//
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
@@ -159,7 +175,7 @@ constexpr int F_VOL_LIMITS = 1 << 26;  // attach limits (vol_cnt carry)
 constexpr int F_VOL_DEDUP = 1 << 27;   // shared-volume dedup (svol_on_node carry)
 // the gates of the inter-pod and device-resource slices: a launch that
 // sets none of a slice's gates runs an instantiation without its code
-// (and its registers)
+// (and its registers); the preemption columns are the third such gate
 constexpr int kInterpodFlags = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF;
 constexpr int kDevResFlags =
     F_GPU | F_STORAGE | F_VOL_STATIC | F_PV_MATCH | F_VOL_LIMITS | F_VOL_DEDUP;
@@ -217,6 +233,9 @@ struct StepArgs {
   const uint8_t* pref_valid;          // [P, Ap]
   const int32_t* pref_tid;            // [P, Ap] pref_paint column of each term
   const uint8_t* hit_pref;            // [P, T2] the pod matches preferred term t2
+  // the preemption columns, null when absent
+  const uint8_t* disabled;            // [P] a victim: deleted, node -3
+  const int32_t* nominated;           // [P] the preemption retry's node, -1 none
   // per lane
   const uint8_t* active;              // [S, N]
   const float* log_dom;               // [S, K]
@@ -755,7 +774,7 @@ __device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int
   }
 }
 
-template <bool kInterpod, bool kDevRes>
+template <bool kInterpod, bool kDevRes, bool kCols>
 __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     plain_step_kernel(const StepArgs a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
@@ -788,10 +807,13 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   float* const s_minval = reinterpret_cast<float*>(s_dyn + lay.minval);
   float* const s_sc = reinterpret_cast<float*>(s_dyn + lay.sc);
   uint8_t* const s_flag = reinterpret_cast<uint8_t*>(s_dyn) + lay.flag;
-  __shared__ int s_part[2][kRows + 1];     // the block's minima (fkey), feasible count
+  // the block's minima (fkey), feasible count (and with the columns: the
+  // nominated node is feasible here)
+  __shared__ int s_part[2][kRows + 1 + kCols];
   __shared__ unsigned long long s_key[2];  // the block's argmax key
   __shared__ float s_fin[kRowsT];
   __shared__ int s_fin_cnt;
+  __shared__ int s_nom;  // the pod's nominated node while still feasible, else -1
   __shared__ unsigned long long s_pick;
   __shared__ long long s_cyc[kPhases + 1];  // the phases, then the last mark
 
@@ -904,6 +926,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     const int vcid = kDevRes ? a.vol_cid[p] : 0;
     const bool pv_missing = kDevRes && a.vol_pv_missing[p];
     const size_t orow = (size_t)lane * n_out + j;  // the pod's output row
+    const int nom = kCols && a.nominated ? a.nominated[p] : -1;
+    const bool victim = kCols && a.disabled && a.disabled[p];
     int* const fail_b = s_fail + par * a.ops;
     int* const dpart = s_dpart + par * QD;
     int* const part = s_part[par];
@@ -915,7 +939,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     // still be read by the other blocks), and what each carry column of
     // the pod needs from the batched column read
     for (int i = tid; i < a.ops; i += B) fail_b[i] = 0;
-    if (tid <= kRows) part[tid] = tid < kRows ? INT_MAX : 0;
+    if (tid <= kRows + kCols) part[tid] = tid < kRows ? INT_MAX : 0;
     if (tid == 0) s_key[par] = 0;
     if (gc_path) {
       for (int i = tid; i < QD; i += B) dpart[i] = i < Q * D + Q ? 0 : INT_MAX;
@@ -1124,6 +1148,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
         }
         const bool mask = act && ff < 0;
         if (act && ff >= 0) charged_op = ff;
+        if (kCols && mask && n == nom) part[kRows + kCols] = 1;
         uint8_t flag = mask ? 1 : 0;
         if (fl & F_NA) m_na = fminf(m_na, mask ? -na_score : 0.0f);
         if (fl & F_TT) m_tt = fminf(m_tt, mask ? -tt_prefer : 0.0f);
@@ -1253,19 +1278,26 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
 #pragma unroll
       for (int q = 0; q < kLive; ++q) v[q] = rp ? rp[q] : INT_MAX;
       const int c = __reduce_add_sync(kFull, rp ? rp[kRows] : 0);
+      const unsigned nom_ok =
+          kCols ? __reduce_or_sync(kFull, rp ? (unsigned)rp[kRows + kCols] : 0u) : 0u;
 #pragma unroll
       for (int q = 0; q < kLive; ++q) {
         const int mq = __reduce_min_sync(kFull, v[q]);
         if (lid == 0) s_fin[q] = fkey_inv(mq);
       }
-      if (lid == 0) s_fin_cnt = c;
+      if (lid == 0) {
+        // the nomination holds while its node is feasible (an out-of-range
+        // one matches no node, so nom_ok is 0)
+        if (kCols) s_nom = nom_ok ? nom : -1;
+        s_fin_cnt = nom_ok ? 1 : c;
+      }
     }
     if (fail) {
       const int t0 = B > 32 ? 32 : 0;  // past warp 0 where the block has more warps
       for (int i = rank + (tid - t0) * C; tid >= t0 && i < a.ops; i += (B - t0) * C) {
         int sum = 0;
         for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(fail_b, r)[i];
-        a.out_fail[orow * a.ops + i] = sum;
+        a.out_fail[orow * a.ops + i] = victim ? 0 : sum;
       }
     }
     __syncthreads();
@@ -1296,6 +1328,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     const float inv_gp = gp_rng > 0.0f ? __fdiv_rn(100.0f, gp_rng) : 0.0f;
     // a pod without a GPU request scores 0 on the GPU row
     const float gp_w = kDevRes ? __fmul_rn(a.w_gpu, a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
+    const int nom_pick = kCols ? s_nom : -1;
 
     unsigned long long best = 0;
     for (int it = 0; it < iters; ++it) {
@@ -1304,7 +1337,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
       const int ln = n - lo;
       const uint8_t flag = s_flag[ln];
       float ms = kNegInf;
-      if (flag & 1) {
+      if ((flag & 1) && (!kCols || nom_pick < 0 || n == nom_pick)) {
         float score = sc_base[ln];
         if (fl & F_NA)
           score = __fadd_rn(score, __fmul_rn(a.w_na, __fmul_rn(
@@ -1353,14 +1386,16 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     mark(5);
 
     // ---- phase 3: forced-node fast path, outputs, bind. A node's rows are
-    // written by its owner block; the replicas by every block alike
+    // written by its owner block; the replicas by every block alike. A
+    // victim's node is -3, so it binds nothing
     const unsigned long long pick = s_pick;
     const bool any_feasible = pick_score(pick) > kNegInf;
-    const int fin = forced >= 0 ? forced : ((forced == -1 && any_feasible) ? pick_node(pick) : -1);
+    const int fin = victim ? -3
+        : (forced >= 0 ? forced : ((forced == -1 && any_feasible) ? pick_node(pick) : -1));
     const bool own = fin >= lo && fin < hi;
     if (rank == 0 && tid == 0) {
       a.out_node[orow] = fin;
-      a.out_feasible[orow] = fail ? s_fin_cnt : 0;
+      a.out_feasible[orow] = (fail && !victim) ? s_fin_cnt : 0;
     }
     if (fin >= 0) {
       if (own) {
@@ -1444,8 +1479,15 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
 
 void (*kernel_of(const StepArgs* args))(StepArgs) {
   const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
-  return devres ? (interpod ? plain_step_kernel<true, true> : plain_step_kernel<false, true>)
-                : (interpod ? plain_step_kernel<true, false> : plain_step_kernel<false, false>);
+  if (args->disabled || args->nominated)
+    return devres ? (interpod ? plain_step_kernel<true, true, true>
+                              : plain_step_kernel<false, true, true>)
+                  : (interpod ? plain_step_kernel<true, false, true>
+                              : plain_step_kernel<false, false, true>);
+  return devres ? (interpod ? plain_step_kernel<true, true, false>
+                            : plain_step_kernel<false, true, false>)
+                : (interpod ? plain_step_kernel<true, false, false>
+                            : plain_step_kernel<false, false, false>);
 }
 
 // the kernel's attributes for a launch of this geometry: a cluster over 8

@@ -324,14 +324,18 @@ def _column_reads(arrs: SnapshotArrays, host: Dict[str, np.ndarray],
 
 def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tensor,
           cfg: EngineConfig, hoist: ActiveHoist, inv_alloc: torch.Tensor,
-          state: SimState, p: int):
+          state: SimState, p: int, disabled: bool = False,
+          nominated: Optional[int] = None):
     """One pod's scheduleOne: the plain torch twin of the reference's
     ``_step`` for this package's ops. `arrs` holds tensors on the step's
     device; `host` holds the per-pod slot arrays as numpy (forced node,
     class, selector groups, keys, term ids), so static per-pod choices
     branch on the host the way the reference's gates select code. `hoist`
-    is one lane's ActiveHoist. Returns (state, (node, fail_counts,
-    feasible, gpu_pick, vol_pick)) with the outputs as device tensors."""
+    is one lane's ActiveHoist. `disabled` and `nominated` are the pod's
+    preemption columns (the reference's ``_disabled`` and ``_nominated``):
+    a victim, and the preemption retry's node (None: no column). Returns
+    (state, (node, fail_counts, feasible, gpu_pick, vol_pick)) with the
+    outputs as device tensors."""
     n_nodes = arrs.alloc.shape[0]
     dev = active.device
     f32 = torch.float32
@@ -587,12 +591,18 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         gp_w = torch.tensor(cfg.w_gpu, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
         score = score + gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi)
 
+    # the preemption retry: a nominated node still feasible is the only
+    # candidate (the normalizers and fail counts above saw the full mask);
+    # a nomination out of range falls back to the full feasible set
+    iota = torch.arange(n_nodes, dtype=torch.int32, device=dev)
+    if nominated is not None and 0 <= nominated < n_nodes:
+        mask = torch.where(mask[nominated], mask & (iota == nominated), mask)
+
     # selectHost: max, then the lowest index among exact maxima
     neg_inf = -3.4e38
     masked_score = torch.where(mask, score, fill(neg_inf))
     top = torch.max(masked_score)
     any_feasible = top > neg_inf
-    iota = torch.arange(n_nodes, dtype=torch.int32, device=dev)
     sel_node = torch.min(torch.where(masked_score == top, iota,
                                      torch.full_like(iota, n_nodes)))
     if cfg.fail_reasons:
@@ -608,6 +618,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         final_node = torch.where(any_feasible, sel_node, unbound)
     else:
         final_node = unbound
+    if disabled:
+        # a preemption victim is a deleted pod: no bind, no reasons
+        final_node = torch.full((), -3, dtype=torch.int32, device=dev)
+        fail_counts = torch.zeros_like(fail_counts)
+        feasible_n = torch.zeros_like(feasible_n)
 
     # bind: dense one-hot updates, or in-place column updates under
     # slot_paint, as the reference (-1 -> an all-zero row; each column is
@@ -775,6 +790,26 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
     ``cfg.fail_reasons`` off the fail counts are a zero-stride view (no
     [S, P, OPS] buffer). On CUDA the step loop is one ``plain_step`` kernel
     launch for all lanes; on the CPU it is the plain torch step."""
+    return _launch(arrs, masks, cfg, device, carry, state, None, None)
+
+
+def _column(name: str, col, n_pods: int, dtype, dev) -> Optional[torch.Tensor]:
+    """A [P] preemption column as a tensor on `dev` (None stays None)."""
+    if col is None:
+        return None
+    col = np.asarray(col)
+    if col.shape != (n_pods,):
+        raise ValueError(f"{name} must be [{n_pods}], got {col.shape}")
+    return torch.from_numpy(np.ascontiguousarray(col.astype(dtype))).to(dev)
+
+
+def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
+            carry: Optional[SimState], state: Optional[SimState],
+            disabled: Optional[np.ndarray], nominated: Optional[np.ndarray]) -> ScheduleOutput:
+    """``schedule_lanes`` with the [P] preemption columns, which every lane
+    reads (None: no column). With either column the forced prefix is not
+    folded: its pods run the step, as in the reference, whose victim and
+    nomination indices cover the full sequence."""
     from open_simulator_tpu_torch.kernels import step as step_kernels
 
     check_supported(cfg)
@@ -783,10 +818,12 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
     if masks.ndim != 2 or masks.shape[1] != arrs.alloc.shape[0]:
         raise ValueError(f"masks must be [S, {arrs.alloc.shape[0]}], got {masks.shape}")
     n_lanes, n_pods = masks.shape[0], arrs.req.shape[0]
+    dis_t = _column("disabled", disabled, n_pods, bool, dev)
+    nom_t = _column("nominated", nominated, n_pods, np.int32, dev)
     arrs_t = device_arrays(arrs, dev)
     masks_t = torch.from_numpy(masks).to(dev)
     if state is None:
-        k = min(cfg.forced_prefix, n_pods)
+        k = 0 if (dis_t is not None or nom_t is not None) else min(cfg.forced_prefix, n_pods)
         template = init_state(arrs_t, cfg)
         if k:
             template = apply_forced_prefix(arrs_t, cfg, template, k)
@@ -797,7 +834,7 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
     carry = lane_carry(template, n_lanes, carry)
     node, fail_counts, feasible, gpu_pick, vol_pick = step_kernels.plain_step(
         arrs_t, masks_t, hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc), carry,
-        cfg, k, n_pods, template=template)
+        cfg, k, n_pods, template=template, disabled=dis_t, nominated=nom_t)
     if k:
         # the prefix holds no GPU or WFC pod (make_config cuts it there)
         node = torch.cat([arrs_t.forced_node[:k].to(torch.int32).expand(n_lanes, k), node], 1)
@@ -817,13 +854,21 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
-                  state: Optional[SimState] = None, device=None) -> ScheduleOutput:
+                  state: Optional[SimState] = None, device=None,
+                  disabled: Optional[np.ndarray] = None,
+                  nominated: Optional[np.ndarray] = None) -> ScheduleOutput:
     """Schedule the pod sequence on one [N] active mask; return
     assignments, reason counts and the final carry: ``schedule_lanes`` at
     one lane. Equals the reference's ``schedule_pods(..., waves=None)``. A
-    passed-in `state` is a resumed carry and skips the prefix fold."""
-    out = schedule_lanes(arrs, np.asarray(active, dtype=bool)[None], cfg, device=device,
-                         state=state)
+    passed-in `state` is a resumed carry and skips the prefix fold.
+
+    `disabled` [P] bool marks preemption victims (deleted: node -3, no
+    bind, zero reason and feasible counts); `nominated` [P] i32 is the
+    preemption retry's node (-1 none; a node no longer feasible, or out of
+    range, falls back to the full feasible set). Either column turns the
+    prefix fold off."""
+    out = _launch(arrs, np.asarray(active, dtype=bool)[None], cfg, device, None, state,
+                  disabled, nominated)
     return ScheduleOutput(node=out.node[0], fail_counts=out.fail_counts[0],
                           feasible=out.feasible[0], gpu_pick=out.gpu_pick[0],
                           vol_pick=out.vol_pick[0],

@@ -6,7 +6,7 @@ All three take the same arguments::
 
     (arrs, active [S, N] bool, hoist (a lane-batched ActiveHoist),
      inv_alloc [N, R] f32, state (a lane-batched SimState, updated in
-     place), cfg, p0, p1, template=None)
+     place), cfg, p0, p1, template=None, disabled=None, nominated=None)
 
 and return ``(node [S, P'] i32, fail_counts [S, P', OPS] i32,
 feasible [S, P'] i32, gpu_pick [S, P', G] i32, vol_pick [S, P', Lw] i32)``
@@ -24,6 +24,14 @@ of the prologue is ``template[None].expand(S, ...)`` copied into it.
 
 With ``cfg.fail_reasons`` off no [S, P', OPS] buffer exists: the
 returned fail counts are a zero-stride view of one zero.
+
+``disabled`` ([P] bool) and ``nominated`` ([P] i32), on the step's
+device and indexed by the pod's place in the whole sequence, are the
+preemption columns every lane reads (``engine.scheduler._step``): a
+victim is deleted (node -3, no bind, zero reason and feasible counts); a
+nominated node still feasible is the pod's only candidate. None: no
+column (the kernel gets a null pointer; with both None it runs the
+instantiation built without the column code).
 
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
@@ -80,8 +88,9 @@ _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "spread_soft", "spread_hard", "aff_group", "aff_key", "aff_valid", "aff_self",
          "anti_group", "anti_key", "anti_valid", "hit_ptr", "hit_idx", "own_ptr",
          "own_idx", "pref_group", "pref_key", "pref_weight", "pref_valid", "pref_tid",
-         "hit_pref", "active", "log_dom", "elig_host", "domain_has", "any_elig",
-         "headroom", "ports_used", "dom_count", "group_count", "term_block",
+         "hit_pref", "disabled", "nominated", "active", "log_dom", "elig_host",
+         "domain_has", "any_elig", "headroom", "ports_used", "dom_count", "group_count",
+         "term_block",
          "pref_paint", "tmpl_headroom", "tmpl_ports_used", "tmpl_dom_count",
          "tmpl_group_count", "tmpl_term_block", "tmpl_pref_paint", "out_node",
          "out_fail", "out_feasible",
@@ -246,13 +255,17 @@ def pick_widths(arrs, cfg: EngineConfig) -> Tuple[int, int]:
 
 def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-               p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
+               p0: int, p1: int, template: Optional[SimState] = None,
+               disabled: Optional[torch.Tensor] = None,
+               nominated: Optional[torch.Tensor] = None) -> Outputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
     plain torch step for CPU tensors."""
     if active.device.type == "cuda":
-        return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template)
+        return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
+                               disabled=disabled, nominated=nominated)
     if active.device.type == "cpu":
-        return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template)
+        return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
+                                disabled=disabled, nominated=nominated)
     raise ValueError(f"no plain_step for device {active.device}")
 
 
@@ -272,7 +285,9 @@ def no_fail_counts(n_lanes: int, n_pods: int, n_ops: int, device) -> torch.Tenso
 
 def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                     p0: int, p1: int, template: Optional[SimState] = None) -> Outputs:
+                     p0: int, p1: int, template: Optional[SimState] = None,
+                     disabled: Optional[torch.Tensor] = None,
+                     nominated: Optional[torch.Tensor] = None) -> Outputs:
     """The plain version: lane by lane, pod by pod through the torch twin
     of the reference step (``engine.scheduler._step``), on any device."""
     scheduler.check_supported(cfg)
@@ -281,6 +296,8 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
     if template is not None:
         copy_template(state, template)
     host = {f: getattr(arrs, f).cpu().numpy() for f in STEP_HOST_FIELDS}
+    dis = disabled.cpu().numpy() if disabled is not None else None
+    nom = nominated.cpu().numpy() if nominated is not None else None
     node = torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev)
     fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=torch.int32, device=dev)
             if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
@@ -293,7 +310,9 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
         lane_hoist = ActiveHoist(*(x[s] for x in hoist))
         rows = []
         for p in range(p0, p1):
-            st, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, st, p)
+            st, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, st, p,
+                                      disabled=dis is not None and bool(dis[p]),
+                                      nominated=None if nom is None else int(nom[p]))
             rows.append(out)
         if n_out:
             nodes, fails, feasible, gpus, vols = zip(*rows)
@@ -347,6 +366,16 @@ def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
     fl |= F_VOL_LIMITS if cfg.enable_vol_limits else 0
     fl |= F_VOL_DEDUP if cfg.enable_vol_dedup else 0
     return fl
+
+
+def instantiation(cfg: EngineConfig, state: SimState, columns: bool = False) -> str:
+    """The ``plain_step<kInterpod, kDevRes, kCols>`` a launch under `cfg`
+    on this carry runs, as "<I,D>", with "+columns" where the launch
+    passes the preemption columns (the kernel's ``kernel_of`` picks it from
+    the same flags and pointers)."""
+    fl = _flags(cfg, state, False)
+    return (f"<{int(bool(fl & INTERPOD_FLAGS))},{int(bool(fl & DEVRES_FLAGS))}>"
+            + ("+columns" if columns else ""))
 
 
 def devres_on(cfg: EngineConfig) -> bool:
@@ -447,13 +476,16 @@ def _card_occupancy(lib: ctypes.CDLL, args: StepArgs):
 def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
                     p0: int, p1: int, template: Optional[SimState] = None,
-                    phase_cycles: Optional[torch.Tensor] = None) -> Outputs:
+                    phase_cycles: Optional[torch.Tensor] = None,
+                    disabled: Optional[torch.Tensor] = None,
+                    nominated: Optional[torch.Tensor] = None) -> Outputs:
     """Launch the ``plain_step`` kernel: one thread-block cluster per lane
     (``plan_launch``), the pod loop inside the kernel, the carry updated in
     place on the current stream (with a `template`, first written from it
     by the lane prologue). Given `phase_cycles`, an [S, len(PHASES)] int64
     tensor on the card, the kernel writes each lane's cycles per phase
-    into it."""
+    into it. `disabled` and `nominated` go to the kernel as pointers (null
+    when None)."""
     global LAST_PLAN
     scheduler.check_supported(cfg)
     dev = active.device
@@ -605,6 +637,11 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     )
     if cfg.fail_reasons:
         tensors["out_fail"] = torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev)
+    n_pods = arrs.req.shape[0]
+    if disabled is not None:
+        tensors["disabled"] = _check("disabled", disabled, torch.bool, (n_pods,))
+    if nominated is not None:
+        tensors["nominated"] = _check("nominated", nominated, torch.int32, (n_pods,))
     if phase_cycles is not None:
         tensors["cycles"] = _check("phase_cycles", phase_cycles, torch.int64,
                                    (n_lanes, len(PHASES)))

@@ -244,7 +244,7 @@ EBS_NITRO_LIMIT = 25
 _GIB = 1 << 30
 
 
-def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0):
+def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0, rich: bool = False):
     """The device-resource cluster: plain manifest dicts (Nodes, Pods,
     PersistentVolumeClaims, PersistentVolumes, one StorageClass), so each
     package builds its own objects through ``demux_object``.
@@ -285,6 +285,13 @@ def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0):
     (no GPU node holds local storage), and sized so that every pod fits
     the cluster as it is: a capacity plan adds GPU nodes, which bring no
     local storage or PVs.
+
+    rich=True adds ``synthetic_objects``' inter-pod constraints to the
+    unbound pods, so that both slices' gates are on: an ``anti`` label
+    on every pod; i % 11 == 0, a required hostname anti-affinity term
+    over its ``anti`` group; i % 13 == 0, a required zone pod affinity
+    over its app; i % 7 == 0, a hard zone spread (maxSkew 3); i % 6 ==
+    0, a preferred zone pod affinity (weight 10) toward the next app.
     """
     rng = np.random.RandomState(seed)
     zone_key, ebs_zone_key = "topology.kubernetes.io/zone", "topology.ebs.csi.aws.com/zone"
@@ -402,6 +409,8 @@ def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0):
                             "scName": "open-local-device-ssd" if ssd else "open-local-device-hdd"})
         if volumes:
             meta["annotations"]["simon.tpu/pod-local-storage"] = json.dumps({"volumes": volumes})
+        if rich:
+            _add_interpod_terms(i, meta, spec)
         claims = []
         if i % 25 == 3:
             sts = f"db{i % 7}"
@@ -436,6 +445,34 @@ def device_resource_manifests(n_nodes: int, n_pods: int, seed: int = 0):
     return nodes + pods + pvcs + pvs + objs
 
 
+def _add_interpod_terms(i: int, meta: dict, spec: dict) -> None:
+    """The rich pod shapes' inter-pod constraints on pod `i` (see
+    ``device_resource_manifests``)."""
+    app = meta["labels"]["app"]
+    meta["labels"]["anti"] = f"g{i % 97}"
+    zone = "topology.kubernetes.io/zone"
+    affinity = {}
+    if i % 11 == 0:
+        affinity["podAntiAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": {"anti": f"g{i % 97}"}},
+            "topologyKey": "kubernetes.io/hostname"}]}
+    if i % 13 == 0:
+        affinity["podAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": {"app": app}}, "topologyKey": zone}]}
+    if i % 6 == 0:
+        affinity.setdefault("podAffinity", {})[
+            "preferredDuringSchedulingIgnoredDuringExecution"] = [{
+                "weight": 10, "podAffinityTerm": {
+                    "labelSelector": {"matchLabels": {"app": f"a{(i + 1) % 8}"}},
+                    "topologyKey": zone}}]
+    if affinity:
+        spec["affinity"] = affinity
+    if i % 7 == 0:
+        spec["topologySpreadConstraints"].append({
+            "maxSkew": 3, "topologyKey": zone, "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": app}}})
+
+
 # the new-node template of examples/newnode/gpu.yaml
 GPU_NODE_TEMPLATE = {
     "apiVersion": "v1", "kind": "Node",
@@ -448,26 +485,28 @@ GPU_NODE_TEMPLATE = {
 }
 
 
-def device_resource_cluster(n_nodes: int, n_pods: int, seed: int = 0):
+def device_resource_cluster(n_nodes: int, n_pods: int, seed: int = 0, rich: bool = False):
     """``device_resource_manifests`` loaded into this package's
     ClusterResources (what ``simulate()`` takes)."""
     from open_simulator_tpu_torch.k8s.loader import ClusterResources, demux_object
 
     cluster = ClusterResources()
-    for doc in device_resource_manifests(n_nodes, n_pods, seed):
+    for doc in device_resource_manifests(n_nodes, n_pods, seed, rich):
         demux_object(doc, cluster)
     return cluster
 
 
-def device_resource_snapshot(n_nodes: int, n_pods: int, max_new: int = 0, seed: int = 0):
+def device_resource_snapshot(n_nodes: int, n_pods: int, max_new: int = 0, seed: int = 0,
+                             rich: bool = False):
     """The device-resource cluster encoded as ``simulate()`` encodes it,
-    with `max_new` slots of the GPU node template."""
+    with `max_new` slots of the GPU node template (rich: with the
+    inter-pod constraints too)."""
     from open_simulator_tpu_torch.core import build_pod_sequence, with_volume_objects
     from open_simulator_tpu_torch.encode.snapshot import EncodeOptions, encode_cluster
     from open_simulator_tpu_torch.k8s.loader import make_valid_node
     from open_simulator_tpu_torch.k8s.objects import Node
 
-    cluster = device_resource_cluster(n_nodes, n_pods, seed)
+    cluster = device_resource_cluster(n_nodes, n_pods, seed, rich)
     cluster.nodes = [make_valid_node(n) for n in cluster.nodes]
     opts = EncodeOptions()
     if max_new:
@@ -475,3 +514,26 @@ def device_resource_snapshot(n_nodes: int, n_pods: int, max_new: int = 0, seed: 
             Node.from_dict(GPU_NODE_TEMPLATE)))
     pods = build_pod_sequence(cluster, [])
     return encode_cluster(cluster.nodes, pods, with_volume_objects(opts, cluster, []))
+
+
+def preemption_columns(forced_node: np.ndarray, active: np.ndarray, seed: int = 0):
+    """Random ``disabled`` [P] bool / ``nominated`` [P] i32 preemption
+    columns over a pod sequence (`forced_node` [P]) and an [N] active
+    mask, with every edge the step must handle: about 5% victims and 20%
+    nominations, among them -1, a negative value, past-the-end values,
+    the first and last node, inactive (infeasible) nodes, half the forced
+    pods and half the victims."""
+    rng = np.random.RandomState(seed)
+    n_pods, n = len(forced_node), len(active)
+    disabled = rng.rand(n_pods) < 0.05
+    nominated = np.where(rng.rand(n_pods) < 0.2, rng.randint(0, n, n_pods), -1).astype(np.int32)
+    order = rng.permutation(n_pods)
+    nominated[order[:6]] = [n, n + 3, -1, -7, n - 1, 0]
+    off = np.flatnonzero(~np.asarray(active, dtype=bool))
+    if len(off):
+        nominated[order[6:12]] = off[rng.randint(0, len(off), 6)]
+    forced = np.flatnonzero(np.asarray(forced_node) >= 0)
+    nominated[forced[::2]] = rng.randint(0, n, len(forced[::2]))
+    victims = np.flatnonzero(disabled)
+    nominated[victims[::2]] = rng.randint(0, n, len(victims[::2]))
+    return disabled, nominated

@@ -149,10 +149,12 @@ def test_output_file(tmp_path, capsys):
     assert "=== Nodes ===" in out_file.read_text()
 
 
-def test_chart_apps_and_preemption_name_their_items(tmp_path):
-    """A chart app, and a decoded lane that would need the preemption
-    pass (unscheduled pods of differing priorities), raise naming the
-    ROADMAP item that ports them."""
+def test_chart_apps_and_preemption_name_their_items(tmp_path, capsys):
+    """A chart app raises naming the ROADMAP item that ports it. A decoded
+    lane that needs the preemption pass (unscheduled pods of differing
+    priorities) runs it now, as the reference does: here the low-priority
+    pod cannot preempt the high one, and both CLIs print the same
+    FAILED report."""
     with pytest.raises(NotImplementedError, match="chart apps.*ROADMAP queue 1, item 15"):
         Applier(ApplyOptions(config_path=os.path.join(EXAMPLES, "chart-config.yaml"),
                              device="cpu")).run()
@@ -171,6 +173,8 @@ def test_chart_apps_and_preemption_name_their_items(tmp_path):
         "apiVersion: simon/v1alpha1\nkind: Config\nmetadata: {name: t}\nspec:\n"
         "  cluster: {customConfig: cluster}\n  appList:\n  - {name: low, path: apps}\n"
         "  newNode: new.yaml\n")
-    with pytest.raises(NotImplementedError, match="preemption.*ROADMAP queue 1, item 4"):
-        Applier(ApplyOptions(config_path=str(tmp_path / "c.yaml"), max_new_nodes=2,
-                             device="cpu")).run()
+    argv = ["apply", "-f", str(tmp_path / "c.yaml"), "--max-new-nodes", "2"]
+    rc_ref, out_ref, _ = run(ref_main, argv, capsys)
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert (rc, out, err) == (rc_ref, out_ref, "")
+    assert rc == 1 and out.startswith("FAILED") and "Insufficient cpu" in out

@@ -10,8 +10,10 @@ torch step, bit for bit, on both spread carries, on the rich synthetic
 cluster (pod affinity, anti-affinity in the slot and the dense form, hard
 spread, the interpod preference), on the device-resource cluster (GPU
 share, open-local storage, the volume masks, PV matching, attach limits
-and dedup, with mid-sequence pinned GPU pods), on lanes, on the lane
-prologue (lanes started from one template carry, with and without reason
+and dedup, with mid-sequence pinned GPU pods), on the device-resource
+cluster with the inter-pod constraints too (``plain_step<1,1>``), with
+the preemption columns in each of the four instantiations, on lanes, on
+the lane prologue (lanes started from one template carry, with and without reason
 accounting), at the edges of the cluster geometry (fewer nodes than
 blocks, a ragged last slice, an odd number of lanes) and through
 ``schedule_lanes``. Without CUDA they skip with the reason; the binding
@@ -36,6 +38,7 @@ from open_simulator_tpu_torch.k8s.objects import Node, Pod
 from open_simulator_tpu_torch.kernels import build, step
 from open_simulator_tpu_torch.testing.synthetic import (
     device_resource_snapshot,
+    preemption_columns,
     soft_spread_cluster,
     synthetic_snapshot,
 )
@@ -60,6 +63,10 @@ def test_ctypes_struct_matches_the_c_struct():
     kinds = {"c_void_p": "ptr", "c_int": "int", "c_float": "float"}
     py_fields = [(name, kinds[ctype.__name__]) for name, ctype in step.StepArgs._fields_]
     assert py_fields == c_fields
+    # the preemption columns: pod arrays every instantiation reads
+    names = [n for n, _ in c_fields]
+    at = names.index("hit_pref")
+    assert names[at + 1:at + 3] == ["disabled", "nominated"] and at + 3 < step._N_BASE_PTRS
     # the lane prologue's template carry: one pointer per carry field the
     # kernel reads and writes
     assert [n for n, _ in c_fields if n.startswith("tmpl_")] == [
@@ -258,14 +265,29 @@ RICH_CASES = {
     "devres": dict(),
     "devres-no-dedup-no-reasons": dict(enable_vol_dedup=False, fail_reasons=False),
     "devres-f32-gpu-weight": dict(compact_carry=False, w_gpu=3.0),
+    "devres-rich": dict(),
 }
+
+
+def test_rich_devres_input_sets_both_slices_gates():
+    """The device-resource cluster with the inter-pod constraints runs
+    plain_step<1,1>, with every device-resource gate and the group_count
+    carry on."""
+    snap = device_resource_snapshot(48, 256, rich=True)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    assert step.instantiation(cfg, sched.init_state(arrs, cfg)) == "<1,1>"
+    assert cfg.needs_group_count and step.devres_on(cfg)
+    assert all(getattr(cfg, g) for g in ("enable_gpu", "enable_storage", "enable_vol_static",
+                                         "enable_pv_match", "enable_vol_limits",
+                                         "enable_vol_dedup"))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hostname-bf16", "hostname-f32", "zone-region", "synthetic",
                                   "rich", "rich-dense", "rich-bound", "rich-f32-no-reasons",
                                   "devres", "devres-no-dedup-no-reasons",
-                                  "devres-f32-gpu-weight"])
+                                  "devres-f32-gpu-weight", "devres-rich"])
 def test_kernel_equals_plain_step_on_card(cuda_device, case):
     """Two lanes with different active masks: the kernel and the plain
     torch step give the same outputs and carry, bit for bit."""
@@ -275,7 +297,7 @@ def test_kernel_equals_plain_step_on_card(cuda_device, case):
     elif case.startswith("rich"):
         snap = synthetic_snapshot(96, 512, rich=True, bound=0.3 if case == "rich-bound" else 0.0)
     elif case.startswith("devres"):
-        snap = device_resource_snapshot(96, 768)
+        snap = device_resource_snapshot(96, 768, rich=case == "devres-rich")
     else:
         snap = _soft_spread(96, 512, hostname=case != "zone-region")
     cfg = sched.make_config(snap, **overrides)
@@ -301,6 +323,49 @@ def test_kernel_equals_plain_step_on_card(cuda_device, case):
     if case.startswith("devres"):
         assert out_k[3].shape[2] == 8 and out_k[4].shape[2] == 1
         assert (out_k[3] > 0).any() and (out_k[4] >= 0).any()
+
+
+COLUMN_CASES = {"<0,0>": lambda: synthetic_snapshot(96, 512, bound=0.2),
+                "<1,0>": lambda: synthetic_snapshot(96, 512, rich=True, bound=0.2),
+                "<0,1>": lambda: device_resource_snapshot(96, 640),
+                "<1,1>": lambda: device_resource_snapshot(96, 640, rich=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(COLUMN_CASES))
+def test_kernel_preemption_columns_equal_plain_step_on_card(cuda_device, case):
+    """Each instantiation with random preemption columns (victims,
+    nominations of feasible, inactive, forced and victim pods, -1 and
+    out-of-range values), two lanes from a template carry with no prefix
+    fold: the kernel and the plain step agree bit for bit."""
+    snap = COLUMN_CASES[case]()
+    cfg = sched.make_config(snap, forced_prefix=0)
+    n = snap.n_nodes
+    masks = np.stack([np.arange(n) % 9 != 4, np.arange(n) % 3 != 0])
+    disabled, nominated = preemption_columns(snap.arrays.forced_node, masks[0], seed=5)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    assert step.instantiation(cfg, tmpl, columns=True) == case + "+columns"
+    cols = dict(disabled=torch.from_numpy(disabled).to(cuda_device),
+                nominated=torch.from_numpy(nominated).to(cuda_device))
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 2)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, 0, snap.n_pods, template=tmpl, **cols)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    (out_k, st_k), (out_p, st_p) = runs
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    node = out_k[0].cpu().numpy()
+    assert (node[:, disabled] == -3).all() and (node[:, ~disabled] != -3).all()
+    held = (node[0] == nominated) & (nominated >= 0) & (snap.arrays.forced_node == -1)
+    assert held.sum() > 10
 
 
 @pytest.mark.cuda
@@ -363,6 +428,13 @@ def test_schedule_pods_launches_the_kernel_on_card(cuda_device):
     assert torch.equal(out_gpu.node.cpu(), out_cpu.node)
     assert torch.equal(out_gpu.fail_counts.cpu(), out_cpu.fail_counts)
     assert torch.equal(out_gpu.state.headroom.cpu(), out_cpu.state.headroom)
+    # with the preemption columns: one launch, no prefix fold, the CPU's answer
+    disabled, nominated = preemption_columns(snap.arrays.forced_node, snap.arrays.active)
+    outs = [sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device=dev,
+                                disabled=disabled, nominated=nominated) for dev in (None, "cpu")]
+    assert step.LAUNCHES["plain_step"] == before + 2
+    for a, b in zip(outs[0][:5], outs[1][:5]):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda

@@ -88,6 +88,44 @@ def test_capacity_plan_modules_import_with_jax_and_yaml_blocked():
     assert set(SLICE_MODULES) <= set(all_modules())
 
 
+PREEMPTION_MODULES = ("open_simulator_tpu_torch.engine.preemption",
+                      "open_simulator_tpu_torch.simulator",
+                      "open_simulator_tpu_torch.testing.builders")
+
+
+def test_preemption_slice_modules_import_with_jax_blocked():
+    """The preemption slice's modules (the planner, the Simulator facade,
+    the fixture builders) import, and a Simulator session with a
+    preemption runs on the CPU, in an interpreter where jax and the JAX
+    package cannot be imported."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN + ('yaml',)!r}))\n"
+            + "import importlib\n"
+            + f"for m in {PREEMPTION_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "from open_simulator_tpu_torch.core import AppResource\n"
+            + "from open_simulator_tpu_torch.k8s.loader import ClusterResources\n"
+            + "from open_simulator_tpu_torch.k8s.objects import PriorityClass\n"
+            + "from open_simulator_tpu_torch.simulator import Simulator\n"
+            + "from open_simulator_tpu_torch.testing import make_fake_node, make_fake_pod\n"
+            + "c = ClusterResources(nodes=[make_fake_node('n0', cpu='2')])\n"
+            + "c.priority_classes = [PriorityClass.from_dict({'metadata': {'name': 'hi'}, "
+            + "'value': 10})]\n"
+            + "sim = Simulator(c, device='cpu')\n"
+            + "sim.run_cluster()\n"
+            + "sim.schedule_app(AppResource('lo', ClusterResources(pods=[make_fake_pod('lo', "
+            + "cpu='1500m')])))\n"
+            + "hi = make_fake_pod('hi', cpu='1500m')\n"
+            + "hi.priority_class_name = 'hi'\n"
+            + "r = sim.schedule_app(AppResource('hi', ClusterResources(pods=[hi])))\n"
+            + "print('ok', r.placements(), sim.cluster_status().preempted_pod_keys)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok {'default/hi': 'n0'} ['default/lo']")
+    assert set(PREEMPTION_MODULES) <= set(all_modules())
+
+
 def test_apply_cli_runs_with_jax_blocked():
     """``python -m open_simulator_tpu_torch.cli apply`` answers the
     morepods capacity plan on the CPU with jax and the JAX package
@@ -161,20 +199,38 @@ def test_make_config_turns_waves_off():
     assert tsched.make_config(synthetic_snapshot(8, 16)).wave_scheduling is False
 
 
+def _priority_pod(name, prio):
+    from open_simulator_tpu_torch.k8s.objects import Pod
+
+    return Pod.from_dict({"metadata": {"name": name, "namespace": "default"},
+                          "spec": {"priority": prio, "containers": [{"name": "c"}]}})
+
+
+def _small_node():
+    from open_simulator_tpu_torch.k8s.objects import Node
+
+    return Node.from_dict({"metadata": {"name": "n0"},
+                           "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": 10}}})
+
+
+def test_differing_priorities_run_preemption():
+    """Pods of differing priority go through the preemption pass (both
+    fit here, so nothing is preempted)."""
+    from open_simulator_tpu_torch.k8s.loader import ClusterResources
+
+    cluster = ClusterResources(nodes=[_small_node()],
+                               pods=[_priority_pod("a", 0), _priority_pod("b", 1000)])
+    res = tcore.simulate(cluster, [], device="cpu")
+    assert len(res.scheduled_pods) == 2 and res.preempted_pod_keys == []
+
+
 def test_differing_priorities_and_new_node_lanes_raise():
+    """Equal priorities skip the preemption pass, and new-node template
+    slots encode inactive in a plain simulate(); neither raises."""
     from open_simulator_tpu_torch.encode.snapshot import EncodeOptions
     from open_simulator_tpu_torch.k8s.loader import ClusterResources
-    from open_simulator_tpu_torch.k8s.objects import Node, Pod
 
-    def pod(name, prio):
-        return Pod.from_dict({"metadata": {"name": name, "namespace": "default"},
-                              "spec": {"priority": prio, "containers": [{"name": "c"}]}})
-
-    node = Node.from_dict({"metadata": {"name": "n0"},
-                           "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": 10}}})
-    cluster = ClusterResources(nodes=[node], pods=[pod("a", 0), pod("b", 1000)])
-    with pytest.raises(NotImplementedError, match="preemption.*ROADMAP queue 1, item 4"):
-        tcore.simulate(cluster, [], device="cpu")
+    node, pod = _small_node(), _priority_pod
     # equal priorities: the reference's preemption pass does nothing
     same = ClusterResources(nodes=[node], pods=[pod("a", 1000), pod("b", 1000)])
     assert len(tcore.simulate(same, [], device="cpu").scheduled_pods) == 2

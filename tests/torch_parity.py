@@ -76,11 +76,16 @@ def jax_state(state) -> dict:
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
 
-def run_jax(snap, state=None, **overrides):
-    """Reference schedule_pods(..., waves=None) -> (cfg, numpy outputs, state)."""
+def run_jax(snap, state=None, active=None, disabled=None, nominated=None, **overrides):
+    """Reference schedule_pods(..., waves=None) -> (cfg, numpy outputs,
+    state), on `active` (default: the snapshot's) with the preemption
+    columns if given."""
     cfg = jsched.make_config(snap, **overrides)
-    out = jsched.schedule_pods(jsched.device_arrays(snap), jnp.asarray(snap.arrays.active),
-                               cfg, state=state, waves=None)
+    cols = {k: None if v is None else jnp.asarray(v)
+            for k, v in (("disabled", disabled), ("nominated", nominated))}
+    out = jsched.schedule_pods(jsched.device_arrays(snap),
+                               jnp.asarray(snap.arrays.active if active is None else active),
+                               cfg, state=state, waves=None, **cols)
     outs = {k: np.asarray(getattr(out, k)) for k in OUTPUTS}
     return cfg, outs, jax_state(out.state)
 
@@ -89,10 +94,11 @@ def torch_cfg(jcfg) -> tsched.EngineConfig:
     return tsched.EngineConfig(**{**jcfg._asdict(), "wave_scheduling": False})
 
 
-def run_torch(arrs_fields: dict, active, cfg, state=None):
+def run_torch(arrs_fields: dict, active, cfg, state=None, disabled=None, nominated=None):
     """Port schedule_pods on the CPU -> (numpy outputs, numpy state)."""
     arrs = convert.snapshot_arrays_from_numpy(arrs_fields)
-    out = tsched.schedule_pods(arrs, active, cfg, state=state, device="cpu")
+    out = tsched.schedule_pods(arrs, active, cfg, state=state, device="cpu",
+                               disabled=disabled, nominated=nominated)
     outs = {k: getattr(out, k).numpy() for k in OUTPUTS}
     return outs, convert.state_to_numpy(out.state)
 
