@@ -14,6 +14,8 @@ preference, taints) and on the device-resource cluster
 PVs, EBS attach limits with shared claims), under the DefaultPreemption
 pass (``northstar-preempt``: priority classes, a disruption budget and
 critical pods that must evict) and through a ``Simulator`` session, then
+the wave path on the reference bench's ``pools`` preset (1,024 nodes x
+10,240 pods in 32 pools, which the wave planner runs as 320 waves), then
 the capacity plan on the first three (the reference bench's 64-lane
 north-star sweep, its bisection, and the example plans through the
 CLI) — and checks that each ran through the kernels and that its answer
@@ -47,6 +49,13 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    device-resource cluster at 1,000 nodes (a ragged last slice) and the
    rich cluster at 509 nodes as 3 lanes (an odd number of clusters); each
    parity line prints the launch's cluster size, block size and slice;
+   then the wave form (``plain_step``'s frozen builds and ``wave_merge``)
+   on 512 x 4,096 pools clusters with the inter-pod terms (``<1,0>``),
+   GPU share (``<0,1>``) and both (``<1,1>``)
+   (``testing/synthetic.wave_pools_snapshot``), 64 lanes: over the first
+   waves, each frozen launch's outputs on lanes 0 and 63 against the
+   plain step's frozen form and each merge against the plain merge on
+   every lane and carry field;
 4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
    path's arrays (its placements, and on devres its GPU allocations, must
@@ -72,7 +81,18 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    ``Simulator`` session on the same
    objects (``run_cluster``, one ``schedule_app`` per app), each call's
    wall, prior placements kept except the victims, the final placements
-   equal to simulate()'s;
+   equal to simulate()'s; then ``pools``: launch counts reset,
+   ``simulate()`` at one lane, counts read (one frozen launch and one
+   merge per wave, no scan launch), the plan and its ``wave_id`` /
+   ``wave_batched`` decode checked, the planner timed; the wave path's
+   kernels timed (each launch between CUDA events, min of 3) beside the
+   scan kernel over the same pods, outputs and every carry field equal
+   to the scan's, placements equal to simulate()'s; the first 16 waves
+   against the plain versions; the bench's 64-lane ``schedule_lanes``
+   with the plan against the scan's; the same cluster with 64 new-node
+   slots through ``capacity_sweep`` (64 lanes) and
+   ``capacity_bisect(lanes=8)``, and the wave form's parity (``<0,0>``)
+   on its lanes 0 and 63;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -89,7 +109,8 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
    the CPU, with the same output;
-6. one JSON line describing each kernel (with each plain_step
+6. one JSON line describing each kernel (``plain_step``, its frozen
+   form ``plain_step_frozen`` and ``wave_merge``, with each plain_step
    instantiation's registers, stack and spills; a launched one that
    spills fails the run), then the device line.
 
@@ -122,6 +143,18 @@ BISECT_TARGET = 37
 FOLD_PODS = 4096
 # the full-size paths' nodes and pods
 NODES, PODS = 5120, 51200
+# the pools path: the reference bench's wave-showcase preset (bench.py:351)
+POOLS = {"nodes": 1024, "pods": 10240, "pools": 32}
+# torch.cuda._sleep's cycles per millisecond (the H100 SXM's 1.98 GHz
+# boost clock; a slower clock only spins longer)
+SPIN_CYCLES_PER_MS = 1_980_000
+# waves of each wave parity input compared with the plain versions, and
+# waves of the one-lane pools run whose kernels are timed beside theirs
+WAVE_PARITY_WAVES, WAVE_SAME = 4, 16
+# how long the stream spins before each WAVE_SAME waves of a run whose
+# kernels are timed alone: longer than the host takes to queue their
+# launches (about 0.25 ms a wave)
+PRIME_MS = 10
 # the northstar-preempt path's last app: system pods of 12 CPU, more than
 # any node of the 16-CPU north-star cluster has free without evictions
 PREEMPTORS, SYSTEM_CPU = 32, "12"
@@ -136,6 +169,19 @@ CLI_CONFIGS = (("config.yaml", (), "bisect"), ("constraints-config.yaml", (), "b
 
 
 _T0 = time.perf_counter()
+# the kernels' launch counters (kernels/step.LAUNCHES, kernels/wave.LAUNCHES),
+# filled by main() once the package is imported
+COUNTERS = []
+
+
+def reset_counts() -> None:
+    for counts in COUNTERS:
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counts() -> dict:
+    return {name: n for counts in COUNTERS for name, n in counts.items()}
 
 
 def log(msg: str) -> None:
@@ -244,25 +290,28 @@ def column_tensors(torch, columns):
             "nominated": torch.from_numpy(np.ascontiguousarray(nom, dtype=np.int32)).to(dev)}
 
 
-# the instantiations plain_step<kInterpod, kDevRes, kCols> the run launches
-# (<1,1>: the device-resource cluster with the inter-pod constraints, a
-# parity input of phase 3; "+columns": a launch with the preemption
-# columns, the column parity inputs and northstar-preempt's rescans)
-LAUNCHED = tuple(f"<{i},{d}>{c}" for c in ("", "+columns") for i, d in ((0, 0), (1, 0), (0, 1),
-                                                                         (1, 1)))
+# the instantiations plain_step<kInterpod, kDevRes, kCols, kFrozen> the run
+# launches (<1,1>: the device-resource cluster with the inter-pod
+# constraints, a parity input of phase 3; "+columns": a launch with the
+# preemption columns, the column parity inputs and northstar-preempt's
+# rescans; "+frozen": the wave form, the pools path and the wave parity
+# inputs)
+LAUNCHED = tuple(f"<{i},{d}>{c}" for c in ("", "+columns", "+frozen")
+                 for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
 
 
 def instantiations(build_log):
-    """{"<I,D>" or "<I,D>+columns": {registers, stack_bytes,
-    spill_store_bytes, spill_load_bytes}} of each plain_step instantiation,
-    from ptxas's -v report in the build log."""
+    """{"<I,D>", "<I,D>+columns" or "<I,D>+frozen": {registers,
+    stack_bytes, spill_store_bytes, spill_load_bytes}} of each plain_step
+    instantiation, from ptxas's -v report in the build log."""
     import re
 
     out, name = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])E", line)
+        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])E", line)
         if m:
-            name = f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
+            name = (f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
+                    + ("+frozen" if m.group(4) == "1" else ""))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -664,14 +713,13 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
     t0 = time.perf_counter()
     cluster = cluster_of(kind)
     log(f"main path {label}: cluster objects built in {time.perf_counter() - t0:.1f}s")
-    for name in step.LAUNCHES:
-        step.LAUNCHES[name] = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = simulate(cluster, [], device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(step.LAUNCHES)
+    launches = read_counts()
     snap = result.snapshot
     n_pods = snap.n_pods
     log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods "
@@ -871,15 +919,14 @@ def preempt_path(torch, sched, step, core, preemption, label):
     t_phase = time.perf_counter()
     cluster, apps = preempt_objects(NODES, PODS)
     log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s")
-    for name in step.LAUNCHES:
-        step.LAUNCHES[name] = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PassRecorder(core, preemption) as rec:
         result = core.simulate(cluster, apps, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(step.LAUNCHES)
+    launches = read_counts()
     snap = result.snapshot
     n_pods = snap.n_pods
     events = rec.pre.events
@@ -988,8 +1035,7 @@ def session_path(torch, step, Simulator, label, reference):
     on the same objects."""
     t_phase = time.perf_counter()
     cluster, apps = preempt_objects(NODES, PODS)
-    for name in step.LAUNCHES:
-        step.LAUNCHES[name] = 0
+    reset_counts()
     sim = Simulator(cluster, device="cuda")
     walls = []
     t0 = time.perf_counter()
@@ -1001,7 +1047,7 @@ def session_path(torch, step, Simulator, label, reference):
         sim.schedule_app(app)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = dict(step.LAUNCHES)
+    launches = read_counts()
     full = sim.cluster_status()
     sim.close()
     victims = set(full.preempted_pod_keys)
@@ -1037,23 +1083,29 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         f"nodes x {n_pods} pods built in {time.perf_counter() - t_phase:.1f}s")
 
     # the main path: one capacity_sweep, counts read just after
-    for name in step.LAUNCHES:
-        step.LAUNCHES[name] = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     plan = sweep.capacity_sweep(snap, cfg, counts, device="cuda")
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = dict(step.LAUNCHES)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches["plain_step"] != 1:
         raise SystemExit(f"capacity {label}: plain_step launched {launches} times, not once")
     if plan.nodes_per_scenario.shape != (CAPACITY_LANES, n_pods) or not all(plan.all_scheduled):
         raise SystemExit(f"capacity {label}: the sweep did not schedule every pod in every lane")
 
-    # the launch alone, as the sweep makes it (fail_reasons off)
+    # the sweep's wave planner alone, past its cache (the sweep ran it once)
+    from open_simulator_tpu_torch.engine import buckets, waves as waves_mod
+
     scfg = cfg._replace(fail_reasons=False)
+    t0 = time.perf_counter()
+    wplan = waves_mod.compute_wave_plan(snap.arrays, scfg, n_pods_total=buckets.bucket_pods(n_pods))
+    planner_s = time.perf_counter() - t0
+
+    # the launch alone, as the sweep makes it (fail_reasons off)
     dev = torch.device("cuda")
     arrs = sched.device_arrays(snap.arrays, dev)
     masks_np = sweep.active_masks_for_counts(snap, counts)
@@ -1084,7 +1136,8 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         f"kernel ms={kernel_ms:.3f} (min of {len(times)}: {[round(t, 3) for t in times]}) "
         f"lane_pods_per_s={lane_pods / (kernel_ms / 1e3):.1f} host share of the sweep "
         f"{1 - kernel_ms / (sweep_s * 1e3):.4f} peak device memory "
-        f"{peak / 2**20:.1f} MiB {geometry(plan_k)}")
+        f"{peak / 2**20:.1f} MiB {geometry(plan_k)}; wave planner_s={planner_s:.4f} "
+        f"plan {wplan.stats()}")
 
     # lane independence: lanes at counts 0, 21, 42, 63 against one-lane launches
     for s_i in (0, 21, 42, 63):
@@ -1190,7 +1243,7 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         "lanes": CAPACITY_LANES, "launches": launches["plain_step"], "pods": n_pods - p0,
         "ms": kernel_ms, "ms_runs": times, "bound_ms": bound[2], "bound_by": bound[3],
         "lane_pods_per_s": lane_pods / (kernel_ms / 1e3), "sweep_s": sweep_s,
-        "peak_mem_bytes": peak, "max_abs_err": err, "phases": phases,
+        "planner_s": planner_s, "peak_mem_bytes": peak, "max_abs_err": err, "phases": phases,
         "geometry": geometry_fields(plan_k), **row_fields(rows),
         "same_pods": {"lanes": 2, "pods": PARITY_PREFIX, "ms": kern_s * 1e3,
                       "plain_ms": plain_s * 1e3},
@@ -1201,6 +1254,413 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
                   "bound_by": hoist_b[3]},
         "prefix_fold": {"pods": n_fold, "ms": fold_ms, "library_ms": mm_ms,
                         "bound_ms": fold_b[2], "bound_by": fold_b[3]},
+    }
+
+
+def frozen_work(sched, a, cfg, lo, hi, outs):
+    """(bytes, operations) of the frozen step over pods [lo, hi) of every
+    lane in `outs` (each lane's (node, fail counts, feasible counts) as
+    numpy): the step's work as ``lanes_work`` counts it, without the bind
+    (the frozen form binds nothing; the merge does)."""
+    import numpy as np
+
+    return lanes_work(sched, a, cfg, lo, hi,
+                      [(np.full_like(o[0], -1),) + tuple(o[1:]) for o in outs])
+
+
+def merge_work(a, cfg, n_lanes, lo, hi, gpu):
+    """(bytes, operations) of one ``wave_merge`` over pods [lo, hi) of
+    `n_lanes` lanes. Bytes: each merged carry cell read and written once
+    per lane, the wave's node row (and GPU picks) per lane, the pods' rows
+    (requests, groups, ports, attachments, terms, preferred slots, GPU
+    memory) and the node-domain table once. Operations: one node compare
+    per (lane, cell, pod)."""
+    c = hi - lo
+    n, r = a.alloc.shape
+    k1, _, d = a.topo_onehot.shape
+    sg, pt, lk = a.match_groups.shape[1], a.ports.shape[1], a.vol_limit_cap.shape[1]
+    t, t2, g, ap = a.own_terms.shape[1], a.hit_pref.shape[1], a.gpu_slot.shape[1], \
+        a.pref_group.shape[1]
+    gcb = _gc_bytes(cfg)
+    tb = (2 if cfg.compact_carry else 4)
+    chans = [(n * r, 4)]
+    if cfg.needs_group_count:
+        chans.append((n * sg, gcb))
+    if cfg.maintain_dom_count:
+        chans.append((k1 * d * sg, 4))
+    if cfg.enable_ports:
+        chans.append((n * pt, 1))
+    if cfg.enable_vol_limits:
+        chans.append((n * lk, 4))
+    if cfg.enable_anti_affinity:
+        chans.append((n * t, tb))
+    if cfg.enable_pref:
+        chans.append((n * t2, 4))
+    if gpu:
+        chans.append((n * g, 4))
+    cells = sum(x for x, _ in chans)
+    carry = sum(x * b for x, b in chans)
+    groups = a.match_gid.shape[1] * 4 if cfg.slot_paint else sg
+    terms = a.own_tid.shape[1] * 4 if cfg.slot_paint else t
+    pod_bytes = c * (r * 4 + groups + pt + lk * 4 + terms + ap * 13 + 4)
+    nbytes = (n_lanes * (2 * carry + c * 4 + (c * g * 4 if gpu else 0)) + pod_bytes
+              + k1 * n * 4 + t * 4)
+    return nbytes, n_lanes * cells * c
+
+
+def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np, n_waves):
+    """The wave form on the card against its plain versions, over the first
+    `n_waves` waves of the plan's first GRID on every lane of `masks_np`:
+    each frozen launch's outputs on the first and last lane against the
+    plain step's frozen form on those two lanes (and the carry left as it
+    was), then the merge kernel against the plain merge on every lane and
+    carry field. Returns the instantiation, the wave width, the pods and
+    lanes, the kernels' and plain versions' times over those waves and the
+    largest difference."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    plan = waves_mod.waves_for(snap.arrays, cfg)
+    lo, _, kind, w = plan.segments[0]
+    if kind != waves_mod.GRID or lo or plan.start or cfg.forced_prefix:
+        raise SystemExit(f"wave parity {label}: the plan {plan.segments[:3]} does not open "
+                         "with a GRID at pod 0")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(masks_np).to(dev)
+    n_lanes = active.shape[0]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, cfg)
+    st = sched.lane_carry(tmpl, n_lanes)
+    step.copy_template(st, tmpl)
+    inst = step.instantiation(cfg, st) + "+frozen"
+    ends = [0, n_lanes - 1]
+    sub_hoist = type(hoist)(*(x[ends] for x in hoist))
+    inputs, merge_inputs = {}, {}
+    ms_k = ms_p = ms_m = ms_mp = err = 0.0
+    equal = True
+    for w0 in range(lo, lo + n_waves * w, w):
+        w1 = w0 + w
+        sub = sched.SimState(**{f: getattr(st, f)[ends].clone() for f in sched.STATE_FIELDS})
+        got = []
+        ms_k += cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
+            arrs, active, hoist, inv, st, cfg, w0, w1, frozen=True, inputs=inputs)), prime_ms=2)
+        out_k = got[0]
+        t0 = time.perf_counter()
+        out_p = step.plain_step_torch(arrs, active[ends], sub_hoist, inv, sub, cfg, w0, w1,
+                                      frozen=True)
+        torch.cuda.synchronize()
+        ms_p += (time.perf_counter() - t0) * 1e3
+        ok, e = compare(torch, [x[ends] for x in out_k], out_p,
+                        sched.SimState(**{f: getattr(st, f)[ends] for f in sched.STATE_FIELDS}),
+                        sub)
+        equal &= ok
+        err = max(err, e)
+        st_p = clone_state(sched, st)
+        pick = out_k[3] if cfg.enable_gpu else None
+        ms_m += cuda_ms(torch, lambda: wave.wave_merge_cuda(arrs, cfg, st, w0, w1, out_k[0], pick,
+                                                            inputs=merge_inputs), prime_ms=2)
+        t0 = time.perf_counter()
+        wave.wave_merge_torch(arrs, cfg, st_p, w0, w1, out_k[0], pick)
+        torch.cuda.synchronize()
+        ms_mp += (time.perf_counter() - t0) * 1e3
+        ok, e = compare(torch, [], [], st, st_p)
+        equal &= ok
+        err = max(err, e)
+    placed = int((st.headroom != tmpl.headroom[None]).any(2).sum())
+    log(f"wave parity {label} {inst}: lanes={n_lanes} waves={n_waves} of width {w} "
+        f"{geometry(step.LAST_PLAN)} frozen kernel {ms_k:.3f} ms, plain (lanes 0 and "
+        f"{n_lanes - 1}) {ms_p:.1f} ms; merge kernel {ms_m:.3f} ms, plain merge {ms_mp:.1f} ms; "
+        f"nodes with binds {placed} equal={equal} max_abs_err={err} "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    if not equal:
+        raise SystemExit(f"wave parity {label}: the wave kernels and their plain versions "
+                         "disagree")
+    if not placed:
+        raise SystemExit(f"wave parity {label}: no wave bound a pod")
+    return {"instantiation": inst, "lanes": n_lanes, "waves": n_waves, "width": w,
+            "pods": n_waves * w, "frozen_ms": ms_k, "frozen_plain_ms": ms_p, "merge_ms": ms_m,
+            "merge_plain_ms": ms_mp, "max_abs_err": err}
+
+
+def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cluster_cls,
+               label):
+    """The reference bench's wave-showcase preset at full size (1,024
+    nodes x 10,240 pods in 32 pools, ``bench.py:351``): ``simulate()`` at
+    one lane through the wave plan with the launch counts reset, the plan
+    and the decode checked; the wave path's kernels timed beside the scan
+    kernel over the same pods and every carry field held equal to the
+    scan's; the first waves' kernels against their plain versions; the
+    bench's 64-lane ``schedule_lanes``; then the same cluster with 64
+    new-node slots through ``capacity_sweep`` (64 lanes) and
+    ``capacity_bisect(lanes=8)``, and the wave form's parity on lanes 0
+    and 63."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.testing.synthetic import synthetic_objects, synthetic_snapshot
+
+    t_phase = time.perf_counter()
+    nodes, pods, _ = synthetic_objects(POOLS["nodes"], POOLS["pods"], pools=POOLS["pools"])
+    cluster = cluster_cls(nodes=nodes, pods=pods)
+    log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, [], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    snap = result.snapshot
+    n_pods = snap.n_pods
+    cfg = sched.make_config(snap)
+    n_total = buckets.bucket_pods(n_pods)
+    t0 = time.perf_counter()
+    fresh = waves_mod.compute_wave_plan(snap.arrays, cfg, n_pods_total=n_total)
+    planner_s = time.perf_counter() - t0
+    plan = waves_mod.waves_for(snap.arrays, cfg, n_pods_total=n_total)
+    wid, wbat = plan.pod_waves()
+    log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"scheduled={len(result.scheduled_pods)} launches={launches} plan {plan.stats()} "
+        f"segments={plan.segments} planner_s={planner_s:.3f}")
+    if tuple(fresh) != tuple(plan) or plan.segments != ((0, n_pods, waves_mod.GRID,
+                                                         POOLS["pools"]),):
+        raise SystemExit(f"main path {label}: not the one GRID of width {POOLS['pools']}")
+    if (launches["plain_step_frozen"], launches["wave_merge"], launches["plain_step"]) != (
+            plan.n_waves, plan.n_waves, 0):
+        raise SystemExit(f"main path {label}: launches {launches}, not one frozen step and one "
+                         f"merge for each of the {plan.n_waves} waves")
+    if not (np.array_equal(result.wave_id, wid[:n_pods])
+            and np.array_equal(result.wave_batched, wbat[:n_pods])):
+        raise SystemExit(f"main path {label}: wave_id / wave_batched are not the plan's")
+    if len(result.scheduled_pods) + len(result.unscheduled_pods) != n_pods:
+        raise SystemExit(f"main path {label}: simulate() lost pods")
+
+    # the wave path's kernels alone, one lane, against the scan kernel
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, cfg)
+    w = POOLS["pools"]
+    ctx = {}
+
+    def wave_run(act, hst, run_cfg, primed=False):
+        """The wave path's kernels over every pod on the lanes of `act`:
+        (carry, outputs per wave, ms from the first launch to the last
+        one's end, ms of each frozen launch, ms of each merge). Unprimed,
+        the host's launch gaps are in the times. Primed, every WAVE_SAME
+        waves the stream first spins PRIME_MS, so those waves' launches
+        are queued before they run: the per-launch times are then the
+        device's alone (the first-to-last span counts the spins too)."""
+        n_lanes = act.shape[0]
+        inputs, merge_inputs = ctx.setdefault((n_lanes, run_cfg), ({}, {}))
+        st = sched.lane_carry(tmpl, n_lanes)
+        step.copy_template(st, tmpl)
+        evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+               for _ in range(plan.n_waves)]
+        outs = []
+        for j, w0 in enumerate(range(0, n_pods, w)):
+            if primed and j % WAVE_SAME == 0:
+                torch.cuda.synchronize()
+                torch.cuda._sleep(int(PRIME_MS * SPIN_CYCLES_PER_MS))
+            evs[j][0].record()
+            out = step.plain_step_cuda(arrs, act, hst, inv, st, run_cfg, w0, w0 + w,
+                                       frozen=True, inputs=inputs)
+            evs[j][1].record()
+            wave.wave_merge_cuda(arrs, run_cfg, st, w0, w0 + w, out[0], None,
+                                 inputs=merge_inputs)
+            evs[j][2].record()
+            outs.append(out)
+        torch.cuda.synchronize()
+        return (st, outs, evs[0][0].elapsed_time(evs[-1][2]),
+                [a.elapsed_time(b) for a, b, _ in evs], [b.elapsed_time(c) for _, b, c in evs])
+
+    runs = [wave_run(active, hoist, cfg) for _ in range(3)]
+    st_w, outs_w, wave_ms, _, _ = min(runs, key=lambda x: x[2])
+    wave_runs = [x[2] for x in runs]
+    del runs
+    plan_1 = step.LAST_PLAN
+    dev_runs = [wave_run(active, hoist, cfg, primed=True)[3:] for _ in range(3)]
+    dev_runs = [(sum(f) + sum(m), f, m) for f, m in dev_runs]
+    dev_ms, frozen_ms, merge_ms = min(dev_runs, key=lambda x: x[0])
+    st_s = sched.lane_carry(tmpl, 1)
+    scan_runs = []
+    for _ in range(3):
+        got = []
+        scan_runs.append(cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
+            arrs, active, hoist, inv, st_s, cfg, 0, n_pods, template=tmpl))))
+    out_s = got[0]
+    out_w = tuple(torch.cat([o[i] for o in outs_w], 1) for i in range(5))
+    equal, err = compare(torch, out_w, out_s, st_w, st_s)
+    log(f"main path {label}: wave path, one lane: {wave_ms:.3f} ms between CUDA events with "
+        f"the host launching (min of 3: {[round(t, 3) for t in wave_runs]}); the device alone "
+        f"(the stream primed {PRIME_MS} ms every {WAVE_SAME} waves) {dev_ms:.3f} ms (min of 3: "
+        f"{[round(t[0], 3) for t in dev_runs]}): {plan.n_waves} frozen launches "
+        f"{sum(frozen_ms):.3f} ms ({sum(frozen_ms) / plan.n_waves * 1e3:.2f} us each, "
+        f"{geometry(plan_1)}) + {plan.n_waves} merges {sum(merge_ms):.3f} ms "
+        f"({sum(merge_ms) / plan.n_waves * 1e3:.2f} us each); the scan kernel over the same "
+        f"pods {min(scan_runs):.3f} ms (min of 3: {[round(t, 3) for t in scan_runs]}, "
+        f"{geometry(step.LAST_PLAN)}); outputs and every carry field equal: {equal} "
+        f"(max_abs_err={err})")
+    del dev_runs
+    if not equal:
+        raise SystemExit(f"main path {label}: the wave path and the scan disagree")
+    placed = {sp.pod.key: sp.node_name for sp in result.scheduled_pods}
+    kern = {snap.pods[i].key: snap.node_names[int(nd)]
+            for i, nd in enumerate(out_w[0][0].cpu().numpy()) if nd >= 0}
+    if kern != placed:
+        raise SystemExit(f"main path {label}: the timed wave run and simulate() placed pods "
+                         "differently")
+
+    # the first WAVE_SAME waves, one lane: the kernels' outputs and the carry
+    # after the last merge against their plain versions
+    q = WAVE_SAME * w
+    inputs, merge_inputs = ctx[(1, cfg)]
+    st_k = sched.lane_carry(tmpl, 1)
+    step.copy_template(st_k, tmpl)
+    st_p = clone_state(sched, st_k)
+    t_plain = t_mplain = 0.0
+    outs_k, outs_p = [], []
+    for w0 in range(0, q, w):
+        outs_k.append(step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, w0, w0 + w,
+                                           frozen=True, inputs=inputs))
+        wave.wave_merge_cuda(arrs, cfg, st_k, w0, w0 + w, outs_k[-1][0], None,
+                             inputs=merge_inputs)
+        t0 = time.perf_counter()
+        outs_p.append(step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, w0, w0 + w,
+                                            frozen=True))
+        torch.cuda.synchronize()
+        t_plain += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wave.wave_merge_torch(arrs, cfg, st_p, w0, w0 + w, outs_p[-1][0], None)
+        torch.cuda.synchronize()
+        t_mplain += time.perf_counter() - t0
+    same_k = [x for o in outs_k for x in o]
+    same_p = [x for o in outs_p for x in o]
+    same_eq, same_err = compare(torch, same_k, same_p, st_k, st_p)
+    if not same_eq:
+        raise SystemExit(f"main path {label}: the first {q} pods' waves differ from the plain "
+                         "versions")
+    outs_np = [tuple(torch.cat([o[i] for o in outs_w[:WAVE_SAME]], 1)[0].cpu().numpy()
+                     for i in range(3))]
+    fb = bound_of(frozen_work(sched, snap.arrays, cfg, 0, q, outs_np))
+    mw = [merge_work(snap.arrays, cfg, 1, w0, w0 + w, False) for w0 in range(0, q, w)]
+    mb = bound_of((sum(x[0] for x in mw), sum(x[1] for x in mw)))
+    full_fb = bound_of(frozen_work(sched, snap.arrays, cfg, 0, n_pods,
+                                   [tuple(x[0].cpu().numpy() for x in out_w[:3])]))
+    log(f"main path {label}: the first {WAVE_SAME} waves ({q} pods): frozen kernel "
+        f"{sum(frozen_ms[:WAVE_SAME]):.3f} ms, plain {t_plain * 1e3:.1f} ms, bound "
+        f"{fb[2]:.5f} ms ({fb[3]}: bytes={fb[0]} ops={fb[1]}); merge kernel "
+        f"{sum(merge_ms[:WAVE_SAME]):.3f} ms, plain {t_mplain * 1e3:.1f} ms, bound "
+        f"{mb[2]:.5f} ms ({mb[3]}: bytes={mb[0]} ops={mb[1]}); the whole run's frozen bound "
+        f"{full_fb[2]:.5f} ms ({full_fb[3]})")
+
+    # the bench's 64-lane schedule_lanes (bench.py:105-121; max_new 0, so
+    # every lane has the cluster's mask), waves against the scan
+    lcfg = cfg._replace(fail_reasons=False)
+    lplan = waves_mod.waves_for(snap.arrays, lcfg)
+    max_new = snap.n_nodes - snap.n_real_nodes
+    counts = [min(i % (max_new + 1), max_new) for i in range(CAPACITY_LANES)]
+    masks = sweep.active_masks_for_counts(snap, counts)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes_w = sched.schedule_lanes(snap.arrays, masks, lcfg, device="cuda", waves=lplan)
+    torch.cuda.synchronize()
+    lanes_s = time.perf_counter() - t0
+    lane_launches = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes_scan = sched.schedule_lanes(snap.arrays, masks, lcfg, device="cuda")
+    torch.cuda.synchronize()
+    lanes_scan_s = time.perf_counter() - t0
+    eq64, err64 = compare(torch, lanes_w[:5], lanes_scan[:5], lanes_w.state, lanes_scan.state)
+    if not eq64 or lane_launches["plain_step_frozen"] != lplan.n_waves:
+        raise SystemExit(f"main path {label}: the 64-lane wave run is not the scan's")
+    del lanes_w, lanes_scan
+    masks_t = torch.from_numpy(masks).to(dev)
+    hoist64 = sched.hoist_of(arrs, masks_t)
+    dev64 = [wave_run(masks_t, hoist64, lcfg, primed=True)[3:] for _ in range(3)]
+    dev64 = [(sum(f) + sum(m), f, m) for f, m in dev64]
+    dev64_ms, frozen64, merge64 = min(dev64, key=lambda x: x[0])
+    plan_64 = step.LAST_PLAN
+    carry64 = sched.lane_carry(tmpl, CAPACITY_LANES)
+    scan64 = [cuda_ms(torch, lambda: step.plain_step_cuda(
+        arrs, masks_t, hoist64, inv, carry64, lcfg, 0, n_pods, template=tmpl)) for _ in range(3)]
+    log(f"main path {label}: schedule_lanes {CAPACITY_LANES} lanes with the plan "
+        f"{lplan.stats()}: wall_s={lanes_s:.3f} launches={lane_launches}; the scan's "
+        f"schedule_lanes wall_s={lanes_scan_s:.3f}; every lane's outputs and carry equal: "
+        f"{eq64} (max_abs_err={err64}); the device alone: waves {dev64_ms:.3f} ms (min of 3: "
+        f"{[round(t[0], 3) for t in dev64]}; frozen {sum(frozen64):.3f} ms, "
+        f"{sum(frozen64) / lplan.n_waves * 1e3:.2f} us each, {geometry(plan_64)}; merges "
+        f"{sum(merge64):.3f} ms, {sum(merge64) / lplan.n_waves * 1e3:.2f} us each), the scan "
+        f"kernel {min(scan64):.3f} ms (min of 3: {[round(t, 3) for t in scan64]}, "
+        f"{geometry(step.LAST_PLAN)})")
+    del dev64, carry64
+
+    # the same cluster with 64 new-node slots: capacity_sweep and its bisection
+    snap_n = synthetic_snapshot(POOLS["nodes"], POOLS["pods"], max_new=CAPACITY_LANES,
+                                pools=POOLS["pools"])
+    cfg_n = sched.make_config(snap_n)
+    counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap = sweep.capacity_sweep(snap_n, cfg_n, counts, device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = read_counts()
+    splan = waves_mod.waves_for(snap_n.arrays, cfg_n._replace(fail_reasons=False),
+                                n_pods_total=n_total)
+    if sweep_launches["plain_step_frozen"] != splan.n_waves or not all(cap.all_scheduled):
+        raise SystemExit(f"capacity {label}: the sweep ran {sweep_launches} or left pods out")
+    occ = cap.cpu_occupancy_pct
+    limit = (occ[BISECT_TARGET - 1] + occ[BISECT_TARGET]) / 2
+    want = min(c for c, o, ok in zip(cap.counts, occ, cap.all_scheduled) if ok and o <= limit)
+    reset_counts()
+    t0 = time.perf_counter()
+    bis = sweep.capacity_bisect(snap_n, cfg_n, CAPACITY_LANES,
+                                sweep.SweepThresholds(max_cpu_pct=limit), lanes=8, device="cuda")
+    torch.cuda.synchronize()
+    bis_s = time.perf_counter() - t0
+    bis_launches = read_counts()
+    rounds = bis_launches["plain_step_frozen"] // splan.n_waves
+    row = bis.nodes_per_scenario[bis.counts.index(bis.best_count)] if bis.best_count else None
+    if bis.best_count != want or not np.array_equal(row, cap.nodes_per_scenario[counts.index(want)]):
+        raise SystemExit(f"capacity {label}: bisection found {bis.best_count}, the sweep {want}")
+    log(f"capacity {label}-64: capacity_sweep {CAPACITY_LANES} lanes wall_s={sweep_s:.3f} "
+        f"launches={sweep_launches}; max_cpu_pct={limit!r} -> sweep best {want}; "
+        f"capacity_bisect(lanes=8) best {bis.best_count} in {rounds} rounds, "
+        f"{len(bis.counts)} probes, wall_s={bis_s:.3f} launches={bis_launches}")
+
+    # the wave form against its plain versions on lanes 0 and 63 of the sweep
+    masks_n = sweep.active_masks_for_counts(snap_n, counts)
+    par = wave_parity(torch, sched, step, wave, waves_mod, f"{label}-64-lanes", snap_n,
+                      cfg_n._replace(fail_reasons=False), masks_n, WAVE_PARITY_WAVES)
+    log(f"main path {label}: phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "launches": {k: launches[k] for k in ("plain_step", "plain_step_frozen", "wave_merge")},
+        "plan": plan.stats(), "planner_s": planner_s, "simulate_s": wall,
+        "scheduled": len(result.scheduled_pods),
+        "wave_ms": wave_ms, "wave_ms_runs": wave_runs, "device_ms": dev_ms,
+        "frozen_ms": sum(frozen_ms), "merge_ms": sum(merge_ms),
+        "frozen_geometry": geometry_fields(plan_1),
+        "scan_ms": min(scan_runs), "scan_ms_runs": scan_runs,
+        "frozen_bound_ms": full_fb[2], "frozen_bound_by": full_fb[3],
+        "max_abs_err": max(err, same_err, err64, par["max_abs_err"]),
+        "same_pods": {"pods": q, "frozen_ms": sum(frozen_ms[:WAVE_SAME]),
+                      "frozen_plain_ms": t_plain * 1e3, "frozen_bound_ms": fb[2],
+                      "frozen_bound_by": fb[3], "merge_ms": sum(merge_ms[:WAVE_SAME]),
+                      "merge_plain_ms": t_mplain * 1e3, "merge_bound_ms": mb[2],
+                      "merge_bound_by": mb[3]},
+        "lanes_64": {"wall_s": lanes_s, "scan_wall_s": lanes_scan_s, "launches": lane_launches,
+                     "device_ms": dev64_ms, "frozen_ms": sum(frozen64),
+                     "merge_ms": sum(merge64), "scan_ms": min(scan64),
+                     "frozen_geometry": geometry_fields(plan_64)},
+        "sweep_64": {"wall_s": sweep_s, "launches": sweep_launches},
+        "bisect": {"max_cpu_pct": limit, "best_count": bis.best_count, "rounds": rounds,
+                   "probes": len(bis.counts), "wall_s": bis_s},
+        "parity_64": par,
     }
 
 
@@ -1266,9 +1726,15 @@ class MatmulLog:
             self.torch.matmul(x, y)
 
 
-def cuda_ms(torch, fn):
-    """Milliseconds of fn() on the card's current stream (CUDA events)."""
+def cuda_ms(torch, fn, prime_ms=0.0):
+    """Milliseconds of fn() on the card's current stream (CUDA events).
+    With `prime_ms`, the stream first spins that long (``torch.cuda._sleep``)
+    so that fn's launches are queued before the first event runs: the
+    time is then the device's alone, without the host's launch overhead
+    (which dominates kernels of a few microseconds)."""
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if prime_ms:
+        torch.cuda._sleep(int(prime_ms * SPIN_CYCLES_PER_MS))
     ev0.record()
     fn()
     ev1.record()
@@ -1337,17 +1803,20 @@ def main() -> int:
         from open_simulator_tpu_torch.encode.snapshot import encode_cluster
         from open_simulator_tpu_torch.cli.main import main as cli_main
         from open_simulator_tpu_torch.k8s import loader
-        from open_simulator_tpu_torch.kernels import build, step
+        from open_simulator_tpu_torch.engine import buckets
+        from open_simulator_tpu_torch.engine import waves as waves_mod
+        from open_simulator_tpu_torch.kernels import build, step, wave
         from open_simulator_tpu_torch.parallel import sweep
         from open_simulator_tpu_torch.testing.synthetic import (
             device_resource_cluster, device_resource_snapshot, preemption_columns,
-            soft_spread_cluster, synthetic_objects, synthetic_snapshot)
+            soft_spread_cluster, synthetic_objects, synthetic_snapshot, wave_pools_snapshot)
     except ImportError as e:
         print(f"chip_smoke: the open_simulator_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 1
     import numpy as np
 
+    COUNTERS.extend([step.LAUNCHES, wave.LAUNCHES])
     dev_name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {dev_name}")
@@ -1491,6 +1960,22 @@ def main() -> int:
         if label.startswith("odd") and plan_e.cluster < 2:
             raise SystemExit(f"geometry {label}: the 3 lanes ran without clusters ({plan_e})")
 
+    # the wave form of the three instantiations beside the pools path's
+    # <0,0>: pools clusters with the inter-pod terms, with GPU share, and
+    # with both, 64 lanes, the first waves against the plain versions
+    wave_par = {}
+    for inst, kw in (("<1,0>", dict(interpod=True)), ("<0,1>", dict(gpu=True)),
+                     ("<1,1>", dict(gpu=True, interpod=True))):
+        snap_w = wave_pools_snapshot(512, 4096, 32, **kw)
+        n_w = snap_w.n_nodes
+        masks_w = np.stack([np.ones(n_w, bool)] + [rng.rand(n_w) < 0.9
+                                                    for _ in range(CAPACITY_LANES - 1)])
+        got = wave_parity(torch, sched, step, wave, waves_mod, f"pools-512x4096-{inst}", snap_w,
+                          sched.make_config(snap_w), masks_w, WAVE_PARITY_WAVES)
+        if got["instantiation"] != inst + "+frozen":
+            raise SystemExit(f"wave parity {inst}: ran {got['instantiation']}")
+        wave_par[got["instantiation"]] = got
+
     # ---- 4. the main paths: simulate() at full size, through the kernel
     def cluster_of(kind):
         if kind == "devres":
@@ -1513,6 +1998,13 @@ def main() -> int:
     placements = pre_p.pop("placements")
     pre_p["session"] = session_path(torch, step, Simulator, "northstar-preempt", placements)
     paths["northstar-preempt"] = pre_p
+
+    # ---- 4c. waves: the pools preset through simulate(), lanes, the
+    # sweep and the bisection
+    pools_p = pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep,
+                         ClusterResources, "pools")
+    par = pools_p.pop("parity_64")
+    wave_par[par["instantiation"]] = par
 
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
@@ -1556,6 +2048,39 @@ def main() -> int:
                   "of northstar-preempt (its columns), and the first "
                   f"{PARITY_PREFIX} pods of lanes 0 and 63 of the capacity-northstar-64, "
                   "capacity-northstar-rich-64 and capacity-northstar-devres-64 sweeps",
+    }]
+    same_w = pools_p["same_pods"]
+    frozen_insts = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
+                    if k.endswith("+frozen")}
+    for k, v in wave_par.items():
+        frozen_insts.setdefault(k, {})["parity"] = v
+    kernels += [{
+        "name": "plain_step_frozen", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:581",
+        "launches": pools_p["launches"]["plain_step_frozen"],
+        "instantiations": frozen_insts,
+        "max_abs_err": max([pools_p["max_abs_err"]] + [v["max_abs_err"] for v in wave_par.values()]),
+        "pods": same_w["pods"], "ms": same_w["frozen_ms"], "plain_ms": same_w["frozen_plain_ms"],
+        "bound_ms": same_w["frozen_bound_ms"], "bound_by": same_w["frozen_bound_by"],
+        "library_ms": None, "paths": {"pools": pools_p},
+        "parity": f"bit-exact vs the plain step's frozen form over the first {WAVE_SAME} waves "
+                  "of the one-lane pools run and the first "
+                  f"{WAVE_PARITY_WAVES} waves of lanes 0 and 63 of the pools sweep (<0,0>) and "
+                  "of 64-lane pools 512x4096 with inter-pod terms (<1,0>), GPU share (<0,1>) "
+                  "and both (<1,1>); the pools wave runs equal the scan in every output and "
+                  "carry field",
+    }, {
+        "name": "wave_merge", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/wave_merge.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:473",
+        "launches": pools_p["launches"]["wave_merge"],
+        "max_abs_err": max([pools_p["max_abs_err"]] + [v["max_abs_err"] for v in wave_par.values()]),
+        "pods": same_w["pods"], "ms": same_w["merge_ms"], "plain_ms": same_w["merge_plain_ms"],
+        "bound_ms": same_w["merge_bound_ms"], "bound_by": same_w["merge_bound_by"],
+        "library_ms": None,
+        "parity": "bit-exact on every carry field vs the plain merge (fp32 torch.matmul) after "
+                  "each wave of the frozen parity inputs",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -17,8 +17,10 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from open_simulator_tpu_torch.encode.snapshot import ClusterSnapshot, EncodeOptions, encode_cluster
+from open_simulator_tpu_torch.engine.buckets import bucket_pods
 from open_simulator_tpu_torch.engine.queue import sort_pods_greedy
 from open_simulator_tpu_torch.engine.scheduler import ScheduleOutput, make_config, schedule_pods
+from open_simulator_tpu_torch.engine.waves import waves_for
 from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
 from open_simulator_tpu_torch.k8s.objects import ANNO_GPU_INDEX, Node, Pod
 from open_simulator_tpu_torch.models.expand import expand_app_resources, expand_cluster_pods
@@ -314,8 +316,11 @@ def simulate(
     encode_options = with_volume_objects(encode_options, cluster, apps)
     snapshot = encode_cluster(nodes, pods, encode_options)
     cfg = make_config(snapshot, **config_overrides)
+    # the wave plan over the reference's bucketed pod axis (its plan and
+    # per-pod decode); None: every pod runs the scan
+    wave_plan = waves_for(snapshot.arrays, cfg, n_pods_total=bucket_pods(snapshot.n_pods))
     active_np = np.asarray(snapshot.arrays.active)
-    schedule_fn = host_schedule_fn(snapshot, active_np, cfg, device)
+    schedule_fn = host_schedule_fn(snapshot, active_np, cfg, device, wave_plan)
     preempted_by: Optional[Dict[int, int]] = None
     if preemption:
         from open_simulator_tpu_torch.engine.preemption import run_with_preemption
@@ -325,17 +330,34 @@ def simulate(
         preempted_by = pre.preempted_by
     else:
         out = schedule_fn(None, None)
-    return decode_output(snapshot, out, active_np, cfg, time.perf_counter() - t0, preempted_by)
+    result = decode_output(snapshot, out, active_np, cfg, time.perf_counter() - t0,
+                           preempted_by)
+    if wave_plan is not None and not preempted_by:
+        # the rescans after a preemption carry the columns, which drop the
+        # plan, so only a run without preemptions reports waves
+        decode_waves(result, wave_plan, snapshot.n_pods)
+    return result
 
 
-def host_schedule_fn(snapshot: ClusterSnapshot, active: np.ndarray, cfg, device):
+def decode_waves(result: SimulateResult, plan, n_pods: int) -> None:
+    """The per-pod wave decode of the explain surface: each pod's wave id
+    and whether a batched wave placed it (the reference's ``wave_id`` /
+    ``wave_batched``)."""
+    wid, wbat = plan.pod_waves()
+    result.wave_id = wid[:n_pods]
+    result.wave_batched = wbat[:n_pods]
+
+
+def host_schedule_fn(snapshot: ClusterSnapshot, active: np.ndarray, cfg, device, waves=None):
     """``schedule_fn(disabled, nominated)`` as ``run_with_preemption``
     calls it: one-lane ``schedule_pods`` on `device` with the preemption
     columns, its per-pod outputs brought to the host (the carry stays on
-    the device)."""
+    the device). `waves` goes to the call without columns only (the first
+    pass), as in the reference."""
     def schedule_fn(disabled, nominated) -> ScheduleOutput:
+        plan = waves if disabled is None and nominated is None else None
         out = schedule_pods(snapshot.arrays, active, cfg, device=device, disabled=disabled,
-                            nominated=nominated)
+                            nominated=nominated, waves=plan)
         return out._replace(**{f: getattr(out, f).cpu() for f in out._fields if f != "state"})
     return schedule_fn
 

@@ -104,6 +104,19 @@
 // victim's outputs are node -3 and zero reason and feasible counts, and it
 // binds nothing.
 //
+// The frozen wave form (StepArgs.frozen, the fourth template flag kFrozen;
+// replaces the reference's _grid_step and the BATCH segment's
+// jax.vmap(step(frozen, .)), scheduler.py:581-590, :627-635): the wave
+// planner (engine/waves.py) has proved a run of pods carry-independent, so
+// each pod is evaluated against the lane's wave-start carry. The grid is
+// S x P' clusters, cluster j of lane s running phases 0 to round B of pod
+// p0 + j and writing its phase-3 outputs (node, reason row, feasible count,
+// GPU pick against the wave-start gpu_used, PV picks -1), with no lane
+// prologue, no bind and no write-back: the carry is only read, and the wave
+// merge (csrc/wave_merge.cu) folds the binds in afterwards. It is built
+// only without the columns (a plan is dropped under them), so the eight
+// scan builds keep their code.
+//
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
@@ -313,6 +326,8 @@ struct StepArgs {
   // the launch geometry (kernels/step.py:plan_launch): cluster size,
   // threads per block, nodes per block slice, residency bits (RES_*)
   int cl, bt, sl, res;
+  // the frozen wave form (kFrozen): one cluster per (lane, pod), no bind
+  int frozen;
 };
 
 }  // extern "C"
@@ -774,7 +789,25 @@ __device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int
   }
 }
 
-template <bool kInterpod, bool kDevRes, bool kCols>
+// the frozen wave form's device-resource outputs of pod p on node fin (-1:
+// unbound): the GPU pick against the wave-start gpu_used, by the thread of
+// the block that owns fin, no debit (the merge adds it); no PV pick, since
+// WaitForFirstConsumer pods never join a wave (engine/waves.py)
+__device__ void dev_pick(const StepArgs& a, const DevLane& L, int fl, int p, int fin, size_t o,
+                         bool own, bool lead) {
+  if (fl & F_GPU) {
+    int32_t* gp = a.out_gpu_pick + o * a.g;
+    if (fin >= 0 && own) {
+      gpu_pick(a, L, p, fin, gp);
+    } else if (fin < 0 && lead) {
+      for (int g = 0; g < a.g; ++g) gp[g] = 0;
+    }
+  }
+  if ((fl & F_PV_MATCH) && lead)
+    for (int j = 0; j < a.lw; ++j) a.out_vol_pick[o * a.lw + j] = -1;
+}
+
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen>
 __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     plain_step_kernel(const StepArgs a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
@@ -789,7 +822,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   const int QD = Q * D + 2 * Q;
   const int C = a.cl, B = blockDim.x, SL = a.sl;
   const int rank = (int)cluster.block_rank();
-  const int lane = blockIdx.x / C;
+  // the frozen form: cluster j of lane s evaluates pod p0 + j (grid S x P')
+  const int lane = kFrozen ? (int)(blockIdx.x / C) / (a.p1 - a.p0) : blockIdx.x / C;
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
@@ -875,7 +909,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   // ---- the lane prologue: this block's slice of the lane's carry (and its
   // replicas of the lane-wide state) from the template, or the replicas and
   // shared-memory rows from the lane's carry
-  if (a.flags & F_TEMPLATE) {
+  if (!kFrozen && (a.flags & F_TEMPLATE)) {
     const size_t gc_el = bf16 ? 2 : 4, tb_el = tb_bf16 ? 2 : 4;
     block_copy(hr_l, a.tmpl_headroom + (size_t)lo * R, nl * R * sizeof(float));
     block_copy(ports_used + (size_t)lo * PT, a.tmpl_ports_used + (size_t)lo * PT, nl * PT);
@@ -909,7 +943,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   __syncthreads();
   mark(0);
 
-  for (int p = a.p0; p < a.p1; ++p) {
+  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out : a.p0;
+  for (int p = p_first; p < (kFrozen ? p_first + 1 : a.p1); ++p) {
     const int j = p - a.p0;
     const int par = j & 1;  // the pod's parity: which partial buffers it uses
     const float* req = a.req + (size_t)p * R;
@@ -1387,7 +1422,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
 
     // ---- phase 3: forced-node fast path, outputs, bind. A node's rows are
     // written by its owner block; the replicas by every block alike. A
-    // victim's node is -3, so it binds nothing
+    // victim's node is -3, so it binds nothing. The frozen form writes the
+    // outputs and binds nothing (the wave merge does)
     const unsigned long long pick = s_pick;
     const bool any_feasible = pick_score(pick) > kNegInf;
     const int fin = victim ? -3
@@ -1397,7 +1433,7 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
       a.out_node[orow] = fin;
       a.out_feasible[orow] = (fail && !victim) ? s_fin_cnt : 0;
     }
-    if (fin >= 0) {
+    if (!kFrozen && fin >= 0) {
       if (own) {
         float* hf = hr_l + (size_t)(fin - lo) * R;
         for (int i = tid; i < R; i += B) hf[i] = __fsub_rn(hf[i], req[i]);
@@ -1458,7 +1494,11 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
       }
     }
     if constexpr (kDevRes) {
-      if (tid == 0) dev_bind(a, L, fl, p, fin, orow, own, rank == 0);
+      if constexpr (kFrozen) {
+        if (tid == 0) dev_pick(a, L, fl, p, fin, orow, own, rank == 0);
+      } else {
+        if (tid == 0) dev_bind(a, L, fl, p, fin, orow, own, rank == 0);
+      }
     }
     if (counted) __syncthreads();
     mark(6);
@@ -1466,28 +1506,43 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   }
 
   // write back what lived in shared memory: the headroom slice, and (rank
-  // 0; the replicas are equal) the lane-wide state
+  // 0; the replicas are equal) the lane-wide state (the frozen form wrote
+  // none of it)
   __syncthreads();
-  if (hr_res) block_copy(headroom_g + (size_t)lo * R, hr_l, nl * R * sizeof(float));
-  if (rank == 0 && dom_rep) block_copy(dom_g, dom_count, (size_t)a.k1 * D * SG * sizeof(float));
-  if (rank == 0 && pv_rep) block_copy(pv_g, L.pv_taken, (size_t)a.npv);
+  if (!kFrozen && hr_res) block_copy(headroom_g + (size_t)lo * R, hr_l, nl * R * sizeof(float));
+  if (!kFrozen && rank == 0 && dom_rep)
+    block_copy(dom_g, dom_count, (size_t)a.k1 * D * SG * sizeof(float));
+  if (!kFrozen && rank == 0 && pv_rep) block_copy(pv_g, L.pv_taken, (size_t)a.npv);
   if (timed)
     for (int i = 0; i < kPhases; ++i) a.cycles[(size_t)lane * kPhases + i] = s_cyc[i];
   // no block leaves while another may still read its shared memory
   cluster.sync();
 }
 
+// the instantiation a launch runs: the frozen wave form (never with the
+// preemption columns: the planner's plan is dropped under them), the
+// column builds, or the plain scan
 void (*kernel_of(const StepArgs* args))(StepArgs) {
   const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
+  if (args->frozen)
+    return devres ? (interpod ? plain_step_kernel<true, true, false, true>
+                              : plain_step_kernel<false, true, false, true>)
+                  : (interpod ? plain_step_kernel<true, false, false, true>
+                              : plain_step_kernel<false, false, false, true>);
   if (args->disabled || args->nominated)
-    return devres ? (interpod ? plain_step_kernel<true, true, true>
-                              : plain_step_kernel<false, true, true>)
-                  : (interpod ? plain_step_kernel<true, false, true>
-                              : plain_step_kernel<false, false, true>);
-  return devres ? (interpod ? plain_step_kernel<true, true, false>
-                            : plain_step_kernel<false, true, false>)
-                : (interpod ? plain_step_kernel<true, false, false>
-                            : plain_step_kernel<false, false, false>);
+    return devres ? (interpod ? plain_step_kernel<true, true, true, false>
+                              : plain_step_kernel<false, true, true, false>)
+                  : (interpod ? plain_step_kernel<true, false, true, false>
+                              : plain_step_kernel<false, false, true, false>);
+  return devres ? (interpod ? plain_step_kernel<true, true, false, false>
+                            : plain_step_kernel<false, true, false, false>)
+                : (interpod ? plain_step_kernel<true, false, false, false>
+                            : plain_step_kernel<false, false, false, false>);
+}
+
+// the clusters a launch runs: one per lane, or per (lane, pod) frozen
+int clusters_of(const StepArgs* args) {
+  return args->frozen ? args->s * (args->p1 - args->p0) : args->s;
 }
 
 // the kernel's attributes for a launch of this geometry: a cluster over 8
@@ -1556,13 +1611,16 @@ extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
 // caller must check it.
 extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
+  if (args->frozen && (args->disabled || args->nominated || (args->flags & F_TEMPLATE) ||
+                       args->cycles))
+    return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
   const size_t smem = layout_of(*args).bytes;
   cudaError_t e = prepare(kernel, args, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      config_of(args, smem, &attr, args->s, static_cast<cudaStream_t>(stream));
+      config_of(args, smem, &attr, clusters_of(args), static_cast<cudaStream_t>(stream));
   e = cudaLaunchKernelEx(&cfg, kernel, *args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

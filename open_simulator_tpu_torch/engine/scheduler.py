@@ -21,7 +21,9 @@ ports it.
 ``schedule_pods`` is its one-lane case. On a CUDA device the pod loop is
 the hand-written kernel ``csrc/plain_step.cu`` (``kernels/step.py``); the
 plain step runs only for CPU tensors, and as the yardstick the kernel is
-held equal to.
+held equal to. Given a wave plan (``engine/waves.py``), both run it
+(``_run_wave_plan``): the scan segments through the step, each batched
+wave through the step's frozen form and one ``kernels/wave.wave_merge``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class EngineConfig(NamedTuple):
     explain_topk: int = 0
     forced_prefix: int = 0
     compile_cache_dir: str = ""
-    wave_scheduling: bool = False
+    wave_scheduling: bool = True
     traced_weights: bool = False
 
     @property
@@ -768,9 +770,115 @@ def lane_carry(template: SimState, n_lanes: int,
     return carry
 
 
+# ---- wave execution ------------------------------------------------------
+# engine/waves.py proves which contiguous pod runs are carry-independent;
+# _run_wave_plan executes its plan (the reference's, scheduler.py:593): scan
+# segments through the step, each batched wave through the step's frozen
+# form against the wave-start carry and one merge of its binds. The merge's
+# sums equal the sequential adds (0/1 counts, integer-valued requests), so
+# the result is bit-identical to the scan.
+
+_WAVE_CHUNK = 512  # pods of a BATCH segment evaluated against one carry
+
+
+def _const_outputs(arrs: SnapshotArrays, cfg: EngineConfig, lo: int, hi: int):
+    """(node, fail_counts, feasible, gpu_pick, vol_pick) of a FORCED or
+    SENTINEL run [lo, hi) — what the scan emits for forced binds and
+    bind-nothing sentinels (the reference's ``_const_outputs``): the forced
+    node or -1, zero reason and feasible counts and GPU picks, PV picks
+    -1."""
+    from open_simulator_tpu_torch.kernels.step import pick_widths
+
+    dev = arrs.alloc.device
+    c = hi - lo
+    forced = arrs.forced_node[lo:hi].to(torch.int32)
+    g_w, lw = pick_widths(arrs, cfg)
+    i32 = torch.int32
+    return (torch.where(forced >= 0, forced, torch.full_like(forced, -1)),
+            torch.zeros((c, cfg.n_ops if cfg.fail_reasons else 0), dtype=i32, device=dev),
+            torch.zeros((c,), dtype=i32, device=dev),
+            torch.zeros((c, g_w), dtype=i32, device=dev),
+            torch.full((c, lw), -1, dtype=i32, device=dev))
+
+
+def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
+                   inv_alloc: torch.Tensor, carry: SimState, template: SimState,
+                   cfg: EngineConfig, waves, k: int, n_pods: int):
+    """Run the plan's segments over pods [k, n_pods) on every lane of
+    `carry` (written from `template` first, by the first scan launch's
+    lane prologue or, where a wave comes first, by a copy). Returns the
+    step's (node, fail_counts, feasible, gpu_pick, vol_pick) for those
+    pods. A segment past the real pods (the reference's padded tail) is
+    skipped: it binds nothing. No launch falls back to another path."""
+    from open_simulator_tpu_torch.engine import waves as wave_mod
+    from open_simulator_tpu_torch.kernels import step as step_kernels
+    from open_simulator_tpu_torch.kernels import wave as wave_kernels
+
+    dev = active.device
+    n_lanes, n_out = active.shape[0], n_pods - k
+    g_w, lw = step_kernels.pick_widths(arrs, cfg)
+    i32 = torch.int32
+    node = torch.empty((n_lanes, n_out), dtype=i32, device=dev)
+    fail = (torch.empty((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
+            if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
+    feas = torch.empty((n_lanes, n_out), dtype=i32, device=dev)
+    gpick = torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev)
+    vpick = torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev)
+    step_inputs: Dict[str, Any] = {}
+    merge_inputs: Dict[str, Any] = {}
+    pending = template
+
+    def put(lo: int, hi: int, out) -> None:
+        a, b = lo - k, hi - k
+        node[:, a:b] = out[0]
+        if cfg.fail_reasons:
+            fail[:, a:b] = out[1]
+        feas[:, a:b] = out[2]
+        gpick[:, a:b] = out[3]
+        vpick[:, a:b] = out[4]
+
+    def wave(lo: int, hi: int) -> None:
+        out = step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo, hi,
+                                      frozen=True, inputs=step_inputs)
+        wave_kernels.wave_merge(arrs, cfg, carry, lo, hi, out[0],
+                                out[3] if cfg.enable_gpu else None, inputs=merge_inputs)
+        put(lo, hi, out)
+
+    for lo, hi, kind, w in waves.segments:
+        hi = min(hi, n_pods)
+        if lo >= hi:
+            continue
+        if kind == wave_mod.SCAN:
+            put(lo, hi, step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo,
+                                                hi, template=pending, inputs=step_inputs))
+            pending = None
+            continue
+        if pending is not None:
+            step_kernels.copy_template(carry, pending)
+            pending = None
+        if kind in (wave_mod.SENTINEL, wave_mod.FORCED):
+            put(lo, hi, tuple(x[None].expand((n_lanes,) + x.shape)
+                              for x in _const_outputs(arrs, cfg, lo, hi)))
+            if kind == wave_mod.FORCED:
+                for s0 in range(lo, hi, _PREFIX_CHUNK):
+                    s1 = min(s0 + _PREFIX_CHUNK, hi)
+                    wave_kernels.wave_merge(arrs, cfg, carry, s0, s1,
+                                            arrs.forced_node[s0:s1].to(i32).contiguous(),
+                                            None, inputs=merge_inputs)
+        elif kind == wave_mod.GRID:
+            for w0 in range(lo, hi, w):
+                wave(w0, w0 + w)
+        else:  # BATCH: one wave, in chunks of _WAVE_CHUNK pods
+            for s0 in range(lo, hi, _WAVE_CHUNK):
+                wave(s0, min(s0 + _WAVE_CHUNK, hi))
+    if pending is not None:
+        step_kernels.copy_template(carry, pending)
+    return node, fail, feas, gpick, vpick
+
+
 def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
                    device=None, carry: Optional[SimState] = None,
-                   state: Optional[SimState] = None) -> ScheduleOutput:
+                   state: Optional[SimState] = None, waves=None) -> ScheduleOutput:
     """Schedule the pod sequence once per lane of the [S, N] bool `masks`
     (each lane's active nodes) in one launch; return [S]-batched
     assignments, reason counts, feasible counts, GPU and PV picks and
@@ -789,8 +897,16 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
     output state, is reused as this launch's output buffer. With
     ``cfg.fail_reasons`` off the fail counts are a zero-stride view (no
     [S, P, OPS] buffer). On CUDA the step loop is one ``plain_step`` kernel
-    launch for all lanes; on the CPU it is the plain torch step."""
-    return _launch(arrs, masks, cfg, device, carry, state, None, None)
+    launch for all lanes; on the CPU it is the plain torch step.
+
+    `waves`, a WavePlan of ``engine.waves.waves_for`` over these arrays
+    and `cfg`, holds for every lane: its scan segments run the step, its
+    batched waves the frozen step and one merge each, bit-identical to
+    the scan. The plan is dropped (a full scan) under the reference's
+    rules: with a resumed `state`, under extensions, or when it was made
+    for another pod count; with a plan the prefix fold is its ``start``,
+    not ``cfg.forced_prefix``."""
+    return _launch(arrs, masks, cfg, device, carry, state, None, None, waves)
 
 
 def _column(name: str, col, n_pods: int, dtype, dev) -> Optional[torch.Tensor]:
@@ -803,13 +919,30 @@ def _column(name: str, col, n_pods: int, dtype, dev) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.ascontiguousarray(col.astype(dtype))).to(dev)
 
 
+def usable_plan(waves, n_pods: int, cfg: EngineConfig, resumed: bool, columns: bool):
+    """`waves` if its exactness preconditions hold, else None (the
+    reference's ``schedule_pods`` rules): no preemption column, no
+    extension op, a fresh carry, and a plan made for this pod count (the
+    port does not pad, so the reference's bucketed count is accepted too;
+    the segments past the real pods are skipped)."""
+    from open_simulator_tpu_torch.engine.buckets import bucket_pods
+
+    if waves is None or columns or resumed or cfg.extensions or not waves.segments:
+        return None
+    if waves.n_pods not in (n_pods, bucket_pods(n_pods)):
+        return None
+    return waves
+
+
 def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
             carry: Optional[SimState], state: Optional[SimState],
-            disabled: Optional[np.ndarray], nominated: Optional[np.ndarray]) -> ScheduleOutput:
+            disabled: Optional[np.ndarray], nominated: Optional[np.ndarray],
+            waves=None) -> ScheduleOutput:
     """``schedule_lanes`` with the [P] preemption columns, which every lane
     reads (None: no column). With either column the forced prefix is not
     folded: its pods run the step, as in the reference, whose victim and
-    nomination indices cover the full sequence."""
+    nomination indices cover the full sequence; and a wave plan is
+    dropped."""
     from open_simulator_tpu_torch.kernels import step as step_kernels
 
     check_supported(cfg)
@@ -822,8 +955,13 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     nom_t = _column("nominated", nominated, n_pods, np.int32, dev)
     arrs_t = device_arrays(arrs, dev)
     masks_t = torch.from_numpy(masks).to(dev)
+    waves = usable_plan(waves, n_pods, cfg, state is not None,
+                        dis_t is not None or nom_t is not None)
     if state is None:
-        k = 0 if (dis_t is not None or nom_t is not None) else min(cfg.forced_prefix, n_pods)
+        if waves is not None:
+            k = min(waves.start, n_pods)
+        else:
+            k = 0 if (dis_t is not None or nom_t is not None) else min(cfg.forced_prefix, n_pods)
         template = init_state(arrs_t, cfg)
         if k:
             template = apply_forced_prefix(arrs_t, cfg, template, k)
@@ -832,9 +970,14 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
         template = state
     template = SimState(**{f: getattr(template, f).to(dev).contiguous() for f in STATE_FIELDS})
     carry = lane_carry(template, n_lanes, carry)
-    node, fail_counts, feasible, gpu_pick, vol_pick = step_kernels.plain_step(
-        arrs_t, masks_t, hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc), carry,
-        cfg, k, n_pods, template=template, disabled=dis_t, nominated=nom_t)
+    hoist, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
+    if waves is None:
+        node, fail_counts, feasible, gpu_pick, vol_pick = step_kernels.plain_step(
+            arrs_t, masks_t, hoist, inv, carry, cfg, k, n_pods, template=template,
+            disabled=dis_t, nominated=nom_t)
+    else:
+        node, fail_counts, feasible, gpu_pick, vol_pick = _run_wave_plan(
+            arrs_t, masks_t, hoist, inv, carry, template, cfg, waves, k, n_pods)
     if k:
         # the prefix holds no GPU or WFC pod (make_config cuts it there)
         node = torch.cat([arrs_t.forced_node[:k].to(torch.int32).expand(n_lanes, k), node], 1)
@@ -856,11 +999,13 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
                   state: Optional[SimState] = None, device=None,
                   disabled: Optional[np.ndarray] = None,
-                  nominated: Optional[np.ndarray] = None) -> ScheduleOutput:
+                  nominated: Optional[np.ndarray] = None, waves=None) -> ScheduleOutput:
     """Schedule the pod sequence on one [N] active mask; return
     assignments, reason counts and the final carry: ``schedule_lanes`` at
-    one lane. Equals the reference's ``schedule_pods(..., waves=None)``. A
-    passed-in `state` is a resumed carry and skips the prefix fold.
+    one lane. Equals the reference's ``schedule_pods(..., waves=waves)``
+    (``waves`` as there: a WavePlan, dropped under the columns, a resumed
+    state or another pod count). A passed-in `state` is a resumed carry
+    and skips the prefix fold.
 
     `disabled` [P] bool marks preemption victims (deleted: node -3, no
     bind, zero reason and feasible counts); `nominated` [P] i32 is the
@@ -868,7 +1013,7 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
     range, falls back to the full feasible set). Either column turns the
     prefix fold off."""
     out = _launch(arrs, np.asarray(active, dtype=bool)[None], cfg, device, None, state,
-                  disabled, nominated)
+                  disabled, nominated, waves)
     return ScheduleOutput(node=out.node[0], fail_counts=out.fail_counts[0],
                           feasible=out.feasible[0], gpu_pick=out.gpu_pick[0],
                           vol_pick=out.vol_pick[0],
@@ -876,9 +1021,10 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
 
 
 def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:
-    """EngineConfig from a snapshot — the reference's autodetection, with
-    ``wave_scheduling=False``: this package has no wave scheduler, and the
-    reference's waves are bit-identical to its scan."""
+    """EngineConfig from a snapshot — the reference's autodetection
+    (``wave_scheduling`` follows ``SIMON_WAVES``, as there)."""
+    from open_simulator_tpu_torch.engine.waves import waves_enabled
+
     res = snapshot.resources
     cpu_mem = (res.index("cpu"), res.index("memory"))
     enable_gpu = bool(np.any(snapshot.arrays.gpu_count > 0))
@@ -894,7 +1040,7 @@ def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:
     kw: Dict[str, Any] = dict(
         n_resources=len(res), cpu_mem_idx=cpu_mem, enable_gpu=enable_gpu,
         enable_storage=enable_storage,
-        wave_scheduling=False,
+        wave_scheduling=waves_enabled(),
         compact_carry=max_per_node < 255,
         enable_ports=bool(np.any(a.ports)),
         enable_pod_affinity=bool(np.any(a.aff_valid)),

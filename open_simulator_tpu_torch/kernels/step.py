@@ -6,7 +6,8 @@ All three take the same arguments::
 
     (arrs, active [S, N] bool, hoist (a lane-batched ActiveHoist),
      inv_alloc [N, R] f32, state (a lane-batched SimState, updated in
-     place), cfg, p0, p1, template=None, disabled=None, nominated=None)
+     place), cfg, p0, p1, template=None, disabled=None, nominated=None,
+     frozen=False)
 
 and return ``(node [S, P'] i32, fail_counts [S, P', OPS] i32,
 feasible [S, P'] i32, gpu_pick [S, P', G] i32, vol_pick [S, P', Lw] i32)``
@@ -33,15 +34,25 @@ nominated node still feasible is the pod's only candidate. None: no
 column (the kernel gets a null pointer; with both None it runs the
 instantiation built without the column code).
 
+With ``frozen=True`` (the wave form, the port of the reference's
+``_grid_step`` and BATCH ``vmap(step(frozen, .))``) every pod of [p0, p1)
+is evaluated against each lane's carry as it stands, and nothing is bound:
+``state`` is only read, and ``kernels/wave.wave_merge`` folds the wave's
+binds in afterwards. It takes no template and no preemption column (the
+wave planner's plan is dropped under them). The PV picks are -1: the
+planner keeps WaitForFirstConsumer pods out of waves.
+
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
-other. ``LAUNCHES["plain_step"]`` counts the kernel's launches.
+other. ``LAUNCHES["plain_step"]`` counts the kernel's scan launches and
+``LAUNCHES["plain_step_frozen"]`` its frozen ones.
 
 The kernel runs each lane on a thread-block cluster: ``plan_launch``
 picks the cluster size, the block size and each block's node slice from
 the lane count, the node count and the card's occupancy answer, and
 ``smem_bytes`` is the per-block shared-memory accounting it checks.
-``LAST_PLAN`` holds the geometry of the latest launch.
+``LAST_PLAN`` holds the geometry of the latest launch. The frozen form
+runs one cluster per (lane, pod) under the same plan.
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ from open_simulator_tpu_torch.engine.scheduler import (
 from open_simulator_tpu_torch.kernels import build
 from open_simulator_tpu_torch.ops.domains import ActiveHoist
 
-LAUNCHES: Dict[str, int] = {"plain_step": 0}
+LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0}
 # the kernel's per-phase cycle counts (kPhases in the .cu), in order
 PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
           "min/count reduction", "phase 2 score and argmax", "argmax reduction",
@@ -240,7 +251,7 @@ class StepArgs(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in _INTS[_N_BASE_INTS:]]
                 + [(f, ctypes.c_float) for f in _FLOATS[-1:]]
                 + [("cycles", ctypes.c_void_p)]
-                + [(f, ctypes.c_int) for f in ("cl", "bt", "sl", "res")])
+                + [(f, ctypes.c_int) for f in ("cl", "bt", "sl", "res", "frozen")])
 
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -257,16 +268,27 @@ def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
                p0: int, p1: int, template: Optional[SimState] = None,
                disabled: Optional[torch.Tensor] = None,
-               nominated: Optional[torch.Tensor] = None) -> Outputs:
+               nominated: Optional[torch.Tensor] = None, frozen: bool = False,
+               inputs: Optional[dict] = None) -> Outputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
-    plain torch step for CPU tensors."""
+    plain torch step for CPU tensors. `inputs` (CUDA only) is a dict the
+    caller keeps across launches over the same arrays, lanes and config."""
     if active.device.type == "cuda":
         return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
-                               disabled=disabled, nominated=nominated)
+                               disabled=disabled, nominated=nominated, frozen=frozen,
+                               inputs=inputs)
     if active.device.type == "cpu":
         return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
-                                disabled=disabled, nominated=nominated)
+                                disabled=disabled, nominated=nominated, frozen=frozen)
     raise ValueError(f"no plain_step for device {active.device}")
+
+
+def _check_frozen(template, disabled, nominated, phase_cycles=None) -> None:
+    if template is not None or disabled is not None or nominated is not None:
+        raise ValueError("plain_step: the frozen wave form takes no template and no "
+                         "preemption column")
+    if phase_cycles is not None:
+        raise ValueError("plain_step: the frozen wave form has no cycle counts")
 
 
 def copy_template(state: SimState, template: SimState, fields=STATE_FIELDS) -> None:
@@ -287,10 +309,15 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
                      p0: int, p1: int, template: Optional[SimState] = None,
                      disabled: Optional[torch.Tensor] = None,
-                     nominated: Optional[torch.Tensor] = None) -> Outputs:
+                     nominated: Optional[torch.Tensor] = None,
+                     frozen: bool = False) -> Outputs:
     """The plain version: lane by lane, pod by pod through the torch twin
-    of the reference step (``engine.scheduler._step``), on any device."""
+    of the reference step (``engine.scheduler._step``), on any device.
+    Frozen: every pod against a clone of the lane's carry, which is left
+    as it is."""
     scheduler.check_supported(cfg)
+    if frozen:
+        _check_frozen(template, disabled, nominated)
     dev = active.device
     n_lanes, n_out = active.shape[0], p1 - p0
     if template is not None:
@@ -310,9 +337,12 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
         lane_hoist = ActiveHoist(*(x[s] for x in hoist))
         rows = []
         for p in range(p0, p1):
-            st, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, st, p,
-                                      disabled=dis is not None and bool(dis[p]),
-                                      nominated=None if nom is None else int(nom[p]))
+            src = SimState(**{f: getattr(st, f).clone() for f in STATE_FIELDS}) if frozen else st
+            new, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, src, p,
+                                       disabled=dis is not None and bool(dis[p]),
+                                       nominated=None if nom is None else int(nom[p]))
+            if not frozen:
+                st = new
             rows.append(out)
         if n_out:
             nodes, fails, feasible, gpus, vols = zip(*rows)
@@ -322,8 +352,9 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
             vpick[s] = torch.stack(vols)
             if cfg.fail_reasons:
                 fail[s] = torch.stack(fails)
-        for f in STATE_FIELDS:
-            getattr(state, f)[s].copy_(getattr(st, f))
+        if not frozen:
+            for f in STATE_FIELDS:
+                getattr(state, f)[s].copy_(getattr(st, f))
     return node, fail, feas, gpick, vpick
 
 
@@ -406,14 +437,16 @@ def term_lists(dense: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ptr, cols.to(torch.int32).contiguous()
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape) -> torch.Tensor:
+def _check(name: str, t: torch.Tensor, dtype, shape, kernel: str = "plain_step") -> torch.Tensor:
+    """`t` as a kernel takes it (on the card, of this dtype and shape,
+    contiguous), or a ValueError naming `kernel` and the input."""
     if t.device.type != "cuda":
-        raise ValueError(f"plain_step: {name} is on {t.device}, not on the card")
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not on the card")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"plain_step: {name} is {t.dtype}{tuple(t.shape)}, "
+        raise ValueError(f"{kernel}: {name} is {t.dtype}{tuple(t.shape)}, "
                          f"expected {dtype}{tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"plain_step: {name} is not contiguous")
+        raise ValueError(f"{kernel}: {name} is not contiguous")
     return t
 
 
@@ -473,53 +506,20 @@ def _card_occupancy(lib: ctypes.CDLL, args: StepArgs):
     return occupancy
 
 
-def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
-                    inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                    p0: int, p1: int, template: Optional[SimState] = None,
-                    phase_cycles: Optional[torch.Tensor] = None,
-                    disabled: Optional[torch.Tensor] = None,
-                    nominated: Optional[torch.Tensor] = None) -> Outputs:
-    """Launch the ``plain_step`` kernel: one thread-block cluster per lane
-    (``plan_launch``), the pod loop inside the kernel, the carry updated in
-    place on the current stream (with a `template`, first written from it
-    by the lane prologue). Given `phase_cycles`, an [S, len(PHASES)] int64
-    tensor on the card, the kernel writes each lane's cycles per phase
-    into it. `disabled` and `nominated` go to the kernel as pointers (null
-    when None)."""
-    global LAST_PLAN
-    scheduler.check_supported(cfg)
-    dev = active.device
+def _static_inputs(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
+                   cfg: EngineConfig) -> Dict[str, torch.Tensor]:
+    """The launch's node, pod and lane arrays in the kernel's types, after
+    the index checks: what every launch over the same arrays, lanes and
+    config shares."""
     n, r = arrs.alloc.shape
-    n_lanes, n_out = active.shape[0], p1 - p0
+    n_lanes = active.shape[0]
     k1, _, d = arrs.topo_onehot.shape
     n_cls = arrs.class_affinity.shape[0]
     sg = arrs.match_groups.shape[1]
-    pt = arrs.ports.shape[1]
-    cs = arrs.spread_group.shape[1]
-    a_w, b_w, ap = arrs.aff_group.shape[1], arrs.anti_group.shape[1], arrs.pref_group.shape[1]
-    t_w, t2 = arrs.own_terms.shape[1], arrs.hit_pref.shape[1]
+    t2 = arrs.hit_pref.shape[1]
     k = arrs.has_key.shape[0]
-    ops = cfg.n_ops
-    q = a_w + b_w + cs + ap
-    g_w, v_w, e_w = arrs.gpu_slot.shape[1], arrs.vg_cap.shape[1], arrs.sdev_cap.shape[1]
-    n_pv, lw, lk = arrs.pv_node_ok.shape[0], arrs.wfc_ccid.shape[1], arrs.vol_limit_cap.shape[1]
-    lsv, nsv = arrs.svol_id.shape[1], arrs.svol_key.shape[0]
-    gp_w, vp_w = pick_widths(arrs, cfg)
+    lk, nsv, lw = arrs.vol_limit_cap.shape[1], arrs.svol_key.shape[0], arrs.wfc_ccid.shape[1]
     devres = devres_on(cfg)
-    flags = _flags(cfg, state, template is not None)
-    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
-    for what, width, cap in (("volume groups per node", v_w, MAX_VG),
-                             ("exclusive devices per node", e_w, MAX_DEVICES),
-                             ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
-        if devres and width > cap:
-            raise ValueError(f"plain_step: {width} {what}, over the kernel's {cap}")
-    if n_out <= 0:
-        if template is not None:
-            copy_template(state, template)
-        empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-        return (empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
-                torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
-                torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev))
     soft = arrs.spread_valid & ~arrs.spread_hard
     hard = arrs.spread_valid & arrs.spread_hard
     _check_index("class_id", arrs.class_id, n_cls)
@@ -553,14 +553,10 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     def f32(t):
         return t.to(torch.float32).contiguous()
 
-    gc_dt, tb_dt = state.group_count.dtype, state.term_block.dtype
-    for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
-        if dt not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"plain_step: {name} dtype {dt}")
     hit_ptr, hit_idx = term_lists(arrs.hit_terms)
     own_ptr, own_idx = term_lists(arrs.own_terms)
     pv_ptr, pv_idx = admitted_pv_lists(arrs.pv_node_ok, arrs.pv_cand)
-    tensors = dict(
+    return dict(
         inv_alloc=_check("inv_alloc", inv_alloc, torch.float32, (n, r)),
         unschedulable=u8(arrs.unschedulable),
         class_affinity=u8(arrs.class_affinity),
@@ -617,6 +613,71 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         domain_has=u8(_check("domain_has", hoist.domain_has, torch.bool,
                              (n_lanes, n_cls, k1, d))),
         any_elig=u8(_check("any_elig", hoist.any_elig, torch.bool, (n_lanes, n_cls, k))),
+    )
+
+
+def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
+                    inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
+                    p0: int, p1: int, template: Optional[SimState] = None,
+                    phase_cycles: Optional[torch.Tensor] = None,
+                    disabled: Optional[torch.Tensor] = None,
+                    nominated: Optional[torch.Tensor] = None, frozen: bool = False,
+                    inputs: Optional[dict] = None) -> Outputs:
+    """Launch the ``plain_step`` kernel: one thread-block cluster per lane
+    (``plan_launch``), the pod loop inside the kernel, the carry updated in
+    place on the current stream (with a `template`, first written from it
+    by the lane prologue); frozen, one cluster per (lane, pod) and the
+    carry only read. Given `phase_cycles`, an [S, len(PHASES)] int64
+    tensor on the card, the kernel writes each lane's cycles per phase
+    into it. `disabled` and `nominated` go to the kernel as pointers (null
+    when None). `inputs`, a dict the caller keeps across launches over the
+    same arrays, lanes and config, holds the converted inputs and the
+    launch plans after the first call."""
+    global LAST_PLAN
+    scheduler.check_supported(cfg)
+    if frozen:
+        _check_frozen(template, disabled, nominated, phase_cycles)
+    dev = active.device
+    n, r = arrs.alloc.shape
+    n_lanes, n_out = active.shape[0], p1 - p0
+    k1, _, d = arrs.topo_onehot.shape
+    n_cls = arrs.class_affinity.shape[0]
+    sg = arrs.match_groups.shape[1]
+    pt = arrs.ports.shape[1]
+    cs = arrs.spread_group.shape[1]
+    a_w, b_w, ap = arrs.aff_group.shape[1], arrs.anti_group.shape[1], arrs.pref_group.shape[1]
+    t_w, t2 = arrs.own_terms.shape[1], arrs.hit_pref.shape[1]
+    k = arrs.has_key.shape[0]
+    ops = cfg.n_ops
+    g_w, v_w, e_w = arrs.gpu_slot.shape[1], arrs.vg_cap.shape[1], arrs.sdev_cap.shape[1]
+    n_pv, lw, lk = arrs.pv_node_ok.shape[0], arrs.wfc_ccid.shape[1], arrs.vol_limit_cap.shape[1]
+    lsv, nsv = arrs.svol_id.shape[1], arrs.svol_key.shape[0]
+    gp_w, vp_w = pick_widths(arrs, cfg)
+    devres = devres_on(cfg)
+    flags = _flags(cfg, state, template is not None)
+    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
+    for what, width, cap in (("volume groups per node", v_w, MAX_VG),
+                             ("exclusive devices per node", e_w, MAX_DEVICES),
+                             ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
+        if devres and width > cap:
+            raise ValueError(f"plain_step: {width} {what}, over the kernel's {cap}")
+    if n_out <= 0:
+        if template is not None:
+            copy_template(state, template)
+        empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
+        return (empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
+                torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
+                torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev))
+    static = inputs if inputs is not None else {}
+    if "tensors" not in static:
+        static["tensors"] = _static_inputs(arrs, active, hoist, inv_alloc, cfg)
+        static["plans"] = {}
+    gc_dt, tb_dt = state.group_count.dtype, state.term_block.dtype
+    for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
+        if dt not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"plain_step: {name} dtype {dt}")
+    tensors = dict(
+        static["tensors"],
         headroom=_check("headroom", state.headroom, torch.float32, (n_lanes, n, r)),
         ports_used=_check("ports_used", state.ports_used, torch.bool, (n_lanes, n, pt)),
         dom_count=_check("dom_count", state.dom_count, torch.float32, (n_lanes, k1, d, sg)),
@@ -667,10 +728,16 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         w_bal=cfg.w_balanced, w_least=cfg.w_least, w_most=cfg.w_most,
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
         w_si=cfg.w_simon, w_gpu=cfg.w_gpu,
-        cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None)
+        cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None,
+        frozen=int(frozen))
     lib = _library()
+    n_clusters = n_lanes * n_out if frozen else n_lanes
     with torch.cuda.device(dev):
-        plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args))
+        key = (flags, n_clusters, frozen)
+        plan = static["plans"].get(key)
+        if plan is None:
+            plan = plan_for(arrs, cfg, flags, n_clusters, _card_occupancy(lib, args))
+            static["plans"][key] = plan
         _set_geometry(args, plan)
         if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
             raise RuntimeError("plain_step: smem_bytes and the kernel's layout_of disagree")
@@ -678,7 +745,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
-    LAUNCHES["plain_step"] += 1
+    LAUNCHES["plain_step_frozen" if frozen else "plain_step"] += 1
     LAST_PLAN = plan
     fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
     return (tensors["out_node"], fail, tensors["out_feasible"], tensors["out_gpu_pick"],

@@ -8,8 +8,9 @@ lane satisfies (all pods scheduled) AND (the occupancy thresholds).
 
 The port of the reference's ``parallel/sweep.py`` with the same plans:
 ``capacity_sweep`` runs one lane per candidate, ``capacity_bisect`` a
-fixed number of lanes per round over a shrinking bracket. No bucketing:
-the kernel takes any shape, so the unpadded arrays run as they are. Left
+fixed number of lanes per round over a shrinking bracket, each with the
+reference's wave plan (one plan for every lane). No bucketing: the kernel
+takes any shape, so the unpadded arrays run as they are. Left
 out, each raising NotImplementedError that names its ROADMAP item: the
 device mesh, the sweep journals and resume, and the launch retries and
 per-lane isolation.
@@ -27,7 +28,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from open_simulator_tpu_torch.encode.snapshot import ClusterSnapshot
+from open_simulator_tpu_torch.engine.buckets import bucket_pods
 from open_simulator_tpu_torch.engine.scheduler import EngineConfig, schedule_lanes
+from open_simulator_tpu_torch.engine.waves import waves_for
 
 
 class SweepThresholds(NamedTuple):
@@ -142,11 +145,17 @@ class _Lanes(NamedTuple):
     state: object
 
 
+def _wave_plan(snapshot: ClusterSnapshot, sweep_cfg: EngineConfig):
+    """The sweep's wave plan: over the sweep config and the reference's
+    bucketed pod axis, one plan for every lane (it ignores the masks)."""
+    return waves_for(snapshot.arrays, sweep_cfg, n_pods_total=bucket_pods(snapshot.n_pods))
+
+
 def _run_lanes(snapshot: ClusterSnapshot, masks: np.ndarray, cfg: EngineConfig,
-               device, carry=None) -> _Lanes:
-    """One launch over the lanes, hosted; the state is left on the device
-    for the next round."""
-    out = schedule_lanes(snapshot.arrays, masks, cfg, device=device, carry=carry)
+               device, carry=None, waves=None) -> _Lanes:
+    """One launch over the lanes (a wave plan's launches, given one),
+    hosted; the state is left on the device for the next round."""
+    out = schedule_lanes(snapshot.arrays, masks, cfg, device=device, carry=carry, waves=waves)
     headroom = out.state.headroom.cpu().numpy()
     if not np.all(np.isfinite(headroom)):
         raise FloatingPointError("capacity sweep: a lane's headroom is not finite")
@@ -188,7 +197,8 @@ def capacity_sweep(
     _refuse_unported(mesh, retries, backoff_s, isolate_trials)
     masks = active_masks_for_counts(snapshot, counts)
     sweep_cfg = cfg if fail_reasons else cfg._replace(fail_reasons=False)
-    lanes = _run_lanes(snapshot, masks, sweep_cfg, device)
+    lanes = _run_lanes(snapshot, masks, sweep_cfg, device,
+                       waves=_wave_plan(snapshot, sweep_cfg))
     nodes, fail, headroom, vg_used = lanes.nodes, lanes.fail, lanes.headroom, lanes.vg_used
     if fail is None:
         fail = np.zeros((len(counts), snapshot.n_pods, sweep_cfg.n_ops), dtype=np.int32)
@@ -268,6 +278,7 @@ def capacity_bisect(
     alloc, cpu_i, mem_i, vg_cap, has_storage = _snapshot_stats(snapshot)
     sweep_cfg = cfg._replace(fail_reasons=False)
     lanes = max(1, min(lanes, max_new + 1))
+    wave_plan = _wave_plan(snapshot, sweep_cfg)
     records: Dict[int, dict] = {}      # count -> hosted lane outputs
     carry_holder = {"carry": None}     # reused across rounds
 
@@ -277,7 +288,8 @@ def capacity_bisect(
             return
         cs = list(new) + [new[-1]] * (lanes - len(new))
         masks = active_masks_for_counts(snapshot, cs)
-        got = _run_lanes(snapshot, masks, sweep_cfg, device, carry=carry_holder["carry"])
+        got = _run_lanes(snapshot, masks, sweep_cfg, device, carry=carry_holder["carry"],
+                         waves=wave_plan)
         carry_holder["carry"] = got.state
         for i, c in enumerate(cs):
             if c in records:

@@ -12,9 +12,10 @@ new app's placements while every prior app's stay fixed. Under
 ``preemption=True`` the preemption state carries across calls: victims
 stay deleted and prior placements stay pinned.
 
-Differences from the JAX package's facade: no ledger or trace spans, and
-no wave plan — under ``preemption=False`` the result's ``wave_id`` and
-``wave_batched`` stay None (ROADMAP queue 1, item 6).
+Differences from the JAX package's facade: no ledger or trace spans.
+Under ``preemption=False`` each run plans waves and decodes ``wave_id`` /
+``wave_batched`` as the reference does; under preemption the session's
+runs carry the columns, which drop a plan, so none is made.
 
 close() exists for API parity and is a no-op: there is no scheduler
 goroutine to flush.
@@ -32,11 +33,14 @@ from open_simulator_tpu_torch.core import (
     _priority_sort,
     _resolve_priorities,
     decode_output,
+    decode_waves,
     host_schedule_fn,
     with_volume_objects,
 )
 from open_simulator_tpu_torch.encode.snapshot import EncodeOptions, encode_cluster
+from open_simulator_tpu_torch.engine.buckets import bucket_pods
 from open_simulator_tpu_torch.engine.scheduler import make_config
+from open_simulator_tpu_torch.engine.waves import waves_for
 from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
 from open_simulator_tpu_torch.k8s.objects import LABEL_APP_NAME, Pod
 from open_simulator_tpu_torch.models.expand import expand_app_resources, expand_cluster_pods
@@ -117,8 +121,10 @@ class Simulator:
         opts = with_volume_objects(self._encode_options, self.cluster, self._apps)
         snapshot = encode_cluster(self.cluster.nodes, self._pods, opts)
         cfg = make_config(snapshot, **self._overrides)
+        wave_plan = (None if self.preemption else waves_for(
+            snapshot.arrays, cfg, n_pods_total=bucket_pods(snapshot.n_pods)))
         active_np = np.asarray(snapshot.arrays.active)
-        schedule_fn = host_schedule_fn(snapshot, active_np, cfg, self.device)
+        schedule_fn = host_schedule_fn(snapshot, active_np, cfg, self.device, wave_plan)
         preempted_by = None
         if self.preemption:
             from open_simulator_tpu_torch.engine.preemption import run_with_preemption
@@ -142,6 +148,8 @@ class Simulator:
         else:
             out = schedule_fn(None, None)
         result = decode_output(snapshot, out, active_np, cfg, preempted_by=preempted_by)
+        if wave_plan is not None:
+            decode_waves(result, wave_plan, snapshot.n_pods)
         self._last = result
         if select_app is None:
             return result

@@ -537,3 +537,61 @@ def preemption_columns(forced_node: np.ndarray, active: np.ndarray, seed: int = 
     victims = np.flatnonzero(disabled)
     nominated[victims[::2]] = rng.randint(0, n, len(victims[::2]))
     return disabled, nominated
+
+
+def wave_pools_objects(n_nodes: int, n_pods: int, pools: int, gpu: bool = False,
+                       interpod: bool = False):
+    """(nodes, pods) of a multi-tenant cluster whose pods the wave planner
+    batches: `pools` node pools, pod i pinned to pool i % pools by its
+    nodeSelector and labelled with its pool's app and anti groups, so
+    consecutive pods of different pools are carry-independent (a GRID of
+    width `pools`). gpu: every node has 4 GPUs of 32 GiB and every pod asks
+    for 1 or 2 of 2-6 GiB (GPU share inside waves). interpod: every pod
+    softly spreads its app over hostnames and prefers its app's zone
+    (weight 7), and one pod in four keeps its anti group off its node:
+    the group_count, term and preference paints go through the merge."""
+    from open_simulator_tpu_torch.testing.builders import make_fake_node, make_fake_pod
+
+    gpu_node = {"alibabacloud.com/gpu-count": "4", "alibabacloud.com/gpu-mem": "32"}
+    nodes = [make_fake_node(f"n{i}", cpu="16", memory="64Gi",
+                            labels={"pool": f"p{i % pools}",
+                                    "topology.kubernetes.io/zone": f"z{i % 3}"},
+                            extra_allocatable=gpu_node if gpu else None)
+             for i in range(n_nodes)]
+    rng = np.random.RandomState(3)
+    pods = []
+    for i in range(n_pods):
+        pool = i % pools
+        kw = {}
+        if gpu:
+            kw["annotations"] = {"alibabacloud.com/gpu-mem": str(2 + i % 5),
+                                 "alibabacloud.com/gpu-count": "2" if i % 3 == 0 else "1"}
+        if interpod:
+            aff = {"podAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [{
+                "weight": 7, "podAffinityTerm": {
+                    "labelSelector": {"matchLabels": {"app": f"a{pool}"}},
+                    "topologyKey": "topology.kubernetes.io/zone"}}]}}
+            if i % 4 == 0:
+                aff["podAntiAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": [{
+                    "labelSelector": {"matchLabels": {"anti": f"g{pool}"}},
+                    "topologyKey": "kubernetes.io/hostname"}]}
+            kw["affinity"] = aff
+            kw["topology_spread"] = [{
+                "maxSkew": 2, "topologyKey": "kubernetes.io/hostname",
+                "whenUnsatisfiable": "ScheduleAnyway",
+                "labelSelector": {"matchLabels": {"app": f"a{pool}"}}}]
+        pods.append(make_fake_pod(f"w{i}", cpu=f"{rng.randint(100, 2000)}m",
+                                  memory=f"{rng.randint(64, 2048)}Mi",
+                                  labels={"app": f"a{pool}", "anti": f"g{pool}"},
+                                  node_selector={"pool": f"p{pool}"}, **kw))
+    return nodes, pods
+
+
+def wave_pools_snapshot(n_nodes: int, n_pods: int, pools: int, gpu: bool = False,
+                        interpod: bool = False):
+    """``wave_pools_objects`` encoded as ``simulate()`` encodes it."""
+    from open_simulator_tpu_torch.encode.snapshot import encode_cluster
+    from open_simulator_tpu_torch.k8s.loader import make_valid_node
+
+    nodes, pods = wave_pools_objects(n_nodes, n_pods, pools, gpu, interpod)
+    return encode_cluster([make_valid_node(n) for n in nodes], pods)

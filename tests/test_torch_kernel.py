@@ -16,9 +16,12 @@ the preemption columns in each of the four instantiations, on lanes, on
 the lane prologue (lanes started from one template carry, with and without reason
 accounting), at the edges of the cluster geometry (fewer nodes than
 blocks, a ragged last slice, an odd number of lanes) and through
-``schedule_lanes``. Without CUDA they skip with the reason; the binding
-checks and the launch plan's tests (cluster size, block size, node
-slices, shared-memory accounting) run everywhere.
+``schedule_lanes``; the frozen wave form of each instantiation against
+the plain step's frozen form, and the ``wave_merge`` kernel against the
+plain merge (``kernels/wave.py``), on pools clusters the wave planner
+batches, and a wave run through ``schedule_pods``. Without CUDA they skip
+with the reason; the binding checks and the launch plan's tests (cluster
+size, block size, node slices, shared-memory accounting) run everywhere.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ from open_simulator_tpu_torch.encode.snapshot import encode_cluster
 from open_simulator_tpu_torch.engine import scheduler as sched
 from open_simulator_tpu_torch.k8s.loader import make_valid_node
 from open_simulator_tpu_torch.k8s.objects import Node, Pod
-from open_simulator_tpu_torch.kernels import build, step
+from open_simulator_tpu_torch.engine import waves as wave_plans
+from open_simulator_tpu_torch.kernels import build, step, wave
 from open_simulator_tpu_torch.testing.synthetic import (
     device_resource_snapshot,
     preemption_columns,
     soft_spread_cluster,
     synthetic_snapshot,
+    wave_pools_snapshot,
 )
 
 SOURCE = os.path.join(build.CSRC_DIR, "plain_step.cu")
@@ -571,3 +576,162 @@ def test_device_resource_examples_on_card(cuda_device, name):
                      res.volume_bindings, res.gpu_assignments))
     assert runs[0] == runs[1]
     assert runs[0][0]
+
+
+# ---- the wave form ---------------------------------------------------------
+
+# the frozen instantiation each pools cluster runs
+FROZEN_CASES = {"<0,0>": dict(), "<1,0>": dict(interpod=True), "<0,1>": dict(gpu=True),
+                "<1,1>": dict(gpu=True, interpod=True)}
+MERGE_SOURCE = os.path.join(build.CSRC_DIR, "wave_merge.cu")
+
+
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+def test_wave_inputs_run_their_frozen_instantiation(case):
+    """Each pools cluster plans one GRID of width 8 over every pod and
+    launches the instantiation it is named for."""
+    snap = wave_pools_snapshot(48, 256, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    assert plan.segments == ((0, 256, wave_plans.GRID, 8),)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    assert step.instantiation(cfg, sched.init_state(arrs, cfg)) == case
+    if "gpu" in FROZEN_CASES[case]:
+        assert cfg.enable_gpu and (snap.arrays.gpu_cnt == 2).any()
+    if "interpod" in FROZEN_CASES[case]:
+        assert cfg.needs_group_count and cfg.enable_anti_affinity and cfg.enable_pref
+
+
+def test_frozen_form_refuses_a_template_and_columns():
+    snap = wave_pools_snapshot(16, 32, 4)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    active = torch.ones((1, 16), dtype=torch.bool)
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: getattr(st, f)[None].clone() for f in sched.STATE_FIELDS})
+    args = (arrs, active, sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc), lanes,
+            cfg, 0, 4)
+    for fn in (step.plain_step_torch, step.plain_step_cuda):
+        with pytest.raises(ValueError, match="frozen wave form takes no template"):
+            fn(*args, template=st, frozen=True)
+        with pytest.raises(ValueError, match="frozen wave form takes no template"):
+            fn(*args, disabled=torch.zeros(32, dtype=torch.bool), frozen=True)
+
+
+def test_merge_struct_and_flags_match_the_c_source():
+    """MergeArgs in kernels/wave.py lists the C struct's fields in order,
+    and the flag bits match the C constants."""
+    src = Path(MERGE_SOURCE).read_text(encoding="utf-8")
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct MergeArgs \{(.*?)\};", src, re.S).group(1))
+    c_fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype, names = re.match(r"(.*?\*|int)\s+(.*)", decl).groups()
+            c_fields += [(n.strip(), "ptr" if ctype.endswith("*") else ctype)
+                         for n in names.split(",")]
+    kinds = {"c_void_p": "ptr", "c_int": "int"}
+    assert [(n, kinds[t.__name__]) for n, t in wave.MergeArgs._fields_] == c_fields
+    bits = dict(re.findall(r"constexpr int (M_\w+) = 1 << (\d+);", src))
+    assert bits and {n: 1 << int(b) for n, b in bits.items()} == {
+        n: getattr(wave, n) for n in dir(wave) if re.fullmatch(r"M_[A-Z0-9_]+", n)}
+
+
+def test_plain_step_kernel_has_the_frozen_instantiations():
+    """kernel_of picks the frozen form from StepArgs.frozen, never with
+    the columns: four frozen builds beside the eight scan builds."""
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    insts = set(re.findall(r"plain_step_kernel<(true|false), (true|false), (true|false), "
+                           r"(true|false)>", src))
+    assert len(insts) == 12
+    assert {i[:3] for i in insts if i[3] == "true"} == {
+        (a, b, "false") for a in ("true", "false") for b in ("true", "false")}
+
+
+def _clone(st):
+    return sched.SimState(**{f: getattr(st, f).clone() for f in sched.STATE_FIELDS})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+@pytest.mark.parametrize("fail_reasons", [True, False])
+def test_frozen_step_and_merge_equal_plain_on_card(cuda_device, case, fail_reasons):
+    """Three lanes over the first waves of a pools GRID: each wave's frozen
+    kernel launch equals the plain step's frozen form (outputs, and the
+    carry left as it was), and the wave_merge kernel equals the plain
+    merge on every carry field, bit for bit."""
+    snap = wave_pools_snapshot(96, 768, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap, fail_reasons=fail_reasons)
+    lo, _, kind, w = wave_plans.waves_for(snap.arrays, cfg).segments[0]
+    assert kind == wave_plans.GRID
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 2, np.arange(n) % 7 != 3])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, 3)
+    step.copy_template(st, tmpl)
+    inputs, before = {}, dict(step.LAUNCHES)
+    for w0 in range(lo, lo + 6 * w, w):
+        st_p = _clone(st)
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, w0, w0 + w, frozen=True,
+                                     inputs=inputs)
+        out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, w0, w0 + w,
+                                      frozen=True)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+        for f in sched.STATE_FIELDS:
+            assert torch.equal(getattr(st, f), getattr(st_p, f)), f
+        pick = out_k[3] if cfg.enable_gpu else None
+        wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out_k[0], pick)
+        wave.wave_merge_torch(arrs, cfg, st_p, w0, w0 + w, out_k[0], pick)
+        torch.cuda.synchronize()
+        for f in sched.STATE_FIELDS:
+            assert torch.equal(getattr(st, f), getattr(st_p, f)), f
+    assert step.LAUNCHES["plain_step_frozen"] == before["plain_step_frozen"] + 6
+    assert step.LAUNCHES["plain_step"] == before["plain_step"]
+    assert (st.headroom != tmpl.headroom).any()
+    if cfg.enable_gpu:
+        assert (st.gpu_used > 0).any()
+
+
+@pytest.mark.cuda
+def test_wave_merge_of_forced_nodes_on_card(cuda_device):
+    """A FORCED segment's merge: one node row for every lane (stride 0),
+    in chunks, equal to the plain merge."""
+    snap = synthetic_snapshot(96, 512, bound=0.6)
+    cfg = sched.make_config(snap, fail_reasons=False)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    st = sched.lane_carry(sched.init_state(arrs, cfg), 2)
+    step.copy_template(st, sched.init_state(arrs, cfg))
+    st_p = _clone(st)
+    forced = arrs.forced_node.to(torch.int32)
+    for lo, hi in ((0, 100), (100, 512)):
+        wave.wave_merge_cuda(arrs, cfg, st, lo, hi, forced[lo:hi].contiguous())
+        wave.wave_merge_torch(arrs, cfg, st_p, lo, hi, forced[lo:hi])
+    torch.cuda.synchronize()
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st, f), getattr(st_p, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["<0,0>", "<1,1>"])
+def test_schedule_pods_runs_the_waves_on_card(cuda_device, case):
+    """schedule_pods with a plan: one frozen launch and one merge per wave,
+    no scan launch, and the CPU's answer (which is the scan's)."""
+    snap = wave_pools_snapshot(64, 384, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    before, merges = dict(step.LAUNCHES), wave.LAUNCHES["wave_merge"]
+    gpu = sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, waves=plan)
+    assert step.LAUNCHES["plain_step_frozen"] == before["plain_step_frozen"] + plan.n_waves
+    assert step.LAUNCHES["plain_step"] == before["plain_step"]
+    assert wave.LAUNCHES["wave_merge"] == merges + plan.n_waves
+    cpu = sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
+    for a, b in zip(gpu[:5], cpu[:5]):
+        assert torch.equal(a.cpu(), b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(gpu.state, f).cpu(), getattr(cpu.state, f)), f

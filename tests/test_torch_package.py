@@ -126,6 +126,34 @@ def test_preemption_slice_modules_import_with_jax_blocked():
     assert set(PREEMPTION_MODULES) <= set(all_modules())
 
 
+WAVE_MODULES = ("open_simulator_tpu_torch.engine.waves",
+                "open_simulator_tpu_torch.engine.buckets",
+                "open_simulator_tpu_torch.kernels.wave")
+
+
+def test_wave_slice_modules_import_with_jax_blocked():
+    """The wave slice's modules (the planner, the bucket helper, the merge
+    wrapper) import, and simulate() on a pools cluster plans waves and
+    decodes them on the CPU, in an interpreter where jax and the JAX
+    package cannot be imported."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN + ('yaml',)!r}))\n"
+            + "import importlib\n"
+            + f"for m in {WAVE_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "from open_simulator_tpu_torch.core import simulate\n"
+            + "from open_simulator_tpu_torch.k8s.loader import ClusterResources\n"
+            + "from open_simulator_tpu_torch.testing.synthetic import synthetic_objects\n"
+            + "nodes, pods, _ = synthetic_objects(8, 32, pools=4)\n"
+            + "r = simulate(ClusterResources(nodes=nodes, pods=pods), [], device='cpu')\n"
+            + "print('ok', int(r.wave_batched.sum()), int(r.wave_id.max()))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok 32 7")
+    assert set(WAVE_MODULES) <= set(all_modules())
+
+
 def test_apply_cli_runs_with_jax_blocked():
     """``python -m open_simulator_tpu_torch.cli apply`` answers the
     morepods capacity plan on the CPU with jax and the JAX package
@@ -195,7 +223,11 @@ def test_only_the_remaining_engine_modes_are_refused():
         "extensions", "explain_topk", "tie_break_seed", "traced_weights"]
 
 
-def test_make_config_turns_waves_off():
+def test_make_config_turns_waves_off(monkeypatch):
+    """make_config sets wave_scheduling from SIMON_WAVES, as the
+    reference's does: on by default, off under SIMON_WAVES=0."""
+    assert tsched.make_config(synthetic_snapshot(8, 16)).wave_scheduling is True
+    monkeypatch.setenv("SIMON_WAVES", "0")
     assert tsched.make_config(synthetic_snapshot(8, 16)).wave_scheduling is False
 
 
@@ -248,7 +280,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
-    assert build.kernel_names() == ["plain_step"]
+    assert build.kernel_names() == ["plain_step", "wave_merge"]
 
 
 def test_log_dom_is_computed_from_counts():

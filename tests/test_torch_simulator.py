@@ -7,9 +7,8 @@ cases of ``tests/test_preemption.py`` (victims stay deleted across calls;
 facades (the port's with ``device="cpu"``), each package building its own
 objects with its own ``testing`` builders. After every call both give the
 same placements, reason strings, preempted pods and ``result_digest``,
-for the call's result and for ``cluster_status()``. One known difference
-is pinned: without preemption the reference plans waves and decodes
-``wave_id``; the port has no wave scheduler yet and leaves it None.
+for the call's result and for ``cluster_status()``. Without preemption
+both plan waves and decode the same ``wave_id`` / ``wave_batched``.
 """
 
 from __future__ import annotations
@@ -140,15 +139,17 @@ def test_session_results_keep_fail_counts_and_snapshot():
     assert sim_t.cluster_status().preempted_pod_keys == sim_j.cluster_status().preempted_pod_keys
 
 
-def test_wave_id_is_none_without_preemption():
-    """The known difference: the reference decodes its wave plan onto a
-    preemption-free session's result; the port plans no waves yet."""
-    results = {}
+def test_simulator_decodes_the_reference_waves_without_preemption():
+    """Under preemption=False each run plans waves: the port's session
+    decodes the reference's wave_id / wave_batched on a four-pool cluster,
+    for the call's result and for cluster_status(), with the same
+    answer."""
+    results, status = {}, {}
     for pkg in PKG:
         loader, _, core, sim_mod, t = PKG[pkg]
         cluster = loader.ClusterResources()
         # four node pools and pods pinned to them: carry-independent runs
-        # the reference batches into waves
+        # both packages batch into waves
         cluster.nodes = [t.make_fake_node(f"n{i}", cpu="8", memory="16Gi",
                                           labels={"pool": f"p{i % 4}"}) for i in range(8)]
         kw = {"device": "cpu"} if pkg == "torch" else {}
@@ -158,8 +159,12 @@ def test_wave_id_is_none_without_preemption():
                                                 node_selector={"pool": f"p{i % 4}"})
                                 for i in range(16)])
         results[pkg] = sim.schedule_app(core.AppResource(name="web", resources=app))
-    assert results["jax"].wave_id is not None
-    assert results["torch"].wave_id is None and results["torch"].wave_batched is None
+        status[pkg] = sim.cluster_status()
+    for got, ref in ((results["torch"], results["jax"]), (status["torch"], status["jax"])):
+        assert ref.wave_id is not None and ref.wave_batched.any()
+        for a, b in ((got.wave_id, ref.wave_id), (got.wave_batched, ref.wave_batched)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert result_digest(got)["digest"] == result_digest(ref)["digest"]
     assert answer(results["torch"]) == answer(results["jax"])
 
 
