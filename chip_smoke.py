@@ -24,26 +24,33 @@ is right.
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
 1. the card's name and power limit (nvidia-smi);
-2. the kernel build, one nvcc per source, started together, with ptxas's
-   registers and spills of each instantiation;
+2. the kernel build, one nvcc per library (``plain_step``, its explain
+   twin ``plain_step_explain`` built from the same source, ``wave_merge``),
+   started together, with ptxas's registers and spills of each of the 24
+   ``plain_step`` instantiations;
 3. kernel vs plain step, exact equality of node, fail counts, feasible
    counts, GPU and PV picks and all twelve carry fields, each side
    starting its lanes from the template carry through its lane prologue,
    on: the synthetic cluster at 1,024 x 10,240 with mid-sequence forced
    pods (dom_count carry); a 512 x 4,096 cluster with hostname and zone
    soft spread, taints, unschedulable nodes, host ports and a leading
-   nodeName run (group_count carry); the same as one 4-lane launch with a
-   different active mask per lane; the rich cluster at 1,024 x 10,240
-   with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in
+   nodeName run (group_count carry); the first 1,024 pods of the same as
+   one 4-lane launch with a different active mask per lane; the first
+   2,048 pods of the rich cluster at 1,024 x 10,240 with 10% of the pods
+   pre-bound; the first 2,048 pods of the rich cluster at 512 x 4,096 in
    the dense form (slot_paint off); the rich cluster at 512 x 1,024 as
-   one 4-lane launch; the first 2,048 pods of the device-resource
+   one 4-lane launch; the first 512 pods of the device-resource
    cluster at 1,024 x 10,240 with 8 GPU node slots as one 4-lane launch
    (all six device-resource gates, pods bound mid-sequence with pinned
    GPUs); the device-resource cluster at 1,024 x 2,048 with the inter-pod
-   constraints (``plain_step<1,1>``); the preemption columns (random
+   constraints (``plain_step<1,1>``); the explain builds of both
+   device-resource instantiations (the top-k and the seeded jitter, the
+   first 1,024 pods of 1,024 x 2,048 without and with the inter-pod
+   constraints); the preemption columns (random
    victims and nominations from a seed, among them inactive nodes, forced
    pods, victims, -1 and out-of-range values) on a 512 x 1,024 input of
-   each of the four instantiations (their "+columns" builds); then
+   each of the four instantiations (their "+columns" builds, then their
+   "+columns+explain" twins with the top-k and the jitter); then
    the edges of the launch geometry (one thread-block cluster per lane):
    3 nodes (fewer than the cluster's blocks; rich and dom_count), the
    device-resource cluster at 1,000 nodes (a ragged last slice) and the
@@ -55,7 +62,9 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    (``testing/synthetic.wave_pools_snapshot``), 64 lanes: over the first
    waves, each frozen launch's outputs on lanes 0 and 63 against the
    plain step's frozen form and each merge against the plain merge on
-   every lane and carry field;
+   every lane and carry field; the same with the top-k and the jitter
+   on ("+frozen+explain"); the same with the top-k and the jitter
+   on ("+frozen+explain");
 4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
    path's arrays (its placements, and on devres its GPU allocations, must
@@ -67,7 +76,18 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    names; on the devres path the six gates, every device-resource reason
    row but the missing-PV one refusing nodes, and host checks of the PV
    bindings, the GPU devices' memory and the nodes' EBS attachments;
-   then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
+   then ``northstar-rich-explain``: ``simulate(config_overrides=
+   {"explain_topk": 3})`` on the rich cluster (one launch of the explain
+   build), host checks of the top-k tensors (the first candidate is the
+   placed node, the parts sum to the score, fillers zeroed),
+   ``explain_result`` timed, the launch timed against explain_topk = 0,
+   the first 2,048 pods against the plain step (all three top-k tensors)
+   and the top-k of their masked scores through the plain ranking and
+   ``torch.topk``; ``northstar-tiebreak``: ``simulate(config_overrides=
+   {"tie_break_seed": 7})`` on the north-star cluster (one explain
+   launch), timed against seed 0, placements that differ from seed 0
+   counted (more than 0), the first 2,048 pods against the plain step,
+   the plain jitter timed; then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
    north-star cluster with PriorityClasses (batch, prod for one pod in
    four, system), a minAvailable 90% budget over app=a0 and an app of 32
    system pods of 12 CPU, counts read (one launch per pass: the first
@@ -77,7 +97,8 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    preempted, no other pod bound in the first pass moved); each pass's
    kernel timed alone with its columns (and once with the cycle counters)
    and held to the pass's placements; the final rescan's first and last
-   2,048 pods against the plain step with its columns; then a
+   2,048 pods against the plain step with its columns, and with the
+   top-k too (``<0,0>+columns+explain``); then a
    ``Simulator`` session on the same
    objects (``run_cluster``, one ``schedule_app`` per app), each call's
    wall, prior placements kept except the victims, the final placements
@@ -92,7 +113,11 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    with the plan against the scan's; the same cluster with 64 new-node
    slots through ``capacity_sweep`` (64 lanes) and
    ``capacity_bisect(lanes=8)``, and the wave form's parity (``<0,0>``)
-   on its lanes 0 and 63;
+   on its lanes 0 and 63; then ``pools-explain``: the same preset with
+   explain_topk = 3 through ``simulate()`` (one frozen explain launch and
+   one merge per wave), its first 16 waves against the plain versions,
+   the whole run's top-k tensors against the scan's, and those 16 waves'
+   frozen launches timed alone with and without the top-k;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -100,19 +125,22 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    device memory, its geometry and its per-phase cycle shares; lanes at
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
-   lane 63 put them; devres: the cluster's own nodeName prefix) timed and
-   held equal to the kernel's carry after those pods; the kernel against
+   lane 63 put them; devres: the cluster's own nodeName prefix; one
+   ``wave_merge`` launch a chunk) timed beside its plain version and held
+   equal to the kernel's carry after those pods; the kernel against
    the plain step over the first 2,048 pods of lanes 0 and 63;
    ``capacity_bisect`` (8 lanes) against the sweep's answer under a CPU
    limit that puts it inside (0, 64); then the
    ``config``, ``constraints``, ``controlplane``, ``morepods``,
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
-   the CPU, with the same output;
+   the CPU, with the same output, and ``explain -f examples/config.yaml
+   --json`` on both, with the same report;
 6. one JSON line describing each kernel (``plain_step``, its frozen
-   form ``plain_step_frozen`` and ``wave_merge``, with each plain_step
-   instantiation's registers, stack and spills; a launched one that
-   spills fails the run), then the device line.
+   form ``plain_step_frozen``, ``wave_merge``, and the explain builds
+   ``plain_step_explain`` and ``plain_step_frozen_explain``, with each
+   plain_step instantiation's registers, stack and spills; a launched one
+   that spills fails the run), then the device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
 nonzero and prints no result.
@@ -157,7 +185,15 @@ WAVE_PARITY_WAVES, WAVE_SAME = 4, 16
 PRIME_MS = 10
 # the northstar-preempt path's last app: system pods of 12 CPU, more than
 # any node of the 16-CPU north-star cluster has free without evictions
-PREEMPTORS, SYSTEM_CPU = 32, "12"
+PREEMPTORS, SYSTEM_CPU = 16, "12"
+# the depth (pods) of four earlier parity inputs, cut so that the explain
+# paths fit the time limit: the 4-lane group_count input, the rich
+# 1,024-node input and the dense rich input (twice this) and the 4-lane
+# device-resource input (half)
+EARLIER_DEPTH = 1024
+# explain: the candidates recorded per pod, and the tie-break seed of the
+# northstar-tiebreak path
+EXPLAIN_K, TIE_SEED = 3, 7
 # (label, cluster kind) of the full-size paths
 PATHS = (("northstar", "plain"), ("northstar-rich", "rich"), ("northstar-devres", "devres"))
 # (config, extra arguments, sweep mode)
@@ -290,28 +326,39 @@ def column_tensors(torch, columns):
             "nominated": torch.from_numpy(np.ascontiguousarray(nom, dtype=np.int32)).to(dev)}
 
 
-# the instantiations plain_step<kInterpod, kDevRes, kCols, kFrozen> the run
-# launches (<1,1>: the device-resource cluster with the inter-pod
-# constraints, a parity input of phase 3; "+columns": a launch with the
-# preemption columns, the column parity inputs and northstar-preempt's
-# rescans; "+frozen": the wave form, the pools path and the wave parity
-# inputs)
-LAUNCHED = tuple(f"<{i},{d}>{c}" for c in ("", "+columns", "+frozen")
+# the instantiations plain_step<kInterpod, kDevRes, kCols, kFrozen,
+# kExplain> the run launches (<1,1>: the device-resource cluster with the
+# inter-pod constraints, a parity input of phase 3; "+columns": a launch
+# with the preemption columns, the column parity inputs and
+# northstar-preempt's rescans; "+frozen": the wave form, the pools path and
+# the wave parity inputs; "+explain": the explain library's twin of each,
+# under explain_topk or tie_break_seed)
+# ptxas's registers of the twelve builds without kExplain as PR 7 built
+# them (PERF.md §6): the explain builds live in their own library, so these
+# must not move
+PR7_REGISTERS = {"<0,0>": 114, "<1,0>": 112, "<0,1>": 163, "<1,1>": 151,
+                 "<0,0>+columns": 128, "<1,0>+columns": 108, "<0,1>+columns": 159,
+                 "<1,1>+columns": 149, "<0,0>+frozen": 115, "<1,0>+frozen": 100,
+                 "<0,1>+frozen": 156, "<1,1>+frozen": 158}
+LAUNCHED = tuple(f"<{i},{d}>{c}{x}" for x in ("", "+explain")
+                 for c in ("", "+columns", "+frozen")
                  for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
 
 
 def instantiations(build_log):
-    """{"<I,D>", "<I,D>+columns" or "<I,D>+frozen": {registers,
-    stack_bytes, spill_store_bytes, spill_load_bytes}} of each plain_step
-    instantiation, from ptxas's -v report in the build log."""
+    """{"<I,D>", "<I,D>+columns" or "<I,D>+frozen", each with "+explain"
+    in the explain library: {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes}} of each plain_step instantiation, from ptxas's -v
+    report in the build log."""
     import re
 
     out, name = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])E", line)
+        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", line)
         if m:
             name = (f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
-                    + ("+frozen" if m.group(4) == "1" else ""))
+                    + ("+frozen" if m.group(4) == "1" else "")
+                    + ("+explain" if m.group(5) == "1" else ""))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1004,6 +1051,14 @@ def preempt_path(torch, sched, step, core, preemption, label):
                          **column_tensors(torch, cols))
     _, _, err_last, _ = parity(torch, sched, step, f"{label}-last-{PARITY_PREFIX}", snap.arrays,
                                pcfg, snap.arrays.active, start=(q_last, st_mid), columns=cols)
+    # the column build under explain (+columns+explain) on the same rescan
+    xcfg = pcfg._replace(explain_topk=EXPLAIN_K)
+    if step.instantiation(xcfg, tmpl, columns=True) != "<0,0>+columns+explain":
+        raise SystemExit(f"main path {label}: the explain rescan runs another instantiation")
+    _, _, err_x, _ = parity(torch, sched, step, f"{label}-explain-first-{PARITY_PREFIX}",
+                            snap.arrays, xcfg, snap.arrays.active, n_pods=PARITY_PREFIX,
+                            columns=cols)
+    err_last = max(err_last, err_x)
     # the rescan's work: the normalizers and fail counts still see every
     # feasible node (the uncut mask: the active nodes no filter charged),
     # victims need none; plus the columns, one [P] read each and one
@@ -1174,28 +1229,40 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
         pinned = dataclasses.replace(snap.arrays, forced_node=forced)
     arrs_f = sched.device_arrays(pinned, dev)
     fcfg = scfg._replace(forced_prefix=n_fold)
+    from open_simulator_tpu_torch.kernels import wave
+
     fresh = sched.init_state(arrs_f, fcfg)
     folded = []
+    merges0 = wave.LAUNCHES["wave_merge"]
     fold_ms = min(cuda_ms(torch, lambda: folded.append(
         sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold))) for _ in range(3))
+    fold_launches = (wave.LAUNCHES["wave_merge"] - merges0) // 3
+    plain_fold = []
+    fold_plain_ms = min(cuda_ms(torch, lambda: plain_fold.append(
+        plain_prefix_fold(sched, wave, arrs_f, fcfg, fresh, n_fold))) for _ in range(2))
     log_mm = MatmulLog(torch)
     with log_mm:
-        sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold)
+        plain_prefix_fold(sched, wave, arrs_f, fcfg, fresh, n_fold)
     mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
     one = sched.lane_carry(fresh, 1)
     step.plain_step_cuda(arrs, masks[-1:], sched.hoist_of(arrs, masks[-1:]), inv, one,
                          scfg._replace(forced_prefix=0), 0, n_fold, template=fresh)
     if not all(torch.equal(getattr(folded[-1], f), getattr(one, f)[0])
+               and torch.equal(getattr(plain_fold[-1], f), getattr(one, f)[0])
                for f in sched.STATE_FIELDS):
-        raise SystemExit(f"capacity {label}: the fold of {n_fold} pods and the kernel's "
-                         "carry after them differ")
+        raise SystemExit(f"capacity {label}: the fold of {n_fold} pods (kernel or plain) and "
+                         "the kernel's carry after them differ")
+    if fold_launches != -(-n_fold // FOLD_PODS):
+        raise SystemExit(f"capacity {label}: the fold launched wave_merge {fold_launches} "
+                         "times, not once a chunk")
     fold_b = bound_of(fold_work(pinned, fcfg, n_fold))
-    del folded, log_mm
+    del folded, plain_fold, log_mm
     log(f"capacity {label}: hoist_active_stats over {CAPACITY_LANES} lanes {hoist_ms:.3f} ms, "
         f"bound {hoist_b[2]:.4f} ms ({hoist_b[3]}: bytes={hoist_b[0]} ops={hoist_b[1]}); "
-        f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms, its torch.matmul calls "
+        f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms ({fold_launches} wave_merge "
+        f"launch(es)), the plain merge's fold {fold_plain_ms:.3f} ms, its torch.matmul calls "
         f"alone {mm_ms:.3f} ms, bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
-        f"ops={fold_b[1]}); the fold equals the kernel's carry after those pods")
+        f"ops={fold_b[1]}); the folds equal the kernel's carry after those pods")
 
     # the bound: this run's filter and feasible counts, from a reasons-on
     # launch (its placements are the sweep's)
@@ -1252,7 +1319,8 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
                    "geometry": geometry_fields(plan_b)},
         "hoist": {"lanes": CAPACITY_LANES, "ms": hoist_ms, "bound_ms": hoist_b[2],
                   "bound_by": hoist_b[3]},
-        "prefix_fold": {"pods": n_fold, "ms": fold_ms, "library_ms": mm_ms,
+        "prefix_fold": {"pods": n_fold, "ms": fold_ms, "launches": fold_launches,
+                        "plain_ms": fold_plain_ms, "library_ms": mm_ms,
                         "bound_ms": fold_b[2], "bound_by": fold_b[3]},
     }
 
@@ -1332,7 +1400,7 @@ def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np,
     tmpl = template_of(sched, arrs, cfg)
     st = sched.lane_carry(tmpl, n_lanes)
     step.copy_template(st, tmpl)
-    inst = step.instantiation(cfg, st) + "+frozen"
+    inst = step.instantiation(cfg, st, frozen=True)
     ends = [0, n_lanes - 1]
     sub_hoist = type(hoist)(*(x[ends] for x in hoist))
     inputs, merge_inputs = {}, {}
@@ -1782,6 +1850,395 @@ def bound_of(work):
     return (nbytes, flops) + ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
+def plain_prefix_fold(sched, wave, arrs, cfg, state, k):
+    """The plain version of ``apply_forced_prefix`` on the card: the same
+    chunks through the plain merge (fp32 ``torch.matmul``) over a one-lane
+    view of a copy of `state`."""
+    state = clone_state(sched, state)
+    lane = sched.SimState(**{f: getattr(state, f)[None] for f in sched.STATE_FIELDS})
+    for lo in range(0, k, FOLD_PODS):
+        hi = min(lo + FOLD_PODS, k)
+        wave.wave_merge_torch(arrs, cfg, lane, lo, hi, arrs.forced_node[lo:hi].int())
+    return state
+
+
+def topk_work(n_pods, n_nodes, k, c):
+    """(bytes, operations) of the explain top-k over `n_pods` pods' masked
+    final scores [P, N]: each score read once and each candidate's node,
+    score and C weighted rows written once; per pod K rounds of one key
+    (two operations) and one compare per node (the kernel's K cluster
+    rounds over N keys)."""
+    return n_pods * (n_nodes * 4 + k * (8 + 4 * c)), n_pods * k * n_nodes * 3
+
+
+def jitter_work(n_elems, n_pods):
+    """(bytes, operations) of the tie-break jitter over `n_elems` (pod,
+    feasible node) pairs of `n_pods` pods: the jittered score written once
+    per pair; per pair threefry2x32's 20 rounds of add, rotate and xor
+    (60) and its 5 key injections (15), the float (4), the round and the
+    add (2); per pod one more threefry2x32 (fold_in, 75)."""
+    return n_elems * 4, n_elems * 81 + n_pods * 75
+
+
+def record_masked_scores(torch, sched):
+    """While active, the plain step's masked final score of every pod it
+    ranks under explain_topk (the input of ``engine.scheduler.rank_desc``),
+    in order, on the card."""
+    class _Rec:
+        def __enter__(self):
+            self.rows, self._orig = [], sched.rank_desc
+
+            def rank_desc(v):
+                self.rows.append(v.clone())
+                return self._orig(v)
+            sched.rank_desc = rank_desc
+            return self
+
+        def __exit__(self, *exc):
+            sched.rank_desc = self._orig
+    return _Rec()
+
+
+def explain_path(torch, sched, step, simulate, cluster_of, explain_mod, label):
+    """northstar-rich-explain: ``simulate(config_overrides={"explain_topk":
+    3})`` on the rich north-star cluster at full size, one lane, with the
+    launch counts reset (one launch of the explain build); host checks of
+    the top-k tensors (the first candidate is the placed node for every pod
+    the step placed, the parts sum to the score in f32, fillers zeroed);
+    ``explain_result`` timed over the result; the launch timed against the
+    same path with explain_topk = 0 (off, on, on, off); the kernel against
+    the plain step over the first 2,048 pods (all three top-k tensors),
+    and the top-k of those pods' masked scores through the plain ranking
+    and through ``torch.topk``."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cluster = cluster_of("rich")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, [], device="cuda", config_overrides={"explain_topk": EXPLAIN_K})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    snap = result.snapshot
+    n_pods, n_nodes = snap.n_pods, snap.n_nodes
+    cfg = sched.make_config(snap, explain_topk=EXPLAIN_K)
+    names = sched.score_part_names(cfg)
+    log(f"main path {label}: simulate() {n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"scheduled={len(result.scheduled_pods)} launches={launches} score parts {names}")
+    if (launches["plain_step_explain"], launches["plain_step"]) != (1, 0):
+        raise SystemExit(f"main path {label}: launches {launches}, not one explain launch")
+    tn, ts, tparts = result.topk_node, result.topk_score, result.topk_parts
+    if (tn.shape != (n_pods, EXPLAIN_K) or tparts.shape != (n_pods, len(names), EXPLAIN_K)
+            or result.score_part_names != list(names)):
+        raise SystemExit(f"main path {label}: top-k shapes {tn.shape} {tparts.shape}")
+    node = np.full(n_pods, -1)
+    index = {p.key: i for i, p in enumerate(snap.pods)}
+    name_at = {nm: j for j, nm in enumerate(snap.node_names)}
+    for sp in result.scheduled_pods:
+        node[index[sp.pod.key]] = name_at[sp.node_name]
+    stepped = (snap.arrays.forced_node == -1) & (node >= 0)
+    feas = ts > -1e37
+    total = tparts[:, 0, :].copy()
+    for c in range(1, len(names)):
+        total = (total + tparts[:, c, :]).astype(np.float32)
+    checks = {
+        "finite": bool(np.isfinite(ts).all() and np.isfinite(tparts).all()),
+        "first candidate is the placed node": bool((tn[stepped, 0] == node[stepped]).all()),
+        "scores descend": bool((np.diff(ts, axis=1) <= 0).all()),
+        "parts sum to the score": bool((total[feas] == ts[feas]).all()),
+        "fillers zeroed": bool((tparts[np.broadcast_to(~feas[:, None, :], tparts.shape)]
+                                == 0).all()),
+        "prefix constant": bool((tn[:cfg.forced_prefix] == -1).all()),
+    }
+    t0 = time.perf_counter()
+    report = explain_mod.explain_result(result)
+    explain_s = time.perf_counter() - t0
+    with_cand = sum(1 for e in report["pods"] if e.get("candidates"))
+    log(f"main path {label}: checks {checks}; explain_result over {len(report['pods'])} pods "
+        f"{explain_s:.3f}s ({with_cand} with candidates)")
+    if not all(checks.values()) or report["summary"]["scheduled"] != len(result.scheduled_pods):
+        raise SystemExit(f"main path {label}: a top-k check failed")
+
+    # the launch with and without the top-k, alternating
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    cfg0 = cfg._replace(explain_topk=0)
+    tmpl = template_of(sched, arrs, cfg)
+    st = sched.lane_carry(tmpl, 1)
+    p0 = cfg.forced_prefix
+    runs = {"off": [], "on": []}
+    got = {}
+    for mode in ("off", "on", "on", "off"):
+        c = cfg0 if mode == "off" else cfg
+        runs[mode].append(cuda_ms(torch, lambda: got.__setitem__(mode, step.plain_step_cuda(
+            arrs, active, hoist, inv, st, c, p0, n_pods, template=tmpl))))
+    ms_on, ms_off = min(runs["on"]), min(runs["off"])
+    if not (np.array_equal(got["on"].node[0].cpu().numpy(), node[p0:])
+            and torch.equal(got["on"].node, got["off"].node)
+            and np.array_equal(got["on"].topk_node[0].cpu().numpy(), tn[p0:])):
+        raise SystemExit(f"main path {label}: the timed launches and simulate() differ")
+    log(f"main path {label}: kernel with the top-k {ms_on:.3f} ms, without {ms_off:.3f} ms "
+        f"(min of 2 each: on {[round(t, 3) for t in runs['on']]}, off "
+        f"{[round(t, 3) for t in runs['off']]}): the top-k costs {ms_on - ms_off:.3f} ms, "
+        f"{(ms_on - ms_off) * 1e3 / (n_pods - p0):.3f} us a pod; {geometry(step.LAST_PLAN)}")
+
+    # kernel vs plain over the first pods, the masked scores recorded
+    with record_masked_scores(torch, sched) as rec:
+        plain_s, kern_s, err, out_f = parity(torch, sched, step, f"{label}-first-{PARITY_PREFIX}",
+                                             snap.arrays, cfg, snap.arrays.active,
+                                             n_pods=PARITY_PREFIX)
+    q1 = p0 + out_f.node.shape[1]
+    scores = torch.stack(rec.rows[-(q1 - p0):])  # the plain step's, pod by pod
+    del rec
+    k_top = min(EXPLAIN_K, n_nodes)
+    lib, plain_rank = [], []
+    lib_ms = min(cuda_ms(torch, lambda: lib.append(torch.topk(scores, k_top, dim=1)))
+                 for _ in range(3))
+    rank_ms = min(cuda_ms(torch, lambda: plain_rank.append(
+        sched.rank_desc(scores)[:, :k_top])) for _ in range(3))
+    if not torch.equal(plain_rank[-1].int(), out_f.topk_node[0]):
+        raise SystemExit(f"main path {label}: the plain ranking of the recorded scores is not "
+                         "the kernel's top-k")
+    if not torch.equal(lib[-1].values, out_f.topk_score[0]):
+        raise SystemExit(f"main path {label}: torch.topk's scores are not the kernel's")
+    prefix_ms = min(cuda_ms(torch, lambda: step.plain_step_cuda(
+        arrs, active, hoist, inv, st, cfg, p0, q1, template=tmpl)) for _ in range(2))
+    prefix_off = min(cuda_ms(torch, lambda: step.plain_step_cuda(
+        arrs, active, hoist, inv, st, cfg0, p0, q1, template=tmpl)) for _ in range(2))
+    tk = bound_of(topk_work(q1 - p0, n_nodes, k_top, len(names)))
+    step_b = bound_of(step_work(sched, snap.arrays, cfg, p0, q1, lane0(out_f)))
+    same = bound_of((step_b[0] + tk[0], step_b[1] + tk[1]))
+    whole = bound_of(topk_work(n_pods - p0, n_nodes, k_top, len(names)))
+    log(f"main path {label}: the first {q1 - p0} pods: kernel {prefix_ms:.3f} ms (without the "
+        f"top-k {prefix_off:.3f} ms), plain step {plain_s * 1e3:.1f} ms; the top-k of their "
+        f"masked scores [{q1 - p0}, {n_nodes}]: plain ranking {rank_ms:.3f} ms, torch.topk "
+        f"{lib_ms:.3f} ms, bound {tk[2]:.5f} ms ({tk[3]}: bytes={tk[0]} ops={tk[1]}); the "
+        f"whole run's top-k bound {whole[2]:.5f} ms ({whole[3]}); "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "launches": launches["plain_step_explain"], "pods": n_pods - p0, "ms": ms_on,
+        "ms_off": ms_off, "ms_runs": runs, "simulate_s": wall, "explain_result_s": explain_s,
+        "max_abs_err": err, "checks": checks, "score_parts": list(names),
+        "topk": {"k": k_top, "ms": ms_on - ms_off, "bound_ms": whole[2], "bound_by": whole[3],
+                 "same_pods": {"pods": q1 - p0, "ms": prefix_ms - prefix_off,
+                               "plain_ms": rank_ms, "library_ms": lib_ms,
+                               "bound_ms": tk[2], "bound_by": tk[3]}},
+        "same_pods": {"pods": q1 - p0, "ms": prefix_ms, "plain_ms": plain_s * 1e3,
+                      "bound_ms": same[2], "bound_by": same[3]},
+    }
+
+
+def tiebreak_path(torch, sched, step, simulate, cluster_of, threefry, label):
+    """northstar-tiebreak: ``simulate(config_overrides={"tie_break_seed":
+    7})`` on the north-star cluster at full size (identical nodes: ties
+    everywhere), one lane, launch counts reset (one launch of the explain
+    build); the launch timed against seed 0 (0, 7, 7, 0): the seeded run
+    places pods differently; the kernel against the plain step over the
+    first 2,048 pods; the plain jitter (``ops/threefry.py``) timed over
+    those pods."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cluster = cluster_of("plain")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, [], device="cuda", config_overrides={"tie_break_seed": TIE_SEED})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    snap = result.snapshot
+    n_pods, n_nodes = snap.n_pods, snap.n_nodes
+    log(f"main path {label}: simulate() {n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"scheduled={len(result.scheduled_pods)} launches={launches}")
+    if (launches["plain_step_explain"], launches["plain_step"]) != (1, 0):
+        raise SystemExit(f"main path {label}: launches {launches}, not one explain launch")
+    if len(result.scheduled_pods) + len(result.unscheduled_pods) != n_pods:
+        raise SystemExit(f"main path {label}: simulate() lost pods")
+    cfg = sched.make_config(snap, tie_break_seed=TIE_SEED)
+    cfg0 = cfg._replace(tie_break_seed=0)
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, cfg)
+    st = sched.lane_carry(tmpl, 1)
+    p0 = cfg.forced_prefix
+    runs = {0: [], TIE_SEED: []}
+    got = {}
+    for seed in (0, TIE_SEED, TIE_SEED, 0):
+        c = cfg0 if seed == 0 else cfg
+        runs[seed].append(cuda_ms(torch, lambda: got.__setitem__(seed, step.plain_step_cuda(
+            arrs, active, hoist, inv, st, c, p0, n_pods, template=tmpl))))
+    placed = result.placements()
+    n7 = got[TIE_SEED].node[0].cpu().numpy()
+    n0 = got[0].node[0].cpu().numpy()
+    kern = {snap.pods[p0 + i].key: snap.node_names[int(x)] for i, x in enumerate(n7) if x >= 0}
+    kern.update({snap.pods[i].key: snap.node_names[int(snap.arrays.forced_node[i])]
+                 for i in range(p0)})
+    differ = int((n7 != n0).sum())
+    ms7, ms0 = min(runs[TIE_SEED]), min(runs[0])
+    log(f"main path {label}: kernel with seed {TIE_SEED} {ms7:.3f} ms, seed 0 {ms0:.3f} ms "
+        f"(min of 2 each): the jitter costs {ms7 - ms0:.3f} ms, "
+        f"{(ms7 - ms0) * 1e3 / (n_pods - p0):.3f} us a pod; placements that differ from seed "
+        f"0: {differ} of {n_pods - p0}; both place {int((n7 >= 0).sum())} / "
+        f"{int((n0 >= 0).sum())} pods")
+    if kern != placed:
+        raise SystemExit(f"main path {label}: the timed kernel run and simulate() differ")
+    if not differ or (n7 >= 0).sum() != (n0 >= 0).sum():
+        raise SystemExit(f"main path {label}: the seed moved no placement (or lost pods)")
+    plain_s, kern_s, err, out_f = parity(torch, sched, step, f"{label}-first-{PARITY_PREFIX}",
+                                         snap.arrays, cfg, snap.arrays.active,
+                                         n_pods=PARITY_PREFIX)
+    q1 = p0 + out_f.node.shape[1]
+    jit = []
+    jit_ms = cuda_ms(torch, lambda: jit.extend(
+        threefry.tie_break_jitter(TIE_SEED, p, n_nodes, dev) for p in range(p0, q1)))
+    if not all(bool(((j >= 0) & (j < 0.5)).all()) for j in jit):
+        raise SystemExit(f"main path {label}: a jitter left [0, 0.5)")
+    prefix_ms = min(cuda_ms(torch, lambda: step.plain_step_cuda(
+        arrs, active, hoist, inv, st, cfg, p0, q1, template=tmpl)) for _ in range(2))
+    prefix_0 = min(cuda_ms(torch, lambda: step.plain_step_cuda(
+        arrs, active, hoist, inv, st, cfg0, p0, q1, template=tmpl)) for _ in range(2))
+    n_el = int(out_f.feasible.sum())
+    jb = bound_of(jitter_work(n_el, q1 - p0))
+    n_all = int(got[TIE_SEED].feasible.sum())
+    whole = bound_of(jitter_work(n_all, n_pods - p0))
+    log(f"main path {label}: the first {q1 - p0} pods: kernel {prefix_ms:.3f} ms (seed 0 "
+        f"{prefix_0:.3f} ms), plain step {plain_s * 1e3:.1f} ms; the plain jitter of those pods "
+        f"({n_nodes} nodes each) {jit_ms:.3f} ms; bound of their jitter ({n_el} feasible "
+        f"pairs) {jb[2]:.5f} ms ({jb[3]}); the whole run's ({n_all} pairs) {whole[2]:.5f} ms "
+        f"({whole[3]}); phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "launches": launches["plain_step_explain"], "pods": n_pods - p0, "ms": ms7,
+        "ms_seed0": ms0, "ms_runs": {str(k): v for k, v in runs.items()}, "simulate_s": wall,
+        "differ_from_seed0": differ, "max_abs_err": err,
+        "jitter": {"ms": ms7 - ms0, "bound_ms": whole[2], "bound_by": whole[3],
+                   "pairs": n_all,
+                   "same_pods": {"pods": q1 - p0, "ms": prefix_ms - prefix_0,
+                                 "plain_ms": jit_ms, "library_ms": None,
+                                 "bound_ms": jb[2], "bound_by": jb[3]}},
+        "same_pods": {"pods": q1 - p0, "ms": prefix_ms, "plain_ms": plain_s * 1e3},
+    }
+
+
+def pools_explain_path(torch, sched, step, wave, waves_mod, buckets, simulate, cluster_cls,
+                       label):
+    """pools-explain: the pools preset with explain_topk = 3 through
+    ``simulate()`` (one lane, one GRID of 320 waves: the frozen explain
+    builds), launch counts reset; the first 16 waves against the plain
+    versions (the frozen step's outputs, top-k included, and the merges);
+    the whole run's top-k tensors against one scan launch of the explain
+    build over the same pods."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.testing.synthetic import synthetic_objects
+
+    t_phase = time.perf_counter()
+    nodes, pods, _ = synthetic_objects(POOLS["nodes"], POOLS["pods"], pools=POOLS["pools"])
+    cluster = cluster_cls(nodes=nodes, pods=pods)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, [], device="cuda", config_overrides={"explain_topk": EXPLAIN_K})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    snap = result.snapshot
+    n_pods = snap.n_pods
+    cfg = sched.make_config(snap, explain_topk=EXPLAIN_K)
+    plan = waves_mod.waves_for(snap.arrays, cfg, n_pods_total=buckets.bucket_pods(n_pods))
+    log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"scheduled={len(result.scheduled_pods)} launches={launches} plan {plan.stats()}")
+    if (launches["plain_step_frozen_explain"], launches["wave_merge"],
+            launches["plain_step_explain"], launches["plain_step"]) != (
+            plan.n_waves, plan.n_waves, 0, 0) or plan.segments != (
+            (0, n_pods, waves_mod.GRID, POOLS["pools"]),):
+        raise SystemExit(f"main path {label}: launches {launches}, not one frozen explain "
+                         f"launch and one merge for each of the {plan.n_waves} waves")
+    par = wave_parity(torch, sched, step, wave, waves_mod, f"{label}-first-{WAVE_SAME}-waves",
+                      snap, cfg, np.asarray(snap.arrays.active)[None], WAVE_SAME)
+    if par["instantiation"] != "<0,0>+frozen+explain":
+        raise SystemExit(f"main path {label}: ran {par['instantiation']}")
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, cfg)
+    st = sched.lane_carry(tmpl, 1)
+    got = []
+    scan_ms = cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
+        arrs, active, hoist, inv, st, cfg, 0, n_pods, template=tmpl)))
+    scan = got[0]
+    same = {k: np.array_equal(getattr(scan, k)[0].cpu().numpy(), getattr(result, k))
+            for k in ("topk_node", "topk_score", "topk_parts")}
+    placed = {snap.pods[i].key: snap.node_names[int(x)]
+              for i, x in enumerate(scan.node[0].cpu().numpy()) if x >= 0}
+    same["placements"] = placed == result.placements()
+    if not all(same.values()):
+        raise SystemExit(f"main path {label}: the wave run's top-k tensors are not the scan's")
+    # the first WAVE_SAME waves' frozen launches alone, warm, each after a
+    # spin (the device's time), with and without the top-k
+    w = POOLS["pools"]
+    dev_ms = {}
+    for mode, c in (("off", cfg._replace(explain_topk=0)), ("on", cfg)):
+        inputs = {}
+        st_w = sched.lane_carry(tmpl, 1)
+        step.copy_template(st_w, tmpl)
+        step.plain_step_cuda(arrs, active, hoist, inv, st_w, c, 0, w, frozen=True, inputs=inputs)
+        dev_ms[mode] = [cuda_ms(torch, lambda: step.plain_step_cuda(
+            arrs, active, hoist, inv, st_w, c, w0, w0 + w, frozen=True, inputs=inputs),
+            prime_ms=2) for w0 in range(0, WAVE_SAME * w, w)]
+    on_ms, off_ms = sum(dev_ms["on"]), sum(dev_ms["off"])
+    log(f"main path {label}: the scan's explain launch over the same pods {scan_ms:.3f} ms; the "
+        f"wave run's outputs equal the scan's: {same}; the first {WAVE_SAME} waves' frozen "
+        f"launches, the device alone: with the top-k {on_ms:.3f} ms "
+        f"({on_ms / WAVE_SAME * 1e3:.2f} us each), without {off_ms:.3f} ms "
+        f"({off_ms / WAVE_SAME * 1e3:.2f} us each), {geometry(step.LAST_PLAN)}; "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    fb = bound_of(frozen_work(sched, snap.arrays, cfg, 0, par["pods"],
+                              [tuple(x[:par["pods"]] for x in lane0(scan))]))
+    tk = bound_of(topk_work(par["pods"], snap.n_nodes, EXPLAIN_K,
+                            len(sched.score_part_names(cfg))))
+    bound = bound_of((fb[0] + tk[0], fb[1] + tk[1]))
+    return {"launches": launches, "simulate_s": wall, "scan_ms": scan_ms, "parity": par,
+            "max_abs_err": par["max_abs_err"], "frozen_ms_without_topk": off_ms,
+            "same_pods": {"pods": par["pods"], "ms": on_ms,
+                          "plain_ms": par["frozen_plain_ms"], "bound_ms": bound[2],
+                          "bound_by": bound[3]}}
+
+
+def cli_explain(torch, cli_main):
+    """``explain -f examples/config.yaml --json`` through the CLI on the card
+    and on the CPU: the same JSON report and exit code."""
+    import contextlib
+    import io
+
+    path = os.path.join(HERE, "examples", "config.yaml")
+    runs = []
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["explain", "-f", path, "--json", "--device", device])
+        torch.cuda.synchronize()
+        runs.append((rc, buf.getvalue(), time.perf_counter() - t0))
+    (rc_k, out_k, s_k), (rc_c, out_c, s_c) = runs
+    report = json.loads(out_k) if rc_k == 0 else {}
+    log(f"cli explain config.yaml --json: rc={rc_k}/{rc_c} card {s_k:.2f}s cpu {s_c:.2f}s: "
+        f"{report.get('summary')} score parts {report.get('score_parts')}")
+    if rc_k != 0 or (rc_k, out_k) != (rc_c, out_c) or not report.get("pods"):
+        raise SystemExit("cli explain: the card and the CPU printed different reports")
+    return {"card_s": s_k, "cpu_s": s_c, "pods": len(report["pods"])}
+
+
 def main() -> int:
     try:
         import torch
@@ -1806,7 +2263,9 @@ def main() -> int:
         from open_simulator_tpu_torch.engine import buckets
         from open_simulator_tpu_torch.engine import waves as waves_mod
         from open_simulator_tpu_torch.kernels import build, step, wave
+        from open_simulator_tpu_torch.ops import threefry
         from open_simulator_tpu_torch.parallel import sweep
+        from open_simulator_tpu_torch.telemetry import explain as explain_mod
         from open_simulator_tpu_torch.testing.synthetic import (
             device_resource_cluster, device_resource_snapshot, preemption_columns,
             soft_spread_cluster, synthetic_objects, synthetic_snapshot, wave_pools_snapshot)
@@ -1829,8 +2288,12 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
                 log(f"build {name}: {line.strip()}")
-    insts = instantiations(build.BUILD_LOG.get("plain_step", ""))
+    insts = {**instantiations(build.BUILD_LOG.get("plain_step", "")),
+             **instantiations(build.BUILD_LOG.get("plain_step_explain", ""))}
     log(f"build plain_step instantiations: {insts}")
+    kept = {k: insts.get(k, {}).get("registers") == r for k, r in PR7_REGISTERS.items()}
+    log(f"build: the twelve builds without kExplain at PR 7's registers: {all(kept.values())} "
+        f"{kept}")
     spilled = [k for k in LAUNCHED if k not in insts or insts[k]["spill_store_bytes"]]
     if spilled:
         raise SystemExit(f"build: plain_step {spilled} spill registers (or were not reported)")
@@ -1860,7 +2323,7 @@ def main() -> int:
     lanes = np.stack([np.ones(n_b, bool), np.arange(n_b) % 4 != 1,
                       np.arange(n_b) >= n_b // 2, rng.rand(n_b) < 0.8])
     errs.append(parity(torch, sched, step, "inline-512x4096-4-lanes",
-                       snap_b.arrays, cfg_b, lanes)[2])
+                       snap_b.arrays, cfg_b, lanes, n_pods=EARLIER_DEPTH)[2])
 
     snap_r = synthetic_snapshot(1024, 10240, rich=True, bound=0.1)
     cfg_r = sched.make_config(snap_r)
@@ -1868,12 +2331,12 @@ def main() -> int:
             and cfg_r.enable_spread_hard and cfg_r.slot_paint and cfg_r.compact_carry):
         raise SystemExit("parity input rich is not the inter-pod path it should be")
     errs.append(parity(torch, sched, step, "rich-1024x10240-bound0.1",
-                       snap_r.arrays, cfg_r, snap_r.arrays.active)[2])
+                       snap_r.arrays, cfg_r, snap_r.arrays.active, n_pods=2 * EARLIER_DEPTH)[2])
 
     snap_d = synthetic_snapshot(512, 4096, rich=True)
     cfg_d = sched.make_config(snap_d, slot_paint=False)
     errs.append(parity(torch, sched, step, "rich-512x4096-dense",
-                       snap_d.arrays, cfg_d, snap_d.arrays.active)[2])
+                       snap_d.arrays, cfg_d, snap_d.arrays.active, n_pods=2 * EARLIER_DEPTH)[2])
 
     snap_l = synthetic_snapshot(512, 1024, rich=True)
     cfg_l = sched.make_config(snap_l)
@@ -1897,7 +2360,7 @@ def main() -> int:
     lanes_g = np.stack([np.arange(n_g) < r_g, np.ones(n_g, bool), np.arange(n_g) < r_g + 3,
                         np.concatenate([rng.rand(r_g) < 0.8, np.ones(n_g - r_g, bool)])])
     errs.append(parity(torch, sched, step, "devres-1024x10240-4-lanes", snap_g.arrays, cfg_g,
-                       lanes_g, n_pods=PARITY_PREFIX)[2])
+                       lanes_g, n_pods=EARLIER_DEPTH // 2)[2])
 
     # plain_step<1,1>: the device-resource cluster with the inter-pod
     # constraints (every gate of both slices)
@@ -1909,8 +2372,26 @@ def main() -> int:
             and cfg_x.enable_pod_affinity and cfg_x.enable_anti_affinity):
         raise SystemExit("parity input devres-rich does not run plain_step<1,1>")
     del arrs_x
-    errs.append(parity(torch, sched, step, "devres-rich-1024x2048-<1,1>", snap_x.arrays, cfg_x,
-                       snap_x.arrays.active)[2])
+    _, t_x, err_x, out_x = parity(torch, sched, step, "devres-rich-1024x2048-<1,1>",
+                                  snap_x.arrays, cfg_x, snap_x.arrays.active)
+    errs.append(err_x)
+    bound_x = bound_of(step_work(sched, snap_x.arrays, cfg_x, cfg_x.forced_prefix,
+                                 snap_x.n_pods, lane0(out_x)))
+    log(f"parity devres-rich-1024x2048-<1,1>: bound bytes={bound_x[0]} ops={bound_x[1]} -> "
+        f"{bound_x[2]:.5f} ms, {bound_x[3]} (kernel {t_x * 1e3:.3f} ms, host clock)")
+
+    # the explain builds of the device-resource instantiations: the top-k
+    # and the jitter on the device-resource clusters, without and with the
+    # inter-pod constraints (the first 1,024 pods)
+    for inst, snap_v in (("<0,1>+explain", device_resource_snapshot(1024, 2048)),
+                         ("<1,1>+explain", snap_x)):
+        cfg_v = sched.make_config(snap_v, explain_topk=EXPLAIN_K, tie_break_seed=TIE_SEED)
+        arrs_v = sched.device_arrays(snap_v.arrays, torch.device("cuda"))
+        if step.instantiation(cfg_v, sched.init_state(arrs_v, cfg_v)) != inst:
+            raise SystemExit(f"explain parity input {inst} runs another instantiation")
+        del arrs_v
+        errs.append(parity(torch, sched, step, f"explain-devres-1024x2048-{inst}", snap_v.arrays,
+                           cfg_v, snap_v.arrays.active, n_pods=1024)[2])
 
     # the preemption columns in each instantiation: random victims and
     # nominations (feasible and inactive nodes, forced pods, victims, -1,
@@ -1936,6 +2417,10 @@ def main() -> int:
         held = (node_c == nom_c) & (nom_c >= 0) & (snap_c.arrays.forced_node[:len(node_c)] == -1)
         if not ((node_c[dis_c] == -3).all() and (node_c[~dis_c] != -3).all() and held.any()):
             raise SystemExit(f"column parity input {inst}: victims or nominations not applied")
+        # the same columns through the column build's explain twin
+        cfg_cx = cfg_c._replace(explain_topk=EXPLAIN_K, tie_break_seed=seed + 1)
+        errs.append(parity(torch, sched, step, f"columns-{inst}+explain-512x1024", snap_c.arrays,
+                           cfg_cx, active_c, columns=cols)[2])
 
     # the edges of the launch geometry: fewer nodes than blocks in a
     # cluster (empty slices), slices that leave a ragged last block, and an
@@ -1970,11 +2455,15 @@ def main() -> int:
         n_w = snap_w.n_nodes
         masks_w = np.stack([np.ones(n_w, bool)] + [rng.rand(n_w) < 0.9
                                                     for _ in range(CAPACITY_LANES - 1)])
-        got = wave_parity(torch, sched, step, wave, waves_mod, f"pools-512x4096-{inst}", snap_w,
-                          sched.make_config(snap_w), masks_w, WAVE_PARITY_WAVES)
-        if got["instantiation"] != inst + "+frozen":
-            raise SystemExit(f"wave parity {inst}: ran {got['instantiation']}")
-        wave_par[got["instantiation"]] = got
+        for over, name in (({}, inst + "+frozen"),
+                           ({"explain_topk": EXPLAIN_K, "tie_break_seed": TIE_SEED},
+                            inst + "+frozen+explain")):
+            got = wave_parity(torch, sched, step, wave, waves_mod, f"pools-512x4096-{name}",
+                              snap_w, sched.make_config(snap_w, **over), masks_w,
+                              WAVE_PARITY_WAVES)
+            if got["instantiation"] != name:
+                raise SystemExit(f"wave parity {name}: ran {got['instantiation']}")
+            wave_par[got["instantiation"]] = got
 
     # ---- 4. the main paths: simulate() at full size, through the kernel
     def cluster_of(kind):
@@ -1992,6 +2481,13 @@ def main() -> int:
     for label, kind in PATHS:
         paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, kind)
 
+    # ---- 4a. explain and the seeded tie-break at full size: the explain
+    # build inside simulate()
+    explain_p = explain_path(torch, sched, step, simulate, cluster_of, explain_mod,
+                             "northstar-rich-explain")
+    tie_p = tiebreak_path(torch, sched, step, simulate, cluster_of, threefry,
+                          "northstar-tiebreak")
+
     # ---- 4b. preemption: simulate() under the DefaultPreemption pass at
     # full size, then a Simulator session on the same objects
     pre_p = preempt_path(torch, sched, step, core, preemption, "northstar-preempt")
@@ -2005,6 +2501,9 @@ def main() -> int:
                          ClusterResources, "pools")
     par = pools_p.pop("parity_64")
     wave_par[par["instantiation"]] = par
+    pools_x = pools_explain_path(torch, sched, step, wave, waves_mod, buckets, simulate,
+                                 ClusterResources, "pools-explain")
+    wave_par[pools_x["parity"]["instantiation"]] = pools_x["parity"]
 
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
@@ -2015,6 +2514,7 @@ def main() -> int:
     cli_plans(torch, loader, cli_main)
     log(f"cli: {len(CLI_CONFIGS)} plans on the card and on the CPU agree "
         f"({time.perf_counter() - t0:.1f}s)")
+    cli_x = cli_explain(torch, cli_main)
 
     # ---- 6. results
     # ms, plain_ms and bound_ms cover the same pods: the rich path's first
@@ -2052,8 +2552,11 @@ def main() -> int:
     same_w = pools_p["same_pods"]
     frozen_insts = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
                     if k.endswith("+frozen")}
+    kernels[0]["instantiations"] = {k: v for k, v in kernels[0]["instantiations"].items()
+                                    if "+explain" not in k}
     for k, v in wave_par.items():
-        frozen_insts.setdefault(k, {})["parity"] = v
+        if "+explain" not in k:
+            frozen_insts.setdefault(k, {})["parity"] = v
     kernels += [{
         "name": "plain_step_frozen", "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
@@ -2081,6 +2584,55 @@ def main() -> int:
         "library_ms": None,
         "parity": "bit-exact on every carry field vs the plain merge (fp32 torch.matmul) after "
                   "each wave of the frozen parity inputs",
+    }]
+    # the explain builds: the step with the top-k candidates and the
+    # seeded jitter inside its pod loop (ms, plain_ms and bound_ms: the
+    # first PARITY_PREFIX pods of northstar-rich-explain; "topk" and
+    # "jitter": each mode's own cost, bound and plain version)
+    same_x = explain_p["same_pods"]
+    explain_insts = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
+                     if k.endswith("+explain") and "+frozen" not in k}
+    frozen_x = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
+                if k.endswith("+frozen+explain")}
+    for k, v in wave_par.items():
+        if k in frozen_x:
+            frozen_x[k]["parity"] = v
+    same_fx = pools_x["same_pods"]
+    kernels += [{
+        "name": "plain_step_explain", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:1248",
+        "jitter_replaces": "open_simulator_tpu/engine/scheduler.py:1238",
+        "launches": explain_p["launches"] + tie_p["launches"],
+        "instantiations": explain_insts,
+        "max_abs_err": max(explain_p["max_abs_err"], tie_p["max_abs_err"]),
+        "pods": same_x["pods"], "ms": same_x["ms"], "plain_ms": same_x["plain_ms"],
+        "bound_ms": same_x["bound_ms"], "bound_by": same_x["bound_by"], "library_ms": None,
+        "topk": explain_p["topk"], "jitter": tie_p["jitter"],
+        "paths": {"northstar-rich-explain": explain_p, "northstar-tiebreak": tie_p},
+        "cli_explain": cli_x,
+        "parity": "bit-exact (node, counts, picks, carry and the three top-k tensors) vs the "
+                  f"plain step over the first {PARITY_PREFIX} pods of northstar-rich-explain "
+                  "(<1,0>+explain) and northstar-tiebreak (<0,0>+explain), the first 1024 pods "
+                  "of devres 1024x2048 (<0,1>+explain) and devres-rich 1024x2048 "
+                  "(<1,1>+explain) with both modes, the column inputs with both modes "
+                  "(+columns+explain) and the first pods of northstar-preempt's final rescan "
+                  "with the top-k (<0,0>+columns+explain)",
+    }, {
+        "name": "plain_step_frozen_explain", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:581",
+        "launches": pools_x["launches"]["plain_step_frozen_explain"],
+        "instantiations": frozen_x,
+        "max_abs_err": max(v["max_abs_err"] for k, v in wave_par.items() if k in frozen_x),
+        "pods": same_fx["pods"], "ms": same_fx["ms"], "plain_ms": same_fx["plain_ms"],
+        "bound_ms": same_fx["bound_ms"], "bound_by": same_fx["bound_by"], "library_ms": None,
+        "paths": {"pools-explain": pools_x},
+        "parity": f"bit-exact vs the plain step's frozen form over the first {WAVE_SAME} waves "
+                  "of pools-explain (<0,0>+frozen+explain) and the first "
+                  f"{WAVE_PARITY_WAVES} waves of lanes 0 and 63 of 64-lane pools 512x4096 with "
+                  "inter-pod terms, GPU share and both, the top-k and the jitter on; the "
+                  "pools-explain wave run's top-k tensors equal the scan's",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

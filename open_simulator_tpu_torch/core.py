@@ -19,7 +19,12 @@ import numpy as np
 from open_simulator_tpu_torch.encode.snapshot import ClusterSnapshot, EncodeOptions, encode_cluster
 from open_simulator_tpu_torch.engine.buckets import bucket_pods
 from open_simulator_tpu_torch.engine.queue import sort_pods_greedy
-from open_simulator_tpu_torch.engine.scheduler import ScheduleOutput, make_config, schedule_pods
+from open_simulator_tpu_torch.engine.scheduler import (
+    ScheduleOutput,
+    make_config,
+    schedule_pods,
+    score_part_names,
+)
 from open_simulator_tpu_torch.engine.waves import waves_for
 from open_simulator_tpu_torch.k8s.loader import ClusterResources, make_valid_node
 from open_simulator_tpu_torch.k8s.objects import ANNO_GPU_INDEX, Node, Pod
@@ -366,11 +371,23 @@ def decode_output(snapshot: ClusterSnapshot, out: ScheduleOutput, active: np.nda
                   elapsed_s: float = 0.0,
                   preempted_by: Optional[Dict[int, int]] = None) -> SimulateResult:
     """``decode_result`` of a host ``schedule_fn`` output (the GPU and PV
-    picks where their gates are on)."""
+    picks where their gates are on, the top-k tensors under explain)."""
     return decode_result(snapshot, out.node.numpy(), out.fail_counts.numpy(), active, elapsed_s,
                          out.gpu_pick.numpy() if cfg.enable_gpu else None,
                          preempted_by=preempted_by,
-                         vol_pick=out.vol_pick.numpy() if cfg.enable_pv_match else None)
+                         vol_pick=out.vol_pick.numpy() if cfg.enable_pv_match else None,
+                         **explain_decode_kwargs(cfg, out))
+
+
+def explain_decode_kwargs(cfg, out) -> Dict:
+    """The explain surface's decode keywords (the top-k tensors and the
+    score rows' names; the reference's ``explain_decode_kwargs``), shared
+    by simulate() and the Simulator; {} when explain_topk is off."""
+    if not cfg.explain_topk:
+        return {}
+    return dict(topk_node=np.asarray(out.topk_node), topk_score=np.asarray(out.topk_score),
+                topk_parts=np.asarray(out.topk_parts),
+                score_part_names=list(score_part_names(cfg)))
 
 
 def _with_nodes(cluster: ClusterResources, nodes: List[Node]) -> ClusterResources:

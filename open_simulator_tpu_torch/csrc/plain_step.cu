@@ -117,6 +117,31 @@
 // only without the columns (a plan is dropped under them), so the eight
 // scan builds keep their code.
 //
+// Explain and the seeded tie-break (the fifth template flag, kExplain;
+// replaces the reference's explain top-k and tie-break jitter,
+// scheduler.py:1238-1266 with the part rows of :1083-1091). kExplain is
+// not a per-launch branch but a build: this file is compiled twice, and the
+// build with PLAIN_STEP_EXPLAIN=1 holds the twelve kExplain instantiations
+// in a library of its own, so the twelve builds without it keep their code,
+// and the two compile side by side. The jitter (StepArgs.jitter, the PRNG
+// key words key0/key1 of PRNGKey(seed)): thread 0 folds the pod's global
+// index into the key in phase 0 (fold_in: one threefry2x32 of (0, p)), and
+// in phase 2 each node's owner thread hashes (0, n) under the folded key,
+// builds the uniform in [0, 0.5) as jax.random.uniform does (the top 23
+// bits as the mantissa of [1, 2), minus 1, times 0.5) and adds it to the
+// score rounded half to even (rintf), before the pick. The top-k
+// (StepArgs.topk = K > 0): phase 2 keeps each node's masked final score in
+// shared memory (one more row beside the raw scores), and K cluster rounds
+// rank the nodes by a 64-bit key of the score's total order (+0 above -0,
+// as lax.top_k orders) and the lower index: the first round rides round
+// B's barrier, and round r takes the largest key below round r - 1's. After
+// each round the winner's owner thread writes its node, its masked score and
+// its weighted score rows (zero for a filler slot, a node past the feasible
+// ones), computed by the same function that sums the final score, so the
+// parts and the sum share their arithmetic. What it costs: K - 1 more cluster
+// rounds per pod and the 20 threefry rounds per node, latency, as every
+// other round of the pod.
+//
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
@@ -136,6 +161,12 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// which library this compilation is: 0 the builds without explain, 1 the
+// kExplain builds (kernels/build.py passes -DPLAIN_STEP_EXPLAIN=1)
+#ifndef PLAIN_STEP_EXPLAIN
+#define PLAIN_STEP_EXPLAIN 0
+#endif
 
 namespace {
 
@@ -328,6 +359,13 @@ struct StepArgs {
   int cl, bt, sl, res;
   // the frozen wave form (kFrozen): one cluster per (lane, pod), no bind
   int frozen;
+  // explain and the tie-break (kExplain): K candidates (0 off) of C score
+  // rows each; the jitter on (1) under PRNGKey(seed) = (key0, key1)
+  int topk, n_parts, jitter;
+  unsigned key0, key1;
+  int32_t* out_topk_node;             // [S, P', K]
+  float* out_topk_score;              // [S, P', K]
+  float* out_topk_parts;              // [S, P', C, K]
 };
 
 }  // extern "C"
@@ -366,6 +404,45 @@ __device__ __forceinline__ float pick_score(unsigned long long k) {
 
 __device__ __forceinline__ int pick_node(unsigned long long k) {
   return 0x7fffffff - (int)(unsigned)(k & 0xffffffffu);
+}
+
+// the top-k's order as one integer: the score's total order (-0 below +0,
+// as lax.top_k ranks), then the lower node index; 0 is below every key
+__device__ __forceinline__ unsigned long long topk_key(float v, int n) {
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)(0x7fffffff - n);
+}
+
+// threefry2x32 (20 rounds) of the counter words (x0, x1) under the key
+// (k0, k1), as jax.random's threefry2x32 (ops/threefry.py is the twin)
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1, unsigned& x0,
+                                             unsigned& x1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, rot[i & 1][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
+  }
+}
+
+// the tie-break jitter of node n under the pod's folded key: element n of
+// jax.random.uniform(key, (N,), 0.0, 0.5) (partitionable threefry: the
+// counter pair is (0, n), the bits the XOR of the two words; the top 23
+// bits as the mantissa of [1, 2), minus 1, times 0.5, which is exact)
+__device__ __forceinline__ float jitter_of(unsigned k0, unsigned k1, int n) {
+  unsigned x0 = 0, x1 = (unsigned)n;
+  threefry2x32(k0, k1, x0, x1);
+  const float f = __uint_as_float(((x0 ^ x1) >> 9) | 0x3f800000u);
+  return __fmul_rn(__fsub_rn(f, 1.0f), 0.5f);
 }
 
 __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
@@ -423,6 +500,7 @@ struct Layout {
   int minval;  // [Cs] f32 hard-spread minimum
   int dom;     // [K1*D*Sg] f32 dom_count replica (F_DOM)
   int sc;      // [rows][SL] f32 raw scores of the block's nodes
+  int ms;      // [SL] f32 masked final scores (the top-k; StepArgs.topk > 0)
   int hr;      // [SL*R] f32 headroom slice (RES_HEADROOM)
   int flag;    // byte offset: [SL] feasibility flags
   int pv;      // byte offset: [Npv] pv_taken replica (device-resource, F_PV_MATCH)
@@ -452,6 +530,8 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   w += (a.flags & F_DOM) ? a.k1 * a.d * a.sg : 0;
   l.sc = w;
   w += score_rows(a.flags) * a.sl;
+  l.ms = w;
+  w += (PLAIN_STEP_EXPLAIN && a.topk > 0) ? a.sl : 0;
   l.hr = w;
   w += (a.res & RES_HEADROOM) ? a.sl * a.r : 0;
   l.flag = 4 * w;
@@ -807,7 +887,7 @@ __device__ void dev_pick(const StepArgs& a, const DevLane& L, int fl, int p, int
     for (int j = 0; j < a.lw; ++j) a.out_vol_pick[o * a.lw + j] = -1;
 }
 
-template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen>
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
 __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     plain_step_kernel(const StepArgs a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
@@ -850,6 +930,11 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   __shared__ int s_nom;  // the pod's nominated node while still feasible, else -1
   __shared__ unsigned long long s_pick;
   __shared__ long long s_cyc[kPhases + 1];  // the phases, then the last mark
+  // kExplain: the pod's folded PRNG key; the top-k rounds' partials, by pod
+  // parity and round parity, and the latest round's winner
+  __shared__ unsigned s_pkey[2];
+  __shared__ unsigned long long s_tk[kExplain ? 4 : 1];
+  __shared__ unsigned long long s_top;
 
   // (an instantiation without kDevRes is launched only when no
   // device-resource flag is set, and reads none of them)
@@ -882,6 +967,9 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   float* const sc_simon = s_sc + 2 * SL;
   float* const sc_ip = s_sc + 3 * SL;
   float* const sc_gpu = s_sc + kRowGpu * SL;
+  float* const s_ms = reinterpret_cast<float*>(s_dyn + lay.ms);
+  const int topk = kExplain ? a.topk : 0;
+  const bool jitter = kExplain && a.jitter;
   uint8_t* const pv_g = kDevRes ? a.pv_taken + (size_t)lane * a.npv : nullptr;
   const DevLane L = kDevRes
       ? DevLane{a.gpu_used + (size_t)lane * N * a.g, a.vg_used + (size_t)lane * N * a.v,
@@ -976,6 +1064,18 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     for (int i = tid; i < a.ops; i += B) fail_b[i] = 0;
     if (tid <= kRows + kCols) part[tid] = tid < kRows ? INT_MAX : 0;
     if (tid == 0) s_key[par] = 0;
+    if constexpr (kExplain) {
+      if (tid == 0) {
+        s_tk[2 * par] = 0;
+        s_tk[2 * par + 1] = 0;
+        if (jitter) {  // fold_in(PRNGKey(seed), p): the hash of (0, p)
+          unsigned x0 = 0, x1 = (unsigned)p;
+          threefry2x32(a.key0, a.key1, x0, x1);
+          s_pkey[0] = x0;
+          s_pkey[1] = x1;
+        }
+      }
+    }
     if (gc_path) {
       for (int i = tid; i < QD; i += B) dpart[i] = i < Q * D + Q ? 0 : INT_MAX;
       for (int q = tid; q < Q; q += B) {
@@ -1365,7 +1465,39 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     const float gp_w = kDevRes ? __fmul_rn(a.w_gpu, a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
     const int nom_pick = kCols ? s_nom : -1;
 
-    unsigned long long best = 0;
+    // the final score of node n (slice index ln): its weighted score rows
+    // in the reference's add order (resources, node affinity, taint,
+    // interpod, spread, Simon, GPU), summed left to right; given `parts`,
+    // each live row is also written there, `stride` apart (the explain
+    // candidates' breakdown, the reference's part rows)
+    auto score_of = [&](int n, int ln, uint8_t flag, float* parts, int stride) -> float {
+      float score = sc_base[ln];
+      int c = 0;
+      auto add = [&](float v) {
+        if (parts) parts[(size_t)(++c) * stride] = v;
+        score = __fadd_rn(score, v);
+      };
+      if (parts) parts[0] = score;
+      if (fl & F_NA)
+        add(__fmul_rn(a.w_na, __fmul_rn(a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
+      if (fl & F_TT)
+        add(__fmul_rn(a.w_tt, __fsub_rn(100.0f, __fmul_rn(
+            a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
+      if (fl & F_IP) add(__fmul_rn(a.w_ip, __fmul_rn(__fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
+      if (use_sp) {
+        const float v = (flag & 2)
+            ? __fadd_rn(base_sp, __fmul_rn(__fsub_rn(c1, sc_spread[ln]), inv_sp))
+            : 0.0f;
+        add(__fmul_rn(a.w_sp, v));
+      }
+      if (fl & F_SI) add(__fmul_rn(a.w_si, __fmul_rn(__fsub_rn(sc_simon[ln], si_lo), inv_si)));
+      if constexpr (kDevRes) {
+        if (fl & F_GPU) add(__fmul_rn(gp_w, __fmul_rn(__fsub_rn(sc_gpu[ln], gp_lo), inv_gp)));
+      }
+      return score;
+    };
+
+    unsigned long long best = 0, tbest = 0;
     for (int it = 0; it < iters; ++it) {
       const int n = lo + it * B + tid;
       if (n >= hi) break;
@@ -1373,51 +1505,93 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
       const uint8_t flag = s_flag[ln];
       float ms = kNegInf;
       if ((flag & 1) && (!kCols || nom_pick < 0 || n == nom_pick)) {
-        float score = sc_base[ln];
-        if (fl & F_NA)
-          score = __fadd_rn(score, __fmul_rn(a.w_na, __fmul_rn(
-              a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
-        if (fl & F_TT)
-          score = __fadd_rn(score, __fmul_rn(a.w_tt, __fsub_rn(100.0f, __fmul_rn(
-              a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
-        if (fl & F_IP)
-          score = __fadd_rn(score, __fmul_rn(a.w_ip, __fmul_rn(
-              __fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
-        if (use_sp) {
-          const float v = (flag & 2)
-              ? __fadd_rn(base_sp, __fmul_rn(__fsub_rn(c1, sc_spread[ln]), inv_sp))
-              : 0.0f;
-          score = __fadd_rn(score, __fmul_rn(a.w_sp, v));
-        }
-        if (fl & F_SI)
-          score = __fadd_rn(score, __fmul_rn(a.w_si, __fmul_rn(
-              __fsub_rn(sc_simon[ln], si_lo), inv_si)));
-        if constexpr (kDevRes) {
-          if (fl & F_GPU)
-            score = __fadd_rn(score, __fmul_rn(gp_w, __fmul_rn(
-                __fsub_rn(sc_gpu[ln], gp_lo), inv_gp)));
-        }
-        ms = score;
+        ms = score_of(n, ln, flag, nullptr, 0);
+        // the tie-break: the integer score scale, then the jitter
+        if (jitter) ms = __fadd_rn(rintf(ms), jitter_of(s_pkey[0], s_pkey[1], n));
       }
       // nodes ascend per thread: a tie keys lower for the later node
       const unsigned long long k = pick_key(ms, n);
       if (k > best) best = k;
+      if constexpr (kExplain) {
+        if (topk) {
+          s_ms[ln] = ms;
+          const unsigned long long tk = topk_key(ms, n);
+          if (tk > tbest) tbest = tk;
+        }
+      }
     }
     best = warp_max_u64(best);
     if (lid == 0 && best) atomicMax(&s_key[par], best);
+    if constexpr (kExplain) {
+      if (topk) {
+        tbest = warp_max_u64(tbest);
+        if (lid == 0 && tbest) atomicMax(&s_tk[2 * par], tbest);
+      }
+    }
     if (counted) {
       __syncthreads();
       mark(4);
     }
 
-    // ---- round B: the cluster's (max score, lowest index) pick
+    // ---- round B: the cluster's (max score, lowest index) pick (with the
+    // top-k: its first candidate too)
     cluster.sync();
     if (wid == 0) {
       const unsigned long long k = lid < C ? *cluster.map_shared_rank(&s_key[par], lid) : 0;
       const unsigned long long top = warp_max_u64(k);
       if (lid == 0) s_pick = top;
+      if constexpr (kExplain) {
+        if (topk) {
+          const unsigned long long t =
+              warp_max_u64(lid < C ? *cluster.map_shared_rank(&s_tk[2 * par], lid) : 0);
+          if (lid == 0) s_top = t;
+        }
+      }
     }
     __syncthreads();
+
+    // ---- the top-k rounds: after each round its winner's owner thread
+    // writes candidate r (node, masked score, weighted rows; zero rows for
+    // a filler slot); round r >= 1 takes the largest key below round r - 1's
+    if constexpr (kExplain) {
+      for (int r = 0; r < topk; ++r) {
+        if (r > 0) {
+          const unsigned long long prev = s_top;
+          unsigned long long b = 0;
+          for (int it = 0; it < iters; ++it) {
+            const int n = lo + it * B + tid;
+            if (n >= hi) break;
+            const unsigned long long tk = topk_key(s_ms[n - lo], n);
+            if (tk < prev && tk > b) b = tk;
+          }
+          b = warp_max_u64(b);
+          if (lid == 0 && b) atomicMax(&s_tk[2 * par + (r & 1)], b);
+          cluster.sync();
+          if (wid == 0) {
+            const unsigned long long t = warp_max_u64(
+                lid < C ? *cluster.map_shared_rank(&s_tk[2 * par + (r & 1)], lid) : 0);
+            if (lid == 0) s_top = t;
+          }
+          // every block has read round r - 1's partials: the buffer of
+          // round r + 1 is free again
+          if (tid == 0) s_tk[2 * par + ((r + 1) & 1)] = 0;
+          __syncthreads();
+        }
+        const int w = pick_node(s_top);
+        if (w >= lo && w < hi && (w - lo) % B == tid) {
+          const size_t o = orow * topk + r;
+          const float v = s_ms[w - lo];
+          a.out_topk_node[o] = w;
+          a.out_topk_score[o] = v;
+          float* parts = a.out_topk_parts + orow * a.n_parts * topk + r;
+          if (v > kNegInf) {
+            score_of(w, w - lo, s_flag[w - lo], parts, topk);
+          } else {
+            for (int c = 0; c < a.n_parts; ++c) parts[(size_t)c * topk] = 0.0f;
+          }
+        }
+      }
+    }
     mark(5);
 
     // ---- phase 3: forced-node fast path, outputs, bind. A node's rows are
@@ -1521,23 +1695,36 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
 
 // the instantiation a launch runs: the frozen wave form (never with the
 // preemption columns: the planner's plan is dropped under them), the
-// column builds, or the plain scan
+// column builds, or the plain scan; kExplain is this library's
+constexpr bool kExplainLib = PLAIN_STEP_EXPLAIN != 0;
+
 void (*kernel_of(const StepArgs* args))(StepArgs) {
+  constexpr bool X = kExplainLib;
   const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
   if (args->frozen)
-    return devres ? (interpod ? plain_step_kernel<true, true, false, true>
-                              : plain_step_kernel<false, true, false, true>)
-                  : (interpod ? plain_step_kernel<true, false, false, true>
-                              : plain_step_kernel<false, false, false, true>);
+    return devres ? (interpod ? plain_step_kernel<true, true, false, true, X>
+                              : plain_step_kernel<false, true, false, true, X>)
+                  : (interpod ? plain_step_kernel<true, false, false, true, X>
+                              : plain_step_kernel<false, false, false, true, X>);
   if (args->disabled || args->nominated)
-    return devres ? (interpod ? plain_step_kernel<true, true, true, false>
-                              : plain_step_kernel<false, true, true, false>)
-                  : (interpod ? plain_step_kernel<true, false, true, false>
-                              : plain_step_kernel<false, false, true, false>);
-  return devres ? (interpod ? plain_step_kernel<true, true, false, false>
-                            : plain_step_kernel<false, true, false, false>)
-                : (interpod ? plain_step_kernel<true, false, false, false>
-                            : plain_step_kernel<false, false, false, false>);
+    return devres ? (interpod ? plain_step_kernel<true, true, true, false, X>
+                              : plain_step_kernel<false, true, true, false, X>)
+                  : (interpod ? plain_step_kernel<true, false, true, false, X>
+                              : plain_step_kernel<false, false, true, false, X>);
+  return devres ? (interpod ? plain_step_kernel<true, true, false, false, X>
+                            : plain_step_kernel<false, true, false, false, X>)
+                : (interpod ? plain_step_kernel<true, false, false, false, X>
+                            : plain_step_kernel<false, false, false, false, X>);
+}
+
+// a launch asks for explain or the jitter exactly when it is this
+// library's (kernels/step.py loads the library that matches)
+bool explain_ok(const StepArgs* args) {
+  const bool wants = args->topk > 0 || args->jitter;
+  return wants == kExplainLib && args->topk >= 0 &&
+         (args->topk == 0 || (args->topk <= args->n && args->n_parts >= 1 &&
+                              args->out_topk_node && args->out_topk_score &&
+                              args->out_topk_parts));
 }
 
 // the clusters a launch runs: one per lane, or per (lane, pod) frozen
@@ -1558,6 +1745,7 @@ cudaError_t prepare(void (*kernel)(StepArgs), const StepArgs* args, size_t smem)
 }
 
 bool geometry_ok(const StepArgs* args) {
+  if (!explain_ok(args)) return false;
   const int c = args->cl;
   const int max_bt = (args->flags & kDevResFlags) ? kMaxThreadsDevRes : kMaxThreads;
   return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&

@@ -41,10 +41,10 @@ from open_simulator_tpu_torch.encode.snapshot import (
     ClusterSnapshot,
     SnapshotArrays,
 )
-from open_simulator_tpu_torch.ops import filters, gpu_share, scores, storage, volumes
+from open_simulator_tpu_torch.ops import filters, gpu_share, scores, storage, threefry, volumes
 from open_simulator_tpu_torch.ops.domains import ActiveHoist, hoist_active_stats
 
-# fp32 everywhere, and no TF32 in the prefix fold's matmuls: encoded counts
+# fp32 everywhere, and no TF32 in the plain merge's matmuls: encoded counts
 # and requests go up to 2^24, and TF32 keeps integers exact only to 2^11.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -123,8 +123,6 @@ class EngineConfig(NamedTuple):
 # gate -> the ROADMAP item that ports it (queue 1 unless noted)
 _UNSUPPORTED = (
     ("extensions", "queue 1, item 7 (remaining engine modes)"),
-    ("explain_topk", "queue 1, item 7 (remaining engine modes)"),
-    ("tie_break_seed", "queue 1, item 7 (remaining engine modes)"),
     ("traced_weights", "queue 1, item 10 (lane consumers)"),
 )
 
@@ -165,6 +163,12 @@ class ScheduleOutput(NamedTuple):
     feasible: torch.Tensor     # [P] i32 feasible-node count
     gpu_pick: torch.Tensor     # [P, G] i32 per-device GPU multiplicities (G = 0 when gated off)
     vol_pick: torch.Tensor     # [P, Lw] i32 PV id bound per WFC claim slot, -1 none (Lw = 0 off)
+    # explain_topk (K = min(explain_topk, N), C = len(score_part_names);
+    # both 0 when off): the candidates by final score, -3.4e38 past the
+    # feasible nodes, and each score row's weighted value at them
+    topk_node: torch.Tensor    # [P, K] i32
+    topk_score: torch.Tensor   # [P, K] f32
+    topk_parts: torch.Tensor   # [P, C, K] f32
     state: SimState
 
 
@@ -214,68 +218,55 @@ def init_state(arrs: SnapshotArrays, cfg: Optional[EngineConfig] = None) -> SimS
     )
 
 
-_PREFIX_CHUNK = 4096  # bounds the [chunk, N] one-hot of the prefix fold
+# the reference's prefix-fold chunk: a bf16 carry adds each chunk's sum
+# rounded once
+_PREFIX_CHUNK = 4096
 
 
 def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
                         state: SimState, k: int) -> SimState:
-    """Fold the first k pods (all forced binds) into the carry at once —
-    what k steps of the forced fast path would do. fp32 one-hot matmuls
-    with TF32 off: the 0/1 weights and integer-valued requests keep every
-    sum exact below 2^24, so the fold equals the sequential binds. The
-    GPU, storage and WFC carries depend on the order of the binds, so
-    ``make_config`` cuts the prefix where a pod uses them; the attach
-    counts fold like the requests. The
-    anti-affinity term paint and the preferred-term paint go through the
-    same-domain rows ``sd_all`` of the reference's ``_apply_prefix_chunk``."""
-    f32 = torch.float32
-    n = arrs.alloc.shape[0]
-    k1 = arrs.topo_onehot.shape[0]
+    """Fold the first k pods (all forced binds) into a copy of the carry at
+    once — what k steps of the forced fast path would do, and what the
+    reference's one-hot fold computes: ``kernels/wave.wave_merge`` of their
+    forced nodes over a one-lane view of the copy (the kernel on the card,
+    its plain version on the CPU), in ``_PREFIX_CHUNK`` chunks as the
+    reference folds (a bf16 carry adds each chunk's sum rounded once). The
+    0/1 weights and integer-valued requests keep every sum exact below
+    2^24. The GPU, storage and WFC carries depend on the order of the
+    binds, so ``make_config`` cuts the prefix where a pod uses them; the
+    attach counts fold like the requests."""
+    from open_simulator_tpu_torch.kernels import wave as wave_kernels
+
+    state = SimState(**{f: getattr(state, f).contiguous().clone() for f in STATE_FIELDS})
+    lane = SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS})
+    inputs: Dict[str, Any] = {}
     for lo in range(0, k, _PREFIX_CHUNK):
         hi = min(lo + _PREFIX_CHUNK, k)
-        idx = arrs.forced_node[lo:hi].long()
-        oh = torch.nn.functional.one_hot(idx, n).to(f32)          # [c, N]
-        match = arrs.match_groups[lo:hi].to(f32)
-        headroom = state.headroom - oh.T @ arrs.req[lo:hi]
-        gc = state.group_count
-        if cfg.needs_group_count:
-            gc = gc + (oh.T @ match).to(gc.dtype)
-        dom = state.dom_count
-        if cfg.maintain_dom_count:
-            topo_sel = arrs.topo_onehot[:, idx, :]                # [K1, c, D]
-            dom = dom + torch.einsum("akd,ks->ads", topo_sel, match)
-        ports = state.ports_used
-        if cfg.enable_ports:
-            ports = ports | ((oh.T @ arrs.ports[lo:hi].to(f32)) > 0)
-        vol_cnt = state.vol_cnt
-        if cfg.enable_vol_limits:
-            vol_cnt = vol_cnt + oh.T @ arrs.vol_limit_req[lo:hi]
-        term, pref = state.term_block, state.pref_paint
-        if cfg.enable_anti_affinity or cfg.enable_pref:
-            # sd_all[key][pod, node]: nodes sharing pod i's node's domain
-            sd_all = [oh] + [arrs.topo_onehot[kk][idx] @ arrs.topo_onehot[kk].T
-                             for kk in range(k1)]
-        if cfg.enable_anti_affinity:
-            own = arrs.own_terms[lo:hi].to(f32)                   # [c, T]
-            paint = torch.zeros((n, own.shape[1]), dtype=f32, device=oh.device)
-            for kk in range(len(sd_all)):
-                mask_t = (arrs.term_key == kk).to(f32)
-                paint = paint + sd_all[kk].T @ (own * mask_t[None, :])
-            term = term + paint.to(term.dtype)
-        if cfg.enable_pref:
-            t2_n = state.pref_paint.shape[1]
-            for a in range(arrs.pref_group.shape[1]):
-                w = arrs.pref_weight[lo:hi, a] * arrs.pref_valid[lo:hi, a].to(f32)
-                key_a = arrs.pref_key[lo:hi, a]
-                sd_a = torch.zeros_like(sd_all[0])
-                for kk in range(len(sd_all)):
-                    sd_a = sd_a + sd_all[kk] * (key_a == kk).to(f32)[:, None]
-                col = torch.nn.functional.one_hot(arrs.pref_tid[lo:hi, a].long(), t2_n).to(f32)
-                pref = pref + sd_a.T @ (col * w[:, None])
-        state = dataclasses.replace(state, headroom=headroom, group_count=gc,
-                                    term_block=term, pref_paint=pref,
-                                    dom_count=dom, ports_used=ports, vol_cnt=vol_cnt)
+        wave_kernels.wave_merge(arrs, cfg, lane, lo, hi,
+                                arrs.forced_node[lo:hi].to(torch.int32).contiguous(), None,
+                                inputs=inputs)
     return state
+
+
+def score_part_names(cfg: EngineConfig) -> Tuple[str, ...]:
+    """The names of the weighted score rows the step records under
+    ``explain_topk``, in the topk_parts row order (the reference's
+    ``score_part_names``; extensions and traced weights are refused)."""
+    names = ["NodeResources"]
+    for on, name in zip(score_rows(cfg), ("NodeAffinity", "TaintToleration",
+                                          "InterPodAffinity", "PodTopologySpread", "Simon")):
+        if on:
+            names.append(name)
+    if cfg.enable_gpu:
+        names.append("Open-Gpu-Share")
+    return tuple(names)
+
+
+def topk_widths(arrs, cfg: EngineConfig) -> Tuple[int, int]:
+    """(K, C) of the top-k outputs: 0, 0 with explain_topk off."""
+    if not cfg.explain_topk:
+        return 0, 0
+    return min(cfg.explain_topk, arrs.alloc.shape[0]), len(score_part_names(cfg))
 
 
 def score_rows(cfg: EngineConfig) -> Tuple[bool, bool, bool, bool, bool]:
@@ -336,8 +327,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     is one lane's ActiveHoist. `disabled` and `nominated` are the pod's
     preemption columns (the reference's ``_disabled`` and ``_nominated``):
     a victim, and the preemption retry's node (None: no column). Returns
-    (state, (node, fail_counts, feasible, gpu_pick, vol_pick)) with the
-    outputs as device tensors."""
+    (state, (node, fail_counts, feasible, gpu_pick, vol_pick, topk_node,
+    topk_score, topk_parts)) with the outputs as device tensors; the
+    top-k rows have width 0 unless ``cfg.explain_topk``. With
+    ``cfg.tie_break_seed`` the jitter is keyed on `p`, the pod's place in
+    the whole sequence (the reference's ``_pod_index``)."""
     n_nodes = arrs.alloc.shape[0]
     dev = active.device
     f32 = torch.float32
@@ -577,21 +571,26 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         gp_lo = torch.min(torch.where(mask, raw_gp, fill(big)))
         gp_hi = -torch.min(torch.where(mask, -raw_gp, fill(big)))
 
+    # each weighted row, kept under explain_topk for the candidates'
+    # breakdown, in the score_part_names order (the reference's _part)
+    part_rows = [score]
     if use_na:
-        score = score + cfg.w_node_aff * scores.max_apply(raw_na, hi_na)
+        part_rows.append(cfg.w_node_aff * scores.max_apply(raw_na, hi_na))
     if use_tt:
-        score = score + cfg.w_taint * scores.max_apply(raw_tt, hi_tt, reverse=True)
+        part_rows.append(cfg.w_taint * scores.max_apply(raw_tt, hi_tt, reverse=True))
     if use_ip:
-        score = score + cfg.w_interpod * scores.minmax_apply(raw_ip, ip_lo, ip_hi)
+        part_rows.append(cfg.w_interpod * scores.minmax_apply(raw_ip, ip_lo, ip_hi))
     if use_sp:
-        score = score + cfg.w_spread * scores.spread_apply(
-            spread_raw, sp_lo, sp_hi, spread_node_ok, any_soft)
+        part_rows.append(cfg.w_spread * scores.spread_apply(
+            spread_raw, sp_lo, sp_hi, spread_node_ok, any_soft))
     if use_si:
-        score = score + cfg.w_simon * scores.minmax_apply(raw_si, si_lo, si_hi)
+        part_rows.append(cfg.w_simon * scores.minmax_apply(raw_si, si_lo, si_hi))
     if cfg.enable_gpu:
         # a pod without a GPU request scores 0 on the GPU dimension
         gp_w = torch.tensor(cfg.w_gpu, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
-        score = score + gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi)
+        part_rows.append(gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi))
+    for row in part_rows[1:]:
+        score = score + row
 
     # the preemption retry: a nominated node still feasible is the only
     # candidate (the normalizers and fail counts above saw the full mask);
@@ -600,9 +599,27 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     if nominated is not None and 0 <= nominated < n_nodes:
         mask = torch.where(mask[nominated], mask & (iota == nominated), mask)
 
+    if cfg.tie_break_seed:
+        # the framework's integer score scale first, so the jitter only
+        # reorders exact ties; torch.round rounds half to even, as jnp.round
+        score = torch.round(score) + threefry.tie_break_jitter(cfg.tie_break_seed, p, n_nodes,
+                                                               dev)
     # selectHost: max, then the lowest index among exact maxima
     neg_inf = -3.4e38
     masked_score = torch.where(mask, score, fill(neg_inf))
+    if cfg.explain_topk:
+        # the candidates by final score (jitter included), ranked as
+        # lax.top_k ranks: descending, the lower index first among ties;
+        # filler slots past the feasible nodes get zeroed parts
+        topk_node = rank_desc(masked_score)[:min(cfg.explain_topk, n_nodes)]
+        topk_score = masked_score[topk_node]
+        topk_parts = torch.where((topk_score > neg_inf)[None, :],
+                                 torch.stack(part_rows)[:, topk_node], 0.0)
+        topk_node = topk_node.to(torch.int32)
+    else:
+        topk_node = torch.zeros((0,), dtype=torch.int32, device=dev)
+        topk_score = torch.zeros((0,), dtype=f32, device=dev)
+        topk_parts = torch.zeros((0, 0), dtype=f32, device=dev)
     top = torch.max(masked_score)
     any_feasible = top > neg_inf
     sel_node = torch.min(torch.where(masked_score == top, iota,
@@ -725,7 +742,17 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
                          pref_paint=pref_paint, ports_used=ports_used, gpu_used=gpu_used,
                          vg_used=vg_used, sdev_taken=sdev_taken, dom_count=dom_count,
                          pv_taken=pv_taken, vol_cnt=vol_cnt, svol_on_node=svol_on)
-    return new_state, (final_node, fail_counts, feasible_n, pick, vol_pick)
+    return new_state, (final_node, fail_counts, feasible_n, pick, vol_pick, topk_node,
+                       topk_score, topk_parts)
+
+
+def rank_desc(v: torch.Tensor) -> torch.Tensor:
+    """[N] f32 -> the indices in ``lax.top_k``'s order: descending by the
+    float's total order (+0.0 above -0.0), the lower index first among
+    equal values (a stable sort of the order-preserving integer key)."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    return torch.sort(key, descending=True, stable=True).indices
 
 
 # what the plain step reads on the host: the per-pod scalars and slot rows
@@ -782,23 +809,26 @@ _WAVE_CHUNK = 512  # pods of a BATCH segment evaluated against one carry
 
 
 def _const_outputs(arrs: SnapshotArrays, cfg: EngineConfig, lo: int, hi: int):
-    """(node, fail_counts, feasible, gpu_pick, vol_pick) of a FORCED or
-    SENTINEL run [lo, hi) — what the scan emits for forced binds and
-    bind-nothing sentinels (the reference's ``_const_outputs``): the forced
-    node or -1, zero reason and feasible counts and GPU picks, PV picks
-    -1."""
+    """The step's outputs for a forced-bind prefix or a FORCED or SENTINEL
+    run [lo, hi) — what the reference's ``_const_outputs`` and prefix fold
+    emit: the forced node or -1, zero reason and feasible counts and GPU
+    picks, PV picks -1, top-k nodes -1 with zero scores and parts."""
     from open_simulator_tpu_torch.kernels.step import pick_widths
 
     dev = arrs.alloc.device
     c = hi - lo
     forced = arrs.forced_node[lo:hi].to(torch.int32)
     g_w, lw = pick_widths(arrs, cfg)
+    k_top, c_parts = topk_widths(arrs, cfg)
     i32 = torch.int32
     return (torch.where(forced >= 0, forced, torch.full_like(forced, -1)),
             torch.zeros((c, cfg.n_ops if cfg.fail_reasons else 0), dtype=i32, device=dev),
             torch.zeros((c,), dtype=i32, device=dev),
             torch.zeros((c, g_w), dtype=i32, device=dev),
-            torch.full((c, lw), -1, dtype=i32, device=dev))
+            torch.full((c, lw), -1, dtype=i32, device=dev),
+            torch.full((c, k_top), -1, dtype=i32, device=dev),
+            torch.zeros((c, k_top), dtype=torch.float32, device=dev),
+            torch.zeros((c, c_parts, k_top), dtype=torch.float32, device=dev))
 
 
 def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
@@ -817,25 +847,26 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
     dev = active.device
     n_lanes, n_out = active.shape[0], n_pods - k
     g_w, lw = step_kernels.pick_widths(arrs, cfg)
+    k_top, c_parts = topk_widths(arrs, cfg)
     i32 = torch.int32
-    node = torch.empty((n_lanes, n_out), dtype=i32, device=dev)
     fail = (torch.empty((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
             if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
-    feas = torch.empty((n_lanes, n_out), dtype=i32, device=dev)
-    gpick = torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev)
-    vpick = torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev)
+    outs = [torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
+            torch.empty((n_lanes, n_out), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
+            torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev)]
     step_inputs: Dict[str, Any] = {}
     merge_inputs: Dict[str, Any] = {}
     pending = template
 
     def put(lo: int, hi: int, out) -> None:
         a, b = lo - k, hi - k
-        node[:, a:b] = out[0]
-        if cfg.fail_reasons:
-            fail[:, a:b] = out[1]
-        feas[:, a:b] = out[2]
-        gpick[:, a:b] = out[3]
-        vpick[:, a:b] = out[4]
+        for i, (dst, src) in enumerate(zip(outs, out)):
+            if i != 1 or cfg.fail_reasons:
+                dst[:, a:b] = src
 
     def wave(lo: int, hi: int) -> None:
         out = step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo, hi,
@@ -873,7 +904,7 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
                 wave(s0, min(s0 + _WAVE_CHUNK, hi))
     if pending is not None:
         step_kernels.copy_template(carry, pending)
-    return node, fail, feas, gpick, vpick
+    return tuple(outs)
 
 
 def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
@@ -972,28 +1003,24 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     carry = lane_carry(template, n_lanes, carry)
     hoist, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
     if waves is None:
-        node, fail_counts, feasible, gpu_pick, vol_pick = step_kernels.plain_step(
-            arrs_t, masks_t, hoist, inv, carry, cfg, k, n_pods, template=template,
-            disabled=dis_t, nominated=nom_t)
+        outs = step_kernels.plain_step(arrs_t, masks_t, hoist, inv, carry, cfg, k, n_pods,
+                                       template=template, disabled=dis_t, nominated=nom_t)
     else:
-        node, fail_counts, feasible, gpu_pick, vol_pick = _run_wave_plan(
-            arrs_t, masks_t, hoist, inv, carry, template, cfg, waves, k, n_pods)
+        outs = _run_wave_plan(arrs_t, masks_t, hoist, inv, carry, template, cfg, waves, k,
+                              n_pods)
     if k:
-        # the prefix holds no GPU or WFC pod (make_config cuts it there)
-        node = torch.cat([arrs_t.forced_node[:k].to(torch.int32).expand(n_lanes, k), node], 1)
-        feasible = torch.cat([torch.zeros((n_lanes, k), dtype=torch.int32, device=dev),
-                              feasible], 1)
-        gpu_pick = torch.cat([torch.zeros((n_lanes, k, gpu_pick.shape[2]), dtype=torch.int32,
-                                          device=dev), gpu_pick], 1)
-        vol_pick = torch.cat([torch.full((n_lanes, k, vol_pick.shape[2]), -1,
-                                         dtype=torch.int32, device=dev), vol_pick], 1)
+        # the prefix pods' outputs are the forced-bind constants (the
+        # prefix holds no GPU or WFC pod: make_config cuts it there)
+        # (without reason accounting the fail counts are replaced below)
+        outs = [o if i == 1 and not cfg.fail_reasons
+                else torch.cat([c[None].expand((n_lanes,) + c.shape), o], 1)
+                for i, (c, o) in enumerate(zip(_const_outputs(arrs_t, cfg, 0, k), outs))]
+    node, fail_counts, feasible, gpu_pick, vol_pick, t_node, t_score, t_parts = outs
     if not cfg.fail_reasons:
         fail_counts = step_kernels.no_fail_counts(n_lanes, n_pods, cfg.n_ops, dev)
-    elif k:
-        fail_counts = torch.cat([torch.zeros((n_lanes, k, cfg.n_ops), dtype=torch.int32,
-                                             device=dev), fail_counts], 1)
     return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible,
-                          gpu_pick=gpu_pick, vol_pick=vol_pick, state=carry)
+                          gpu_pick=gpu_pick, vol_pick=vol_pick, topk_node=t_node,
+                          topk_score=t_score, topk_parts=t_parts, state=carry)
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
@@ -1014,10 +1041,8 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
     prefix fold off."""
     out = _launch(arrs, np.asarray(active, dtype=bool)[None], cfg, device, None, state,
                   disabled, nominated, waves)
-    return ScheduleOutput(node=out.node[0], fail_counts=out.fail_counts[0],
-                          feasible=out.feasible[0], gpu_pick=out.gpu_pick[0],
-                          vol_pick=out.vol_pick[0],
-                          state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}))
+    return out._replace(state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}),
+                        **{f: getattr(out, f)[0] for f in out._fields if f != "state"})
 
 
 def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:

@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
-with a plain C interface and loaded with ``ctypes``. Libraries land in
+with a plain C interface and loaded with ``ctypes``; a source may also be
+compiled again with extra defines into a library of another name
+(``VARIANTS``: ``plain_step.cu``'s explain builds). Libraries land in
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of their source and flags, so an edited source rebuilds
 and an unchanged one is reused within and across processes. Nothing is
@@ -31,6 +33,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# library -> (source stem, extra nvcc flags), for the libraries built from
+# another library's source
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "plain_step_explain": ("plain_step", ("-DPLAIN_STEP_EXPLAIN=1",)),
+}
+
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by kernel;
@@ -47,14 +55,16 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+def _target(name: str) -> Tuple[Path, Tuple[str, ...], Path]:
+    stem, defines = VARIANTS.get(name, (name, ()))
+    src = CSRC_DIR / f"{stem}.cu"
+    flags = NVCC_FLAGS + defines
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    return src, flags, BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _start(name: str):
-    src, out = _target(name)
+    src, flags, out = _target(name)
     if out.exists():
         report = out.with_suffix(".ptxas.txt")
         if report.exists():
@@ -63,7 +73,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [nvcc_path(), *flags, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -82,11 +92,12 @@ def _finish(name: str, started) -> None:
 
 
 def kernel_names() -> List[str]:
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    """Every library: one per csrc/*.cu, and the variants."""
+    return sorted([p.stem for p in CSRC_DIR.glob("*.cu")] + list(VARIANTS))
 
 
 def build_all() -> None:
-    """Compile every csrc/*.cu not built yet, one nvcc per source, all
+    """Compile every library not built yet, one nvcc per library, all
     started together."""
     with _LOCK:
         started = {name: _start(name) for name in kernel_names()}
@@ -95,11 +106,12 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it if needed."""
+    """The loaded library `name` (csrc/<name>.cu or a variant), building it
+    if needed."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)[1]))
+            lib = ctypes.CDLL(str(_target(name)[2]))
             _LOADED[name] = lib
         return lib

@@ -9,10 +9,13 @@ All three take the same arguments::
      place), cfg, p0, p1, template=None, disabled=None, nominated=None,
      frozen=False)
 
-and return ``(node [S, P'] i32, fail_counts [S, P', OPS] i32,
-feasible [S, P'] i32, gpu_pick [S, P', G] i32, vol_pick [S, P', Lw] i32)``
-for the pods ``p0 <= p < p1`` (P' = p1 - p0); the picks have width 0
-when their gate (``enable_gpu``, ``enable_pv_match``) is off.
+and return ``StepOutputs(node [S, P'] i32, fail_counts [S, P', OPS] i32,
+feasible [S, P'] i32, gpu_pick [S, P', G] i32, vol_pick [S, P', Lw] i32,
+topk_node [S, P', K] i32, topk_score [S, P', K] f32, topk_parts [S, P',
+C, K] f32)`` for the pods ``p0 <= p < p1`` (P' = p1 - p0); the picks have
+width 0 when their gate (``enable_gpu``, ``enable_pv_match``) is off, and
+the top-k outputs (K = min(explain_topk, N), C score rows) when
+``explain_topk`` is 0.
 ``arrs`` is the snapshot as tensors on the step's device
 (``engine.scheduler.device_arrays``); ``hoist`` is
 ``engine.scheduler.hoist_of(arrs, active)``.
@@ -42,10 +45,18 @@ binds in afterwards. It takes no template and no preemption column (the
 wave planner's plan is dropped under them). The PV picks are -1: the
 planner keeps WaitForFirstConsumer pods out of waves.
 
+``cfg.explain_topk`` and ``cfg.tie_break_seed`` run the kernel's explain
+builds (the fifth template flag, in the library ``plain_step_explain``,
+built from the same source): the top-k candidates and the seeded jitter
+inside the pod loop. A launch with neither runs the twelve builds of the
+library ``plain_step``.
+
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
 other. ``LAUNCHES["plain_step"]`` counts the kernel's scan launches and
-``LAUNCHES["plain_step_frozen"]`` its frozen ones.
+``LAUNCHES["plain_step_frozen"]`` its frozen ones; the explain builds'
+launches count under ``plain_step_explain`` and
+``plain_step_frozen_explain``.
 
 The kernel runs each lane on a thread-block cluster: ``plan_launch``
 picks the cluster size, the block size and each block's node slice from
@@ -70,9 +81,11 @@ from open_simulator_tpu_torch.engine.scheduler import (
     SimState,
 )
 from open_simulator_tpu_torch.kernels import build
+from open_simulator_tpu_torch.ops import threefry
 from open_simulator_tpu_torch.ops.domains import ActiveHoist
 
-LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0}
+LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0, "plain_step_explain": 0,
+                            "plain_step_frozen_explain": 0}
 # the kernel's per-phase cycle counts (kPhases in the .cu), in order
 PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
           "min/count reduction", "phase 2 score and argmax", "argmax reduction",
@@ -148,7 +161,7 @@ class SmemWidths(NamedTuple):
     d: int      # domains per key
     cs: int     # spread constraints
     dom: int    # K1 * D * Sg, the dom_count replica (0 off the dom_count path)
-    rows: int   # raw-score rows: 3, + interpod, + GPU
+    rows: int   # raw-score rows: 3, + interpod, + GPU (+ the top-k's masked scores)
     r: int      # resources (the headroom row)
     npv: int    # the pv_taken replica (0 without PV matching)
 
@@ -251,10 +264,28 @@ class StepArgs(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in _INTS[_N_BASE_INTS:]]
                 + [(f, ctypes.c_float) for f in _FLOATS[-1:]]
                 + [("cycles", ctypes.c_void_p)]
-                + [(f, ctypes.c_int) for f in ("cl", "bt", "sl", "res", "frozen")])
+                + [(f, ctypes.c_int) for f in ("cl", "bt", "sl", "res", "frozen", "topk",
+                                                 "n_parts", "jitter")]
+                + [(f, ctypes.c_uint) for f in ("key0", "key1")]
+                + [(f, ctypes.c_void_p) for f in ("out_topk_node", "out_topk_score",
+                                                  "out_topk_parts")])
 
 
-Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+class StepOutputs(NamedTuple):
+    node: torch.Tensor          # [S, P'] i32
+    fail_counts: torch.Tensor   # [S, P', OPS] i32 (a zero-stride view without reasons)
+    feasible: torch.Tensor      # [S, P'] i32
+    gpu_pick: torch.Tensor      # [S, P', G] i32
+    vol_pick: torch.Tensor      # [S, P', Lw] i32
+    topk_node: torch.Tensor     # [S, P', K] i32
+    topk_score: torch.Tensor    # [S, P', K] f32
+    topk_parts: torch.Tensor    # [S, P', C, K] f32
+
+
+
+def explain_on(cfg: EngineConfig) -> bool:
+    """Does the launch run the explain builds (top-k or the jitter)?"""
+    return bool(cfg.explain_topk or cfg.tie_break_seed)
 
 
 def pick_widths(arrs, cfg: EngineConfig) -> Tuple[int, int]:
@@ -269,7 +300,7 @@ def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                p0: int, p1: int, template: Optional[SimState] = None,
                disabled: Optional[torch.Tensor] = None,
                nominated: Optional[torch.Tensor] = None, frozen: bool = False,
-               inputs: Optional[dict] = None) -> Outputs:
+               inputs: Optional[dict] = None) -> StepOutputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
     plain torch step for CPU tensors. `inputs` (CUDA only) is a dict the
     caller keeps across launches over the same arrays, lanes and config."""
@@ -310,7 +341,7 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      p0: int, p1: int, template: Optional[SimState] = None,
                      disabled: Optional[torch.Tensor] = None,
                      nominated: Optional[torch.Tensor] = None,
-                     frozen: bool = False) -> Outputs:
+                     frozen: bool = False) -> StepOutputs:
     """The plain version: lane by lane, pod by pod through the torch twin
     of the reference step (``engine.scheduler._step``), on any device.
     Frozen: every pod against a clone of the lane's carry, which is left
@@ -330,8 +361,12 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
             if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
     feas = torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev)
     g_w, lw = pick_widths(arrs, cfg)
+    k_top, c_parts = scheduler.topk_widths(arrs, cfg)
     gpick = torch.empty((n_lanes, n_out, g_w), dtype=torch.int32, device=dev)
     vpick = torch.empty((n_lanes, n_out, lw), dtype=torch.int32, device=dev)
+    tnode = torch.empty((n_lanes, n_out, k_top), dtype=torch.int32, device=dev)
+    tscore = torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev)
+    tparts = torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev)
     for s in range(n_lanes):
         st = SimState(**{f: getattr(state, f)[s] for f in STATE_FIELDS})
         lane_hoist = ActiveHoist(*(x[s] for x in hoist))
@@ -345,17 +380,20 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                 st = new
             rows.append(out)
         if n_out:
-            nodes, fails, feasible, gpus, vols = zip(*rows)
+            nodes, fails, feasible, gpus, vols, t_nodes, t_scores, t_parts = zip(*rows)
             node[s] = torch.stack(nodes)
             feas[s] = torch.stack(feasible)
             gpick[s] = torch.stack(gpus)
             vpick[s] = torch.stack(vols)
+            tnode[s] = torch.stack(t_nodes)
+            tscore[s] = torch.stack(t_scores)
+            tparts[s] = torch.stack(t_parts)
             if cfg.fail_reasons:
                 fail[s] = torch.stack(fails)
         if not frozen:
             for f in STATE_FIELDS:
                 getattr(state, f)[s].copy_(getattr(st, f))
-    return node, fail, feas, gpick, vpick
+    return StepOutputs(node, fail, feas, gpick, vpick, tnode, tscore, tparts)
 
 
 def node_domains(topo_onehot: torch.Tensor) -> torch.Tensor:
@@ -399,14 +437,17 @@ def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
     return fl
 
 
-def instantiation(cfg: EngineConfig, state: SimState, columns: bool = False) -> str:
-    """The ``plain_step<kInterpod, kDevRes, kCols>`` a launch under `cfg`
-    on this carry runs, as "<I,D>", with "+columns" where the launch
-    passes the preemption columns (the kernel's ``kernel_of`` picks it from
-    the same flags and pointers)."""
+def instantiation(cfg: EngineConfig, state: SimState, columns: bool = False,
+                  frozen: bool = False) -> str:
+    """The ``plain_step<kInterpod, kDevRes, kCols, kFrozen, kExplain>`` a
+    launch under `cfg` on this carry runs, as "<I,D>", with "+columns"
+    where the launch passes the preemption columns, "+frozen" for the wave
+    form and "+explain" under explain_topk or tie_break_seed (the kernel's
+    ``kernel_of`` picks it from the same flags and pointers)."""
     fl = _flags(cfg, state, False)
     return (f"<{int(bool(fl & INTERPOD_FLAGS))},{int(bool(fl & DEVRES_FLAGS))}>"
-            + ("+columns" if columns else ""))
+            + ("+columns" if columns else "") + ("+frozen" if frozen else "")
+            + ("+explain" if explain_on(cfg) else ""))
 
 
 def devres_on(cfg: EngineConfig) -> bool:
@@ -465,7 +506,9 @@ def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
                                                   "pref_group")),
         d=d, cs=arrs.spread_group.shape[1],
         dom=k1 * d * arrs.match_groups.shape[1] if flags & F_DOM else 0,
-        rows=3 + bool(flags & INTERPOD_FLAGS) + bool(flags & DEVRES_FLAGS),
+        # the raw-score rows, and the masked final scores of the top-k
+        rows=3 + bool(flags & INTERPOD_FLAGS) + bool(flags & DEVRES_FLAGS)
+        + bool(cfg.explain_topk),
         r=arrs.alloc.shape[1],
         npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0)
 
@@ -477,8 +520,9 @@ def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
                        max_threads(flags))
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("plain_step")
+def _library(explain: bool = False) -> ctypes.CDLL:
+    """The kernel's library: the twelve builds, or their explain twins."""
+    lib = build.load("plain_step_explain" if explain else "plain_step")
     args_p = ctypes.POINTER(StepArgs)
     lib.plain_step_launch.argtypes = [args_p, ctypes.c_void_p]
     lib.plain_step_launch.restype = ctypes.c_int
@@ -622,7 +666,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     phase_cycles: Optional[torch.Tensor] = None,
                     disabled: Optional[torch.Tensor] = None,
                     nominated: Optional[torch.Tensor] = None, frozen: bool = False,
-                    inputs: Optional[dict] = None) -> Outputs:
+                    inputs: Optional[dict] = None) -> StepOutputs:
     """Launch the ``plain_step`` kernel: one thread-block cluster per lane
     (``plan_launch``), the pod loop inside the kernel, the carry updated in
     place on the current stream (with a `template`, first written from it
@@ -661,13 +705,19 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                              ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
         if devres and width > cap:
             raise ValueError(f"plain_step: {width} {what}, over the kernel's {cap}")
+    k_top, c_parts = scheduler.topk_widths(arrs, cfg)
+    explain = explain_on(cfg)
     if n_out <= 0:
         if template is not None:
             copy_template(state, template)
         empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-        return (empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
-                torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
-                torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev))
+        return StepOutputs(
+            empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
+            torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
+            torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev),
+            torch.empty((n_lanes, 0, k_top), dtype=torch.int32, device=dev),
+            torch.empty((n_lanes, 0, k_top), dtype=torch.float32, device=dev),
+            torch.empty((n_lanes, 0, c_parts, k_top), dtype=torch.float32, device=dev))
     static = inputs if inputs is not None else {}
     if "tensors" not in static:
         static["tensors"] = _static_inputs(arrs, active, hoist, inv_alloc, cfg)
@@ -695,6 +745,10 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         out_feasible=torch.empty((n_lanes, n_out), dtype=torch.int32, device=dev),
         out_gpu_pick=torch.empty((n_lanes, n_out, gp_w), dtype=torch.int32, device=dev),
         out_vol_pick=torch.empty((n_lanes, n_out, vp_w), dtype=torch.int32, device=dev),
+        out_topk_node=torch.empty((n_lanes, n_out, k_top), dtype=torch.int32, device=dev),
+        out_topk_score=torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
+        out_topk_parts=torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32,
+                                   device=dev),
     )
     if cfg.fail_reasons:
         tensors["out_fail"] = torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev)
@@ -717,8 +771,13 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"plain_step: {name} is on {t.device}, not {dev}")
+    prng = threefry.prng_key(cfg.tie_break_seed)
     args = StepArgs(
         **{f: (tensors[f].data_ptr() if f in tensors else None) for f in _PTRS},
+        topk=k_top, n_parts=c_parts, jitter=int(bool(cfg.tie_break_seed)), key0=prng[0],
+        key1=prng[1],
+        **{f: (tensors[f].data_ptr() if k_top else None)
+           for f in ("out_topk_node", "out_topk_score", "out_topk_parts")},
         n=n, r=r, c=n_cls, u=arrs.spec_alloc.shape[0], k=k, k1=k1, d=d, sg=sg, pt=pt,
         cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
         ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
@@ -730,7 +789,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         w_si=cfg.w_simon, w_gpu=cfg.w_gpu,
         cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None,
         frozen=int(frozen))
-    lib = _library()
+    lib = _library(explain)
     n_clusters = n_lanes * n_out if frozen else n_lanes
     with torch.cuda.device(dev):
         key = (flags, n_clusters, frozen)
@@ -745,8 +804,11 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
-    LAUNCHES["plain_step_frozen" if frozen else "plain_step"] += 1
+    LAUNCHES[("plain_step_frozen" if frozen else "plain_step")
+             + ("_explain" if explain else "")] += 1
     LAST_PLAN = plan
     fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
-    return (tensors["out_node"], fail, tensors["out_feasible"], tensors["out_gpu_pick"],
-            tensors["out_vol_pick"])
+    return StepOutputs(tensors["out_node"], fail, tensors["out_feasible"],
+                       tensors["out_gpu_pick"], tensors["out_vol_pick"],
+                       tensors["out_topk_node"], tensors["out_topk_score"],
+                       tensors["out_topk_parts"])

@@ -124,7 +124,7 @@ def test_lanes_equal_single_lane_runs():
     base = tsched.apply_forced_prefix(arrs, cfg, tsched.init_state(arrs, cfg), cfg.forced_prefix)
     lanes = tsched.SimState(**{f: torch.stack([getattr(base, f)] * 2)
                                for f in tsched.STATE_FIELDS})
-    node, fail, feas, _, _ = tstep.plain_step(arrs, active, hoist,
+    node, fail, feas, *_ = tstep.plain_step(arrs, active, hoist,
                                               tsched.inv_alloc_of(arrs.alloc), lanes, cfg,
                                               cfg.forced_prefix, snap.n_pods)
     for s in range(2):

@@ -121,7 +121,7 @@ def test_rich_lanes_equal_single_lane_runs():
     base = tsched.init_state(arrs, cfg)
     lanes = tsched.SimState(**{f: torch.stack([getattr(base, f)] * 4)
                                for f in tsched.STATE_FIELDS})
-    node, fail, feas, _, _ = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
+    node, fail, feas, *_ = tstep.plain_step(arrs, active, tsched.hoist_of(arrs, active),
                                               tsched.inv_alloc_of(arrs.alloc), lanes, cfg, 0,
                                               snap.n_pods)
     for s in range(4):

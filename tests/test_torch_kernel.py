@@ -62,10 +62,10 @@ def test_ctypes_struct_matches_the_c_struct():
         decl = decl.strip()
         if not decl:
             continue
-        ctype, names = re.match(r"(.*?\*|int|float)\s+(.*)", decl).groups()
+        ctype, names = re.match(r"(.*?\*|int|float|unsigned)\s+(.*)", decl).groups()
         kind = "ptr" if ctype.endswith("*") else ctype
         c_fields += [(n.strip(), kind) for n in names.split(",")]
-    kinds = {"c_void_p": "ptr", "c_int": "int", "c_float": "float"}
+    kinds = {"c_void_p": "ptr", "c_int": "int", "c_float": "float", "c_uint": "unsigned"}
     py_fields = [(name, kinds[ctype.__name__]) for name, ctype in step.StepArgs._fields_]
     assert py_fields == c_fields
     # the preemption columns: pod arrays every instantiation reads
@@ -639,10 +639,11 @@ def test_merge_struct_and_flags_match_the_c_source():
 
 def test_plain_step_kernel_has_the_frozen_instantiations():
     """kernel_of picks the frozen form from StepArgs.frozen, never with
-    the columns: four frozen builds beside the eight scan builds."""
+    the columns: four frozen builds beside the eight scan builds (in each
+    library; the fifth flag, kExplain, is the library's)."""
     src = Path(SOURCE).read_text(encoding="utf-8")
     insts = set(re.findall(r"plain_step_kernel<(true|false), (true|false), (true|false), "
-                           r"(true|false)>", src))
+                           r"(true|false), X>", src))
     assert len(insts) == 12
     assert {i[:3] for i in insts if i[3] == "true"} == {
         (a, b, "false") for a in ("true", "false") for b in ("true", "false")}
@@ -735,3 +736,146 @@ def test_schedule_pods_runs_the_waves_on_card(cuda_device, case):
         assert torch.equal(a.cpu(), b)
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(gpu.state, f).cpu(), getattr(cpu.state, f)), f
+
+
+# the explain builds (the fifth flag, kExplain: the top-k candidates and the
+# seeded tie-break jitter) of each instantiation: scan, with the preemption
+# columns, and frozen
+EXPLAIN_MODES = {"topk": dict(explain_topk=3), "seed": dict(tie_break_seed=7),
+                 "topk-seed": dict(explain_topk=4, tie_break_seed=2**31 - 1)}
+EXPLAIN_SNAPSHOTS = {"<0,0>": lambda: synthetic_snapshot(96, 512, bound=0.2),
+                     "<1,0>": lambda: synthetic_snapshot(96, 512, rich=True, bound=0.2),
+                     "<0,1>": lambda: device_resource_snapshot(96, 640),
+                     "<1,1>": lambda: device_resource_snapshot(96, 640, rich=True),
+                     "tiny-3": lambda: synthetic_snapshot(3, 40, rich=True)}
+
+
+def _assert_runs_equal(runs):
+    (out_k, st_k), (out_p, st_p) = runs
+    for name, a, b in zip(step.StepOutputs._fields, out_k, out_p):
+        assert torch.equal(a, b), name
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+
+
+def test_explain_gates_pick_the_explain_builds():
+    """explain_topk or tie_break_seed runs the "+explain" twin of the
+    launch's instantiation; the shared memory grows by the top-k's row."""
+    snap = synthetic_snapshot(24, 64, rich=True)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    for mode, over in EXPLAIN_MODES.items():
+        cfg = sched.make_config(snap, **over)
+        st = sched.init_state(arrs, cfg)
+        assert step.instantiation(cfg, st) == "<1,0>+explain", mode
+        assert step.instantiation(cfg, st, frozen=True) == "<1,0>+frozen+explain", mode
+        flags = step._flags(cfg, st, False)
+        base = step.smem_widths(arrs, sched.make_config(snap), flags).rows
+        assert step.smem_widths(arrs, cfg, flags).rows == base + bool(cfg.explain_topk)
+    assert step.instantiation(sched.make_config(snap), st) == "<1,0>"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPLAIN_SNAPSHOTS))
+@pytest.mark.parametrize("mode", sorted(EXPLAIN_MODES))
+def test_explain_builds_equal_plain_step_on_card(cuda_device, case, mode):
+    """Each instantiation's explain build, two lanes: the top-k tensors,
+    the seeded placements and every carry field equal the plain step's,
+    bit for bit (tiny-3: K clamped to the 3 nodes)."""
+    snap = EXPLAIN_SNAPSHOTS[case]()
+    cfg = sched.make_config(snap, **EXPLAIN_MODES[mode])
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    masks = np.stack([np.ones(snap.n_nodes, bool), np.arange(snap.n_nodes) % 3 != 0])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.apply_forced_prefix(arrs, cfg, sched.init_state(arrs, cfg), cfg.forced_prefix)
+    before = dict(step.LAUNCHES)
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 2)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, cfg.forced_prefix, snap.n_pods,
+                  template=tmpl)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    _assert_runs_equal(runs)
+    assert step.LAUNCHES["plain_step_explain"] == before["plain_step_explain"] + 1
+    assert step.LAUNCHES["plain_step"] == before["plain_step"]
+    out = runs[0][0]
+    k_top = min(cfg.explain_topk, snap.n_nodes)
+    assert out.topk_node.shape[2] == k_top
+    if k_top:
+        feasible = out.topk_score > -1e37
+        assert feasible.any() and (out.topk_node[..., 0] >= 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(COLUMN_CASES))
+def test_explain_builds_with_preemption_columns_on_card(cuda_device, case):
+    """The "+columns+explain" builds: random preemption columns with the
+    top-k and the jitter, equal to the plain step bit for bit."""
+    snap = COLUMN_CASES[case]()
+    cfg = sched.make_config(snap, forced_prefix=0, explain_topk=3, tie_break_seed=11)
+    n = snap.n_nodes
+    masks = np.stack([np.arange(n) % 9 != 4, np.arange(n) % 3 != 0])
+    disabled, nominated = preemption_columns(snap.arrays.forced_node, masks[0], seed=5)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    assert step.instantiation(cfg, tmpl, columns=True) == case + "+columns+explain"
+    cols = dict(disabled=torch.from_numpy(disabled).to(cuda_device),
+                nominated=torch.from_numpy(nominated).to(cuda_device))
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 2)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, 0, snap.n_pods, template=tmpl, **cols)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    _assert_runs_equal(runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+def test_frozen_explain_builds_equal_plain_on_card(cuda_device, case):
+    """The "+frozen+explain" builds over the first waves of a pools GRID,
+    three lanes, with the top-k and the jitter: equal to the plain step's
+    frozen form, bit for bit."""
+    snap = wave_pools_snapshot(96, 768, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap, explain_topk=3, tie_break_seed=5)
+    lo, _, kind, w = wave_plans.waves_for(snap.arrays, cfg).segments[0]
+    assert kind == wave_plans.GRID
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 2, np.arange(n) % 7 != 3])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, 3)
+    step.copy_template(st, tmpl)
+    before = dict(step.LAUNCHES)
+    for w0 in range(lo, lo + 4 * w, w):
+        st_p = _clone(st)
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, w0, w0 + w, frozen=True)
+        out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, w0, w0 + w,
+                                      frozen=True)
+        torch.cuda.synchronize()
+        _assert_runs_equal([(out_k, st), (out_p, st_p)])
+        pick = out_k.gpu_pick if cfg.enable_gpu else None
+        wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out_k.node, pick)
+    assert step.LAUNCHES["plain_step_frozen_explain"] == before["plain_step_frozen_explain"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(explain_topk=3), dict(explain_topk=2, tie_break_seed=3)])
+def test_schedule_pods_explain_waves_on_card(cuda_device, over):
+    """schedule_pods with a wave plan under explain: the card's top-k
+    tensors and placements are the CPU's (which are the scan's)."""
+    snap = wave_pools_snapshot(64, 384, 8, gpu=True, interpod=True)
+    cfg = sched.make_config(snap, **over)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    gpu = sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, waves=plan)
+    cpu = sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
+    for name in ("node", "feasible", "gpu_pick", "topk_node", "topk_score", "topk_parts"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name

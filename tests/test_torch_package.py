@@ -9,6 +9,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -205,8 +206,16 @@ def test_simulate_defaults_to_the_card(monkeypatch):
     assert tsched.resolve_device("cpu").type == "cpu"
 
 
+# out-of-tree extension ops (the reference's engine/extensions.ExtensionOp
+# shape: a name, an optional filter_fn and an optional score_fn)
+_FILTER_EXT = types.SimpleNamespace(name="ext-filter", filter_fn=lambda *a: None, score_fn=None,
+                                    normalize="none", weight=1.0)
+_SCORE_EXT = types.SimpleNamespace(name="ext-score", filter_fn=None, score_fn=lambda *a: None,
+                                   normalize="minmax", weight=1.0)
+
+
 @pytest.mark.parametrize("override", [
-    dict(explain_topk=3), dict(tie_break_seed=7), dict(traced_weights=True),
+    dict(extensions=(_FILTER_EXT,)), dict(extensions=(_SCORE_EXT,)), dict(traced_weights=True),
 ])
 def test_every_unported_gate_raises(override):
     snap = synthetic_snapshot(8, 16)
@@ -217,10 +226,9 @@ def test_every_unported_gate_raises(override):
 
 
 def test_only_the_remaining_engine_modes_are_refused():
-    """After the device-resource slice, the gates still to port are the
-    engine modes of ROADMAP queue 1, items 7 and 10."""
-    assert [g for g, _ in tsched._UNSUPPORTED] == [
-        "extensions", "explain_topk", "tie_break_seed", "traced_weights"]
+    """After the explain slice, the gates still to port are the extension
+    ops (ROADMAP queue 1, item 7) and the traced weights (item 10)."""
+    assert [g for g, _ in tsched._UNSUPPORTED] == ["extensions", "traced_weights"]
 
 
 def test_make_config_turns_waves_off(monkeypatch):
@@ -280,7 +288,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
-    assert build.kernel_names() == ["plain_step", "wave_merge"]
+    assert build.kernel_names() == ["plain_step", "plain_step_explain", "wave_merge"]
 
 
 def test_log_dom_is_computed_from_counts():
