@@ -18,14 +18,17 @@ the wave path on the reference bench's ``pools`` preset (1,024 nodes x
 10,240 pods in 32 pools, which the wave planner runs as 320 waves), then
 the capacity plan on the first three (the reference bench's 64-lane
 north-star sweep, its bisection, and the example plans through the
-CLI) — and checks that each ran through the kernels and that its answer
-is right.
+CLI), and trace replay (``replay-day``: a day of arrivals, departures
+and a node failure on 5,120 nodes with the autoscaler and the descheduler,
+6,144 nodes x 29,696 pods in the universe; ``replay-resume``) — and
+checks that each ran through the kernels and that its answer is right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
 1. the card's name and power limit (nvidia-smi);
 2. the kernel build, one nvcc per library (``plain_step``, its explain
-   twin ``plain_step_explain`` built from the same source, ``wave_merge``),
+   twin ``plain_step_explain`` built from the same source, ``wave_merge``,
+   ``forced_fold``),
    started together, with ptxas's registers and spills of each of the 24
    ``plain_step`` instantiations;
 3. kernel vs plain step, exact equality of node, fail counts, feasible
@@ -89,8 +92,8 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    counted (more than 0), the first 2,048 pods against the plain step,
    the plain jitter timed; then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
    north-star cluster with PriorityClasses (batch, prod for one pod in
-   four, system), a minAvailable 90% budget over app=a0 and an app of 32
-   system pods of 12 CPU, counts read (one launch per pass: the first
+   four, system), a minAvailable 90% budget over app=a0 and an app of
+   ``PREEMPTORS`` system pods of 12 CPU, counts read (one launch per pass: the first
    without preemption columns, each rescan with them); each planning
    round's host time, the events and victims; the invariants (each
    preemptor on its nominated node, each victim -3 and decoded as
@@ -117,7 +120,20 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    explain_topk = 3 through ``simulate()`` (one frozen explain launch and
    one merge per wave), its first 16 waves against the plain versions,
    the whole run's top-k tensors against the scan's, and those 16 waves'
-   frozen launches timed alone with and without the top-k;
+   frozen launches timed alone with and without the top-k; then
+   ``replay-day``: launch counts reset, ``run_replay`` of
+   ``replay.synthetic_replay_cluster(5120, 5120)`` with
+   ``synthetic_trace_dict(n_batches=12, batch_pods=2048,
+   max_new_nodes=1024)`` and the controllers ``autoscaler:scale_step=64``
+   and ``descheduler:period=4`` on the card, counts read (``plain_step``
+   and ``forced_fold`` launched); each step's wall, path (full scan or
+   fast path) and its scan kernel and fold time (CUDA events); every fold
+   chunk against its plain version; the first full scan's first 2,048
+   pods from the hoisted carry against the plain step; one step's
+   whole-mask fold timed beside its plain version and its torch.matmul
+   calls; the same trace with the fast path off, the same digest; then
+   ``replay-resume``: the trace with a checkpoint directory, stopped once
+   step 8 is journaled, resumed from the journal, the same digest;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -126,18 +142,22 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
    lane 63 put them; devres: the cluster's own nodeName prefix; one
-   ``wave_merge`` launch a chunk) timed beside its plain version and held
-   equal to the kernel's carry after those pods; the kernel against
+   ``forced_fold`` launch sequence a chunk) timed beside its plain version
+   and its torch.matmul calls and held equal to the kernel's carry after
+   those pods; the kernel against
    the plain step over the first 2,048 pods of lanes 0 and 63;
    ``capacity_bisect`` (8 lanes) against the sweep's answer under a CPU
    limit that puts it inside (0, 64); then the
    ``config``, ``constraints``, ``controlplane``, ``morepods``,
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
-   the CPU, with the same output, and ``explain -f examples/config.yaml
-   --json`` on both, with the same report;
+   the CPU, with the same output, ``explain -f examples/config.yaml
+   --json`` on both, with the same report, and ``replay --cluster-config
+   examples/cluster/demo --trace <a synthetic trace> --controller
+   autoscaler --json`` on both, with the same report;
 6. one JSON line describing each kernel (``plain_step``, its frozen
-   form ``plain_step_frozen``, ``wave_merge``, and the explain builds
+   form ``plain_step_frozen``, ``wave_merge``, ``forced_fold``, and the
+   explain builds
    ``plain_step_explain`` and ``plain_step_frozen_explain``, with each
    plain_step instantiation's registers, stack and spills; a launched one
    that spills fails the run), then the device line.
@@ -169,6 +189,14 @@ CAPACITY_LANES = 64
 BISECT_TARGET = 37
 # pods of the full-width forced-prefix fold (one fold chunk)
 FOLD_PODS = 4096
+# the replay-day path (replay.synthetic_replay_cluster and
+# synthetic_trace_dict at full width: 5,120 nodes with 5,120 running pods,
+# twelve arrivals of 2,048 pods, a departure every third, a kill_node
+# before the seventh, 1,024 template slots) and its controllers
+REPLAY = {"nodes": 5120, "base_pods": 5120, "batches": 12, "batch_pods": 2048,
+          "max_new": 1024, "controllers": ("autoscaler:scale_step=64", "descheduler:period=4")}
+# replay-resume stops once this step's row is journaled
+RESUME_AFTER = 8
 # the full-size paths' nodes and pods
 NODES, PODS = 5120, 51200
 # the pools path: the reference bench's wave-showcase preset (bench.py:351)
@@ -185,12 +213,13 @@ WAVE_PARITY_WAVES, WAVE_SAME = 4, 16
 PRIME_MS = 10
 # the northstar-preempt path's last app: system pods of 12 CPU, more than
 # any node of the 16-CPU north-star cluster has free without evictions
-PREEMPTORS, SYSTEM_CPU = 16, "12"
-# the depth (pods) of four earlier parity inputs, cut so that the explain
+# (cut from 32 to 16, then to 8, as later paths were added)
+PREEMPTORS, SYSTEM_CPU = 8, "12"
+# the depth (pods) of four earlier parity inputs, cut so that the later
 # paths fit the time limit: the 4-lane group_count input, the rich
 # 1,024-node input and the dense rich input (twice this) and the 4-lane
 # device-resource input (half)
-EARLIER_DEPTH = 1024
+EARLIER_DEPTH = 512
 # explain: the candidates recorded per pod, and the tie-break seed of the
 # northstar-tiebreak path
 EXPLAIN_K, TIE_SEED = 3, 7
@@ -607,19 +636,21 @@ def _paint_ops(a, cfg, sl, node, per_node_compare):
     return paints
 
 
-def fold_work(a, cfg, k):
-    """(bytes, operations) of folding the first k pods (forced binds) into
-    a carry — what ``apply_forced_prefix`` computes. Bytes: the k pods'
-    forced node, requests, groups, ports, terms and preferred terms, the
-    one-hot domain table and the carry, each read once, and the carry
-    written once. Operations: the sequential binds' own — per bound pod R
-    subtractions, one add per matched group (and per matched group and
-    non-hostname key on the dom_count carry), one or per port, one add per
-    attach-limit key, and the paints (an add per node of the bound node's domain, one under the
-    hostname key)."""
+def fold_work(a, cfg, node):
+    """(bytes, operations) of folding pods into a carry at `node` (one
+    entry a pod of the first len(node) pods, negative: not folded) — what
+    ``apply_forced_prefix`` (every node set) and ``apply_forced_mask``
+    compute. Bytes: the node column and the folded pods' requests, groups,
+    ports, terms and preferred terms, the domain table and the carry, each
+    read once, and the carry written once. Operations: the sequential
+    binds' own — per folded pod R subtractions, one add per matched group
+    (and per matched group and non-hostname key on the dom_count carry),
+    one or per port, one add per attach-limit key, and the paints (an add
+    per node of the bound node's domain, one under the hostname key)."""
     import numpy as np
 
-    node = np.asarray(a.forced_node[:k], dtype=np.int64)
+    node = np.asarray(node, dtype=np.int64)
+    k = len(node)
     n, r = a.alloc.shape
     k1, _, d = a.topo_onehot.shape
     sg, pt = a.match_groups.shape[1], a.ports.shape[1]
@@ -631,13 +662,13 @@ def fold_work(a, cfg, k):
     lk = a.vol_limit_cap.shape[1] if cfg.enable_vol_limits else 0
     per_pod = (r + groups * cfg.needs_group_count + groups * k1 * cfg.maintain_dom_count
                + a.ports[sl].sum(1).astype(np.int64) * cfg.enable_ports + lk
-               + _paint_ops(a, cfg, sl, node, per_node_compare=False))
+               + _paint_ops(a, cfg, sl, np.maximum(node, 0), per_node_compare=False))
     ops = int((placed * per_pod).sum())
     carry = (n * r * 4 + n * pt + k1 * d * sg * 4 + n * sg * gcb
              + (n * t * gcb if cfg.enable_anti_affinity else 0)
              + (n * t2 * 4 if cfg.enable_pref else 0) + n * lk * 4)
-    pod_bytes = k * (4 + r * 4 + sg + pt + t + ap * 13 + lk * 4)
-    return pod_bytes + k1 * n * d * 4 + 2 * carry, ops
+    pod_bytes = k * 4 + int(placed.sum()) * (r * 4 + sg + pt + t + ap * 13 + lk * 4)
+    return pod_bytes + k1 * n * 4 + 2 * carry, ops
 
 
 def hoist_work(a, n_lanes):
@@ -1233,35 +1264,40 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
 
     fresh = sched.init_state(arrs_f, fcfg)
     folded = []
-    merges0 = wave.LAUNCHES["wave_merge"]
+    folds0 = wave.LAUNCHES["forced_fold"]
     fold_ms = min(cuda_ms(torch, lambda: folded.append(
         sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold))) for _ in range(3))
-    fold_launches = (wave.LAUNCHES["wave_merge"] - merges0) // 3
-    plain_fold = []
-    fold_plain_ms = min(cuda_ms(torch, lambda: plain_fold.append(
-        plain_prefix_fold(sched, wave, arrs_f, fcfg, fresh, n_fold))) for _ in range(2))
+    fold_launches = (wave.LAUNCHES["forced_fold"] - folds0) // 3
+    fold_dev_ms = min(cuda_ms(torch, lambda: sched.apply_forced_prefix(arrs_f, fcfg, fresh, n_fold),
+                              prime_ms=PRIME_MS) for _ in range(3))
+    plain_folds = []
+    prefix_nodes = arrs_f.forced_node[:n_fold].int()
+    fold_plain_ms = min(cuda_ms(torch, lambda: plain_folds.append(
+        plain_fold(sched, wave, arrs_f, fcfg, fresh, prefix_nodes))) for _ in range(2))
     log_mm = MatmulLog(torch)
     with log_mm:
-        plain_prefix_fold(sched, wave, arrs_f, fcfg, fresh, n_fold)
+        plain_fold(sched, wave, arrs_f, fcfg, fresh, prefix_nodes)
     mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
+    mm_dev_ms = min(cuda_ms(torch, log_mm.replay, prime_ms=PRIME_MS) for _ in range(3))
     one = sched.lane_carry(fresh, 1)
     step.plain_step_cuda(arrs, masks[-1:], sched.hoist_of(arrs, masks[-1:]), inv, one,
                          scfg._replace(forced_prefix=0), 0, n_fold, template=fresh)
     if not all(torch.equal(getattr(folded[-1], f), getattr(one, f)[0])
-               and torch.equal(getattr(plain_fold[-1], f), getattr(one, f)[0])
+               and torch.equal(getattr(plain_folds[-1], f), getattr(one, f)[0])
                for f in sched.STATE_FIELDS):
         raise SystemExit(f"capacity {label}: the fold of {n_fold} pods (kernel or plain) and "
                          "the kernel's carry after them differ")
     if fold_launches != -(-n_fold // FOLD_PODS):
-        raise SystemExit(f"capacity {label}: the fold launched wave_merge {fold_launches} "
+        raise SystemExit(f"capacity {label}: the fold launched forced_fold {fold_launches} "
                          "times, not once a chunk")
-    fold_b = bound_of(fold_work(pinned, fcfg, n_fold))
-    del folded, plain_fold, log_mm
+    fold_b = bound_of(fold_work(pinned, fcfg, pinned.forced_node[:n_fold]))
+    del folded, plain_folds, log_mm
     log(f"capacity {label}: hoist_active_stats over {CAPACITY_LANES} lanes {hoist_ms:.3f} ms, "
         f"bound {hoist_b[2]:.4f} ms ({hoist_b[3]}: bytes={hoist_b[0]} ops={hoist_b[1]}); "
-        f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms ({fold_launches} wave_merge "
-        f"launch(es)), the plain merge's fold {fold_plain_ms:.3f} ms, its torch.matmul calls "
-        f"alone {mm_ms:.3f} ms, bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
+        f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms ({fold_launches} forced_fold "
+        f"launch sequence(s); the device alone, the stream primed: {fold_dev_ms:.3f} ms), the "
+        f"plain merge's fold {fold_plain_ms:.3f} ms, its torch.matmul calls alone {mm_ms:.3f} ms "
+        f"(primed {mm_dev_ms:.3f} ms), bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
         f"ops={fold_b[1]}); the folds equal the kernel's carry after those pods")
 
     # the bound: this run's filter and feasible counts, from a reasons-on
@@ -1319,8 +1355,9 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
                    "geometry": geometry_fields(plan_b)},
         "hoist": {"lanes": CAPACITY_LANES, "ms": hoist_ms, "bound_ms": hoist_b[2],
                   "bound_by": hoist_b[3]},
-        "prefix_fold": {"pods": n_fold, "ms": fold_ms, "launches": fold_launches,
-                        "plain_ms": fold_plain_ms, "library_ms": mm_ms,
+        "prefix_fold": {"pods": n_fold, "ms": fold_ms, "device_ms": fold_dev_ms,
+                        "launches": fold_launches, "plain_ms": fold_plain_ms,
+                        "library_ms": mm_ms, "library_device_ms": mm_dev_ms,
                         "bound_ms": fold_b[2], "bound_by": fold_b[3]},
     }
 
@@ -1609,6 +1646,16 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
     if not same_eq:
         raise SystemExit(f"main path {label}: the first {q} pods' waves differ from the plain "
                          "versions")
+    # the library yardstick of the merge: the plain merges' torch.matmul
+    # calls (the reference's one-hot products) over the same waves, alone
+    st_m = sched.lane_carry(tmpl, 1)
+    step.copy_template(st_m, tmpl)
+    log_mm = MatmulLog(torch)
+    with log_mm:
+        for j, w0 in enumerate(range(0, q, w)):
+            wave.wave_merge_torch(arrs, cfg, st_m, w0, w0 + w, outs_p[j][0], None)
+    merge_mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
+    del log_mm, st_m
     outs_np = [tuple(torch.cat([o[i] for o in outs_w[:WAVE_SAME]], 1)[0].cpu().numpy()
                      for i in range(3))]
     fb = bound_of(frozen_work(sched, snap.arrays, cfg, 0, q, outs_np))
@@ -1619,7 +1666,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
     log(f"main path {label}: the first {WAVE_SAME} waves ({q} pods): frozen kernel "
         f"{sum(frozen_ms[:WAVE_SAME]):.3f} ms, plain {t_plain * 1e3:.1f} ms, bound "
         f"{fb[2]:.5f} ms ({fb[3]}: bytes={fb[0]} ops={fb[1]}); merge kernel "
-        f"{sum(merge_ms[:WAVE_SAME]):.3f} ms, plain {t_mplain * 1e3:.1f} ms, bound "
+        f"{sum(merge_ms[:WAVE_SAME]):.3f} ms, plain {t_mplain * 1e3:.1f} ms, its "
+        f"torch.matmul calls alone {merge_mm_ms:.3f} ms, bound "
         f"{mb[2]:.5f} ms ({mb[3]}: bytes={mb[0]} ops={mb[1]}); the whole run's frozen bound "
         f"{full_fb[2]:.5f} ms ({full_fb[3]})")
 
@@ -1719,7 +1767,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
         "same_pods": {"pods": q, "frozen_ms": sum(frozen_ms[:WAVE_SAME]),
                       "frozen_plain_ms": t_plain * 1e3, "frozen_bound_ms": fb[2],
                       "frozen_bound_by": fb[3], "merge_ms": sum(merge_ms[:WAVE_SAME]),
-                      "merge_plain_ms": t_mplain * 1e3, "merge_bound_ms": mb[2],
+                      "merge_plain_ms": t_mplain * 1e3, "merge_library_ms": merge_mm_ms,
+                      "merge_bound_ms": mb[2],
                       "merge_bound_by": mb[3]},
         "lanes_64": {"wall_s": lanes_s, "scan_wall_s": lanes_scan_s, "launches": lane_launches,
                      "device_ms": dev64_ms, "frozen_ms": sum(frozen64),
@@ -1850,15 +1899,17 @@ def bound_of(work):
     return (nbytes, flops) + ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
-def plain_prefix_fold(sched, wave, arrs, cfg, state, k):
-    """The plain version of ``apply_forced_prefix`` on the card: the same
-    chunks through the plain merge (fp32 ``torch.matmul``) over a one-lane
-    view of a copy of `state`."""
+def plain_fold(sched, wave, arrs, cfg, state, nodes):
+    """The plain version of ``apply_forced_prefix`` / ``apply_forced_mask``
+    on the card: pods [0, len(nodes)) at `nodes` (negative: not folded),
+    in the scheduler's chunks, through the fold's plain version (the plain
+    merge, fp32 ``torch.matmul``, over a one-lane view) on a copy of
+    `state`."""
     state = clone_state(sched, state)
-    lane = sched.SimState(**{f: getattr(state, f)[None] for f in sched.STATE_FIELDS})
-    for lo in range(0, k, FOLD_PODS):
-        hi = min(lo + FOLD_PODS, k)
-        wave.wave_merge_torch(arrs, cfg, lane, lo, hi, arrs.forced_node[lo:hi].int())
+    chunk = sched._PREFIX_CHUNK
+    for lo in range(0, nodes.shape[0], chunk):
+        hi = min(lo + chunk, nodes.shape[0])
+        wave.forced_fold_torch(arrs, cfg, state, lo, hi, nodes[lo:hi])
     return state
 
 
@@ -2239,6 +2290,328 @@ def cli_explain(torch, cli_main):
     return {"card_s": s_k, "cpu_s": s_c, "pods": len(report["pods"])}
 
 
+class ReplayProbe:
+    """Instruments one ``run_replay`` on the card, without changing what it
+    launches: CUDA events around every ``plain_step`` and ``forced_fold``
+    call (summed per settled step beside the step's wall), every fold
+    checked against its plain version on a copy of the carry (all
+    channels, bit for bit; the plain version counts no launch), the first
+    full scan's inputs (the hoisted start carry) and the last whole-mask
+    fold's inputs kept for the checks and timings after the run."""
+
+    def __init__(self, torch, sched, step, wave, rengine, check_folds):
+        self.torch, self.sched, self.step, self.wave, self.rengine = (
+            torch, sched, step, wave, rengine)
+        self.check_folds = check_folds
+        self.scans, self.folds, self.steps = [], [], []
+        self.fold_checks, self.fold_bad, self.fold_err = 0, 0, 0.0
+        self.first_scan = None
+        self.last_mask_fold = None
+
+    def _events(self):
+        ev = (self.torch.cuda.Event(enable_timing=True), self.torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        return ev
+
+    def __enter__(self):
+        torch, sched, step, wave, rengine = (self.torch, self.sched, self.step, self.wave,
+                                             self.rengine)
+        self.real = (step.plain_step, wave.forced_fold, rengine.settle_step,
+                     sched.apply_forced_mask)
+        real_step, real_fold, real_settle, real_mask = self.real
+
+        def plain_step(arrs, active, hoist, inv, state, cfg, p0, p1, template=None, **kw):
+            ev = self._events()
+            out = real_step(arrs, active, hoist, inv, state, cfg, p0, p1, template=template, **kw)
+            ev[1].record()
+            self.scans.append(ev)
+            if self.first_scan is None and template is not None and p0 == 0 and p1 >= PARITY_PREFIX:
+                self.first_scan = (arrs, active, hoist, inv, cfg, template)
+            return out
+
+        def forced_fold(arrs, cfg, state, p0, p1, nodes, inputs=None):
+            before = clone_state(sched, state) if self.check_folds else None
+            ev = self._events()
+            real_fold(arrs, cfg, state, p0, p1, nodes, inputs)
+            ev[1].record()
+            self.folds.append(ev)
+            if before is not None:
+                wave.forced_fold_torch(arrs, cfg, before, p0, p1, nodes)
+                equal, err = compare(torch, [], [], state, before)
+                self.fold_checks += 1
+                self.fold_bad += not equal
+                self.fold_err = max(self.fold_err, err)
+
+        def apply_forced_mask(arrs, cfg, state, mask):
+            self.last_mask_fold = (arrs, cfg, state, mask)
+            return real_mask(arrs, cfg, state, mask)
+
+        def settle_step(prog, world, controllers, ev, i, **kw):
+            torch.cuda.synchronize()
+            n_scan, n_fold, paths = len(self.scans), len(self.folds), dict(rengine.STEPS_TOTAL)
+            t0 = time.perf_counter()
+            row = real_settle(prog, world, controllers, ev, i, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            took = {k: v - paths.get(k, 0) for k, v in rengine.STEPS_TOTAL.items()
+                    if v != paths.get(k, 0)}
+            self.steps.append({
+                "step": i, "event": ev.kind, "path": took, "wall_s": wall,
+                "scan_ms": sum(a.elapsed_time(b) for a, b in self.scans[n_scan:]),
+                "scans": len(self.scans) - n_scan,
+                "fold_ms": sum(a.elapsed_time(b) for a, b in self.folds[n_fold:]),
+                "folds": len(self.folds) - n_fold,
+                "placed": row["placed"], "pending": row["pending"],
+                "active_nodes": row["active_nodes"],
+                "actions": [a["kind"] for a in row["actions"]]})
+            return row
+
+        step.plain_step, wave.forced_fold = plain_step, forced_fold
+        rengine.settle_step, sched.apply_forced_mask = settle_step, apply_forced_mask
+        return self
+
+    def __exit__(self, *exc):
+        (self.step.plain_step, self.wave.forced_fold, self.rengine.settle_step,
+         self.sched.apply_forced_mask) = self.real
+        return False
+
+
+def replay_objects(replay_mod):
+    """The replay-day cluster, trace and controllers (new objects each run)."""
+    cluster = replay_mod.synthetic_replay_cluster(n_nodes=REPLAY["nodes"],
+                                                  n_initial_pods=REPLAY["base_pods"])
+    trace = replay_mod.ReplayTrace.from_dict(replay_mod.synthetic_trace_dict(
+        n_batches=REPLAY["batches"], batch_pods=REPLAY["batch_pods"],
+        max_new_nodes=REPLAY["max_new"]))
+    controllers = [replay_mod.controller_from_arg(a) for a in REPLAY["controllers"]]
+    return cluster, trace, controllers
+
+
+def replay_run(torch, replay_mod, **opts):
+    """One run_replay of the replay-day objects on the card: (report,
+    wall seconds)."""
+    cluster, trace, controllers = replay_objects(replay_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = replay_mod.run_replay(cluster, trace, replay_mod.ReplayOptions(
+        controllers=controllers, **opts), device="cuda")
+    torch.cuda.synchronize()
+    return report, time.perf_counter() - t0
+
+
+def replay_path(torch, sched, step, wave, replay_mod, rengine, label):
+    """replay-day: a day of arrivals, departures and a node failure on a
+    5,120-node cluster with 1,024 template slots, the autoscaler and the
+    descheduler on (6,144 nodes x 29,696 pods in the universe), through
+    ``run_replay`` on the card with the launch counts reset just before
+    and read just after; each step's wall with its scan kernel and fold
+    time (CUDA events); every fold held to its plain version; the first
+    full scan's first 2,048 pods from the hoisted carry against the plain
+    step; one step's whole-mask fold timed beside its plain version and
+    its torch.matmul calls; then the same trace with the fast path off,
+    whose digest must be the same."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    rengine.STEPS_TOTAL.clear()
+    with ReplayProbe(torch, sched, step, wave, rengine, check_folds=True) as probe:
+        report, wall = replay_run(torch, replay_mod, checkpoint=False)
+    launches = read_counts()
+    paths = dict(rengine.STEPS_TOTAL)
+    t = report["totals"]
+    for row in probe.steps:
+        log(f"{label}: step {row['step']:2d} {row['event']:<9} path={row['path']} "
+            f"wall_s={row['wall_s']:.3f} scan kernel {row['scan_ms']:.1f} ms "
+            f"({row['scans']} launch(es)) fold {row['fold_ms']:.3f} ms ({row['folds']} "
+            f"chunk(s)) placed={row['placed']} pending={row['pending']} "
+            f"nodes={row['active_nodes']} actions={row['actions']}")
+    log(f"{label}: run_replay wall_s={wall:.3f} steps={t['steps']} full scans "
+        f"{paths.get('full', 0)} fast-path scans {paths.get('slice', 0)} (noop "
+        f"{paths.get('noop', 0)}) launches={launches} digest={report['digest']} "
+        f"totals={t}; folds checked against the plain version: {probe.fold_checks}, "
+        f"differing: {probe.fold_bad}")
+    if launches["plain_step"] == 0 or launches["forced_fold"] == 0:
+        raise SystemExit(f"{label}: the replay did not run through plain_step and "
+                         f"forced_fold: {launches}")
+    if probe.fold_bad or not probe.fold_checks:
+        raise SystemExit(f"{label}: {probe.fold_bad} of {probe.fold_checks} folds differ from "
+                         "the plain version")
+    if not paths.get("slice"):
+        raise SystemExit(f"{label}: the fast path never fired on this trace")
+    if t["scale_ups"] == 0 or t["defrag_moves"] == 0 or t["evicted"] == 0:
+        raise SystemExit(f"{label}: the autoscaler, the descheduler or the node failure did "
+                         f"nothing: {t}")
+    n_nodes = REPLAY["nodes"] + REPLAY["max_new"]
+    n_pods = REPLAY["base_pods"] + REPLAY["batches"] * REPLAY["batch_pods"]
+    if len(report["steps"]) != t["steps"] or t["placed"] + t["pending"] + t["lost"] <= 0:
+        raise SystemExit(f"{label}: the report is malformed")
+
+    # the first full scan's first PARITY_PREFIX pods, from the hoisted
+    # start carry: the kernel against the plain step
+    arrs, active, hoist, inv, cfg, tmpl = probe.first_scan
+    st_k, st_p = sched.lane_carry(tmpl, 1), sched.lane_carry(tmpl, 1)
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, 0, PARITY_PREFIX,
+                                 template=tmpl)
+    t0 = time.perf_counter()
+    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, 0, PARITY_PREFIX,
+                                  template=tmpl)
+    torch.cuda.synchronize()
+    scan_plain_s = time.perf_counter() - t0
+    scan_eq, scan_err = compare(torch, out_k, out_p, st_k, st_p)
+    pinned = int((arrs.forced_node[:PARITY_PREFIX] == -4).sum())
+    log(f"{label}: the first full scan's first {PARITY_PREFIX} pods ({pinned} hoisted pins "
+        f"and sentinels among them) from the hoisted carry: kernel vs plain step equal={scan_eq} "
+        f"max_abs_err={scan_err} (plain {scan_plain_s:.2f}s)")
+    if not scan_eq:
+        raise SystemExit(f"{label}: the hoisted scan differs from the plain step")
+
+    # one step's whole-mask fold (the last full scan's pins): the kernel,
+    # its plain version and the plain version's torch.matmul calls alone
+    arrs_m, cfg_m, st_m, mask = probe.last_mask_fold
+    chunks = -(-mask.shape[0] // sched._PREFIX_CHUNK)
+    f0 = wave.LAUNCHES["forced_fold"]
+    folded = []
+    fold_ms = min(cuda_ms(torch, lambda: folded.append(
+        sched.apply_forced_mask(arrs_m, cfg_m, st_m, mask))) for _ in range(3))
+    fold_launches = (wave.LAUNCHES["forced_fold"] - f0) // 3
+    fold_dev_ms = min(cuda_ms(torch, lambda: sched.apply_forced_mask(arrs_m, cfg_m, st_m, mask),
+                              prime_ms=PRIME_MS) for _ in range(3))
+    nodes = torch.where(mask, arrs_m.forced_node.int().clamp_min(0),
+                        torch.full_like(arrs_m.forced_node.int(), -1))
+
+    plain = []
+    fold_plain_ms = min(cuda_ms(torch, lambda: plain.append(
+        plain_fold(sched, wave, arrs_m, cfg_m, st_m, nodes))) for _ in range(2))
+    log_mm = MatmulLog(torch)
+    with log_mm:
+        plain_fold(sched, wave, arrs_m, cfg_m, st_m, nodes)
+    mm_ms = min(cuda_ms(torch, log_mm.replay) for _ in range(3))
+    mm_dev_ms = min(cuda_ms(torch, log_mm.replay, prime_ms=PRIME_MS) for _ in range(3))
+    fold_eq, mask_err = compare(torch, [], [], folded[-1], plain[-1])
+    host = sched.SnapshotArrays(**{f: getattr(arrs_m, f).cpu().numpy()
+                                   for f in sched.SnapshotArrays.__dataclass_fields__})
+    fold_b = bound_of(fold_work(host, cfg_m, nodes.cpu().numpy()))
+    log(f"{label}: one step's whole-mask fold ({int(mask.sum())} pinned pods of "
+        f"{mask.shape[0]}, {n_nodes} nodes): forced_fold {fold_ms:.3f} ms ({fold_launches} "
+        f"launch sequence(s), {chunks} chunk(s); the device alone, the stream primed: "
+        f"{fold_dev_ms:.3f} ms), the plain version {fold_plain_ms:.3f} ms, its torch.matmul "
+        f"calls alone {mm_ms:.3f} ms (primed {mm_dev_ms:.3f} ms), bound {fold_b[2]:.5f} ms ({fold_b[3]}: "
+        f"bytes={fold_b[0]} ops={fold_b[1]}); kernel and plain equal: {fold_eq}")
+    if not fold_eq or fold_launches != chunks:
+        raise SystemExit(f"{label}: the whole-mask fold differs from its plain version or "
+                         f"launched {fold_launches} times for {chunks} chunks")
+    step_rows, fold_err = probe.steps, max(probe.fold_err, mask_err)
+    del folded, plain, log_mm, probe
+
+    # the defining semantics alone: the fast path off, the same digest
+    nofast, nofast_wall = replay_run(torch, replay_mod, checkpoint=False, fast_path=False)
+    log(f"{label}: --no-fast-path run_replay wall_s={nofast_wall:.3f} digest="
+        f"{nofast['digest']} equal to the fast path's: {nofast['digest'] == report['digest']}")
+    if nofast["digest"] != report["digest"] or nofast["steps"] != report["steps"]:
+        raise SystemExit(f"{label}: the fast path changed the trajectory")
+    log(f"{label}: phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "nodes": n_nodes, "pods": n_pods, "launches": launches, "steps_run": paths,
+        "wall_s": wall, "no_fast_path_wall_s": nofast_wall, "digest": report["digest"],
+        "totals": t, "max_abs_err": scan_err, "fold_max_abs_err": fold_err,
+        "step_times": [{k: row[k] for k in ("step", "event", "path", "wall_s", "scan_ms",
+                                            "fold_ms", "folds")} for row in step_rows],
+        "mask_fold": {"pods": int(mask.shape[0]), "pinned": int(mask.sum()), "ms": fold_ms,
+                      "device_ms": fold_dev_ms, "launches_per_full_step": fold_launches,
+                      "plain_ms": fold_plain_ms, "library_ms": mm_ms,
+                      "library_device_ms": mm_dev_ms, "bound_ms": fold_b[2], "bound_by": fold_b[3]},
+    }
+
+
+def replay_resume_path(torch, replay_mod, rengine, digest, label):
+    """replay-resume: the replay-day trace with a checkpoint directory,
+    stopped once step RESUME_AFTER is journaled, then resumed from the
+    journal (``resolve_replay("last")``): the resumed digest must be the
+    uninterrupted run's."""
+    import tempfile
+
+    from open_simulator_tpu_torch.resilience import lifecycle
+
+    class Stop(Exception):
+        pass
+
+    t_phase = time.perf_counter()
+    real_append = rengine.ReplayJournal.append_step
+
+    def append_then_stop(journal, row):
+        real_append(journal, row)
+        if len(journal.rows) > RESUME_AFTER:
+            raise Stop
+
+    prev = os.environ.get(lifecycle.CHECKPOINT_DIR_ENV)
+    with tempfile.TemporaryDirectory(prefix="replay-resume-") as root:
+        os.environ[lifecycle.CHECKPOINT_DIR_ENV] = root
+        try:
+            rengine.ReplayJournal.append_step = append_then_stop
+            t0 = time.perf_counter()
+            try:
+                replay_run(torch, replay_mod)
+                raise SystemExit(f"{label}: the run was not stopped")
+            except Stop:
+                pass
+            stopped_s = time.perf_counter() - t0
+            rengine.ReplayJournal.append_step = real_append
+            journal = replay_mod.resolve_replay("last")
+            if len(journal.rows) != RESUME_AFTER + 1 or journal.done is not None:
+                raise SystemExit(f"{label}: the journal holds {len(journal.rows)} steps")
+            resumed, resumed_s = replay_run(torch, replay_mod, resume="last")
+        finally:
+            rengine.ReplayJournal.append_step = real_append
+            if prev is None:
+                os.environ.pop(lifecycle.CHECKPOINT_DIR_ENV, None)
+            else:
+                os.environ[lifecycle.CHECKPOINT_DIR_ENV] = prev
+    log(f"{label}: stopped after step {RESUME_AFTER} ({stopped_s:.1f}s), resumed "
+        f"{resumed['resumed_steps']} settled steps from the journal ({resumed_s:.1f}s): digest "
+        f"{resumed['digest']} equal to the uninterrupted run's: {resumed['digest'] == digest}; "
+        f"phase_s={time.perf_counter() - t_phase:.1f}")
+    if resumed["digest"] != digest or resumed["resumed_steps"] != RESUME_AFTER + 1:
+        raise SystemExit(f"{label}: the resumed trajectory differs from the uninterrupted one")
+    return {"stopped_after_step": RESUME_AFTER, "stopped_s": stopped_s, "resumed_s": resumed_s,
+            "digest": resumed["digest"]}
+
+
+def cli_replay(torch, cli_main):
+    """``replay`` through the CLI on a small example cluster with a
+    synthetic trace and the autoscaler, on the card and on the CPU: the
+    same report (its run id and wall time aside) and exit code."""
+    import contextlib
+    import io
+    import tempfile
+
+    from open_simulator_tpu_torch.replay import synthetic_trace_dict
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="replay-cli-") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(synthetic_trace_dict(n_batches=4, batch_pods=6, chaos_target="worker-a-0",
+                                           max_new_nodes=4), f)
+        runs = []
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["replay", "--cluster-config", os.path.join(HERE, "examples",
+                                                                          "cluster", "demo"),
+                               "--trace", path, "--controller", "autoscaler", "--json",
+                               "--device", device])
+            torch.cuda.synchronize()
+            rep = json.loads(buf.getvalue()) if rc == 0 else {}
+            for k in ("replay_id", "wall_s"):
+                rep.pop(k, None)
+            runs.append((rc, rep))
+    (rc_k, rep_k), (rc_c, rep_c) = runs
+    log(f"cli replay examples/cluster/demo: rc={rc_k}/{rc_c} digest {rep_k.get('digest')} / "
+        f"{rep_c.get('digest')} totals {rep_k.get('totals')} ({time.perf_counter() - t0:.1f}s)")
+    if rc_k != 0 or (rc_k, rep_k) != (rc_c, rep_c):
+        raise SystemExit("cli replay: the card and the CPU printed different reports")
+    return {"digest": rep_k["digest"], "steps": rep_k["totals"]["steps"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2265,6 +2638,8 @@ def main() -> int:
         from open_simulator_tpu_torch.kernels import build, step, wave
         from open_simulator_tpu_torch.ops import threefry
         from open_simulator_tpu_torch.parallel import sweep
+        from open_simulator_tpu_torch import replay as replay_mod
+        from open_simulator_tpu_torch.replay import engine as rengine
         from open_simulator_tpu_torch.telemetry import explain as explain_mod
         from open_simulator_tpu_torch.testing.synthetic import (
             device_resource_cluster, device_resource_snapshot, preemption_columns,
@@ -2505,6 +2880,12 @@ def main() -> int:
                                  ClusterResources, "pools-explain")
     wave_par[pools_x["parity"]["instantiation"]] = pools_x["parity"]
 
+    # ---- 4d. replay: a day of events through run_replay (the hoisted full
+    # scans, the fast path, the forced fold), then stopped and resumed
+    replay_p = replay_path(torch, sched, step, wave, replay_mod, rengine, "replay-day")
+    resume_p = replay_resume_path(torch, replay_mod, rengine, replay_p["digest"],
+                                  "replay-resume")
+
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
     for label, kind in PATHS:
@@ -2515,6 +2896,7 @@ def main() -> int:
     log(f"cli: {len(CLI_CONFIGS)} plans on the card and on the CPU agree "
         f"({time.perf_counter() - t0:.1f}s)")
     cli_x = cli_explain(torch, cli_main)
+    cli_r = cli_replay(torch, cli_main)
 
     # ---- 6. results
     # ms, plain_ms and bound_ms cover the same pods: the rich path's first
@@ -2581,9 +2963,32 @@ def main() -> int:
         "max_abs_err": max([pools_p["max_abs_err"]] + [v["max_abs_err"] for v in wave_par.values()]),
         "pods": same_w["pods"], "ms": same_w["merge_ms"], "plain_ms": same_w["merge_plain_ms"],
         "bound_ms": same_w["merge_bound_ms"], "bound_by": same_w["merge_bound_by"],
-        "library_ms": None,
+        "library_ms": same_w["merge_library_ms"],
         "parity": "bit-exact on every carry field vs the plain merge (fp32 torch.matmul) after "
                   "each wave of the frozen parity inputs",
+    }]
+    # the forced fold (ms, plain_ms, library_ms and bound_ms: one replay-day
+    # step's whole-mask fold, ms and library_ms with the stream primed, the
+    # device alone; host_ms with the host launching; the capacity paths'
+    # 4,096-pod folds under "prefix_folds")
+    fold_m = replay_p["mask_fold"]
+    kernels += [{
+        "name": "forced_fold", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/forced_fold.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:347",
+        "prefix_replaces": "open_simulator_tpu/engine/scheduler.py:323",
+        "launches": replay_p["launches"]["forced_fold"],
+        "max_abs_err": replay_p["fold_max_abs_err"],
+        "pods": fold_m["pods"], "pinned": fold_m["pinned"], "ms": fold_m["device_ms"],
+        "host_ms": fold_m["ms"], "plain_ms": fold_m["plain_ms"], "bound_ms": fold_m["bound_ms"],
+        "bound_by": fold_m["bound_by"], "library_ms": fold_m["library_device_ms"],
+        "prefix_folds": {k: v["prefix_fold"] for k, v in paths.items() if "prefix_fold" in v},
+        "paths": {"replay-day": replay_p, "replay-resume": resume_p, "cli_replay": cli_r},
+        "parity": "bit-exact on every carry field vs its plain version (the plain merge, fp32 "
+                  "torch.matmul) on every fold chunk of the replay-day run, on the whole-mask "
+                  "fold timed, and on the 4,096-pod prefix folds of the three capacity paths "
+                  "(equal to the kernel's carry after those pods); the hoisted scan's first "
+                  f"{PARITY_PREFIX} pods equal the plain step",
     }]
     # the explain builds: the step with the top-k candidates and the
     # seeded jitter inside its pod loop (ms, plain_ms and bound_ms: the

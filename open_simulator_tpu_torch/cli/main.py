@@ -1,13 +1,15 @@
-"""CLI of the port: ``python -m open_simulator_tpu_torch.cli apply -f <config>``
-and ``python -m open_simulator_tpu_torch.cli explain -f <config>``.
+"""CLI of the port: ``python -m open_simulator_tpu_torch.cli apply -f <config>``,
+``... explain -f <config>`` and ``... replay --cluster-config <dir> --trace
+<file>``.
 
-The reference's ``simon-tpu apply`` and ``simon-tpu explain``
-(``open_simulator_tpu/cli/main.py``) on the port's engine: the same flags
-for what is ported, the same report on stdout and the same exit codes
-(apply: 0 when a plan is found, 1 for FAILED; explain: 0; both: 1 for any
-error, with ``error: <message>`` on stderr), plus ``--device`` (default:
-the card; ``cpu`` runs the plain torch step). The reference's other
-options are accepted and refused with the ROADMAP item that ports them.
+The reference's ``simon-tpu apply``, ``simon-tpu explain`` and ``simon-tpu
+replay`` (``open_simulator_tpu/cli/main.py``) on the port's engine: the
+same flags for what is ported, the same report on stdout and the same
+exit codes (apply: 0 when a plan is found, 1 for FAILED; explain and
+replay: 0; all: 1 for any error, with ``error: <message>`` on stderr),
+plus ``--device`` (default: the card; ``cpu`` runs the plain torch step).
+The reference's other options are accepted and refused with the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -77,7 +79,125 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet (ROADMAP queue 1, item 15)")
     ex.add_argument("--trace-out", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
+
+    rp = sub.add_parser(
+        "replay",
+        help="time-stepped trace replay: arrivals, departures, chaos, autoscaler loops",
+        description="Execute a ReplayTrace (ordered timed events: pod-batch "
+                    "arrivals, departures, node add/remove, the chaos fault "
+                    "kinds) as a closed loop over the scan — one encode for the "
+                    "whole trajectory, pods pinned where they landed, pending "
+                    "pods retried every step. --controller registers autoscaler "
+                    "/ descheduler loops that run between events until "
+                    "convergence. With a checkpoint directory "
+                    "(SIMON_CHECKPOINT_DIR, or SIMON_LEDGER_DIR/checkpoints) "
+                    "every settled step is journaled and --resume continues a "
+                    "killed trajectory to a bit-identical digest.")
+    rp.add_argument("--cluster-config", required=True, help="cluster YAML dir (the t=0 state)")
+    rp.add_argument("--trace", required=True, metavar="FILE",
+                    help="trace file (YAML or JSON): {events: [{t, kind, ...}], "
+                         "max_new_nodes, node_template, zone_key}")
+    rp.add_argument("--controller", action="append", default=[], metavar="NAME[:k=v,...]",
+                    help="register a step controller, repeatable — autoscaler[:scale_step=N,"
+                         "idle_steps=N,up_cooldown=N,down_cooldown=N,max_nodes=N] or "
+                         "descheduler[:period=N]")
+    rp.add_argument("--resume", default="", metavar="REPLAY_ID",
+                    help="resume a checkpointed replay after a crash: replay-id prefix "
+                         "(or 'last'); settled steps replay from the journal and the "
+                         "trajectory digest is identical to an uninterrupted run")
+    rp.add_argument("--no-fast-path", action="store_true",
+                    help="disable the carry-threaded arrival fast path (results are "
+                         "bit-identical either way — this is a perf/debug switch)")
+    rp.add_argument("--no-waves", action="store_true",
+                    help="disable wave scheduling (SIMON_WAVES=0 equivalent)")
+    rp.add_argument("--json", action="store_true", help="emit the report as JSON")
+    rp.add_argument("--output-file", default="")
+    rp.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card; 'cpu' "
+                         "runs the plain torch step)")
+    rp.add_argument("--frontier", default="", metavar="SPECS",
+                    help="not ported yet (ROADMAP queue 1, item 9)")
+    rp.add_argument("--lane-width", type=int, default=8,
+                    help="frontier mixes per round; not ported yet (ROADMAP queue 1, item 9)")
+    rp.add_argument("--max-mixes", type=int, default=2048,
+                    help="frontier guardrail; not ported yet (ROADMAP queue 1, item 9)")
+    rp.add_argument("--compile-cache-dir", default="",
+                    help="not ported yet (ROADMAP queue 1, item 8)")
+    rp.add_argument("--ledger-dir", default="",
+                    help="not ported yet (ROADMAP queue 1, item 11)")
+    rp.add_argument("--trace-out", default="",
+                    help="not ported yet (ROADMAP queue 1, item 11)")
     return p
+
+
+def _emit(text: str, output_file: str) -> None:
+    if output_file:
+        with open(output_file, "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+    else:
+        print(text)
+
+
+def _load_trace_file(path: str) -> dict:
+    """A trace file (YAML or JSON): malformed YAML is a structured E_SPEC."""
+    import yaml
+
+    from open_simulator_tpu_torch.errors import SimulationError
+
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = yaml.safe_load(f)
+    except yaml.YAMLError as e:
+        raise SimulationError(f"{path} is not valid YAML/JSON: {e}", code="E_SPEC",
+                              ref="replay_trace", field="trace") from None
+    if not isinstance(doc, dict):
+        raise SimulationError(f"{path} must hold a mapping, got {type(doc).__name__}",
+                              code="E_SPEC", ref="replay_trace", field="trace")
+    return doc
+
+
+def _replay(args) -> int:
+    """``replay``: the reference's report, text or JSON; exit 1 with
+    ``error: <message>`` for any error."""
+    import json
+    import os
+
+    try:
+        if args.frontier:
+            raise NotImplementedError(
+                "--frontier is not ported yet (ROADMAP queue 1, item 9)")
+        if args.compile_cache_dir:
+            raise NotImplementedError(
+                "--compile-cache-dir is not ported yet (ROADMAP queue 1, item 8)")
+        if args.ledger_dir or args.trace_out:
+            raise NotImplementedError(
+                "--ledger-dir and --trace-out are not ported yet (ROADMAP queue 1, item 11)")
+        if args.no_waves:
+            from open_simulator_tpu_torch.engine.waves import WAVES_ENV
+
+            os.environ[WAVES_ENV] = "0"
+        from open_simulator_tpu_torch.k8s.loader import load_resources_from_directory
+        from open_simulator_tpu_torch.replay import (
+            ReplayOptions,
+            ReplayTrace,
+            controller_from_arg,
+            format_report,
+            run_replay,
+        )
+
+        cluster = load_resources_from_directory(args.cluster_config)
+        trace = ReplayTrace.from_dict(_load_trace_file(args.trace))
+        trace.validate()
+        controllers = [controller_from_arg(a) for a in args.controller]
+        report = run_replay(cluster, trace, ReplayOptions(
+            controllers=controllers, resume=args.resume, fast_path=not args.no_fast_path),
+            device=args.device)
+        _emit(json.dumps(report, indent=2) if args.json else format_report(report),
+              args.output_file)
+        return 0
+    except Exception as e:  # trace, cluster, resume and unported-path errors -> exit 1
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 def _explain(args) -> int:
@@ -97,12 +217,8 @@ def _explain(args) -> int:
     except Exception as e:  # config, admission and unported-path errors -> exit 1
         print(f"error: {e}", file=sys.stderr)
         return 1
-    text = json.dumps(report, indent=2) if args.json else format_explain(report)
-    if args.output_file:
-        with open(args.output_file, "w", encoding="utf-8") as f:
-            f.write(text + "\n")
-    else:
-        print(text)
+    _emit(json.dumps(report, indent=2) if args.json else format_explain(report),
+          args.output_file)
     return 0
 
 
@@ -110,6 +226,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "explain":
         return _explain(args)
+    if args.command == "replay":
+        return _replay(args)
     if args.command != "apply":
         build_parser().print_help()
         return 2

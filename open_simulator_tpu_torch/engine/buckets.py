@@ -1,5 +1,5 @@
-"""The reference's bucketed pod count (``engine/exec_cache.py``'s
-``bucket_dim`` and the pod half of ``bucket_shape``), host only.
+"""The reference's bucketed shapes (``engine/exec_cache.py``'s
+``bucket_dim`` and ``bucket_shape``), host only.
 
 The port pads nothing: it runs every launch at the snapshot's own shapes.
 It still needs the reference's bucketed pod count, because the reference
@@ -8,17 +8,27 @@ plans its waves over the padded pod axis (``core.simulate`` passes
 tail can change the plan (``waves._coalesce`` counts its segment). The
 port plans with the same count, so its plan and its per-pod wave decode
 are the reference's, and its runner skips the segments past the real
-pods.
+pods. Replay's resume fingerprint records the reference's bucketed
+shape (``bucket_shape``) for the same reason: both packages ask the same
+question. Padding would change no real pod's result (padded nodes are
+inactive, padded pods bind-nothing sentinels), so the port skips it.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
-# the reference's pod-axis ladder: powers of two up to POD_LINEAR_FROM,
-# then multiples of POD_LINEAR_STEP
+# the reference's ladders: powers of two up to *_LINEAR_FROM, then
+# multiples of *_LINEAR_STEP
+NODE_LINEAR_FROM = 1024
+NODE_LINEAR_STEP = 1024
 POD_LINEAR_FROM = 2048
 POD_LINEAR_STEP = 2048
+
+
+def _bucketing() -> bool:
+    return os.environ.get("SIMON_BUCKETING", "1") != "0"
 
 
 def bucket_dim(n: int, linear_from: int, linear_step: int) -> int:
@@ -36,6 +46,15 @@ def bucket_dim(n: int, linear_from: int, linear_step: int) -> int:
 def bucket_pods(n_pods: int) -> int:
     """The reference's padded pod-axis length for `n_pods` pods
     (SIMON_BUCKETING=0 turns the padding off, as in the reference)."""
-    if os.environ.get("SIMON_BUCKETING", "1") == "0":
+    if not _bucketing():
         return n_pods
     return bucket_dim(n_pods, POD_LINEAR_FROM, POD_LINEAR_STEP)
+
+
+def bucket_shape(n_nodes: int, n_pods: int) -> Tuple[int, int]:
+    """The reference's padded (nodes, pods) shape for a snapshot
+    (SIMON_BUCKETING=0: the shape itself)."""
+    if not _bucketing():
+        return n_nodes, n_pods
+    return (bucket_dim(n_nodes, NODE_LINEAR_FROM, NODE_LINEAR_STEP),
+            bucket_dim(n_pods, POD_LINEAR_FROM, POD_LINEAR_STEP))

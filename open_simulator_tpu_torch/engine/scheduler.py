@@ -184,10 +184,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def device_arrays(arrs: SnapshotArrays, device) -> SnapshotArrays:
-    """Host numpy -> tensors on `device` (one transfer per field)."""
-    return SnapshotArrays(**{
-        f.name: torch.from_numpy(np.ascontiguousarray(getattr(arrs, f.name))).to(device)
-        for f in dataclasses.fields(arrs)})
+    """Host numpy (or tensors) -> tensors on `device` (one transfer per
+    field; a tensor already there is kept as it is)."""
+    def put(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return SnapshotArrays(**{f.name: put(getattr(arrs, f.name)) for f in dataclasses.fields(arrs)})
 
 
 def init_state(arrs: SnapshotArrays, cfg: Optional[EngineConfig] = None) -> SimState:
@@ -226,25 +230,43 @@ _PREFIX_CHUNK = 4096
 def apply_forced_prefix(arrs: SnapshotArrays, cfg: EngineConfig,
                         state: SimState, k: int) -> SimState:
     """Fold the first k pods (all forced binds) into a copy of the carry at
-    once — what k steps of the forced fast path would do, and what the
-    reference's one-hot fold computes: ``kernels/wave.wave_merge`` of their
-    forced nodes over a one-lane view of the copy (the kernel on the card,
-    its plain version on the CPU), in ``_PREFIX_CHUNK`` chunks as the
-    reference folds (a bf16 carry adds each chunk's sum rounded once). The
-    0/1 weights and integer-valued requests keep every sum exact below
-    2^24. The GPU, storage and WFC carries depend on the order of the
-    binds, so ``make_config`` cuts the prefix where a pod uses them; the
-    attach counts fold like the requests."""
+    once — what k steps of the forced fast path would do: the reference's
+    ``apply_forced_prefix``, ``apply_forced_mask`` with the first k pods
+    set. The GPU, storage and WFC carries depend on the order of the
+    binds, so ``make_config`` cuts the prefix where a pod uses them."""
+    return _fold_forced(arrs, cfg, state, arrs.forced_node[:k].to(torch.int32))
+
+
+def apply_forced_mask(arrs: SnapshotArrays, cfg: EngineConfig,
+                      state: SimState, mask: torch.Tensor) -> SimState:
+    """Fold every pod with `mask` set into a copy of the carry at its
+    forced node, wherever it sits in pod order — the reference's
+    ``apply_forced_mask`` (its one-hot fold at Precision.HIGHEST):
+    ``kernels/wave.forced_fold`` (the kernel on the card, its plain
+    version on the CPU) in ``_PREFIX_CHUNK`` chunks as the reference folds
+    (a bf16 carry adds each chunk's sum rounded once). The 0/1 weights and
+    integer-valued requests keep every sum exact below 2^24. Callers gate
+    it as the reference does: no order-dependent GPU, storage, WFC or
+    shared-volume carry among the masked pods."""
+    forced = arrs.forced_node.to(torch.int32)
+    # a masked pod with no forced node folds at node 0, as the reference's
+    # clamped one-hot does (its callers mask only forced pods)
+    return _fold_forced(arrs, cfg, state, torch.where(
+        mask.to(torch.bool), forced.clamp_min(0), torch.full_like(forced, -1)))
+
+
+def _fold_forced(arrs: SnapshotArrays, cfg: EngineConfig, state: SimState,
+                 nodes: torch.Tensor) -> SimState:
+    """Fold pods [0, len(nodes)) into a copy of `state`, pod p at
+    ``nodes[p]`` (negative: not folded), one ``forced_fold`` a chunk."""
     from open_simulator_tpu_torch.kernels import wave as wave_kernels
 
     state = SimState(**{f: getattr(state, f).contiguous().clone() for f in STATE_FIELDS})
-    lane = SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS})
     inputs: Dict[str, Any] = {}
-    for lo in range(0, k, _PREFIX_CHUNK):
-        hi = min(lo + _PREFIX_CHUNK, k)
-        wave_kernels.wave_merge(arrs, cfg, lane, lo, hi,
-                                arrs.forced_node[lo:hi].to(torch.int32).contiguous(), None,
-                                inputs=inputs)
+    for lo in range(0, nodes.shape[0], _PREFIX_CHUNK):
+        hi = min(lo + _PREFIX_CHUNK, nodes.shape[0])
+        wave_kernels.forced_fold(arrs, cfg, state, lo, hi, nodes[lo:hi].contiguous(),
+                                 inputs=inputs)
     return state
 
 
@@ -968,12 +990,15 @@ def usable_plan(waves, n_pods: int, cfg: EngineConfig, resumed: bool, columns: b
 def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
             carry: Optional[SimState], state: Optional[SimState],
             disabled: Optional[np.ndarray], nominated: Optional[np.ndarray],
-            waves=None) -> ScheduleOutput:
+            waves=None, hoist_forced: bool = False,
+            state_is_fresh: bool = False) -> ScheduleOutput:
     """``schedule_lanes`` with the [P] preemption columns, which every lane
-    reads (None: no column). With either column the forced prefix is not
+    reads (None: no column), and the reference's ``hoist_forced`` and
+    ``state_is_fresh``. With either column the forced prefix is not
     folded: its pods run the step, as in the reference, whose victim and
     nomination indices cover the full sequence; and a wave plan is
-    dropped."""
+    dropped. A given `state` is never written: the launch works on its
+    own copy."""
     from open_simulator_tpu_torch.kernels import step as step_kernels
 
     check_supported(cfg)
@@ -984,29 +1009,38 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     n_lanes, n_pods = masks.shape[0], arrs.req.shape[0]
     dis_t = _column("disabled", disabled, n_pods, bool, dev)
     nom_t = _column("nominated", nominated, n_pods, np.int32, dev)
+    columns = dis_t is not None or nom_t is not None
+    resumed = state is not None and not state_is_fresh
     arrs_t = device_arrays(arrs, dev)
     masks_t = torch.from_numpy(masks).to(dev)
-    waves = usable_plan(waves, n_pods, cfg, state is not None,
-                        dis_t is not None or nom_t is not None)
-    if state is None:
-        if waves is not None:
-            k = min(waves.start, n_pods)
-        else:
-            k = 0 if (dis_t is not None or nom_t is not None) else min(cfg.forced_prefix, n_pods)
-        template = init_state(arrs_t, cfg)
-        if k:
-            template = apply_forced_prefix(arrs_t, cfg, template, k)
+    waves = usable_plan(waves, n_pods, cfg, resumed, columns)
+    # hoist_forced: every forced bind folded into the start carry and
+    # scanned as a -4 sentinel (the replay pinning semantics); a fresh
+    # state hoists like None, a resumed one already holds its pins
+    hoist = (hoist_forced and waves is None and not columns and not cfg.extensions
+             and not resumed)
+    if waves is not None:
+        k = min(waves.start, n_pods)
     else:
-        k = 0
-        template = state
+        k = 0 if (columns or resumed or hoist) else min(cfg.forced_prefix, n_pods)
+    template = init_state(arrs_t, cfg) if state is None else state
     template = SimState(**{f: getattr(template, f).to(dev).contiguous() for f in STATE_FIELDS})
+    pin_mask = None
+    if hoist:
+        orig_forced = arrs_t.forced_node.to(torch.int32)
+        pin_mask = orig_forced >= 0
+        template = apply_forced_mask(arrs_t, cfg, template, pin_mask)
+        arrs_t = dataclasses.replace(arrs_t, forced_node=torch.where(
+            pin_mask, torch.full_like(orig_forced, -4), orig_forced))
+    if k:
+        template = apply_forced_prefix(arrs_t, cfg, template, k)
     carry = lane_carry(template, n_lanes, carry)
-    hoist, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
+    hoist_t, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
     if waves is None:
-        outs = step_kernels.plain_step(arrs_t, masks_t, hoist, inv, carry, cfg, k, n_pods,
+        outs = step_kernels.plain_step(arrs_t, masks_t, hoist_t, inv, carry, cfg, k, n_pods,
                                        template=template, disabled=dis_t, nominated=nom_t)
     else:
-        outs = _run_wave_plan(arrs_t, masks_t, hoist, inv, carry, template, cfg, waves, k,
+        outs = _run_wave_plan(arrs_t, masks_t, hoist_t, inv, carry, template, cfg, waves, k,
                               n_pods)
     if k:
         # the prefix pods' outputs are the forced-bind constants (the
@@ -1016,6 +1050,9 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
                 else torch.cat([c[None].expand((n_lanes,) + c.shape), o], 1)
                 for i, (c, o) in enumerate(zip(_const_outputs(arrs_t, cfg, 0, k), outs))]
     node, fail_counts, feasible, gpu_pick, vol_pick, t_node, t_score, t_parts = outs
+    if pin_mask is not None:
+        # the hoisted pins ran as sentinels: their node is the forced one
+        node = torch.where(pin_mask[None], orig_forced[None], node)
     if not cfg.fail_reasons:
         fail_counts = step_kernels.no_fail_counts(n_lanes, n_pods, cfg.n_ops, dev)
     return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible,
@@ -1026,13 +1063,22 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
                   state: Optional[SimState] = None, device=None,
                   disabled: Optional[np.ndarray] = None,
-                  nominated: Optional[np.ndarray] = None, waves=None) -> ScheduleOutput:
+                  nominated: Optional[np.ndarray] = None, waves=None,
+                  state_is_fresh: bool = False, hoist_forced: bool = False) -> ScheduleOutput:
     """Schedule the pod sequence on one [N] active mask; return
     assignments, reason counts and the final carry: ``schedule_lanes`` at
-    one lane. Equals the reference's ``schedule_pods(..., waves=waves)``
-    (``waves`` as there: a WavePlan, dropped under the columns, a resumed
-    state or another pod count). A passed-in `state` is a resumed carry
-    and skips the prefix fold.
+    one lane. Equals the reference's ``schedule_pods(..., waves=waves,
+    state_is_fresh=..., hoist_forced=...)``. `arrs` is host numpy or
+    tensors (moved to `device`).
+
+    A passed-in `state` is a resumed carry: no prefix fold, no hoist, no
+    wave plan (``state_is_fresh=True`` declares it a fresh start carry,
+    which folds and plans like None). The state itself is left as it was.
+    ``hoist_forced`` folds every forced-bind pod into the start carry
+    (``apply_forced_mask``) and scans it as a -4 sentinel, restoring its
+    node on the output — only with no wave plan, no preemption column, no
+    extension and a fresh or absent state, as in the reference; the
+    prefix fold is off under it.
 
     `disabled` [P] bool marks preemption victims (deleted: node -3, no
     bind, zero reason and feasible counts); `nominated` [P] i32 is the
@@ -1040,9 +1086,37 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
     range, falls back to the full feasible set). Either column turns the
     prefix fold off."""
     out = _launch(arrs, np.asarray(active, dtype=bool)[None], cfg, device, None, state,
-                  disabled, nominated, waves)
+                  disabled, nominated, waves, hoist_forced=hoist_forced,
+                  state_is_fresh=state_is_fresh)
     return out._replace(state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}),
                         **{f: getattr(out, f)[0] for f in out._fields if f != "state"})
+
+
+# the pod-axis fields (the reference's ``_pod_xs``): what slice_pods cuts
+POD_FIELDS = frozenset((
+    "req", "class_id", "forced_node", "ports", "match_groups",
+    "aff_group", "aff_key", "aff_valid", "aff_self",
+    "anti_group", "anti_key", "anti_valid", "own_terms", "hit_terms",
+    "spread_group", "spread_key", "spread_skew", "spread_hard", "spread_valid",
+    "pref_group", "pref_key", "pref_weight", "pref_valid", "pref_tid", "hit_pref",
+    "gpu_mem", "gpu_cnt", "gpu_forced", "gpu_has_forced",
+    "lvm_req", "sdev_req", "sdev_req_ssd",
+    "vol_cid", "vol_pv_missing", "wfc_ccid", "wfc_valid", "vol_limit_req",
+    "svol_id", "match_gid", "own_tid", "hit_tid"))
+
+
+def slice_pods(arrs: SnapshotArrays, start: int, stop: int) -> SnapshotArrays:
+    """A view of the snapshot covering pods [start:stop) — the reference's
+    ``slice_pods``, the unit of checkpoint and resume: scan(pods[:k]) then
+    scan(pods[k:], state=carry) is exactly scan(pods). The pod axis of
+    the slice starts at 0, as the reference's ``_pod_index`` does (only
+    the seeded jitter reads it, and replay's fast path runs without a
+    seed)."""
+    out = {}
+    for f in dataclasses.fields(arrs):
+        x = getattr(arrs, f.name)
+        out[f.name] = x[start:stop] if f.name in POD_FIELDS else x
+    return SnapshotArrays(**out)
 
 
 def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:

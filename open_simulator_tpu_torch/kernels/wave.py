@@ -28,6 +28,14 @@ as the reference's ``astype`` does.
 ``wave_merge`` launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back from one to the other.
 ``LAUNCHES["wave_merge"]`` counts the kernel's launches.
+
+``forced_fold`` is the same fold for one carry and many pods, few a
+node: the forced binds of ``engine.scheduler.apply_forced_mask`` (the
+replay pins) and ``apply_forced_prefix``, a 4,096-pod chunk a call, on
+the ``forced_fold`` kernel (``csrc/forced_fold.cu``), which buckets the
+chunk's pods by node and by domain and walks only each cell's pods. Its
+plain version is ``wave_merge_torch`` on a one-lane view of the carry;
+``LAUNCHES["forced_fold"]`` counts its launch sequences.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from open_simulator_tpu_torch.kernels import build
 from open_simulator_tpu_torch.kernels.step import _check as step_check
 from open_simulator_tpu_torch.kernels.step import node_domains
 
-LAUNCHES: Dict[str, int] = {"wave_merge": 0}
+LAUNCHES: Dict[str, int] = {"wave_merge": 0, "forced_fold": 0}
 
 # MergeArgs.flags bits (csrc/wave_merge.cu)
 M_GC, M_DOM, M_SLOT, M_PORTS, M_VOL = 1, 2, 4, 8, 16
@@ -254,3 +262,131 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
     if err:
         raise RuntimeError(f"wave_merge launch failed: CUDA error {err}")
     LAUNCHES["wave_merge"] += 1
+
+
+# ---- the forced fold -----------------------------------------------------
+
+_FOLD_PTRS = ("node_dom", "term_key", "req", "match_groups", "ports", "vol_limit_req",
+              "own_terms", "pref_key", "pref_tid", "pref_weight", "pref_valid", "nodes",
+              "off", "list", "dom_terms", "dom_pref", "headroom", "group_count", "dom_count",
+              "ports_used", "vol_cnt", "term_block", "pref_paint")
+_FOLD_INTS = ("n", "r", "sg", "pt", "lk", "t", "ap", "t2", "k1", "d", "b", "p0", "c", "flags")
+# the bucket kernel's shared memory cap (csrc/forced_fold.cu: one int a
+# node, or a domain, of the widest key)
+_FOLD_SMEM_LIMIT = 200 * 1024
+
+
+class FoldArgs(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in _FOLD_PTRS]
+                + [(f, ctypes.c_int) for f in _FOLD_INTS])
+
+
+def forced_fold(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
+                nodes: torch.Tensor, inputs: Optional[dict] = None) -> None:
+    """Fold pods [p0, p1) into the one-lane carry `state` in place, pod
+    ``p0 + i`` at ``nodes[i]`` (negative: not folded): the
+    ``forced_fold`` kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if nodes.device.type == "cuda":
+        return forced_fold_cuda(arrs, cfg, state, p0, p1, nodes, inputs)
+    if nodes.device.type == "cpu":
+        return forced_fold_torch(arrs, cfg, state, p0, p1, nodes)
+    raise ValueError(f"no forced_fold for device {nodes.device}")
+
+
+def forced_fold_torch(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
+                      nodes: torch.Tensor) -> None:
+    """The plain version: the plain merge of the binds on a one-lane view
+    of the carry (no GPU debit: the fold's callers hold no GPU pod)."""
+    wave_merge_torch(arrs, cfg, SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS}),
+                     p0, p1, nodes)
+
+
+def fold_flags(cfg: EngineConfig, state: SimState) -> int:
+    """The fold's channels: the merge's, without the slot rows (the fold
+    reads the dense rows, as the reference's) and without the GPU debit."""
+    return merge_flags(cfg, SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS}),
+                       False) & ~M_SLOT
+
+
+def _fold_check(name: str, t: torch.Tensor, dtype, shape) -> torch.Tensor:
+    return step_check(name, t, dtype, shape, "forced_fold")
+
+
+def _fold_library() -> ctypes.CDLL:
+    lib = build.load("forced_fold")
+    lib.forced_fold_launch.argtypes = [ctypes.POINTER(FoldArgs), ctypes.c_void_p]
+    lib.forced_fold_launch.restype = ctypes.c_int
+    return lib
+
+
+def forced_fold_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
+                     nodes: torch.Tensor, inputs: Optional[dict] = None) -> None:
+    """Launch the ``forced_fold`` sequence on the current stream: bucket
+    the chunk's pods by node and by each key's domain (a histogram, a
+    scan and a stable scatter), sum each domain's pods (a warp a domain
+    cell), then one thread a node cell walks its node's pods and reads its
+    domains' sums. `inputs`, a dict the caller keeps across calls over the
+    same arrays, holds the converted pod and node arrays."""
+    n, r = arrs.alloc.shape
+    c = p1 - p0
+    k1, _, d = arrs.topo_onehot.shape
+    sg, pt, lk = arrs.match_groups.shape[1], arrs.ports.shape[1], arrs.vol_limit_cap.shape[1]
+    t_w, t2, ap = arrs.own_terms.shape[1], arrs.hit_pref.shape[1], arrs.pref_group.shape[1]
+    gc_dt, tb_dt = state.group_count.dtype, state.term_block.dtype
+    for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
+        if dt not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"forced_fold: {name} dtype {dt}")
+    b = max(n, d)
+    if (b + 1 + 32) * 4 > _FOLD_SMEM_LIMIT:
+        raise ValueError(f"forced_fold: {b} nodes or domains, over the kernel's "
+                         f"{_FOLD_SMEM_LIMIT // 4 - 33}")
+    _fold_check("nodes", nodes, torch.int32, (c,))
+    carry = dict(
+        headroom=_fold_check("headroom", state.headroom, torch.float32, (n, r)),
+        group_count=_fold_check("group_count", state.group_count, gc_dt, (n, sg)),
+        dom_count=_fold_check("dom_count", state.dom_count, torch.float32, (k1, d, sg)),
+        ports_used=_fold_check("ports_used", state.ports_used, torch.bool, (n, pt)),
+        vol_cnt=_fold_check("vol_cnt", state.vol_cnt, torch.float32, (n, lk)),
+        term_block=_fold_check("term_block", state.term_block, tb_dt, (n, t_w)),
+        pref_paint=_fold_check("pref_paint", state.pref_paint, torch.float32, (n, t2)))
+    if c <= 0:
+        return
+    static = inputs if inputs is not None else {}
+    if "fold" not in static:
+        def cv(x, dt):
+            return x.to(dt).contiguous()
+
+        i32, u8, f32 = torch.int32, torch.uint8, torch.float32
+        static["fold"] = dict(
+            node_dom=node_domains(arrs.topo_onehot).contiguous(),
+            term_key=cv(arrs.term_key, i32), req=cv(arrs.req, f32),
+            match_groups=cv(arrs.match_groups, u8), ports=cv(arrs.ports, u8),
+            vol_limit_req=cv(arrs.vol_limit_req, f32), own_terms=cv(arrs.own_terms, u8),
+            pref_key=cv(arrs.pref_key, i32), pref_tid=cv(arrs.pref_tid, i32),
+            pref_weight=cv(arrs.pref_weight, f32), pref_valid=cv(arrs.pref_valid, u8))
+    dev = nodes.device
+    # scratch, written before it is read within each launch sequence, so
+    # the calls over the same arrays share it (they run in stream order)
+    scratch = static.get("fold_scratch")
+    if scratch is None or scratch["list"].numel() < (k1 + 1) * c:
+        scratch = static["fold_scratch"] = dict(
+            off=torch.empty(((k1 + 1) * (b + 1),), dtype=torch.int32, device=dev),
+            list=torch.empty(((k1 + 1) * c,), dtype=torch.int32, device=dev),
+            dom_terms=torch.empty((max(1, k1 * d * t_w),), dtype=torch.float32, device=dev),
+            dom_pref=torch.empty((max(1, k1 * d * ap * t2),), dtype=torch.float32, device=dev))
+    tensors = {**static["fold"], **carry, **scratch, "nodes": nodes}
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"forced_fold: {name} is on {t.device}, not {dev}")
+    args = FoldArgs(
+        **{f: tensors[f].data_ptr() for f in _FOLD_PTRS},
+        n=n, r=r, sg=sg, pt=pt, lk=lk, t=t_w, ap=ap, t2=t2, k1=k1, d=d, b=b, p0=p0, c=c,
+        flags=fold_flags(cfg, state))
+    lib = _fold_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.forced_fold_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"forced_fold launch failed: CUDA error {err}")
+    LAUNCHES["forced_fold"] += 1

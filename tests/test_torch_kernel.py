@@ -26,6 +26,7 @@ size, block size, node slices, shared-memory accounting) run everywhere.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from pathlib import Path
@@ -879,3 +880,151 @@ def test_schedule_pods_explain_waves_on_card(cuda_device, over):
     cpu = sched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
     for name in ("node", "feasible", "gpu_pick", "topk_node", "topk_score", "topk_parts"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+# ---- the forced fold ---------------------------------------------------------
+
+FOLD_SOURCE = os.path.join(build.CSRC_DIR, "forced_fold.cu")
+
+
+def test_fold_struct_and_flags_match_the_c_source():
+    """FoldArgs in kernels/wave.py lists the C struct's fields in order,
+    and the fold's flag bits are the merge's bits of the same names."""
+    src = Path(FOLD_SOURCE).read_text(encoding="utf-8")
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct FoldArgs \{(.*?)\};", src, re.S).group(1))
+    c_fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype, names = re.match(r"(.*?\*|int)\s+(.*)", decl).groups()
+            c_fields += [(n.strip(), "ptr" if ctype.endswith("*") else ctype)
+                         for n in names.split(",")]
+    kinds = {"c_void_p": "ptr", "c_int": "int"}
+    assert [(n, kinds[t.__name__]) for n, t in wave.FoldArgs._fields_] == c_fields
+    bits = dict(re.findall(r"constexpr int F_(\w+) = 1 << (\d+);", src))
+    assert bits and {n: 1 << int(b) for n, b in bits.items()} == {
+        n: getattr(wave, "M_" + n) for n in bits}
+
+
+def test_fold_flags_drop_the_slot_rows_and_the_gpu():
+    snap = synthetic_snapshot(16, 64, rich=True)
+    cfg = sched.make_config(snap)
+    st = sched.init_state(sched.device_arrays(snap.arrays, "cpu"), cfg)
+    fl = wave.fold_flags(cfg._replace(enable_gpu=True), st)
+    assert cfg.slot_paint and not fl & (wave.M_SLOT | wave.M_GPU)
+    assert fl & wave.M_ANTI and fl & wave.M_PREF and fl & wave.M_GC_BF16
+
+
+FOLD_CASES = {"dom_count": lambda: synthetic_snapshot(96, 512, bound=0.3),
+              "rich": lambda: synthetic_snapshot(96, 512, rich=True),
+              "rich-f32": lambda: synthetic_snapshot(96, 512, rich=True),
+              "devres": lambda: device_resource_snapshot(96, 640)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_forced_fold_equals_plain_on_card(cuda_device, case):
+    """The fold kernel against its plain version on every carry field: a
+    random mask over sentinel, free and pinned pods, past one 4,096-pod
+    chunk (the pod axis tiled), from a carry that already holds counts."""
+    snap = FOLD_CASES[case]()
+    cfg = sched.make_config(snap, compact_carry=case != "rich-f32")
+    fields = {f: getattr(snap.arrays, f) for f in snap.arrays.__dataclass_fields__}
+    n_pods = sched._PREFIX_CHUNK + 700
+    reps = -(-n_pods // snap.n_pods)
+    for f in sched.POD_FIELDS:
+        fields[f] = np.ascontiguousarray(np.concatenate([fields[f]] * reps)[:n_pods])
+    rng = np.random.default_rng(11)
+    kind = rng.integers(0, 3, n_pods)
+    fields["forced_node"] = np.where(kind == 0, -4, np.where(
+        kind == 1, -1, rng.integers(0, snap.n_nodes, n_pods))).astype(np.int32)
+    a = fields
+    plain = ~((a["gpu_cnt"] > 0) | np.any(a["lvm_req"] > 0, axis=1)
+              | np.any(a["sdev_req"] > 0, axis=1) | np.any(a["wfc_valid"], axis=1)
+              | np.any(a["svol_id"] >= 0, axis=1))
+    draw = rng.random(n_pods)
+    first = torch.from_numpy((draw < 0.2) & plain & (kind == 2))
+    mask = torch.from_numpy((draw >= 0.2) & (draw < 0.7) & plain & (kind == 2))
+    arrs_np = type(snap.arrays)(**fields)
+    arrs = sched.device_arrays(arrs_np, cuda_device)
+    base = sched.apply_forced_mask(arrs, cfg, sched.init_state(arrs, cfg), first.to(cuda_device))
+    before = wave.LAUNCHES["forced_fold"]
+    got = sched.apply_forced_mask(arrs, cfg, base, mask.to(cuda_device))
+    assert wave.LAUNCHES["forced_fold"] == before + 2
+    cpu = sched.device_arrays(arrs_np, "cpu")
+    want = sched.apply_forced_mask(cpu, cfg, sched.apply_forced_mask(
+        cpu, cfg, sched.init_state(cpu, cfg), first), mask)
+    torch.cuda.synchronize()
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert (got.headroom != base.headroom).any()
+    # chunk by chunk, the kernel against the plain version on the card
+    nodes = torch.where(mask, arrs.forced_node.cpu().int(), -1).to(cuda_device)
+    st_k, st_p = _clone(got), _clone(got)
+    for lo, hi in ((0, 1000), (1000, n_pods)):
+        wave.forced_fold_cuda(arrs, cfg, st_k, lo, hi, nodes[lo:hi].contiguous())
+        wave.forced_fold_torch(arrs, cfg, st_p, lo, hi, nodes[lo:hi])
+    torch.cuda.synchronize()
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dom_count", "rich"])
+@pytest.mark.parametrize("fresh", [False, True])
+def test_hoisted_scan_on_card_equals_cpu(cuda_device, case, fresh):
+    """schedule_pods(hoist_forced=True) on the card: the pins folded by
+    the fold kernel and scanned as sentinels by plain_step; the CPU's
+    answer in every output and carry field, the passed state unchanged."""
+    snap = FOLD_CASES[case]()
+    rng = np.random.default_rng(5)
+    kind = rng.integers(0, 3, snap.n_pods)
+    forced = np.where(kind == 0, -4, np.where(kind == 1, -1, rng.integers(0, snap.n_nodes,
+                                                                         snap.n_pods)))
+    arrs_np = dataclasses.replace(snap.arrays, forced_node=forced.astype(np.int32))
+    cfg = sched.make_config(snap, forced_prefix=0, fail_reasons=False)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        state = sched.init_state(sched.device_arrays(arrs_np, dev), cfg) if fresh else None
+        keep = None if state is None else _clone(state)
+        before = (step.LAUNCHES["plain_step"], wave.LAUNCHES["forced_fold"])
+        out = sched.schedule_pods(arrs_np, snap.arrays.active, cfg, state=state,
+                                  state_is_fresh=fresh, hoist_forced=True, device=dev)
+        if dev.type == "cuda":
+            assert step.LAUNCHES["plain_step"] == before[0] + 1
+            assert wave.LAUNCHES["forced_fold"] == before[1] + 1
+        if keep is not None:
+            assert all(torch.equal(getattr(state, f), getattr(keep, f))
+                       for f in sched.STATE_FIELDS)
+        runs.append(out)
+    gpu, cpu = runs
+    for name in ("node", "feasible"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(gpu.state, f).cpu(), getattr(cpu.state, f)), f
+    assert np.all(gpu.node.cpu().numpy()[forced >= 0] == forced[forced >= 0])
+
+
+@pytest.mark.cuda
+def test_replay_on_card_equals_cpu(cuda_device):
+    """A small replay (arrivals, a departure, a node failure, the
+    autoscaler and the descheduler) on the card gives the CPU's rows and
+    digest, through plain_step and forced_fold."""
+    from open_simulator_tpu_torch import replay
+
+    td = replay.synthetic_trace_dict(n_batches=5, batch_pods=24, depart_every=2,
+                                     max_new_nodes=8)
+    reports = []
+    for dev in ("cuda", "cpu"):
+        before = (step.LAUNCHES["plain_step"], wave.LAUNCHES["forced_fold"])
+        reports.append(replay.run_replay(
+            replay.synthetic_replay_cluster(n_nodes=12, n_initial_pods=12),
+            replay.ReplayTrace.from_dict(td),
+            replay.ReplayOptions(controllers=[replay.AutoscalerPolicy(scale_step=2),
+                                              replay.DeschedulerPolicy(period=3)],
+                                 checkpoint=False), device=dev))
+        if dev == "cuda":
+            assert step.LAUNCHES["plain_step"] > before[0]
+            assert wave.LAUNCHES["forced_fold"] > before[1]
+    assert reports[0]["steps"] == reports[1]["steps"]
+    assert reports[0]["digest"] == reports[1]["digest"]

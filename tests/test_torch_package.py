@@ -288,7 +288,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
-    assert build.kernel_names() == ["plain_step", "plain_step_explain", "wave_merge"]
+    assert build.kernel_names() == ["forced_fold", "plain_step", "plain_step_explain",
+                                    "wave_merge"]
 
 
 def test_log_dom_is_computed_from_counts():
@@ -303,3 +304,48 @@ def test_log_dom_is_computed_from_counts():
     # against a float64 log, to f32 rounding; the bit-exact check against
     # the reference's log is in test_torch_ops.py
     assert np.allclose(h.log_dom.numpy(), np.log([4.0, 3.0]), rtol=1e-6)
+
+
+REPLAY_MODULES = ("open_simulator_tpu_torch.replay",
+                  "open_simulator_tpu_torch.replay.engine",
+                  "open_simulator_tpu_torch.utils.checkpoint",
+                  "open_simulator_tpu_torch.resilience.faults",
+                  "open_simulator_tpu_torch.resilience.journal",
+                  "open_simulator_tpu_torch.resilience.lifecycle")
+
+
+def test_replay_slice_modules_import_with_jax_blocked():
+    """The replay slice's modules import, and a small replay with the
+    autoscaler runs on the CPU through the CLI, in an interpreter where
+    jax and the JAX package cannot be imported."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN!r}))\n"
+            + "import importlib, json, os, tempfile\n"
+            + f"for m in {REPLAY_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "from open_simulator_tpu_torch.replay import synthetic_trace_dict\n"
+            + "from open_simulator_tpu_torch.cli.main import main\n"
+            + "path = os.path.join(tempfile.mkdtemp(), 'trace.json')\n"
+            + "json.dump(synthetic_trace_dict(n_batches=2, batch_pods=3, "
+            + "chaos_target='worker-a-0', max_new_nodes=2), open(path, 'w'))\n"
+            + "sys.exit(main(['replay', '--cluster-config', 'examples/cluster/demo', "
+            + "'--trace', path, '--controller', 'autoscaler', '--device', 'cpu']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "step(s) over" in out.stdout and "baseline" in out.stdout
+    assert set(REPLAY_MODULES) <= set(all_modules())
+
+
+@pytest.mark.parametrize("flag,item", [("--frontier", "item 9"), ("--ledger-dir", "item 11"),
+                                       ("--trace-out", "item 11"),
+                                       ("--compile-cache-dir", "item 8")])
+def test_replay_cli_refuses_unported_options(flag, item, tmp_path, capsys):
+    from open_simulator_tpu_torch.cli.main import main
+
+    trace = tmp_path / "trace.json"
+    trace.write_text('{"events": [{"t": 0, "kind": "kill_node", "target": "worker-a-0"}]}')
+    assert main(["replay", "--cluster-config", os.path.join(REPO, "examples", "cluster", "demo"),
+                 "--trace", str(trace), "--device", "cpu", flag, str(tmp_path / "x")]) == 1
+    err = capsys.readouterr().err
+    assert "error:" in err and f"ROADMAP queue 1, {item}" in err
