@@ -20,8 +20,11 @@ the capacity plan on the first three (the reference bench's 64-lane
 north-star sweep, its bisection, and the example plans through the
 CLI), and trace replay (``replay-day``: a day of arrivals, departures
 and a node failure on 5,120 nodes with the autoscaler and the descheduler,
-6,144 nodes x 29,696 pods in the universe; ``replay-resume``) — and
-checks that each ran through the kernels and that its answer is right.
+6,144 nodes x 29,696 pods in the universe; ``replay-resume``), policy
+tuning (``tune-rich-64``: ``tune_search`` on the rich cluster, 64 weight
+rows a launch) and the cost frontier (``frontier-northstar``: 289 node
+mixes as lanes) — and checks that each ran through the kernels and that
+its answer is right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
@@ -34,21 +37,21 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
 3. kernel vs plain step, exact equality of node, fail counts, feasible
    counts, GPU and PV picks and all twelve carry fields, each side
    starting its lanes from the template carry through its lane prologue,
-   on: the synthetic cluster at 1,024 x 10,240 with mid-sequence forced
-   pods (dom_count carry); a 512 x 4,096 cluster with hostname and zone
+   on (each over its first pods, ``EARLIER_DEPTH`` or a multiple): the
+   synthetic cluster at 1,024 x 10,240 with forced pods interleaved
+   (dom_count carry); a 512 x 4,096 cluster with hostname and zone
    soft spread, taints, unschedulable nodes, host ports and a leading
-   nodeName run (group_count carry); the first 1,024 pods of the same as
-   one 4-lane launch with a different active mask per lane; the first
-   2,048 pods of the rich cluster at 1,024 x 10,240 with 10% of the pods
-   pre-bound; the first 2,048 pods of the rich cluster at 512 x 4,096 in
+   nodeName run (group_count carry); the same as one 4-lane launch with
+   a different active mask per lane; the rich cluster at 1,024 x 10,240
+   with 10% of the pods pre-bound; the rich cluster at 512 x 4,096 in
    the dense form (slot_paint off); the rich cluster at 512 x 1,024 as
-   one 4-lane launch; the first 512 pods of the device-resource
+   one 4-lane launch; the device-resource
    cluster at 1,024 x 10,240 with 8 GPU node slots as one 4-lane launch
    (all six device-resource gates, pods bound mid-sequence with pinned
    GPUs); the device-resource cluster at 1,024 x 2,048 with the inter-pod
-   constraints (``plain_step<1,1>``); the explain builds of both
-   device-resource instantiations (the top-k and the seeded jitter, the
-   first 1,024 pods of 1,024 x 2,048 without and with the inter-pod
+   constraints (``plain_step<1,1>``, every pod); the explain builds of both
+   device-resource instantiations (the top-k and the seeded jitter on
+   1,024 x 2,048 without and with the inter-pod
    constraints); the preemption columns (random
    victims and nominations from a seed, among them inactive nodes, forced
    pods, victims, -1 and out-of-range values) on a 512 x 1,024 input of
@@ -73,8 +76,8 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    path's arrays (its placements, and on devres its GPU allocations, must
    equal simulate()'s), one more launch with the kernel's per-phase cycle
    counts on (each phase's share printed), the kernel and the plain step
-   compared over the first 2,048 pods from the template and over the last
-   2,048 from the kernel's own carry; on the rich path a host check that
+   compared over the first ``PARITY_PREFIX`` pods from the template and
+   over the last ``PARITY_PREFIX`` from the kernel's own carry; on the rich path a host check that
    no pod shares its node with a pod its hostname anti-affinity term
    names; on the devres path the six gates, every device-resource reason
    row but the missing-PV one refusing nodes, and host checks of the PV
@@ -84,12 +87,12 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    build), host checks of the top-k tensors (the first candidate is the
    placed node, the parts sum to the score, fillers zeroed),
    ``explain_result`` timed, the launch timed against explain_topk = 0,
-   the first 2,048 pods against the plain step (all three top-k tensors)
+   the first ``PARITY_PREFIX`` pods against the plain step (all three top-k tensors)
    and the top-k of their masked scores through the plain ranking and
    ``torch.topk``; ``northstar-tiebreak``: ``simulate(config_overrides=
    {"tie_break_seed": 7})`` on the north-star cluster (one explain
    launch), timed against seed 0, placements that differ from seed 0
-   counted (more than 0), the first 2,048 pods against the plain step,
+   counted (more than 0), the first ``PARITY_PREFIX`` pods against the plain step,
    the plain jitter timed; then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
    north-star cluster with PriorityClasses (batch, prod for one pod in
    four, system), a minAvailable 90% budget over app=a0 and an app of
@@ -100,7 +103,7 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    preempted, no other pod bound in the first pass moved); each pass's
    kernel timed alone with its columns (and once with the cycle counters)
    and held to the pass's placements; the final rescan's first and last
-   2,048 pods against the plain step with its columns, and with the
+   ``PARITY_PREFIX`` pods against the plain step with its columns, and with the
    top-k too (``<0,0>+columns+explain``); then a
    ``Simulator`` session on the same
    objects (``run_cluster``, one ``schedule_app`` per app), each call's
@@ -114,7 +117,9 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    to the scan's, placements equal to simulate()'s; the first 16 waves
    against the plain versions; the bench's 64-lane ``schedule_lanes``
    with the plan against the scan's; the same cluster with 64 new-node
-   slots through ``capacity_sweep`` (64 lanes) and
+   slots through ``capacity_sweep`` (64 lanes), the same sweep under the
+   traced weights at the config's own vector (``pools-traced``: every
+   frozen launch with the weight row, the constant sweep's plan digest) and
    ``capacity_bisect(lanes=8)``, and the wave form's parity (``<0,0>``)
    on its lanes 0 and 63; then ``pools-explain``: the same preset with
    explain_topk = 3 through ``simulate()`` (one frozen explain launch and
@@ -128,12 +133,25 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    and ``descheduler:period=4`` on the card, counts read (``plain_step``
    and ``forced_fold`` launched); each step's wall, path (full scan or
    fast path) and its scan kernel and fold time (CUDA events); every fold
-   chunk against its plain version; the first full scan's first 2,048
-   pods from the hoisted carry against the plain step; one step's
+   chunk against its plain version; the first full scan's first
+   ``PARITY_PREFIX`` pods from the hoisted carry against the plain step; one step's
    whole-mask fold timed beside its plain version and its torch.matmul
    calls; the same trace with the fast path off, the same digest; then
    ``replay-resume``: the trace with a checkpoint directory, stopped once
-   step 8 is journaled, resumed from the journal, the same digest;
+   step 8 is journaled, resumed from the journal, the same digest; then
+   ``tune-rich-64``: ``tune_search`` on the rich cluster in grid mode and
+   in CEM mode (64 variants, 2 rounds, seed 0; each round one
+   ``plain_step`` launch with a [64, 9] weight row), counts read after
+   each, the CEM search again (the same report digest); lane 0 of round 1
+   the baseline vector, its placements equal a constant-config 64-lane
+   launch; the weighted 64-lane launch timed against the constant one
+   (CUDA events, in turns) with its bound; two lanes with different rows
+   over the first ``EARLIER_DEPTH`` pods against the plain step; then
+   ``frontier-northstar``: ``capacity_frontier`` on the north-star cluster
+   with the north-star node template and one of twice its CPU and memory
+   (16 of each at most: 289 mixes, 64 lanes a launch), twice (the same
+   Pareto set), counts read, each round's launch time, round 2's lanes 0
+   and 63 over the first ``EARLIER_DEPTH`` pods against the plain step;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -145,22 +163,27 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    ``forced_fold`` launch sequence a chunk) timed beside its plain version
    and its torch.matmul calls and held equal to the kernel's carry after
    those pods; the kernel against
-   the plain step over the first 2,048 pods of lanes 0 and 63;
+   the plain step over the first ``PARITY_PREFIX`` pods of lanes 0 and 63;
    ``capacity_bisect`` (8 lanes) against the sweep's answer under a CPU
    limit that puts it inside (0, 64); then the
    ``config``, ``constraints``, ``controlplane``, ``morepods``,
    ``gpushare`` (``--extended-resources gpu``, both sweep modes),
    ``openlocal`` and ``stateful`` plans through the CLI on the card and on
    the CPU, with the same output, ``explain -f examples/config.yaml
-   --json`` on both, with the same report, and ``replay --cluster-config
+   --json`` on both, with the same report, ``replay --cluster-config
    examples/cluster/demo --trace <a synthetic trace> --controller
-   autoscaler --json`` on both, with the same report;
+   autoscaler --json`` on both, with the same report, and ``tune`` (CEM, 4
+   lanes) and ``replay --frontier`` on the same cluster on both, with the
+   same reports;
 6. one JSON line describing each kernel (``plain_step``, its frozen
    form ``plain_step_frozen``, ``wave_merge``, ``forced_fold``, and the
    explain builds
-   ``plain_step_explain`` and ``plain_step_frozen_explain``, with each
-   plain_step instantiation's registers, stack and spills; a launched one
-   that spills fails the run), then the device line.
+   ``plain_step_explain`` and ``plain_step_frozen_explain``, and the
+   per-lane weight row ``plain_step_weights``, with each plain_step
+   instantiation's registers, stack and spills, and their change against
+   the builds before the weight row; a launched one that spills fails the
+   run), then the
+   device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
 nonzero and prints no result.
@@ -181,8 +204,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # pods of the main paths' kernel-vs-plain comparison (the plain step costs
-# milliseconds a pod on the card)
-PARITY_PREFIX = 2048
+# milliseconds a pod on the card; 2,048 until the tuning paths were added)
+PARITY_PREFIX = 1024
 # the capacity phase: the reference bench's north-star sweep (64 lanes,
 # 64 new-node slots) and the count its bisection is set to find
 CAPACITY_LANES = 64
@@ -213,13 +236,16 @@ WAVE_PARITY_WAVES, WAVE_SAME = 4, 16
 PRIME_MS = 10
 # the northstar-preempt path's last app: system pods of 12 CPU, more than
 # any node of the 16-CPU north-star cluster has free without evictions
-# (cut from 32 to 16, then to 8, as later paths were added)
-PREEMPTORS, SYSTEM_CPU = 8, "12"
-# the depth (pods) of four earlier parity inputs, cut so that the later
-# paths fit the time limit: the 4-lane group_count input, the rich
-# 1,024-node input and the dense rich input (twice this) and the 4-lane
-# device-resource input (half)
-EARLIER_DEPTH = 512
+# (cut from 32 to 16, to 8, then to 4, as later paths were added)
+PREEMPTORS, SYSTEM_CPU = 4, "12"
+# the depth (pods) of the parity inputs of phase 3 and of the tuning and
+# frontier paths, cut so that the later paths fit the time limit (1,024,
+# then 512, then 256): the 4-lane group_count input, the explain, column
+# and geometry inputs and the tuning and frontier lanes at this depth; the
+# rich 1,024-node, dense rich, rich 4-lane and group_count inputs at twice
+# it; the dom_count input at four times; the 4-lane device-resource
+# input at half
+EARLIER_DEPTH = 256
 # explain: the candidates recorded per pod, and the tie-break seed of the
 # northstar-tiebreak path
 EXPLAIN_K, TIE_SEED = 3, 7
@@ -288,15 +314,16 @@ def compare(torch, out_k, out_p, st_k, st_p):
 
 
 def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, start=None,
-           columns=None):
+           columns=None, weights=None):
     """Kernel vs plain step on the card, from the same carry, over the pods
     after the forced prefix (the first `n_pods` of them if set). The carry
     is the template, written into new (unset) lane buffers by each side's
     lane prologue, or with `start` = (first pod, lane-stacked state) that
     state. `columns` = (disabled, nominated) numpy [P] are the preemption
     columns both sides read (`cfg.forced_prefix` 0: the columns turn the
-    fold off). Returns (plain seconds, kernel seconds, max abs error,
-    kernel outputs)."""
+    fold off); `weights` (numpy [S, K], under ``cfg.traced_weights``) the
+    lanes' weight rows. Returns (plain seconds, kernel seconds, max abs
+    error, kernel outputs)."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     arrs = sched.device_arrays(arrs_np, dev)
@@ -314,6 +341,8 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
         st_k, st_p = clone_state(sched, base), clone_state(sched, base)
     p1 = arrs.req.shape[0] if n_pods is None else min(p0 + n_pods, arrs.req.shape[0])
     cols = column_tensors(torch, columns)
+    if weights is not None:
+        cols["weights"] = torch.from_numpy(weights).to(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl,
@@ -362,13 +391,18 @@ def column_tensors(torch, columns):
 # northstar-preempt's rescans; "+frozen": the wave form, the pools path and
 # the wave parity inputs; "+explain": the explain library's twin of each,
 # under explain_topk or tie_break_seed)
-# ptxas's registers of the twelve builds without kExplain as PR 7 built
-# them (PERF.md §6): the explain builds live in their own library, so these
-# must not move
-PR7_REGISTERS = {"<0,0>": 114, "<1,0>": 112, "<0,1>": 163, "<1,1>": 151,
+# ptxas's registers of the 24 builds before the weight row (PERF.md §6):
+# the build phase prints each build's change against them
+BASE_REGISTERS = {"<0,0>": 114, "<1,0>": 112, "<0,1>": 163, "<1,1>": 151,
                  "<0,0>+columns": 128, "<1,0>+columns": 108, "<0,1>+columns": 159,
                  "<1,1>+columns": 149, "<0,0>+frozen": 115, "<1,0>+frozen": 100,
-                 "<0,1>+frozen": 156, "<1,1>+frozen": 158}
+                 "<0,1>+frozen": 156, "<1,1>+frozen": 158,
+                 "<0,0>+explain": 112, "<1,0>+explain": 122, "<0,1>+explain": 141,
+                 "<1,1>+explain": 151, "<0,0>+columns+explain": 112,
+                 "<1,0>+columns+explain": 118, "<0,1>+columns+explain": 139,
+                 "<1,1>+columns+explain": 149, "<0,0>+frozen+explain": 106,
+                 "<1,0>+frozen+explain": 113, "<0,1>+frozen+explain": 168,
+                 "<1,1>+frozen+explain": 166}
 LAUNCHED = tuple(f"<{i},{d}>{c}{x}" for x in ("", "+explain")
                  for c in ("", "+columns", "+frozen")
                  for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
@@ -452,7 +486,9 @@ def _work_parts(sched, a, cfg, p0, p1, out):
     preferred term and three per valid term, + 2 + 4; soft spread: four
     per constraint + 2 (a node that holds every key does three more adds
     and two normalizer updates, not counted); Simon: 4R + 1 + 2 + 4;
-    node affinity 3, taint 4. Per pod: D compares per hard-spread minimum
+    node affinity 3, taint 4. The live rows are the launch's: under the
+    traced weights every enabled row and all three resource terms, a zero
+    weight included. Per pod: D compares per hard-spread minimum
     taken over domains. Per bound pod: R subtractions, and per painted
     term one compare per node plus one add per node of the bound node's
     domain (a hostname-keyed term: one add)."""
@@ -501,8 +537,8 @@ def _work_parts(sched, a, cfg, p0, p1, out):
                + (aff_v * reach(5 + r) + fail[:, 4 + r]) * cfg.enable_pod_affinity
                + ((anti_v + hits) * reach(6 + r) + fail[:, 5 + r]) * cfg.enable_anti_affinity
                + 3 * (hard * feas + fail[:, 6 + r] * cfg.enable_spread_hard))
-    per_feasible = (4 + 7 * bool(cfg.w_balanced) + 6 * bool(cfg.w_least)
-                    + 12 * bool(cfg.w_most) + 1 + 3 * use_na + 4 * use_tt
+    use_bal, use_least, use_most = sched.resource_terms(cfg)
+    per_feasible = (4 + 7 * use_bal + 6 * use_least + 12 * use_most + 1 + 3 * use_na + 4 * use_tt
                     + (pref_hits + 3 * pref_v + 6) * use_ip + (4 * soft + 2) * use_sp
                     + (4 * r + 7) * use_si)
 
@@ -1730,6 +1766,29 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
                                 n_pods_total=n_total)
     if sweep_launches["plain_step_frozen"] != splan.n_waves or not all(cap.all_scheduled):
         raise SystemExit(f"capacity {label}: the sweep ran {sweep_launches} or left pods out")
+    # pools-traced: the same sweep under the traced weights at the
+    # config's own vector, every launch with the [64, K] weight row (the
+    # frozen builds at full size): the constant sweep's plan
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap_t = sweep.capacity_sweep(snap_n, cfg_n._replace(traced_weights=True), counts,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    traced_launches = read_counts()
+    digest, digest_t = plan_digest(cap), plan_digest(cap_t)
+    n_launch = traced_launches["plain_step"] + traced_launches["plain_step_frozen"]
+    tplan = waves_mod.waves_for(snap_n.arrays, cfg_n._replace(fail_reasons=False,
+                                                              traced_weights=True),
+                                n_pods_total=n_total)
+    if (digest_t != digest or traced_launches["plain_step_weights"] != n_launch
+            or traced_launches["plain_step_frozen"] != tplan.n_waves):
+        raise SystemExit(f"capacity {label}-traced: plan {digest_t} (constant {digest}), "
+                         f"launches {traced_launches}")
+    log(f"capacity {label}-traced-64: capacity_sweep traced_weights=True wall_s={traced_s:.3f} "
+        f"(constant {sweep_s:.3f}) launches={traced_launches}; plan digest {digest_t} equals "
+        f"the constant sweep's")
     occ = cap.cpu_occupancy_pct
     limit = (occ[BISECT_TARGET - 1] + occ[BISECT_TARGET]) / 2
     want = min(c for c, o, ok in zip(cap.counts, occ, cap.all_scheduled) if ok and o <= limit)
@@ -1774,7 +1833,9 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
                      "device_ms": dev64_ms, "frozen_ms": sum(frozen64),
                      "merge_ms": sum(merge64), "scan_ms": min(scan64),
                      "frozen_geometry": geometry_fields(plan_64)},
-        "sweep_64": {"wall_s": sweep_s, "launches": sweep_launches},
+        "sweep_64": {"wall_s": sweep_s, "launches": sweep_launches, "plan_digest": digest},
+        "sweep_64_traced": {"wall_s": traced_s, "launches": traced_launches,
+                            "plan_digest": digest_t},
         "bisect": {"max_cpu_pct": limit, "best_count": bis.best_count, "rounds": rounds,
                    "probes": len(bis.counts), "wall_s": bis_s},
         "parity_64": par,
@@ -1958,7 +2019,8 @@ def explain_path(torch, sched, step, simulate, cluster_of, explain_mod, label):
     the step placed, the parts sum to the score in f32, fillers zeroed);
     ``explain_result`` timed over the result; the launch timed against the
     same path with explain_topk = 0 (off, on, on, off); the kernel against
-    the plain step over the first 2,048 pods (all three top-k tensors),
+    the plain step over the first PARITY_PREFIX pods (all three top-k
+    tensors),
     and the top-k of those pods' masked scores through the plain ranking
     and through ``torch.topk``."""
     import numpy as np
@@ -2090,7 +2152,7 @@ def tiebreak_path(torch, sched, step, simulate, cluster_of, threefry, label):
     everywhere), one lane, launch counts reset (one launch of the explain
     build); the launch timed against seed 0 (0, 7, 7, 0): the seeded run
     places pods differently; the kernel against the plain step over the
-    first 2,048 pods; the plain jitter (``ops/threefry.py``) timed over
+    first PARITY_PREFIX pods; the plain jitter (``ops/threefry.py``) timed over
     those pods."""
     import numpy as np
 
@@ -2406,7 +2468,7 @@ def replay_path(torch, sched, step, wave, replay_mod, rengine, label):
     ``run_replay`` on the card with the launch counts reset just before
     and read just after; each step's wall with its scan kernel and fold
     time (CUDA events); every fold held to its plain version; the first
-    full scan's first 2,048 pods from the hoisted carry against the plain
+    full scan's first PARITY_PREFIX pods from the hoisted carry against the plain
     step; one step's whole-mask fold timed beside its plain version and
     its torch.matmul calls; then the same trace with the fast path off,
     whose digest must be the same."""
@@ -2612,6 +2674,282 @@ def cli_replay(torch, cli_main):
     return {"digest": rep_k["digest"], "steps": rep_k["totals"]["steps"]}
 
 
+def cli_tune(torch, cli_main):
+    """``tune --json`` (CEM, 4 lanes, 2 rounds) and ``replay --frontier
+    --json`` (a 3 x 2 mix grid, 4 lanes a round) through the CLI on a small
+    example cluster, on the card and on the CPU: the same report (the tune
+    id and wall time aside) and exit code."""
+    import contextlib
+    import io
+    import tempfile
+
+    import yaml
+
+    from open_simulator_tpu_torch.replay import synthetic_frontier_specs, synthetic_trace_dict
+
+    t0 = time.perf_counter()
+    demo = os.path.join(HERE, "examples", "cluster", "demo")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tune-cli-") as tmp:
+        trace, specs = os.path.join(tmp, "trace.json"), os.path.join(tmp, "specs.yaml")
+        with open(trace, "w", encoding="utf-8") as f:
+            json.dump(synthetic_trace_dict(n_batches=2, batch_pods=4,
+                                           chaos_target="worker-a-0"), f)
+        with open(specs, "w", encoding="utf-8") as f:
+            yaml.safe_dump({"specs": synthetic_frontier_specs(max_small=2, max_big=1)}, f)
+        for name, args in (
+                ("tune", ["tune", "--cluster-config", demo, "--mode", "cem", "--variants", "4",
+                          "--rounds", "2", "--seed", "3", "--json"]),
+                ("frontier", ["replay", "--cluster-config", demo, "--trace", trace,
+                              "--frontier", specs, "--lane-width", "4", "--json"])):
+            runs = []
+            for device in ("cuda", "cpu"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main(args + ["--device", device])
+                torch.cuda.synchronize()
+                rep = json.loads(buf.getvalue()) if rc == 0 else {}
+                for k in ("tune_id", "wall_s"):
+                    rep.pop(k, None)
+                runs.append((rc, rep))
+            (rc_k, rep_k), (rc_c, rep_c) = runs
+            log(f"cli {name} examples/cluster/demo: rc={rc_k}/{rc_c} digest "
+                f"{rep_k.get('digest')} / {rep_c.get('digest')} pareto "
+                f"{len(rep_k.get('pareto', []))}")
+            if rc_k != 0 or (rc_k, rep_k) != (rc_c, rep_c):
+                raise SystemExit(f"cli {name}: the card and the CPU printed different reports")
+            out[name] = {"digest": rep_k["digest"], "pareto": len(rep_k["pareto"])}
+    log(f"cli tune and frontier: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# the tuning and frontier paths: tune_search's lanes (grid and CEM rounds
+# of TUNE_VARIANTS), and the frontier's node specs (the north-star
+# template and one of twice its CPU and memory, up to FRONTIER_MAX of
+# each: 289 mixes, FRONTIER_LANES lanes a round)
+TUNE_VARIANTS, TUNE_ROUNDS = 64, 2
+FRONTIER_MAX, FRONTIER_LANES = 16, 64
+
+
+class LaneProbe:
+    """Records each ``schedule_lanes`` call made while it is entered (the
+    calls ``tune_search`` and ``capacity_frontier`` make): the host arrays,
+    masks, config and weights, the call's time between CUDA events and on
+    the host clock, and its placements."""
+
+    def __init__(self, torch, sched):
+        self.torch, self.sched, self.calls = torch, sched, []
+
+    def __enter__(self):
+        self.real = self.sched.schedule_lanes
+        self.sched.schedule_lanes = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.sched.schedule_lanes = self.real
+
+    def call(self, arrs, masks, cfg, **kw):
+        torch = self.torch
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = self.real(arrs, masks, cfg, **kw)
+        ev1.record()
+        torch.cuda.synchronize()
+        w = kw.get("weights")
+        self.calls.append({"arrs": arrs, "masks": masks, "cfg": cfg,
+                           "weights": None if w is None else w.copy(),
+                           "ms": ev0.elapsed_time(ev1), "wall_s": time.perf_counter() - t0,
+                           "node": out.node.cpu().numpy()})
+        return out
+
+
+def plan_digest(plan):
+    """A CapacityPlan's digest (the reference ledger's ``plan_digest``): its
+    counts, best count and verdicts, and every lane's placements."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    h.update(repr((list(plan.counts), plan.best_count, list(plan.satisfied))).encode())
+    h.update(np.ascontiguousarray(np.asarray(plan.nodes_per_scenario)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def tune_path(torch, sched, step, tune_mod, cluster, label):
+    """tune-rich-64: ``tune_search`` on the rich north-star cluster in grid
+    mode and in CEM mode (TUNE_VARIANTS lanes, TUNE_ROUNDS rounds, seed 0),
+    each round one ``plain_step`` launch with its [64, K] weight row, and
+    the CEM search again for its digest. Lane 0 of round 1 is the baseline
+    vector, and its placements equal a constant-config launch; two lanes
+    with different rows equal the plain step; the weighted 64-lane launch
+    is timed against the constant one of the same shape."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    reports, probes, runs = {}, {}, {}
+    for mode, key in (("grid", "grid"), ("cem", "cem"), ("cem", "cem-again")):
+        opts = tune_mod.TuneOptions(mode=mode, variants=TUNE_VARIANTS, rounds=TUNE_ROUNDS,
+                                    seed=0)
+        reset_counts()
+        t0 = time.perf_counter()
+        with LaneProbe(torch, sched) as probe:
+            rep = tune_mod.tune_search(cluster, [], opts, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if not (counts["plain_step"] == counts["plain_step_weights"] == rep["rounds_run"]
+                == len(probe.calls)):
+            raise SystemExit(f"{label} {key}: {rep['rounds_run']} rounds launched {counts}")
+        reports[key], probes[key] = rep, probe.calls
+        runs[key] = {"wall_s": wall, "launches": counts, "rounds": rep["rounds_run"],
+                     "variants": rep["n_variants"], "pareto": len(rep["pareto"]),
+                     "variants_per_s": rep["n_variants"] / wall, "digest": rep["digest"],
+                     "round_ms": [c["ms"] for c in probe.calls],
+                     "round_wall_s": [c["wall_s"] for c in probe.calls]}
+        log(f"{label} {key}: tune_search wall_s={wall:.3f} rounds={rep['rounds_run']} "
+            f"variants={rep['n_variants']} ({rep['n_variants'] / wall:.2f} variants/s) "
+            f"pareto={len(rep['pareto'])} digest={rep['digest']} launches={counts}; each "
+            f"round's schedule_lanes between CUDA events "
+            f"{[round(c['ms'], 3) for c in probe.calls]} ms (host clock "
+            f"{[round(c['wall_s'], 3) for c in probe.calls]} s)")
+    if reports["cem"]["points"] != reports["cem-again"]["points"] or (
+            reports["cem"]["digest"] != reports["cem-again"]["digest"]):
+        raise SystemExit(f"{label}: two CEM runs with seed 0 gave different reports")
+    if len({json.dumps(p["vector"]) for p in reports["cem"]["points"]}) < TUNE_VARIANTS:
+        raise SystemExit(f"{label}: the CEM run evaluated too few distinct vectors")
+
+    # round 1 of the grid: lane 0 is the baseline vector, and a constant
+    # launch of the same shape places as it does
+    first = probes["grid"][0]
+    arrs_np, masks_np, cfg, wmat = first["arrs"], first["masks"], first["cfg"], first["weights"]
+    if not (cfg.traced_weights and np.array_equal(wmat[0], sched.weight_vector(cfg))):
+        raise SystemExit(f"{label}: lane 0 of round 1 is not the baseline vector")
+    ccfg = cfg._replace(traced_weights=False)
+    out_c = sched.schedule_lanes(arrs_np, masks_np, ccfg, device="cuda")
+    node_c = out_c.node.cpu().numpy()
+    del out_c
+    if not (np.array_equal(node_c[0], first["node"][0])
+            and (node_c == node_c[:1]).all()):
+        raise SystemExit(f"{label}: the baseline lane and the constant launch disagree")
+    log(f"{label}: lane 0 of round 1 = weight_vector(cfg) {wmat[0].tolist()}; its "
+        f"{int((node_c[0] >= 0).sum())} placements equal the constant-config {len(wmat)}-lane "
+        f"launch's "
+        f"bit for bit; lanes placing otherwise than lane 0: "
+        f"{int((first['node'] != first['node'][:1]).any(axis=1).sum())} of {len(wmat)}")
+
+    # the weighted 64-lane launch against the constant one (the kernel
+    # alone, in turns: weighted, constant, constant, weighted)
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(arrs_np, dev)
+    masks = torch.from_numpy(masks_np).to(dev)
+    hoist = sched.hoist_of(arrs, masks)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = template_of(sched, arrs, cfg)
+    carry = sched.lane_carry(tmpl, len(wmat))
+    w_t = torch.from_numpy(wmat).to(dev)
+    p0, n_pods = cfg.forced_prefix, arrs_np.req.shape[0]
+    times = {"weighted": [], "constant": []}
+    for kind in ("weighted", "constant", "constant", "weighted"):
+        kw = {"weights": w_t} if kind == "weighted" else {}
+        c = cfg if kind == "weighted" else ccfg
+        times[kind].append(cuda_ms(torch, lambda: step.plain_step_cuda(
+            arrs, masks, hoist, inv, carry, c, p0, n_pods, template=tmpl, **kw)))
+    plan_w = step.LAST_PLAN
+    # the bound of the weighted launch, from a reasons-on launch (its
+    # placements are the search's)
+    rcfg = cfg._replace(fail_reasons=True)
+    out_r = step.plain_step_cuda(arrs, masks, hoist, inv, carry, rcfg, p0, n_pods,
+                                 template=tmpl, weights=w_t)
+    if not np.array_equal(out_r[0].cpu().numpy(), first["node"][:, p0:]):
+        raise SystemExit(f"{label}: the timed weighted launch and round 1 disagree")
+    outs = [tuple(x[s_i].cpu().numpy() for x in out_r[:3]) for s_i in range(len(wmat))]
+    del out_r, carry
+    bound = bound_of(lanes_work(sched, arrs_np, cfg, p0, n_pods, outs))
+    w_ms, c_ms = min(times["weighted"]), min(times["constant"])
+    log(f"{label}: the {len(wmat)}-lane launch with the weight row {w_ms:.3f} ms against the "
+        f"constant one {c_ms:.3f} ms ({w_ms / c_ms - 1:+.4f}; runs {times}), {geometry(plan_w)}; "
+        f"bound of the weighted launch bytes={bound[0]} ops={bound[1]} -> {bound[2]:.4f} ms, "
+        f"{bound[3]}")
+
+    # two lanes with different rows over the first EARLIER_DEPTH pods
+    # against the plain step (reasons on, for the bound of the same pods)
+    other = next(i for i in range(1, len(wmat)) if not np.array_equal(wmat[i], wmat[0]))
+    plain_s, kern_s, err, out_k = parity(torch, sched, step, f"{label}-lanes-0-{other}",
+                                         arrs_np, rcfg, masks_np[[0, other]],
+                                         n_pods=EARLIER_DEPTH, weights=wmat[[0, other]])
+    same_b = bound_of(lanes_work(sched, arrs_np, rcfg, p0, p0 + out_k[0].shape[1],
+                                 [tuple(x[s_i].cpu().numpy() for x in out_k[:3])
+                                  for s_i in range(2)]))
+    log(f"{label}: phase_s={time.perf_counter() - t_phase:.1f}")
+    return {
+        "runs": runs, "launches": runs["grid"]["launches"]["plain_step_weights"]
+        + runs["cem"]["launches"]["plain_step_weights"],
+        "lanes": len(wmat), "pods": n_pods - p0, "weighted_ms": w_ms, "constant_ms": c_ms,
+        "ms_runs": times, "bound_ms": bound[2], "bound_by": bound[3],
+        "geometry": geometry_fields(plan_w), "max_abs_err": err,
+        "same_pods": {"lanes": 2, "pods": out_k[0].shape[1], "ms": kern_s * 1e3,
+                      "plain_ms": plain_s * 1e3, "bound_ms": same_b[2], "bound_by": same_b[3]},
+    }
+
+
+def frontier_path(torch, sched, step, replay_mod, cluster, template, label):
+    """frontier-northstar: ``capacity_frontier`` on the north-star cluster
+    with two node specs (the north-star template and one of twice its CPU
+    and memory, FRONTIER_MAX of each: 289 mixes), FRONTIER_LANES lanes a
+    launch, twice (the same points and Pareto set); one round's first
+    EARLIER_DEPTH pods on two lanes against the plain step."""
+    import yaml
+
+    t_phase = time.perf_counter()
+    big = json.loads(json.dumps(template.raw))
+    big["status"]["allocatable"].update({"cpu": "32", "memory": "128Gi"})
+    specs = replay_mod.parse_specs([
+        {"name": "std", "cost": 1.0, "max_count": FRONTIER_MAX,
+         "spec_yaml": yaml.safe_dump(template.raw)},
+        {"name": "big", "cost": 2.25, "max_count": FRONTIER_MAX,
+         "spec_yaml": yaml.safe_dump(big)}])
+    results, runs, probe_calls = [], [], None
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        with LaneProbe(torch, sched) as probe:
+            res = replay_mod.capacity_frontier(cluster, [], specs, lane_width=FRONTIER_LANES,
+                                               device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rounds = -(-res["n_mixes"] // FRONTIER_LANES)
+        if counts["plain_step"] != rounds or len(probe.calls) != rounds:
+            raise SystemExit(f"{label}: {rounds} rounds launched {counts}")
+        results.append(res)
+        probe_calls = probe.calls
+        runs.append({"wall_s": wall, "launches": counts, "rounds": rounds,
+                     "round_ms": [c["ms"] for c in probe.calls],
+                     "round_wall_s": [c["wall_s"] for c in probe.calls]})
+        log(f"{label}: capacity_frontier wall_s={wall:.3f} mixes={res['n_mixes']} "
+            f"rounds={rounds} pareto={len(res['pareto'])} digest={res['digest']} "
+            f"launches={counts}; each round's schedule_lanes between CUDA events "
+            f"{[round(c['ms'], 3) for c in probe.calls]} ms")
+    if (results[0]["pareto"] != results[1]["pareto"]
+            or results[0]["digest"] != results[1]["digest"]):
+        raise SystemExit(f"{label}: two runs gave different Pareto sets")
+    if results[0]["n_mixes"] != (FRONTIER_MAX + 1) ** 2:
+        raise SystemExit(f"{label}: {results[0]['n_mixes']} mixes")
+    rec = probe_calls[1]
+    masks_np = rec["masks"]
+    two = masks_np[[0, len(masks_np) - 1]]
+    plain_s, kern_s, err, _ = parity(torch, sched, step, f"{label}-round-2-lanes-0-63",
+                                     rec["arrs"], rec["cfg"], two, n_pods=EARLIER_DEPTH)
+    pareto = [p["counts"] for p in results[0]["pareto"]]
+    log(f"{label}: the Pareto set {pareto} in both runs; phase_s="
+        f"{time.perf_counter() - t_phase:.1f}")
+    return {"runs": runs, "mixes": results[0]["n_mixes"], "pareto": pareto,
+            "digest": results[0]["digest"], "max_abs_err": err,
+            "same_pods": {"lanes": 2, "pods": EARLIER_DEPTH, "ms": kern_s * 1e3,
+                          "plain_ms": plain_s * 1e3}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2639,6 +2977,7 @@ def main() -> int:
         from open_simulator_tpu_torch.ops import threefry
         from open_simulator_tpu_torch.parallel import sweep
         from open_simulator_tpu_torch import replay as replay_mod
+        from open_simulator_tpu_torch import tune as tune_mod
         from open_simulator_tpu_torch.replay import engine as rengine
         from open_simulator_tpu_torch.telemetry import explain as explain_mod
         from open_simulator_tpu_torch.testing.synthetic import (
@@ -2666,9 +3005,9 @@ def main() -> int:
     insts = {**instantiations(build.BUILD_LOG.get("plain_step", "")),
              **instantiations(build.BUILD_LOG.get("plain_step_explain", ""))}
     log(f"build plain_step instantiations: {insts}")
-    kept = {k: insts.get(k, {}).get("registers") == r for k, r in PR7_REGISTERS.items()}
-    log(f"build: the twelve builds without kExplain at PR 7's registers: {all(kept.values())} "
-        f"{kept}")
+    moved = {k: insts.get(k, {}).get("registers", 0) - r for k, r in BASE_REGISTERS.items()}
+    log(f"build: registers against the builds before the weight row: "
+        f"{ {k: d for k, d in moved.items() if d} } (every other build unchanged)")
     spilled = [k for k in LAUNCHED if k not in insts or insts[k]["spill_store_bytes"]]
     if spilled:
         raise SystemExit(f"build: plain_step {spilled} spill registers (or were not reported)")
@@ -2681,7 +3020,7 @@ def main() -> int:
             and (snap_a.arrays.forced_node[cfg_a.forced_prefix:] >= 0).any()):
         raise SystemExit("parity input a is not the dom_count path with mid-sequence forced pods")
     errs.append(parity(torch, sched, step, "synthetic-1024x10240-dom_count",
-                       snap_a.arrays, cfg_a, snap_a.arrays.active)[2])
+                       snap_a.arrays, cfg_a, snap_a.arrays.active, n_pods=4 * EARLIER_DEPTH)[2])
 
     nd, pd = soft_spread_cluster(512, 4096)
     snap_b = encode_cluster([make_valid_node(Node.from_dict(x)) for x in nd],
@@ -2691,7 +3030,7 @@ def main() -> int:
             and cfg_b.enable_ports and cfg_b.enable_unsched and cfg_b.enable_class_taint):
         raise SystemExit("parity input b is not the group_count path it should be")
     errs.append(parity(torch, sched, step, "inline-512x4096-group_count",
-                       snap_b.arrays, cfg_b, snap_b.arrays.active)[2])
+                       snap_b.arrays, cfg_b, snap_b.arrays.active, n_pods=2 * EARLIER_DEPTH)[2])
 
     rng = np.random.RandomState(7)
     n_b = snap_b.n_nodes
@@ -2719,7 +3058,7 @@ def main() -> int:
     lanes_l = np.stack([np.ones(n_l, bool), np.arange(n_l) % 3 != 2,
                         np.arange(n_l) < (3 * n_l) // 4, rng.rand(n_l) < 0.7])
     out_l = parity(torch, sched, step, "rich-512x1024-4-lanes",
-                   snap_l.arrays, cfg_l, lanes_l)
+                   snap_l.arrays, cfg_l, lanes_l, n_pods=2 * EARLIER_DEPTH)
     errs.append(out_l[2])
     if len({tuple(row.tolist()) for row in out_l[3][0].cpu()}) != 4:
         raise SystemExit("rich 4-lane launch: the lanes did not place pods differently")
@@ -2757,7 +3096,7 @@ def main() -> int:
 
     # the explain builds of the device-resource instantiations: the top-k
     # and the jitter on the device-resource clusters, without and with the
-    # inter-pod constraints (the first 1,024 pods)
+    # inter-pod constraints (the first EARLIER_DEPTH pods)
     for inst, snap_v in (("<0,1>+explain", device_resource_snapshot(1024, 2048)),
                          ("<1,1>+explain", snap_x)):
         cfg_v = sched.make_config(snap_v, explain_topk=EXPLAIN_K, tie_break_seed=TIE_SEED)
@@ -2766,7 +3105,7 @@ def main() -> int:
             raise SystemExit(f"explain parity input {inst} runs another instantiation")
         del arrs_v
         errs.append(parity(torch, sched, step, f"explain-devres-1024x2048-{inst}", snap_v.arrays,
-                           cfg_v, snap_v.arrays.active, n_pods=1024)[2])
+                           cfg_v, snap_v.arrays.active, n_pods=EARLIER_DEPTH)[2])
 
     # the preemption columns in each instantiation: random victims and
     # nominations (feasible and inactive nodes, forced pods, victims, -1,
@@ -2785,7 +3124,7 @@ def main() -> int:
         active_c = np.arange(snap_c.n_nodes) % 9 != 4
         cols = preemption_columns(snap_c.arrays.forced_node, active_c, seed=seed)
         out_c = parity(torch, sched, step, f"columns-{inst}-512x1024", snap_c.arrays, cfg_c,
-                       active_c, columns=cols)
+                       active_c, n_pods=EARLIER_DEPTH, columns=cols)
         errs.append(out_c[2])
         node_c = out_c[3][0][0].cpu().numpy()
         dis_c, nom_c = cols[0][:len(node_c)], cols[1][:len(node_c)]
@@ -2795,7 +3134,7 @@ def main() -> int:
         # the same columns through the column build's explain twin
         cfg_cx = cfg_c._replace(explain_topk=EXPLAIN_K, tie_break_seed=seed + 1)
         errs.append(parity(torch, sched, step, f"columns-{inst}+explain-512x1024", snap_c.arrays,
-                           cfg_cx, active_c, columns=cols)[2])
+                           cfg_cx, active_c, n_pods=EARLIER_DEPTH, columns=cols)[2])
 
     # the edges of the launch geometry: fewer nodes than blocks in a
     # cluster (empty slices), slices that leave a ragged last block, and an
@@ -2803,8 +3142,9 @@ def main() -> int:
     for label, snap_e, lanes_of, n_e in (
             ("tiny-3-nodes-rich", synthetic_snapshot(3, 64, rich=True), 1, None),
             ("tiny-3-nodes-dom_count", synthetic_snapshot(3, 64), 1, None),
-            ("ragged-devres-1000x2048", device_resource_snapshot(1000, 2048), 1, 1024),
-            ("odd-lanes-3-rich-509x1024", synthetic_snapshot(509, 1024, rich=True), 3, None)):
+            ("ragged-devres-1000x2048", device_resource_snapshot(1000, 2048), 1, EARLIER_DEPTH),
+            ("odd-lanes-3-rich-509x1024", synthetic_snapshot(509, 1024, rich=True), 3,
+             EARLIER_DEPTH)):
         cfg_e = sched.make_config(snap_e)
         n_e_nodes = snap_e.n_nodes
         masks_e = np.stack([np.ones(n_e_nodes, bool), np.arange(n_e_nodes) % 3 != 1,
@@ -2886,6 +3226,18 @@ def main() -> int:
     resume_p = replay_resume_path(torch, replay_mod, rengine, replay_p["digest"],
                                   "replay-resume")
 
+    # ---- 4e. tuning and the cost frontier: tune_search's weight-row lanes
+    # on the rich cluster, capacity_frontier's mix lanes on the north-star
+    rich_nodes, rich_pods, _ = synthetic_objects(NODES, PODS, rich=True)
+    tune_p = tune_path(torch, sched, step, tune_mod,
+                       ClusterResources(nodes=rich_nodes, pods=rich_pods), "tune-rich-64")
+    del rich_nodes, rich_pods
+    ns_nodes, ns_pods, ns_template = synthetic_objects(NODES, PODS)
+    frontier_p = frontier_path(torch, sched, step, replay_mod,
+                               ClusterResources(nodes=ns_nodes, pods=ns_pods), ns_template,
+                               "frontier-northstar")
+    del ns_nodes, ns_pods
+
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
     for label, kind in PATHS:
@@ -2897,6 +3249,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f}s)")
     cli_x = cli_explain(torch, cli_main)
     cli_r = cli_replay(torch, cli_main)
+    cli_t = cli_tune(torch, cli_main)
 
     # ---- 6. results
     # ms, plain_ms and bound_ms cover the same pods: the rich path's first
@@ -2914,17 +3267,17 @@ def main() -> int:
         "pods": same["pods"], "ms": same["ms"], "plain_ms": same["plain_ms"],
         "bound_ms": same["bound_ms"], "bound_by": same["bound_by"], "library_ms": None,
         "paths": paths,
-        "parity": "bit-exact vs the plain step on synthetic 1024x10240, inline "
+        "parity": "bit-exact vs the plain step over the first pods (EARLIER_DEPTH = "
+                  f"{EARLIER_DEPTH}, or a multiple) of synthetic 1024x10240, inline "
                   "512x4096, the same in 4 lanes, rich 1024x10240 bound 0.1, rich "
-                  "512x4096 dense, "
-                  f"rich 512x1024 4 lanes, the first {PARITY_PREFIX} pods of devres "
-                  "1024x10240 in 4 lanes (8 GPU slots), devres-rich 1024x2048 (<1,1>), "
+                  "512x4096 dense, rich 512x1024 4 lanes, devres 1024x10240 in 4 lanes "
+                  "(8 GPU slots), over every pod of devres-rich 1024x2048 (<1,1>), "
                   "the preemption columns (random victims and nominations from a seed) on "
                   "512x1024 inputs of each instantiation (<0,0>, <1,0>, <0,1>, <1,1>, each "
                   "+columns), "
                   "the geometry edges (3 nodes rich "
-                  "and dom_count, the first 1024 pods of devres 1000x2048, rich 509x1024 "
-                  "in 3 lanes), "
+                  f"and dom_count, the first {EARLIER_DEPTH} pods of devres 1000x2048 and of "
+                  "rich 509x1024 in 3 lanes), "
                   f"the first and last {PARITY_PREFIX} pods of the northstar, "
                   "northstar-rich and northstar-devres main paths and of the final rescan "
                   "of northstar-preempt (its columns), and the first "
@@ -3018,8 +3371,9 @@ def main() -> int:
         "cli_explain": cli_x,
         "parity": "bit-exact (node, counts, picks, carry and the three top-k tensors) vs the "
                   f"plain step over the first {PARITY_PREFIX} pods of northstar-rich-explain "
-                  "(<1,0>+explain) and northstar-tiebreak (<0,0>+explain), the first 1024 pods "
-                  "of devres 1024x2048 (<0,1>+explain) and devres-rich 1024x2048 "
+                  f"(<1,0>+explain) and northstar-tiebreak (<0,0>+explain), the first "
+                  f"{EARLIER_DEPTH} pods of devres 1024x2048 (<0,1>+explain) and devres-rich "
+                  "1024x2048 "
                   "(<1,1>+explain) with both modes, the column inputs with both modes "
                   "(+columns+explain) and the first pods of northstar-preempt's final rescan "
                   "with the top-k (<0,0>+columns+explain)",
@@ -3038,6 +3392,33 @@ def main() -> int:
                   f"{WAVE_PARITY_WAVES} waves of lanes 0 and 63 of 64-lane pools 512x4096 with "
                   "inter-pod terms, GPU share and both, the top-k and the jitter on; the "
                   "pools-explain wave run's top-k tensors equal the scan's",
+    }]
+    # the per-lane weight row (the traced weights): plain_step's launches
+    # that carry w_lane (ms, plain_ms and bound_ms: the first EARLIER_DEPTH
+    # pods of two tune-rich-64 lanes with different rows; the 64-lane
+    # weighted launch against the constant one under "lanes_64")
+    same_t = tune_p["same_pods"]
+    kernels += [{
+        "name": "plain_step_weights", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/exec_cache.py:521",
+        "step_replaces": "open_simulator_tpu/engine/scheduler.py:1097",
+        "launches": tune_p["launches"],
+        "max_abs_err": max(tune_p["max_abs_err"], frontier_p["max_abs_err"]),
+        "lanes": same_t["lanes"], "pods": same_t["pods"], "ms": same_t["ms"],
+        "plain_ms": same_t["plain_ms"], "bound_ms": same_t["bound_ms"],
+        "bound_by": same_t["bound_by"], "library_ms": None,
+        "lanes_64": {"lanes": tune_p["lanes"], "pods": tune_p["pods"],
+                     "weighted_ms": tune_p["weighted_ms"], "constant_ms": tune_p["constant_ms"],
+                     "runs": tune_p["ms_runs"], "bound_ms": tune_p["bound_ms"],
+                     "bound_by": tune_p["bound_by"], "geometry": tune_p["geometry"]},
+        "paths": {"tune-rich-64": tune_p["runs"], "frontier-northstar": frontier_p,
+                  "pools-traced-64": pools_p["sweep_64_traced"], "cli": cli_t},
+        "parity": f"bit-exact vs the plain step over the first {EARLIER_DEPTH} pods of two "
+                  "tune-rich-64 lanes with different weight rows; the baseline lane equals a "
+                  "constant-config 64-lane launch; the traced pools sweep's plan equals the "
+                  "constant sweep's; frontier-northstar's round 2, lanes 0 and 63 (constant "
+                  "weights) equal the plain step",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

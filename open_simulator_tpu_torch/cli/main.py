@@ -1,12 +1,13 @@
 """CLI of the port: ``python -m open_simulator_tpu_torch.cli apply -f <config>``,
-``... explain -f <config>`` and ``... replay --cluster-config <dir> --trace
-<file>``.
+``... explain -f <config>``, ``... replay --cluster-config <dir> --trace
+<file>`` (``--frontier <specs>``: the cost frontier) and ``... tune
+--cluster-config <dir>``.
 
-The reference's ``simon-tpu apply``, ``simon-tpu explain`` and ``simon-tpu
-replay`` (``open_simulator_tpu/cli/main.py``) on the port's engine: the
+The reference's ``simon-tpu apply``, ``explain``, ``replay`` and ``tune``
+(``open_simulator_tpu/cli/main.py``) on the port's engine: the
 same flags for what is ported, the same report on stdout and the same
-exit codes (apply: 0 when a plan is found, 1 for FAILED; explain and
-replay: 0; all: 1 for any error, with ``error: <message>`` on stderr),
+exit codes (apply: 0 when a plan is found, 1 for FAILED; explain, replay
+and tune: 0; all: 1 for any error, with ``error: <message>`` on stderr),
 plus ``--device`` (default: the card; ``cpu`` runs the plain torch step).
 The reference's other options are accepted and refused with the ROADMAP
 item that ports them.
@@ -116,16 +117,68 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to run on (default: the CUDA card; 'cpu' "
                          "runs the plain torch step)")
     rp.add_argument("--frontier", default="", metavar="SPECS",
-                    help="not ported yet (ROADMAP queue 1, item 9)")
+                    help="node-spec mix file ({specs: [{name, cost, max_count, spec_yaml}], "
+                         "max_total}): report the Pareto set over every mix instead of "
+                         "replaying the timeline")
     rp.add_argument("--lane-width", type=int, default=8,
-                    help="frontier mixes per round; not ported yet (ROADMAP queue 1, item 9)")
+                    help="frontier mixes swept per launch")
     rp.add_argument("--max-mixes", type=int, default=2048,
-                    help="frontier guardrail; not ported yet (ROADMAP queue 1, item 9)")
+                    help="frontier mix-grid guardrail")
     rp.add_argument("--compile-cache-dir", default="",
                     help="not ported yet (ROADMAP queue 1, item 8)")
     rp.add_argument("--ledger-dir", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
     rp.add_argument("--trace-out", default="",
+                    help="not ported yet (ROADMAP queue 1, item 11)")
+
+    tn = sub.add_parser(
+        "tune",
+        help="scheduler-policy search on the lane axis: Pareto set over score-plugin "
+             "weight vectors",
+        description="Search the Score-plugin weight space (the "
+                    "KubeSchedulerConfiguration v1beta2 weight table) over ONE "
+                    "workload, each variant a lane of one launch with its own weight "
+                    "row. Each variant is scored on (unplaced, cost, disruption), all "
+                    "minimized, disruption measured against the baseline vector's "
+                    "placements, and the report is the Pareto set under the "
+                    "frontier's dominance rule.")
+    tn.add_argument("--cluster-config", required=True,
+                    help="cluster YAML dir (the workload's initial state)")
+    tn.add_argument("--apps", default="", metavar="DIR",
+                    help="optional workload apps (manifest dir) deployed on top of the "
+                         "cluster's own pods")
+    tn.add_argument("--mode", choices=("grid", "cem"), default="grid",
+                    help="grid: coordinate grid around the baseline (deterministic, "
+                         "exhaustive over its grid); cem: cross-entropy-style "
+                         "mutation/selection rounds (seeded, deterministic)")
+    tn.add_argument("--variants", type=int, default=8, help="policy lanes per launch (W)")
+    tn.add_argument("--rounds", type=int, default=0,
+                    help="cem generations (0 = 4); for grid, a cap on the rounds (0 = the "
+                         "whole grid; a capped grid reports grid_truncated)")
+    tn.add_argument("--seed", type=int, default=0, help="cem sampling seed")
+    tn.add_argument("--grid-values", default="", metavar="V,V,...",
+                    help="comma list of grid weight values (default 0,0.5,1,2,4)")
+    tn.add_argument("--elite-frac", type=float, default=0.25, help="cem selection fraction")
+    tn.add_argument("--sigma", type=float, default=0.75, help="cem initial mutation scale")
+    tn.add_argument("--max-weight", type=float, default=8.0,
+                    help="weight-space clip ceiling")
+    tn.add_argument("--scheduler-config", default="", metavar="FILE",
+                    help="KubeSchedulerConfiguration file: its score weights become the "
+                         "search center and the disruption baseline; filter disables "
+                         "apply as static engine gates")
+    tn.add_argument("--json", action="store_true",
+                    help="emit the full report (points, Pareto set) as JSON")
+    tn.add_argument("--output-file", default="")
+    tn.add_argument("--device", default=None,
+                    help="torch device to run on (default: the CUDA card; 'cpu' "
+                         "runs the plain torch step)")
+    tn.add_argument("--no-waves", action="store_true",
+                    help="accepted for symmetry: tune rounds run the scan (no wave plan)")
+    tn.add_argument("--compile-cache-dir", default="",
+                    help="not ported yet (ROADMAP queue 1, item 8)")
+    tn.add_argument("--ledger-dir", default="",
+                    help="not ported yet (ROADMAP queue 1, item 11)")
+    tn.add_argument("--trace-out", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
     return p
 
@@ -163,9 +216,6 @@ def _replay(args) -> int:
     import os
 
     try:
-        if args.frontier:
-            raise NotImplementedError(
-                "--frontier is not ported yet (ROADMAP queue 1, item 9)")
         if args.compile_cache_dir:
             raise NotImplementedError(
                 "--compile-cache-dir is not ported yet (ROADMAP queue 1, item 8)")
@@ -180,14 +230,30 @@ def _replay(args) -> int:
         from open_simulator_tpu_torch.replay import (
             ReplayOptions,
             ReplayTrace,
+            capacity_frontier,
             controller_from_arg,
+            format_frontier,
             format_report,
+            parse_specs,
             run_replay,
         )
 
         cluster = load_resources_from_directory(args.cluster_config)
         trace = ReplayTrace.from_dict(_load_trace_file(args.trace))
         trace.validate()
+        if args.frontier:
+            # the static mix question over the trace's full workload
+            # (every arrival batch as an app)
+            from open_simulator_tpu_torch.replay.engine import arrival_apps
+
+            spec_doc = _load_trace_file(args.frontier)
+            result = capacity_frontier(
+                cluster, arrival_apps(trace), parse_specs(spec_doc.get("specs")),
+                max_total=spec_doc.get("max_total"), lane_width=args.lane_width,
+                max_mixes=args.max_mixes, device=args.device)
+            _emit(json.dumps(result, indent=2) if args.json else format_frontier(result),
+                  args.output_file)
+            return 0
         controllers = [controller_from_arg(a) for a in args.controller]
         report = run_replay(cluster, trace, ReplayOptions(
             controllers=controllers, resume=args.resume, fast_path=not args.no_fast_path),
@@ -198,6 +264,50 @@ def _replay(args) -> int:
     except Exception as e:  # trace, cluster, resume and unported-path errors -> exit 1
         print(f"error: {e}", file=sys.stderr)
         return 1
+
+
+def _tune(args) -> int:
+    """``tune``: the reference's report, text or JSON; every malformed knob
+    or scheduler config is an ``error:`` exit 1, never a traceback."""
+    import json
+    import os
+
+    body = {"mode": args.mode, "variants": args.variants, "rounds": args.rounds,
+            "seed": args.seed, "elite_frac": args.elite_frac, "sigma": args.sigma,
+            "max_weight": args.max_weight}
+    if args.grid_values:
+        body["grid_values"] = [v.strip() for v in args.grid_values.split(",") if v.strip()]
+    try:
+        if args.compile_cache_dir:
+            raise NotImplementedError(
+                "--compile-cache-dir is not ported yet (ROADMAP queue 1, item 8)")
+        if args.ledger_dir or args.trace_out:
+            raise NotImplementedError(
+                "--ledger-dir and --trace-out are not ported yet (ROADMAP queue 1, item 11)")
+        if args.no_waves:
+            from open_simulator_tpu_torch.engine.waves import WAVES_ENV
+
+            os.environ[WAVES_ENV] = "0"
+        if args.scheduler_config:
+            with open(args.scheduler_config, "r", encoding="utf-8") as f:
+                body["scheduler_config"] = f.read()
+        from open_simulator_tpu_torch.k8s.loader import load_resources_from_directory
+        from open_simulator_tpu_torch.tune import TuneOptions, format_tune, tune_search
+
+        opts = TuneOptions.from_body(body)
+        cluster = load_resources_from_directory(args.cluster_config)
+        apps = []
+        if args.apps:
+            from open_simulator_tpu_torch.core import AppResource
+
+            apps = [AppResource(name="tune",
+                                resources=load_resources_from_directory(args.apps))]
+        report = tune_search(cluster, apps, opts, device=args.device)
+    except Exception as e:  # knobs, config, cluster and unported-path errors -> exit 1
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    _emit(json.dumps(report, indent=2) if args.json else format_tune(report), args.output_file)
+    return 0
 
 
 def _explain(args) -> int:
@@ -228,6 +338,8 @@ def main(argv=None) -> int:
         return _explain(args)
     if args.command == "replay":
         return _replay(args)
+    if args.command == "tune":
+        return _tune(args)
     if args.command != "apply":
         build_parser().print_help()
         return 2

@@ -142,6 +142,16 @@
 // rounds per pod and the 20 threefry rounds per node, latency, as every
 // other round of the pod.
 //
+// The traced weights (StepArgs.w_lane; replaces the reference's per-lane
+// weight vector, exec_cache.py:521-545 and scheduler.py:1097-1116): an
+// [S, kWeights] row of score weights per lane, read once per block in the
+// lane prologue into shared memory; the score code multiplies by the
+// lane's row, and with w_lane null by the launch's scalars (w_bal ..
+// w_gpu), so the launches without weights run the code they ran before.
+// It is a runtime pointer, not a template flag: the traced mode sets every
+// weight-gated row's flag (F_BAL .. F_SI), and a zero weight adds its
+// 0 x value in its place in the sum, as in the reference.
+//
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
@@ -180,6 +190,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
 constexpr float kNegInf = -3.4e38f;
 constexpr int kRows = 10;  // normalizer min-reduction rows
+// the score weights, in WEIGHT_FIELDS order: balanced, least, most, node
+// affinity, taint, interpod, spread, Simon, GPU
+constexpr int kWeights = 9;
 // widths the device-resource walks keep in registers (the launcher checks)
 constexpr int kMaxV = 8;    // volume groups per node
 constexpr int kMaxE = 32;   // exclusive devices per node (a bit mask)
@@ -366,6 +379,9 @@ struct StepArgs {
   int32_t* out_topk_node;             // [S, P', K]
   float* out_topk_score;              // [S, P', K]
   float* out_topk_parts;              // [S, P', C, K]
+  // the traced weights: each lane's kWeights score weights (the scalars
+  // w_bal .. w_gpu above when null)
+  const float* w_lane;                // [S, kWeights]
 };
 
 }  // extern "C"
@@ -887,6 +903,21 @@ __device__ void dev_pick(const StepArgs& a, const DevLane& L, int fl, int p, int
     for (int j = 0; j < a.lw; ++j) a.out_vol_pick[o * a.lw + j] = -1;
 }
 
+// the launch's constant score weight `i` (WEIGHT_FIELDS order)
+__device__ __forceinline__ float scalar_weight(const StepArgs& a, int i) {
+  switch (i) {
+    case 0: return a.w_bal;
+    case 1: return a.w_least;
+    case 2: return a.w_most;
+    case 3: return a.w_na;
+    case 4: return a.w_tt;
+    case 5: return a.w_ip;
+    case 6: return a.w_sp;
+    case 7: return a.w_si;
+    default: return a.w_gpu;
+  }
+}
+
 template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
 __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     plain_step_kernel(const StepArgs a) {
@@ -935,6 +966,9 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   __shared__ unsigned s_pkey[2];
   __shared__ unsigned long long s_tk[kExplain ? 4 : 1];
   __shared__ unsigned long long s_top;
+  // the traced weights: the lane's row of w_lane, read once in the lane
+  // prologue (with w_lane null the score code reads the scalars instead)
+  __shared__ float s_w[kWeights];
 
   // (an instantiation without kDevRes is launched only when no
   // device-resource flag is set, and reads none of them)
@@ -1028,6 +1062,10 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     if (dom_rep) block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
     if (pv_rep) block_copy(L.pv_taken, pv_g, (size_t)a.npv);
   }
+  // (filled from the scalars too when w_lane is null: with the fill made
+  // conditional, ptxas spills <0,0>+columns at its 128-register cap)
+  if (tid < kWeights) s_w[tid] = a.w_lane ? a.w_lane[(size_t)lane * kWeights + tid]
+                                          : scalar_weight(a, tid);
   __syncthreads();
   mark(0);
 
@@ -1294,13 +1332,14 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
           const float h_m = __fmul_rn(__fsub_rn(hr[a.mi], req[a.mi]), ia_m);
           float base = 0.0f;
           if (fl & F_BAL)
-            base = __fadd_rn(base, __fmul_rn(a.w_bal, __fmul_rn(
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[0] : a.w_bal), __fmul_rn(
                 __fsub_rn(1.0f, __fmul_rn(fabsf(__fsub_rn(h_c, h_m)), 0.5f)), 100.0f)));
           if (fl & F_LEAST)
-            base = __fadd_rn(base, __fmul_rn(a.w_least, __fmul_rn(
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[1] : a.w_least), __fmul_rn(
                 __fadd_rn(fmaxf(h_c, 0.0f), fmaxf(h_m, 0.0f)), 50.0f)));
           if (fl & F_MOST)
-            base = __fadd_rn(base, __fmul_rn(a.w_most, __fmul_rn(__fadd_rn(
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[2] : a.w_most),
+                                             __fmul_rn(__fadd_rn(
                 __fmul_rn(clamp01(__fsub_rn(1.0f, h_c)), ia_c > 0.0f ? 1.0f : 0.0f),
                 __fmul_rn(clamp01(__fsub_rn(1.0f, h_m)), ia_m > 0.0f ? 1.0f : 0.0f)),
                 50.0f)));
@@ -1462,7 +1501,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     const float gp_rng = kDevRes ? __fsub_rn(-s_fin[kRowsT - 1], gp_lo) : 0.0f;
     const float inv_gp = gp_rng > 0.0f ? __fdiv_rn(100.0f, gp_rng) : 0.0f;
     // a pod without a GPU request scores 0 on the GPU row
-    const float gp_w = kDevRes ? __fmul_rn(a.w_gpu, a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
+    const float gp_w = kDevRes ? __fmul_rn((a.w_lane ? s_w[8] : a.w_gpu),
+                                           a.gpu_cnt[p] > 0.0f ? 1.0f : 0.0f) : 0.0f;
     const int nom_pick = kCols ? s_nom : -1;
 
     // the final score of node n (slice index ln): its weighted score rows
@@ -1479,18 +1519,23 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
       };
       if (parts) parts[0] = score;
       if (fl & F_NA)
-        add(__fmul_rn(a.w_na, __fmul_rn(a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
+        add(__fmul_rn((a.w_lane ? s_w[3] : a.w_na),
+                      __fmul_rn(a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
       if (fl & F_TT)
-        add(__fmul_rn(a.w_tt, __fsub_rn(100.0f, __fmul_rn(
+        add(__fmul_rn((a.w_lane ? s_w[4] : a.w_tt), __fsub_rn(100.0f, __fmul_rn(
             a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
-      if (fl & F_IP) add(__fmul_rn(a.w_ip, __fmul_rn(__fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
+      if (fl & F_IP)
+        add(__fmul_rn((a.w_lane ? s_w[5] : a.w_ip),
+                      __fmul_rn(__fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
       if (use_sp) {
         const float v = (flag & 2)
             ? __fadd_rn(base_sp, __fmul_rn(__fsub_rn(c1, sc_spread[ln]), inv_sp))
             : 0.0f;
-        add(__fmul_rn(a.w_sp, v));
+        add(__fmul_rn((a.w_lane ? s_w[6] : a.w_sp), v));
       }
-      if (fl & F_SI) add(__fmul_rn(a.w_si, __fmul_rn(__fsub_rn(sc_simon[ln], si_lo), inv_si)));
+      if (fl & F_SI)
+        add(__fmul_rn((a.w_lane ? s_w[7] : a.w_si),
+                      __fmul_rn(__fsub_rn(sc_simon[ln], si_lo), inv_si)));
       if constexpr (kDevRes) {
         if (fl & F_GPU) add(__fmul_rn(gp_w, __fmul_rn(__fsub_rn(sc_gpu[ln], gp_lo), inv_gp)));
       }

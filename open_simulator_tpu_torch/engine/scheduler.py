@@ -14,8 +14,10 @@ interpod preference score with its ``pref_paint`` carry, and the
 device-resource ops: GPU share (filter, score, device pick), open-local
 storage (LVM packing, exclusive devices), the static volume class masks,
 WaitForFirstConsumer PV matching, attach limits and shared-volume dedup.
-Every other gate raises NotImplementedError naming the ROADMAP item that
-ports it.
+Under ``traced_weights`` each lane's step multiplies by its own [K] row
+of score weights (``schedule_lanes(weights=)``, ``WEIGHT_FIELDS`` order),
+every weight-gated row kept live. Every other gate raises
+NotImplementedError naming the ROADMAP item that ports it.
 
 ``schedule_lanes`` runs S lanes (active masks) in one launch and
 ``schedule_pods`` is its one-lane case. On a CUDA device the pod loop is
@@ -48,6 +50,21 @@ from open_simulator_tpu_torch.ops.domains import ActiveHoist, hoist_active_stats
 # and requests go up to 2^24, and TF32 keeps integers exact only to 2^11.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+# The K score-plugin weights, in the order the traced-weights mode
+# (EngineConfig.traced_weights) takes them: the reference's WEIGHT_FIELDS,
+# the v1beta2 plugin weight table as one [K] axis, which lets tuning run
+# W policy variants as the lanes of one launch (tune/search.py).
+WEIGHT_FIELDS: Tuple[str, ...] = (
+    "w_balanced", "w_least", "w_most", "w_node_aff", "w_taint",
+    "w_interpod", "w_spread", "w_simon", "w_gpu")
+
+
+def weight_vector(cfg: "EngineConfig") -> np.ndarray:
+    """The config's own weights as the [K] f32 vector the traced-weights
+    mode takes (WEIGHT_FIELDS order). A traced run at this vector gives
+    the constant run's placements, counts, carry and digest."""
+    return np.asarray([getattr(cfg, f) for f in WEIGHT_FIELDS], dtype=np.float32)
 
 
 class EngineConfig(NamedTuple):
@@ -123,7 +140,6 @@ class EngineConfig(NamedTuple):
 # gate -> the ROADMAP item that ports it (queue 1 unless noted)
 _UNSUPPORTED = (
     ("extensions", "queue 1, item 7 (remaining engine modes)"),
-    ("traced_weights", "queue 1, item 10 (lane consumers)"),
 )
 
 
@@ -273,7 +289,7 @@ def _fold_forced(arrs: SnapshotArrays, cfg: EngineConfig, state: SimState,
 def score_part_names(cfg: EngineConfig) -> Tuple[str, ...]:
     """The names of the weighted score rows the step records under
     ``explain_topk``, in the topk_parts row order (the reference's
-    ``score_part_names``; extensions and traced weights are refused)."""
+    ``score_part_names``; extensions are refused)."""
     names = ["NodeResources"]
     for on, name in zip(score_rows(cfg), ("NodeAffinity", "TaintToleration",
                                           "InterPodAffinity", "PodTopologySpread", "Simon")):
@@ -295,12 +311,32 @@ def score_rows(cfg: EngineConfig) -> Tuple[bool, bool, bool, bool, bool]:
     """Which normalized score rows the step adds: node affinity, taint
     toleration, interpod preference, soft spread, Simon. A zero weight or
     a gated-off op drops its row entirely (the reference's ``use_*``
-    gates)."""
-    return (bool(cfg.w_node_aff) and cfg.enable_node_aff_score,
-            bool(cfg.w_taint) and cfg.enable_taint_score,
-            bool(cfg.w_interpod) and cfg.enable_pref,
-            bool(cfg.w_spread) and cfg.enable_spread_soft,
-            bool(cfg.w_simon))
+    gates); under the traced weights every enabled row stays live, and a
+    zero weight adds its ``0 x value`` in its place in the sum."""
+    tw = cfg.traced_weights
+    return (bool(tw or cfg.w_node_aff) and cfg.enable_node_aff_score,
+            bool(tw or cfg.w_taint) and cfg.enable_taint_score,
+            bool(tw or cfg.w_interpod) and cfg.enable_pref,
+            bool(tw or cfg.w_spread) and cfg.enable_spread_soft,
+            bool(tw or cfg.w_simon))
+
+
+def resource_terms(cfg: EngineConfig) -> Tuple[bool, bool, bool]:
+    """Which NodeResources terms the step adds: balanced, least, most
+    (every one under the traced weights)."""
+    tw = cfg.traced_weights
+    return (bool(tw or cfg.w_balanced), bool(tw or cfg.w_least), bool(tw or cfg.w_most))
+
+
+def step_weights(cfg: EngineConfig, weights: Optional[torch.Tensor]):
+    """The nine weights one lane's step multiplies by, in WEIGHT_FIELDS
+    order: the config's floats, or under the traced weights the lane's
+    [K] f32 row as 0-dim f32 tensors (never a Python double)."""
+    if not cfg.traced_weights:
+        return tuple(getattr(cfg, f) for f in WEIGHT_FIELDS)
+    if weights is None:
+        raise ValueError("cfg.traced_weights is on but no weight row reached the step")
+    return tuple(weights[i] for i in range(len(WEIGHT_FIELDS)))
 
 
 def _column_reads(arrs: SnapshotArrays, host: Dict[str, np.ndarray],
@@ -340,7 +376,7 @@ def _column_reads(arrs: SnapshotArrays, host: Dict[str, np.ndarray],
 def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tensor,
           cfg: EngineConfig, hoist: ActiveHoist, inv_alloc: torch.Tensor,
           state: SimState, p: int, disabled: bool = False,
-          nominated: Optional[int] = None):
+          nominated: Optional[int] = None, weights: Optional[torch.Tensor] = None):
     """One pod's scheduleOne: the plain torch twin of the reference's
     ``_step`` for this package's ops. `arrs` holds tensors on the step's
     device; `host` holds the per-pod slot arrays as numpy (forced node,
@@ -351,7 +387,9 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     a victim, and the preemption retry's node (None: no column). Returns
     (state, (node, fail_counts, feasible, gpu_pick, vol_pick, topk_node,
     topk_score, topk_parts)) with the outputs as device tensors; the
-    top-k rows have width 0 unless ``cfg.explain_topk``. With
+    top-k rows have width 0 unless ``cfg.explain_topk``. `weights` is the
+    lane's [K] f32 row under ``cfg.traced_weights`` (WEIGHT_FIELDS order;
+    every enabled score row stays live), None otherwise. With
     ``cfg.tie_break_seed`` the jitter is keyed on `p`, the pod's place in
     the whole sequence (the reference's ``_pod_index``)."""
     n_nodes = arrs.alloc.shape[0]
@@ -557,10 +595,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         fail_counts = torch.zeros((0,), dtype=torch.int32, device=dev)
 
     use_na, use_tt, use_ip, use_sp, use_si = score_rows(cfg)
+    w_bal, w_lst, w_mst, w_na, w_tt, w_ip, w_sp, w_si, w_gp = step_weights(cfg, weights)
 
     score = scores.resource_scores_fused(
-        state.headroom, inv_alloc, req, cfg.cpu_mem_idx,
-        cfg.w_balanced, cfg.w_least, cfg.w_most)
+        state.headroom, inv_alloc, req, cfg.cpu_mem_idx, w_bal, w_lst, w_mst,
+        always_on=cfg.traced_weights)
 
     # the reference's one variadic min-reduce, row by row (min is exact in
     # any order; maxima ride as minima of the negation)
@@ -597,19 +636,19 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     # breakdown, in the score_part_names order (the reference's _part)
     part_rows = [score]
     if use_na:
-        part_rows.append(cfg.w_node_aff * scores.max_apply(raw_na, hi_na))
+        part_rows.append(w_na * scores.max_apply(raw_na, hi_na))
     if use_tt:
-        part_rows.append(cfg.w_taint * scores.max_apply(raw_tt, hi_tt, reverse=True))
+        part_rows.append(w_tt * scores.max_apply(raw_tt, hi_tt, reverse=True))
     if use_ip:
-        part_rows.append(cfg.w_interpod * scores.minmax_apply(raw_ip, ip_lo, ip_hi))
+        part_rows.append(w_ip * scores.minmax_apply(raw_ip, ip_lo, ip_hi))
     if use_sp:
-        part_rows.append(cfg.w_spread * scores.spread_apply(
+        part_rows.append(w_sp * scores.spread_apply(
             spread_raw, sp_lo, sp_hi, spread_node_ok, any_soft))
     if use_si:
-        part_rows.append(cfg.w_simon * scores.minmax_apply(raw_si, si_lo, si_hi))
+        part_rows.append(w_si * scores.minmax_apply(raw_si, si_lo, si_hi))
     if cfg.enable_gpu:
         # a pod without a GPU request scores 0 on the GPU dimension
-        gp_w = torch.tensor(cfg.w_gpu, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
+        gp_w = torch.as_tensor(w_gp, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
         part_rows.append(gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi))
     for row in part_rows[1:]:
         score = score + row
@@ -855,10 +894,12 @@ def _const_outputs(arrs: SnapshotArrays, cfg: EngineConfig, lo: int, hi: int):
 
 def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
                    inv_alloc: torch.Tensor, carry: SimState, template: SimState,
-                   cfg: EngineConfig, waves, k: int, n_pods: int):
+                   cfg: EngineConfig, waves, k: int, n_pods: int,
+                   weights: Optional[torch.Tensor] = None):
     """Run the plan's segments over pods [k, n_pods) on every lane of
     `carry` (written from `template` first, by the first scan launch's
-    lane prologue or, where a wave comes first, by a copy). Returns the
+    lane prologue or, where a wave comes first, by a copy), every launch
+    with the lanes' [S, K] `weights` under the traced weights. Returns the
     step's (node, fail_counts, feasible, gpu_pick, vol_pick) for those
     pods. A segment past the real pods (the reference's padded tail) is
     skipped: it binds nothing. No launch falls back to another path."""
@@ -892,7 +933,7 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
 
     def wave(lo: int, hi: int) -> None:
         out = step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo, hi,
-                                      frozen=True, inputs=step_inputs)
+                                      frozen=True, inputs=step_inputs, weights=weights)
         wave_kernels.wave_merge(arrs, cfg, carry, lo, hi, out[0],
                                 out[3] if cfg.enable_gpu else None, inputs=merge_inputs)
         put(lo, hi, out)
@@ -903,7 +944,8 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
             continue
         if kind == wave_mod.SCAN:
             put(lo, hi, step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo,
-                                                hi, template=pending, inputs=step_inputs))
+                                                hi, template=pending, inputs=step_inputs,
+                                                weights=weights))
             pending = None
             continue
         if pending is not None:
@@ -931,7 +973,8 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
 
 def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
                    device=None, carry: Optional[SimState] = None,
-                   state: Optional[SimState] = None, waves=None) -> ScheduleOutput:
+                   state: Optional[SimState] = None, waves=None,
+                   weights=None) -> ScheduleOutput:
     """Schedule the pod sequence once per lane of the [S, N] bool `masks`
     (each lane's active nodes) in one launch; return [S]-batched
     assignments, reason counts, feasible counts, GPU and PV picks and
@@ -958,8 +1001,34 @@ def schedule_lanes(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig,
     the scan. The plan is dropped (a full scan) under the reference's
     rules: with a resumed `state`, under extensions, or when it was made
     for another pod count; with a plan the prefix fold is its ``start``,
-    not ``cfg.forced_prefix``."""
-    return _launch(arrs, masks, cfg, device, carry, state, None, None, waves)
+    not ``cfg.forced_prefix``.
+
+    `weights` is the [S, K] per-lane score-weight matrix (WEIGHT_FIELDS
+    order) under ``cfg.traced_weights``, the reference's lane weights
+    (``exec_cache._check_lane_weights``): a traced cfg without weights
+    runs every lane at ``weight_vector(cfg)``; weights without the traced
+    mode are a ValueError."""
+    return _launch(arrs, masks, cfg, device, carry, state, None, None, waves,
+                   weights=weights)
+
+
+def lane_weights(cfg: EngineConfig, weights, n_lanes: int, dev) -> Optional[torch.Tensor]:
+    """The [S, K] f32 weight matrix a launch of `n_lanes` lanes takes on
+    `dev`, checked as the reference's ``_check_lane_weights`` checks it."""
+    if cfg.traced_weights and weights is None:
+        weights = np.tile(weight_vector(cfg), (n_lanes, 1))
+    if weights is None:
+        return None
+    if not cfg.traced_weights:
+        raise ValueError(
+            "per-lane weights need cfg.traced_weights (the constant "
+            "engine bakes its weights into the executable)")
+    w = torch.as_tensor(weights).to(device=dev, dtype=torch.float32)
+    if tuple(w.shape) != (n_lanes, len(WEIGHT_FIELDS)):
+        raise ValueError(
+            f"weights must be [{n_lanes}, {len(WEIGHT_FIELDS)}] "
+            f"(lanes x WEIGHT_FIELDS), got {tuple(w.shape)}")
+    return w.contiguous()
 
 
 def _column(name: str, col, n_pods: int, dtype, dev) -> Optional[torch.Tensor]:
@@ -991,7 +1060,7 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
             carry: Optional[SimState], state: Optional[SimState],
             disabled: Optional[np.ndarray], nominated: Optional[np.ndarray],
             waves=None, hoist_forced: bool = False,
-            state_is_fresh: bool = False) -> ScheduleOutput:
+            state_is_fresh: bool = False, weights=None) -> ScheduleOutput:
     """``schedule_lanes`` with the [P] preemption columns, which every lane
     reads (None: no column), and the reference's ``hoist_forced`` and
     ``state_is_fresh``. With either column the forced prefix is not
@@ -1009,6 +1078,7 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     n_lanes, n_pods = masks.shape[0], arrs.req.shape[0]
     dis_t = _column("disabled", disabled, n_pods, bool, dev)
     nom_t = _column("nominated", nominated, n_pods, np.int32, dev)
+    w_t = lane_weights(cfg, weights, n_lanes, dev)
     columns = dis_t is not None or nom_t is not None
     resumed = state is not None and not state_is_fresh
     arrs_t = device_arrays(arrs, dev)
@@ -1038,10 +1108,11 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     hoist_t, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
     if waves is None:
         outs = step_kernels.plain_step(arrs_t, masks_t, hoist_t, inv, carry, cfg, k, n_pods,
-                                       template=template, disabled=dis_t, nominated=nom_t)
+                                       template=template, disabled=dis_t, nominated=nom_t,
+                                       weights=w_t)
     else:
         outs = _run_wave_plan(arrs_t, masks_t, hoist_t, inv, carry, template, cfg, waves, k,
-                              n_pods)
+                              n_pods, weights=w_t)
     if k:
         # the prefix pods' outputs are the forced-bind constants (the
         # prefix holds no GPU or WFC pod: make_config cuts it there)
@@ -1064,7 +1135,8 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
                   state: Optional[SimState] = None, device=None,
                   disabled: Optional[np.ndarray] = None,
                   nominated: Optional[np.ndarray] = None, waves=None,
-                  state_is_fresh: bool = False, hoist_forced: bool = False) -> ScheduleOutput:
+                  state_is_fresh: bool = False, hoist_forced: bool = False,
+                  weights=None) -> ScheduleOutput:
     """Schedule the pod sequence on one [N] active mask; return
     assignments, reason counts and the final carry: ``schedule_lanes`` at
     one lane. Equals the reference's ``schedule_pods(..., waves=waves,
@@ -1084,10 +1156,27 @@ def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
     bind, zero reason and feasible counts); `nominated` [P] i32 is the
     preemption retry's node (-1 none; a node no longer feasible, or out of
     range, falls back to the full feasible set). Either column turns the
-    prefix fold off."""
+    prefix fold off.
+
+    `weights` is the [K] score-weight vector (WEIGHT_FIELDS order),
+    required and valid only under ``cfg.traced_weights``; omitted under a
+    traced config, the config's own ``weight_vector(cfg)`` runs."""
+    if cfg.traced_weights:
+        if weights is not None:
+            weights = torch.as_tensor(weights).to(dtype=torch.float32)
+            if tuple(weights.shape) != (len(WEIGHT_FIELDS),):
+                raise ValueError(
+                    f"weights must be a [{len(WEIGHT_FIELDS)}] vector in "
+                    f"WEIGHT_FIELDS order, got shape {tuple(weights.shape)}")
+            weights = weights[None]
+    elif weights is not None:
+        raise ValueError(
+            "weights passed but cfg.traced_weights is off — enable the "
+            "traced mode (make_config(..., traced_weights=True)) or drop "
+            "the vector")
     out = _launch(arrs, np.asarray(active, dtype=bool)[None], cfg, device, None, state,
                   disabled, nominated, waves, hoist_forced=hoist_forced,
-                  state_is_fresh=state_is_fresh)
+                  state_is_fresh=state_is_fresh, weights=weights)
     return out._replace(state=SimState(**{f: getattr(out.state, f)[0] for f in STATE_FIELDS}),
                         **{f: getattr(out, f)[0] for f in out._fields if f != "state"})
 

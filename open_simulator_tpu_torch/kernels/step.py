@@ -51,12 +51,20 @@ built from the same source): the top-k candidates and the seeded jitter
 inside the pod loop. A launch with neither runs the twelve builds of the
 library ``plain_step``.
 
+Under ``cfg.traced_weights`` every launch takes ``weights``, an [S, K]
+f32 tensor of per-lane score weights (``scheduler.WEIGHT_FIELDS`` order),
+and keeps every enabled score row live; the kernel gets it as the
+pointer ``w_lane``, which each block reads once, in the lane prologue
+(null: the nine scalars in ``StepArgs``). It is a runtime pointer, not a
+template flag: the 24 builds serve both modes.
+
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
 other. ``LAUNCHES["plain_step"]`` counts the kernel's scan launches and
 ``LAUNCHES["plain_step_frozen"]`` its frozen ones; the explain builds'
 launches count under ``plain_step_explain`` and
-``plain_step_frozen_explain``.
+``plain_step_frozen_explain``. ``LAUNCHES["plain_step_weights"]``
+counts, besides, the launches of any build that carry the weight row.
 
 The kernel runs each lane on a thread-block cluster: ``plan_launch``
 picks the cluster size, the block size and each block's node slice from
@@ -85,7 +93,7 @@ from open_simulator_tpu_torch.ops import threefry
 from open_simulator_tpu_torch.ops.domains import ActiveHoist
 
 LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0, "plain_step_explain": 0,
-                            "plain_step_frozen_explain": 0}
+                            "plain_step_frozen_explain": 0, "plain_step_weights": 0}
 # the kernel's per-phase cycle counts (kPhases in the .cu), in order
 PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
           "min/count reduction", "phase 2 score and argmax", "argmax reduction",
@@ -268,7 +276,7 @@ class StepArgs(ctypes.Structure):
                                                  "n_parts", "jitter")]
                 + [(f, ctypes.c_uint) for f in ("key0", "key1")]
                 + [(f, ctypes.c_void_p) for f in ("out_topk_node", "out_topk_score",
-                                                  "out_topk_parts")])
+                                                  "out_topk_parts", "w_lane")])
 
 
 class StepOutputs(NamedTuple):
@@ -300,17 +308,19 @@ def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                p0: int, p1: int, template: Optional[SimState] = None,
                disabled: Optional[torch.Tensor] = None,
                nominated: Optional[torch.Tensor] = None, frozen: bool = False,
-               inputs: Optional[dict] = None) -> StepOutputs:
+               inputs: Optional[dict] = None,
+               weights: Optional[torch.Tensor] = None) -> StepOutputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
     plain torch step for CPU tensors. `inputs` (CUDA only) is a dict the
     caller keeps across launches over the same arrays, lanes and config."""
     if active.device.type == "cuda":
         return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
                                disabled=disabled, nominated=nominated, frozen=frozen,
-                               inputs=inputs)
+                               inputs=inputs, weights=weights)
     if active.device.type == "cpu":
         return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
-                                disabled=disabled, nominated=nominated, frozen=frozen)
+                                disabled=disabled, nominated=nominated, frozen=frozen,
+                                weights=weights)
     raise ValueError(f"no plain_step for device {active.device}")
 
 
@@ -320,6 +330,22 @@ def _check_frozen(template, disabled, nominated, phase_cycles=None) -> None:
                          "preemption column")
     if phase_cycles is not None:
         raise ValueError("plain_step: the frozen wave form has no cycle counts")
+
+
+def check_weights(cfg: EngineConfig, weights: Optional[torch.Tensor],
+                  n_lanes: int) -> None:
+    """The weight row is given exactly under the traced weights, as an
+    [S, K] f32 tensor on the step's device."""
+    if not cfg.traced_weights:
+        if weights is not None:
+            raise ValueError("plain_step: weights given without cfg.traced_weights")
+        return
+    k = len(scheduler.WEIGHT_FIELDS)
+    if weights is None:
+        raise ValueError("plain_step: cfg.traced_weights is on but no weights were given")
+    if weights.dtype != torch.float32 or tuple(weights.shape) != (n_lanes, k):
+        raise ValueError(f"plain_step: weights are {weights.dtype}{tuple(weights.shape)}, "
+                         f"expected torch.float32({n_lanes}, {k})")
 
 
 def copy_template(state: SimState, template: SimState, fields=STATE_FIELDS) -> None:
@@ -341,16 +367,18 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      p0: int, p1: int, template: Optional[SimState] = None,
                      disabled: Optional[torch.Tensor] = None,
                      nominated: Optional[torch.Tensor] = None,
-                     frozen: bool = False) -> StepOutputs:
+                     frozen: bool = False,
+                     weights: Optional[torch.Tensor] = None) -> StepOutputs:
     """The plain version: lane by lane, pod by pod through the torch twin
     of the reference step (``engine.scheduler._step``), on any device.
     Frozen: every pod against a clone of the lane's carry, which is left
-    as it is."""
+    as it is. Lane s takes ``weights[s]`` under the traced weights."""
     scheduler.check_supported(cfg)
     if frozen:
         _check_frozen(template, disabled, nominated)
     dev = active.device
     n_lanes, n_out = active.shape[0], p1 - p0
+    check_weights(cfg, weights, n_lanes)
     if template is not None:
         copy_template(state, template)
     host = {f: getattr(arrs, f).cpu().numpy() for f in STEP_HOST_FIELDS}
@@ -375,7 +403,8 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
             src = SimState(**{f: getattr(st, f).clone() for f in STATE_FIELDS}) if frozen else st
             new, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, src, p,
                                        disabled=dis is not None and bool(dis[p]),
-                                       nominated=None if nom is None else int(nom[p]))
+                                       nominated=None if nom is None else int(nom[p]),
+                                       weights=None if weights is None else weights[s])
             if not frozen:
                 st = new
             rows.append(out)
@@ -417,9 +446,10 @@ def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
     fl |= F_IP if use_ip else 0
     fl |= F_SP if use_sp else 0
     fl |= F_SI if use_si else 0
-    fl |= F_BAL if cfg.w_balanced else 0
-    fl |= F_LEAST if cfg.w_least else 0
-    fl |= F_MOST if cfg.w_most else 0
+    use_bal, use_least, use_most = scheduler.resource_terms(cfg)
+    fl |= F_BAL if use_bal else 0
+    fl |= F_LEAST if use_least else 0
+    fl |= F_MOST if use_most else 0
     fl |= F_GC if cfg.needs_group_count else 0
     fl |= F_DOM if cfg.maintain_dom_count else 0
     fl |= F_GC_BF16 if state.group_count.dtype == torch.bfloat16 else 0
@@ -666,7 +696,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     phase_cycles: Optional[torch.Tensor] = None,
                     disabled: Optional[torch.Tensor] = None,
                     nominated: Optional[torch.Tensor] = None, frozen: bool = False,
-                    inputs: Optional[dict] = None) -> StepOutputs:
+                    inputs: Optional[dict] = None,
+                    weights: Optional[torch.Tensor] = None) -> StepOutputs:
     """Launch the ``plain_step`` kernel: one thread-block cluster per lane
     (``plan_launch``), the pod loop inside the kernel, the carry updated in
     place on the current stream (with a `template`, first written from it
@@ -676,7 +707,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     into it. `disabled` and `nominated` go to the kernel as pointers (null
     when None). `inputs`, a dict the caller keeps across launches over the
     same arrays, lanes and config, holds the converted inputs and the
-    launch plans after the first call."""
+    launch plans after the first call. `weights` ([S, K] f32, under the
+    traced weights only) goes to the kernel as ``w_lane``."""
     global LAST_PLAN
     scheduler.check_supported(cfg)
     if frozen:
@@ -684,6 +716,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     dev = active.device
     n, r = arrs.alloc.shape
     n_lanes, n_out = active.shape[0], p1 - p0
+    check_weights(cfg, weights, n_lanes)
     k1, _, d = arrs.topo_onehot.shape
     n_cls = arrs.class_affinity.shape[0]
     sg = arrs.match_groups.shape[1]
@@ -760,6 +793,9 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     if phase_cycles is not None:
         tensors["cycles"] = _check("phase_cycles", phase_cycles, torch.int64,
                                    (n_lanes, len(PHASES)))
+    if weights is not None:
+        tensors["w_lane"] = _check("weights", weights, torch.float32,
+                                   (n_lanes, len(scheduler.WEIGHT_FIELDS)))
     if template is not None:
         for f in STATE_FIELDS:
             _check(f"template {f}", getattr(template, f), getattr(state, f).dtype,
@@ -778,6 +814,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         key1=prng[1],
         **{f: (tensors[f].data_ptr() if k_top else None)
            for f in ("out_topk_node", "out_topk_score", "out_topk_parts")},
+        w_lane=tensors["w_lane"].data_ptr() if "w_lane" in tensors else None,
         n=n, r=r, c=n_cls, u=arrs.spec_alloc.shape[0], k=k, k1=k1, d=d, sg=sg, pt=pt,
         cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
         ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
@@ -806,6 +843,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
     LAUNCHES[("plain_step_frozen" if frozen else "plain_step")
              + ("_explain" if explain else "")] += 1
+    if weights is not None:
+        LAUNCHES["plain_step_weights"] += 1
     LAST_PLAN = plan
     fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
     return StepOutputs(tensors["out_node"], fail, tensors["out_feasible"],

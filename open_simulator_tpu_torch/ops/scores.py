@@ -26,24 +26,27 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
 
 
 def resource_scores_fused(headroom: torch.Tensor, inv_alloc: torch.Tensor,
-                          req_p: torch.Tensor, cpu_mem_idx, w_balanced: float,
-                          w_least: float, w_most: float) -> torch.Tensor:
+                          req_p: torch.Tensor, cpu_mem_idx, w_balanced, w_least, w_most,
+                          always_on: bool = False) -> torch.Tensor:
     """Balanced + Least(+Most)Allocated over the shared free fractions
-    h = (headroom - req) * inv_alloc (reference ``resource_scores_fused``
-    with constant weights; a zero weight drops its term)."""
+    h = (headroom - req) * inv_alloc (reference ``resource_scores_fused``).
+    Constant weights (Python floats): a zero weight drops its term.
+    ``always_on`` is the traced-weights mode: the weights are 0-dim f32
+    tensors, never branched on, and every term is added (a zero weight
+    adds ``+0.0``: the terms are finite and nonnegative)."""
     ci, mi = cpu_mem_idx
     h_c = (headroom[:, ci] - req_p[ci]) * inv_alloc[:, ci]
     h_m = (headroom[:, mi] - req_p[mi]) * inv_alloc[:, mi]
     out = torch.zeros(headroom.shape[:1], dtype=torch.float32,
                       device=headroom.device)
-    if w_balanced:
+    if always_on or w_balanced:
         out = out + w_balanced * (
             (1.0 - torch.abs(h_c - h_m) * 0.5) * MAX_SCORE)
-    if w_least:
+    if always_on or w_least:
         out = out + w_least * (
             (torch.clamp_min(h_c, 0.0) + torch.clamp_min(h_m, 0.0))
             * (MAX_SCORE / 2.0))
-    if w_most:
+    if always_on or w_most:
         # mostRequestedScore returns 0 when capacity == 0
         out = out + w_most * (
             (torch.clamp(1.0 - h_c, 0.0, 1.0) * (inv_alloc[:, ci] > 0)

@@ -1,5 +1,6 @@
-"""Time-stepped scenario programs on the port's engine: trace replay and
-controller loops (the reference's ``replay/``).
+"""Time-stepped scenario programs on the port's engine: trace replay,
+controller loops and cost-aware capacity frontiers (the reference's
+``replay/``).
 
 Public surface:
 
@@ -8,9 +9,11 @@ Public surface:
   with journal checkpoint/resume (engine.py)
 * ``AutoscalerPolicy`` / ``DeschedulerPolicy`` — step controllers
   (controllers.py)
+* ``capacity_frontier`` / ``NodeSpec`` / ``pareto_set`` — heterogeneous
+  mix sweeps (frontier.py)
 
-The cost frontier (``replay/frontier.py``) and the digital-twin sessions
-(``replay/session.py``) are ROADMAP queue 1, items 9 and 11.
+The digital-twin sessions (``replay/session.py``) are ROADMAP queue 1,
+item 11.
 """
 
 from open_simulator_tpu_torch.replay.controllers import (  # noqa: F401
@@ -28,11 +31,21 @@ from open_simulator_tpu_torch.replay.engine import (  # noqa: F401
     rows_digest,
     run_replay,
 )
+from open_simulator_tpu_torch.replay.frontier import (  # noqa: F401
+    NodeSpec,
+    capacity_frontier,
+    dominates,
+    enumerate_mixes,
+    format_frontier,
+    pareto_set,
+    parse_specs,
+)
 from open_simulator_tpu_torch.replay.report import (  # noqa: F401
     build_report,
     format_report,
 )
 from open_simulator_tpu_torch.replay.synthetic import (  # noqa: F401
+    synthetic_frontier_specs,
     synthetic_replay_cluster,
     synthetic_trace_dict,
 )

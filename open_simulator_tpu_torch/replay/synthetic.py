@@ -120,3 +120,17 @@ def synthetic_trace_dict(n_batches: int = 6, batch_pods: int = 8,
         "max_new_nodes": max_new_nodes,
         "node_template": _node_yaml(),
     }
+
+
+def synthetic_frontier_specs(small_cost: float = 1.0,
+                             big_cost: float = 2.25,
+                             max_small: int = 4,
+                             max_big: int = 2) -> list:
+    """Two purchasable shapes whose cost/capacity trade produces a
+    non-trivial Pareto set on the synthetic workloads."""
+    return [
+        {"name": "small", "cost": small_cost, "max_count": max_small,
+         "spec_yaml": _node_yaml(cpu="4", mem="8Gi")},
+        {"name": "big", "cost": big_cost, "max_count": max_big,
+         "spec_yaml": _node_yaml(cpu="16", mem="32Gi")},
+    ]

@@ -19,7 +19,10 @@ blocks, a ragged last slice, an odd number of lanes) and through
 ``schedule_lanes``; the frozen wave form of each instantiation against
 the plain step's frozen form, and the ``wave_merge`` kernel against the
 plain merge (``kernels/wave.py``), on pools clusters the wave planner
-batches, and a wave run through ``schedule_pods``. Without CUDA they skip
+batches, and a wave run through ``schedule_pods``; the per-lane weight
+row (the traced weights) through the four scan builds and the four frozen
+builds, a different row in each lane, one all zeros, and through
+``schedule_lanes``. Without CUDA they skip
 with the reason; the binding checks and the launch plan's tests (cluster
 size, block size, node slices, shared-memory accounting) run everywhere.
 """
@@ -1028,3 +1031,144 @@ def test_replay_on_card_equals_cpu(cuda_device):
             assert wave.LAUNCHES["forced_fold"] > before[1]
     assert reports[0]["steps"] == reports[1]["steps"]
     assert reports[0]["digest"] == reports[1]["digest"]
+
+
+# ---- the per-lane weight row (traced weights) -----------------------------
+
+# four lanes' weight rows: the config's own vector (filled in per config),
+# all zeros (every live row adds 0 x value in its place), a bin-packing
+# lean and a spread lean
+WEIGHT_ROWS = (None, [0.0] * 9, [1, 0, 1, 2, 0, 1, 0, 1, 1], [0, 2, 0.5, 0, 1, 0, 4, 0, 3])
+
+
+def _weight_matrix(cfg, device):
+    rows = [sched.weight_vector(cfg) if r is None else np.asarray(r, np.float32)
+            for r in WEIGHT_ROWS]
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+def test_traced_weights_keep_every_row_live():
+    """Under the traced weights every enabled score row and resource term
+    is flagged, even at a zero weight; the instantiation is the constant
+    mode's (the weight row is a runtime pointer, not a build)."""
+    snap = synthetic_snapshot(24, 64, rich=True)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    cfg = sched.make_config(snap, w_most=0.0, w_taint=0.0, w_simon=0.0)
+    st = sched.init_state(arrs, cfg)
+    traced = cfg._replace(traced_weights=True)
+    fl_c, fl_t = step._flags(cfg, st, False), step._flags(traced, st, False)
+    assert not fl_c & (step.F_MOST | step.F_SI)
+    assert fl_t & step.F_MOST and fl_t & step.F_SI and fl_t & step.F_BAL and fl_t & step.F_LEAST
+    assert bool(fl_t & step.F_TT) == cfg.enable_taint_score
+    assert fl_t & ~fl_c == fl_t ^ fl_c  # the traced flags only add rows
+    assert step.instantiation(traced, st) == step.instantiation(cfg, st) == "<1,0>"
+    assert "Simon" in sched.score_part_names(traced)
+    assert "Simon" not in sched.score_part_names(cfg)
+
+
+def test_weight_row_is_checked_before_a_launch():
+    snap = synthetic_snapshot(16, 32)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    active = torch.ones((2, 16), dtype=torch.bool)
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: torch.stack([getattr(st, f)] * 2) for f in sched.STATE_FIELDS})
+    args = (arrs, active, sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc), lanes)
+    w = torch.zeros((2, 9))
+    for fn in (step.plain_step_torch, step.plain_step_cuda):
+        with pytest.raises(ValueError, match="without cfg.traced_weights"):
+            fn(*args, cfg, 0, 4, weights=w)
+        with pytest.raises(ValueError, match="no weights were given"):
+            fn(*args, cfg._replace(traced_weights=True), 0, 4)
+        with pytest.raises(ValueError, match=r"expected torch.float32\(2, 9\)"):
+            fn(*args, cfg._replace(traced_weights=True), 0, 4, weights=w[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(COLUMN_CASES))
+def test_weight_row_scan_builds_equal_plain_step_on_card(cuda_device, case):
+    """Each scan build with the weight row: four lanes, each with its own
+    active mask and weight row (one all zeros), from a template carry:
+    every output and carry field equal the plain step's, bit for bit."""
+    snap = COLUMN_CASES[case]()
+    cfg = sched.make_config(snap)._replace(traced_weights=True)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0, np.arange(n) % 5 != 1,
+                      np.ones(n, bool)])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.apply_forced_prefix(arrs, cfg, sched.init_state(arrs, cfg), cfg.forced_prefix)
+    assert step.instantiation(cfg, tmpl) == case
+    w = _weight_matrix(cfg, cuda_device)
+    before = dict(step.LAUNCHES)
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 4)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, cfg.forced_prefix, snap.n_pods,
+                  template=tmpl, weights=w)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    _assert_runs_equal(runs)
+    assert step.LAUNCHES["plain_step_weights"] == before["plain_step_weights"] + 1
+    assert step.LAUNCHES["plain_step"] == before["plain_step"] + 1
+    node = runs[0][0].node
+    assert not torch.equal(node[0], node[3])  # the same mask, another policy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+def test_weight_row_frozen_builds_equal_plain_on_card(cuda_device, case):
+    """Each frozen build with the weight row: four lanes over the first
+    waves of a pools GRID, each wave's outputs equal the plain step's
+    frozen form, the merges keep the carries equal."""
+    snap = wave_pools_snapshot(96, 768, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap)._replace(traced_weights=True)
+    lo, _, kind, w = wave_plans.waves_for(snap.arrays, cfg).segments[0]
+    assert kind == wave_plans.GRID
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 2, np.arange(n) % 7 != 3,
+                      np.ones(n, bool)])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist = sched.hoist_of(arrs, active)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, 4)
+    step.copy_template(st, tmpl)
+    wm = _weight_matrix(cfg, cuda_device)
+    before = dict(step.LAUNCHES)
+    for w0 in range(lo, lo + 4 * w, w):
+        st_p = _clone(st)
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, w0, w0 + w, frozen=True,
+                                     weights=wm)
+        out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, w0, w0 + w,
+                                      frozen=True, weights=wm)
+        torch.cuda.synchronize()
+        _assert_runs_equal([(out_k, st), (out_p, st_p)])
+        pick = out_k[3] if cfg.enable_gpu else None
+        wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out_k[0], pick)
+        wave.wave_merge_torch(arrs, cfg, st_p, w0, w0 + w, out_k[0], pick)
+        torch.cuda.synchronize()
+        for f in sched.STATE_FIELDS:
+            assert torch.equal(getattr(st, f), getattr(st_p, f)), f
+    assert step.LAUNCHES["plain_step_frozen"] == before["plain_step_frozen"] + 4
+    assert step.LAUNCHES["plain_step_weights"] == before["plain_step_weights"] + 4
+
+
+@pytest.mark.cuda
+def test_schedule_lanes_with_weights_on_card_equals_cpu(cuda_device):
+    """schedule_lanes with an [S, K] weight matrix and a wave plan on the
+    card equals the same call on the CPU."""
+    snap = wave_pools_snapshot(48, 256, 8, interpod=True)
+    cfg = sched.make_config(snap)._replace(traced_weights=True)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    masks = np.stack([np.ones(snap.n_nodes, bool)] * 4)
+    w = _weight_matrix(cfg, "cpu").numpy()
+    outs = [sched.schedule_lanes(snap.arrays, masks, cfg, device=d, waves=plan, weights=w)
+            for d in ("cuda", "cpu")]
+    for name in ("node", "fail_counts", "feasible"):
+        assert torch.equal(getattr(outs[0], name).cpu(), getattr(outs[1], name)), name
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(outs[0].state, f).cpu(), getattr(outs[1].state, f)), f

@@ -215,7 +215,8 @@ _SCORE_EXT = types.SimpleNamespace(name="ext-score", filter_fn=None, score_fn=la
 
 
 @pytest.mark.parametrize("override", [
-    dict(extensions=(_FILTER_EXT,)), dict(extensions=(_SCORE_EXT,)), dict(traced_weights=True),
+    dict(extensions=(_FILTER_EXT,)), dict(extensions=(_SCORE_EXT,)),
+    dict(extensions=(_FILTER_EXT, _SCORE_EXT)),
 ])
 def test_every_unported_gate_raises(override):
     snap = synthetic_snapshot(8, 16)
@@ -226,9 +227,9 @@ def test_every_unported_gate_raises(override):
 
 
 def test_only_the_remaining_engine_modes_are_refused():
-    """After the explain slice, the gates still to port are the extension
-    ops (ROADMAP queue 1, item 7) and the traced weights (item 10)."""
-    assert [g for g, _ in tsched._UNSUPPORTED] == ["extensions", "traced_weights"]
+    """After the tuning slice, the gate still to port is the extension
+    ops (ROADMAP queue 1, item 7)."""
+    assert [g for g, _ in tsched._UNSUPPORTED] == ["extensions"]
 
 
 def test_make_config_turns_waves_off(monkeypatch):
@@ -337,7 +338,7 @@ def test_replay_slice_modules_import_with_jax_blocked():
     assert set(REPLAY_MODULES) <= set(all_modules())
 
 
-@pytest.mark.parametrize("flag,item", [("--frontier", "item 9"), ("--ledger-dir", "item 11"),
+@pytest.mark.parametrize("flag,item", [("--ledger-dir", "item 11"),
                                        ("--trace-out", "item 11"),
                                        ("--compile-cache-dir", "item 8")])
 def test_replay_cli_refuses_unported_options(flag, item, tmp_path, capsys):
@@ -349,3 +350,37 @@ def test_replay_cli_refuses_unported_options(flag, item, tmp_path, capsys):
                  "--trace", str(trace), "--device", "cpu", flag, str(tmp_path / "x")]) == 1
     err = capsys.readouterr().err
     assert "error:" in err and f"ROADMAP queue 1, {item}" in err
+
+
+TUNE_MODULES = ("open_simulator_tpu_torch.tune",
+                "open_simulator_tpu_torch.tune.search",
+                "open_simulator_tpu_torch.replay.frontier",
+                "open_simulator_tpu_torch.engine.sched_config")
+
+
+def test_tune_slice_modules_import_with_jax_and_yaml_blocked():
+    """The tuning slice's modules (the search, the frontier, the scheduler
+    config parser) import where jax, the JAX package and yaml cannot be
+    imported, and a grid search over an inline cluster runs on the CPU
+    there."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN + ('yaml',)!r}))\n"
+            + "import importlib\n"
+            + f"for m in {TUNE_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "from open_simulator_tpu_torch.k8s.loader import ClusterResources\n"
+            + "from open_simulator_tpu_torch.k8s.objects import Node, Pod\n"
+            + "from open_simulator_tpu_torch.tune import TuneOptions, tune_search\n"
+            + "nodes = [Node.from_dict({'metadata': {'name': f'n{i}'}, 'status': "
+            + "{'allocatable': {'cpu': '8', 'memory': '16Gi', 'pods': 110}}}) for i in range(3)]\n"
+            + "pods = [Pod.from_dict({'metadata': {'name': f'p{i}', 'namespace': 'default'}, "
+            + "'spec': {'containers': [{'name': 'c', 'resources': {'requests': "
+            + "{'cpu': '1', 'memory': '1Gi'}}}]}}) for i in range(4)]\n"
+            + "rep = tune_search(ClusterResources(nodes=nodes, pods=pods), [], "
+            + "TuneOptions(variants=2, rounds=1), device='cpu')\n"
+            + "print('ok', rep['n_variants'], len(rep['pareto']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok 2")
+    assert set(TUNE_MODULES) <= set(all_modules())
