@@ -22,18 +22,23 @@ CLI), and trace replay (``replay-day``: a day of arrivals, departures
 and a node failure on 5,120 nodes with the autoscaler and the descheduler,
 6,144 nodes x 29,696 pods in the universe; ``replay-resume``), policy
 tuning (``tune-rich-64``: ``tune_search`` on the rich cluster, 64 weight
-rows a launch) and the cost frontier (``frontier-northstar``: 289 node
-mixes as lanes) — and checks that each ran through the kernels and that
-its answer is right.
+rows a launch), the cost frontier (``frontier-northstar``: 289 node
+mixes as lanes) and a fleet campaign (``fleet-16``: sixteen recorded
+dumps, 1,024 x 10,240 and 512 x 5,120 in two buckets, one torn, the
+same-bucket clusters as the lanes of one launch of the step's fleet form)
+— and checks that each ran through the kernels and that its answer is
+right.
 
 Phases, in order (any failure exits nonzero; each prints its wall time):
 
 1. the card's name and power limit (nvidia-smi);
 2. the kernel build, one nvcc per library (``plain_step``, its explain
-   twin ``plain_step_explain`` built from the same source, ``wave_merge``,
-   ``forced_fold``),
-   started together, with ptxas's registers and spills of each of the 24
-   ``plain_step`` instantiations;
+   twin ``plain_step_explain`` and the wide library's two,
+   ``plain_step_wide`` and ``plain_step_wide_explain``, built from the
+   same source, ``wave_merge``, ``forced_fold``), started together, with
+   ptxas's registers and spills of each of the 24 ``plain_step``
+   instantiations, the 8 fleet builds and the wide library's 32, each of
+   the 24 beside their counts before the fleet form (no build may spill);
 3. kernel vs plain step, exact equality of node, fail counts, feasible
    counts, GPU and PV picks and all twelve carry fields, each side
    starting its lanes from the template carry through its lane prologue,
@@ -69,8 +74,19 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    waves, each frozen launch's outputs on lanes 0 and 63 against the
    plain step's frozen form and each merge against the plain merge on
    every lane and carry field; the same with the top-k and the jitter
-   on ("+frozen+explain"); the same with the top-k and the jitter
-   on ("+frozen+explain");
+   on ("+frozen+explain"); then the wide library: the device-resource
+   cluster at 1,024 x 2,048 widened to 9 volume groups, 33 exclusive
+   devices and 9 WaitForFirstConsumer claims a pod
+   (``testing.widen_device_resources``; ``<0,1>`` and ``<1,1>``) against
+   the plain step, and one zone past the shared-memory bound of a
+   5,120-node lane (``testing.many_domain_snapshot``, the dom_count path
+   and the group_count path: the dom_count replica and the column-read
+   partials in global memory), timed over 1,024 pods beside the
+   shared-memory form one zone below and held to the plain step over 32;
+   then each of the eight fleet builds (three variants of a 512 x 1,024
+   synthetic, rich, devres and devres-rich cluster, with and without the
+   top-k and the jitter) against one plain_step launch per cluster and
+   the plain fleet;
 4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
    path's arrays (its placements, and on devres its GPU allocations, must
@@ -152,6 +168,15 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    (16 of each at most: 289 mixes, 64 lanes a launch), twice (the same
    Pareto set), counts read, each round's launch time, round 2's lanes 0
    and 63 over the first ``EARLIER_DEPTH`` pods against the plain step;
+   then ``fleet-16``: ``write_synthetic_fleet(n_clusters=16, nodes=1024,
+   pods=10240, malformed=1)``, ``run_campaign`` with the fleet lanes on
+   (lanes of 8: two fleet launches and the torn dump's serial quarantine)
+   and off (sixteen serial clusters), counts read after each, the same
+   report digest; each fleet launch between CUDA events, each lane's
+   forced-prefix fold, the walls, clusters a second and peak device
+   memory; every cluster of each bucket against its lone plain_step
+   launch over every pod, and two against the plain fleet over the first
+   ``FLEET_PLAIN_DEPTH``;
 5. the capacity paths, non-rich, rich, devres, at 5,120 + 64 nodes x
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
@@ -179,10 +204,10 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    form ``plain_step_frozen``, ``wave_merge``, ``forced_fold``, and the
    explain builds
    ``plain_step_explain`` and ``plain_step_frozen_explain``, and the
-   per-lane weight row ``plain_step_weights``, with each plain_step
-   instantiation's registers, stack and spills, and their change against
-   the builds before the weight row; a launched one that spills fails the
-   run), then the
+   per-lane weight row ``plain_step_weights``, and the fleet form
+   ``plain_step_fleet``, with each plain_step instantiation's registers,
+   stack and spills, and their change against the builds before the fleet
+   form), then the
    device line.
 
 Needs CUDA: without it, or run alone outside the repository, it exits
@@ -204,8 +229,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # pods of the main paths' kernel-vs-plain comparison (the plain step costs
-# milliseconds a pod on the card; 2,048 until the tuning paths were added)
-PARITY_PREFIX = 1024
+# milliseconds a pod on the card; 2,048 until the tuning paths were added,
+# 1,024 until the fleet path was)
+PARITY_PREFIX = 512
 # the capacity phase: the reference bench's north-star sweep (64 lanes,
 # 64 new-node slots) and the count its bisection is set to find
 CAPACITY_LANES = 64
@@ -391,26 +417,31 @@ def column_tensors(torch, columns):
 # northstar-preempt's rescans; "+frozen": the wave form, the pools path and
 # the wave parity inputs; "+explain": the explain library's twin of each,
 # under explain_topk or tie_break_seed)
-# ptxas's registers of the 24 builds before the weight row (PERF.md §6):
-# the build phase prints each build's change against them
-BASE_REGISTERS = {"<0,0>": 114, "<1,0>": 112, "<0,1>": 163, "<1,1>": 151,
-                 "<0,0>+columns": 128, "<1,0>+columns": 108, "<0,1>+columns": 159,
-                 "<1,1>+columns": 149, "<0,0>+frozen": 115, "<1,0>+frozen": 100,
-                 "<0,1>+frozen": 156, "<1,1>+frozen": 158,
-                 "<0,0>+explain": 112, "<1,0>+explain": 122, "<0,1>+explain": 141,
-                 "<1,1>+explain": 151, "<0,0>+columns+explain": 112,
+# ptxas's registers of the 24 builds before the fleet form (PERF.md §6): the build
+# phase prints each build's change against them (the fleet form and the
+# wide library leave them as they were)
+BASE_REGISTERS = {"<0,0>": 112, "<1,0>": 110, "<0,1>": 163, "<1,1>": 151,
+                 "<0,0>+columns": 128, "<1,0>+columns": 110, "<0,1>+columns": 153,
+                 "<1,1>+columns": 149, "<0,0>+frozen": 118, "<1,0>+frozen": 102,
+                 "<0,1>+frozen": 154, "<1,1>+frozen": 158,
+                 "<0,0>+explain": 114, "<1,0>+explain": 120, "<0,1>+explain": 141,
+                 "<1,1>+explain": 151, "<0,0>+columns+explain": 114,
                  "<1,0>+columns+explain": 118, "<0,1>+columns+explain": 139,
                  "<1,1>+columns+explain": 149, "<0,0>+frozen+explain": 106,
-                 "<1,0>+frozen+explain": 113, "<0,1>+frozen+explain": 168,
-                 "<1,1>+frozen+explain": 166}
+                 "<1,0>+frozen+explain": 116, "<0,1>+frozen+explain": 168,
+                 "<1,1>+frozen+explain": 164}
 LAUNCHED = tuple(f"<{i},{d}>{c}{x}" for x in ("", "+explain")
                  for c in ("", "+columns", "+frozen")
                  for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
+# the fleet builds (plain_step_fleet_kernel<kInterpod, kDevRes, kExplain>)
+FLEET_BUILDS = tuple(f"<{i},{d}>+fleet{x}" for x in ("", "+explain")
+                     for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
 
 
-def instantiations(build_log):
-    """{"<I,D>", "<I,D>+columns" or "<I,D>+frozen", each with "+explain"
-    in the explain library: {registers, stack_bytes, spill_store_bytes,
+def instantiations(build_log, suffix=""):
+    """{"<I,D>", "<I,D>+columns", "<I,D>+frozen" or "<I,D>+fleet", each
+    with "+explain" in the explain libraries, and `suffix` ("+wide" for the
+    wide libraries): {registers, stack_bytes, spill_store_bytes,
     spill_load_bytes}} of each plain_step instantiation, from ptxas's -v
     report in the build log."""
     import re
@@ -421,7 +452,12 @@ def instantiations(build_log):
         if m:
             name = (f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
                     + ("+frozen" if m.group(4) == "1" else "")
-                    + ("+explain" if m.group(5) == "1" else ""))
+                    + ("+explain" if m.group(5) == "1" else "") + suffix)
+            continue
+        m = re.search(r"plain_step_fleet_kernelILb([01])ELb([01])ELb([01])E", line)
+        if m:
+            name = (f"<{m.group(1)},{m.group(2)}>+fleet"
+                    + ("+explain" if m.group(3) == "1" else "") + suffix)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -2950,6 +2986,335 @@ def frontier_path(torch, sched, step, replay_mod, cluster, template, label):
                           "plain_ms": plain_s * 1e3}}
 
 
+# the fleet-16 path: write_synthetic_fleet(n_clusters=16, nodes=1024,
+# pods=10240, malformed=1): 8 dumps at 1,024 x 10,240, 7 at 512 x 5,120
+# (padded to 512 x 6,144), one torn, as lanes of 8
+FLEET = {"clusters": 16, "nodes": 1024, "pods": 10240, "malformed": 1, "lane_width": 8}
+FLEET_BUCKETS = {"1024x10240": 8, "512x6144": 7}
+# the fleet form's parity inputs: lanes, nodes and pods of each build's
+# fleet, and the pods of their plain-fleet comparison
+FLEET_PARITY = {"lanes": 3, "nodes": 512, "pods": 1024, "plain_pods": 24}
+# the depth of fleet-16's plain-fleet comparison (cut from EARLIER_DEPTH)
+FLEET_PLAIN_DEPTH = 64
+# the nodes of the inputs past today's shared-memory bound, and their pods
+# (the kernel timed over all of them; the plain step over the first 32)
+BOUND_NODES, BOUND_PODS = 5120, 1024
+
+
+class FleetProbe:
+    """Records, while entered, each fleet launch's time between CUDA
+    events around the kernel launch alone (``kernels/step._fire`` of the
+    fleet form) with its geometry, and each per-lane forced-prefix fold's
+    time between CUDA events (``apply_forced_prefix``, which
+    ``run_fleet_batched`` calls once per lane)."""
+
+    def __init__(self, torch, sched, step):
+        self.torch, self.sched, self.step = torch, sched, step
+        self.launches, self.folds = [], []
+
+    def __enter__(self):
+        self.real_fire, self.real_fold = self.step._fire, self.sched.apply_forced_prefix
+        self.step._fire, self.sched.apply_forced_prefix = self.fire, self.fold
+        return self
+
+    def __exit__(self, *exc):
+        self.step._fire, self.sched.apply_forced_prefix = self.real_fire, self.real_fold
+
+    def _timed(self, fn):
+        torch = self.torch
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return out, ev0.elapsed_time(ev1)
+
+    def fire(self, lib, args, plan, dev, what):
+        if what != "plain_step_fleet":
+            return self.real_fire(lib, args, plan, dev, what)
+        _, ms = self._timed(lambda: self.real_fire(lib, args, plan, dev, what))
+        self.launches.append({"lanes": args.s, "pods": args.p1 - args.p0, "ms": ms,
+                              "geometry": geometry_fields(plan)})
+        return None
+
+    def fold(self, arrs, cfg, state, k):
+        out, ms = self._timed(lambda: self.real_fold(arrs, cfg, state, k))
+        self.folds.append({"pods": k, "ms": ms})
+        return out
+
+
+def fleet_lanes(torch, sched, step, arrs_list, masks, cfg):
+    """step.FleetLanes of host arrays (one cluster each) and their [N]
+    masks on the card, each lane's template the fresh carry with its own
+    forced prefix folded in (what run_fleet_batched builds)."""
+    dev = torch.device("cuda")
+    lanes = []
+    for arrs_np, mask in zip(arrs_list, masks):
+        arrs = sched.device_arrays(arrs_np, dev)
+        active = torch.from_numpy(mask.copy()).to(dev)[None]
+        tmpl = template_of(sched, arrs, cfg)
+        lanes.append(step.FleetLane(arrs, active, sched.hoist_of(arrs, active),
+                                    sched.inv_alloc_of(arrs.alloc), sched.lane_carry(tmpl, 1),
+                                    tmpl))
+    return lanes
+
+
+def fleet_parity(torch, sched, step, label, arrs_list, masks, cfg, plain_pods, plain_lanes=2,
+                 distinct=True):
+    """The fleet kernel over every pod after the forced prefix against one
+    plain_step launch per cluster (bit for bit), then over the first
+    `plain_pods` pods of `plain_lanes` lanes against plain_step_fleet_torch
+    (bit for bit), both timed; with `distinct`, the lanes must place their
+    pods differently. Returns a dict of the times, the bound of the
+    compared pods and the max abs error."""
+    import numpy as np
+
+    k, p = cfg.forced_prefix, arrs_list[0].req.shape[0]
+    lanes = fleet_lanes(torch, sched, step, arrs_list, masks, cfg)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    outs = step.plain_step_fleet_cuda(lanes, cfg, k, p)
+    ev1.record()
+    torch.cuda.synchronize()
+    fleet_ms = ev0.elapsed_time(ev1)
+    plan = step.LAST_PLAN
+    full = [step_work(sched, arrs, cfg, k, p, lane0(o)) for arrs, o in zip(arrs_list, outs)]
+    full_bound = bound_of((sum(w[0] for w in full), sum(w[1] for w in full)))
+    err, lone_s = 0.0, 0.0
+    for ln, out, lone_ln in zip(lanes, outs, fleet_lanes(torch, sched, step, arrs_list, masks,
+                                                          cfg)):
+        t0 = time.perf_counter()
+        lone = step.plain_step_cuda(lone_ln.arrs, lone_ln.active, lone_ln.hoist,
+                                    lone_ln.inv_alloc, lone_ln.state, cfg, k, p,
+                                    template=lone_ln.template)
+        torch.cuda.synchronize()
+        lone_s += time.perf_counter() - t0
+        equal, e = compare(torch, out, lone, ln.state, lone_ln.state)
+        err = max(err, e)
+        if not equal:
+            raise SystemExit(f"fleet parity {label}: a fleet lane and its lone launch disagree")
+    placed = [tuple(o[0][0].cpu().numpy().tolist()) for o in outs]
+    if distinct and len(set(placed)) < 2:
+        raise SystemExit(f"fleet parity {label}: the lanes placed their pods alike")
+    # the plain fleet over the first pods, against a fleet launch over them
+    n_l = min(plain_lanes, len(arrs_list))
+    p1 = min(k + plain_pods, p)
+    lanes_k = fleet_lanes(torch, sched, step, arrs_list[:n_l], masks[:n_l], cfg)
+    lanes_p = fleet_lanes(torch, sched, step, arrs_list[:n_l], masks[:n_l], cfg)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out_k = step.plain_step_fleet_cuda(lanes_k, cfg, k, p1)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1)
+    t0 = time.perf_counter()
+    out_p = step.plain_step_fleet_torch(lanes_p, cfg, k, p1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for ok, op, lk, lp in zip(out_k, out_p, lanes_k, lanes_p):
+        equal, e = compare(torch, ok, op, lk.state, lp.state)
+        err = max(err, e)
+        if not equal:
+            raise SystemExit(f"fleet parity {label}: the fleet kernel and the plain fleet "
+                             "disagree")
+    work = [step_work(sched, arrs, cfg, k, p1, lane0(o)) for arrs, o in zip(arrs_list, out_k)]
+    bound = bound_of((sum(w[0] for w in work), sum(w[1] for w in work)))
+    inst = step.instantiation(cfg, lanes[0].state, fleet=True)
+    log(f"fleet parity {label} ({inst}): lanes={len(arrs_list)} pods={p - k} (after a {k}-pod "
+        f"prefix) {geometry(plan)} fleet_ms={fleet_ms:.3f} (bound {full_bound[2]:.5f} ms, "
+        f"{full_bound[3]}) lone launches {lone_s * 1e3:.1f} ms (host clock) equal=True; "
+        f"{n_l} lanes x {p1 - k} pods: kernel {ms:.3f} ms plain {plain_ms:.1f} ms bound "
+        f"{bound[2]:.5f} ms ({bound[3]}) equal=True max_abs_err={err}")
+    return {"instantiation": inst, "lanes": len(arrs_list), "pods": p - k,
+            "fleet_ms": fleet_ms, "fleet_bound_ms": full_bound[2],
+            "fleet_bound_by": full_bound[3], "lone_ms": lone_s * 1e3,
+            "compared_lanes": n_l, "compared_pods": p1 - k, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[2], "bound_by": bound[3],
+            "max_abs_err": err, "geometry": geometry_fields(plan)}
+
+
+def fleet_build_parity(torch, sched, step, snapshots, explain_over):
+    """One fleet of FLEET_PARITY["lanes"] variants (testing.fleet_variants)
+    of each snapshot, with and without explain: each of the eight fleet
+    builds against its lone launches and the plain fleet."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.testing.synthetic import fleet_variants
+
+    out = {}
+    for seed, (inst, snap) in enumerate(snapshots):
+        arrs_list = fleet_variants(snap.arrays, FLEET_PARITY["lanes"], seed=seed)
+        rng = np.random.RandomState(seed)
+        masks = [np.asarray(a.active) & (rng.rand(snap.n_nodes) < 0.9) for a in arrs_list]
+        for over in ({}, explain_over):
+            cfg = sched.make_config(snap, **over)
+            got = fleet_parity(torch, sched, step, f"{inst}{'+explain' if over else ''}-"
+                               f"{snap.n_nodes}x{snap.n_pods}", arrs_list, masks, cfg,
+                               FLEET_PARITY["plain_pods"])
+            want = inst + "+fleet" + ("+explain" if over else "")
+            if got["instantiation"] != want:
+                raise SystemExit(f"fleet parity {want}: ran {got['instantiation']}")
+            out[want] = got
+    return out
+
+
+def fleet_path(torch, sched, step, campaign_mod, label):
+    """fleet-16: a campaign over the synthetic fleet with the fleet lanes
+    on (three launches: two batched, the torn dump's serial quarantine),
+    then with them off (the serial boundary, one simulate() a cluster):
+    the same report digest. Each batched launch's kernel time, the
+    per-lane folds, the walls and the peak memory; then two clusters of
+    each bucket against their lone launches at full width and the plain
+    fleet over their first pods."""
+    import shutil
+
+    import numpy as np
+
+    from open_simulator_tpu_torch.campaign import lanes as lanes_mod
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "fleet16")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    campaign_mod.write_synthetic_fleet(root, n_clusters=FLEET["clusters"], nodes=FLEET["nodes"],
+                                       pods=FLEET["pods"], malformed=FLEET["malformed"])
+    write_s = time.perf_counter() - t0
+    kept = {}
+    real_prepare = lanes_mod._prepare
+
+    def keep(entry, apps, opts):
+        prep = real_prepare(entry, apps, opts)
+        kept.setdefault(prep.arrs.req.shape[0], []).append(prep)
+        return prep
+
+    runs = {}
+    for lanes_on in (True, False):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lanes_mod._prepare = keep if lanes_on else real_prepare
+        try:
+            with FleetProbe(torch, sched, step) as probe:
+                t0 = time.perf_counter()
+                rep = campaign_mod.run_campaign(campaign_mod.CampaignOptions(
+                    fleet=root, checkpoint=False, fleet_lanes=lanes_on,
+                    lane_width=FLEET["lane_width"]))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            lanes_mod._prepare = real_prepare
+        runs[lanes_on] = {"wall_s": wall, "clusters_per_s": rep["totals"]["clusters"] / wall,
+                          "launches": rep["launches"], "counts": read_counts(),
+                          "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                          "digest": rep["digest"], "buckets": rep["buckets"],
+                          "totals": rep["totals"], "kernel_launches": probe.launches,
+                          "folds": probe.folds}
+        log(f"{label} fleet_lanes={lanes_on}: {wall:.2f}s "
+            f"({runs[lanes_on]['clusters_per_s']:.3f} clusters/s) launches={rep['launches']} "
+            f"digest={rep['digest']} totals={rep['totals']} buckets={rep['buckets']} "
+            f"quarantined={[(q['cluster'], q['error']['code']) for q in rep['quarantined']]} "
+            f"peak={runs[lanes_on]['peak_mib']:.1f} MiB counts={runs[lanes_on]['counts']}")
+    on, off = runs[True], runs[False]
+    for launch in on["kernel_launches"]:
+        log(f"{label} batched launch: {launch['lanes']} lanes x {launch['pods']} pods "
+            f"{launch['ms']:.3f} ms (CUDA events) {launch['geometry']}")
+    log(f"{label} per-lane folds (ms, CUDA events): {[round(f['ms'], 4) for f in on['folds']]}")
+    if on["digest"] != off["digest"] or on["totals"] != off["totals"]:
+        raise SystemExit(f"{label}: the fleet-lane and serial campaigns disagree")
+    if (on["launches"], off["launches"]) != (3, FLEET["clusters"]):
+        raise SystemExit(f"{label}: launches {on['launches']} / {off['launches']}, expected 3 / "
+                         f"{FLEET['clusters']}")
+    if on["buckets"] != FLEET_BUCKETS or on["totals"]["quarantined"] != 1:
+        raise SystemExit(f"{label}: buckets {on['buckets']}, totals {on['totals']}")
+    if (on["counts"]["plain_step_fleet"] != 2
+            or sorted(x["lanes"] for x in on["kernel_launches"]) != [7, 8]
+            or len(on["folds"]) != 15):
+        raise SystemExit(f"{label}: the fleet lanes did not run through the fleet kernel "
+                         f"({on['counts']}, {len(on['folds'])} folds)")
+    # every cluster of each bucket against its lone launch, at full width
+    parity_b = {}
+    for n_pods, group in sorted(kept.items()):
+        arrs_list = [p.arrs for p in group]
+        masks = [np.asarray(a.active) for a in arrs_list]
+        # (write_synthetic_fleet's clusters of one bucket differ only in
+        # their names: their lanes place their pods alike)
+        parity_b[f"{arrs_list[0].alloc.shape[0]}x{n_pods}"] = fleet_parity(
+            torch, sched, step, f"{label}-{arrs_list[0].alloc.shape[0]}x{n_pods}", arrs_list,
+            masks, group[0].cfg, FLEET_PLAIN_DEPTH, distinct=False)
+    big = max(on["kernel_launches"], key=lambda x: x["lanes"])
+    big_par = parity_b[f"{FLEET['nodes']}x{FLEET['pods']}"]
+    big["bound_ms"], big["bound_by"] = big_par["fleet_bound_ms"], big_par["fleet_bound_by"]
+    log(f"{label}: the 8-lane launch {big['ms']:.3f} ms, its bound {big['bound_ms']:.5f} ms "
+        f"({big['bound_by']}); phase {time.perf_counter() - t_phase:.1f}s (writing the fleet "
+        f"{write_s:.1f}s)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"fleet_lanes": on, "serial": off, "write_s": write_s, "parity": parity_b,
+            "launch_8": big}
+
+
+def smem_bound_inputs(torch, sched, step, many_domain_snapshot):
+    """The shared-memory bound of a 5,120-node lane (C = 16 blocks): for the
+    dom_count path and the group_count path of ``many_domain_snapshot``,
+    the largest zone count D whose regions fit, and D + 1, which the plan
+    puts in global memory (the dom_count replica; the column-read
+    partials): the kernel over every pod at both (min of 3, CUDA events),
+    and at D + 1 against the plain step over the first 32 pods."""
+    import numpy as np
+
+    out = {}
+    dev = torch.device("cuda")
+    for path, affinity in (("dom_count", False), ("group_count", True)):
+        small = many_domain_snapshot(64, 16, 8, affinity=affinity)
+        cfg_s = sched.make_config(small)
+        arrs_s = sched.device_arrays(small.arrays, "cpu")
+        flags = step._flags(cfg_s, sched.lane_carry(sched.init_state(arrs_s, cfg_s), 1), True)
+        w = step.smem_widths(arrs_s, cfg_s, flags)
+        sl = step.block_geometry(BOUND_NODES, step.CLUSTER_SIZES[0])[0]
+        per_d = w.dom // w.d
+
+        def fits(d):
+            return step.smem_bytes(w._replace(d=d, dom=per_d * d), sl, False) <= step._SMEM_LIMIT
+
+        d_max = max(d for d in range(1, 8192) if fits(d))
+        got = {"d_max": d_max}
+        for d in (d_max, d_max + 1):
+            snap = many_domain_snapshot(BOUND_NODES, BOUND_PODS, d, affinity=affinity)
+            cfg = sched.make_config(snap)
+            arrs = sched.device_arrays(snap.arrays, dev)
+            if arrs.topo_onehot.shape[2] != d:
+                raise SystemExit(f"bound input {path}: {arrs.topo_onehot.shape[2]} zones, not {d}")
+            active = torch.from_numpy(np.asarray(snap.arrays.active)).to(dev)[None]
+            hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+            tmpl = template_of(sched, arrs, cfg)
+            st = sched.lane_carry(tmpl, 1)
+            static, times = {}, []
+            for _ in range(4):
+                times.append(cuda_ms(torch, lambda: step.plain_step_cuda(
+                    arrs, active, hoist, inv, st, cfg, cfg.forced_prefix, snap.n_pods,
+                    template=tmpl, inputs=static)))
+            times = times[1:]  # the first converts the inputs
+            plan = step.LAST_PLAN
+            region = ("dom_count replica" if plan.dom_global else
+                      "column-read partials" if plan.cols_global else "shared memory")
+            if (d > d_max) != (plan.dom_global or plan.cols_global) or plan.wide != (d > d_max):
+                raise SystemExit(f"bound input {path} D={d}: plan {plan}")
+            key = "past" if d > d_max else "at"
+            got[key] = {"d": d, "ms": min(times), "runs": times, "region": region,
+                        "geometry": geometry_fields(plan)}
+            log(f"bound {path} D={d} ({key} the bound): {region}, kernel over {snap.n_pods} "
+                f"pods {min(times):.3f} ms (min of 3) {geometry(plan)}")
+            if d > d_max:
+                got["past"]["parity"] = parity(torch, sched, step, f"bound-{path}-D{d}",
+                                               snap.arrays, cfg, snap.arrays.active,
+                                               n_pods=32)[2]
+                if not step.LAST_PLAN.wide:
+                    raise SystemExit(f"bound input {path}: the parity launch was not wide")
+        out[path] = got
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2980,9 +3345,11 @@ def main() -> int:
         from open_simulator_tpu_torch import tune as tune_mod
         from open_simulator_tpu_torch.replay import engine as rengine
         from open_simulator_tpu_torch.telemetry import explain as explain_mod
+        from open_simulator_tpu_torch import campaign as campaign_mod
         from open_simulator_tpu_torch.testing.synthetic import (
-            device_resource_cluster, device_resource_snapshot, preemption_columns,
-            soft_spread_cluster, synthetic_objects, synthetic_snapshot, wave_pools_snapshot)
+            device_resource_cluster, device_resource_snapshot, many_domain_snapshot,
+            preemption_columns, soft_spread_cluster, synthetic_objects, synthetic_snapshot,
+            wave_pools_snapshot, widen_device_resources)
     except ImportError as e:
         print(f"chip_smoke: the open_simulator_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -3003,12 +3370,16 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
                 log(f"build {name}: {line.strip()}")
     insts = {**instantiations(build.BUILD_LOG.get("plain_step", "")),
-             **instantiations(build.BUILD_LOG.get("plain_step_explain", ""))}
+             **instantiations(build.BUILD_LOG.get("plain_step_explain", "")),
+             **instantiations(build.BUILD_LOG.get("plain_step_wide", ""), "+wide"),
+             **instantiations(build.BUILD_LOG.get("plain_step_wide_explain", ""), "+wide")}
     log(f"build plain_step instantiations: {insts}")
     moved = {k: insts.get(k, {}).get("registers", 0) - r for k, r in BASE_REGISTERS.items()}
-    log(f"build: registers against the builds before the weight row: "
+    log(f"build: registers against the builds before the fleet form: "
         f"{ {k: d for k, d in moved.items() if d} } (every other build unchanged)")
-    spilled = [k for k in LAUNCHED if k not in insts or insts[k]["spill_store_bytes"]]
+    every = LAUNCHED + FLEET_BUILDS
+    every += tuple(k + "+wide" for k in every)
+    spilled = [k for k in every if k not in insts or insts[k]["spill_store_bytes"]]
     if spilled:
         raise SystemExit(f"build: plain_step {spilled} spill registers (or were not reported)")
 
@@ -3180,6 +3551,41 @@ def main() -> int:
                 raise SystemExit(f"wave parity {name}: ran {got['instantiation']}")
             wave_par[got["instantiation"]] = got
 
+    # the device-resource walks past their per-thread widths (the wide
+    # library): the device-resource cluster widened to 9 volume groups, 33
+    # exclusive devices and 9 WaitForFirstConsumer claims a pod
+    wide_par = {}
+    for inst, rich in (("<0,1>", False), ("<1,1>", True)):
+        snap_v = device_resource_snapshot(1024, 2048, rich=rich)
+        snap_v = dataclasses.replace(snap_v, arrays=widen_device_resources(snap_v.arrays))
+        cfg_v = sched.make_config(snap_v)
+        t_p, t_k, err_v, out_v = parity(torch, sched, step, f"walks-{inst}-1024x2048-wide",
+                                        snap_v.arrays, cfg_v, snap_v.arrays.active,
+                                        n_pods=EARLIER_DEPTH // 2)
+        if not step.LAST_PLAN.wide:
+            raise SystemExit(f"walk input {inst}: the launch did not run the wide library")
+        errs.append(err_v)
+        k_v = cfg_v.forced_prefix
+        bound_v = bound_of(step_work(sched, snap_v.arrays, cfg_v, k_v,
+                                     k_v + out_v[0].shape[1], lane0(out_v)))
+        wide_par[inst + "+wide"] = {"pods": out_v[0].shape[1], "ms": t_k * 1e3,
+                                    "plain_ms": t_p * 1e3, "bound_ms": bound_v[2],
+                                    "bound_by": bound_v[3], "max_abs_err": err_v}
+    # one zone past today's shared-memory bound of a 5,120-node lane
+    bound_p = smem_bound_inputs(torch, sched, step, many_domain_snapshot)
+    errs += [v["past"]["parity"] for v in bound_p.values()]
+    # each of the eight fleet builds: 3 clusters of one shape as one fleet
+    # launch, against their lone launches and the plain fleet
+    fleet_par = fleet_build_parity(torch, sched, step, [
+        ("<0,0>", synthetic_snapshot(FLEET_PARITY["nodes"], FLEET_PARITY["pods"], bound=0.2)),
+        ("<1,0>", synthetic_snapshot(FLEET_PARITY["nodes"], FLEET_PARITY["pods"], rich=True,
+                                     bound=0.2)),
+        ("<0,1>", device_resource_snapshot(FLEET_PARITY["nodes"], FLEET_PARITY["pods"])),
+        ("<1,1>", device_resource_snapshot(FLEET_PARITY["nodes"], FLEET_PARITY["pods"],
+                                           rich=True))],
+        {"explain_topk": EXPLAIN_K, "tie_break_seed": TIE_SEED})
+    errs += [v["max_abs_err"] for v in fleet_par.values()]
+
     # ---- 4. the main paths: simulate() at full size, through the kernel
     def cluster_of(kind):
         if kind == "devres":
@@ -3238,6 +3644,9 @@ def main() -> int:
                                "frontier-northstar")
     del ns_nodes, ns_pods
 
+    # ---- 4f. fleet campaigns: fleet-16 with the fleet lanes on and off
+    fleet_p = fleet_path(torch, sched, step, campaign_mod, "fleet-16")
+
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
     for label, kind in PATHS:
@@ -3288,7 +3697,7 @@ def main() -> int:
     frozen_insts = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
                     if k.endswith("+frozen")}
     kernels[0]["instantiations"] = {k: v for k, v in kernels[0]["instantiations"].items()
-                                    if "+explain" not in k}
+                                    if not any(x in k for x in ("+explain", "+fleet", "+wide"))}
     for k, v in wave_par.items():
         if "+explain" not in k:
             frozen_insts.setdefault(k, {})["parity"] = v
@@ -3349,7 +3758,7 @@ def main() -> int:
     # "jitter": each mode's own cost, bound and plain version)
     same_x = explain_p["same_pods"]
     explain_insts = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
-                     if k.endswith("+explain") and "+frozen" not in k}
+                     if k.endswith("+explain") and "+frozen" not in k and "+fleet" not in k}
     frozen_x = {k: {**v, "launched": k in LAUNCHED} for k, v in insts.items()
                 if k.endswith("+frozen+explain")}
     for k, v in wave_par.items():
@@ -3419,6 +3828,37 @@ def main() -> int:
                   "constant-config 64-lane launch; the traced pools sweep's plan equals the "
                   "constant sweep's; frontier-northstar's round 2, lanes 0 and 63 (constant "
                   "weights) equal the plain step",
+    }]
+    # the fleet form (ms, plain_ms and bound_ms: the first EARLIER_DEPTH
+    # pods of two fleet-16 clusters at 1,024 x 10,240; the 8-lane launch of
+    # the campaign under "launch_8"; each build's own parity input under
+    # "instantiations")
+    fleet_on, par_big = fleet_p["fleet_lanes"], fleet_p["parity"]["1024x10240"]
+    kernels[0]["instantiations"].update(
+        {k: {**insts[k], "launched": False, "parity": v} for k, v in wide_par.items()})
+    kernels[0]["shared_memory_bound"] = bound_p
+    kernels += [{
+        "name": "plain_step_fleet", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/exec_cache.py:837",
+        "launches": fleet_on["counts"]["plain_step_fleet"],
+        "instantiations": {k: {**insts[k], "launched": k == "<0,0>+fleet",
+                               "parity": fleet_par.get(k)} for k in FLEET_BUILDS},
+        "max_abs_err": max([v["max_abs_err"] for v in fleet_par.values()]
+                           + [v["max_abs_err"] for v in fleet_p["parity"].values()]),
+        "lanes": par_big["compared_lanes"], "pods": par_big["compared_pods"],
+        "ms": par_big["ms"], "plain_ms": par_big["plain_ms"], "bound_ms": par_big["bound_ms"],
+        "bound_by": par_big["bound_by"], "library_ms": None,
+        "launch_8": fleet_p["launch_8"],
+        "paths": {"fleet-16": {"fleet_lanes": fleet_on, "serial": fleet_p["serial"],
+                               "write_s": fleet_p["write_s"], "parity": fleet_p["parity"]}},
+        "parity": "bit-exact (outputs and every carry field) vs one plain_step launch per "
+                  "cluster over every pod of each fleet-16 bucket's clusters (8 at 1,024 x "
+                  "10,240, 7 at 512 x 6,144) and of three variants of each build's input "
+                  "(512 x 1,024: synthetic, rich, devres, devres-rich, each with and without "
+                  "explain); vs plain_step_fleet_torch over the first pods of two lanes of "
+                  f"each ({FLEET_PLAIN_DEPTH} of fleet-16, {FLEET_PARITY['plain_pods']} of the "
+                  "build inputs); the fleet-16 campaign's digest equals the serial one's",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

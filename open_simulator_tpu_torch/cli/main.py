@@ -1,16 +1,19 @@
 """CLI of the port: ``python -m open_simulator_tpu_torch.cli apply -f <config>``,
 ``... explain -f <config>``, ``... replay --cluster-config <dir> --trace
-<file>`` (``--frontier <specs>``: the cost frontier) and ``... tune
---cluster-config <dir>``.
+<file>`` (``--frontier <specs>``: the cost frontier), ``... tune
+--cluster-config <dir>`` and ``... campaign {run --fleet <dir>, report
+[<id>], audit <dump>}``.
 
-The reference's ``simon-tpu apply``, ``explain``, ``replay`` and ``tune``
-(``open_simulator_tpu/cli/main.py``) on the port's engine: the
-same flags for what is ported, the same report on stdout and the same
+The reference's ``simon-tpu apply``, ``explain``, ``replay``, ``tune`` and
+``campaign`` (``open_simulator_tpu/cli/main.py``) on the port's engine:
+the same flags for what is ported, the same report on stdout and the same
 exit codes (apply: 0 when a plan is found, 1 for FAILED; explain, replay
-and tune: 0; all: 1 for any error, with ``error: <message>`` on stderr),
-plus ``--device`` (default: the card; ``cpu`` runs the plain torch step).
-The reference's other options are accepted and refused with the ROADMAP
-item that ports them.
+and tune: 0; campaign run: 0 while a cluster completed, audit: 0 when it
+passes; all: 1 for any error, with ``error: <message>`` on stderr), plus
+``--device`` (default: the card; ``cpu`` runs the plain torch step). The
+reference's other options are accepted and refused with the ROADMAP item
+that ports them. ``--no-waves`` turns wave scheduling off for the process
+(``SIMON_WAVES=0``), as in the reference.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet (ROADMAP queue 1, item 11)")
     ap.add_argument("--ledger-dir", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
+    ap.add_argument("--no-waves", action="store_true",
+                    help="disable wave scheduling (SIMON_WAVES=0 equivalent; results are "
+                         "bit-identical either way)")
 
     ex = sub.add_parser(
         "explain",
@@ -80,6 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet (ROADMAP queue 1, item 15)")
     ex.add_argument("--trace-out", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
+    ex.add_argument("--no-waves", action="store_true",
+                    help="disable wave scheduling for this run (SIMON_WAVES=0 equivalent)")
 
     rp = sub.add_parser(
         "replay",
@@ -180,6 +188,68 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet (ROADMAP queue 1, item 11)")
     tn.add_argument("--trace-out", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
+
+    cp = sub.add_parser(
+        "campaign",
+        help="fault-isolated fleet campaigns over recorded cluster dumps",
+        description="Stream a fleet (directory or manifest of recorded API dumps) through "
+                    "the engine with per-cluster fault isolation: a malformed dump, a "
+                    "crashed encode, or an audit violation quarantines THAT cluster with a "
+                    "structured record while the campaign continues; same-bucket clusters "
+                    "run as the lanes of one launch. One fsynced journal line per settled "
+                    "cluster makes `run --resume <id|last>` after a kill produce a fleet "
+                    "report digest bit-identical to an uninterrupted run.")
+    cp_sub = cp.add_subparsers(dest="campaign_command")
+    cp_run = cp_sub.add_parser("run", help="run (or resume) a campaign over a fleet of dumps")
+    cp_run.add_argument("--fleet", required=True, metavar="DIR|MANIFEST",
+                        help="directory of recorded dumps (*.json/*.yaml, subdirs = manifest "
+                             "dirs) or a manifest file listing cluster paths")
+    cp_run.add_argument("--apps", default="", metavar="DIR",
+                        help="optional scenario apps (manifest dir) deployed to EVERY cluster")
+    cp_run.add_argument("--scenario", default="replay",
+                        help="scenario-set name stamped on journal records (default: replay)")
+    cp_run.add_argument("--max-clusters", type=int, default=0,
+                        help="only the first N clusters (0 = whole fleet)")
+    cp_run.add_argument("--retries", type=int, default=2,
+                        help="transient-failure retries per cluster (full-jitter backoff)")
+    cp_run.add_argument("--resume", default="", metavar="CAMPAIGN_ID",
+                        help="resume a checkpointed campaign after a crash: campaign-id "
+                             "prefix (or 'last'); settled clusters replay from the journal "
+                             "and the report digest matches an uninterrupted run")
+    cp_run.add_argument("--no-audit", action="store_true",
+                        help="skip the per-cluster placement invariant audit "
+                             "(campaign/audit.py) — not recommended")
+    cp_run.add_argument("--ledger-dir", default="",
+                        help="not ported yet (ROADMAP queue 1, item 11)")
+    cp_run.add_argument("--compile-cache-dir", default="",
+                        help="not ported yet (ROADMAP queue 1, item 8)")
+    cp_run.add_argument("--no-waves", action="store_true",
+                        help="disable wave scheduling for every cluster (SIMON_WAVES=0 "
+                             "equivalent)")
+    cp_run.add_argument("--json", action="store_true", help="emit the fleet report as JSON")
+    cp_run.add_argument("--output-file", default="")
+    cp_run.add_argument("--device", default=None,
+                        help="torch device to run on (default: the CUDA card; 'cpu' runs the "
+                             "plain torch step)")
+    cp_rep = cp_sub.add_parser("report", help="rebuild a fleet report from a campaign journal")
+    cp_rep.add_argument("campaign", metavar="CAMPAIGN", nargs="?", default="last",
+                        help="campaign-id prefix or 'last' (default)")
+    cp_rep.add_argument("--ledger-dir", default="",
+                        help="not ported yet (ROADMAP queue 1, item 11); the journal is read "
+                             "from SIMON_CHECKPOINT_DIR")
+    cp_rep.add_argument("--json", action="store_true", help="emit the report as JSON")
+    cp_rep.add_argument("--output-file", default="")
+    cp_aud = cp_sub.add_parser("audit",
+                               help="standalone placement invariant audit of one cluster")
+    cp_aud.add_argument("cluster", metavar="DUMP|DIR",
+                        help="recorded API dump file or manifest dir")
+    cp_aud.add_argument("--json", action="store_true", help="emit the audit report as JSON")
+    cp_aud.add_argument("--no-waves", action="store_true",
+                        help="disable wave scheduling for the audited run")
+    cp_aud.add_argument("--output-file", default="")
+    cp_aud.add_argument("--device", default=None,
+                        help="torch device to run on (default: the CUDA card; 'cpu' runs the "
+                             "plain torch step)")
     return p
 
 
@@ -213,7 +283,6 @@ def _replay(args) -> int:
     """``replay``: the reference's report, text or JSON; exit 1 with
     ``error: <message>`` for any error."""
     import json
-    import os
 
     try:
         if args.compile_cache_dir:
@@ -222,10 +291,6 @@ def _replay(args) -> int:
         if args.ledger_dir or args.trace_out:
             raise NotImplementedError(
                 "--ledger-dir and --trace-out are not ported yet (ROADMAP queue 1, item 11)")
-        if args.no_waves:
-            from open_simulator_tpu_torch.engine.waves import WAVES_ENV
-
-            os.environ[WAVES_ENV] = "0"
         from open_simulator_tpu_torch.k8s.loader import load_resources_from_directory
         from open_simulator_tpu_torch.replay import (
             ReplayOptions,
@@ -270,7 +335,6 @@ def _tune(args) -> int:
     """``tune``: the reference's report, text or JSON; every malformed knob
     or scheduler config is an ``error:`` exit 1, never a traceback."""
     import json
-    import os
 
     body = {"mode": args.mode, "variants": args.variants, "rounds": args.rounds,
             "seed": args.seed, "elite_frac": args.elite_frac, "sigma": args.sigma,
@@ -284,10 +348,6 @@ def _tune(args) -> int:
         if args.ledger_dir or args.trace_out:
             raise NotImplementedError(
                 "--ledger-dir and --trace-out are not ported yet (ROADMAP queue 1, item 11)")
-        if args.no_waves:
-            from open_simulator_tpu_torch.engine.waves import WAVES_ENV
-
-            os.environ[WAVES_ENV] = "0"
         if args.scheduler_config:
             with open(args.scheduler_config, "r", encoding="utf-8") as f:
                 body["scheduler_config"] = f.read()
@@ -332,8 +392,76 @@ def _explain(args) -> int:
     return 0
 
 
+def _campaign(args) -> int:
+    """``campaign {run, report, audit}``: the reference's fleet surface; a
+    quarantined cluster does not fail the run (exit 0 while one
+    completed)."""
+    import json
+
+    if not args.campaign_command:
+        print("error: pick a subcommand: campaign {run, report, audit}", file=sys.stderr)
+        return 2
+    try:
+        if getattr(args, "compile_cache_dir", ""):
+            raise NotImplementedError(
+                "--compile-cache-dir is not ported yet (ROADMAP queue 1, item 8)")
+        if getattr(args, "ledger_dir", ""):
+            raise NotImplementedError(
+                "--ledger-dir is not ported yet (ROADMAP queue 1, item 11)")
+        if args.campaign_command == "run":
+            from open_simulator_tpu_torch.campaign import (
+                CampaignOptions,
+                format_report,
+                run_campaign,
+            )
+
+            report = run_campaign(CampaignOptions(
+                fleet=args.fleet, apps_dir=args.apps, scenario=args.scenario,
+                max_clusters=args.max_clusters, retries=args.retries, resume=args.resume,
+                audit=not args.no_audit, device=args.device))
+            _emit(json.dumps(report, indent=2) if args.json else format_report(report),
+                  args.output_file)
+            return 0 if report["totals"]["completed"] > 0 else 1
+        if args.campaign_command == "report":
+            from open_simulator_tpu_torch.campaign import (
+                format_report,
+                report_from_journal,
+                resolve_campaign,
+            )
+
+            journal = resolve_campaign(args.campaign)
+            report = report_from_journal(journal)
+            if journal.done is None:
+                report["unfinished"] = True
+            _emit(json.dumps(report, indent=2) if args.json
+                  else format_report(report)
+                  + ("\n(journal has no done marker — the campaign is unfinished; resume it "
+                     f"with campaign run --resume {journal.campaign_id})"
+                     if journal.done is None else ""), args.output_file)
+            return 0
+        from open_simulator_tpu_torch.campaign import format_audit, run_audit
+
+        rep, info = run_audit(args.cluster, device=args.device)
+        _emit(json.dumps({**info, **rep.to_dict()}, indent=2) if args.json
+              else format_audit(rep, name=info["cluster"]), args.output_file)
+        return 0 if rep.ok else 1
+    except Exception as e:  # fleet, journal, source and unported-path errors -> exit 1
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if getattr(args, "no_waves", False):
+        # one switch for the process: make_config folds SIMON_WAVES into
+        # EngineConfig.wave_scheduling for every entry point
+        import os
+
+        from open_simulator_tpu_torch.engine.waves import WAVES_ENV
+
+        os.environ[WAVES_ENV] = "0"
+    if args.command == "campaign":
+        return _campaign(args)
     if args.command == "explain":
         return _explain(args)
     if args.command == "replay":

@@ -155,6 +155,23 @@
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
+// The fleet form (plain_step_fleet_kernel, four builds a library; replaces
+// the reference's run_fleet_batched, exec_cache.py:837): each lane is a
+// cluster of its own, every array its own. The launcher builds each lane's
+// StepArgs as a lone launch of that cluster would; each block copies its
+// lane's into shared memory and runs the same body with lane index 0.
+//
+// The wide library (built again with PLAIN_STEP_WIDE=1; it replaces no
+// TPU kernel: the reference has no width caps, and this keeps the kernel
+// computing every width the encoder can produce): a launch whose
+// device-resource widths pass kMaxV, kMaxE or kMaxLw walks them in a
+// per-thread window of global memory (StepArgs.walk), and a launch whose
+// dom_count replica or column-read partials do not fit a block's shared
+// memory keeps them in global memory, one region per block
+// (RES_DOM_GLOBAL, RES_COLS_GLOBAL). The launcher picks it only for such
+// launches (kernels/step.needs_wide); in the other libraries that code is
+// compiled out, so their builds keep their code and registers.
+//
 // Exactness: built with --fmad=false, and every float operation is an
 // explicit round-to-nearest intrinsic, so each one is the same IEEE
 // operation, in the same order, as in the plain torch step
@@ -172,19 +189,35 @@
 
 namespace cg = cooperative_groups;
 
-// which library this compilation is: 0 the builds without explain, 1 the
-// kExplain builds (kernels/build.py passes -DPLAIN_STEP_EXPLAIN=1)
+// which library this compilation is: PLAIN_STEP_EXPLAIN 0 the builds
+// without explain, 1 the kExplain builds; PLAIN_STEP_WIDE 1 the builds with
+// the walk window and the regions in global memory (kernels/build.py
+// passes -DPLAIN_STEP_EXPLAIN=1 and -DPLAIN_STEP_WIDE=1)
 #ifndef PLAIN_STEP_EXPLAIN
 #define PLAIN_STEP_EXPLAIN 0
+#endif
+#ifndef PLAIN_STEP_WIDE
+#define PLAIN_STEP_WIDE 0
 #endif
 
 namespace {
 
+constexpr bool kWideLib = PLAIN_STEP_WIDE != 0;
+
 // block size caps, so that ptxas keeps each instantiation in registers (no
 // spill): 128 registers a thread, 170 with the device-resource walks; the
-// launcher picks the block size under the cap (kernels/step.py:MAX_THREADS)
+// fleet builds (their StepArgs in shared memory, not in the constant bank)
+// and the wide library's builds take 168 and 255; the launcher picks the
+// block size under the cap (kernels/step.py:max_threads)
 constexpr int kMaxThreads = 512;
 constexpr int kMaxThreadsDevRes = 384;
+constexpr int kMaxThreadsWide = 384;
+constexpr int kMaxThreadsWideDevRes = 256;
+
+__host__ __device__ constexpr int max_threads_of(bool devres, bool wide) {
+  return wide ? (devres ? kMaxThreadsWideDevRes : kMaxThreadsWide)
+              : (devres ? kMaxThreadsDevRes : kMaxThreads);
+}
 constexpr int kMaxCluster = 16;     // blocks per lane (16 is non-portable)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
@@ -193,7 +226,8 @@ constexpr int kRows = 10;  // normalizer min-reduction rows
 // the score weights, in WEIGHT_FIELDS order: balanced, least, most, node
 // affinity, taint, interpod, spread, Simon, GPU
 constexpr int kWeights = 9;
-// widths the device-resource walks keep in registers (the launcher checks)
+// widths the device-resource walks keep in per-thread arrays; a launch
+// past any of them walks a window of global memory instead (StepArgs.walk)
 constexpr int kMaxV = 8;    // volume groups per node
 constexpr int kMaxE = 32;   // exclusive devices per node (a bit mask)
 constexpr int kMaxLw = 8;   // WaitForFirstConsumer claims per pod
@@ -243,7 +277,9 @@ constexpr int kNeedTot = 2;   // the column's total (affinity bootstrap)
 constexpr int kNeedMin = 4;   // min over hostname-eligible nodes (hard spread)
 
 // StepArgs.res bits; mirrored in kernels/step.py
-constexpr int RES_HEADROOM = 1;  // the block's headroom slice lives in shared memory
+constexpr int RES_HEADROOM = 1;     // the block's headroom slice lives in shared memory
+constexpr int RES_DOM_GLOBAL = 2;   // the dom_count replicas live in global memory
+constexpr int RES_COLS_GLOBAL = 4;  // the column-read partials live in global memory
 
 }  // namespace
 
@@ -382,6 +418,22 @@ struct StepArgs {
   // the traced weights: each lane's kWeights score weights (the scalars
   // w_bal .. w_gpu above when null)
   const float* w_lane;                // [S, kWeights]
+  // the fleet form (plain_step_fleet_kernel): the launch's lanes, one
+  // StepArgs each on the card, every one built as a one-lane launch over
+  // its own cluster would be (null outside a fleet launch); `fleet` is 1
+  // in the launch's StepArgs and in each lane's
+  const struct StepArgs* lanes;       // [S]
+  int fleet;
+  // the device-resource walks past kMaxV / kMaxE / kMaxLw: each thread's
+  // window of walk_w words in global memory, interleaved over a lane's
+  // C x B threads (null: every width fits the per-thread arrays)
+  int* walk;                          // [S, walk_w, C * B]
+  int walk_w;
+  // what plan_launch places in global memory when a block's shared memory
+  // cannot hold it: each block's dom_count replica (RES_DOM_GLOBAL) and
+  // its column-read partials, by pod parity (RES_COLS_GLOBAL)
+  float* dom_spill;                   // [S, C, K1 * D * Sg]
+  int* col_spill;                     // [S, C, 2, Q * D + 2Q]
 };
 
 }  // extern "C"
@@ -534,8 +586,10 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   int w = 0;
   l.fail = w;
   w += 2 * a.ops;
+  // (the column-read partials and the dom_count replica take no shared
+  // memory where plan_launch placed them in global memory)
   l.dpart = w;
-  w += 2 * qd;
+  w += (kWideLib && (a.res & RES_COLS_GLOBAL)) ? 0 : 2 * qd;
   l.merged = w;
   w += qd;
   l.qneed = w;
@@ -543,7 +597,7 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   l.minval = w;
   w += a.cs;
   l.dom = w;
-  w += (a.flags & F_DOM) ? a.k1 * a.d * a.sg : 0;
+  w += ((a.flags & F_DOM) && !(kWideLib && (a.res & RES_DOM_GLOBAL))) ? a.k1 * a.d * a.sg : 0;
   l.sc = w;
   w += score_rows(a.flags) * a.sl;
   l.ms = w;
@@ -791,6 +845,127 @@ __device__ bool wfc_fits(const StepArgs& a, const uint8_t* pv_taken, int p, int 
   return ok;
 }
 
+// a thread's window of the device-resource walks in global memory (p
+// null: every width fits the per-thread arrays above), word i at
+// p[i * stride]: [0, V) the volume groups' free space, [V, 2V) the bind's
+// VG debit, [2V, 2V + E) the devices still free for the pod, [2V + E,
+// 2V + 2E) the devices it took, [2V + 2E, 2V + 2E + Lw) the PV each
+// claim chose
+struct Walk {
+  int* p;
+  size_t stride;
+};
+
+// The walks over any width: lvm_pack, device_match and wfc_fits with
+// their per-thread arrays in the window, the same walks, picks and ties.
+__device__ bool storage_fits_walk(const StepArgs& a, const DevLane& L, int p,
+                                               int n, bool record, const Walk& w) {
+  const size_t st = w.stride;
+  const int V = a.v, E = a.e;
+  float* const free = reinterpret_cast<float*>(w.p);
+  float* const add = free + (size_t)V * st;
+  for (int v = 0; v < V; ++v) {
+    free[v * st] = __fsub_rn(a.vg_cap[(size_t)n * V + v], L.vg_used[(size_t)n * V + v]);
+    add[v * st] = 0.0f;
+  }
+  bool ok = true;
+  for (int i = 0; i < a.lv; ++i) {
+    const float size = a.lvm_req[(size_t)p * a.lv + i];
+    if (!(size > 0.0f)) continue;  // a padded slot moves nothing
+    int slot = 0;
+    for (int v = 1; v < V; ++v)
+      if (free[v * st] > free[slot * st]) slot = v;
+    if (!(free[slot * st] >= size)) ok = false;
+    free[slot * st] = __fsub_rn(free[slot * st], size);
+    add[slot * st] = __fadd_rn(add[slot * st], size);
+  }
+  // the phase-1 verdict is lvm_pack's && device_match's: the device walk
+  // runs only when the volumes fit, unless the bind needs its picks
+  if (!ok && !record) return false;
+  const float* cap = a.sdev_cap + (size_t)n * E;
+  const uint8_t* ssd = a.sdev_ssd + (size_t)n * E;
+  int* const avail = w.p + (size_t)(2 * V) * st;
+  int* const took = avail + (size_t)E * st;
+  for (int e = 0; e < E; ++e) {
+    avail[e * st] = !L.sdev_taken[(size_t)n * E + e] && cap[e] > 0.0f;
+    took[e * st] = 0;
+  }
+  for (int j = 0; j < a.ev; ++j) {
+    const float size = a.sdev_req[(size_t)p * a.ev + j];
+    if (!(size > 0.0f)) continue;
+    const bool wants = a.sdev_req_ssd[(size_t)p * a.ev + j] != 0;
+    int pick = -1;
+    for (int e = 0; e < E; ++e)
+      if (avail[e * st] && cap[e] >= size && (ssd[e] != 0) == wants &&
+          (pick < 0 || cap[e] < cap[pick]))
+        pick = e;
+    if (pick < 0) {
+      ok = false;
+      continue;
+    }
+    avail[pick * st] = 0;
+    took[pick * st] = 1;
+  }
+  return ok;
+}
+
+__device__ bool wfc_fits_walk(const StepArgs& a, const uint8_t* pv_taken, int p,
+                                           int n, const Walk& w) {
+  const size_t st = w.stride;
+  int* const chosen = w.p + (size_t)(2 * (a.v + a.e)) * st;
+  bool ok = true;
+  const int lo = a.pv_ptr[n], hi = a.pv_ptr[n + 1];
+  for (int j = 0; j < a.lw && a.wfc_valid[(size_t)p * a.lw + j]; ++j) {
+    const uint8_t* cand = a.pv_cand + (size_t)a.wfc_ccid[(size_t)p * a.lw + j] * a.npv;
+    int found = -1;
+    for (int i = lo; i < hi && found < 0; ++i) {
+      const int pv = a.pv_idx[i];
+      if (!cand[pv] || pv_taken[pv]) continue;
+      bool dup = false;
+      for (int c = 0; c < j; ++c) dup |= chosen[c * st] == pv;
+      if (!dup) found = pv;
+    }
+    chosen[j * st] = found;
+    if (found < 0) ok = false;
+  }
+  return ok;
+}
+
+// the window of this thread (a launch with StepArgs.walk set)
+__device__ __forceinline__ Walk walk_of(const StepArgs& a) {
+  return Walk{a.walk + (size_t)blockIdx.x * blockDim.x + threadIdx.x,
+              (size_t)gridDim.x * blockDim.x};
+}
+
+// The walks' verdicts for pod p at the block's nodes, each by its owner
+// thread into its s_flag byte (4: storage refuses, 8: the claims find no
+// PVs), before phase 1 reads them: the walks run where few values are
+// live, and phase 1 keeps the code it has within the widths.
+__device__ void walk_verdicts(const StepArgs& a, const DevLane& L, int fl, int p, int lo,
+                              int hi, uint8_t* s_flag) {
+  const Walk w = walk_of(a);
+  for (int n = lo + (int)threadIdx.x; n < hi; n += blockDim.x) {
+    uint8_t bits = 0;
+    if ((fl & F_STORAGE) && !storage_fits_walk(a, L, p, n, false, w)) bits |= 4;
+    if ((fl & F_PV_MATCH) && !wfc_fits_walk(a, L.pv_taken, p, n, w)) bits |= 8;
+    s_flag[n - lo] = bits;
+  }
+}
+
+// the storage bind of pod p on node fin over the window: the VG debit and
+// the devices taken, as dev_bind applies them within the widths
+__device__ void storage_bind_walk(const StepArgs& a, const DevLane& L, int p,
+                                               int fin, const Walk& w) {
+  storage_fits_walk(a, L, p, fin, true, w);
+  const size_t st = w.stride;
+  const float* add = reinterpret_cast<const float*>(w.p) + (size_t)a.v * st;
+  const int* took = w.p + (size_t)(2 * a.v + a.e) * st;
+  float* vg = L.vg_used + (size_t)fin * a.v;
+  for (int v = 0; v < a.v; ++v) vg[v] = __fadd_rn(vg[v], add[v * st]);
+  for (int e = 0; e < a.e; ++e)
+    if (took[e * st]) L.sdev_taken[(size_t)fin * a.e + e] = 1;
+}
+
 // the pod's attach demand on node n under limit key k: its unshared
 // claims, then each shared volume not yet on the node (every mount when
 // dedup is off), in slot order
@@ -843,7 +1018,9 @@ __device__ void dev_bind(const StepArgs& a, const DevLane& L, int fl, int p, int
       for (int j = 0; j < a.lw; ++j) vp[j] = -1;
     return;
   }
-  if ((fl & F_STORAGE) && own) {
+  if (kWideLib && (fl & F_STORAGE) && own && a.walk) {
+    storage_bind_walk(a, L, p, fin, walk_of(a));
+  } else if ((fl & F_STORAGE) && own) {
     float add[kMaxV];
     unsigned take = 0;
     lvm_pack(a, L, p, fin, add);
@@ -918,9 +1095,12 @@ __device__ __forceinline__ float scalar_weight(const StepArgs& a, int i) {
   }
 }
 
-template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
-__global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
-    plain_step_kernel(const StepArgs a) {
+// The step over the launch's pods for the lane (frozen: the lane and pod)
+// this block's cluster serves: the body of plain_step_kernel, and with
+// kFleet of plain_step_fleet_kernel, where `a` is the lane's own StepArgs,
+// built as for a one-lane launch over its own cluster (lane index 0).
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kFleet>
+__device__ __forceinline__ void step_body(const StepArgs& a) {
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
   // (+ interpod lo/hi) (+ GPU lo/hi)
   constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
@@ -934,7 +1114,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   const int C = a.cl, B = blockDim.x, SL = a.sl;
   const int rank = (int)cluster.block_rank();
   // the frozen form: cluster j of lane s evaluates pod p0 + j (grid S x P')
-  const int lane = kFrozen ? (int)(blockIdx.x / C) / (a.p1 - a.p0) : blockIdx.x / C;
+  // (a fleet lane's StepArgs points at its own cluster's arrays)
+  const int lane = kFleet ? 0 : (kFrozen ? (int)(blockIdx.x / C) / (a.p1 - a.p0) : blockIdx.x / C);
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
@@ -944,7 +1125,13 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   const Layout lay = layout_of(a);
   extern __shared__ __align__(16) int s_dyn[];
   int* const s_fail = s_dyn + lay.fail;
-  int* const s_dpart = s_dyn + lay.dpart;
+  // the column-read partials, by pod parity: in shared memory, or
+  // (RES_COLS_GLOBAL, the wide library only) in this block's region of
+  // col_spill, which the other blocks read through L2 after the cluster
+  // barrier (a buffer is rewritten only after every block has passed the
+  // next round's barrier, as in shared memory)
+  const bool cols_glob = kWideLib && (a.res & RES_COLS_GLOBAL);
+  int* const s_dpart = cols_glob ? a.col_spill + (size_t)blockIdx.x * 2 * QD : s_dyn + lay.dpart;
   int* const s_dacc = s_dyn + lay.merged;  // [Q, D], then the totals, then the minima
   int* const s_qtot = s_dacc + Q * D;
   int* const s_qmin = s_qtot + Q;
@@ -992,7 +1179,14 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   float* const hr_l = hr_res ? reinterpret_cast<float*>(s_dyn + lay.hr) : headroom_g + (size_t)lo * R;
   uint8_t* ports_used = a.ports_used + (size_t)lane * N * PT;
   float* const dom_g = a.dom_count + (size_t)lane * a.k1 * D * SG;
-  float* const dom_count = dom_rep ? reinterpret_cast<float*>(s_dyn + lay.dom) : dom_g;
+  // the dom_count replica: in shared memory, or (RES_DOM_GLOBAL, the wide
+  // library only) in this block's region of dom_spill; the frozen form
+  // only reads the lane's own
+  const bool dom_glob = kWideLib && (a.res & RES_DOM_GLOBAL);
+  float* const dom_count = dom_rep
+      ? (dom_glob ? (kFrozen ? dom_g : a.dom_spill + (size_t)blockIdx.x * a.k1 * D * SG)
+                  : reinterpret_cast<float*>(s_dyn + lay.dom))
+      : dom_g;
   const size_t gc_base = (size_t)lane * N * SG;
   const size_t tb_base = (size_t)lane * N * a.t;
   float* pref_paint = a.pref_paint + (size_t)lane * N * a.t2;
@@ -1059,7 +1253,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     }
   } else {
     if (hr_res) block_copy(hr_l, headroom_g + (size_t)lo * R, nl * R * sizeof(float));
-    if (dom_rep) block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
+    if (dom_rep && !(kFrozen && dom_glob))
+      block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
     if (pv_rep) block_copy(L.pv_taken, pv_g, (size_t)a.npv);
   }
   // (filled from the scalars too when w_lane is null: with the fill made
@@ -1168,7 +1363,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
         if (!(s_qneed[q] & (is_sum ? kNeedDom : (is_tot ? kNeedTot : kNeedMin)))) continue;
         int v = (is_sum || is_tot) ? 0 : INT_MAX;
         for (int r = 0; r < C; ++r) {
-          const int x = cluster.map_shared_rank(dpart, r)[i];
+          const int x = cols_glob ? __ldcg(dpart + (ptrdiff_t)(r - rank) * 2 * QD + i)
+                                  : cluster.map_shared_rank(dpart, r)[i];
           v = (is_sum || is_tot) ? v + x : min(v, x);
         }
         s_dacc[i] = v;
@@ -1206,7 +1402,11 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
     mark(1);
 
     // ---- phase 1: filters, first-fail histogram, raw scores into shared
-    // memory, the block's minima
+    // memory, the block's minima (past the walks' widths, their verdicts
+    // first)
+    if constexpr (kDevRes && kWideLib) {
+      if (a.walk) walk_verdicts(a, L, fl, p, lo, hi, s_flag);
+    }
     float m_na = kBig, m_tt = kBig, m_slo = kBig, m_shi = kBig, m_ilo = kBig, m_ihi = kBig;
     float m_plo = kBig, m_phi = kBig, m_glo = kBig, m_ghi = kBig;
     int cnt = 0;
@@ -1307,7 +1507,8 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
         if constexpr (kDevRes) {
           if (ff < 0 && (fl & F_GPU) && !gpu_fits(a, L, p, n)) ff = 7 + R;
           if (ff < 0 && (fl & F_STORAGE) &&
-              !(lvm_pack(a, L, p, n, nullptr) && device_match(a, L, p, n, nullptr)))
+              ((kWideLib && a.walk) ? (s_flag[ln] & 4) != 0
+                      : !(lvm_pack(a, L, p, n, nullptr) && device_match(a, L, p, n, nullptr))))
             ff = 8 + R;
           if (ff < 0 && (fl & F_VOL_STATIC)) {
             const size_t cv = (size_t)vcid * N + n;
@@ -1315,7 +1516,9 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
             else if (!a.class_vol_zone[cv]) ff = 10 + R;
             else if (!a.class_vol_bind[cv]) ff = 11 + R;
           }
-          if (ff < 0 && (fl & F_PV_MATCH) && !wfc_fits(a, L.pv_taken, p, n)) ff = 11 + R;
+          if (ff < 0 && (fl & F_PV_MATCH) &&
+              ((kWideLib && a.walk) ? (s_flag[ln] & 8) != 0 : !wfc_fits(a, L.pv_taken, p, n)))
+            ff = 11 + R;
           if (ff < 0 && (fl & F_VOL_STATIC) && pv_missing) ff = 12 + R;
           if (ff < 0 && (fl & F_VOL_LIMITS) && !limits_ok(a, L, fl, p, n)) ff = 13 + R;
         }
@@ -1738,6 +1941,29 @@ __global__ void __launch_bounds__(kDevRes ? kMaxThreadsDevRes : kMaxThreads, 1)
   cluster.sync();
 }
 
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
+__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib), 1)
+    plain_step_kernel(const StepArgs a) {
+  step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false>(a);
+}
+
+// The fleet form (replaces the reference's run_fleet_batched,
+// open_simulator_tpu/engine/exec_cache.py:837: schedule_pods vmapped over
+// per-lane SnapshotArrays): lane s is its own cluster, every array its
+// own. Each block copies its lane's StepArgs (a.lanes[s], built as a
+// one-lane launch over that cluster would build it) into shared memory
+// and runs the step's body on it, so each lane computes what a lone
+// launch of its cluster computes. Built for the scan without the
+// preemption columns, the only form a fleet runs.
+template <bool kInterpod, bool kDevRes, bool kExplain>
+__global__ void __launch_bounds__(max_threads_of(kDevRes, true), 1)
+    plain_step_fleet_kernel(const StepArgs a) {
+  __shared__ __align__(16) StepArgs s_lane;
+  block_copy(&s_lane, a.lanes + blockIdx.x / a.cl, sizeof(StepArgs));
+  __syncthreads();
+  step_body<kInterpod, kDevRes, false, false, kExplain, true>(s_lane);
+}
+
 // the instantiation a launch runs: the frozen wave form (never with the
 // preemption columns: the planner's plan is dropped under them), the
 // column builds, or the plain scan; kExplain is this library's
@@ -1746,6 +1972,11 @@ constexpr bool kExplainLib = PLAIN_STEP_EXPLAIN != 0;
 void (*kernel_of(const StepArgs* args))(StepArgs) {
   constexpr bool X = kExplainLib;
   const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
+  if (args->fleet)
+    return devres ? (interpod ? plain_step_fleet_kernel<true, true, X>
+                              : plain_step_fleet_kernel<false, true, X>)
+                  : (interpod ? plain_step_fleet_kernel<true, false, X>
+                              : plain_step_fleet_kernel<false, false, X>);
   if (args->frozen)
     return devres ? (interpod ? plain_step_kernel<true, true, false, true, X>
                               : plain_step_kernel<false, true, false, true, X>)
@@ -1772,7 +2003,8 @@ bool explain_ok(const StepArgs* args) {
                               args->out_topk_parts));
 }
 
-// the clusters a launch runs: one per lane, or per (lane, pod) frozen
+// the clusters a launch runs: one per lane (a fleet: per lane's StepArgs),
+// or per (lane, pod) frozen
 int clusters_of(const StepArgs* args) {
   return args->frozen ? args->s * (args->p1 - args->p0) : args->s;
 }
@@ -1791,8 +2023,11 @@ cudaError_t prepare(void (*kernel)(StepArgs), const StepArgs* args, size_t smem)
 
 bool geometry_ok(const StepArgs* args) {
   if (!explain_ok(args)) return false;
+  // the walk window and the regions in global memory are the wide library's
+  if (!kWideLib && (args->walk || (args->res & (RES_DOM_GLOBAL | RES_COLS_GLOBAL))))
+    return false;
   const int c = args->cl;
-  const int max_bt = (args->flags & kDevResFlags) ? kMaxThreadsDevRes : kMaxThreads;
+  const int max_bt = max_threads_of(args->flags & kDevResFlags, args->fleet || kWideLib);
   return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&
          args->bt <= max_bt && args->bt % 32 == 0 && args->sl >= 1 &&
          (long long)args->sl * c >= args->n;
@@ -1846,6 +2081,9 @@ extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
   if (args->frozen && (args->disabled || args->nominated || (args->flags & F_TEMPLATE) ||
                        args->cycles))
+    return (int)cudaErrorInvalidValue;
+  if (args->fleet && (!args->lanes || args->frozen || args->disabled || args->nominated ||
+                      args->cycles))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
   const size_t smem = layout_of(*args).bytes;

@@ -1,17 +1,21 @@
 """The reference's bucketed shapes (``engine/exec_cache.py``'s
 ``bucket_dim`` and ``bucket_shape``), host only.
 
-The port pads nothing: it runs every launch at the snapshot's own shapes.
-It still needs the reference's bucketed pod count, because the reference
-plans its waves over the padded pod axis (``core.simulate`` passes
+The port pads only a fleet campaign's clusters (``engine/exec_cache.
+pad_snapshot_arrays``): the reference groups a fleet's clusters by their
+padded shape, so the report's ``buckets`` and ``launches`` are the
+reference's only when the port pads and groups the same way. Every other
+launch runs at the snapshot's own shapes. The port still needs the
+reference's bucketed pod count there, because the reference plans its
+waves over the padded pod axis (``core.simulate`` passes
 ``n_pods_total`` = the bucketed count to ``waves_for``), and the padded
 tail can change the plan (``waves._coalesce`` counts its segment). The
 port plans with the same count, so its plan and its per-pod wave decode
 are the reference's, and its runner skips the segments past the real
-pods. Replay's resume fingerprint records the reference's bucketed
-shape (``bucket_shape``) for the same reason: both packages ask the same
-question. Padding would change no real pod's result (padded nodes are
-inactive, padded pods bind-nothing sentinels), so the port skips it.
+pods. Replay's resume fingerprint and a campaign row's ``bucket`` record
+the reference's bucketed shape (``bucket_shape``) for the same reason:
+both packages ask the same question. Padding changes no real pod's
+result (padded nodes are inactive, padded pods bind-nothing sentinels).
 """
 
 from __future__ import annotations

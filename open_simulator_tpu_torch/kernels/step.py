@@ -58,18 +58,37 @@ pointer ``w_lane``, which each block reads once, in the lane prologue
 (null: the nine scalars in ``StepArgs``). It is a runtime pointer, not a
 template flag: the 24 builds serve both modes.
 
+``plain_step_fleet`` runs the scan over a fleet of clusters, one lane
+each (``FleetLane``: each lane's own arrays, active mask, hoist, inverse
+allocatable, carry and template), in one launch of the kernel's fleet
+form (``plain_step_fleet_kernel``, eight more builds: kInterpod x kDevRes
+x kExplain), which hands each lane the StepArgs a one-lane launch over its
+cluster would take; its plain version, ``plain_step_fleet_torch``, is the
+one-lane plain step over each lane in turn. Its launches count under
+``plain_step_fleet`` (``plain_step_fleet_explain``).
+
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
 other. ``LAUNCHES["plain_step"]`` counts the kernel's scan launches and
 ``LAUNCHES["plain_step_frozen"]`` its frozen ones; the explain builds'
 launches count under ``plain_step_explain`` and
 ``plain_step_frozen_explain``. ``LAUNCHES["plain_step_weights"]``
-counts, besides, the launches of any build that carry the weight row.
+counts, besides, the launches of any build that carry the weight row, and
+``LAUNCHES["plain_step_wide"]`` those of the wide library: the same
+source built with ``PLAIN_STEP_WIDE`` (``plain_step_wide`` and
+``plain_step_wide_explain``), which walks a device-resource width past
+its per-thread arrays (``MAX_VG``, ``MAX_DEVICES``, ``MAX_WFC_CLAIMS``) in
+a window of global memory and keeps the regions its plan puts there in
+global memory; ``needs_wide`` picks it, so the launches within the
+widths and the shared memory run the builds they ran before.
 
 The kernel runs each lane on a thread-block cluster: ``plan_launch``
 picks the cluster size, the block size and each block's node slice from
 the lane count, the node count and the card's occupancy answer, and
-``smem_bytes`` is the per-block shared-memory accounting it checks.
+``smem_bytes`` is the per-block shared-memory accounting it checks; where a
+block's shared memory cannot hold the dom_count replica or the
+column-read partials, the plan puts them in global memory, one region
+per block (``scratch_bytes``), as it does the headroom rows.
 ``LAST_PLAN`` holds the geometry of the latest launch. The frozen form
 runs one cluster per (lane, pod) under the same plan.
 """
@@ -93,7 +112,9 @@ from open_simulator_tpu_torch.ops import threefry
 from open_simulator_tpu_torch.ops.domains import ActiveHoist
 
 LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0, "plain_step_explain": 0,
-                            "plain_step_frozen_explain": 0, "plain_step_weights": 0}
+                            "plain_step_frozen_explain": 0, "plain_step_weights": 0,
+                            "plain_step_fleet": 0, "plain_step_fleet_explain": 0,
+                            "plain_step_wide": 0}
 # the kernel's per-phase cycle counts (kPhases in the .cu), in order
 PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
           "min/count reduction", "phase 2 score and argmax", "argmax reduction",
@@ -111,7 +132,7 @@ F_PV_MATCH, F_VOL_LIMITS, F_VOL_DEDUP = 1 << 25, 1 << 26, 1 << 27
 INTERPOD_FLAGS = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF
 DEVRES_FLAGS = F_GPU | F_STORAGE | F_VOL_STATIC | F_PV_MATCH | F_VOL_LIMITS | F_VOL_DEDUP
 # StepArgs.res bits (csrc/plain_step.cu)
-RES_HEADROOM = 1
+RES_HEADROOM, RES_DOM_GLOBAL, RES_COLS_GLOBAL = 1, 2, 4
 
 _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "class_node_aff_score", "class_taint_prefer", "spec_id", "spec_alloc",
@@ -148,17 +169,20 @@ _INTS = ("n", "r", "c", "u", "k", "k1", "d", "sg", "pt", "cs", "a", "b", "ap", "
 _N_BASE_INTS = _INTS.index("g")
 _FLOATS = ("w_bal", "w_least", "w_most", "w_na", "w_tt", "w_ip", "w_sp", "w_si", "w_gpu")
 # per-thread widths of the device-resource walks (kMaxV, kMaxE, kMaxLw in
-# the .cu)
+# the .cu): a launch past any of them walks a window of global memory
+# (StepArgs.walk) instead
 MAX_VG, MAX_DEVICES, MAX_WFC_CLAIMS = 8, 32, 8
 
 # a block's dynamic shared memory budget (227 KB per block on Hopper, less
 # the static reduction buffers; what is left over serves as L1)
 _SMEM_LIMIT = 200 * 1024
-# the launch geometry's bounds (kMaxThreads, kMaxThreadsDevRes, kMaxCluster
-# in the .cu): block sizes under which each instantiation stays in
-# registers, and cluster sizes (over 8 blocks is non-portable, and the card
-# may refuse it)
+# the launch geometry's bounds (kMaxThreads, kMaxThreadsDevRes,
+# kMaxThreadsWide, kMaxThreadsWideDevRes, kMaxCluster in the .cu): block
+# sizes under which each instantiation stays in registers (the fleet builds
+# and the wide library's take the smaller caps), and cluster sizes (over 8
+# blocks is non-portable, and the card may refuse it)
 MAX_THREADS, MAX_THREADS_DEVRES = 512, 384
+MAX_THREADS_WIDE, MAX_THREADS_WIDE_DEVRES = 384, 256
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 
@@ -174,17 +198,20 @@ class SmemWidths(NamedTuple):
     npv: int    # the pv_taken replica (0 without PV matching)
 
 
-def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool) -> int:
+def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool = False,
+               cols_global: bool = False) -> int:
     """A block's dynamic shared memory for these widths and a slice of
-    `slice_len` nodes, its headroom rows in shared memory or not (mirrors
-    layout_of in the .cu): the histogram and column-read partials twice
-    (by pod parity), the merged column read, the column needs, the
+    `slice_len` nodes, its headroom rows in shared memory or not, its
+    dom_count replica and its column-read partials in global memory or not
+    (mirrors layout_of in the .cu): the histogram and the column-read
+    partials twice (by pod parity), the merged column read, the column needs, the
     hard-spread minima, the dom_count replica, the slice's raw scores (and
     headroom) as 4-byte words, then its flags and the pv_taken replica as
     bytes."""
     qd = w.q * w.d + 2 * w.q
-    words = (2 * w.ops + 3 * qd + w.q + w.cs + w.dom + w.rows * slice_len
-             + (slice_len * w.r if headroom else 0))
+    words = (2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
+             + (0 if dom_global else w.dom)
+             + w.rows * slice_len + (slice_len * w.r if headroom else 0))
     return 4 * words + slice_len + w.npv
 
 
@@ -198,10 +225,23 @@ class LaunchPlan(NamedTuple):
     headroom: bool   # the block's headroom rows live in shared memory
     smem: int        # dynamic shared memory per block (bytes)
     resident: int    # clusters of this geometry the card holds at once
+    dom_global: bool = False   # each block's dom_count replica lives in global memory
+    cols_global: bool = False  # its column-read partials live in global memory
+    wide: bool = False         # the wide library's builds (global regions, walk window)
 
 
-def max_threads(flags: int) -> int:
-    """The block size cap of the instantiation these flags launch."""
+# where plan_launch puts a block's regions, in the order it tries them:
+# (headroom rows in shared memory, dom_count replica in global memory,
+# column-read partials in global memory); the first that fits wins
+PLACEMENTS = ((True, False, False), (False, False, False), (False, True, False),
+              (False, False, True), (False, True, True))
+
+
+def max_threads(flags: int, fleet: bool = False, wide: bool = False) -> int:
+    """The block size cap of the instantiation these flags launch (a fleet
+    build, or a build of the wide library, takes the smaller cap)."""
+    if fleet or wide:
+        return MAX_THREADS_WIDE_DEVRES if flags & DEVRES_FLAGS else MAX_THREADS_WIDE
     return MAX_THREADS_DEVRES if flags & DEVRES_FLAGS else MAX_THREADS
 
 
@@ -225,32 +265,36 @@ def node_slices(plan: LaunchPlan, n_nodes: int) -> List[Tuple[int, int]]:
 
 
 def plan_launch(n_lanes: int, n_nodes: int, w: SmemWidths,
-                occupancy: Callable[[int, int, int, bool], int],
-                cap: int = MAX_THREADS) -> LaunchPlan:
+                occupancy: Callable[..., int],
+                cap: int = MAX_THREADS, placements=PLACEMENTS) -> LaunchPlan:
     """The launch geometry: the largest cluster size C in CLUSTER_SIZES
     whose block fits its shared memory and whose `n_lanes` clusters the card
-    holds at once (`occupancy(C, threads, slice_len, headroom)`, the card's
-    cudaOccupancyMaxActiveClusters, 0 where it cannot place one); where no
-    size holds every lane at once, the smallest size that fits (its lanes
-    run in waves). Blocks have at most `cap` threads (``max_threads``).
-    The headroom rows go to shared memory where they fit. Raises
-    ValueError when no cluster size fits."""
+    holds at once (`occupancy(C, threads, slice_len, headroom, dom_global,
+    cols_global)`, the card's cudaOccupancyMaxActiveClusters, 0 where it
+    cannot place one); where no size holds every lane at once, the smallest
+    size that fits (its lanes run in waves). Blocks have at most `cap`
+    threads (``max_threads``). Each size takes the first of `placements`
+    that fits (PLACEMENTS: the headroom rows in shared memory where they
+    fit, else in global memory, then the dom_count replica, then the
+    column-read partials, then both, in global memory per block). Raises
+    ValueError when no cluster size fits even so."""
     fits = []
     for c in CLUSTER_SIZES:
         sl, threads = block_geometry(n_nodes, c, cap)
-        for hr in (True, False):
-            smem = smem_bytes(w, sl, hr)
+        for hr, dg, cg in placements:
+            smem = smem_bytes(w, sl, hr, dg, cg)
             if smem <= _SMEM_LIMIT:
                 break
         else:
             continue  # this size's slices do not fit
-        plan = LaunchPlan(c, threads, sl, hr, smem, occupancy(c, threads, sl, hr))
+        plan = LaunchPlan(c, threads, sl, hr, smem, occupancy(c, threads, sl, hr, dg, cg),
+                          dg, cg)
         if plan.resident >= n_lanes:
             return plan
         fits.append(plan)
     if not fits:
         sl = block_geometry(n_nodes, CLUSTER_SIZES[0])[0]
-        need = smem_bytes(w, sl, False)
+        need = smem_bytes(w, sl, False, True, True)
         raise ValueError(
             f"plain_step: {w.ops} ops, {w.q} carry columns x {w.d} domains and "
             f"{sl}-node slices need {need} bytes of shared memory, over the block's "
@@ -276,7 +320,10 @@ class StepArgs(ctypes.Structure):
                                                  "n_parts", "jitter")]
                 + [(f, ctypes.c_uint) for f in ("key0", "key1")]
                 + [(f, ctypes.c_void_p) for f in ("out_topk_node", "out_topk_score",
-                                                  "out_topk_parts", "w_lane")])
+                                                  "out_topk_parts", "w_lane")]
+                + [("lanes", ctypes.c_void_p), ("fleet", ctypes.c_int), ("walk", ctypes.c_void_p),
+                   ("walk_w", ctypes.c_int), ("dom_spill", ctypes.c_void_p),
+                   ("col_spill", ctypes.c_void_p)])
 
 
 class StepOutputs(NamedTuple):
@@ -468,16 +515,17 @@ def _flags(cfg: EngineConfig, state: SimState, template: bool) -> int:
 
 
 def instantiation(cfg: EngineConfig, state: SimState, columns: bool = False,
-                  frozen: bool = False) -> str:
+                  frozen: bool = False, fleet: bool = False) -> str:
     """The ``plain_step<kInterpod, kDevRes, kCols, kFrozen, kExplain>`` a
     launch under `cfg` on this carry runs, as "<I,D>", with "+columns"
     where the launch passes the preemption columns, "+frozen" for the wave
-    form and "+explain" under explain_topk or tie_break_seed (the kernel's
-    ``kernel_of`` picks it from the same flags and pointers)."""
+    form, "+fleet" for ``plain_step_fleet_kernel<kInterpod, kDevRes,
+    kExplain>`` and "+explain" under explain_topk or tie_break_seed (the
+    kernel's ``kernel_of`` picks it from the same flags and pointers)."""
     fl = _flags(cfg, state, False)
     return (f"<{int(bool(fl & INTERPOD_FLAGS))},{int(bool(fl & DEVRES_FLAGS))}>"
             + ("+columns" if columns else "") + ("+frozen" if frozen else "")
-            + ("+explain" if explain_on(cfg) else ""))
+            + ("+fleet" if fleet else "") + ("+explain" if explain_on(cfg) else ""))
 
 
 def devres_on(cfg: EngineConfig) -> bool:
@@ -543,16 +591,30 @@ def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
         npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0)
 
 
+def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:
+    """Does a launch of these arrays need the wide library: a walk past its
+    per-thread widths, or a block whose shared memory cannot hold its
+    regions even at the largest cluster with the headroom rows out?"""
+    sl = block_geometry(arrs.alloc.shape[0], CLUSTER_SIZES[0])[0]
+    return bool(walk_width(arrs, cfg)) or smem_bytes(smem_widths(arrs, cfg, flags), sl,
+                                                      False) > _SMEM_LIMIT
+
+
 def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
-             occupancy: Callable[[int, int, int, bool], int]) -> LaunchPlan:
-    """``plan_launch`` for a launch of these arrays under these flags."""
-    return plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
-                       max_threads(flags))
+             occupancy: Callable[..., int], fleet: bool = False) -> LaunchPlan:
+    """``plan_launch`` for a launch of these arrays under these flags: the
+    wide library's builds and placements where ``needs_wide``."""
+    wide = needs_wide(arrs, cfg, flags)
+    plan = plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
+                       max_threads(flags, fleet, wide), PLACEMENTS if wide else PLACEMENTS[:2])
+    return plan._replace(wide=wide)
 
 
-def _library(explain: bool = False) -> ctypes.CDLL:
-    """The kernel's library: the twelve builds, or their explain twins."""
-    lib = build.load("plain_step_explain" if explain else "plain_step")
+def _library(explain: bool = False, wide: bool = False) -> ctypes.CDLL:
+    """The kernel's library: the twelve builds and the four fleet builds,
+    or their explain twins; the wide library's builds past the walk widths
+    or the shared memory."""
+    lib = build.load("plain_step" + ("_wide" if wide else "") + ("_explain" if explain else ""))
     args_p = ctypes.POINTER(StepArgs)
     lib.plain_step_launch.argtypes = [args_p, ctypes.c_void_p]
     lib.plain_step_launch.restype = ctypes.c_int
@@ -565,13 +627,17 @@ def _library(explain: bool = False) -> ctypes.CDLL:
 
 def _set_geometry(args: StepArgs, plan) -> None:
     args.cl, args.bt, args.sl = plan.cluster, plan.threads, plan.slice_len
-    args.res = RES_HEADROOM if plan.headroom else 0
+    args.res = ((RES_HEADROOM if plan.headroom else 0)
+                | (RES_DOM_GLOBAL if plan.dom_global else 0)
+                | (RES_COLS_GLOBAL if plan.cols_global else 0))
 
 
 def _card_occupancy(lib: ctypes.CDLL, args: StepArgs):
     """plan_launch's occupancy answer on the current card."""
-    def occupancy(cluster: int, threads: int, slice_len: int, headroom: bool) -> int:
-        _set_geometry(args, LaunchPlan(cluster, threads, slice_len, headroom, 0, 0))
+    def occupancy(cluster: int, threads: int, slice_len: int, headroom: bool,
+                  dom_global: bool = False, cols_global: bool = False) -> int:
+        _set_geometry(args, LaunchPlan(cluster, threads, slice_len, headroom, 0, 0,
+                                       dom_global, cols_global))
         n = ctypes.c_int(0)
         err = lib.plain_step_clusters(ctypes.byref(args), ctypes.byref(n))
         if err:
@@ -690,68 +756,98 @@ def _static_inputs(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: to
     )
 
 
-def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
-                    inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
-                    p0: int, p1: int, template: Optional[SimState] = None,
-                    phase_cycles: Optional[torch.Tensor] = None,
-                    disabled: Optional[torch.Tensor] = None,
-                    nominated: Optional[torch.Tensor] = None, frozen: bool = False,
-                    inputs: Optional[dict] = None,
-                    weights: Optional[torch.Tensor] = None) -> StepOutputs:
-    """Launch the ``plain_step`` kernel: one thread-block cluster per lane
-    (``plan_launch``), the pod loop inside the kernel, the carry updated in
-    place on the current stream (with a `template`, first written from it
-    by the lane prologue); frozen, one cluster per (lane, pod) and the
-    carry only read. Given `phase_cycles`, an [S, len(PHASES)] int64
-    tensor on the card, the kernel writes each lane's cycles per phase
-    into it. `disabled` and `nominated` go to the kernel as pointers (null
-    when None). `inputs`, a dict the caller keeps across launches over the
-    same arrays, lanes and config, holds the converted inputs and the
-    launch plans after the first call. `weights` ([S, K] f32, under the
-    traced weights only) goes to the kernel as ``w_lane``."""
-    global LAST_PLAN
-    scheduler.check_supported(cfg)
-    if frozen:
-        _check_frozen(template, disabled, nominated, phase_cycles)
+def walk_width(arrs, cfg: EngineConfig) -> int:
+    """Words of a thread's window for the device-resource walks (the free
+    space and debit of V volume groups, the free and taken flags of E
+    devices, the PV of Lw claims), or 0 when every width fits the walks'
+    per-thread arrays (MAX_VG, MAX_DEVICES, MAX_WFC_CLAIMS)."""
+    v, e, lw = arrs.vg_cap.shape[1], arrs.sdev_cap.shape[1], arrs.wfc_ccid.shape[1]
+    if not devres_on(cfg) or (v <= MAX_VG and e <= MAX_DEVICES and lw <= MAX_WFC_CLAIMS):
+        return 0
+    return 2 * (v + e) + lw
+
+
+def scratch_bytes(arrs, cfg: EngineConfig, flags: int, plan: LaunchPlan, n_clusters: int,
+                  frozen: bool = False) -> int:
+    """The global memory a launch of `n_clusters` clusters under `plan`
+    takes besides its inputs and outputs: each block's dom_count replica
+    and column-read partials where the plan put them there (the frozen
+    form reads the lane's dom_count itself), and the walks' windows."""
+    k1, _, d = arrs.topo_onehot.shape
+    w = smem_widths(arrs, cfg, flags)
+    blocks = n_clusters * plan.cluster
+    words = ((k1 * d * arrs.match_groups.shape[1] if plan.dom_global and flags & F_DOM
+              and not frozen else 0)
+             + (2 * (w.q * w.d + 2 * w.q) if plan.cols_global else 0)
+             + walk_width(arrs, cfg) * plan.threads)
+    return 4 * blocks * words
+
+
+# a frozen launch whose scratch would pass this runs as launches over
+# fewer pods each (its clusters are one per lane and pod)
+_SCRATCH_LIMIT = 1 << 30
+
+
+def _scratch(args: StepArgs, arrs, cfg: EngineConfig, flags: int, plan: LaunchPlan,
+             n_clusters: int, dev, frozen: bool = False) -> List[torch.Tensor]:
+    """Allocate a launch's scratch (``scratch_bytes``) and point `args` at
+    it; returns the tensors, which must outlive the launch."""
+    k1, _, d = arrs.topo_onehot.shape
+    w = smem_widths(arrs, cfg, flags)
+    blocks = n_clusters * plan.cluster
+    keep: List[torch.Tensor] = []
+    if not plan.wide:
+        return keep
+
+    def alloc(words, dtype):
+        t = torch.empty((blocks * words,), dtype=dtype, device=dev)
+        keep.append(t)
+        return t.data_ptr()
+
+    args.dom_spill = (alloc(k1 * d * arrs.match_groups.shape[1], torch.float32)
+                      if plan.dom_global and flags & F_DOM and not frozen else None)
+    args.col_spill = (alloc(2 * (w.q * w.d + 2 * w.q), torch.int32)
+                      if plan.cols_global else None)
+    args.walk_w = walk_width(arrs, cfg)
+    args.walk = alloc(args.walk_w * plan.threads, torch.int32) if args.walk_w else None
+    return keep
+
+
+def _empty_outputs(arrs, cfg: EngineConfig, n_lanes: int, dev) -> StepOutputs:
+    gp_w, vp_w = pick_widths(arrs, cfg)
+    k_top, c_parts = scheduler.topk_widths(arrs, cfg)
+    empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
+    return StepOutputs(
+        empty, no_fail_counts(n_lanes, 0, cfg.n_ops, dev), empty,
+        torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
+        torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev),
+        torch.empty((n_lanes, 0, k_top), dtype=torch.int32, device=dev),
+        torch.empty((n_lanes, 0, k_top), dtype=torch.float32, device=dev),
+        torch.empty((n_lanes, 0, c_parts, k_top), dtype=torch.float32, device=dev))
+
+
+def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
+                 state: SimState, cfg: EngineConfig, p0: int, p1: int,
+                 template: Optional[SimState], phase_cycles: Optional[torch.Tensor],
+                 disabled: Optional[torch.Tensor], nominated: Optional[torch.Tensor],
+                 frozen: bool, static: dict, weights: Optional[torch.Tensor]):
+    """A launch's StepArgs without its geometry, and the tensors it points
+    at (converted inputs, carry, outputs), which must outlive the launch.
+    `static` keeps the converted inputs across launches (``plain_step_cuda``'s
+    `inputs`)."""
     dev = active.device
     n, r = arrs.alloc.shape
     n_lanes, n_out = active.shape[0], p1 - p0
-    check_weights(cfg, weights, n_lanes)
     k1, _, d = arrs.topo_onehot.shape
-    n_cls = arrs.class_affinity.shape[0]
     sg = arrs.match_groups.shape[1]
     pt = arrs.ports.shape[1]
-    cs = arrs.spread_group.shape[1]
-    a_w, b_w, ap = arrs.aff_group.shape[1], arrs.anti_group.shape[1], arrs.pref_group.shape[1]
     t_w, t2 = arrs.own_terms.shape[1], arrs.hit_pref.shape[1]
-    k = arrs.has_key.shape[0]
     ops = cfg.n_ops
     g_w, v_w, e_w = arrs.gpu_slot.shape[1], arrs.vg_cap.shape[1], arrs.sdev_cap.shape[1]
     n_pv, lw, lk = arrs.pv_node_ok.shape[0], arrs.wfc_ccid.shape[1], arrs.vol_limit_cap.shape[1]
-    lsv, nsv = arrs.svol_id.shape[1], arrs.svol_key.shape[0]
+    nsv = arrs.svol_key.shape[0]
     gp_w, vp_w = pick_widths(arrs, cfg)
-    devres = devres_on(cfg)
-    flags = _flags(cfg, state, template is not None)
-    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
-    for what, width, cap in (("volume groups per node", v_w, MAX_VG),
-                             ("exclusive devices per node", e_w, MAX_DEVICES),
-                             ("WaitForFirstConsumer claims per pod", lw, MAX_WFC_CLAIMS)):
-        if devres and width > cap:
-            raise ValueError(f"plain_step: {width} {what}, over the kernel's {cap}")
     k_top, c_parts = scheduler.topk_widths(arrs, cfg)
-    explain = explain_on(cfg)
-    if n_out <= 0:
-        if template is not None:
-            copy_template(state, template)
-        empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-        return StepOutputs(
-            empty, no_fail_counts(n_lanes, 0, ops, dev), empty,
-            torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
-            torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev),
-            torch.empty((n_lanes, 0, k_top), dtype=torch.int32, device=dev),
-            torch.empty((n_lanes, 0, k_top), dtype=torch.float32, device=dev),
-            torch.empty((n_lanes, 0, c_parts, k_top), dtype=torch.float32, device=dev))
-    static = inputs if inputs is not None else {}
     if "tensors" not in static:
         static["tensors"] = _static_inputs(arrs, active, hoist, inv_alloc, cfg)
         static["plans"] = {}
@@ -800,8 +896,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         for f in STATE_FIELDS:
             _check(f"template {f}", getattr(template, f), getattr(state, f).dtype,
                    getattr(state, f).shape[1:])
-        in_kernel = KERNEL_CARRY if devres else [f for f in KERNEL_CARRY
-                                                 if f not in DEVRES_CARRY]
+        in_kernel = KERNEL_CARRY if devres_on(cfg) else [f for f in KERNEL_CARRY
+                                                         if f not in DEVRES_CARRY]
         copy_template(state, template, [f for f in STATE_FIELDS if f not in in_kernel])
         tensors.update({f"tmpl_{f}": getattr(template, f) for f in in_kernel})
     for name, t in tensors.items():
@@ -815,18 +911,82 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         **{f: (tensors[f].data_ptr() if k_top else None)
            for f in ("out_topk_node", "out_topk_score", "out_topk_parts")},
         w_lane=tensors["w_lane"].data_ptr() if "w_lane" in tensors else None,
-        n=n, r=r, c=n_cls, u=arrs.spec_alloc.shape[0], k=k, k1=k1, d=d, sg=sg, pt=pt,
-        cs=cs, a=a_w, b=b_w, ap=ap, t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
+        n=n, r=r, c=arrs.class_affinity.shape[0], u=arrs.spec_alloc.shape[0],
+        k=arrs.has_key.shape[0], k1=k1, d=d, sg=sg, pt=pt, cs=arrs.spread_group.shape[1],
+        a=arrs.aff_group.shape[1], b=arrs.anti_group.shape[1], ap=arrs.pref_group.shape[1],
+        t=t_w, t2=t2, ops=ops, s=n_lanes, p0=p0, p1=p1,
         ci=cfg.cpu_mem_idx[0], mi=cfg.cpu_mem_idx[1],
-        flags=flags,
+        flags=_flags(cfg, state, template is not None),
         g=g_w, v=v_w, e=e_w, lv=arrs.lvm_req.shape[1], ev=arrs.sdev_req.shape[1], npv=n_pv,
-        lw=lw, lk=lk, lsv=lsv, nsv=nsv,
+        lw=lw, lk=lk, lsv=arrs.svol_id.shape[1], nsv=nsv,
         w_bal=cfg.w_balanced, w_least=cfg.w_least, w_most=cfg.w_most,
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
         w_si=cfg.w_simon, w_gpu=cfg.w_gpu,
         cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None,
         frozen=int(frozen))
-    lib = _library(explain)
+    return args, tensors
+
+
+def _outputs(tensors: dict, cfg: EngineConfig, n_lanes: int, n_out: int, dev) -> StepOutputs:
+    fail = (tensors["out_fail"] if cfg.fail_reasons
+            else no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
+    return StepOutputs(tensors["out_node"], fail, tensors["out_feasible"],
+                       tensors["out_gpu_pick"], tensors["out_vol_pick"],
+                       tensors["out_topk_node"], tensors["out_topk_score"],
+                       tensors["out_topk_parts"])
+
+
+def _fire(lib: ctypes.CDLL, args: StepArgs, plan: LaunchPlan, dev, what: str) -> None:
+    """Launch `args` (geometry set) on the current stream; raises on a
+    refused launch."""
+    if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
+        raise RuntimeError(f"{what}: smem_bytes and the kernel's layout_of disagree")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({plan})")
+
+
+def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
+                    inv_alloc: torch.Tensor, state: SimState, cfg: EngineConfig,
+                    p0: int, p1: int, template: Optional[SimState] = None,
+                    phase_cycles: Optional[torch.Tensor] = None,
+                    disabled: Optional[torch.Tensor] = None,
+                    nominated: Optional[torch.Tensor] = None, frozen: bool = False,
+                    inputs: Optional[dict] = None,
+                    weights: Optional[torch.Tensor] = None) -> StepOutputs:
+    """Launch the ``plain_step`` kernel: one thread-block cluster per lane
+    (``plan_launch``), the pod loop inside the kernel, the carry updated in
+    place on the current stream (with a `template`, first written from it
+    by the lane prologue); frozen, one cluster per (lane, pod) and the
+    carry only read. Given `phase_cycles`, an [S, len(PHASES)] int64
+    tensor on the card, the kernel writes each lane's cycles per phase
+    into it. `disabled` and `nominated` go to the kernel as pointers (null
+    when None). `inputs`, a dict the caller keeps across launches over the
+    same arrays, lanes and config, holds the converted inputs and the
+    launch plans after the first call. `weights` ([S, K] f32, under the
+    traced weights only) goes to the kernel as ``w_lane``. Regions the
+    plan puts in global memory, and the device-resource walks past their
+    per-thread widths, get scratch of their own (``scratch_bytes``)."""
+    global LAST_PLAN
+    scheduler.check_supported(cfg)
+    if frozen:
+        _check_frozen(template, disabled, nominated, phase_cycles)
+    dev = active.device
+    n_lanes, n_out = active.shape[0], p1 - p0
+    check_weights(cfg, weights, n_lanes)
+    flags = _flags(cfg, state, template is not None)
+    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
+    if n_out <= 0:
+        if template is not None:
+            copy_template(state, template)
+        return _empty_outputs(arrs, cfg, n_lanes, dev)
+    static = inputs if inputs is not None else {}
+    args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
+                                 phase_cycles, disabled, nominated, frozen, static, weights)
+    explain = explain_on(cfg)
+    lib = _library(explain, needs_wide(arrs, cfg, flags))
     n_clusters = n_lanes * n_out if frozen else n_lanes
     with torch.cuda.device(dev):
         key = (flags, n_clusters, frozen)
@@ -834,20 +994,131 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         if plan is None:
             plan = plan_for(arrs, cfg, flags, n_clusters, _card_occupancy(lib, args))
             static["plans"][key] = plan
-        _set_geometry(args, plan)
-        if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
-            raise RuntimeError("plain_step: smem_bytes and the kernel's layout_of disagree")
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
+    if (frozen and n_out > 1
+            and scratch_bytes(arrs, cfg, flags, plan, n_clusters, True) > _SCRATCH_LIMIT):
+        # one cluster per (lane, pod): half the pods, half the scratch
+        mid = p0 + n_out // 2
+        halves = [plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, lo, hi,
+                                  frozen=True, inputs=static, weights=weights)
+                  for lo, hi in ((p0, mid), (mid, p1))]
+        return StepOutputs(*(torch.cat(pair, 1) for pair in zip(*halves)))
+    _set_geometry(args, plan)
+    keep = _scratch(args, arrs, cfg, flags, plan, n_clusters, dev, frozen)
+    _fire(lib, args, plan, dev, "plain_step")
+    del keep  # freed in stream order: the next use of the memory follows the launch
     LAUNCHES[("plain_step_frozen" if frozen else "plain_step")
              + ("_explain" if explain else "")] += 1
     if weights is not None:
         LAUNCHES["plain_step_weights"] += 1
+    if plan.wide:
+        LAUNCHES["plain_step_wide"] += 1
     LAST_PLAN = plan
-    fail = tensors["out_fail"] if cfg.fail_reasons else no_fail_counts(n_lanes, n_out, ops, dev)
-    return StepOutputs(tensors["out_node"], fail, tensors["out_feasible"],
-                       tensors["out_gpu_pick"], tensors["out_vol_pick"],
-                       tensors["out_topk_node"], tensors["out_topk_score"],
-                       tensors["out_topk_parts"])
+    return _outputs(tensors, cfg, n_lanes, n_out, dev)
+
+
+# ---- the fleet form: one cluster per lane, each lane its own cluster ------
+
+
+class FleetLane(NamedTuple):
+    """One lane of a fleet launch: its own cluster's arrays (tensors on the
+    step's device), its [1, N] active mask, its ActiveHoist and inverse
+    allocatable, its [1, ...] carry (written from `template` by the lane
+    prologue) and its template carry."""
+    arrs: object
+    active: torch.Tensor
+    hoist: ActiveHoist
+    inv_alloc: torch.Tensor
+    state: SimState
+    template: SimState
+
+
+def _check_fleet(lanes: List[FleetLane]) -> None:
+    from open_simulator_tpu_torch.engine.exec_cache import _shape_sig
+
+    if not lanes:
+        raise ValueError("plain_step_fleet: no lanes")
+    sig = _shape_sig(lanes[0].arrs)
+    for ln in lanes:
+        if _shape_sig(ln.arrs) != sig:
+            raise ValueError("plain_step_fleet: lanes need shape-identical snapshots; group "
+                             "by the full shape signature first")
+        if ln.active.shape[0] != 1:
+            raise ValueError("plain_step_fleet: each lane takes one [1, N] active mask")
+
+
+def plain_step_fleet(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
+                     p1: int) -> List[StepOutputs]:
+    """The scan over pods [p0, p1) of every lane of a fleet, each lane its
+    own cluster from its own template: the fleet kernel for CUDA tensors,
+    the plain torch step lane by lane for CPU tensors. One StepOutputs per
+    lane ([1, P', ...])."""
+    _check_fleet(lanes)
+    dev = lanes[0].active.device
+    if dev.type == "cuda":
+        return plain_step_fleet_cuda(lanes, cfg, p0, p1)
+    if dev.type == "cpu":
+        return plain_step_fleet_torch(lanes, cfg, p0, p1)
+    raise ValueError(f"no plain_step_fleet for device {dev}")
+
+
+def plain_step_fleet_torch(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
+                           p1: int) -> List[StepOutputs]:
+    """The plain version: the one-lane plain step over each lane's own
+    arrays, in turn."""
+    _check_fleet(lanes)
+    return [plain_step_torch(ln.arrs, ln.active, ln.hoist, ln.inv_alloc, ln.state, cfg, p0, p1,
+                             template=ln.template) for ln in lanes]
+
+
+def plain_step_fleet_cuda(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
+                          p1: int) -> List[StepOutputs]:
+    """Launch the fleet form of ``plain_step``: one thread-block cluster
+    per lane, each lane's StepArgs the one a one-lane ``plain_step_cuda``
+    of that cluster alone would build, copied to the card as one array
+    the kernel indexes by lane. The lanes share the launch geometry
+    (``plan_launch`` over S lanes), the flags and the shape signature;
+    the scan only (no columns, not frozen, no weight row)."""
+    global LAST_PLAN
+    scheduler.check_supported(cfg)
+    _check_fleet(lanes)
+    if cfg.traced_weights:
+        raise ValueError("plain_step_fleet: the fleet runs the config's own weights")
+    dev = lanes[0].active.device
+    n_lanes, n_out = len(lanes), p1 - p0
+    arrs0 = lanes[0].arrs
+    flags = _flags(cfg, lanes[0].state, True)
+    plan_for(arrs0, cfg, flags, n_lanes, lambda *_: n_lanes, True)  # raises where nothing fits
+    if n_out <= 0:
+        out = []
+        for ln in lanes:
+            copy_template(ln.state, ln.template)
+            out.append(_empty_outputs(ln.arrs, cfg, 1, dev))
+        return out
+    built = [_launch_args(ln.arrs, ln.active, ln.hoist, ln.inv_alloc, ln.state, cfg, p0, p1,
+                          ln.template, None, None, None, False, {}, None) for ln in lanes]
+    if any(args.flags != flags for args, _ in built):
+        raise ValueError("plain_step_fleet: the lanes' carries differ in their flags")
+    explain = explain_on(cfg)
+    lib = _library(explain, needs_wide(arrs0, cfg, flags))
+    head = StepArgs.from_buffer_copy(built[0][0])
+    head.s, head.fleet = n_lanes, 1
+    with torch.cuda.device(dev):
+        plan = plan_for(arrs0, cfg, flags, n_lanes, _card_occupancy(lib, head), True)
+    _set_geometry(head, plan)
+    keep = _scratch(head, arrs0, cfg, flags, plan, n_lanes, dev)
+    blob = bytearray()
+    for args, _ in built:
+        args.fleet = 1
+        _set_geometry(args, plan)
+        args.walk, args.walk_w = head.walk, head.walk_w
+        args.dom_spill, args.col_spill = head.dom_spill, head.col_spill
+        blob += bytes(args)
+    lanes_dev = torch.frombuffer(blob, dtype=torch.uint8).to(dev)
+    head.lanes = lanes_dev.data_ptr()
+    _fire(lib, head, plan, dev, "plain_step_fleet")
+    del keep, lanes_dev  # freed in stream order, after the launch
+    LAUNCHES["plain_step_fleet" + ("_explain" if explain else "")] += 1
+    if plan.wide:
+        LAUNCHES["plain_step_wide"] += 1
+    LAST_PLAN = plan
+    return [_outputs(tensors, cfg, 1, n_out, dev) for _, tensors in built]

@@ -183,3 +183,27 @@ def run_launch(fn: str, launch: Callable[[], T], *, retries: int = 2,
 def run_io(fn: str, op: Callable[[], T], *, retries: int = 2) -> T:
     """``run_launch`` for durable-state writes, at disk timescales."""
     return run_launch(fn, op, retries=retries, backoff_s=0.02, max_backoff_s=0.5)
+
+
+def check_finite(fn: str, **arrays) -> None:
+    """NaN/inf sentinel scan over decoded (hosted) float outputs: a NaN
+    escaping a score would otherwise flow silently into verdicts and
+    digests. Raises a deterministic ``E_NUMERIC`` DeviceFault naming the
+    first offending array; integer arrays pass through untouched."""
+    import numpy as np
+
+    for name, x in arrays.items():
+        if x is None:
+            continue
+        x = np.asarray(x)
+        if not np.issubdtype(x.dtype, np.floating):
+            continue
+        if not bool(np.isfinite(x).all()):
+            bad = int(np.size(x) - np.count_nonzero(np.isfinite(x)))
+            raise DeviceFault(
+                f"non-finite values (NaN/inf) in decoded output "
+                f"{name!r}: {bad} element(s)", code=E_NUMERIC,
+                transient=False, fn=fn,
+                hint="a fused score or carry update produced NaN; the "
+                     "degraded re-launch (waves off / split batch) "
+                     "isolates the producer")

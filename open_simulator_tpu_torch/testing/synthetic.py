@@ -595,3 +595,106 @@ def wave_pools_snapshot(n_nodes: int, n_pods: int, pools: int, gpu: bool = False
 
     nodes, pods = wave_pools_objects(n_nodes, n_pods, pools, gpu, interpod)
     return encode_cluster([make_valid_node(n) for n in nodes], pods)
+
+
+def widen_device_resources(arrs, n_vg: int = 9, n_dev: int = 33, n_claims: int = 9,
+                           seed: int = 0):
+    """A device-resource snapshot's arrays (host numpy, any package's
+    SnapshotArrays) widened past the step kernel's per-thread walk widths:
+    `n_vg` volume groups and `n_dev` exclusive devices on every node with
+    open-local storage (tight enough that some refuse), three LVM volumes
+    (descending) and two device claims on every pod that asks for storage,
+    and up to `n_claims`
+    WaitForFirstConsumer claims on every pod with one (valid slots first,
+    some pods at `n_claims`). Returns a SnapshotArrays of the same type."""
+    import dataclasses
+
+    rng = np.random.RandomState(seed)
+    a = {f.name: np.asarray(getattr(arrs, f.name)) for f in dataclasses.fields(arrs)}
+    n, p = a["alloc"].shape[0], a["req"].shape[0]
+    storage = (a["vg_cap"] > 0).any(1) | (a["sdev_cap"] > 0).any(1)
+    vg = np.zeros((n, n_vg), a["vg_cap"].dtype)
+    vg[storage] = rng.choice([0, 4096, 12288], size=(int(storage.sum()), n_vg))
+    dev = np.zeros((n, n_dev), a["sdev_cap"].dtype)
+    dev[storage] = rng.choice([0, 51200, 65536], size=(int(storage.sum()), n_dev))
+    lvm = np.zeros((p, 3), a["lvm_req"].dtype)
+    wants = (a["lvm_req"] > 0).any(1)
+    lvm[wants] = -np.sort(-rng.choice([2048, 4096, 10240], size=(int(wants.sum()), 3)), axis=1)
+    sreq = np.zeros((p, 2), a["sdev_req"].dtype)
+    claims = (a["sdev_req"] > 0).any(1)
+    sreq[claims] = rng.choice([40960, 60416], size=(int(claims.sum()), 2))
+    n_cls = max(1, a["pv_cand"].shape[0])
+    ccid = np.zeros((p, n_claims), a["wfc_ccid"].dtype)
+    valid = np.zeros((p, n_claims), bool)
+    for i in np.flatnonzero(a["wfc_valid"].any(1)):
+        k = n_claims if i % 3 == 0 else rng.randint(1, n_claims + 1)
+        valid[i, :k] = True
+        ccid[i, :k] = rng.randint(0, n_cls, k)
+    a.update(vg_cap=vg, sdev_cap=dev, sdev_ssd=rng.rand(n, n_dev) < 0.5, lvm_req=lvm,
+             sdev_req=sreq, sdev_req_ssd=rng.rand(p, 2) < 0.5, wfc_ccid=ccid, wfc_valid=valid)
+    return type(arrs)(**a)
+
+
+def fleet_variants(arrs, n_lanes: int, seed: int = 0):
+    """`n_lanes` clusters of one shape signature from one snapshot's arrays
+    (host numpy): lane 0 the snapshot itself, lane s > 0 with each node's
+    allocatable doubled or kept at random and every forced bind moved
+    7·s nodes along the real nodes — a fleet whose lanes differ in their
+    arrays, their forced-prefix folds and their placements."""
+    import dataclasses
+
+    rng = np.random.RandomState(seed)
+    real = int(np.asarray(arrs.active).sum()) or np.asarray(arrs.alloc).shape[0]
+    out = [arrs]
+    for s in range(1, n_lanes):
+        alloc = np.asarray(arrs.alloc)
+        scale = rng.choice([1.0, 2.0], size=(alloc.shape[0], 1)).astype(alloc.dtype)
+        forced = np.asarray(arrs.forced_node)
+        moved = np.where(forced >= 0, (forced + 7 * s) % real, forced).astype(forced.dtype)
+        out.append(dataclasses.replace(arrs, alloc=alloc * scale, forced_node=moved))
+    return out
+
+
+def many_domain_objects(n_nodes: int, n_pods: int, domains: int, affinity: bool = False):
+    """(nodes, pods) of a cluster whose zone key has `domains` values (node
+    i in zone i % domains): every pod spreads its app (one of 8) over the
+    zones, softly and with a DoNotSchedule skew of 64; with `affinity`,
+    every pod also requires a pod of its app in its zone (itself, for the
+    first), which puts the spread on the group_count carry and its
+    column reads. The shape whose per-domain tables outgrow a block's
+    shared memory at a few thousand zones."""
+    from open_simulator_tpu_torch.k8s.objects import Node, Pod
+
+    rng = np.random.RandomState(1)
+    zone = "topology.kubernetes.io/zone"
+    nodes = [Node.from_dict({
+        "metadata": {"name": f"n{i}", "labels": {zone: f"z{i % domains}"}},
+        "status": {"allocatable": {"cpu": "16", "memory": "64Gi", "pods": 110}}})
+        for i in range(n_nodes)]
+    pods = []
+    for i in range(n_pods):
+        app = {"matchLabels": {"app": f"a{i % 8}"}}
+        spec = {"containers": [{"name": "c", "resources": {"requests": {
+                    "cpu": f"{rng.randint(100, 2000)}m",
+                    "memory": f"{rng.randint(64, 2048)}Mi"}}}],
+                "topologySpreadConstraints": [
+                    {"maxSkew": 5, "topologyKey": zone, "whenUnsatisfiable": "ScheduleAnyway",
+                     "labelSelector": app},
+                    {"maxSkew": 64, "topologyKey": zone, "whenUnsatisfiable": "DoNotSchedule",
+                     "labelSelector": app}]}
+        if affinity:
+            spec["affinity"] = {"podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+                {"labelSelector": app, "topologyKey": zone}]}}
+        pods.append(Pod.from_dict({"metadata": {"name": f"p{i}", "namespace": "default",
+                                                "labels": {"app": f"a{i % 8}"}},
+                                   "spec": spec}))
+    return nodes, pods
+
+
+def many_domain_snapshot(n_nodes: int, n_pods: int, domains: int, affinity: bool = False):
+    """``many_domain_objects`` encoded as ``simulate()`` encodes it."""
+    from open_simulator_tpu_torch.encode.snapshot import encode_cluster
+    from open_simulator_tpu_torch.k8s.loader import make_valid_node
+
+    nodes, pods = many_domain_objects(n_nodes, n_pods, domains, affinity)
+    return encode_cluster([make_valid_node(n) for n in nodes], pods)

@@ -178,3 +178,77 @@ def test_chart_apps_and_preemption_name_their_items(tmp_path, capsys):
     rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
     assert (rc, out, err) == (rc_ref, out_ref, "")
     assert rc == 1 and out.startswith("FAILED") and "Insufficient cpu" in out
+
+
+# ---- --no-waves, and every option the reference declares ------------------
+
+
+def _subcommands(parser) -> dict:
+    """{"apply": parser, "campaign run": parser, ...}: every subcommand,
+    nested ones by their full name."""
+    import argparse
+
+    out = {}
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            for name, sub in action.choices.items():
+                out[name] = sub
+                out.update({f"{name} {k}": v for k, v in _subcommands(sub).items()})
+    return out
+
+
+def _options(parser) -> set:
+    return {s for a in parser._actions for s in a.option_strings}
+
+
+def test_every_subcommand_declares_the_reference_options():
+    """Each subcommand the port declares takes every option of the
+    reference's, and no other but ``--device`` (the options the port does
+    not run yet are declared and refused with their ROADMAP item)."""
+    from open_simulator_tpu.cli.main import build_parser as ref_parser
+    from open_simulator_tpu_torch.cli.main import build_parser as port_parser
+
+    ref, got = _subcommands(ref_parser()), _subcommands(port_parser())
+    assert {"apply", "explain", "replay", "tune", "campaign", "campaign run",
+            "campaign report", "campaign audit"} <= set(got)
+    for name, sub in got.items():
+        want = _options(ref[name])
+        assert want - _options(sub) == set(), name
+        assert _options(sub) - want <= {"--device"}, name
+
+
+@pytest.mark.parametrize("sub", ["apply", "explain"])
+def test_no_waves_is_declared_on_apply_and_explain(sub):
+    from open_simulator_tpu_torch.cli.main import build_parser
+
+    args = build_parser().parse_args([sub, "-f", config_path("config"), "--no-waves"])
+    assert args.no_waves
+
+
+@pytest.mark.parametrize("name", ["config", "morepods"])
+def test_apply_no_waves_equals_reference(name, capsys, monkeypatch):
+    """``apply --no-waves`` turns the waves off for the process, as the
+    reference's does, and prints the reference's report."""
+    from open_simulator_tpu_torch.engine.waves import WAVES_ENV
+
+    monkeypatch.setenv(WAVES_ENV, "1")
+    argv = ["apply", "-f", config_path(name), "--max-new-nodes", "16", "--no-waves"]
+    rc_ref, out_ref, _ = run(ref_main, argv, capsys)
+    monkeypatch.setenv(WAVES_ENV, "1")
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert os.environ[WAVES_ENV] == "0"
+    assert (rc, err) == (rc_ref, "")
+    assert out == out_ref and "=== Pods ===" in out
+
+
+def test_explain_no_waves_equals_reference(capsys, monkeypatch):
+    from open_simulator_tpu_torch.engine.waves import WAVES_ENV
+
+    monkeypatch.setenv(WAVES_ENV, "1")
+    argv = ["explain", "-f", config_path("config"), "--no-waves", "--json"]
+    rc_ref, out_ref, _ = run(ref_main, argv, capsys)
+    monkeypatch.setenv(WAVES_ENV, "1")
+    rc, out, err = run(port_main, argv + ["--device", "cpu"], capsys)
+    assert os.environ[WAVES_ENV] == "0"
+    assert (rc, err) == (rc_ref, "") and rc == 0
+    assert out == out_ref

@@ -123,10 +123,12 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_wrapper_refuses_widths_over_shared_memory(monkeypatch):
-    """The per-domain column sums, the raw scores of a block's node slice
-    and the replicas of the lane-wide carry live in the block's shared
-    memory; widths that do not fit even the largest cluster's slices raise
-    before anything is launched, naming the need."""
+    """The raw scores of a block's node slice, the merged column read, the
+    column needs and the pv_taken replica live in the block's shared memory
+    whatever the plan (the column-read partials and the dom_count replica
+    can move to global memory); widths that do not fit even the largest
+    cluster's slices with both moved raise before anything is launched,
+    naming the need."""
     snap = synthetic_snapshot(8, 16, rich=True)
     cfg = sched.make_config(snap)
     arrs = sched.device_arrays(snap.arrays, "cpu")
@@ -135,7 +137,8 @@ def test_kernel_wrapper_refuses_widths_over_shared_memory(monkeypatch):
     lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
     widths = step.smem_widths(arrs, cfg, step._flags(cfg, lanes, False))
     sl = step.block_geometry(8, step.CLUSTER_SIZES[0])[0]
-    need = step.smem_bytes(widths, sl, False)
+    need = step.smem_bytes(widths, sl, False, True, True)
+    assert need < step.smem_bytes(widths, sl, False)
     monkeypatch.setattr(step, "_SMEM_LIMIT", need - 1)
     with pytest.raises(ValueError, match=f"need {need} bytes of shared memory"):
         step.plain_step_cuda(arrs, active, sched.hoist_of(arrs, active),
@@ -217,7 +220,9 @@ def test_launch_plan_keeps_headroom_in_shared_memory_where_it_fits():
 
 @pytest.mark.parametrize("what", ["columns", "nodes"])
 def test_launch_plan_refuses_widths_over_shared_memory(what):
-    """No cluster size fits: a ValueError names the need at 16 blocks."""
+    """No cluster size fits, even with the column-read partials in global
+    memory (the merged column read stays in shared memory): a ValueError
+    names the need at 16 blocks."""
     w = _WIDTHS._replace(q=300, d=200) if what == "columns" else _WIDTHS
     n_nodes = 5184 if what == "columns" else 16 * 60000
     with pytest.raises(ValueError, match="bytes of shared memory, over the block's"):
@@ -528,14 +533,20 @@ def _devres_launch_args(snap, **replace):
 
 
 def test_kernel_wrapper_refuses_devres_widths_and_slot_order(monkeypatch):
-    """The device-resource walks keep per-thread arrays: wider snapshots
-    raise naming the width; the PV walk stops at a pod's first padded
-    claim slot, so valid slots after a padded one are refused."""
+    """The device-resource walks keep per-thread arrays up to MAX_VG,
+    MAX_DEVICES and MAX_WFC_CLAIMS and walk a window of global memory past
+    them: a wider snapshot is no longer refused for its width (only the
+    CPU tensors stop this launch); the PV walk stops at a pod's first
+    padded claim slot, so valid slots after a padded one are refused."""
     snap = device_resource_snapshot(16, 64)
     monkeypatch.setattr(step, "MAX_VG", 1)
-    with pytest.raises(ValueError, match="2 volume groups per node, over the kernel's 1"):
-        step.plain_step_cuda(*_devres_launch_args(snap))
+    args = _devres_launch_args(snap)
+    assert step.walk_width(args[0], args[5]) == 2 * (2 + snap.arrays.sdev_cap.shape[1]) + \
+        snap.arrays.wfc_ccid.shape[1]
+    with pytest.raises(ValueError, match="not on the card"):
+        step.plain_step_cuda(*args)
     monkeypatch.undo()
+    assert step.walk_width(args[0], args[5]) == 0
     p = snap.n_pods
     valid = np.zeros((p, 2), bool)
     valid[3, 1] = True
@@ -1172,3 +1183,217 @@ def test_schedule_lanes_with_weights_on_card_equals_cpu(cuda_device):
         assert torch.equal(getattr(outs[0], name).cpu(), getattr(outs[1], name)), name
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(outs[0].state, f).cpu(), getattr(outs[1].state, f)), f
+
+
+# ---- the fleet form, the walks past their widths, shared memory spilled --
+
+FLEET_CASES = {"<0,0>": lambda: synthetic_snapshot(96, 384, bound=0.2),
+               "<1,0>": lambda: synthetic_snapshot(96, 384, rich=True, bound=0.2),
+               "<0,1>": lambda: device_resource_snapshot(96, 384),
+               "<1,1>": lambda: device_resource_snapshot(96, 384, rich=True)}
+
+
+def test_plain_step_kernel_has_the_fleet_instantiations():
+    """kernel_of picks the fleet form from StepArgs.fleet: four builds
+    (kInterpod x kDevRes, the scan without columns) in each library, each
+    running the step's body on its lane's own StepArgs."""
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    insts = set(re.findall(r"plain_step_fleet_kernel<(true|false), (true|false), X>", src))
+    assert insts == {(i, d) for i in ("true", "false") for d in ("true", "false")}
+    assert "step_body<kInterpod, kDevRes, false, false, kExplain, true>(s_lane)" in src
+    assert "step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false>(a)" in src
+
+
+def _fleet(snap, cfg, n_lanes, device, p1=None):
+    """FleetLanes of `n_lanes` variants of `snap` (testing.fleet_variants),
+    each with its own active mask, hoist, template and carry."""
+    from open_simulator_tpu_torch.testing.synthetic import fleet_variants
+
+    lanes = []
+    for s, arrs_np in enumerate(fleet_variants(snap.arrays, n_lanes, seed=3)):
+        arrs = sched.device_arrays(arrs_np, device)
+        mask = np.asarray(arrs_np.active) & (np.arange(snap.n_nodes) % (s + 2) != 1)
+        active = torch.from_numpy(mask).to(device)[None]
+        tmpl = sched.init_state(arrs, cfg)
+        if cfg.forced_prefix:
+            tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, cfg.forced_prefix)
+        tmpl = sched.SimState(**{f: getattr(tmpl, f).contiguous() for f in sched.STATE_FIELDS})
+        lanes.append(step.FleetLane(arrs, active, sched.hoist_of(arrs, active),
+                                    sched.inv_alloc_of(arrs.alloc), sched.lane_carry(tmpl, 1),
+                                    tmpl))
+    return lanes
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_CASES))
+@pytest.mark.parametrize("explain", [False, True])
+def test_fleet_inputs_run_their_fleet_instantiation(case, explain):
+    snap = FLEET_CASES[case]()
+    over = dict(explain_topk=3, tie_break_seed=5) if explain else {}
+    cfg = sched.make_config(snap, **over)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    got = step.instantiation(cfg, sched.init_state(arrs, cfg), fleet=True)
+    assert got == case + "+fleet" + ("+explain" if explain else "")
+
+
+def test_fleet_refuses_lanes_of_other_shapes():
+    snap = synthetic_snapshot(24, 64)
+    other = synthetic_snapshot(24, 80)
+    cfg = sched.make_config(snap)
+    lanes = _fleet(snap, cfg, 2, "cpu") + _fleet(other, cfg, 1, "cpu")
+    with pytest.raises(ValueError, match="shape-identical"):
+        step.plain_step_fleet(lanes, cfg, 0, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLEET_CASES))
+@pytest.mark.parametrize("explain", [False, True])
+def test_fleet_builds_equal_lone_launches_and_plain_on_card(cuda_device, case, explain):
+    """Three clusters of one shape as one fleet launch: each lane equals a
+    one-lane plain_step launch of its cluster alone (every pod after the
+    prefix), and the plain fleet over the first pods, bit for bit."""
+    snap = FLEET_CASES[case]()
+    over = dict(explain_topk=3, tie_break_seed=5) if explain else {}
+    cfg = sched.make_config(snap, **over)
+    k, p = cfg.forced_prefix, snap.n_pods
+    before = dict(step.LAUNCHES)
+    lanes = _fleet(snap, cfg, 3, cuda_device)
+    outs = step.plain_step_fleet_cuda(lanes, cfg, k, p)
+    torch.cuda.synchronize()
+    name = "plain_step_fleet" + ("_explain" if explain else "")
+    assert step.LAUNCHES[name] == before[name] + 1
+    for fleet_lane, lone_lane, out in zip(lanes, _fleet(snap, cfg, 3, cuda_device), outs):
+        ln = lone_lane
+        lone = step.plain_step_cuda(ln.arrs, ln.active, ln.hoist, ln.inv_alloc, ln.state, cfg,
+                                    k, p, template=ln.template)
+        torch.cuda.synchronize()
+        _assert_runs_equal([(out, fleet_lane.state), (lone, ln.state)])
+    assert len({tuple(o[0][0].tolist()) for o in outs}) == 3
+    # the plain fleet over the first pods
+    lanes_k, lanes_p = _fleet(snap, cfg, 3, cuda_device), _fleet(snap, cfg, 3, cuda_device)
+    out_k = step.plain_step_fleet_cuda(lanes_k, cfg, k, k + 48)
+    out_p = step.plain_step_fleet_torch(lanes_p, cfg, k, k + 48)
+    torch.cuda.synchronize()
+    for ok, op, lk, lp in zip(out_k, out_p, lanes_k, lanes_p):
+        _assert_runs_equal([(ok, lk.state), (op, lp.state)])
+
+
+def _wide_devres(rich: bool):
+    from open_simulator_tpu_torch.testing.synthetic import widen_device_resources
+
+    snap = device_resource_snapshot(64, 320, rich=rich)
+    return dataclasses.replace(snap, arrays=widen_device_resources(snap.arrays))
+
+
+def test_wide_devres_input_passes_every_walk_width():
+    snap = _wide_devres(False)
+    a = snap.arrays
+    assert a.vg_cap.shape[1] == step.MAX_VG + 1 and a.sdev_cap.shape[1] == step.MAX_DEVICES + 1
+    assert a.wfc_ccid.shape[1] == step.MAX_WFC_CLAIMS + 1
+    assert a.wfc_valid.all(1).any()
+    cfg = sched.make_config(snap)
+    assert cfg.enable_storage and cfg.enable_pv_match
+    assert step.walk_width(a, cfg) == 2 * (9 + 33) + 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rich", [False, True])
+def test_walks_past_their_widths_equal_plain_on_card(cuda_device, rich):
+    """Nine volume groups, 33 exclusive devices and nine WFC claims a pod:
+    the kernel walks them in its global-memory window and equals the
+    plain step, bit for bit, on two lanes."""
+    snap = _wide_devres(rich)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    masks = np.stack([np.asarray(snap.arrays.active),
+                      np.asarray(snap.arrays.active) & (np.arange(snap.n_nodes) % 4 != 1)])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    if cfg.forced_prefix:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, cfg.forced_prefix)
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        st = sched.lane_carry(tmpl, 2)
+        outs = fn(arrs, active, hoist, inv, st, cfg, cfg.forced_prefix, snap.n_pods,
+                  template=tmpl)
+        torch.cuda.synchronize()
+        runs.append((outs, st))
+    _assert_runs_equal(runs)
+    out = runs[0][0]
+    assert (out[0] >= 0).any() and (out[4] >= 0).any()
+    r = snap.arrays.alloc.shape[1]
+    assert out[1][..., 8 + r].sum() > 0 and out[1][..., 11 + r].sum() > 0  # storage, PV match
+
+
+@pytest.mark.parametrize("affinity", [False, True])
+def test_many_domains_move_a_region_to_global_memory(affinity):
+    """One domain past what a 5,120-node lane's blocks hold in shared
+    memory: the plan moves the dom_count replica (the dom_count path) or
+    the column-read partials (the group_count path) to global memory
+    instead of raising; one domain fewer keeps both in shared memory."""
+    from open_simulator_tpu_torch.testing.synthetic import many_domain_snapshot
+
+    snap = many_domain_snapshot(40, 16, 5, affinity=affinity)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    st = sched.init_state(arrs, cfg)
+    lanes = sched.SimState(**{f: getattr(st, f)[None] for f in sched.STATE_FIELDS})
+    flags = step._flags(cfg, lanes, True)
+    w = step.smem_widths(arrs, cfg, flags)
+    assert bool(w.dom) != affinity
+    sl = step.block_geometry(5120, 16)[0]
+    d_max = max(d for d in range(1, 20000)
+                if step.smem_bytes(w._replace(d=d, dom=w.dom // w.d * d), sl, False)
+                <= step._SMEM_LIMIT)
+    at = step.plan_launch(1, 5120, w._replace(d=d_max, dom=w.dom // w.d * d_max),
+                          lambda *_: 1)
+    past = step.plan_launch(1, 5120, w._replace(d=d_max + 1, dom=w.dom // w.d * (d_max + 1)),
+                            lambda *_: 1)
+    assert at.cluster == past.cluster == 16
+    assert not (at.dom_global or at.cols_global)
+    assert (past.dom_global, past.cols_global) == ((False, True) if affinity else (True, False))
+    assert past.smem <= step._SMEM_LIMIT
+    assert step.scratch_bytes(arrs, cfg, flags, past, 1) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("region", ["dom", "cols", "both"])
+def test_regions_in_global_memory_equal_plain_on_card(cuda_device, region, monkeypatch):
+    """The dom_count replica, the column-read partials, or both, in global
+    memory (the shared-memory limit lowered until the plan moves them),
+    on two lanes and a frozen wave of 8 pods: the kernel equals the plain
+    step, bit for bit."""
+    from open_simulator_tpu_torch.testing.synthetic import many_domain_snapshot
+
+    snap = many_domain_snapshot(120, 320, 24, affinity=region != "dom")
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    masks = np.stack([np.ones(snap.n_nodes, bool), np.arange(snap.n_nodes) % 5 != 2])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    lanes = sched.lane_carry(tmpl, 2)
+    flags = step._flags(cfg, lanes, True)
+    w = step.smem_widths(arrs, cfg, flags)
+    sl = step.block_geometry(snap.n_nodes, 16)[0]
+    want = {"dom": (True, False), "cols": (False, True), "both": (True, True)}[region]
+    if region == "both":
+        cfg = cfg._replace(enable_pod_affinity=False)  # the dom_count path, columns read
+        flags = step._flags(cfg, lanes, True)
+        w = step.smem_widths(arrs, cfg, flags)
+    monkeypatch.setattr(step, "_SMEM_LIMIT", step.smem_bytes(w, sl, False, *want))
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        st = sched.lane_carry(tmpl, 2)
+        outs = fn(arrs, active, hoist, inv, st, cfg, 0, snap.n_pods, template=tmpl)
+        torch.cuda.synchronize()
+        runs.append((outs, st))
+    plan = step.LAST_PLAN
+    assert (plan.dom_global, plan.cols_global) == want
+    _assert_runs_equal(runs)
+    assert (runs[0][0][0] >= 0).any()
+    st_k, st_p = _clone(runs[0][1]), _clone(runs[0][1])
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, 40, 48, frozen=True)
+    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, 40, 48, frozen=True)
+    torch.cuda.synchronize()
+    _assert_runs_equal([(out_k, st_k), (out_p, st_p)])

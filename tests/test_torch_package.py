@@ -5,6 +5,7 @@ every path it has not ported yet, naming the ROADMAP item."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import pkgutil
 import subprocess
@@ -290,7 +291,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
     assert build.kernel_names() == ["forced_fold", "plain_step", "plain_step_explain",
-                                    "wave_merge"]
+                                    "plain_step_wide", "plain_step_wide_explain", "wave_merge"]
 
 
 def test_log_dom_is_computed_from_counts():
@@ -384,3 +385,41 @@ def test_tune_slice_modules_import_with_jax_and_yaml_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok 2")
     assert set(TUNE_MODULES) <= set(all_modules())
+
+
+CAMPAIGN_MODULES = ("open_simulator_tpu_torch.campaign",
+                    "open_simulator_tpu_torch.campaign.audit",
+                    "open_simulator_tpu_torch.campaign.fleet",
+                    "open_simulator_tpu_torch.campaign.lanes",
+                    "open_simulator_tpu_torch.campaign.report",
+                    "open_simulator_tpu_torch.campaign.runner",
+                    "open_simulator_tpu_torch.engine.exec_cache",
+                    "open_simulator_tpu_torch.k8s.cluster_source",
+                    "open_simulator_tpu_torch.resilience.retry")
+
+
+def test_campaign_slice_modules_import_with_jax_and_yaml_blocked():
+    """The campaign slice's modules (fleet discovery, the auditor, the
+    report, the runner, the fleet lanes and their launch, the cluster
+    sources, the retry loop) import where jax, the JAX package and yaml
+    cannot be imported, and a campaign over a synthetic fleet of JSON dumps
+    (one torn) runs on the CPU there through the CLI, its two same-bucket
+    clusters as one fleet launch."""
+    code = (_BLOCKER
+            + f"sys.meta_path.insert(0, Block({FORBIDDEN + ('yaml',)!r}))\n"
+            + "import importlib, json, tempfile\n"
+            + f"for m in {CAMPAIGN_MODULES!r}:\n"
+            + "    importlib.import_module(m)\n"
+            + "from open_simulator_tpu_torch.campaign import write_synthetic_fleet\n"
+            + "from open_simulator_tpu_torch.cli.main import main\n"
+            + "root = tempfile.mkdtemp()\n"
+            + "write_synthetic_fleet(root, n_clusters=4, malformed=1)\n"
+            + "sys.exit(main(['campaign', 'run', '--fleet', root, '--json', '--device', "
+            + "'cpu']))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout)
+    assert report["totals"]["completed"] == 3 and report["totals"]["quarantined"] == 1
+    assert report["launches"] == 3 and report["buckets"] == {"2x8": 1, "4x16": 2}
+    assert set(CAMPAIGN_MODULES) <= set(all_modules())
