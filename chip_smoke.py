@@ -54,7 +54,7 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    cluster at 1,024 x 10,240 with 8 GPU node slots as one 4-lane launch
    (all six device-resource gates, pods bound mid-sequence with pinned
    GPUs); the device-resource cluster at 1,024 x 2,048 with the inter-pod
-   constraints (``plain_step<1,1>``, every pod); the explain builds of both
+   constraints (``plain_step<1,1>``, four times ``EARLIER_DEPTH``); the explain builds of both
    device-resource instantiations (the top-k and the seeded jitter on
    1,024 x 2,048 without and with the inter-pod
    constraints); the preemption columns (random
@@ -86,7 +86,13 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    then each of the eight fleet builds (three variants of a 512 x 1,024
    synthetic, rich, devres and devres-rich cluster, with and without the
    top-k and the jitter) against one plain_step launch per cluster and
-   the plain fleet;
+   the plain fleet; then each build the extension rows reach (the four
+   <I,D> inputs at 1,024 x 2,048, each without and with the preemption
+   columns and the top-k and the jitter: the 16 scan builds, the rich
+   ones with the group_count and the dom_count carries both live; the
+   wide library's <0,1> and <1,1>), with seeded extension rows (a NaN
+   score every third pod), over their first ``EXT_DEPTH`` pods against
+   the plain step;
 4. the simulate() paths, non-rich, rich, devres: launch counts reset,
    ``simulate()`` at full size, counts read; then the kernel timed on the
    path's arrays (its placements, and on devres its GPU allocations, must
@@ -109,7 +115,17 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    {"tie_break_seed": 7})`` on the north-star cluster (one explain
    launch), timed against seed 0, placements that differ from seed 0
    counted (more than 0), the first ``PARITY_PREFIX`` pods against the plain step,
-   the plain jitter timed; then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
+   the plain jitter timed; then ``northstar-ext``: ``simulate()`` on the
+   north-star cluster with five torch extension ops
+   (``testing.synthetic.synthetic_extensions``: a filter of the arrays,
+   one of the pod slice, a "minmax", a "max" of the carry and a "none"
+   score), launch counts reset and read (one launch a pod), its per-pod
+   loop timed, the extension reason rows' totals and the placements'
+   digest; the first ``PARITY_PREFIX`` pods again with each pod's rows
+   recorded, their launches replayed with the stream primed (the device
+   time a launch), the kernel against the plain step through the same
+   per-pod loop, and the same one-lane launch without extensions timed;
+   then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
    north-star cluster with PriorityClasses (batch, prod for one pod in
    four, system), a minAvailable 90% budget over app=a0 and an app of
    ``PREEMPTORS`` system pods of 12 CPU, counts read (one launch per pass: the first
@@ -181,7 +197,11 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    51,200 pods (devres: 64 slots of ``examples/newnode/gpu.yaml``):
    launch counts reset, ``capacity_sweep`` over the bench's 64 counts,
    counts read (one 64-lane launch); the launch timed alone, with peak
-   device memory, its geometry and its per-phase cycle shares; lanes at
+   device memory, its geometry and its per-phase cycle shares (on the
+   north-star snapshot, then ``capacity-northstar-ext-64``: the extension
+   ops through ``capacity_sweep`` over its first ``EXT_SWEEP_PODS`` pods,
+   64 lanes, one launch a pod, lanes 0 and 63 over the first
+   ``EXT_SWEEP_PARITY`` pods against the plain step and the sweep); lanes at
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
    lane 63 put them; devres: the cluster's own nodeName prefix; one
@@ -205,7 +225,7 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    explain builds
    ``plain_step_explain`` and ``plain_step_frozen_explain``, and the
    per-lane weight row ``plain_step_weights``, and the fleet form
-   ``plain_step_fleet``, with each plain_step instantiation's registers,
+   ``plain_step_fleet``, and the extension rows ``plain_step_ext``, with each plain_step instantiation's registers,
    stack and spills, and their change against the builds before the fleet
    form), then the
    device line.
@@ -230,8 +250,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # pods of the main paths' kernel-vs-plain comparison (the plain step costs
 # milliseconds a pod on the card; 2,048 until the tuning paths were added,
-# 1,024 until the fleet path was)
-PARITY_PREFIX = 512
+# 1,024 until the fleet path was, 512 until the extension paths were)
+PARITY_PREFIX = 256
 # the capacity phase: the reference bench's north-star sweep (64 lanes,
 # 64 new-node slots) and the count its bisection is set to find
 CAPACITY_LANES = 64
@@ -266,12 +286,15 @@ PRIME_MS = 10
 PREEMPTORS, SYSTEM_CPU = 4, "12"
 # the depth (pods) of the parity inputs of phase 3 and of the tuning and
 # frontier paths, cut so that the later paths fit the time limit (1,024,
-# then 512, then 256): the 4-lane group_count input, the explain, column
-# and geometry inputs and the tuning and frontier lanes at this depth; the
-# rich 1,024-node, dense rich, rich 4-lane and group_count inputs at twice
-# it; the dom_count input at four times; the 4-lane device-resource
-# input at half
-EARLIER_DEPTH = 256
+# then 512, then 256, then 128): the 4-lane group_count input, the
+# explain and geometry inputs and the tuning and frontier lanes at this
+# depth; the rich 1,024-node, dense rich, group_count and column inputs
+# at twice it; the dom_count, devres-rich (<1,1>) and rich 4-lane inputs
+# at four times (the rich 4-lane input at 512 pods and the column inputs
+# at 256, as before the cut to 128: their checks that the lanes place pods
+# differently and that nominations hold need that depth); the 4-lane
+# device-resource input at half
+EARLIER_DEPTH = 128
 # explain: the candidates recorded per pod, and the tie-break seed of the
 # northstar-tiebreak path
 EXPLAIN_K, TIE_SEED = 3, 7
@@ -328,11 +351,15 @@ def clone_state(sched, st):
 
 def compare(torch, out_k, out_p, st_k, st_p):
     """(all equal, max abs difference over the outputs and the twelve carry
-    fields)."""
+    fields); a NaN (an extension's score) must stand where the other side
+    has one."""
     equal, err = True, 0.0
     pairs = list(zip(out_k, out_p)) + [(getattr(st_k, f), getattr(st_p, f))
                                        for f in type(st_k).__dataclass_fields__]
     for a, b in pairs:
+        if a.dtype.is_floating_point:
+            equal &= torch.equal(a.isnan(), b.isnan())
+            a, b = a.nan_to_num(0.0), b.nan_to_num(0.0)
         equal &= torch.equal(a, b)
         if a.numel():
             err = max(err, float((a.float() - b.float()).abs().max()))
@@ -340,7 +367,7 @@ def compare(torch, out_k, out_p, st_k, st_p):
 
 
 def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, start=None,
-           columns=None, weights=None):
+           columns=None, weights=None, ext_seed=0):
     """Kernel vs plain step on the card, from the same carry, over the pods
     after the forced prefix (the first `n_pods` of them if set). The carry
     is the template, written into new (unset) lane buffers by each side's
@@ -348,8 +375,10 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
     state. `columns` = (disabled, nominated) numpy [P] are the preemption
     columns both sides read (`cfg.forced_prefix` 0: the columns turn the
     fold off); `weights` (numpy [S, K], under ``cfg.traced_weights``) the
-    lanes' weight rows. Returns (plain seconds, kernel seconds, max abs
-    error, kernel outputs)."""
+    lanes' weight rows; under ``cfg.extensions`` both sides take the same
+    seeded extension rows (``testing.synthetic.random_extension_rows``
+    with `ext_seed`, a NaN score every third pod). Returns (plain
+    seconds, kernel seconds, max abs error, kernel outputs)."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     arrs = sched.device_arrays(arrs_np, dev)
@@ -369,6 +398,13 @@ def parity(torch, sched, step, label, arrs_np, cfg, active_np, n_pods=None, star
     cols = column_tensors(torch, columns)
     if weights is not None:
         cols["weights"] = torch.from_numpy(weights).to(dev)
+    if cfg.extensions:
+        from open_simulator_tpu_torch.testing.synthetic import random_extension_rows
+
+        ok, raw = random_extension_rows(cfg, active.shape[0], p1 - p0, arrs.alloc.shape[0],
+                                        seed=ext_seed, nan=True)
+        cols.update(ext_ok=None if ok is None else ok.to(dev),
+                    ext_raw=None if raw is None else raw.to(dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_k = step.plain_step_cuda(arrs, active, hoist, inv, st_k, cfg, p0, p1, template=tmpl,
@@ -1224,7 +1260,7 @@ def session_path(torch, step, Simulator, label, reference):
             "walls_s": walls, "victims": len(victims)}
 
 
-def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
+def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind, keep=None):
     """The reference's capacity-sweep preset at full width: 5,120 nodes x
     51,200 pods with 64 new-node slots, 64 lanes (counts min(i % 65, 64))
     in one ``capacity_sweep`` launch; then the launch timed alone, lane
@@ -1234,6 +1270,8 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind):
 
     t_phase = time.perf_counter()
     snap = snapshot_of(kind)
+    if keep is not None:
+        keep["snapshot"] = snap  # the extension sweep reuses it
     cfg = sched.make_config(snap)
     n_pods = snap.n_pods
     counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
@@ -3315,6 +3353,279 @@ def smem_bound_inputs(torch, sched, step, many_domain_snapshot):
     return out
 
 
+# the extension paths: pods of each build's parity input, the 64-lane
+# extension sweep's depth (the first pods of the capacity-northstar
+# snapshot) and its plain comparison (lanes 0 and 63, the first pods)
+EXT_DEPTH, EXT_SWEEP_PODS, EXT_SWEEP_PARITY = 32, 4096, 64
+
+
+def ext_rows_work(n_lanes, n_pods, n_nodes, n_filters, n_scores):
+    """(bytes, operations) of the extension rows alone: each lane's masks
+    and raw scores read once (S x P x N x (Ef + 4 Es) bytes); per (lane,
+    pod, node) one test per filter row and, per score row, its two
+    normalizer updates and its (raw - lo) x inv x w and add (6)."""
+    elems = n_lanes * n_pods * n_nodes
+    return elems * (n_filters + 4 * n_scores), elems * (n_filters + 6 * n_scores)
+
+
+def ext_build_parity(torch, sched, step, snapshots, ops, wide_snaps):
+    """Each build the extension rows reach: the four <I,D> inputs, each
+    without and with the preemption columns and without and with the
+    top-k and the jitter (the 16 builds), then the wide library's scan
+    builds, over their first EXT_DEPTH pods with seeded rows (a NaN score
+    every third pod), kernel against the plain step. The rich inputs run
+    with both the group_count and the dom_count carries live."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.testing.synthetic import preemption_columns
+
+    out = {}
+    for seed, (inst, snap) in enumerate(snapshots):
+        for cols in (False, True):
+            for explain in (False, True):
+                over = {"explain_topk": EXPLAIN_K, "tie_break_seed": TIE_SEED} if explain else {}
+                cfg = sched.make_config(snap, extensions=ops, **over)
+                arrs = sched.device_arrays(snap.arrays, torch.device("cuda"))
+                st = sched.init_state(arrs, cfg)
+                name = step.instantiation(cfg, st, columns=cols)
+                want = inst + ("+columns" if cols else "") + ("+explain" if explain else "")
+                flags = step._flags(cfg, st, False)
+                del arrs, st
+                if name != want:
+                    raise SystemExit(f"extension input {want} runs {name}")
+                if inst.startswith("<1,") and not (flags & step.F_GC and flags & step.F_DOM):
+                    raise SystemExit(f"extension input {want}: group_count and dom_count "
+                                     "are not both live")
+                active = np.arange(snap.n_nodes) % 9 != 4
+                columns = (preemption_columns(snap.arrays.forced_node, active, seed=seed)
+                           if cols else None)
+                t_p, t_k, err, out_k = parity(torch, sched, step, f"ext-{want}-1024x2048",
+                                              snap.arrays, cfg, active, n_pods=EXT_DEPTH,
+                                              columns=columns, ext_seed=seed)
+                fc = out_k[1][0].cpu().numpy()
+                if not fc[:, cfg.n_ops - 2:].any():
+                    raise SystemExit(f"extension input {want}: no extension reason row charged")
+                out[want] = {"pods": EXT_DEPTH, "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+                             "max_abs_err": err, "gc_and_dom": bool(flags & step.F_GC
+                                                                    and flags & step.F_DOM)}
+    for inst, snap in wide_snaps:
+        cfg = sched.make_config(snap, extensions=ops)
+        t_p, t_k, err, _ = parity(torch, sched, step, f"ext-{inst}+wide-1024x2048", snap.arrays,
+                                  cfg, snap.arrays.active, n_pods=EXT_DEPTH, ext_seed=7)
+        if not step.LAST_PLAN.wide:
+            raise SystemExit(f"extension input {inst}+wide did not run the wide library")
+        out[inst + "+wide"] = {"pods": EXT_DEPTH, "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+                               "max_abs_err": err}
+    return out
+
+
+def ext_scan(torch, sched, arrs_np, masks_np, cfg, n_pods, plain):
+    """The engine's per-pod extension loop (``engine.scheduler.
+    _extension_scan``) over the first `n_pods` pods of the lanes of
+    `masks_np`, on the card: the kernel, or with `plain` the plain step
+    through the same loop. Returns (outputs, carry, seconds)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(sched.slice_pods(arrs_np, 0, n_pods), dev)
+    masks = torch.from_numpy(np.ascontiguousarray(masks_np)).to(dev)
+    hoist, inv = sched.hoist_of(arrs, masks), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    carry = sched.lane_carry(tmpl, masks.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = sched._extension_scan(arrs, masks, hoist, inv, carry, tmpl, cfg, 0, n_pods, None,
+                                 None, None, plain=plain)
+    torch.cuda.synchronize()
+    return outs, carry, time.perf_counter() - t0
+
+
+def ext_path(torch, sched, step, simulate, cluster_of, ops, label):
+    """northstar-ext: simulate() on the north-star cluster with five torch
+    extension ops (every kind: a filter of the arrays, one of the pod
+    slice, a "minmax" score, a "max" score of the carry, a "none" score),
+    launch counts reset just before and read just after (one kernel
+    launch a pod), its per-pod loop timed inside it (the host time a
+    pod); the first PARITY_PREFIX pods again with each pod's rows recorded, then
+    their launches replayed with the stream primed (the device time a
+    launch), the kernel's outputs and carry against the plain step
+    through the same per-pod loop; the same one-lane launch without
+    extensions timed beside it."""
+    import hashlib
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cluster = cluster_of("plain")
+    scan = sched._extension_scan
+    scan_s = []
+
+    def timed_scan(*a, **kw):  # the per-pod loop inside simulate()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = scan(*a, **kw)
+        torch.cuda.synchronize()
+        scan_s.append(time.perf_counter() - t)
+        return got
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched._extension_scan = timed_scan
+    try:
+        result = simulate(cluster, [], device="cuda", config_overrides={"extensions": ops})
+        torch.cuda.synchronize()
+    finally:
+        sched._extension_scan = scan
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    snap = result.snapshot
+    n_pods, n_nodes = snap.n_pods, snap.n_nodes
+    log(f"{label}: simulate() {n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
+        f"scheduled={len(result.scheduled_pods)} unscheduled={len(result.unscheduled_pods)} "
+        f"launches={launches}")
+    if launches["plain_step_ext"] != n_pods or launches["plain_step"] != n_pods:
+        raise SystemExit(f"{label}: {launches} launches, not one a pod")
+    if len(result.scheduled_pods) + len(result.unscheduled_pods) != n_pods:
+        raise SystemExit(f"{label}: simulate() lost pods")
+    cfg = sched.make_config(snap, extensions=ops)
+    rows = step.extension_rows(cfg)
+    fc = np.asarray(result.fail_counts)
+    ext_totals = {name: int(fc[:, cfg.n_ops - len(rows.filters) + i].sum())
+                  for i, name in enumerate(cfg.extension_op_names)}
+    if not all(ext_totals.values()):
+        raise SystemExit(f"{label}: an extension reason row was never charged: {ext_totals}")
+
+    placed = {sp.pod.key: sp.node_name for sp in result.scheduled_pods}
+    digest = hashlib.sha256(json.dumps(sorted(placed.items())).encode()).hexdigest()[:16]
+    if len(scan_s) != 1:
+        raise SystemExit(f"{label}: simulate() ran the per-pod loop {len(scan_s)} times")
+    dev = torch.device("cuda")
+
+    # the first PARITY_PREFIX pods with each pod's rows recorded, then their
+    # launches alone, the stream primed
+    r = PARITY_PREFIX
+    arrs = sched.device_arrays(snap.arrays, dev)
+    active = torch.from_numpy(snap.arrays.active).to(dev)[None]
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    carry = sched.lane_carry(tmpl, 1)
+    i32 = torch.int32
+    outs_k = step.StepOutputs(
+        torch.empty((1, r), dtype=i32, device=dev),
+        torch.empty((1, r, cfg.n_ops), dtype=i32, device=dev),
+        torch.empty((1, r), dtype=i32, device=dev), torch.empty((1, r, 0), dtype=i32, device=dev),
+        torch.empty((1, r, 0), dtype=i32, device=dev), torch.empty((1, r, 0), dtype=i32, device=dev),
+        torch.empty((1, r, 0), dtype=torch.float32, device=dev),
+        torch.empty((1, r, 0, 0), dtype=torch.float32, device=dev))
+    step.copy_template(carry, tmpl)
+    launch = step.pod_launcher(arrs, active, hoist, inv, carry, cfg, outs_k, 0)
+    rows_of = sched.extension_rows_fn(cfg)
+    cols = sched.pod_columns(arrs, cfg, None, None)
+    fields = tuple(getattr(carry, f) for f in sched.STATE_FIELDS)
+    rec = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(r):
+        ok, raw = rows_of(fields, arrs, sched.PodSlice(cols, p))
+        rec.append((ok[:, None], raw[:, None]))
+        launch(p, *rec[-1])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    got = {snap.pods[i].key: snap.node_names[int(nd)]
+           for i, nd in enumerate(outs_k.node[0].cpu().tolist()) if nd >= 0}
+    if got != {k: v for k, v in placed.items() if k in {p.key for p in snap.pods[:r]}}:
+        raise SystemExit(f"{label}: the recorded loop and simulate() placed pods differently")
+    st_k = clone_state(sched, carry)
+    times = []
+    for _ in range(3):
+        step.copy_template(carry, tmpl)
+        torch.cuda.synchronize()
+        times.append(cuda_ms(torch, lambda: [launch(p, *rec[p]) for p in range(r)],
+                             prime_ms=0.1 * r))
+    equal_replay, _ = compare(torch, [], [], carry, st_k)
+    if not equal_replay:
+        raise SystemExit(f"{label}: the replayed launches left another carry")
+    device_ms = min(times)
+    # the plain step through the same per-pod loop
+    outs_p, st_p, plain_s = ext_scan(torch, sched, snap.arrays, snap.arrays.active[None], cfg, r,
+                                     plain=True)
+    equal, err = compare(torch, outs_k, outs_p, st_k, st_p)
+    log(f"{label}: the first {r} pods, kernel against the plain step through the same loop: "
+        f"equal={equal} max_abs_err={err} plain_s={plain_s:.2f}")
+    if not equal:
+        raise SystemExit(f"{label}: kernel and plain step disagree")
+    # the same one-lane launch without extensions, in this call
+    cfg0 = sched.make_config(snap, forced_prefix=0)
+    tmpl0 = sched.init_state(arrs, cfg0)
+    st0 = sched.lane_carry(tmpl0, 1)
+    plain_ms = []
+    for _ in range(3):
+        ev = cuda_ms(torch, lambda: step.plain_step_cuda(arrs, active, hoist, inv, st0, cfg0, 0,
+                                                         n_pods, template=tmpl0))
+        plain_ms.append(ev)
+    work = step_work(sched, snap.arrays, cfg, 0, r, lane0(outs_k))
+    ext_w = ext_rows_work(1, r, n_nodes, len(rows.filters), len(rows.scores))
+    bound = bound_of((work[0] + ext_w[0], work[1] + ext_w[1]))
+    rows_bound = bound_of(ext_w)
+    res = {
+        "launches": launches["plain_step_ext"], "pods": n_pods, "simulate_s": wall,
+        "scan_s": scan_s[0], "host_us_per_pod": scan_s[0] / n_pods * 1e6,
+        "loop_us_per_pod": loop_s / r * 1e6, "device_us_per_launch": device_ms * 1e3 / r,
+        "device_ms_runs": times, "no_ext_launch_ms": min(plain_ms),
+        "no_ext_us_per_pod": min(plain_ms) * 1e3 / n_pods, "no_ext_runs": plain_ms,
+        "digest": digest, "ext_reason_totals": ext_totals,
+        "scheduled": len(result.scheduled_pods), "max_abs_err": err,
+        "rows_bound_ms": rows_bound[2], "rows_bound_by": rows_bound[3],
+        "same_pods": {"pods": r, "ms": device_ms, "plain_ms": plain_s * 1e3,
+                      "bound_ms": bound[2], "bound_by": bound[3]},
+    }
+    log(f"{label}: " + " ".join(f"{k}={v}" for k, v in res.items() if k != "same_pods")
+        + f" same_pods={res['same_pods']} phase_s={time.perf_counter() - t_phase:.1f}")
+    return res
+
+
+def ext_sweep_path(torch, sched, step, sweep, snap_full, ops, label):
+    """capacity-northstar-ext-64: capacity_sweep with the extension ops on
+    the capacity-northstar snapshot (5,120 + 64 nodes) over its first
+    EXT_SWEEP_PODS pods, 64 lanes vmapped through the callables, launch
+    counts reset just before and read just after (one launch a pod); then
+    lanes 0 and 63 over the first EXT_SWEEP_PARITY pods, the kernel
+    against the plain step through the same per-pod loop, and against the
+    sweep's own lanes."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    snap = dataclasses.replace(snap_full, arrays=sched.slice_pods(snap_full.arrays, 0,
+                                                                   EXT_SWEEP_PODS),
+                               pods=snap_full.pods[:EXT_SWEEP_PODS])
+    cfg = sched.make_config(snap, extensions=ops)
+    counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = sweep.capacity_sweep(snap, cfg, counts, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["plain_step_ext"] != EXT_SWEEP_PODS:
+        raise SystemExit(f"{label}: {launches} launches, not one a pod")
+    masks = sweep.active_masks_for_counts(snap, [counts[0], counts[-1]])
+    outs_k, st_k, t_k = ext_scan(torch, sched, snap.arrays, masks, cfg, EXT_SWEEP_PARITY, False)
+    outs_p, st_p, t_p = ext_scan(torch, sched, snap.arrays, masks, cfg, EXT_SWEEP_PARITY, True)
+    equal, err = compare(torch, outs_k, outs_p, st_k, st_p)
+    sweep_nodes = np.asarray(plan.nodes_per_scenario)[[0, -1], :EXT_SWEEP_PARITY]
+    if not equal or not np.array_equal(outs_k[0].cpu().numpy(), sweep_nodes):
+        raise SystemExit(f"{label}: lanes 0 and 63 disagree with the plain step or the sweep")
+    res = {"launches": launches["plain_step_ext"], "lanes": CAPACITY_LANES,
+           "pods": EXT_SWEEP_PODS, "sweep_s": wall,
+           "host_us_per_pod": wall / EXT_SWEEP_PODS * 1e6, "best_count": plan.best_count,
+           "parity": {"lanes": 2, "pods": EXT_SWEEP_PARITY, "ms": t_k * 1e3,
+                      "plain_ms": t_p * 1e3, "max_abs_err": err}}
+    log(f"{label}: {res} phase_s={time.perf_counter() - t_phase:.1f}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3348,8 +3659,8 @@ def main() -> int:
         from open_simulator_tpu_torch import campaign as campaign_mod
         from open_simulator_tpu_torch.testing.synthetic import (
             device_resource_cluster, device_resource_snapshot, many_domain_snapshot,
-            preemption_columns, soft_spread_cluster, synthetic_objects, synthetic_snapshot,
-            wave_pools_snapshot, widen_device_resources)
+            preemption_columns, soft_spread_cluster, synthetic_extensions, synthetic_objects,
+            synthetic_snapshot, wave_pools_snapshot, widen_device_resources)
     except ImportError as e:
         print(f"chip_smoke: the open_simulator_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -3429,7 +3740,7 @@ def main() -> int:
     lanes_l = np.stack([np.ones(n_l, bool), np.arange(n_l) % 3 != 2,
                         np.arange(n_l) < (3 * n_l) // 4, rng.rand(n_l) < 0.7])
     out_l = parity(torch, sched, step, "rich-512x1024-4-lanes",
-                   snap_l.arrays, cfg_l, lanes_l, n_pods=2 * EARLIER_DEPTH)
+                   snap_l.arrays, cfg_l, lanes_l, n_pods=4 * EARLIER_DEPTH)
     errs.append(out_l[2])
     if len({tuple(row.tolist()) for row in out_l[3][0].cpu()}) != 4:
         raise SystemExit("rich 4-lane launch: the lanes did not place pods differently")
@@ -3458,10 +3769,11 @@ def main() -> int:
         raise SystemExit("parity input devres-rich does not run plain_step<1,1>")
     del arrs_x
     _, t_x, err_x, out_x = parity(torch, sched, step, "devres-rich-1024x2048-<1,1>",
-                                  snap_x.arrays, cfg_x, snap_x.arrays.active)
+                                  snap_x.arrays, cfg_x, snap_x.arrays.active,
+                                  n_pods=4 * EARLIER_DEPTH)
     errs.append(err_x)
     bound_x = bound_of(step_work(sched, snap_x.arrays, cfg_x, cfg_x.forced_prefix,
-                                 snap_x.n_pods, lane0(out_x)))
+                                 cfg_x.forced_prefix + 4 * EARLIER_DEPTH, lane0(out_x)))
     log(f"parity devres-rich-1024x2048-<1,1>: bound bytes={bound_x[0]} ops={bound_x[1]} -> "
         f"{bound_x[2]:.5f} ms, {bound_x[3]} (kernel {t_x * 1e3:.3f} ms, host clock)")
 
@@ -3495,7 +3807,7 @@ def main() -> int:
         active_c = np.arange(snap_c.n_nodes) % 9 != 4
         cols = preemption_columns(snap_c.arrays.forced_node, active_c, seed=seed)
         out_c = parity(torch, sched, step, f"columns-{inst}-512x1024", snap_c.arrays, cfg_c,
-                       active_c, n_pods=EARLIER_DEPTH, columns=cols)
+                       active_c, n_pods=2 * EARLIER_DEPTH, columns=cols)
         errs.append(out_c[2])
         node_c = out_c[3][0][0].cpu().numpy()
         dis_c, nom_c = cols[0][:len(node_c)], cols[1][:len(node_c)]
@@ -3505,7 +3817,7 @@ def main() -> int:
         # the same columns through the column build's explain twin
         cfg_cx = cfg_c._replace(explain_topk=EXPLAIN_K, tie_break_seed=seed + 1)
         errs.append(parity(torch, sched, step, f"columns-{inst}+explain-512x1024", snap_c.arrays,
-                           cfg_cx, active_c, n_pods=EARLIER_DEPTH, columns=cols)[2])
+                           cfg_cx, active_c, n_pods=2 * EARLIER_DEPTH, columns=cols)[2])
 
     # the edges of the launch geometry: fewer nodes than blocks in a
     # cluster (empty slices), slices that leave a ragged last block, and an
@@ -3585,6 +3897,17 @@ def main() -> int:
                                            rich=True))],
         {"explain_topk": EXPLAIN_K, "tie_break_seed": TIE_SEED})
     errs += [v["max_abs_err"] for v in fleet_par.values()]
+    # each build the extension rows reach (the 16 scan builds and the wide
+    # library's), with seeded rows, against the plain step
+    ext_ops = synthetic_extensions()
+    wide_x = [(inst, dataclasses.replace(s_, arrays=widen_device_resources(s_.arrays)))
+              for inst, s_ in (("<0,1>", device_resource_snapshot(1024, 2048)), ("<1,1>", snap_x))]
+    ext_par = ext_build_parity(torch, sched, step, [
+        ("<0,0>", synthetic_snapshot(1024, 2048, bound=0.1)),
+        ("<1,0>", synthetic_snapshot(1024, 2048, rich=True)),
+        ("<0,1>", device_resource_snapshot(1024, 2048)), ("<1,1>", snap_x)], ext_ops, wide_x)
+    del wide_x
+    errs += [v["max_abs_err"] for v in ext_par.values()]
 
     # ---- 4. the main paths: simulate() at full size, through the kernel
     def cluster_of(kind):
@@ -3608,6 +3931,8 @@ def main() -> int:
                              "northstar-rich-explain")
     tie_p = tiebreak_path(torch, sched, step, simulate, cluster_of, threefry,
                           "northstar-tiebreak")
+    # out-of-tree extension ops: one launch a pod, the callables between
+    ext_p = ext_path(torch, sched, step, simulate, cluster_of, ext_ops, "northstar-ext")
 
     # ---- 4b. preemption: simulate() under the DefaultPreemption pass at
     # full size, then a Simulator session on the same objects
@@ -3649,9 +3974,15 @@ def main() -> int:
 
     # ---- 5. the capacity plan: 64-lane sweeps and their bisection, then
     # the example plans through the CLI on the card and on the CPU
+    ext_sweep = None
     for label, kind in PATHS:
+        keep = {} if kind == "plain" else None
         paths[f"capacity-{label}-64"] = capacity_path(torch, sched, step, sweep,
-                                                      snapshot_of, label, kind)
+                                                      snapshot_of, label, kind, keep)
+        if keep:
+            # the extension ops through the 64-lane sweep, on its snapshot
+            ext_sweep = ext_sweep_path(torch, sched, step, sweep, keep.pop("snapshot"), ext_ops,
+                                       "capacity-northstar-ext-64")
     t0 = time.perf_counter()
     cli_plans(torch, loader, cli_main)
     log(f"cli: {len(CLI_CONFIGS)} plans on the card and on the CPU agree "
@@ -3680,7 +4011,8 @@ def main() -> int:
                   f"{EARLIER_DEPTH}, or a multiple) of synthetic 1024x10240, inline "
                   "512x4096, the same in 4 lanes, rich 1024x10240 bound 0.1, rich "
                   "512x4096 dense, rich 512x1024 4 lanes, devres 1024x10240 in 4 lanes "
-                  "(8 GPU slots), over every pod of devres-rich 1024x2048 (<1,1>), "
+                  "(8 GPU slots), the first 4 x EARLIER_DEPTH pods of devres-rich 1024x2048 "
+                  "(<1,1>), "
                   "the preemption columns (random victims and nominations from a seed) on "
                   "512x1024 inputs of each instantiation (<0,0>, <1,0>, <0,1>, <1,1>, each "
                   "+columns), "
@@ -3859,6 +4191,30 @@ def main() -> int:
                   "explain); vs plain_step_fleet_torch over the first pods of two lanes of "
                   f"each ({FLEET_PLAIN_DEPTH} of fleet-16, {FLEET_PARITY['plain_pods']} of the "
                   "build inputs); the fleet-16 campaign's digest equals the serial one's",
+    }]
+    # the extension rows (ms, plain_ms and bound_ms: the first
+    # PARITY_PREFIX pods of northstar-ext, one launch a pod, the launches
+    # timed with the stream primed; the plain step through the same loop)
+    same_e = ext_p["same_pods"]
+    kernels += [{
+        "name": "plain_step_ext", "route": "cuda",
+        "source": "open_simulator_tpu_torch/csrc/plain_step.cu",
+        "replaces": "open_simulator_tpu/engine/scheduler.py:1051",
+        "score_rows_replace": "open_simulator_tpu/engine/scheduler.py:1171",
+        "add_order_replaces": "open_simulator_tpu/engine/scheduler.py:1214",
+        "launches": ext_p["launches"],
+        "instantiations": {k: {**insts.get(k, {}), "parity": v} for k, v in ext_par.items()},
+        "max_abs_err": max([ext_p["max_abs_err"], ext_sweep["parity"]["max_abs_err"]]
+                           + [v["max_abs_err"] for v in ext_par.values()]),
+        "pods": same_e["pods"], "ms": same_e["ms"], "plain_ms": same_e["plain_ms"],
+        "bound_ms": same_e["bound_ms"], "bound_by": same_e["bound_by"], "library_ms": None,
+        "paths": {"northstar-ext": ext_p, "capacity-northstar-ext-64": ext_sweep},
+        "parity": f"bit-exact (a NaN where the other side has one) vs the plain step over the "
+                  f"first {EXT_DEPTH} pods of each build the rows reach (<I,D>, +columns, "
+                  "+explain; the wide library's <0,1> and <1,1>) with seeded rows; over the "
+                  f"first {PARITY_PREFIX} pods of northstar-ext and the first "
+                  f"{EXT_SWEEP_PARITY} pods of lanes 0 and 63 of capacity-northstar-ext-64 "
+                  "through the same per-pod loop",
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -11,10 +11,13 @@ nodes to add" with lanes of one kernel launch per round, and the report
 decodes the chosen lane. The printed report is the reference's, line for
 line. When the decoded lane leaves pods unscheduled and their priorities
 differ, that lane is re-run under the DefaultPreemption pass
-(``engine/preemption.py``), as in the reference. Not ported yet, each
+(``engine/preemption.py``), as in the reference, unless a
+``--default-scheduler-config`` file disables DefaultPreemption (its
+score weights and filter gates go into the engine config, through
+``engine/sched_config.weight_overrides_from_file``). Not ported yet, each
 raising NotImplementedError that names its ROADMAP item:
-``--interactive``, chart apps, a ``kubeConfig`` cluster,
-``--default-scheduler-config``, the compile cache and sweep resume.
+``--interactive``, chart apps, a ``kubeConfig`` cluster, the compile
+cache and sweep resume.
 
 Env knobs (reference: satisfyResourceSetting, apply.go:614-681):
   MaxCPU     max average cluster CPU occupancy %, default 100
@@ -176,9 +179,6 @@ class Applier:
     def _refuse_unported_options(self) -> None:
         if self.opts.interactive:
             raise NotImplementedError(f"--interactive is not ported yet ({_APPLY_ITEM})")
-        if self.opts.default_scheduler_config:
-            raise NotImplementedError(
-                f"--default-scheduler-config is not ported yet ({_APPLY_ITEM})")
         if self.opts.compile_cache_dir:
             raise NotImplementedError(
                 "--compile-cache-dir is not ported yet (ROADMAP queue 1, item 8)")
@@ -204,7 +204,13 @@ class Applier:
                 cluster, apps,
             ),
         )
-        cfg = make_config(snapshot)
+        overrides = {}
+        if self.opts.default_scheduler_config:
+            from open_simulator_tpu_torch.engine.sched_config import weight_overrides_from_file
+
+            overrides = weight_overrides_from_file(self.opts.default_scheduler_config)
+        self._preemption = not overrides.pop("_disable_preemption", False)
+        cfg = make_config(snapshot, **overrides)
         thresholds = self._thresholds()
         dev = self.opts.device
 
@@ -261,7 +267,8 @@ class Applier:
     def _result_for(self, snapshot, plan, idx: int, cfg) -> SimulateResult:
         masks = active_masks_for_counts(snapshot, plan.counts)
         lane_has_unscheduled = bool(np.any(plan.nodes_per_scenario[idx] < 0))
-        if lane_has_unscheduled and len({p.priority for p in snapshot.pods}) > 1:
+        if (lane_has_unscheduled and getattr(self, "_preemption", True)
+                and len({p.priority for p in snapshot.pods}) > 1):
             # The chosen lane's placements and reasons reflect the
             # PostFilter pass: the lane re-run through one-lane
             # schedule_pods under run_with_preemption. A multi-victim

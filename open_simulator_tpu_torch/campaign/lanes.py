@@ -152,6 +152,7 @@ def _decode_lane(prep: _Prepared, out, lane: int, n_lanes: int,
                   if cfg.enable_gpu else None),
         vol_pick=(np.asarray(out.vol_pick)[lane, :n_pods]
                   if cfg.enable_pv_match else None),
+        extra_op_names=list(cfg.extension_op_names),
         **kw)
     audit = audit_result(result)
     if opts.audit and not audit.ok:

@@ -48,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-i", "--interactive", action="store_true",
                     help="not ported yet (ROADMAP queue 1, item 15)")
     ap.add_argument("--default-scheduler-config", default="",
-                    help="not ported yet (ROADMAP queue 1, item 15)")
+                    help="KubeSchedulerConfiguration file: Score plugin enable/disable/"
+                         "weights and NodeResourcesFit scoringStrategy are applied; "
+                         "Filter enable/disable is ignored with a warning")
     ap.add_argument("--compile-cache-dir", default="",
                     help="not ported yet (ROADMAP queue 1, item 8)")
     ap.add_argument("--resume", default="", metavar="SWEEP_ID",
@@ -83,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to run on (default: the CUDA card; 'cpu' "
                          "runs the plain torch step)")
     ex.add_argument("--default-scheduler-config", default="",
-                    help="not ported yet (ROADMAP queue 1, item 15)")
+                    help="KubeSchedulerConfiguration file (same semantics as apply)")
     ex.add_argument("--trace-out", default="",
                     help="not ported yet (ROADMAP queue 1, item 11)")
     ex.add_argument("--no-waves", action="store_true",

@@ -371,11 +371,13 @@ def decode_output(snapshot: ClusterSnapshot, out: ScheduleOutput, active: np.nda
                   elapsed_s: float = 0.0,
                   preempted_by: Optional[Dict[int, int]] = None) -> SimulateResult:
     """``decode_result`` of a host ``schedule_fn`` output (the GPU and PV
-    picks where their gates are on, the top-k tensors under explain)."""
+    picks where their gates are on, the top-k tensors under explain, the
+    filter extensions' reason rows named after them)."""
     return decode_result(snapshot, out.node.numpy(), out.fail_counts.numpy(), active, elapsed_s,
                          out.gpu_pick.numpy() if cfg.enable_gpu else None,
                          preempted_by=preempted_by,
                          vol_pick=out.vol_pick.numpy() if cfg.enable_pv_match else None,
+                         extra_op_names=list(cfg.extension_op_names),
                          **explain_decode_kwargs(cfg, out))
 
 

@@ -155,6 +155,26 @@
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
 // rank 0 reads clock64() at each phase boundary and sums over the pods.
 //
+// The extension rows (StepArgs.ext_ok / ext_raw; replaces the reference's
+// out-of-tree extension ops in _step, scheduler.py:1051-1054, :1171-1184,
+// :1214-1221): the callables of engine/extensions.ExtensionOp read the
+// carry, so the host evaluates them against the lane's live carry and
+// launches the step one pod at a time with their [S, P', Ef, N] masks and
+// [S, P', Es, N] raw scores (engine/scheduler._extension_scan). Phase 1
+// ANDs each mask after the built-in filters (its first failing row is
+// charged as op OPS - Ef + e) and adds each score's normalizer minima,
+// "minmax" where(mask, raw, big) and where(mask, -raw, big), "max"
+// where(mask, -raw, 0), as integer keys (a NaN keys lowest, so it wins the
+// minimum as it does in jnp.minimum) in dynamic shared memory by pod
+// parity; round A reduces them over the cluster; phase 2 adds
+// w_e x (raw - lo) x inv after the GPU row, in registration order, in the
+// function that sums the score (so explain's parts carry the rows). A NaN
+// final score keys above every node, so the pod stays unbound, as the
+// reference's max leaves it. They are runtime pointers (null: no
+// extension), not a template flag, and only the scan builds read them
+// (kExt): a wave plan is dropped under extensions, and a fleet runs them
+// serially.
+//
 // The fleet form (plain_step_fleet_kernel, four builds a library; replaces
 // the reference's run_fleet_batched, exec_cache.py:837): each lane is a
 // cluster of its own, every array its own. The launcher builds each lane's
@@ -434,6 +454,18 @@ struct StepArgs {
   // its column-read partials, by pod parity (RES_COLS_GLOBAL)
   float* dom_spill;                   // [S, C, K1 * D * Sg]
   int* col_spill;                     // [S, C, 2, Q * D + 2Q]
+  // the extension rows (null without extensions; the scan builds only):
+  // each filter extension's mask and each score extension's raw score per
+  // lane and pod, the score rows' f32 weights and normalize kinds (0 none,
+  // 1 minmax, 2 max), the counts, and `ered`, the normalizer rows they add
+  const uint8_t* ext_ok;              // [S, P', Ef, N]
+  const float* ext_raw;               // [S, P', Es, N]
+  const float* ext_w;                 // [Es]
+  const int32_t* ext_norm;            // [Es]
+  int ef, es, ered;
+  // the lane stride of the output rows (P' for outputs of the launch's own
+  // pods; larger where a launch writes into rows of a longer output)
+  int ls;
 };
 
 }  // extern "C"
@@ -452,14 +484,21 @@ __device__ __forceinline__ int fkey(float f) {
   return i >= 0 ? i : i ^ 0x7fffffff;
 }
 
+// fkey with a NaN below every float, so that a minimum over it is the NaN
+// (fkey_inv(INT_MIN) is a NaN), as in jnp.minimum (the extension rows)
+__device__ __forceinline__ int ekey(float f) { return f != f ? INT_MIN : fkey(f); }
+
 __device__ __forceinline__ float fkey_inv(int k) {
   return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
 // selectHost's order as one integer: the larger score first, then the lower
 // node index; 0 is below every node's key. A -0 score keys as +0, so equal
-// scores key equal.
+// scores key equal. A NaN score (an extension's) keys above every node, and
+// its pick_score is a NaN, so the pod stays unbound, as the reference's max
+// over a NaN leaves it.
 __device__ __forceinline__ unsigned long long pick_key(float v, int n) {
+  if (v != v) return ~0ull;
   unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)u << 32) | (unsigned)(0x7fffffff - n);
@@ -569,6 +608,10 @@ struct Layout {
   int dom;     // [K1*D*Sg] f32 dom_count replica (F_DOM)
   int sc;      // [rows][SL] f32 raw scores of the block's nodes
   int ms;      // [SL] f32 masked final scores (the top-k; StepArgs.topk > 0)
+  int ext;     // [2][ered] extension minima by pod parity, [ered] the cluster's,
+               // [Es][3] each score row's lo, inverse range and weight, [Es][SL]
+               // the block's raw extension scores, then (Ef > 0) [SL] each
+               // node's first failing filter extension, -1 none
   int hr;      // [SL*R] f32 headroom slice (RES_HEADROOM)
   int flag;    // byte offset: [SL] feasibility flags
   int pv;      // byte offset: [Npv] pv_taken replica (device-resource, F_PV_MATCH)
@@ -602,6 +645,8 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   w += score_rows(a.flags) * a.sl;
   l.ms = w;
   w += (PLAIN_STEP_EXPLAIN && a.topk > 0) ? a.sl : 0;
+  l.ext = w;
+  w += 3 * a.ered + 3 * a.es + (a.es + (a.ef ? 1 : 0)) * a.sl;
   l.hr = w;
   w += (a.res & RES_HEADROOM) ? a.sl * a.r : 0;
   l.flag = 4 * w;
@@ -1107,6 +1152,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   constexpr int kLive = kDevRes ? kRows : (kInterpod ? kRows - 2 : kRows - 4);
   // the raw-score rows in shared memory: base, spread, Simon (+ interpod) (+ GPU)
   constexpr int kRowGpu = kInterpod ? 4 : 3;
+  // the extension rows: the scan builds only (a wave plan is dropped under
+  // extensions, and a fleet runs them serially)
+  constexpr bool kExt = !kFrozen && !kFleet;
   cg::cluster_group cluster = cg::this_cluster();
   const int N = a.n, R = a.r, D = a.d, SG = a.sg, PT = a.pt, CS = a.cs;
   const int Q = a.a + a.b + a.cs + a.ap;
@@ -1196,6 +1244,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   float* const sc_ip = s_sc + 3 * SL;
   float* const sc_gpu = s_sc + kRowGpu * SL;
   float* const s_ms = reinterpret_cast<float*>(s_dyn + lay.ms);
+  // the extension minima (by pod parity, then the cluster's), each score
+  // row's (lo, inverse range, weight) and the block's raw scores (phase 2
+  // reads them from shared memory), and each node's first failing filter
+  int* const s_epart = s_dyn + lay.ext;
+  int* const s_efin = s_epart + 2 * a.ered;
+  float* const s_epar = reinterpret_cast<float*>(s_efin + a.ered);
+  int* const s_eff = reinterpret_cast<int*>(s_epar + 3 * a.es + (size_t)a.es * SL);
   const int topk = kExplain ? a.topk : 0;
   const bool jitter = kExplain && a.jitter;
   uint8_t* const pv_g = kDevRes ? a.pv_taken + (size_t)lane * a.npv : nullptr;
@@ -1281,12 +1336,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     const uint8_t* elig_host = elig_host_l + (size_t)cid * N;
     const int vcid = kDevRes ? a.vol_cid[p] : 0;
     const bool pv_missing = kDevRes && a.vol_pv_missing[p];
-    const size_t orow = (size_t)lane * n_out + j;  // the pod's output row
+    const size_t orow = (size_t)lane * a.ls + j;  // the pod's output row
     const int nom = kCols && a.nominated ? a.nominated[p] : -1;
     const bool victim = kCols && a.disabled && a.disabled[p];
     int* const fail_b = s_fail + par * a.ops;
     int* const dpart = s_dpart + par * QD;
     int* const part = s_part[par];
+    int* const epart = s_epart + par * a.ered;
     bool any_soft = false;
     if (use_sp)
       for (int c = 0; c < CS; ++c) any_soft |= ssoft[c] != 0;
@@ -1296,6 +1352,8 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     // the pod needs from the batched column read
     for (int i = tid; i < a.ops; i += B) fail_b[i] = 0;
     if (tid <= kRows + kCols) part[tid] = tid < kRows ? INT_MAX : 0;
+    if constexpr (kExt)
+      for (int i = tid; i < a.ered; i += B) epart[i] = INT_MAX;
     if (tid == 0) s_key[par] = 0;
     if constexpr (kExplain) {
       if (tid == 0) {
@@ -1406,6 +1464,21 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     // first)
     if constexpr (kDevRes && kWideLib) {
       if (a.walk) walk_verdicts(a, L, fl, p, lo, hi, s_flag);
+    }
+    // each node's first failing filter extension, ahead of the filter
+    // chain (each thread reads back its own nodes' entries)
+    if constexpr (kExt) {
+      if (a.ef) {
+        const uint8_t* eo = a.ext_ok + ((size_t)lane * n_out + j) * a.ef * N;
+        for (int it = 0; it < iters; ++it) {
+          const int n = lo + it * B + tid;
+          if (n >= hi) break;
+          int first = -1;
+          for (int e = 0; e < a.ef && first < 0; ++e)
+            if (!eo[(size_t)e * N + n]) first = e;
+          s_eff[n - lo] = first;
+        }
+      }
     }
     float m_na = kBig, m_tt = kBig, m_slo = kBig, m_shi = kBig, m_ilo = kBig, m_ihi = kBig;
     float m_plo = kBig, m_phi = kBig, m_glo = kBig, m_ghi = kBig;
@@ -1521,6 +1594,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
             ff = 11 + R;
           if (ff < 0 && (fl & F_VOL_STATIC) && pv_missing) ff = 12 + R;
           if (ff < 0 && (fl & F_VOL_LIMITS) && !limits_ok(a, L, fl, p, n)) ff = 13 + R;
+        }
+        // the filter extensions, past the built-in ops, in registration order
+        if constexpr (kExt) {
+          if (ff < 0 && a.ef && s_eff[ln] >= 0) ff = a.ops - a.ef + s_eff[ln];
         }
         const bool mask = act && ff < 0;
         if (act && ff >= 0) charged_op = ff;
@@ -1640,6 +1717,45 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
     cnt = __reduce_add_sync(kFull, cnt);
     if (lid == 0 && cnt) atomicAdd(&part[kRows], cnt);
+    // the score extensions' raw scores of the block's nodes into shared
+    // memory and their normalizer minima (each thread reads back its own
+    // nodes' feasibility flags, and phase 2 its own nodes' scores)
+    if constexpr (kExt) {
+      if (a.es) {
+        const float* er = a.ext_raw + ((size_t)lane * n_out + j) * a.es * N;
+        for (int e = 0, row = 0; e < a.es; ++e) {
+          const int kind = a.ext_norm[e];
+          const float* raw = er + (size_t)e * N;
+          float* const keep = s_epar + 3 * a.es + (size_t)e * SL;
+          int klo = fkey(kBig), khi = fkey(kBig);
+          for (int it = 0; it < iters; ++it) {
+            const int n = lo + it * B + tid;
+            if (n >= hi) break;
+            const bool m = s_flag[n - lo] & 1;
+            const float v = raw[n];
+            keep[n - lo] = v;
+            if (kind == 1) {
+              if (m) {
+                klo = min(klo, ekey(v));
+                khi = min(khi, ekey(-v));
+              }
+            } else if (kind == 2) {
+              khi = min(khi, ekey(m ? -v : 0.0f));
+            }
+          }
+          if (kind == 1) {
+            klo = __reduce_min_sync(kFull, klo);
+            if (lid == 0) atomicMin(&epart[row], klo);
+            ++row;
+          }
+          if (kind != 0) {
+            khi = __reduce_min_sync(kFull, khi);
+            if (lid == 0) atomicMin(&epart[row], khi);
+            ++row;
+          }
+        }
+      }
+    }
     if (counted) {
       __syncthreads();
       mark(2);
@@ -1677,7 +1793,38 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
         a.out_fail[orow * a.ops + i] = victim ? 0 : sum;
       }
     }
+    if constexpr (kExt) {
+      for (int i = tid; i < a.ered; i += B) {
+        int v = INT_MAX;
+        for (int r = 0; r < C; ++r) v = min(v, cluster.map_shared_rank(epart, r)[i]);
+        s_efin[i] = v;
+      }
+    }
     __syncthreads();
+    // each score extension's (lo, inverse range): minmax as
+    // scores.minmax_apply, max as max_apply (lo 0), none as (0, 1)
+    if constexpr (kExt) {
+      if (a.es) {
+        for (int e = tid; e < a.es; e += B) {
+          int row = 0;
+          for (int f = 0; f < e; ++f) row += a.ext_norm[f] == 1 ? 2 : (a.ext_norm[f] == 2 ? 1 : 0);
+          const int kind = a.ext_norm[e];
+          float lo_e = 0.0f, inv_e = 1.0f;
+          if (kind == 1) {
+            lo_e = fkey_inv(s_efin[row]);
+            const float rng = __fsub_rn(-fkey_inv(s_efin[row + 1]), lo_e);
+            inv_e = rng > 0.0f ? __fdiv_rn(100.0f, rng) : 0.0f;
+          } else if (kind == 2) {
+            const float hi_e = -fkey_inv(s_efin[row]);
+            inv_e = hi_e > 0.0f ? __fdiv_rn(100.0f, hi_e) : 0.0f;
+          }
+          s_epar[3 * e] = lo_e;
+          s_epar[3 * e + 1] = inv_e;
+          s_epar[3 * e + 2] = a.ext_w[e];
+        }
+        __syncthreads();
+      }
+    }
     mark(3);
 
     // ---- phase 2: normalizers, final score in the reference's add order
@@ -1741,6 +1888,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
                       __fmul_rn(__fsub_rn(sc_simon[ln], si_lo), inv_si)));
       if constexpr (kDevRes) {
         if (fl & F_GPU) add(__fmul_rn(gp_w, __fmul_rn(__fsub_rn(sc_gpu[ln], gp_lo), inv_gp)));
+      }
+      if constexpr (kExt) {
+        for (int e = 0; e < a.es; ++e) {
+          const float* q = s_epar + 3 * e;
+          add(__fmul_rn(q[2], __fmul_rn(__fsub_rn(q[3 * (a.es - e) + e * SL + ln], q[0]),
+                                        q[1])));
+        }
       }
       return score;
     };
@@ -2084,6 +2238,15 @@ extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (args->fleet && (!args->lanes || args->frozen || args->disabled || args->nominated ||
                       args->cycles))
+    return (int)cudaErrorInvalidValue;
+  // the extension rows: the scan builds only, every pointer of a row kind
+  // its count needs, and an output stride that holds the launch's pods
+  const int n_out = args->p1 - args->p0;
+  if ((args->ef || args->es) && (args->frozen || args->fleet)) return (int)cudaErrorInvalidValue;
+  if (args->ef < 0 || args->es < 0 || (args->ef && !args->ext_ok) ||
+      (args->es && !(args->ext_raw && args->ext_w && args->ext_norm)) ||
+      args->ered < 0 || args->ered > 2 * args->es || args->ls < n_out ||
+      (args->ef + args->es && args->ops < args->ef))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
   const size_t smem = layout_of(*args).bytes;

@@ -142,13 +142,13 @@ def run_fleet_batched(arrs_batch, masks, cfg, fn_name: str = "fleet_schedule",
     plain step, lane by lane. The launch runs inside
     ``faults.run_launch``, so a classified failure escapes as a
     ``DeviceFault`` for the caller's degradation ladder; nothing falls
-    back to the plain step. Returns a ScheduleOutput with [S, ...]
-    outputs and carry."""
+    back to the plain step. Under extensions each lane runs alone, one
+    launch a pod (``engine.scheduler._extension_scan``). Returns a
+    ScheduleOutput with [S, ...] outputs and carry."""
     from open_simulator_tpu_torch.engine import scheduler as sched
     from open_simulator_tpu_torch.kernels import step as step_kernels
     from open_simulator_tpu_torch.resilience import faults
 
-    sched.check_supported(cfg)
     masks = np.asarray(masks, dtype=bool)
     n_lanes = int(masks.shape[0])
     n_nodes = np.asarray(arrs_batch.alloc).shape[1]
@@ -158,6 +158,17 @@ def run_fleet_batched(arrs_batch, masks, cfg, fn_name: str = "fleet_schedule",
                          f"got {masks.shape}")
     dev = sched.resolve_device(device)
     k = min(cfg.forced_prefix, n_pods)
+    if cfg.extensions:
+        # the extension callables read each lane's own cluster (the
+        # reference vmaps them over the lanes' snapshots), one pod at a
+        # time: each lane runs as a lone schedule_pods of its cluster
+        lone = faults.run_launch(fn_name, lambda: [
+            sched.schedule_pods(_lane(arrs_batch, s), masks[s], cfg, device=dev)
+            for s in range(n_lanes)])
+        return sched.ScheduleOutput(
+            *[torch.stack([o[i] for o in lone]) for i in range(len(lone[0]) - 1)],
+            state=sched.SimState(**{f: torch.stack([getattr(o.state, f) for o in lone])
+                                    for f in sched.STATE_FIELDS}))
 
     def fire():
         lanes: List[step_kernels.FleetLane] = []

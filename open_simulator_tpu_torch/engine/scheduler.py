@@ -16,8 +16,12 @@ storage (LVM packing, exclusive devices), the static volume class masks,
 WaitForFirstConsumer PV matching, attach limits and shared-volume dedup.
 Under ``traced_weights`` each lane's step multiplies by its own [K] row
 of score weights (``schedule_lanes(weights=)``, ``WEIGHT_FIELDS`` order),
-every weight-gated row kept live. Every other gate raises
-NotImplementedError naming the ROADMAP item that ports it.
+every weight-gated row kept live. Out-of-tree extension ops
+(``engine/extensions.ExtensionOp``, ``cfg.extensions``) add their filter
+masks after the built-in ones, each in its own reason row, and their
+scores after the built-in rows; their callables read the carry, so the
+engine evaluates them on the host before each pod and runs the step one
+pod at a time (``_extension_scan``).
 
 ``schedule_lanes`` runs S lanes (active masks) in one launch and
 ``schedule_pods`` is its one-lane case. On a CUDA device the pod loop is
@@ -31,6 +35,7 @@ wave through the step's frozen form and one ``kernels/wave.wave_merge``.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -70,8 +75,7 @@ def weight_vector(cfg: "EngineConfig") -> np.ndarray:
 class EngineConfig(NamedTuple):
     """Static engine configuration — a copy of the reference's
     ``EngineConfig`` (field for field, so a config means the same thing
-    in both packages). Gates outside this package's step raise in
-    ``check_supported``."""
+    in both packages)."""
 
     n_resources: int
     cpu_mem_idx: Tuple[int, ...] = (0, 1)
@@ -136,19 +140,9 @@ class EngineConfig(NamedTuple):
         return (OP_FIT_BASE + self.n_resources + 10
                 + sum(1 for e in self.extensions if e.filter_fn is not None))
 
-
-# gate -> the ROADMAP item that ports it (queue 1 unless noted)
-_UNSUPPORTED = (
-    ("extensions", "queue 1, item 7 (remaining engine modes)"),
-)
-
-
-def check_supported(cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for any gate outside the ported step."""
-    for gate, item in _UNSUPPORTED:
-        if getattr(cfg, gate):
-            raise NotImplementedError(
-                f"EngineConfig.{gate} is not ported yet (ROADMAP {item})")
+    @property
+    def extension_op_names(self) -> Tuple[str, ...]:
+        return tuple(e.name for e in self.extensions if e.filter_fn is not None)
 
 
 @dataclass
@@ -289,7 +283,8 @@ def _fold_forced(arrs: SnapshotArrays, cfg: EngineConfig, state: SimState,
 def score_part_names(cfg: EngineConfig) -> Tuple[str, ...]:
     """The names of the weighted score rows the step records under
     ``explain_topk``, in the topk_parts row order (the reference's
-    ``score_part_names``; extensions are refused)."""
+    ``score_part_names``: the score extensions last, in registration
+    order)."""
     names = ["NodeResources"]
     for on, name in zip(score_rows(cfg), ("NodeAffinity", "TaintToleration",
                                           "InterPodAffinity", "PodTopologySpread", "Simon")):
@@ -297,6 +292,7 @@ def score_part_names(cfg: EngineConfig) -> Tuple[str, ...]:
             names.append(name)
     if cfg.enable_gpu:
         names.append("Open-Gpu-Share")
+    names += [e.name for e in cfg.extensions if e.score_fn is not None]
     return tuple(names)
 
 
@@ -376,7 +372,8 @@ def _column_reads(arrs: SnapshotArrays, host: Dict[str, np.ndarray],
 def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tensor,
           cfg: EngineConfig, hoist: ActiveHoist, inv_alloc: torch.Tensor,
           state: SimState, p: int, disabled: bool = False,
-          nominated: Optional[int] = None, weights: Optional[torch.Tensor] = None):
+          nominated: Optional[int] = None, weights: Optional[torch.Tensor] = None,
+          ext_ok: Optional[torch.Tensor] = None, ext_raw: Optional[torch.Tensor] = None):
     """One pod's scheduleOne: the plain torch twin of the reference's
     ``_step`` for this package's ops. `arrs` holds tensors on the step's
     device; `host` holds the per-pod slot arrays as numpy (forced node,
@@ -391,7 +388,10 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     lane's [K] f32 row under ``cfg.traced_weights`` (WEIGHT_FIELDS order;
     every enabled score row stays live), None otherwise. With
     ``cfg.tie_break_seed`` the jitter is keyed on `p`, the pod's place in
-    the whole sequence (the reference's ``_pod_index``)."""
+    the whole sequence (the reference's ``_pod_index``). `ext_ok` [Ef, N]
+    and `ext_raw` [Es, N] are the pod's extension rows under
+    ``cfg.extensions``: what each filter and score callable returned for
+    this lane's carry, in registration order."""
     n_nodes = arrs.alloc.shape[0]
     dev = active.device
     f32 = torch.float32
@@ -579,6 +579,11 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
     op_masks += [fit[:, r] for r in range(cfg.n_resources)]
     op_masks += [ok_pod_aff, ok_pod_anti, ok_spread, ok_gpu, ok_storage,
                  ok_vol_node, ok_vol_zone, ok_vol_bind, ok_pv_exist, ok_vol_limits]
+    # out-of-tree filter extensions: after the built-in pipeline, each with
+    # its own reason row
+    ext_filters = [e for e in cfg.extensions if e.filter_fn is not None]
+    ext_scores = [e for e in cfg.extensions if e.score_fn is not None]
+    op_masks += [ext_ok[i].to(torch.bool) for i in range(len(ext_filters))]
     if cfg.fail_reasons:
         ops_ok = torch.stack(op_masks)                             # [OPS, N]
         mask = active & torch.all(ops_ok, dim=0)
@@ -631,6 +636,18 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
                                          gpu_mem, gpu_cnt)
         gp_lo = torch.min(torch.where(mask, raw_gp, fill(big)))
         gp_hi = -torch.min(torch.where(mask, -raw_gp, fill(big)))
+    # the score extensions' rows of the reduction: minmax two, max one
+    # (its zero fill reaches the minimum wherever a node is infeasible)
+    ext_red = []
+    for i, e in enumerate(ext_scores):
+        raw_e = ext_raw[i]
+        if e.normalize == "minmax":
+            ext_red.append((torch.min(torch.where(mask, raw_e, fill(big))),
+                            -torch.min(torch.where(mask, -raw_e, fill(big)))))
+        elif e.normalize == "max":
+            ext_red.append((None, -torch.min(torch.where(mask, -raw_e, fill(0.0)))))
+        else:
+            ext_red.append((None, None))
 
     # each weighted row, kept under explain_topk for the candidates'
     # breakdown, in the score_part_names order (the reference's _part)
@@ -650,6 +667,13 @@ def _step(arrs: SnapshotArrays, host: Dict[str, np.ndarray], active: torch.Tenso
         # a pod without a GPU request scores 0 on the GPU dimension
         gp_w = torch.as_tensor(w_gp, dtype=f32, device=dev) * (gpu_cnt > 0).to(f32)
         part_rows.append(gp_w * scores.minmax_apply(raw_gp, gp_lo, gp_hi))
+    for i, (e, (lo_e, hi_e)) in enumerate(zip(ext_scores, ext_red)):
+        if lo_e is not None:
+            part_rows.append(e.weight * scores.minmax_apply(ext_raw[i], lo_e, hi_e))
+        elif hi_e is not None:
+            part_rows.append(e.weight * scores.max_apply(ext_raw[i], hi_e))
+        else:
+            part_rows.append(e.weight * ext_raw[i])
     for row in part_rows[1:]:
         score = score + row
 
@@ -1070,7 +1094,6 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     own copy."""
     from open_simulator_tpu_torch.kernels import step as step_kernels
 
-    check_supported(cfg)
     dev = resolve_device(device)
     masks = np.asarray(masks, dtype=bool)
     if masks.ndim != 2 or masks.shape[1] != arrs.alloc.shape[0]:
@@ -1106,7 +1129,10 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
         template = apply_forced_prefix(arrs_t, cfg, template, k)
     carry = lane_carry(template, n_lanes, carry)
     hoist_t, inv = hoist_of(arrs_t, masks_t), inv_alloc_of(arrs_t.alloc)
-    if waves is None:
+    if cfg.extensions:
+        outs = _extension_scan(arrs_t, masks_t, hoist_t, inv, carry, template, cfg, k, n_pods,
+                               dis_t, nom_t, w_t)
+    elif waves is None:
         outs = step_kernels.plain_step(arrs_t, masks_t, hoist_t, inv, carry, cfg, k, n_pods,
                                        template=template, disabled=dis_t, nominated=nom_t,
                                        weights=w_t)
@@ -1129,6 +1155,121 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
     return ScheduleOutput(node=node, fail_counts=fail_counts, feasible=feasible,
                           gpu_pick=gpu_pick, vol_pick=vol_pick, topk_node=t_node,
                           topk_score=t_score, topk_parts=t_parts, state=carry)
+
+
+class PodSlice(Mapping):
+    """Pod p's slice of the step's per-pod inputs, the `x` an extension
+    callable reads: every key of the reference's ``_pod_xs``
+    (``POD_FIELDS``), ``_pod_index``, ``_disabled``, ``_nominated`` and,
+    where the step reads group_count columns, ``gcr_gid`` / ``gcr_key``.
+    A read-only mapping: a key's row is cut when it is read."""
+
+    def __init__(self, cols: Dict[str, torch.Tensor], p: int):
+        self._cols, self._p = cols, p
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return self._cols[key][self._p]
+
+    def __iter__(self):
+        return iter(self._cols)
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+
+def pod_columns(arrs: SnapshotArrays, cfg: EngineConfig, disabled: Optional[torch.Tensor],
+                nominated: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The [P, ...] columns ``PodSlice`` cuts, on the arrays' device: the
+    reference's ``_pod_xs`` under extensions (whose live set is every key),
+    the preemption columns as False / -1 where there is none, and the
+    batched column read's slot ids and keys where its ``_gcr_segments`` is
+    not None."""
+    dev = arrs.req.device
+    n_pods = arrs.req.shape[0]
+    cols = {f: getattr(arrs, f) for f in sorted(POD_FIELDS)}
+    cols["_pod_index"] = torch.arange(n_pods, dtype=torch.int32, device=dev)
+    cols["_disabled"] = (disabled.to(torch.bool) if disabled is not None
+                         else torch.zeros((n_pods,), dtype=torch.bool, device=dev))
+    cols["_nominated"] = (nominated.to(torch.int32) if nominated is not None
+                          else torch.full((n_pods,), -1, dtype=torch.int32, device=dev))
+    if cfg.needs_group_count and (cfg.enable_pod_affinity or cfg.enable_anti_affinity
+                                  or cfg.enable_spread):
+        cols["gcr_gid"] = torch.cat([arrs.aff_group, arrs.anti_group, arrs.spread_group],
+                                    1).to(torch.int32)
+        cols["gcr_key"] = torch.cat([arrs.aff_key, arrs.anti_key, arrs.spread_key],
+                                    1).to(torch.int32)
+    return cols
+
+
+def extension_rows_fn(cfg: EngineConfig):
+    """One function of (carry fields, arrs, x) that evaluates every
+    extension callable of `cfg` against one lane's carry and returns its
+    (filter masks [Ef, N] bool, raw scores [Es, N] f32), either None where
+    no extension of the kind is registered; vmapped over the lanes of a
+    lane-batched carry (``torch.func.vmap``, arrs and x shared)."""
+    filters = [e.filter_fn for e in cfg.extensions if e.filter_fn is not None]
+    scorers = [e.score_fn for e in cfg.extensions if e.score_fn is not None]
+
+    def rows(fields, arrs, x):
+        st = SimState(*fields)
+        out = []
+        if filters:
+            out.append(torch.stack([f(st, arrs, x).to(torch.bool) for f in filters]))
+        if scorers:
+            out.append(torch.stack([f(st, arrs, x).to(torch.float32) for f in scorers]))
+        return tuple(out)
+
+    lanes = torch.func.vmap(rows, in_dims=(0, None, None))
+
+    def call(fields, arrs, x):
+        got = list(lanes(fields, arrs, x))
+        return (got.pop(0) if filters else None), (got.pop(0) if scorers else None)
+
+    return call
+
+
+def _extension_scan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
+                    inv_alloc: torch.Tensor, carry: SimState, template: SimState,
+                    cfg: EngineConfig, k: int, n_pods: int,
+                    disabled: Optional[torch.Tensor], nominated: Optional[torch.Tensor],
+                    weights: Optional[torch.Tensor], plain: bool = False):
+    """The scan over pods [k, n_pods) under extension ops, one launch a
+    pod: before pod p every callable is evaluated against each lane's
+    carry as it stands (after pod p - 1's bind, in stream order), the
+    device arrays and pod p's ``PodSlice``, vmapped over the lanes; their
+    rows go to the step of pod p (``kernels/step.pod_launcher``: the kernel
+    on the card, the plain step on the CPU or with ``plain=True``), which
+    writes its outputs into row p - k of buffers allocated once. `carry`
+    is written from `template` first. Returns the step's outputs for
+    those pods."""
+    from open_simulator_tpu_torch.kernels import step as step_kernels
+
+    dev = active.device
+    n_lanes, n_out = active.shape[0], n_pods - k
+    g_w, lw = step_kernels.pick_widths(arrs, cfg)
+    k_top, c_parts = topk_widths(arrs, cfg)
+    i32 = torch.int32
+    fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
+            if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
+    outs = step_kernels.StepOutputs(
+        torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
+        torch.empty((n_lanes, n_out), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
+        torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev))
+    step_kernels.copy_template(carry, template)
+    launch = step_kernels.pod_launcher(arrs, active, hoist, inv_alloc, carry, cfg, outs, k,
+                                       disabled=disabled, nominated=nominated, weights=weights,
+                                       plain=plain)
+    rows_of = extension_rows_fn(cfg)
+    cols = pod_columns(arrs, cfg, disabled, nominated)
+    fields = tuple(getattr(carry, f) for f in STATE_FIELDS)
+    for p in range(k, n_pods):
+        ok, raw = rows_of(fields, arrs, PodSlice(cols, p))
+        launch(p, None if ok is None else ok[:, None], None if raw is None else raw[:, None])
+    return tuple(outs)
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,
@@ -1280,6 +1421,10 @@ def make_config(snapshot: ClusterSnapshot, **overrides) -> EngineConfig:
             fp = 0
     kw["forced_prefix"] = fp
     kw.update(overrides)
-    if kw.get("extensions") and "forced_prefix" not in overrides:
-        kw["forced_prefix"] = 0
+    if kw.get("extensions"):
+        kw["extensions"] = tuple(e.validate() for e in kw["extensions"])
+        # extension ops may read the carry per pod; keep prefix pods in
+        # the scan unless the caller explicitly overrode forced_prefix
+        if "forced_prefix" not in overrides:
+            kw["forced_prefix"] = 0
     return EngineConfig(**kw)

@@ -67,6 +67,17 @@ cluster would take; its plain version, ``plain_step_fleet_torch``, is the
 one-lane plain step over each lane in turn. Its launches count under
 ``plain_step_fleet`` (``plain_step_fleet_explain``).
 
+Under ``cfg.extensions`` a launch takes the extension rows the engine
+evaluated against the carry (``engine.scheduler._extension_scan``):
+``ext_ok`` [S, P', Ef, N] bool, each filter extension's mask, and
+``ext_raw`` [S, P', Es, N] f32, each score extension's raw score, in
+registration order; the kernel gets them as runtime pointers (null
+without extensions), with each score row's f32 weight and normalize kind,
+so the 24 builds serve both. ``pod_launcher`` is the engine's per-pod
+form: it builds the ``StepArgs`` once and patches each pod's into them,
+writing the outputs into rows of full-length buffers
+(``LAUNCHES["plain_step_ext"]`` counts its launches).
+
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
 other. ``LAUNCHES["plain_step"]`` counts the kernel's scan launches and
@@ -96,6 +107,7 @@ runs one cluster per (lane, pod) under the same plan.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -114,7 +126,7 @@ from open_simulator_tpu_torch.ops.domains import ActiveHoist
 LAUNCHES: Dict[str, int] = {"plain_step": 0, "plain_step_frozen": 0, "plain_step_explain": 0,
                             "plain_step_frozen_explain": 0, "plain_step_weights": 0,
                             "plain_step_fleet": 0, "plain_step_fleet_explain": 0,
-                            "plain_step_wide": 0}
+                            "plain_step_wide": 0, "plain_step_ext": 0}
 # the kernel's per-phase cycle counts (kPhases in the .cu), in order
 PHASES = ("prologue", "phase 0/0b/0c", "phase 1 filters and raw scores",
           "min/count reduction", "phase 2 score and argmax", "argmax reduction",
@@ -194,8 +206,11 @@ class SmemWidths(NamedTuple):
     cs: int     # spread constraints
     dom: int    # K1 * D * Sg, the dom_count replica (0 off the dom_count path)
     rows: int   # raw-score rows: 3, + interpod, + GPU (+ the top-k's masked scores)
+                # (+ the raw extension scores, + the nodes' first failing
+                # filter extensions)
     r: int      # resources (the headroom row)
     npv: int    # the pv_taken replica (0 without PV matching)
+    ext: int = 0  # the extension minima and normalizers (3 * ered + 3 * Es)
 
 
 def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool = False,
@@ -211,7 +226,7 @@ def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool =
     qd = w.q * w.d + 2 * w.q
     words = (2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
              + (0 if dom_global else w.dom)
-             + w.rows * slice_len + (slice_len * w.r if headroom else 0))
+             + w.rows * slice_len + w.ext + (slice_len * w.r if headroom else 0))
     return 4 * words + slice_len + w.npv
 
 
@@ -323,7 +338,52 @@ class StepArgs(ctypes.Structure):
                                                   "out_topk_parts", "w_lane")]
                 + [("lanes", ctypes.c_void_p), ("fleet", ctypes.c_int), ("walk", ctypes.c_void_p),
                    ("walk_w", ctypes.c_int), ("dom_spill", ctypes.c_void_p),
-                   ("col_spill", ctypes.c_void_p)])
+                   ("col_spill", ctypes.c_void_p)]
+                + [(f, ctypes.c_void_p) for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")]
+                + [(f, ctypes.c_int) for f in ("ef", "es", "ered", "ls")])
+
+
+# ExtensionOp.normalize -> StepArgs.ext_norm
+EXT_NORMALIZE = {"none": 0, "minmax": 1, "max": 2}
+
+
+class ExtensionRows(NamedTuple):
+    """The extension rows a config's step takes: the filter and the score
+    extensions in registration order, and the normalizer rows the scores
+    add to the step's reduction (2 per "minmax", 1 per "max")."""
+    filters: tuple
+    scores: tuple
+    ered: int
+
+
+def extension_rows(cfg: EngineConfig) -> ExtensionRows:
+    filters = tuple(e for e in cfg.extensions if e.filter_fn is not None)
+    scores = tuple(e for e in cfg.extensions if e.score_fn is not None)
+    ered = sum(2 if e.normalize == "minmax" else (1 if e.normalize == "max" else 0)
+               for e in scores)
+    return ExtensionRows(filters, scores, ered)
+
+
+def check_extension_rows(cfg: EngineConfig, ext_ok, ext_raw, n_lanes: int, n_out: int,
+                         n_nodes: int) -> None:
+    """The rows are given exactly where the config registers extensions of
+    their kind, as [S, P', Ef, N] bool or uint8 and [S, P', Es, N] f32
+    tensors on the step's device."""
+    rows = extension_rows(cfg)
+    for name, got, want, dtypes in (("ext_ok", ext_ok, len(rows.filters),
+                                     (torch.bool, torch.uint8)),
+                                    ("ext_raw", ext_raw, len(rows.scores), (torch.float32,))):
+        if not want:
+            if got is not None:
+                raise ValueError(f"plain_step: {name} given but the config registers no "
+                                 "such extension")
+            continue
+        if got is None:
+            raise ValueError(f"plain_step: cfg.extensions needs {name} [S, P', {want}, N]")
+        shape = (n_lanes, n_out, want, n_nodes)
+        if got.dtype not in dtypes or tuple(got.shape) != shape:
+            raise ValueError(f"plain_step: {name} is {got.dtype}{tuple(got.shape)}, expected "
+                             f"{dtypes[0]}{shape}")
 
 
 class StepOutputs(NamedTuple):
@@ -356,25 +416,31 @@ def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
                disabled: Optional[torch.Tensor] = None,
                nominated: Optional[torch.Tensor] = None, frozen: bool = False,
                inputs: Optional[dict] = None,
-               weights: Optional[torch.Tensor] = None) -> StepOutputs:
+               weights: Optional[torch.Tensor] = None,
+               ext_ok: Optional[torch.Tensor] = None,
+               ext_raw: Optional[torch.Tensor] = None) -> StepOutputs:
     """The step over pods [p0, p1): the CUDA kernel for CUDA tensors, the
     plain torch step for CPU tensors. `inputs` (CUDA only) is a dict the
     caller keeps across launches over the same arrays, lanes and config."""
     if active.device.type == "cuda":
         return plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
                                disabled=disabled, nominated=nominated, frozen=frozen,
-                               inputs=inputs, weights=weights)
+                               inputs=inputs, weights=weights, ext_ok=ext_ok, ext_raw=ext_raw)
     if active.device.type == "cpu":
         return plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
                                 disabled=disabled, nominated=nominated, frozen=frozen,
-                                weights=weights)
+                                weights=weights, ext_ok=ext_ok, ext_raw=ext_raw)
     raise ValueError(f"no plain_step for device {active.device}")
 
 
-def _check_frozen(template, disabled, nominated, phase_cycles=None) -> None:
+def _check_frozen(template, disabled, nominated, phase_cycles=None,
+                  cfg: Optional[EngineConfig] = None) -> None:
     if template is not None or disabled is not None or nominated is not None:
         raise ValueError("plain_step: the frozen wave form takes no template and no "
                          "preemption column")
+    if cfg is not None and cfg.extensions:
+        raise ValueError("plain_step: the frozen wave form takes no extension rows (a wave "
+                         "plan is dropped under extensions)")
     if phase_cycles is not None:
         raise ValueError("plain_step: the frozen wave form has no cycle counts")
 
@@ -415,17 +481,21 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
                      disabled: Optional[torch.Tensor] = None,
                      nominated: Optional[torch.Tensor] = None,
                      frozen: bool = False,
-                     weights: Optional[torch.Tensor] = None) -> StepOutputs:
+                     weights: Optional[torch.Tensor] = None,
+                     ext_ok: Optional[torch.Tensor] = None,
+                     ext_raw: Optional[torch.Tensor] = None) -> StepOutputs:
     """The plain version: lane by lane, pod by pod through the torch twin
     of the reference step (``engine.scheduler._step``), on any device.
     Frozen: every pod against a clone of the lane's carry, which is left
-    as it is. Lane s takes ``weights[s]`` under the traced weights."""
-    scheduler.check_supported(cfg)
+    as it is. Lane s takes ``weights[s]`` under the traced weights, and
+    pod p of lane s the extension rows ``ext_ok[s, p - p0]`` and
+    ``ext_raw[s, p - p0]``."""
     if frozen:
-        _check_frozen(template, disabled, nominated)
+        _check_frozen(template, disabled, nominated, cfg=cfg)
     dev = active.device
     n_lanes, n_out = active.shape[0], p1 - p0
     check_weights(cfg, weights, n_lanes)
+    check_extension_rows(cfg, ext_ok, ext_raw, n_lanes, max(n_out, 0), arrs.alloc.shape[0])
     if template is not None:
         copy_template(state, template)
     host = {f: getattr(arrs, f).cpu().numpy() for f in STEP_HOST_FIELDS}
@@ -451,7 +521,9 @@ def plain_step_torch(arrs, active: torch.Tensor, hoist: ActiveHoist,
             new, out = scheduler._step(arrs, host, active[s], cfg, lane_hoist, inv_alloc, src, p,
                                        disabled=dis is not None and bool(dis[p]),
                                        nominated=None if nom is None else int(nom[p]),
-                                       weights=None if weights is None else weights[s])
+                                       weights=None if weights is None else weights[s],
+                                       ext_ok=None if ext_ok is None else ext_ok[s, p - p0],
+                                       ext_raw=None if ext_raw is None else ext_raw[s, p - p0])
             if not frozen:
                 st = new
             rows.append(out)
@@ -578,6 +650,7 @@ def _check_index(name: str, t: torch.Tensor, bound: int) -> None:
 def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
     """The widths of a launch's shared memory under its StepArgs flags."""
     k1, _, d = arrs.topo_onehot.shape
+    rows = extension_rows(cfg)
     return SmemWidths(
         ops=cfg.n_ops,
         q=sum(getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group", "spread_group",
@@ -586,9 +659,10 @@ def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
         dom=k1 * d * arrs.match_groups.shape[1] if flags & F_DOM else 0,
         # the raw-score rows, and the masked final scores of the top-k
         rows=3 + bool(flags & INTERPOD_FLAGS) + bool(flags & DEVRES_FLAGS)
-        + bool(cfg.explain_topk),
+        + bool(cfg.explain_topk) + len(rows.scores) + bool(rows.filters),
         r=arrs.alloc.shape[1],
-        npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0)
+        npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0,
+        ext=3 * rows.ered + 3 * len(rows.scores))
 
 
 def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:
@@ -830,11 +904,15 @@ def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
                  state: SimState, cfg: EngineConfig, p0: int, p1: int,
                  template: Optional[SimState], phase_cycles: Optional[torch.Tensor],
                  disabled: Optional[torch.Tensor], nominated: Optional[torch.Tensor],
-                 frozen: bool, static: dict, weights: Optional[torch.Tensor]):
+                 frozen: bool, static: dict, weights: Optional[torch.Tensor],
+                 ext_ok: Optional[torch.Tensor] = None, ext_raw: Optional[torch.Tensor] = None,
+                 out: Optional[StepOutputs] = None):
     """A launch's StepArgs without its geometry, and the tensors it points
     at (converted inputs, carry, outputs), which must outlive the launch.
     `static` keeps the converted inputs across launches (``plain_step_cuda``'s
-    `inputs`)."""
+    `inputs`). Given `out` (StepOutputs of [S, P'', ...] buffers whose first
+    rows are this launch's pods), the kernel writes there, P'' apart per
+    lane (``StepArgs.ls``), instead of into new outputs."""
     dev = active.device
     n, r = arrs.alloc.shape
     n_lanes, n_out = active.shape[0], p1 - p0
@@ -855,8 +933,16 @@ def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
     for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
         if dt not in (torch.bfloat16, torch.float32):
             raise ValueError(f"plain_step: {name} dtype {dt}")
+    if "ext" not in static:
+        rows = extension_rows(cfg)
+        static["ext"] = (rows, dict(
+            ext_w=torch.tensor([float(e.weight) for e in rows.scores], dtype=torch.float32,
+                               device=dev),
+            ext_norm=torch.tensor([EXT_NORMALIZE[e.normalize] for e in rows.scores],
+                                  dtype=torch.int32, device=dev)) if rows.scores else {})
+    rows, ext_meta = static["ext"]
     tensors = dict(
-        static["tensors"],
+        static["tensors"], **ext_meta,
         headroom=_check("headroom", state.headroom, torch.float32, (n_lanes, n, r)),
         ports_used=_check("ports_used", state.ports_used, torch.bool, (n_lanes, n, pt)),
         dom_count=_check("dom_count", state.dom_count, torch.float32, (n_lanes, k1, d, sg)),
@@ -881,6 +967,25 @@ def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
     )
     if cfg.fail_reasons:
         tensors["out_fail"] = torch.zeros((n_lanes, n_out, ops), dtype=torch.int32, device=dev)
+    ls = n_out
+    if out is not None:
+        ls = out.node.shape[1]
+        for name, buf in zip(_OUT_PTRS, out):
+            if name == "out_fail" and not cfg.fail_reasons:
+                continue
+            want = tensors[name]
+            if (buf.dtype != want.dtype or buf.device != dev or not buf.is_contiguous()
+                    or tuple(buf.shape[2:]) != tuple(want.shape[2:])
+                    or buf.shape[:2] != (n_lanes, ls) or ls < n_out):
+                raise ValueError(f"plain_step: out {name} is {buf.dtype}{tuple(buf.shape)}, "
+                                 f"expected {want.dtype}({n_lanes}, >={n_out}, "
+                                 f"{', '.join(map(str, want.shape[2:]))}) contiguous on {dev}")
+            tensors[name] = buf
+    if ext_ok is not None:
+        # (a torch.bool tensor's bytes are the 0/1 the kernel reads as u8)
+        tensors["ext_ok"] = ext_ok.contiguous()
+    if ext_raw is not None:
+        tensors["ext_raw"] = ext_raw.contiguous()
     n_pods = arrs.req.shape[0]
     if disabled is not None:
         tensors["disabled"] = _check("disabled", disabled, torch.bool, (n_pods,))
@@ -923,7 +1028,10 @@ def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
         w_na=cfg.w_node_aff, w_tt=cfg.w_taint, w_ip=cfg.w_interpod, w_sp=cfg.w_spread,
         w_si=cfg.w_simon, w_gpu=cfg.w_gpu,
         cycles=tensors["cycles"].data_ptr() if "cycles" in tensors else None,
-        frozen=int(frozen))
+        frozen=int(frozen),
+        **{f: (tensors[f].data_ptr() if f in tensors else None)
+           for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")},
+        ef=len(rows.filters), es=len(rows.scores), ered=rows.ered, ls=ls)
     return args, tensors
 
 
@@ -955,7 +1063,9 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                     disabled: Optional[torch.Tensor] = None,
                     nominated: Optional[torch.Tensor] = None, frozen: bool = False,
                     inputs: Optional[dict] = None,
-                    weights: Optional[torch.Tensor] = None) -> StepOutputs:
+                    weights: Optional[torch.Tensor] = None,
+                    ext_ok: Optional[torch.Tensor] = None,
+                    ext_raw: Optional[torch.Tensor] = None) -> StepOutputs:
     """Launch the ``plain_step`` kernel: one thread-block cluster per lane
     (``plan_launch``), the pod loop inside the kernel, the carry updated in
     place on the current stream (with a `template`, first written from it
@@ -966,16 +1076,18 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     when None). `inputs`, a dict the caller keeps across launches over the
     same arrays, lanes and config, holds the converted inputs and the
     launch plans after the first call. `weights` ([S, K] f32, under the
-    traced weights only) goes to the kernel as ``w_lane``. Regions the
+    traced weights only) goes to the kernel as ``w_lane``, and the
+    extension rows `ext_ok` / `ext_raw` (under ``cfg.extensions`` only) as
+    theirs. Regions the
     plan puts in global memory, and the device-resource walks past their
     per-thread widths, get scratch of their own (``scratch_bytes``)."""
     global LAST_PLAN
-    scheduler.check_supported(cfg)
     if frozen:
-        _check_frozen(template, disabled, nominated, phase_cycles)
+        _check_frozen(template, disabled, nominated, phase_cycles, cfg)
     dev = active.device
     n_lanes, n_out = active.shape[0], p1 - p0
     check_weights(cfg, weights, n_lanes)
+    check_extension_rows(cfg, ext_ok, ext_raw, n_lanes, max(n_out, 0), arrs.alloc.shape[0])
     flags = _flags(cfg, state, template is not None)
     plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
     if n_out <= 0:
@@ -984,7 +1096,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         return _empty_outputs(arrs, cfg, n_lanes, dev)
     static = inputs if inputs is not None else {}
     args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
-                                 phase_cycles, disabled, nominated, frozen, static, weights)
+                                 phase_cycles, disabled, nominated, frozen, static, weights,
+                                 ext_ok, ext_raw)
     explain = explain_on(cfg)
     lib = _library(explain, needs_wide(arrs, cfg, flags))
     n_clusters = n_lanes * n_out if frozen else n_lanes
@@ -1006,14 +1119,105 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     keep = _scratch(args, arrs, cfg, flags, plan, n_clusters, dev, frozen)
     _fire(lib, args, plan, dev, "plain_step")
     del keep  # freed in stream order: the next use of the memory follows the launch
+    _count(plan, explain, frozen, weights is not None, bool(cfg.extensions))
+    LAST_PLAN = plan
+    return _outputs(tensors, cfg, n_lanes, n_out, dev)
+
+
+def _count(plan: LaunchPlan, explain: bool, frozen: bool, weights: bool, ext: bool) -> None:
+    """Count one launch of the scan or frozen builds in LAUNCHES."""
     LAUNCHES[("plain_step_frozen" if frozen else "plain_step")
              + ("_explain" if explain else "")] += 1
-    if weights is not None:
+    if weights:
         LAUNCHES["plain_step_weights"] += 1
     if plan.wide:
         LAUNCHES["plain_step_wide"] += 1
-    LAST_PLAN = plan
-    return _outputs(tensors, cfg, n_lanes, n_out, dev)
+    if ext:
+        LAUNCHES["plain_step_ext"] += 1
+
+
+# the StepArgs output pointers, in StepOutputs order
+_OUT_PTRS = ("out_node", "out_fail", "out_feasible", "out_gpu_pick", "out_vol_pick",
+             "out_topk_node", "out_topk_score", "out_topk_parts")
+
+
+def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
+                 state: SimState, cfg: EngineConfig, out: StepOutputs, p_base: int,
+                 disabled: Optional[torch.Tensor] = None,
+                 nominated: Optional[torch.Tensor] = None,
+                 weights: Optional[torch.Tensor] = None, inputs: Optional[dict] = None,
+                 plain: bool = False) -> Callable[..., None]:
+    """The step one pod at a time over the lanes of `state` (the carry,
+    updated in place, read by the extension callables between launches):
+    returns ``launch(p, ext_ok, ext_raw)``, which runs pod p with its
+    [S, 1, Ef, N] / [S, 1, Es, N] extension rows (None where the config
+    registers no extension of the kind) and writes its outputs into row
+    ``p - p_base`` of `out`, StepOutputs of [S, P'', ...] buffers. On the
+    card the StepArgs are built at the first pod and patched for each
+    later one (the pod, the rows, the output offsets), one kernel launch a
+    pod on the current stream; on the CPU, or with ``plain=True`` (the
+    yardstick on the card), the plain step."""
+    dev = active.device
+    n_lanes = active.shape[0]
+    if plain or dev.type == "cpu":
+        def launch_plain(p: int, ext_ok=None, ext_raw=None) -> None:
+            got = plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p, p + 1,
+                                   disabled=disabled, nominated=nominated, weights=weights,
+                                   ext_ok=ext_ok, ext_raw=ext_raw)
+            row = p - p_base
+            for i, (dst, src) in enumerate(zip(out, got)):
+                if i != 1 or cfg.fail_reasons:
+                    dst[:, row:row + 1] = src
+        return launch_plain
+    if dev.type != "cuda":
+        raise ValueError(f"no plain_step for device {dev}")
+    check_weights(cfg, weights, n_lanes)
+    flags = _flags(cfg, state, False)
+    plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
+    static = inputs if inputs is not None else {}
+    explain = explain_on(cfg)
+    lib = _library(explain, needs_wide(arrs, cfg, flags))
+    words = [math.prod(t.shape[2:]) for t in out]  # 4-byte words of a pod's row
+    built: Dict[str, object] = {}
+
+    def launch(p: int, ext_ok=None, ext_raw=None) -> None:
+        global LAST_PLAN
+        check_extension_rows(cfg, ext_ok, ext_raw, n_lanes, 1, arrs.alloc.shape[0])
+        ok = None if ext_ok is None else ext_ok.contiguous()
+        raw = None if ext_raw is None else ext_raw.contiguous()
+        if not built:
+            args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p, p + 1,
+                                         None, None, disabled, nominated, False, static,
+                                         weights, ok, raw, out=out)
+            with torch.cuda.device(dev):
+                key = (flags, n_lanes, False)
+                plan = static["plans"].get(key)
+                if plan is None:
+                    plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args))
+                    static["plans"][key] = plan
+                stream = torch.cuda.current_stream(dev).cuda_stream
+            _set_geometry(args, plan)
+            built.update(args=args, tensors=tensors, plan=plan, stream=stream,
+                         keep=_scratch(args, arrs, cfg, flags, plan, n_lanes, dev),
+                         base={f: getattr(args, f) for f in _OUT_PTRS})
+            if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
+                raise RuntimeError("plain_step: smem_bytes and the kernel's layout_of disagree")
+        args, plan = built["args"], built["plan"]
+        row = p - p_base
+        args.p0, args.p1 = p, p + 1
+        for f, w in zip(_OUT_PTRS, words):
+            b = built["base"][f]
+            setattr(args, f, None if b is None else b + 4 * w * row)
+        args.ext_ok = None if ok is None else ok.data_ptr()
+        args.ext_raw = None if raw is None else raw.data_ptr()
+        err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(built["stream"]))
+        if err:
+            raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
+        # (ok and raw are freed in stream order: their memory's next use
+        # follows this launch)
+        _count(plan, explain, False, weights is not None, bool(cfg.extensions))
+        LAST_PLAN = plan
+    return launch
 
 
 # ---- the fleet form: one cluster per lane, each lane its own cluster ------
@@ -1079,10 +1283,12 @@ def plain_step_fleet_cuda(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
     (``plan_launch`` over S lanes), the flags and the shape signature;
     the scan only (no columns, not frozen, no weight row)."""
     global LAST_PLAN
-    scheduler.check_supported(cfg)
     _check_fleet(lanes)
     if cfg.traced_weights:
         raise ValueError("plain_step_fleet: the fleet runs the config's own weights")
+    if cfg.extensions:
+        raise ValueError("plain_step_fleet: extension rows run one pod at a time "
+                         "(engine.exec_cache.run_fleet_batched runs each lane alone)")
     dev = lanes[0].active.device
     n_lanes, n_out = len(lanes), p1 - p0
     arrs0 = lanes[0].arrs

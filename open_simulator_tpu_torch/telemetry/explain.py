@@ -218,7 +218,8 @@ def run_explain(config_path: str, default_scheduler_config: str = "",
     """Load a simon/v1alpha1 config, simulate once on `device` (None = the
     card; "cpu" runs the plain torch step) with per-op failure accounting
     AND top-k score recording on, and return the report. (The CLI surface
-    behind ``explain``.) A KubeSchedulerConfiguration is not ported yet."""
+    behind ``explain``.) A KubeSchedulerConfiguration file's overrides go
+    under explain's own, as in the reference."""
     import os
 
     from open_simulator_tpu_torch.api.v1alpha1 import load_config
@@ -228,10 +229,6 @@ def run_explain(config_path: str, default_scheduler_config: str = "",
     )
     from open_simulator_tpu_torch.core import simulate
 
-    if default_scheduler_config:
-        raise NotImplementedError(
-            "--default-scheduler-config is not ported yet (ROADMAP queue 1, item 15)")
-
     config = load_config(config_path)
     base_dir = os.path.dirname(os.path.abspath(config_path))
     config.validate(base_dir)
@@ -239,6 +236,10 @@ def run_explain(config_path: str, default_scheduler_config: str = "",
     apps = build_apps_from_config(config, base_dir)
     overrides: Dict[str, Any] = {"fail_reasons": True,
                                  "explain_topk": max(0, int(top_k))}
+    if default_scheduler_config:
+        from open_simulator_tpu_torch.engine.sched_config import weight_overrides_from_file
+
+        overrides = {**weight_overrides_from_file(default_scheduler_config), **overrides}
     result = simulate(cluster, apps, use_greed=use_greed,
                       config_overrides=overrides, device=device)
     return explain_result(result, top_k=top_k or None, pods=pods)

@@ -698,3 +698,60 @@ def many_domain_snapshot(n_nodes: int, n_pods: int, domains: int, affinity: bool
 
     nodes, pods = many_domain_objects(n_nodes, n_pods, domains, affinity)
     return encode_cluster([make_valid_node(n) for n in nodes], pods)
+
+
+def synthetic_extensions():
+    """Five torch extension ops (``engine/extensions.ExtensionOp``) that
+    cover every kind between them, for the card's smoke run and the
+    tests: a filter of the arrays only (the reference's even-index
+    example), a filter of the pod slice (a rotating fifth of the nodes
+    refused by ``_pod_index``), a "minmax" score of the arrays (the
+    node's allocatable CPU, weight 2), a "max" score of the carry (the
+    node's free CPU fraction from ``state.headroom``, weight 3: a pod run
+    against the wrong carry places differently) and a "none" score (a
+    fixed 0..60 pattern, weight 0.5)."""
+    import torch
+
+    from open_simulator_tpu_torch.engine.extensions import ExtensionOp
+
+    def iota(arrs):
+        return torch.arange(arrs.alloc.shape[0], device=arrs.alloc.device)
+
+    return (
+        ExtensionOp(name="node(s) rejected by the even-index policy",
+                    filter_fn=lambda state, arrs, x: iota(arrs) % 2 == 0),
+        ExtensionOp(name="node(s) rejected by the rotation policy",
+                    filter_fn=lambda state, arrs, x: (iota(arrs) + x["_pod_index"]) % 5 != 0),
+        ExtensionOp(name="prefer-large-nodes", normalize="minmax", weight=2.0,
+                    score_fn=lambda state, arrs, x: arrs.alloc[:, 0]),
+        ExtensionOp(name="prefer-free-cpu", normalize="max", weight=3.0,
+                    score_fn=lambda state, arrs, x: (
+                        state.headroom[:, 0] / torch.clamp_min(arrs.alloc[:, 0], 1.0))),
+        ExtensionOp(name="fixed-pattern", weight=0.5,
+                    score_fn=lambda state, arrs, x: (iota(arrs) % 7).to(torch.float32) * 10.0),
+    )
+
+
+def random_extension_rows(cfg, n_lanes: int, n_pods: int, n_nodes: int, seed: int = 0,
+                          nan: bool = False):
+    """Seeded extension rows for a launch of `n_pods` pods over `n_lanes`
+    lanes under `cfg.extensions` (CPU tensors): ``ext_ok`` [S, P, Ef, N]
+    bool (about one node in eight refused per row) and ``ext_raw``
+    [S, P, Es, N] f32 (small integers and halves, so ties occur, negative
+    ones among them); with `nan`, a NaN at one node of the first score
+    row for every third pod. Either is None where no extension of its
+    kind is registered."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    n_f = sum(1 for e in cfg.extensions if e.filter_fn is not None)
+    n_s = sum(1 for e in cfg.extensions if e.score_fn is not None)
+    ok = raw = None
+    if n_f:
+        ok = torch.from_numpy(rng.rand(n_lanes, n_pods, n_f, n_nodes) >= 0.125)
+    if n_s:
+        vals = (rng.randint(-8, 40, (n_lanes, n_pods, n_s, n_nodes)) / 2.0).astype(np.float32)
+        if nan:
+            vals[:, ::3, 0, rng.randint(n_nodes)] = np.nan
+        raw = torch.from_numpy(vals)
+    return ok, raw

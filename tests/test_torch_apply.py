@@ -126,7 +126,7 @@ def test_bad_config_exits_1_with_the_reference_message(tmp_path, capsys):
     assert err == err_ref and "expected apiVersion simon/v1alpha1" in err
 
 
-@pytest.mark.parametrize("flag", [["-i"], ["--default-scheduler-config", "x.yaml"],
+@pytest.mark.parametrize("flag", [["-i"],
                                   ["--compile-cache-dir", "c"], ["--resume", "last"],
                                   ["--trace-out", "t.json"], ["--ledger-dir", "l"]])
 def test_unported_options_name_their_item(flag, capsys):

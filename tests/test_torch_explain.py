@@ -28,7 +28,6 @@ from __future__ import annotations
 import copy
 import json
 import textwrap
-import types
 
 import jax
 import jax.numpy as jnp
@@ -536,8 +535,7 @@ def test_explain_cli_prints_the_reference_report(flags, tmp_path, capsys):
     assert out_file.read_text() == port_out
 
 
-@pytest.mark.parametrize("flag,item", [("--default-scheduler-config", "item 15"),
-                                       ("--trace-out", "item 11")])
+@pytest.mark.parametrize("flag,item", [("--trace-out", "item 11")])
 def test_explain_cli_refuses_unported_options(flag, item, tmp_path, capsys):
     config = str(tp.EXAMPLES) + "/config.yaml"
     assert port_main(["explain", "-f", config, "--device", "cpu", flag,
@@ -552,12 +550,3 @@ def test_explain_cli_needs_the_card_without_device(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_main(["explain", "-f", str(tp.EXAMPLES) + "/config.yaml"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
-
-
-def test_extension_ops_are_still_refused():
-    snap = jsynthetic(8, 16, 0)
-    ext = types.SimpleNamespace(name="ext", filter_fn=None, score_fn=None)
-    cfg = tsched.make_config(tp.port_snapshot(snap), extensions=(ext,))
-    with pytest.raises(NotImplementedError, match="EngineConfig.extensions .*ROADMAP"):
-        tsched.schedule_pods(tp.port_snapshot(snap).arrays, snap.arrays.active, cfg,
-                             device="cpu")

@@ -22,7 +22,10 @@ plain merge (``kernels/wave.py``), on pools clusters the wave planner
 batches, and a wave run through ``schedule_pods``; the per-lane weight
 row (the traced weights) through the four scan builds and the four frozen
 builds, a different row in each lane, one all zeros, and through
-``schedule_lanes``. Without CUDA they skip
+``schedule_lanes``; the extension rows (seeded masks and raw scores, a
+NaN among them) through the 16 scan builds and the wide library, the
+"max" row's edges, and the per-pod loop of ``schedule_lanes`` with torch
+extension ops against the CPU's. Without CUDA they skip
 with the reason; the binding checks and the launch plan's tests (cluster
 size, block size, node slices, shared-memory accounting) run everywhere.
 """
@@ -1397,3 +1400,186 @@ def test_regions_in_global_memory_equal_plain_on_card(cuda_device, region, monke
     out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, 40, 48, frozen=True)
     torch.cuda.synchronize()
     _assert_runs_equal([(out_k, st_k), (out_p, st_p)])
+
+
+# ---- the extension rows -------------------------------------------------------
+
+
+def _ext_cfg(snap, **over):
+    from open_simulator_tpu_torch.testing.synthetic import synthetic_extensions
+
+    return sched.make_config(snap, extensions=synthetic_extensions(), **over)
+
+
+def test_extension_rows_are_checked_before_a_launch():
+    """The rows come exactly with the config's extensions, in their
+    shapes, and never into the frozen form or the fleet."""
+    from open_simulator_tpu_torch.testing.synthetic import random_extension_rows
+
+    snap = synthetic_snapshot(16, 24)
+    cfg = _ext_cfg(snap)
+    rows = step.extension_rows(cfg)
+    assert (len(rows.filters), len(rows.scores), rows.ered) == (2, 3, 3)
+    assert cfg.n_ops == sched.make_config(snap).n_ops + 2
+    ok, raw = random_extension_rows(cfg, 1, 4, 16)
+    step.check_extension_rows(cfg, ok, raw, 1, 4, 16)
+    for bad_ok, bad_raw in ((None, raw), (ok, None), (ok[:, :2], raw), (ok, raw.double())):
+        with pytest.raises(ValueError, match="ext_"):
+            step.check_extension_rows(cfg, bad_ok, bad_raw, 1, 4, 16)
+    with pytest.raises(ValueError, match="no such extension"):
+        step.check_extension_rows(sched.make_config(snap), ok, None, 1, 4, 16)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    st = sched.lane_carry(sched.init_state(arrs, cfg), 1)
+    with pytest.raises(ValueError, match="frozen wave form takes no extension"):
+        step.plain_step_torch(arrs, torch.ones((1, 16), dtype=torch.bool),
+                              sched.hoist_of(arrs, torch.ones((1, 16), dtype=torch.bool)),
+                              sched.inv_alloc_of(arrs.alloc), st, cfg, 0, 4, frozen=True)
+    w = step.smem_widths(arrs, cfg, step._flags(cfg, st, False))
+    assert w.ext == 3 * 3 + 3 * 3
+    flags = step._flags(cfg, st, False)
+    assert w.rows == step.smem_widths(arrs, sched.make_config(snap), flags).rows + 4
+
+
+def test_extension_layout_is_in_the_kernel_source():
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    assert "w += 3 * a.ered + 3 * a.es + (a.es + (a.ef ? 1 : 0)) * a.sl;" in src
+    assert "constexpr bool kExt = !kFrozen && !kFleet;" in src
+    assert step.EXT_NORMALIZE == {"none": 0, "minmax": 1, "max": 2}
+
+
+EXT_CASES = {"<0,0>": lambda: synthetic_snapshot(96, 160, bound=0.2),
+             "<1,0>": lambda: synthetic_snapshot(96, 160, rich=True, bound=0.2),
+             "<0,1>": lambda: device_resource_snapshot(96, 200),
+             "<1,1>": lambda: device_resource_snapshot(96, 200, rich=True)}
+
+
+def _assert_ext_runs_equal(runs):
+    """Every output and carry field equal, a NaN score where the other
+    side has one (a NaN candidate's top-k score)."""
+    (out_k, st_k), (out_p, st_p) = runs
+    pairs = list(zip(step.StepOutputs._fields, out_k, out_p)) + [
+        (f, getattr(st_k, f), getattr(st_p, f)) for f in sched.STATE_FIELDS]
+    for name, a, b in pairs:
+        if a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan()), name
+            a, b = a.nan_to_num(0.0), b.nan_to_num(0.0)
+        assert torch.equal(a, b), name
+
+
+def _ext_runs(snap, cfg, device, n_lanes=2, columns=False, nan=False, seed=0):
+    """The kernel and the plain step over every pod with the same seeded
+    extension rows (one launch, P' pods), from a template carry."""
+    from open_simulator_tpu_torch.testing.synthetic import random_extension_rows
+
+    arrs = sched.device_arrays(snap.arrays, device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0, np.arange(n) % 4 != 1])[:n_lanes]
+    active = torch.from_numpy(masks).to(device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    p0 = cfg.forced_prefix
+    if p0:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, p0)
+    ok, raw = random_extension_rows(cfg, n_lanes, snap.n_pods - p0, n, seed=seed, nan=nan)
+    kw = dict(ext_ok=None if ok is None else ok.to(device),
+              ext_raw=None if raw is None else raw.to(device))
+    if columns:
+        dis, nom = preemption_columns(snap.arrays.forced_node, masks[0], seed=seed)
+        kw.update(disabled=torch.from_numpy(dis).to(device),
+                  nominated=torch.from_numpy(nom.astype(np.int32)).to(device))
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, n_lanes)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, p0, snap.n_pods, template=tmpl, **kw)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXT_CASES))
+@pytest.mark.parametrize("columns", [False, True])
+@pytest.mark.parametrize("explain", [False, True])
+def test_extension_rows_equal_plain_step_on_card(cuda_device, case, columns, explain):
+    """Each of the 16 builds the extension rows reach (<I,D>, +columns,
+    +explain), two lanes, seeded rows over every pod in one launch, a NaN
+    score every third pod: every output (the explain parts with the
+    extension rows among them) and carry field equal the plain step's."""
+    snap = EXT_CASES[case]()
+    over = dict(explain_topk=3, tie_break_seed=5) if explain else {}
+    cfg = _ext_cfg(snap, **over)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    want = case + ("+columns" if columns else "") + ("+explain" if explain else "")
+    assert step.instantiation(cfg, sched.init_state(arrs, cfg), columns=columns) == want
+    before = dict(step.LAUNCHES)
+    runs = _ext_runs(snap, cfg, cuda_device, columns=columns, nan=True)
+    _assert_ext_runs_equal(runs)
+    out = runs[0][0]
+    n_ops = cfg.n_ops
+    assert out.fail_counts[..., n_ops - 2:].sum() > 0  # the extension reason rows
+    assert (out.node == -1).any() and (out.node >= 0).any()  # the NaN pods stay unbound
+    assert step.LAUNCHES["plain_step_ext"] == before["plain_step_ext"] + 1
+    if explain:
+        assert out.topk_parts.shape[2] == len(sched.score_part_names(cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rich", [False, True])
+def test_extension_rows_in_the_wide_library_on_card(cuda_device, rich):
+    """The wide library's scan builds with the extension rows: walks past
+    their widths, equal to the plain step."""
+    snap = _wide_devres(rich)
+    cfg = _ext_cfg(snap)
+    before = dict(step.LAUNCHES)
+    _assert_runs_equal(_ext_runs(snap, cfg, cuda_device, seed=3))
+    assert step.LAUNCHES["plain_step_wide"] == before["plain_step_wide"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["<0,0>", "<1,1>"])
+def test_max_row_edges_on_card(cuda_device, case):
+    """The "max" row's zero fill, on three pods of one launch: every node
+    feasible, a single node feasible (its minimum takes the other nodes'
+    0), and every raw score negative (the maximum is the fill's 0)."""
+    snap = EXT_CASES[case]()
+    cfg = _ext_cfg(snap)
+    n = snap.n_nodes
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.ones((1, n), dtype=torch.bool, device=cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    ok = torch.ones((1, 3, 2, n), dtype=torch.bool)
+    ok[0, 1, 0] = False
+    ok[0, 1, 0, 7] = True
+    raw = torch.arange(n, dtype=torch.float32).repeat(1, 3, 3, 1) / 4.0
+    raw[0, 2, 1] = -raw[0, 2, 1] - 1.0
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, 1)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, 0, 3, template=tmpl,
+                  ext_ok=ok.to(cuda_device), ext_raw=raw.to(cuda_device))
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    _assert_runs_equal(runs)
+    assert runs[0][0].feasible[0, 1] <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["<0,0>", "<1,0>", "<0,1>"])
+def test_schedule_lanes_with_extensions_on_card_equals_cpu(cuda_device, case):
+    """The per-pod loop: the torch extension ops evaluated against the
+    live carry on the card (one kernel launch a pod) give the CPU loop's
+    outputs and carry on three lanes, and launch once a pod."""
+    snap = EXT_CASES[case]()
+    cfg = _ext_cfg(snap, explain_topk=2)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0, np.arange(n) % 4 != 1])
+    before = dict(step.LAUNCHES)
+    got = sched.schedule_lanes(snap.arrays, masks, cfg, device="cuda")
+    torch.cuda.synchronize()
+    assert step.LAUNCHES["plain_step_ext"] - before["plain_step_ext"] == snap.n_pods
+    want = sched.schedule_lanes(snap.arrays, masks, cfg, device="cpu")
+    for name in step.StepOutputs._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(got.state, f).cpu(), getattr(want.state, f)), f

@@ -10,7 +10,6 @@ import os
 import pkgutil
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -205,32 +204,6 @@ def test_simulate_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tsched.resolve_device(None)
     assert tsched.resolve_device("cpu").type == "cpu"
-
-
-# out-of-tree extension ops (the reference's engine/extensions.ExtensionOp
-# shape: a name, an optional filter_fn and an optional score_fn)
-_FILTER_EXT = types.SimpleNamespace(name="ext-filter", filter_fn=lambda *a: None, score_fn=None,
-                                    normalize="none", weight=1.0)
-_SCORE_EXT = types.SimpleNamespace(name="ext-score", filter_fn=None, score_fn=lambda *a: None,
-                                   normalize="minmax", weight=1.0)
-
-
-@pytest.mark.parametrize("override", [
-    dict(extensions=(_FILTER_EXT,)), dict(extensions=(_SCORE_EXT,)),
-    dict(extensions=(_FILTER_EXT, _SCORE_EXT)),
-])
-def test_every_unported_gate_raises(override):
-    snap = synthetic_snapshot(8, 16)
-    cfg = tsched.make_config(snap, **override)
-    gate = next(iter(override))
-    with pytest.raises(NotImplementedError, match=f"EngineConfig.{gate} .*ROADMAP"):
-        tsched.schedule_pods(snap.arrays, snap.arrays.active, cfg, device="cpu")
-
-
-def test_only_the_remaining_engine_modes_are_refused():
-    """After the tuning slice, the gate still to port is the extension
-    ops (ROADMAP queue 1, item 7)."""
-    assert [g for g, _ in tsched._UNSUPPORTED] == ["extensions"]
 
 
 def test_make_config_turns_waves_off(monkeypatch):

@@ -98,7 +98,7 @@ def main(argv=None) -> int:
             nodes, inputs = {}, {"other": {}, "this": {}}
             for _ in range(args.rounds):
                 for name in ("other", "this", "this", "other"):
-                    step._library = lambda explain=False, lib=libs[name]: lib
+                    step._library = lambda explain=False, wide=False, lib=libs[name]: lib
                     carry = sched.lane_carry(tmpl, len(masks_np))
                     step.copy_template(carry, tmpl)
                     ev0 = torch.cuda.Event(enable_timing=True)
