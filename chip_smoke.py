@@ -57,7 +57,10 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    constraints (``plain_step<1,1>``, four times ``EARLIER_DEPTH``); the explain builds of both
    device-resource instantiations (the top-k and the seeded jitter on
    1,024 x 2,048 without and with the inter-pod
-   constraints); the preemption columns (random
+   constraints); the top-k's passes in each scan build's explain twin
+   (K = 1, the pass width ``kernels/step.TOPK_PASS``, one past it and past
+   two passes, over the first ``EARLIER_DEPTH // 4`` pods of the four
+   <I,D> inputs; K = N on 3 nodes); the preemption columns (random
    victims and nominations from a seed, among them inactive nodes, forced
    pods, victims, -1 and out-of-range values) on a 512 x 1,024 input of
    each of the four instantiations (their "+columns" builds, then their
@@ -205,7 +208,7 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
    lane 63 put them; devres: the cluster's own nodeName prefix; one
-   ``forced_fold`` launch sequence a chunk) timed beside its plain version
+   ``forced_fold`` launch pair a chunk) timed beside its plain version
    and its torch.matmul calls and held equal to the kernel's carry after
    those pods; the kernel against
    the plain step over the first ``PARITY_PREFIX`` pods of lanes 0 and 63;
@@ -236,6 +239,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -250,8 +254,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # pods of the main paths' kernel-vs-plain comparison (the plain step costs
 # milliseconds a pod on the card; 2,048 until the tuning paths were added,
-# 1,024 until the fleet path was, 512 until the extension paths were)
-PARITY_PREFIX = 256
+# 1,024 until the fleet path was, 512 until the extension paths were, 256
+# until a run on a slow host took 1,286 s)
+PARITY_PREFIX = 128
 # the capacity phase: the reference bench's north-star sweep (64 lanes,
 # 64 new-node slots) and the count its bisection is set to find
 CAPACITY_LANES = 64
@@ -286,15 +291,15 @@ PRIME_MS = 10
 PREEMPTORS, SYSTEM_CPU = 4, "12"
 # the depth (pods) of the parity inputs of phase 3 and of the tuning and
 # frontier paths, cut so that the later paths fit the time limit (1,024,
-# then 512, then 256, then 128): the 4-lane group_count input, the
+# then 512, then 256, then 128, then 64): the 4-lane group_count input, the
 # explain and geometry inputs and the tuning and frontier lanes at this
-# depth; the rich 1,024-node, dense rich, group_count and column inputs
-# at twice it; the dom_count, devres-rich (<1,1>) and rich 4-lane inputs
-# at four times (the rich 4-lane input at 512 pods and the column inputs
-# at 256, as before the cut to 128: their checks that the lanes place pods
-# differently and that nominations hold need that depth); the 4-lane
-# device-resource input at half
-EARLIER_DEPTH = 128
+# depth; the rich 1,024-node, dense rich and group_count inputs at twice
+# it; the dom_count and devres-rich (<1,1>) inputs at four times; the
+# column inputs at four times and the rich 4-lane input at eight (256 and
+# 512 pods, as before the cut to 128: their checks that nominations hold
+# and that the lanes place pods differently need that depth); the 4-lane
+# device-resource input at half; the top-k's pass inputs at a quarter
+EARLIER_DEPTH = 64
 # explain: the candidates recorded per pod, and the tie-break seed of the
 # northstar-tiebreak path
 EXPLAIN_K, TIE_SEED = 3, 7
@@ -898,7 +903,7 @@ def main_path(torch, sched, step, simulate, cluster_of, label, kind):
     rich = kind == "rich"
     t0 = time.perf_counter()
     cluster = cluster_of(kind)
-    log(f"main path {label}: cluster objects built in {time.perf_counter() - t0:.1f}s")
+    log(f"main path {label}: cluster objects ready in {time.perf_counter() - t0:.1f}s")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1260,23 +1265,24 @@ def session_path(torch, step, Simulator, label, reference):
             "walls_s": walls, "victims": len(victims)}
 
 
-def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind, keep=None):
+def capacity_path(torch, sched, step, sweep, built, label, kind, keep=None):
     """The reference's capacity-sweep preset at full width: 5,120 nodes x
     51,200 pods with 64 new-node slots, 64 lanes (counts min(i % 65, 64))
     in one ``capacity_sweep`` launch; then the launch timed alone, lane
     independence, the kernel against the plain step on two lanes, and the
-    bisection against the sweep."""
+    bisection against the sweep. `built` is (the snapshot, the seconds it
+    took to encode beside the kernel build)."""
     import numpy as np
 
     t_phase = time.perf_counter()
-    snap = snapshot_of(kind)
+    snap, built_s = built
     if keep is not None:
         keep["snapshot"] = snap  # the extension sweep reuses it
     cfg = sched.make_config(snap)
     n_pods = snap.n_pods
     counts = [min(i % (CAPACITY_LANES + 1), CAPACITY_LANES) for i in range(CAPACITY_LANES)]
     log(f"capacity {label}: snapshot {snap.n_real_nodes}+{snap.n_nodes - snap.n_real_nodes} "
-        f"nodes x {n_pods} pods built in {time.perf_counter() - t_phase:.1f}s")
+        f"nodes x {n_pods} pods built in {built_s:.1f}s (beside the kernel build)")
 
     # the main path: one capacity_sweep, counts read just after
     reset_counts()
@@ -1405,7 +1411,7 @@ def capacity_path(torch, sched, step, sweep, snapshot_of, label, kind, keep=None
     log(f"capacity {label}: hoist_active_stats over {CAPACITY_LANES} lanes {hoist_ms:.3f} ms, "
         f"bound {hoist_b[2]:.4f} ms ({hoist_b[3]}: bytes={hoist_b[0]} ops={hoist_b[1]}); "
         f"apply_forced_prefix of {n_fold} pods {fold_ms:.3f} ms ({fold_launches} forced_fold "
-        f"launch sequence(s); the device alone, the stream primed: {fold_dev_ms:.3f} ms), the "
+        f"launch pair(s); the device alone, the stream primed: {fold_dev_ms:.3f} ms), the "
         f"plain merge's fold {fold_plain_ms:.3f} ms, its torch.matmul calls alone {mm_ms:.3f} ms "
         f"(primed {mm_dev_ms:.3f} ms), bound {fold_b[2]:.5f} ms ({fold_b[3]}: bytes={fold_b[0]} "
         f"ops={fold_b[1]}); the folds equal the kernel's carry after those pods")
@@ -2465,15 +2471,15 @@ class ReplayProbe:
                 self.first_scan = (arrs, active, hoist, inv, cfg, template)
             return out
 
-        def forced_fold(arrs, cfg, state, p0, p1, nodes, inputs=None):
+        def forced_fold(arrs, cfg, state, p0, p1, nodes, out=None, mask=None):
             before = clone_state(sched, state) if self.check_folds else None
             ev = self._events()
-            real_fold(arrs, cfg, state, p0, p1, nodes, inputs)
+            real_fold(arrs, cfg, state, p0, p1, nodes, out, mask)
             ev[1].record()
             self.folds.append(ev)
             if before is not None:
-                wave.forced_fold_torch(arrs, cfg, before, p0, p1, nodes)
-                equal, err = compare(torch, [], [], state, before)
+                wave.forced_fold_torch(arrs, cfg, before, p0, p1, nodes, mask=mask)
+                equal, err = compare(torch, [], [], out if out is not None else state, before)
                 self.fold_checks += 1
                 self.fold_bad += not equal
                 self.fold_err = max(self.fold_err, err)
@@ -2628,7 +2634,7 @@ def replay_path(torch, sched, step, wave, replay_mod, rengine, label):
     fold_b = bound_of(fold_work(host, cfg_m, nodes.cpu().numpy()))
     log(f"{label}: one step's whole-mask fold ({int(mask.sum())} pinned pods of "
         f"{mask.shape[0]}, {n_nodes} nodes): forced_fold {fold_ms:.3f} ms ({fold_launches} "
-        f"launch sequence(s), {chunks} chunk(s); the device alone, the stream primed: "
+        f"launch pair(s), {chunks} chunk(s); the device alone, the stream primed: "
         f"{fold_dev_ms:.3f} ms), the plain version {fold_plain_ms:.3f} ms, its torch.matmul "
         f"calls alone {mm_ms:.3f} ms (primed {mm_dev_ms:.3f} ms), bound {fold_b[2]:.5f} ms ({fold_b[3]}: "
         f"bytes={fold_b[0]} ops={fold_b[1]}); kernel and plain equal: {fold_eq}")
@@ -3672,10 +3678,45 @@ def main() -> int:
     print(card_line(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {dev_name}")
 
-    # ---- 2. build
+    def snapshot_of(kind):
+        if kind == "devres":
+            return device_resource_snapshot(NODES, PODS, max_new=CAPACITY_LANES)
+        return synthetic_snapshot(NODES, PODS, max_new=CAPACITY_LANES, rich=kind == "rich")
+
+    def cluster_of(kind):
+        if kind == "devres":
+            return device_resource_cluster(NODES, PODS)
+        nodes, pods, _ = synthetic_objects(NODES, PODS, rich=kind == "rich")
+        return ClusterResources(nodes=nodes, pods=pods)
+
+    # ---- 2. build: every library's nvcc started together in a thread,
+    # while the host encodes what needs no kernel on the cores nvcc leaves
+    # idle: the capacity paths' three snapshots (phase 5 takes them), the
+    # first inputs of phase 3 and the main paths' cluster objects
     t0 = time.perf_counter()
-    build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f}s for {build.kernel_names()}")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        built = pool.submit(build.build_all)
+        capacity_snaps = {}
+        for _, kind in PATHS:
+            t_s = time.perf_counter()
+            capacity_snaps[kind] = (snapshot_of(kind), time.perf_counter() - t_s)
+        nd, pd = soft_spread_cluster(512, 4096)
+        early = dict(
+            a=synthetic_snapshot(1024, 10240, rich=False, bound=0.1),
+            b=encode_cluster([make_valid_node(Node.from_dict(x)) for x in nd],
+                             [Pod.from_dict(x) for x in pd]),
+            r=synthetic_snapshot(1024, 10240, rich=True, bound=0.1),
+            d=synthetic_snapshot(512, 4096, rich=True),
+            l=synthetic_snapshot(512, 1024, rich=True),
+            g=device_resource_snapshot(1024, 10240, max_new=8),
+            x=device_resource_snapshot(1024, 2048, rich=True))
+        del nd, pd
+        main_clusters = {kind: cluster_of(kind) for _, kind in PATHS}
+        host_s = time.perf_counter() - t0
+        built.result()  # a failed build raises here
+    log(f"build: {time.perf_counter() - t0:.1f}s for {build.kernel_names()} (the host encoded "
+        f"the capacity snapshots, phase 3's first inputs and the main paths' clusters "
+        f"beside it in {host_s:.1f}s)")
     for name, text in build.BUILD_LOG.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
@@ -3696,7 +3737,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain on the card
     errs = []
-    snap_a = synthetic_snapshot(1024, 10240, rich=False, bound=0.1)
+    snap_a = early["a"]
     cfg_a = sched.make_config(snap_a)
     if not (cfg_a.maintain_dom_count
             and (snap_a.arrays.forced_node[cfg_a.forced_prefix:] >= 0).any()):
@@ -3704,9 +3745,7 @@ def main() -> int:
     errs.append(parity(torch, sched, step, "synthetic-1024x10240-dom_count",
                        snap_a.arrays, cfg_a, snap_a.arrays.active, n_pods=4 * EARLIER_DEPTH)[2])
 
-    nd, pd = soft_spread_cluster(512, 4096)
-    snap_b = encode_cluster([make_valid_node(Node.from_dict(x)) for x in nd],
-                            [Pod.from_dict(x) for x in pd])
+    snap_b = early["b"]
     cfg_b = sched.make_config(snap_b)
     if not (cfg_b.needs_group_count and cfg_b.compact_carry and cfg_b.forced_prefix
             and cfg_b.enable_ports and cfg_b.enable_unsched and cfg_b.enable_class_taint):
@@ -3721,7 +3760,7 @@ def main() -> int:
     errs.append(parity(torch, sched, step, "inline-512x4096-4-lanes",
                        snap_b.arrays, cfg_b, lanes, n_pods=EARLIER_DEPTH)[2])
 
-    snap_r = synthetic_snapshot(1024, 10240, rich=True, bound=0.1)
+    snap_r = early["r"]
     cfg_r = sched.make_config(snap_r)
     if not (cfg_r.enable_pod_affinity and cfg_r.enable_anti_affinity and cfg_r.enable_pref
             and cfg_r.enable_spread_hard and cfg_r.slot_paint and cfg_r.compact_carry):
@@ -3729,25 +3768,25 @@ def main() -> int:
     errs.append(parity(torch, sched, step, "rich-1024x10240-bound0.1",
                        snap_r.arrays, cfg_r, snap_r.arrays.active, n_pods=2 * EARLIER_DEPTH)[2])
 
-    snap_d = synthetic_snapshot(512, 4096, rich=True)
+    snap_d = early["d"]
     cfg_d = sched.make_config(snap_d, slot_paint=False)
     errs.append(parity(torch, sched, step, "rich-512x4096-dense",
                        snap_d.arrays, cfg_d, snap_d.arrays.active, n_pods=2 * EARLIER_DEPTH)[2])
 
-    snap_l = synthetic_snapshot(512, 1024, rich=True)
+    snap_l = early["l"]
     cfg_l = sched.make_config(snap_l)
     n_l = snap_l.n_nodes
     lanes_l = np.stack([np.ones(n_l, bool), np.arange(n_l) % 3 != 2,
                         np.arange(n_l) < (3 * n_l) // 4, rng.rand(n_l) < 0.7])
     out_l = parity(torch, sched, step, "rich-512x1024-4-lanes",
-                   snap_l.arrays, cfg_l, lanes_l, n_pods=4 * EARLIER_DEPTH)
+                   snap_l.arrays, cfg_l, lanes_l, n_pods=8 * EARLIER_DEPTH)
     errs.append(out_l[2])
     if len({tuple(row.tolist()) for row in out_l[3][0].cpu()}) != 4:
         raise SystemExit("rich 4-lane launch: the lanes did not place pods differently")
 
     # the device-resource cluster with mid-sequence pods bound by nodeName
     # that carry pinned GPUs, as one launch of 4 lanes over 8 GPU slots
-    snap_g = device_resource_snapshot(1024, 10240, max_new=8)
+    snap_g = early["g"]
     cfg_g = sched.make_config(snap_g)
     if not (all(getattr(cfg_g, g) for g in DEVRES_GATES) and cfg_g.forced_prefix
             and (snap_g.arrays.forced_node[cfg_g.forced_prefix:] >= 0).any()):
@@ -3760,7 +3799,7 @@ def main() -> int:
 
     # plain_step<1,1>: the device-resource cluster with the inter-pod
     # constraints (every gate of both slices)
-    snap_x = device_resource_snapshot(1024, 2048, rich=True)
+    snap_x = early.pop("x")
     cfg_x = sched.make_config(snap_x)
     arrs_x = sched.device_arrays(snap_x.arrays, torch.device("cuda"))
     if not (step.instantiation(cfg_x, sched.init_state(arrs_x, cfg_x)) == "<1,1>"
@@ -3790,6 +3829,21 @@ def main() -> int:
         errs.append(parity(torch, sched, step, f"explain-devres-1024x2048-{inst}", snap_v.arrays,
                            cfg_v, snap_v.arrays.active, n_pods=EARLIER_DEPTH)[2])
 
+    # the top-k's passes (kernels/step.TOPK_PASS candidates a cluster
+    # round) in each scan build's explain twin: K = 1, the pass width, one
+    # past it and past two passes, over the first EARLIER_DEPTH // 4 pods;
+    # K = N on three nodes
+    for inst, snap_k in (("<0,0>", snap_a), ("<1,0>", snap_r),
+                         ("<0,1>", device_resource_snapshot(1024, 2048)), ("<1,1>", snap_x)):
+        for k in (1, step.TOPK_PASS, step.TOPK_PASS + 1, 2 * step.TOPK_PASS + 1):
+            errs.append(parity(torch, sched, step, f"topk-{k}-{inst}+explain", snap_k.arrays,
+                               sched.make_config(snap_k, explain_topk=k), snap_k.arrays.active,
+                               n_pods=EARLIER_DEPTH // 4)[2])
+    snap_t = synthetic_snapshot(3, 64, rich=True)
+    errs.append(parity(torch, sched, step, "topk-N-tiny-3-nodes-<1,0>+explain", snap_t.arrays,
+                       sched.make_config(snap_t, explain_topk=snap_t.n_nodes),
+                       snap_t.arrays.active)[2])
+
     # the preemption columns in each instantiation: random victims and
     # nominations (feasible and inactive nodes, forced pods, victims, -1,
     # negative and past-the-end values) from a seed, no prefix fold
@@ -3807,7 +3861,7 @@ def main() -> int:
         active_c = np.arange(snap_c.n_nodes) % 9 != 4
         cols = preemption_columns(snap_c.arrays.forced_node, active_c, seed=seed)
         out_c = parity(torch, sched, step, f"columns-{inst}-512x1024", snap_c.arrays, cfg_c,
-                       active_c, n_pods=2 * EARLIER_DEPTH, columns=cols)
+                       active_c, n_pods=4 * EARLIER_DEPTH, columns=cols)
         errs.append(out_c[2])
         node_c = out_c[3][0][0].cpu().numpy()
         dis_c, nom_c = cols[0][:len(node_c)], cols[1][:len(node_c)]
@@ -3817,7 +3871,7 @@ def main() -> int:
         # the same columns through the column build's explain twin
         cfg_cx = cfg_c._replace(explain_topk=EXPLAIN_K, tie_break_seed=seed + 1)
         errs.append(parity(torch, sched, step, f"columns-{inst}+explain-512x1024", snap_c.arrays,
-                           cfg_cx, active_c, n_pods=2 * EARLIER_DEPTH, columns=cols)[2])
+                           cfg_cx, active_c, n_pods=4 * EARLIER_DEPTH, columns=cols)[2])
 
     # the edges of the launch geometry: fewer nodes than blocks in a
     # cluster (empty slices), slices that leave a ragged last block, and an
@@ -3910,20 +3964,10 @@ def main() -> int:
     errs += [v["max_abs_err"] for v in ext_par.values()]
 
     # ---- 4. the main paths: simulate() at full size, through the kernel
-    def cluster_of(kind):
-        if kind == "devres":
-            return device_resource_cluster(NODES, PODS)
-        nodes, pods, _ = synthetic_objects(NODES, PODS, rich=kind == "rich")
-        return ClusterResources(nodes=nodes, pods=pods)
-
-    def snapshot_of(kind):
-        if kind == "devres":
-            return device_resource_snapshot(NODES, PODS, max_new=CAPACITY_LANES)
-        return synthetic_snapshot(NODES, PODS, max_new=CAPACITY_LANES, rich=kind == "rich")
-
     paths = {}
     for label, kind in PATHS:
-        paths[label] = main_path(torch, sched, step, simulate, cluster_of, label, kind)
+        paths[label] = main_path(torch, sched, step, simulate,
+                                 lambda k: main_clusters.pop(k), label, kind)
 
     # ---- 4a. explain and the seeded tie-break at full size: the explain
     # build inside simulate()
@@ -3978,7 +4022,8 @@ def main() -> int:
     for label, kind in PATHS:
         keep = {} if kind == "plain" else None
         paths[f"capacity-{label}-64"] = capacity_path(torch, sched, step, sweep,
-                                                      snapshot_of, label, kind, keep)
+                                                      capacity_snaps.pop(kind), label, kind,
+                                                      keep)
         if keep:
             # the extension ops through the 64-lane sweep, on its snapshot
             ext_sweep = ext_sweep_path(torch, sched, step, sweep, keep.pop("snapshot"), ext_ops,
@@ -4079,7 +4124,7 @@ def main() -> int:
         "prefix_folds": {k: v["prefix_fold"] for k, v in paths.items() if "prefix_fold" in v},
         "paths": {"replay-day": replay_p, "replay-resume": resume_p, "cli_replay": cli_r},
         "parity": "bit-exact on every carry field vs its plain version (the plain merge, fp32 "
-                  "torch.matmul) on every fold chunk of the replay-day run, on the whole-mask "
+                  "torch.matmul) on every fold of the replay-day run, on the whole-mask "
                   "fold timed, and on the 4,096-pod prefix folds of the three capacity paths "
                   "(equal to the kernel's carry after those pods); the hoisted scan's first "
                   f"{PARITY_PREFIX} pods equal the plain step",

@@ -1,5 +1,5 @@
-// forced_fold: a chunk of forced binds folded into one carry, as a launch
-// sequence of three CUDA kernels for Hopper (sm_90a).
+// forced_fold: a chunk of forced binds folded into a carry, as two CUDA
+// kernels for Hopper (sm_90a).
 //
 // Replaces: the XLA fusion of open_simulator_tpu/engine/scheduler.py:
 // apply_forced_mask (:347) and apply_forced_prefix (:323) over
@@ -8,8 +8,9 @@
 // run of spec.nodeName pods, folded into the start carry as one-hot f32
 // matmuls at Precision.HIGHEST, 4,096 pods a chunk. The JAX package has no
 // Pallas kernel: on the TPU, XLA's fusion of those matmuls is the kernel.
-// Each pod of the chunk bound to `nodes[i]` (negative: not folded) adds,
-// each channel behind the reference's gate:
+// Each pod of the chunk bound to `nodes[i]` (negative: not folded; with
+// `mask`, pod i folds at max(nodes[i], 0) where mask[i] is set) adds, each
+// channel behind the reference's gate:
 //   headroom    -= its requests at the node
 //   group_count += its matched groups at the node
 //   dom_count   += per topology key, its matched groups in the node's domain
@@ -21,28 +22,44 @@
 //                  domain of the node, slot by slot
 //
 // Design: a chunk holds thousands of pods and a node a few of them, so no
-// cell walks the chunk. (1) fold_bucket, one block per key (the hostname,
-// then each topology key), buckets the chunk's pods by node (or by the
-// node's domain): a histogram in shared memory, an exclusive block scan
-// (the CSR offsets) and a stable scatter by one warp in pod order (peers
-// found with __match_any_sync, cursors in shared memory), so each
-// bucket's list keeps pod order. (2) fold_domain, one warp per domain
-// cell, sums the pods of the cell's domain: dom_count directly, and the
-// term and preference paints of each (key, domain) into scratch. (3)
-// fold_node, one thread per node cell, walks its node's list (headroom,
-// group_count, ports, vol_cnt, the hostname-keyed paints) and reads its
-// domains' sums. Work is O(c + cells) a chunk, not O(c x cells).
+// cell walks the chunk. (1) fold_bucket: block 0 buckets the chunk's pods
+// by node into the CSR the node cells walk: a histogram and a block scan
+// in shared memory, then every thread places its few pods, each at its
+// bucket's cursor taken with a shared atomic, so a bucket's pods land in
+// no fixed order. Blocks 1.. take the domain cells, `dom_blocks` blocks a
+// topology key: each buckets the chunk by its key's domain the same way
+// into its own shared memory (cheap beside the walks: a few pods a
+// thread) and sums its share of the key's cells, a warp a cell:
+// dom_count, and the term and preference sums of each (key, domain) into
+// scratch. (2) fold_node: a thread a node cell walks its node's pods
+// (headroom, group_count, ports, vol_cnt, the hostname-keyed paints) and
+// reads its domains' sums. Work is O(c + cells) a chunk, not O(c x
+// cells). The fold writes a new carry (`in_*` read, the rest written;
+// the same tensors for a fold in place), so the node launch also copies,
+// 16 bytes a thread, each channel the chunk leaves and the carry fields
+// the fold never changes: the caller needs no clone.
+//
+// Why this design (the earlier form timed phase by phase on the H100,
+// PERF.md §6): that form was three dependent launches (bucket, domain,
+// node) behind a wrapper whose clone and input conversions cost more than
+// its kernels, and its bucketing ended in a stable scatter by one warp,
+// ceil(c / 32) dependent steps: 51 us of a 4,096-pod chunk. The sums need no pod
+// order (below), so the scatter is unstable and spread over every thread,
+// the domain sums ride the bucket launch, the clone rides the node launch,
+// and the shared-memory attribute is set once per device, not per call.
 //
 // Exactness: the weights are 0/1 and the requests, counts and preference
-// weights integer-valued, so every sum is exact below 2^24 in any order;
-// the node lists keep pod order anyway, and no float cell is written with
-// an atomic (the histogram's atomics count integers). A bf16 carry adds
-// the chunk's f32 sum rounded to bf16 once, as the reference's astype
-// does. No FMA contraction (--fmad=false) and no fast math.
+// weights integer-valued, so every sum is exact below 2^24 in any order,
+// and no float cell is written with an atomic (the atomics count integers
+// and take places). A bf16 carry adds the chunk's f32 sum rounded to bf16
+// once, as the reference's astype does. No FMA contraction (--fmad=false)
+// and no fast math.
 //
-// What bounds it on this card: bytes and latency. The carry cells are read
-// and written once and the chunk's pod rows read once; the bucketing is a
-// few dependent steps in one block per key (the scatter 32 pods a step).
+// What bounds it on this card: latency, then bytes. The carry cells are
+// read and written once and the chunk's pod rows read once; the bucketing
+// is a few dependent block-wide steps (histogram, scan, placement).
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +79,9 @@ constexpr int F_GC_BF16 = 1 << 8;  // group_count stored bfloat16
 constexpr int F_TB_BF16 = 1 << 9;  // term_block stored bfloat16
 constexpr int kBucketThreads = 1024;
 constexpr int kThreads = 256;
+// the bucket launch's dynamic shared memory cap (kernels/wave.py:
+// _FOLD_SMEM_LIMIT), set as the kernel's attribute once per device
+constexpr int kSmemMax = 200 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
@@ -82,25 +102,52 @@ struct FoldArgs {
   const float* pref_weight;      // [P, Ap]
   const uint8_t* pref_valid;     // [P, Ap]
   const int32_t* nodes;          // [c] the chunk's binds, negative: none
-  // scratch, written before it is read within the sequence
-  int32_t* off;                  // [K1 + 1, B + 1] CSR offsets per key
-  int32_t* list;                 // [K1 + 1, c] pod rows per key, bucket by bucket
+  const uint8_t* mask;           // [c] or null: pod i folds at max(nodes[i], 0) where set
+  // scratch, written before it is read within the launch pair
+  int32_t* off;                  // [N + 1] CSR offsets by node
+  int32_t* list;                 // [c] pod rows, node by node
   float* dom_terms;              // [K1, D, T] per (key, domain) term sums
   float* dom_pref;               // [K1, D, Ap, T2] per (key, domain, slot) weight sums
-  // the carry, updated in place
-  float* headroom;               // [N, R]
-  void* group_count;             // [N, Sg] bf16 or f32
-  float* dom_count;              // [K1, D, Sg]
-  uint8_t* ports_used;           // [N, Pt] (torch.bool storage)
-  float* vol_cnt;                // [N, Lk]
-  void* term_block;              // [N, T] bf16 or f32
-  float* pref_paint;             // [N, T2]
-  int n, r, sg, pt, lk, t, ap, t2, k1, d, b, p0, c, flags;
+  // the carry read, and the carry written (the same tensors in place)
+  const float* in_headroom;      // [N, R]
+  const void* in_group_count;    // [N, Sg] bf16 or f32
+  const float* in_dom_count;     // [K1, D, Sg]
+  const uint8_t* in_ports_used;  // [N, Pt] (torch.bool storage)
+  const float* in_vol_cnt;       // [N, Lk]
+  const void* in_term_block;     // [N, T] bf16 or f32
+  const float* in_pref_paint;    // [N, T2]
+  float* headroom;
+  void* group_count;
+  float* dom_count;
+  uint8_t* ports_used;
+  float* vol_cnt;
+  void* term_block;
+  float* pref_paint;
+  // the carry fields the fold leaves as they are (copied when the carry
+  // written is another)
+  const float* in_gpu_used;      // [N, G]
+  const float* in_vg_used;       // [N, V]
+  const uint8_t* in_sdev_taken;  // [N, E]
+  const uint8_t* in_pv_taken;    // [Npv]
+  const uint8_t* in_svol_on_node;  // [N, Nsv]
+  float* gpu_used;
+  float* vg_used;
+  uint8_t* sdev_taken;
+  uint8_t* pv_taken;
+  uint8_t* svol_on_node;
+  int n, r, sg, pt, lk, t, ap, t2, k1, d, p0, c, flags, g, v, e, npv, nsv;
 };
 
 }  // extern "C"
 
 namespace {
+
+// the node pod i of the chunk folds at, -1 for none
+__device__ __forceinline__ int bind_of(const FoldArgs& a, int i) {
+  const int nd = a.nodes[i];
+  if (a.mask) return a.mask[i] ? max(nd, 0) : -1;
+  return nd;
+}
 
 // the bucket of a pod bound at `nd` under `key` (0: the node; k >= 1: the
 // node's domain under topology key k - 1), -1 for none
@@ -109,14 +156,14 @@ __device__ __forceinline__ int bucket_of(const FoldArgs& a, int key, int nd) {
   return key == 0 ? nd : a.node_dom[(size_t)(key - 1) * a.n + nd];
 }
 
-__device__ __forceinline__ void add_count(void* base, size_t idx, float sum, bool bf16) {
+__device__ __forceinline__ void add_count(const void* in, void* out, size_t idx, float sum,
+                                          bool bf16) {
   if (bf16) {
-    __nv_bfloat16* q = static_cast<__nv_bfloat16*>(base) + idx;
     const float add = __bfloat162float(__float2bfloat16_rn(sum));
-    *q = __float2bfloat16_rn(__fadd_rn(__bfloat162float(*q), add));
+    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(
+        __fadd_rn(__bfloat162float(static_cast<const __nv_bfloat16*>(in)[idx]), add));
   } else {
-    float* q = static_cast<float*>(base) + idx;
-    *q = __fadd_rn(*q, sum);
+    static_cast<float*>(out)[idx] = __fadd_rn(static_cast<const float*>(in)[idx], sum);
   }
 }
 
@@ -125,18 +172,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// (1) one block per key: the CSR of the chunk's pods by bucket
-__global__ void __launch_bounds__(kBucketThreads) fold_bucket_kernel(const FoldArgs a) {
-  extern __shared__ int s_mem[];
-  int* s_cnt = s_mem;              // [nb] counts, then offsets, then cursors
-  int* s_warp = s_mem + a.b + 1;   // [32] warp totals
-  const int key = blockIdx.x;
-  const int nb = key == 0 ? a.n : a.d;
+// The chunk's pods bucketed by `key` into `nb` buckets, by the whole block:
+// s_cnt[nb + 1] ends as each bucket's end offset (bucket b's pods sit at
+// [b ? s_cnt[b - 1] : 0, s_cnt[b]) of `list`, in no fixed order); with
+// `off`, the offsets [nb + 1] are also written there before the
+// placement. s_warp: [32] scratch.
+__device__ void bucket_pods(const FoldArgs& a, int key, int nb, int* s_cnt, int* s_warp,
+                            int32_t* off, int32_t* list) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) s_cnt[i] = 0;
+  for (int i = threadIdx.x; i <= nb; i += blockDim.x) s_cnt[i] = 0;
   __syncthreads();
   for (int i = threadIdx.x; i < a.c; i += blockDim.x) {
-    const int bk = bucket_of(a, key, a.nodes[i]);
+    const int bk = bucket_of(a, key, bind_of(a, i));
     if (bk >= 0) atomicAdd(&s_cnt[bk], 1);
   }
   __syncthreads();
@@ -164,163 +211,240 @@ __global__ void __launch_bounds__(kBucketThreads) fold_bucket_kernel(const FoldA
     if (lane < nw) s_warp[lane] = wi - w;
   }
   __syncthreads();
-  int32_t* off = a.off + (size_t)key * (a.b + 1);
   int run = s_warp[warp] + incl - local;
   for (int i = lo; i < hi; ++i) {
     const int v = s_cnt[i];
     s_cnt[i] = run;
-    off[i] = run;
+    if (off) off[i] = run;
     run += v;
   }
-  if (threadIdx.x == blockDim.x - 1) off[nb] = run;  // the total
+  if (threadIdx.x == blockDim.x - 1) {
+    s_cnt[nb] = run;  // the total
+    if (off) off[nb] = run;
+  }
   __syncthreads();
 
-  // stable scatter: one warp, 32 pods a step in pod order; the lanes of a
-  // bucket take consecutive places from its cursor by their lane rank
-  if (warp != 0) return;
-  int32_t* list = a.list + (size_t)key * a.c;
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < a.c; base += 32) {
-    const int i = base + lane;
-    const int bk = i < a.c ? bucket_of(a, key, a.nodes[i]) : -1;
-    const unsigned peers = __match_any_sync(kFull, bk);
-    const int leader = __ffs(peers) - 1;
-    int start = 0;
-    if (lane == leader && bk >= 0) start = s_cnt[bk];
-    start = __shfl_sync(kFull, start, leader);
-    if (bk >= 0) list[start + __popc(peers & below)] = a.p0 + i;
-    __syncwarp();
-    if (lane == leader && bk >= 0) s_cnt[bk] = start + __popc(peers);
-    __syncwarp();
+  // placement: each pod at its bucket's cursor (a bucket's order is the
+  // atomics' order: the sums do not depend on it)
+  for (int i = threadIdx.x; i < a.c; i += blockDim.x) {
+    const int bk = bucket_of(a, key, bind_of(a, i));
+    if (bk >= 0) list[atomicAdd(&s_cnt[bk], 1)] = a.p0 + i;
   }
+  __syncthreads();
 }
 
-// (2) one warp per domain cell: dom_count, and the per-(key, domain)
-// term and preference sums the node cells read
-__global__ void __launch_bounds__(kThreads) fold_domain_kernel(const FoldArgs a) {
-  long long cell = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long kd = (long long)a.k1 * a.d;
-  const int fl = a.flags;
-  if (fl & F_DOM) {
-    const long long span = kd * a.sg;
-    if (cell < span) {
-      const int kk = (int)(cell / ((long long)a.d * a.sg));
-      const int rem = (int)(cell % ((long long)a.d * a.sg));
-      const int dd = rem / a.sg, g = rem % a.sg;
-      const int32_t* off = a.off + (size_t)(kk + 1) * (a.b + 1);
-      const int32_t* list = a.list + (size_t)(kk + 1) * a.c;
-      float sum = 0.0f;
-      for (int i = off[dd] + lane; i < off[dd + 1]; i += 32)
-        sum = __fadd_rn(sum, a.match_groups[(size_t)list[i] * a.sg + g] ? 1.0f : 0.0f);
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        float* q = a.dom_count + cell;
-        *q = __fadd_rn(*q, sum);
-      }
-      return;
-    }
-    cell -= span;
-  }
-  if (fl & F_ANTI) {
-    const long long span = kd * a.t;
-    if (cell < span) {
-      const int kk = (int)(cell / ((long long)a.d * a.t));
-      const int rem = (int)(cell % ((long long)a.d * a.t));
-      const int dd = rem / a.t, t = rem % a.t;
-      float sum = 0.0f;
-      if (a.term_key[t] == kk + 1) {
-        const int32_t* off = a.off + (size_t)(kk + 1) * (a.b + 1);
-        const int32_t* list = a.list + (size_t)(kk + 1) * a.c;
-        for (int i = off[dd] + lane; i < off[dd + 1]; i += 32)
-          sum = __fadd_rn(sum, a.own_terms[(size_t)list[i] * a.t + t] ? 1.0f : 0.0f);
-        sum = warp_sum(sum);
-      }
-      if (lane == 0) a.dom_terms[cell] = sum;
-      return;
-    }
-    cell -= span;
-  }
-  if (fl & F_PREF) {
-    const long long span = kd * a.ap * a.t2;
-    if (cell < span) {
-      const long long per_dom = (long long)a.ap * a.t2;
-      const int kk = (int)(cell / ((long long)a.d * per_dom));
-      const long long rem = cell % ((long long)a.d * per_dom);
-      const int dd = (int)(rem / per_dom);
-      const int s = (int)((rem % per_dom) / a.t2), t2 = (int)(rem % a.t2);
-      const int32_t* off = a.off + (size_t)(kk + 1) * (a.b + 1);
-      const int32_t* list = a.list + (size_t)(kk + 1) * a.c;
-      float sum = 0.0f;
-      for (int i = off[dd] + lane; i < off[dd + 1]; i += 32) {
-        const size_t o = (size_t)list[i] * a.ap + s;
-        if (a.pref_valid[o] && a.pref_tid[o] == t2 && a.pref_key[o] == kk + 1)
-          sum = __fadd_rn(sum, a.pref_weight[o]);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) a.dom_pref[cell] = sum;
-    }
-  }
+// the domain cells of one topology key, in order: dom_count [D, Sg]
+// (F_DOM), the term sums [D, T] (F_ANTI), the preference sums [D, Ap, T2]
+// (F_PREF)
+__host__ __device__ inline long long key_cells(const FoldArgs& a) {
+  long long m = 0;
+  if (a.flags & F_DOM) m += (long long)a.d * a.sg;
+  if (a.flags & F_ANTI) m += (long long)a.d * a.t;
+  if (a.flags & F_PREF) m += (long long)a.d * a.ap * a.t2;
+  return m;
 }
 
-// (3) one thread per node cell, walking its node's pods
-__global__ void __launch_bounds__(kThreads) fold_node_kernel(const FoldArgs a) {
-  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int N = a.n, fl = a.flags;
-  const int32_t* off = a.off;    // key 0: by node
-  const int32_t* list = a.list;
-
-  long long span = (long long)N * a.r;
-  if (cell < span) {
-    const int n = (int)(cell / a.r), col = (int)(cell % a.r);
-    float sum = 0.0f;
-    for (int i = off[n]; i < off[n + 1]; ++i)
-      sum = __fadd_rn(sum, a.req[(size_t)list[i] * a.r + col]);
-    float* h = a.headroom + cell;
-    *h = __fsub_rn(*h, sum);
+// (1) block 0: the CSR by node; blocks 1 ..: `dom_blocks` blocks a key,
+// each its share of the key's domain cells, a warp a cell
+__global__ void __launch_bounds__(kBucketThreads) fold_bucket_kernel(const FoldArgs a,
+                                                                     int dom_blocks) {
+  extern __shared__ int s_mem[];
+  int* const s_warp = s_mem;  // [32]
+  int* const s_cnt = s_mem + 32;
+  if (blockIdx.x == 0) {
+    bucket_pods(a, 0, a.n, s_cnt, s_warp, a.off, a.list);
     return;
   }
-  cell -= span;
-  if (fl & F_GC) {
-    span = (long long)N * a.sg;
-    if (cell < span) {
+  const int kk = (int)(blockIdx.x - 1) / dom_blocks, part = (int)(blockIdx.x - 1) % dom_blocks;
+  int* const s_list = s_cnt + a.d + 1;  // [c]
+  bucket_pods(a, kk + 1, a.d, s_cnt, s_warp, nullptr, s_list);
+
+  const int lane = threadIdx.x & 31, nw = (int)blockDim.x >> 5;
+  const long long span = key_cells(a);
+  const int fl = a.flags;
+  for (long long cell = (long long)part * nw + (threadIdx.x >> 5); cell < span;
+       cell += (long long)dom_blocks * nw) {
+    long long q = cell;
+    if (fl & F_DOM) {
+      if (q < (long long)a.d * a.sg) {
+        const int dd = (int)(q / a.sg), g = (int)(q % a.sg);
+        float sum = 0.0f;
+        for (int i = (dd ? s_cnt[dd - 1] : 0) + lane; i < s_cnt[dd]; i += 32)
+          sum = __fadd_rn(sum, a.match_groups[(size_t)s_list[i] * a.sg + g] ? 1.0f : 0.0f);
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const size_t o = ((size_t)kk * a.d + dd) * a.sg + g;
+          a.dom_count[o] = __fadd_rn(a.in_dom_count[o], sum);
+        }
+        continue;
+      }
+      q -= (long long)a.d * a.sg;
+    }
+    if (fl & F_ANTI) {
+      if (q < (long long)a.d * a.t) {
+        const int dd = (int)(q / a.t), t = (int)(q % a.t);
+        if (a.term_key[t] != kk + 1) continue;  // another key's term: never read
+        float sum = 0.0f;
+        for (int i = (dd ? s_cnt[dd - 1] : 0) + lane; i < s_cnt[dd]; i += 32)
+          sum = __fadd_rn(sum, a.own_terms[(size_t)s_list[i] * a.t + t] ? 1.0f : 0.0f);
+        sum = warp_sum(sum);
+        if (lane == 0) a.dom_terms[((size_t)kk * a.d + dd) * a.t + t] = sum;
+        continue;
+      }
+      q -= (long long)a.d * a.t;
+    }
+    // F_PREF
+    const long long per_dom = (long long)a.ap * a.t2;
+    const int dd = (int)(q / per_dom);
+    const int s = (int)((q % per_dom) / a.t2), t2 = (int)(q % a.t2);
+    float sum = 0.0f;
+    for (int i = (dd ? s_cnt[dd - 1] : 0) + lane; i < s_cnt[dd]; i += 32) {
+      const size_t o = (size_t)s_list[i] * a.ap + s;
+      if (a.pref_valid[o] && a.pref_tid[o] == t2 && a.pref_key[o] == kk + 1)
+        sum = __fadd_rn(sum, a.pref_weight[o]);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) a.dom_pref[(((size_t)kk * a.d + dd) * a.ap + s) * a.t2 + t2] = sum;
+  }
+}
+
+// the node launch's cell ranges, in order: the node channels (headroom,
+// group_count, ports_used, vol_cnt, term_block, pref_paint), each folded
+// under its flag (headroom always), a thread a cell; then what is only
+// copied, 16 bytes a thread: a node channel off its flag, dom_count where
+// no domain cell folds it, and the fields the fold never changes. A copy
+// in place has no cells.
+enum Range { kHead, kGc, kPorts, kVol, kTerm, kPref, kDom, kGpu, kVg, kSdev, kPv, kSvol, kRanges };
+
+__host__ __device__ inline bool folds(const FoldArgs& a, int range) {
+  switch (range) {
+    case kHead: return true;
+    case kGc: return a.flags & F_GC;
+    case kPorts: return a.flags & F_PORTS;
+    case kVol: return a.flags & F_VOL;
+    case kTerm: return a.flags & F_ANTI;
+    case kPref: return a.flags & F_PREF;
+    default: return false;
+  }
+}
+
+__host__ __device__ inline bool domains_fold(const FoldArgs& a) {
+  return a.k1 > 0 && (a.flags & (F_DOM | F_ANTI | F_PREF));
+}
+
+// the range's elements, and each one's bytes
+__host__ __device__ inline long long range_len(const FoldArgs& a, int range) {
+  const long long n = a.n;
+  switch (range) {
+    case kHead: return n * a.r;
+    case kGc: return n * a.sg;
+    case kPorts: return n * a.pt;
+    case kVol: return n * a.lk;
+    case kTerm: return n * a.t;
+    case kPref: return n * a.t2;
+    case kDom: return (domains_fold(a) && (a.flags & F_DOM)) ? 0 : (long long)a.k1 * a.d * a.sg;
+    case kGpu: return n * a.g;
+    case kVg: return n * a.v;
+    case kSdev: return n * a.e;
+    case kPv: return a.npv;
+    default: return n * a.nsv;
+  }
+}
+
+__host__ __device__ inline int elem_bytes(const FoldArgs& a, int range) {
+  switch (range) {
+    case kGc: return (a.flags & F_GC_BF16) ? 2 : 4;
+    case kTerm: return (a.flags & F_TB_BF16) ? 2 : 4;
+    case kPorts: case kSdev: case kPv: case kSvol: return 1;
+    default: return 4;
+  }
+}
+
+__host__ __device__ inline long long range_cells(const FoldArgs& a, int range) {
+  if (folds(a, range)) return range_len(a, range);
+  if (a.in_headroom == a.headroom) return 0;
+  return (range_len(a, range) * elem_bytes(a, range) + 15) / 16;
+}
+
+// a copied range's source and destination
+__device__ __forceinline__ void range_ptrs(const FoldArgs& a, int range, const void*& src,
+                                           void*& dst) {
+  switch (range) {
+    case kGc: src = a.in_group_count; dst = a.group_count; return;
+    case kPorts: src = a.in_ports_used; dst = a.ports_used; return;
+    case kVol: src = a.in_vol_cnt; dst = a.vol_cnt; return;
+    case kTerm: src = a.in_term_block; dst = a.term_block; return;
+    case kPref: src = a.in_pref_paint; dst = a.pref_paint; return;
+    case kDom: src = a.in_dom_count; dst = a.dom_count; return;
+    case kGpu: src = a.in_gpu_used; dst = a.gpu_used; return;
+    case kVg: src = a.in_vg_used; dst = a.vg_used; return;
+    case kSdev: src = a.in_sdev_taken; dst = a.sdev_taken; return;
+    case kPv: src = a.in_pv_taken; dst = a.pv_taken; return;
+    default: src = a.in_svol_on_node; dst = a.svol_on_node; return;
+  }
+}
+
+// piece i (16 bytes, or the tail) of a `bytes`-byte copy
+__device__ __forceinline__ void copy_piece(const void* src, void* dst, long long bytes,
+                                           long long i) {
+  const long long lo = i * 16;
+  const int m = (int)min(16LL, bytes - lo);
+  const uint8_t* s = static_cast<const uint8_t*>(src) + lo;
+  uint8_t* d = static_cast<uint8_t*>(dst) + lo;
+  if (m == 16 && !((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d)) & 15)) {
+    *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+  } else {
+    for (int k = 0; k < m; ++k) d[k] = s[k];
+  }
+}
+
+// cell `cell` of range `range` (a compile-time constant where it is
+// called): a node cell walks its node's pods; a copied range copies a piece
+__device__ __forceinline__ void node_cell(const FoldArgs& a, int range, long long cell) {
+  const int N = a.n, fl = a.flags;
+  const size_t i_cell = (size_t)cell;
+  if (!folds(a, range)) {
+    const void* src;
+    void* dst;
+    range_ptrs(a, range, src, dst);
+    copy_piece(src, dst, range_len(a, range) * elem_bytes(a, range), cell);
+    return;
+  }
+  const int32_t* off = a.off;
+  const int32_t* list = a.list;
+  switch (range) {
+    case kHead: {
+      const int n = (int)(cell / a.r), col = (int)(cell % a.r);
+      float sum = 0.0f;
+      for (int i = off[n]; i < off[n + 1]; ++i)
+        sum = __fadd_rn(sum, a.req[(size_t)list[i] * a.r + col]);
+      a.headroom[i_cell] = __fsub_rn(a.in_headroom[i_cell], sum);
+      return;
+    }
+    case kGc: {
       const int n = (int)(cell / a.sg), g = (int)(cell % a.sg);
       float sum = 0.0f;
       for (int i = off[n]; i < off[n + 1]; ++i)
         sum = __fadd_rn(sum, a.match_groups[(size_t)list[i] * a.sg + g] ? 1.0f : 0.0f);
-      add_count(a.group_count, (size_t)cell, sum, fl & F_GC_BF16);
+      add_count(a.in_group_count, a.group_count, i_cell, sum, fl & F_GC_BF16);
       return;
     }
-    cell -= span;
-  }
-  if (fl & F_PORTS) {
-    span = (long long)N * a.pt;
-    if (cell < span) {
+    case kPorts: {
       const int n = (int)(cell / a.pt), t = (int)(cell % a.pt);
-      bool any = false;
-      for (int i = off[n]; i < off[n + 1]; ++i)
-        any |= a.ports[(size_t)list[i] * a.pt + t] != 0;
-      if (any) a.ports_used[cell] = 1;
+      bool any = a.in_ports_used[i_cell] != 0;
+      for (int i = off[n]; i < off[n + 1]; ++i) any |= a.ports[(size_t)list[i] * a.pt + t] != 0;
+      a.ports_used[i_cell] = any ? 1 : 0;
       return;
     }
-    cell -= span;
-  }
-  if (fl & F_VOL) {
-    span = (long long)N * a.lk;
-    if (cell < span) {
+    case kVol: {
       const int n = (int)(cell / a.lk), k = (int)(cell % a.lk);
       float sum = 0.0f;
       for (int i = off[n]; i < off[n + 1]; ++i)
         sum = __fadd_rn(sum, a.vol_limit_req[(size_t)list[i] * a.lk + k]);
-      float* q = a.vol_cnt + cell;
-      *q = __fadd_rn(*q, sum);
+      a.vol_cnt[i_cell] = __fadd_rn(a.in_vol_cnt[i_cell], sum);
       return;
     }
-    cell -= span;
-  }
-  if (fl & F_ANTI) {
-    span = (long long)N * a.t;
-    if (cell < span) {
+    case kTerm: {
       const int n = (int)(cell / a.t), t = (int)(cell % a.t);
       const int key = a.term_key[t];
       float sum = 0.0f;
@@ -331,17 +455,12 @@ __global__ void __launch_bounds__(kThreads) fold_node_kernel(const FoldArgs a) {
         const int dd = a.node_dom[(size_t)(key - 1) * N + n];
         if (dd >= 0) sum = a.dom_terms[((size_t)(key - 1) * a.d + dd) * a.t + t];
       }
-      add_count(a.term_block, (size_t)cell, sum, fl & F_TB_BF16);
+      add_count(a.in_term_block, a.term_block, i_cell, sum, fl & F_TB_BF16);
       return;
     }
-    cell -= span;
-  }
-  if (fl & F_PREF) {
-    span = (long long)N * a.t2;
-    if (cell < span) {
+    default: {  // kPref
       const int n = (int)(cell / a.t2), t2 = (int)(cell % a.t2);
-      float* q = a.pref_paint + cell;
-      float v = *q;
+      float v = a.in_pref_paint[i_cell];
       for (int s = 0; s < a.ap; ++s) {  // one add per slot, as the reference
         float sum = 0.0f;
         for (int i = off[n]; i < off[n + 1]; ++i) {
@@ -356,58 +475,76 @@ __global__ void __launch_bounds__(kThreads) fold_node_kernel(const FoldArgs a) {
         }
         v = __fadd_rn(v, sum);
       }
-      *q = v;
+      a.pref_paint[i_cell] = v;
     }
   }
 }
 
-long long node_cells(const FoldArgs* a) {
-  const long long n = a->n;
-  long long m = n * a->r;
-  if (a->flags & F_GC) m += n * a->sg;
-  if (a->flags & F_PORTS) m += n * a->pt;
-  if (a->flags & F_VOL) m += n * a->lk;
-  if (a->flags & F_ANTI) m += n * a->t;
-  if (a->flags & F_PREF) m += n * a->t2;
-  return m;
+// (2) one thread a node cell, walking its node's pods, or a piece of a copy
+__global__ void __launch_bounds__(kThreads) fold_node_kernel(const FoldArgs a) {
+  long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int range = 0; range < kRanges; ++range) {
+    const long long m = range_cells(a, range);
+    if (cell < m) {
+      node_cell(a, range, cell);
+      return;
+    }
+    cell -= m;
+  }
 }
 
-long long domain_cells(const FoldArgs* a) {
-  const long long kd = (long long)a->k1 * a->d;
-  long long m = 0;
-  if (a->flags & F_DOM) m += kd * a->sg;
-  if (a->flags & F_ANTI) m += kd * a->t;
-  if (a->flags & F_PREF) m += kd * a->ap * a->t2;
-  return m;
+// blocks a key of the domain cells: enough warps for every cell of the key
+int dom_blocks_of(const FoldArgs* a) {
+  if (!domains_fold(*a)) return 0;
+  const long long warps = kBucketThreads / 32;
+  const long long b = (key_cells(*a) + warps - 1) / warps;
+  return (int)(b < 1 ? 1 : (b > 256 ? 256 : b));
+}
+
+// the bucket launch's dynamic shared memory: the warp totals, then the
+// node counts (block 0) or a key's domain counts and the chunk's list
+size_t bucket_smem(const FoldArgs* a) {
+  const long long node = a->n + 1;
+  const long long dom = dom_blocks_of(a) ? (long long)a->d + 1 + a->c : 0;
+  return (size_t)(32 + (node > dom ? node : dom)) * sizeof(int);
+}
+
+// the bucket kernel may take more than 48 KB of dynamic shared memory:
+// asked for once per device
+cudaError_t allow_smem(size_t smem) {
+  static std::atomic<unsigned long long> done{0};
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(fold_bucket_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemMax);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
 }
 
 }  // namespace
 
-// Launch the sequence on `stream` (PyTorch's current stream): the bucket
-// kernel (one block a key), the domain kernel (a warp a domain cell) and
-// the node kernel (a thread a node cell). Returns the first launch error:
-// a refused launch never runs, so the caller must check it.
+// Launch the pair on `stream` (PyTorch's current stream): the bucket
+// kernel (block 0 the node CSR, then the domain cells' blocks) and the
+// node kernel (a thread a cell). Returns the first launch error: a
+// refused launch never runs, so the caller must check it.
 extern "C" int forced_fold_launch(const FoldArgs* args, void* stream) {
   if (args->c <= 0 || args->n <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ((size_t)args->b + 1 + 32) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(fold_bucket_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = bucket_smem(args);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(smem);
   if (err != cudaSuccess) return (int)err;
-  const bool domains = args->k1 > 0 && (args->flags & (F_DOM | F_ANTI | F_PREF));
-  const int keys = domains ? args->k1 + 1 : 1;
-  fold_bucket_kernel<<<keys, kBucketThreads, smem, st>>>(*args);
+  const int dom_blocks = dom_blocks_of(args);
+  fold_bucket_kernel<<<1 + args->k1 * dom_blocks, kBucketThreads, smem, st>>>(*args, dom_blocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long dcells = domains ? domain_cells(args) : 0;
-  if (dcells > 0) {
-    const long long threads = dcells * 32;
-    fold_domain_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-        *args);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long ncells = node_cells(args);
-  fold_node_kernel<<<(unsigned)((ncells + kThreads - 1) / kThreads), kThreads, 0, st>>>(*args);
+  long long cells = 0;
+  for (int range = 0; range < kRanges; ++range) cells += range_cells(*args, range);
+  fold_node_kernel<<<(unsigned)((cells + kThreads - 1) / kThreads), kThreads, 0, st>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -131,16 +131,32 @@
 // bits as the mantissa of [1, 2), minus 1, times 0.5) and adds it to the
 // score rounded half to even (rintf), before the pick. The top-k
 // (StepArgs.topk = K > 0): phase 2 keeps each node's masked final score in
-// shared memory (one more row beside the raw scores), and K cluster rounds
-// rank the nodes by a 64-bit key of the score's total order (+0 above -0,
-// as lax.top_k orders) and the lower index: the first round rides round
-// B's barrier, and round r takes the largest key below round r - 1's. After
-// each round the winner's owner thread writes its node, its masked score and
-// its weighted score rows (zero for a filler slot, a node past the feasible
-// ones), computed by the same function that sums the final score, so the
-// parts and the sum share their arithmetic. What it costs: K - 1 more cluster
-// rounds per pod and the 20 threefry rounds per node, latency, as every
-// other round of the pod.
+// shared memory (one more row beside the raw scores), and the nodes are
+// ranked by a 64-bit key of the score's total order (+0 above -0, as
+// lax.top_k orders) and the lower index, in passes of up to kTopkPass
+// candidates. In a pass each warp builds its list of the largest keys by
+// repeated warp maxima (a 64-bit maximum is two redux.sync reductions;
+// only the winning thread rescans its few nodes for its next key, so no
+// thread holds a list in registers), warp 0 merges the block's warp lists
+// into the block's list in shared memory, and after the pass's cluster
+// barrier warp 0 of every block reads the C blocks' lists through
+// distributed shared memory and merges them into the pass's candidates.
+// Candidate c's row (its node, masked score and weighted score rows, zero
+// for a filler slot, a node past the feasible ones) is then written by
+// lane c of the last warp of the block that owns the node, all in parallel
+// and beside warp 0's share of the bind, computed by the same function
+// that sums the final score, so the parts and the sum share their
+// arithmetic. The first pass rides round B's barrier and pass i takes the
+// largest keys below pass i - 1's last: a K up to kTopkPass adds no cluster
+// barrier a pod (one block barrier and 2K warp-merge steps), a larger K
+// ceil(K / kTopkPass) - 1 barriers. No K is capped: K = N runs
+// ceil(N / kTopkPass) passes. kTopkPass = 8: the lists live in shared
+// memory (21 rows of 8 keys, 1,344 bytes a block), so the width costs no
+// registers (a thread holds one key) and the explain builds stay
+// spill-free; 8 holds the CLI's K = 3 and any K up to 8 in one pass, and a
+// wider pass would only lengthen every merge's serial steps. What it costs
+// besides: the 20 threefry rounds per node of the jitter, latency, as
+// every other round of the pod.
 //
 // The traced weights (StepArgs.w_lane; replaces the reference's per-lane
 // weight vector, exec_cache.py:521-545 and scheduler.py:1097-1116): an
@@ -239,6 +255,16 @@ __host__ __device__ constexpr int max_threads_of(bool devres, bool wide) {
               : (devres ? kMaxThreadsDevRes : kMaxThreads);
 }
 constexpr int kMaxCluster = 16;     // blocks per lane (16 is non-portable)
+// the explain top-k: a pass ranks up to kTopkPass candidates a pod in one
+// cluster round (kernels/step.py:TOPK_PASS); each warp's list of a pass,
+// and after the pass's barrier each block's, sit in kTopkLists rows (the
+// warps of the largest block, the blocks of the largest cluster)
+constexpr int kTopkPass = 8;
+constexpr int kTopkLists = 16;
+static_assert(kTopkLists >= kMaxThreads / 32 && kTopkLists >= kMaxCluster, "top-k list rows");
+// the top-k's key rows in 4-byte words: the lists, the block's merged list
+// by pod parity and pass parity, the pass's candidates (8-byte keys)
+constexpr int kTopkWords = 2 * (kTopkLists + 4 + 1) * kTopkPass;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.4e38f;
 constexpr float kNegInf = -3.4e38f;
@@ -560,6 +586,30 @@ __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v)
   return v;
 }
 
+// the warp's largest 64-bit key in two warp reductions (redux.sync): the
+// largest high word, then the largest low word among the lanes that hold it
+__device__ __forceinline__ unsigned long long warp_max_key(unsigned long long v) {
+  const unsigned hi = (unsigned)(v >> 32);
+  const unsigned top = __reduce_max_sync(kFull, hi);
+  const unsigned low = __reduce_max_sync(kFull, hi == top ? (unsigned)v : 0u);
+  return ((unsigned long long)top << 32) | low;
+}
+
+// one warp merges `nl` descending lists of keys (rows kTopkPass apart, `m`
+// keys each, 0 past their last) into their `m` largest, descending, at
+// `dst`: lane l holds list l's head, and each step's warp maximum advances
+// the one lane that holds it (keys are distinct)
+__device__ __forceinline__ void merge_lists(const unsigned long long* src, int nl, int m,
+                                            unsigned long long* dst, int lid) {
+  int h = 0;
+  for (int r = 0; r < m; ++r) {
+    const unsigned long long k = (lid < nl && h < m) ? src[lid * kTopkPass + h] : 0;
+    const unsigned long long t = warp_max_key(k);
+    if (lid == 0) dst[r] = t;
+    if (t && k == t) ++h;
+  }
+}
+
 __device__ __forceinline__ float cnt_load(const void* p, size_t idx, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[idx])
               : static_cast<const float*>(p)[idx];
@@ -600,6 +650,9 @@ __device__ void block_copy(void* dst, const void* src, size_t n) {
 // A block's dynamic shared memory: offsets of 4-byte words, then of bytes
 // after them. Mirrored in kernels/step.py:smem_bytes.
 struct Layout {
+  int keys;    // the top-k's key rows (StepArgs.topk > 0, explain library):
+               // [kTopkLists][kTopkPass] lists, [2][2][kTopkPass] the block's
+               // merged list by pod and pass parity, [kTopkPass] candidates
   int fail;    // [2][OPS] first-fail histogram, by pod parity
   int dpart;   // [2][Q*D + 2Q] column-read partials: sums, totals, minima
   int merged;  // [Q*D + 2Q] the cluster's column sums, totals, minima
@@ -627,6 +680,8 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   const int qd = q * a.d + 2 * q;
   Layout l;
   int w = 0;
+  l.keys = w;  // first: 8-byte keys at the region's 16-byte alignment
+  w += (PLAIN_STEP_EXPLAIN && a.topk > 0) ? kTopkWords : 0;
   l.fail = w;
   w += 2 * a.ops;
   // (the column-read partials and the dom_count replica take no shared
@@ -1196,11 +1251,8 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   __shared__ int s_nom;  // the pod's nominated node while still feasible, else -1
   __shared__ unsigned long long s_pick;
   __shared__ long long s_cyc[kPhases + 1];  // the phases, then the last mark
-  // kExplain: the pod's folded PRNG key; the top-k rounds' partials, by pod
-  // parity and round parity, and the latest round's winner
+  // kExplain: the pod's folded PRNG key
   __shared__ unsigned s_pkey[2];
-  __shared__ unsigned long long s_tk[kExplain ? 4 : 1];
-  __shared__ unsigned long long s_top;
   // the traced weights: the lane's row of w_lane, read once in the lane
   // prologue (with w_lane null the score code reads the scalars instead)
   __shared__ float s_w[kWeights];
@@ -1356,15 +1408,11 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       for (int i = tid; i < a.ered; i += B) epart[i] = INT_MAX;
     if (tid == 0) s_key[par] = 0;
     if constexpr (kExplain) {
-      if (tid == 0) {
-        s_tk[2 * par] = 0;
-        s_tk[2 * par + 1] = 0;
-        if (jitter) {  // fold_in(PRNGKey(seed), p): the hash of (0, p)
-          unsigned x0 = 0, x1 = (unsigned)p;
-          threefry2x32(a.key0, a.key1, x0, x1);
-          s_pkey[0] = x0;
-          s_pkey[1] = x1;
-        }
+      if (tid == 0 && jitter) {  // fold_in(PRNGKey(seed), p): the hash of (0, p)
+        unsigned x0 = 0, x1 = (unsigned)p;
+        threefry2x32(a.key0, a.key1, x0, x1);
+        s_pkey[0] = x0;
+        s_pkey[1] = x1;
       }
     }
     if (gc_path) {
@@ -1924,11 +1972,54 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
     best = warp_max_u64(best);
     if (lid == 0 && best) atomicMax(&s_key[par], best);
-    if constexpr (kExplain) {
-      if (topk) {
-        tbest = warp_max_u64(tbest);
-        if (lid == 0 && tbest) atomicMax(&s_tk[2 * par], tbest);
+    // the top-k's passes (kExplain, topk > 0): pass i ranks candidates
+    // i * kTopkPass .. of the pod; the first rides round B's barrier
+    unsigned long long* const s_wl = reinterpret_cast<unsigned long long*>(s_dyn + lay.keys);
+    unsigned long long* const s_tk = s_wl + kTopkLists * kTopkPass;
+    unsigned long long* const s_cand = s_tk + 4 * kTopkPass;
+    // the largest key of this thread's nodes below `below` (0: none)
+    auto key_below = [&](unsigned long long below) {
+      unsigned long long b = 0;
+      for (int it = 0; it < iters; ++it) {
+        const int n = lo + it * B + tid;
+        if (n >= hi) break;
+        const unsigned long long tk = topk_key(s_ms[n - lo], n);
+        if (tk < below && tk > b) b = tk;
       }
+      return b;
+    };
+    // a pass before its barrier: each warp's `m` largest keys by repeated
+    // warp maxima (this thread's largest is `mine`; only the winning thread
+    // rescans its nodes), then warp 0 merges the block's warp lists into
+    // the pass's buffer `dst`
+    auto pass_lists = [&](unsigned long long mine, int m, unsigned long long* dst) {
+      unsigned long long* const wl = s_wl + wid * kTopkPass;
+      for (int r = 0; r < m; ++r) {
+        const unsigned long long t = warp_max_key(mine);
+        if (lid == 0) wl[r] = t;
+        if (t && mine == t) mine = key_below(t);
+      }
+      __syncthreads();
+      if (wid == 0) merge_lists(s_wl, B >> 5, m, dst, lid);
+    };
+    // a pass after its barrier (warp 0): the C blocks' m keys each read
+    // through distributed shared memory into this block's list rows, two
+    // reads in flight a lane, then merged into the pass's candidates
+    auto pass_pick = [&](const unsigned long long* src, int m) {
+      const int n_keys = C * m;
+      for (int i = lid; i < n_keys; i += 64) {
+        const int j = i + 32;
+        const unsigned long long k0 = *cluster.map_shared_rank(src + i % m, i / m);
+        const unsigned long long k1 =
+            j < n_keys ? *cluster.map_shared_rank(src + j % m, j / m) : 0;
+        s_wl[(i / m) * kTopkPass + i % m] = k0;
+        if (j < n_keys) s_wl[(j / m) * kTopkPass + j % m] = k1;
+      }
+      __syncwarp();
+      merge_lists(s_wl, C, m, s_cand, lid);
+    };
+    if constexpr (kExplain) {
+      if (topk) pass_lists(tbest, min(topk, kTopkPass), s_tk + 2 * par * kTopkPass);
     }
     if (counted) {
       __syncthreads();
@@ -1936,56 +2027,42 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
 
     // ---- round B: the cluster's (max score, lowest index) pick (with the
-    // top-k: its first candidate too)
+    // top-k: its first pass too)
     cluster.sync();
     if (wid == 0) {
       const unsigned long long k = lid < C ? *cluster.map_shared_rank(&s_key[par], lid) : 0;
       const unsigned long long top = warp_max_u64(k);
       if (lid == 0) s_pick = top;
       if constexpr (kExplain) {
-        if (topk) {
-          const unsigned long long t =
-              warp_max_u64(lid < C ? *cluster.map_shared_rank(&s_tk[2 * par], lid) : 0);
-          if (lid == 0) s_top = t;
-        }
+        if (topk) pass_pick(s_tk + 2 * par * kTopkPass, min(topk, kTopkPass));
       }
     }
     __syncthreads();
 
-    // ---- the top-k rounds: after each round its winner's owner thread
-    // writes candidate r (node, masked score, weighted rows; zero rows for
-    // a filler slot); round r >= 1 takes the largest key below round r - 1's
+    // ---- the top-k's candidates: after each pass, candidate r0 + c's row
+    // (node, masked score, weighted rows; zero rows for a filler slot) is
+    // written by lane c of the last warp of the block that owns the node,
+    // all in parallel; pass i >= 1 takes the largest keys below pass i - 1's last,
+    // its buffers alternating by pass parity (a block rewrites one only
+    // after every block has passed the next pass's barrier)
     if constexpr (kExplain) {
-      for (int r = 0; r < topk; ++r) {
-        if (r > 0) {
-          const unsigned long long prev = s_top;
-          unsigned long long b = 0;
-          for (int it = 0; it < iters; ++it) {
-            const int n = lo + it * B + tid;
-            if (n >= hi) break;
-            const unsigned long long tk = topk_key(s_ms[n - lo], n);
-            if (tk < prev && tk > b) b = tk;
-          }
-          b = warp_max_u64(b);
-          if (lid == 0 && b) atomicMax(&s_tk[2 * par + (r & 1)], b);
+      for (int pass = 0, r0 = 0; r0 < topk; ++pass, r0 += kTopkPass) {
+        const int m = min(topk - r0, kTopkPass);
+        if (pass > 0) {
+          unsigned long long* const dst = s_tk + (2 * par + (pass & 1)) * kTopkPass;
+          pass_lists(key_below(s_cand[kTopkPass - 1]), m, dst);
           cluster.sync();
-          if (wid == 0) {
-            const unsigned long long t = warp_max_u64(
-                lid < C ? *cluster.map_shared_rank(&s_tk[2 * par + (r & 1)], lid) : 0);
-            if (lid == 0) s_top = t;
-          }
-          // every block has read round r - 1's partials: the buffer of
-          // round r + 1 is free again
-          if (tid == 0) s_tk[2 * par + ((r + 1) & 1)] = 0;
+          if (wid == 0) pass_pick(dst, m);
           __syncthreads();
         }
-        const int w = pick_node(s_top);
-        if (w >= lo && w < hi && (w - lo) % B == tid) {
-          const size_t o = orow * topk + r;
+        const int cand = tid - (B - 32);  // the last warp's lanes, beside phase 3's warp 0
+        const int w = cand >= 0 && cand < m ? pick_node(s_cand[cand]) : -1;
+        if (w >= lo && w < hi) {
+          const size_t o = orow * topk + r0 + cand;
           const float v = s_ms[w - lo];
           a.out_topk_node[o] = w;
           a.out_topk_score[o] = v;
-          float* parts = a.out_topk_parts + orow * a.n_parts * topk + r;
+          float* parts = a.out_topk_parts + orow * a.n_parts * topk + r0 + cand;
           if (v > kNegInf) {
             score_of(w, w - lo, s_flag[w - lo], parts, topk);
           } else {

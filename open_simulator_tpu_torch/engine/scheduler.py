@@ -257,27 +257,27 @@ def apply_forced_mask(arrs: SnapshotArrays, cfg: EngineConfig,
     (a bf16 carry adds each chunk's sum rounded once). The 0/1 weights and
     integer-valued requests keep every sum exact below 2^24. Callers gate
     it as the reference does: no order-dependent GPU, storage, WFC or
-    shared-volume carry among the masked pods."""
-    forced = arrs.forced_node.to(torch.int32)
-    # a masked pod with no forced node folds at node 0, as the reference's
-    # clamped one-hot does (its callers mask only forced pods)
-    return _fold_forced(arrs, cfg, state, torch.where(
-        mask.to(torch.bool), forced.clamp_min(0), torch.full_like(forced, -1)))
+    shared-volume carry among the masked pods. A masked pod with no
+    forced node folds at node 0, as the reference's clamped one-hot does
+    (its callers mask only forced pods)."""
+    return _fold_forced(arrs, cfg, state, arrs.forced_node.to(torch.int32),
+                        mask.to(torch.bool))
 
 
 def _fold_forced(arrs: SnapshotArrays, cfg: EngineConfig, state: SimState,
-                 nodes: torch.Tensor) -> SimState:
-    """Fold pods [0, len(nodes)) into a copy of `state`, pod p at
-    ``nodes[p]`` (negative: not folded), one ``forced_fold`` a chunk."""
+                 nodes: torch.Tensor, mask: Optional[torch.Tensor] = None) -> SimState:
+    """Fold pods [0, len(nodes)) into a new carry, pod p at ``nodes[p]``
+    (negative: not folded; with `mask`, at ``max(nodes[p], 0)`` where
+    ``mask[p]``): one ``forced_fold`` call, a launch pair a
+    ``_PREFIX_CHUNK``-pod chunk, which writes every field of the new
+    carry from `state` and the folds."""
     from open_simulator_tpu_torch.kernels import wave as wave_kernels
 
-    state = SimState(**{f: getattr(state, f).contiguous().clone() for f in STATE_FIELDS})
-    inputs: Dict[str, Any] = {}
-    for lo in range(0, nodes.shape[0], _PREFIX_CHUNK):
-        hi = min(lo + _PREFIX_CHUNK, nodes.shape[0])
-        wave_kernels.forced_fold(arrs, cfg, state, lo, hi, nodes[lo:hi].contiguous(),
-                                 inputs=inputs)
-    return state
+    state = SimState(**{f: getattr(state, f).contiguous() for f in STATE_FIELDS})
+    out = SimState(**{f: torch.empty_like(getattr(state, f)) for f in STATE_FIELDS})
+    wave_kernels.forced_fold(arrs, cfg, state, 0, nodes.shape[0], nodes.contiguous(), out=out,
+                             mask=None if mask is None else mask.contiguous())
+    return out
 
 
 def score_part_names(cfg: EngineConfig) -> Tuple[str, ...]:

@@ -196,6 +196,11 @@ _SMEM_LIMIT = 200 * 1024
 MAX_THREADS, MAX_THREADS_DEVRES = 512, 384
 MAX_THREADS_WIDE, MAX_THREADS_WIDE_DEVRES = 384, 256
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# the explain top-k (kTopkPass, kTopkLists in the .cu): a pass ranks up to
+# TOPK_PASS candidates a pod in one cluster round; its lists take
+# TOPK_LISTS + 5 rows of TOPK_PASS 8-byte keys of a block's shared memory
+TOPK_PASS, TOPK_LISTS = 8, 16
+TOPK_WORDS = 2 * (TOPK_LISTS + 5) * TOPK_PASS
 
 
 class SmemWidths(NamedTuple):
@@ -211,6 +216,7 @@ class SmemWidths(NamedTuple):
     r: int      # resources (the headroom row)
     npv: int    # the pv_taken replica (0 without PV matching)
     ext: int = 0  # the extension minima and normalizers (3 * ered + 3 * Es)
+    keys: int = 0  # the top-k's key rows, in words (TOPK_WORDS under explain_topk)
 
 
 def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool = False,
@@ -218,13 +224,13 @@ def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool =
     """A block's dynamic shared memory for these widths and a slice of
     `slice_len` nodes, its headroom rows in shared memory or not, its
     dom_count replica and its column-read partials in global memory or not
-    (mirrors layout_of in the .cu): the histogram and the column-read
-    partials twice (by pod parity), the merged column read, the column needs, the
-    hard-spread minima, the dom_count replica, the slice's raw scores (and
-    headroom) as 4-byte words, then its flags and the pv_taken replica as
-    bytes."""
+    (mirrors layout_of in the .cu): the top-k's key rows, the histogram
+    and the column-read partials twice (by pod parity), the merged column
+    read, the column needs, the hard-spread minima, the dom_count replica,
+    the slice's raw scores (and headroom) as 4-byte words, then its flags
+    and the pv_taken replica as bytes."""
     qd = w.q * w.d + 2 * w.q
-    words = (2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
+    words = (w.keys + 2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
              + (0 if dom_global else w.dom)
              + w.rows * slice_len + w.ext + (slice_len * w.r if headroom else 0))
     return 4 * words + slice_len + w.npv
@@ -662,7 +668,8 @@ def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
         + bool(cfg.explain_topk) + len(rows.scores) + bool(rows.filters),
         r=arrs.alloc.shape[1],
         npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0,
-        ext=3 * rows.ered + 3 * len(rows.scores))
+        ext=3 * rows.ered + 3 * len(rows.scores),
+        keys=TOPK_WORDS if cfg.explain_topk else 0)
 
 
 def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:

@@ -31,21 +31,29 @@ version only for CPU tensors; it never falls back from one to the other.
 
 ``forced_fold`` is the same fold for one carry and many pods, few a
 node: the forced binds of ``engine.scheduler.apply_forced_mask`` (the
-replay pins) and ``apply_forced_prefix``, a 4,096-pod chunk a call, on
-the ``forced_fold`` kernel (``csrc/forced_fold.cu``), which buckets the
-chunk's pods by node and by domain and walks only each cell's pods. Its
-plain version is ``wave_merge_torch`` on a one-lane view of the carry;
-``LAUNCHES["forced_fold"]`` counts its launch sequences.
+replay pins) and ``apply_forced_prefix``, in 4,096-pod chunks, on the
+``forced_fold`` kernel (``csrc/forced_fold.cu``: two launches a chunk),
+which buckets the chunk's pods by node and by domain and walks only each
+cell's pods, and writes a new carry (or folds one in place). Its plain
+version is ``wave_merge_torch`` on a one-lane view of the carry, chunk
+by chunk; ``LAUNCHES["forced_fold"]`` counts its launch pairs (one a
+chunk).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, Optional
 
 import torch
 
-from open_simulator_tpu_torch.engine.scheduler import STATE_FIELDS, EngineConfig, SimState
+from open_simulator_tpu_torch.engine.scheduler import (
+    _PREFIX_CHUNK,
+    STATE_FIELDS,
+    EngineConfig,
+    SimState,
+)
 from open_simulator_tpu_torch.kernels import build
 from open_simulator_tpu_torch.kernels.step import _check as step_check
 from open_simulator_tpu_torch.kernels.step import node_domains
@@ -266,14 +274,22 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
 
 # ---- the forced fold -----------------------------------------------------
 
-_FOLD_PTRS = ("node_dom", "term_key", "req", "match_groups", "ports", "vol_limit_req",
-              "own_terms", "pref_key", "pref_tid", "pref_weight", "pref_valid", "nodes",
-              "off", "list", "dom_terms", "dom_pref", "headroom", "group_count", "dom_count",
-              "ports_used", "vol_cnt", "term_block", "pref_paint")
-_FOLD_INTS = ("n", "r", "sg", "pt", "lk", "t", "ap", "t2", "k1", "d", "b", "p0", "c", "flags")
-# the bucket kernel's shared memory cap (csrc/forced_fold.cu: one int a
-# node, or a domain, of the widest key)
+# the carry fields the fold folds, and those it only carries over
+_FOLD_CARRY = ("headroom", "group_count", "dom_count", "ports_used", "vol_cnt", "term_block",
+               "pref_paint")
+_FOLD_KEPT = ("gpu_used", "vg_used", "sdev_taken", "pv_taken", "svol_on_node")
+_FOLD_PTRS = (("node_dom", "term_key", "req", "match_groups", "ports", "vol_limit_req",
+               "own_terms", "pref_key", "pref_tid", "pref_weight", "pref_valid", "nodes", "mask",
+               "off", "list", "dom_terms", "dom_pref")
+              + tuple("in_" + f for f in _FOLD_CARRY) + _FOLD_CARRY
+              + tuple("in_" + f for f in _FOLD_KEPT) + _FOLD_KEPT)
+_FOLD_INTS = ("n", "r", "sg", "pt", "lk", "t", "ap", "t2", "k1", "d", "p0", "c", "flags", "g",
+              "v", "e", "npv", "nsv")
+# the bucket launch's shared memory cap (csrc/forced_fold.cu: kSmemMax)
 _FOLD_SMEM_LIMIT = 200 * 1024
+# each device arrays object's converted fold inputs and scratch, built on
+# its first fold and dropped with it (fold_inputs)
+_FOLD_INPUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 class FoldArgs(ctypes.Structure):
@@ -281,25 +297,51 @@ class FoldArgs(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in _FOLD_INTS])
 
 
+def fold_inputs(arrs) -> dict:
+    """The dict ``forced_fold_cuda`` keeps its converted inputs and scratch
+    in for the device arrays `arrs`: one per arrays object, kept while it
+    lives, so the folds over the same arrays (every call of a replay or a
+    sweep) convert them once."""
+    inputs = _FOLD_INPUTS.get(arrs)
+    if inputs is None:
+        inputs = _FOLD_INPUTS[arrs] = {}
+    return inputs
+
+
 def forced_fold(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
-                nodes: torch.Tensor, inputs: Optional[dict] = None) -> None:
-    """Fold pods [p0, p1) into the one-lane carry `state` in place, pod
-    ``p0 + i`` at ``nodes[i]`` (negative: not folded): the
-    ``forced_fold`` kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+                nodes: torch.Tensor, out: Optional[SimState] = None,
+                mask: Optional[torch.Tensor] = None) -> None:
+    """Fold pods [p0, p1) into the one-lane carry `state`, pod ``p0 + i``
+    at ``nodes[i]`` (negative: not folded; with `mask` [p1 - p0] bool, at
+    ``max(nodes[i], 0)`` where ``mask[i]`` and nowhere else), in chunks of
+    ``_PREFIX_CHUNK`` pods from p0, each chunk's sums added once (a bf16
+    carry rounds them once a chunk, as the reference folds): in place, or
+    given `out` (a one-lane carry of the same shapes) into `out`, every
+    field of it written and `state` only read. The ``forced_fold``
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     if nodes.device.type == "cuda":
-        return forced_fold_cuda(arrs, cfg, state, p0, p1, nodes, inputs)
+        return forced_fold_cuda(arrs, cfg, state, p0, p1, nodes, out, mask)
     if nodes.device.type == "cpu":
-        return forced_fold_torch(arrs, cfg, state, p0, p1, nodes)
+        return forced_fold_torch(arrs, cfg, state, p0, p1, nodes, out, mask)
     raise ValueError(f"no forced_fold for device {nodes.device}")
 
 
 def forced_fold_torch(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
-                      nodes: torch.Tensor) -> None:
-    """The plain version: the plain merge of the binds on a one-lane view
-    of the carry (no GPU debit: the fold's callers hold no GPU pod)."""
-    wave_merge_torch(arrs, cfg, SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS}),
-                     p0, p1, nodes)
+                      nodes: torch.Tensor, out: Optional[SimState] = None,
+                      mask: Optional[torch.Tensor] = None) -> None:
+    """The plain version: the plain merge of each chunk's binds on a
+    one-lane view of the carry (no GPU debit: the fold's callers hold no
+    GPU pod)."""
+    if mask is not None:
+        nodes = torch.where(mask, nodes.clamp_min(0), torch.full_like(nodes, -1))
+    if out is not None:
+        for f in STATE_FIELDS:
+            getattr(out, f).copy_(getattr(state, f))
+        state = out
+    lane = SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS})
+    for lo in range(p0, p1, _PREFIX_CHUNK):
+        hi = min(lo + _PREFIX_CHUNK, p1)
+        wave_merge_torch(arrs, cfg, lane, lo, hi, nodes[lo - p0:hi - p0])
 
 
 def fold_flags(cfg: EngineConfig, state: SimState) -> int:
@@ -307,6 +349,13 @@ def fold_flags(cfg: EngineConfig, state: SimState) -> int:
     reads the dense rows, as the reference's) and without the GPU debit."""
     return merge_flags(cfg, SimState(**{f: getattr(state, f)[None] for f in STATE_FIELDS}),
                        False) & ~M_SLOT
+
+
+def fold_smem(n: int, k1: int, d: int, c: int, domains: bool) -> int:
+    """The bucket launch's dynamic shared memory (csrc/forced_fold.cu:
+    bucket_smem): the warp totals, then the node counts, or a key's domain
+    counts and the chunk's pod list where domain cells fold."""
+    return 4 * (32 + max(n + 1, d + 1 + c if domains and k1 > 0 else 0))
 
 
 def _fold_check(name: str, t: torch.Tensor, dtype, shape) -> torch.Tensor:
@@ -321,13 +370,16 @@ def _fold_library() -> ctypes.CDLL:
 
 
 def forced_fold_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
-                     nodes: torch.Tensor, inputs: Optional[dict] = None) -> None:
-    """Launch the ``forced_fold`` sequence on the current stream: bucket
-    the chunk's pods by node and by each key's domain (a histogram, a
-    scan and a stable scatter), sum each domain's pods (a warp a domain
-    cell), then one thread a node cell walks its node's pods and reads its
-    domains' sums. `inputs`, a dict the caller keeps across calls over the
-    same arrays, holds the converted pod and node arrays."""
+                     nodes: torch.Tensor, out: Optional[SimState] = None,
+                     mask: Optional[torch.Tensor] = None) -> None:
+    """Launch the ``forced_fold`` pair on the current stream, once a
+    chunk: bucket the chunk's pods by node (block 0) and sum each domain
+    cell (the other blocks, each bucketing by its key's domain), then one
+    thread a node cell walks its node's pods and reads its domains' sums,
+    writing `out` (or `state` in place) and carrying over what the chunk
+    leaves; the chunks after the first fold `out` in place. The inputs are
+    checked once a call; the converted pod and node arrays and the scratch
+    are kept per arrays object (``fold_inputs``)."""
     n, r = arrs.alloc.shape
     c = p1 - p0
     k1, _, d = arrs.topo_onehot.shape
@@ -337,56 +389,83 @@ def forced_fold_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
     for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
         if dt not in (torch.bfloat16, torch.float32):
             raise ValueError(f"forced_fold: {name} dtype {dt}")
-    b = max(n, d)
-    if (b + 1 + 32) * 4 > _FOLD_SMEM_LIMIT:
-        raise ValueError(f"forced_fold: {b} nodes or domains, over the kernel's "
-                         f"{_FOLD_SMEM_LIMIT // 4 - 33}")
+    flags = fold_flags(cfg, state)
+    domains = bool(flags & (M_DOM | M_ANTI | M_PREF))
+    chunk = min(max(c, 0), _PREFIX_CHUNK)
+    if fold_smem(n, k1, d, chunk, domains) > _FOLD_SMEM_LIMIT:
+        raise ValueError(f"forced_fold: {n} nodes, or {d} domains and {chunk} pods, over the "
+                         f"bucket kernel's {_FOLD_SMEM_LIMIT} bytes of shared memory")
     _fold_check("nodes", nodes, torch.int32, (c,))
-    carry = dict(
-        headroom=_fold_check("headroom", state.headroom, torch.float32, (n, r)),
-        group_count=_fold_check("group_count", state.group_count, gc_dt, (n, sg)),
-        dom_count=_fold_check("dom_count", state.dom_count, torch.float32, (k1, d, sg)),
-        ports_used=_fold_check("ports_used", state.ports_used, torch.bool, (n, pt)),
-        vol_cnt=_fold_check("vol_cnt", state.vol_cnt, torch.float32, (n, lk)),
-        term_block=_fold_check("term_block", state.term_block, tb_dt, (n, t_w)),
-        pref_paint=_fold_check("pref_paint", state.pref_paint, torch.float32, (n, t2)))
+    if mask is not None:
+        _fold_check("mask", mask, torch.bool, (c,))
+    shapes = dict(headroom=(torch.float32, (n, r)), group_count=(gc_dt, (n, sg)),
+                  dom_count=(torch.float32, (k1, d, sg)), ports_used=(torch.bool, (n, pt)),
+                  vol_cnt=(torch.float32, (n, lk)), term_block=(tb_dt, (n, t_w)),
+                  pref_paint=(torch.float32, (n, t2)))
+    shapes.update({f: (getattr(state, f).dtype, tuple(getattr(state, f).shape))
+                   for f in _FOLD_KEPT})
+    dst = out if out is not None else state
+    carry = {}
+    for f, (dt, shape) in shapes.items():
+        carry["in_" + f] = _fold_check(f, getattr(state, f), dt, shape)
+        carry[f] = _fold_check(f, getattr(dst, f), dt, shape)
     if c <= 0:
+        if out is not None:
+            for f in STATE_FIELDS:
+                getattr(out, f).copy_(getattr(state, f))
         return
-    static = inputs if inputs is not None else {}
+    static = fold_inputs(arrs)
     if "fold" not in static:
+        def u8(x):  # bool rows as the bytes they are stored in
+            return x.contiguous().view(torch.uint8) if x.dtype == torch.bool else \
+                x.to(torch.uint8).contiguous()
+
         def cv(x, dt):
             return x.to(dt).contiguous()
 
-        i32, u8, f32 = torch.int32, torch.uint8, torch.float32
+        i32, f32 = torch.int32, torch.float32
         static["fold"] = dict(
             node_dom=node_domains(arrs.topo_onehot).contiguous(),
             term_key=cv(arrs.term_key, i32), req=cv(arrs.req, f32),
-            match_groups=cv(arrs.match_groups, u8), ports=cv(arrs.ports, u8),
-            vol_limit_req=cv(arrs.vol_limit_req, f32), own_terms=cv(arrs.own_terms, u8),
+            match_groups=u8(arrs.match_groups), ports=u8(arrs.ports),
+            vol_limit_req=cv(arrs.vol_limit_req, f32), own_terms=u8(arrs.own_terms),
             pref_key=cv(arrs.pref_key, i32), pref_tid=cv(arrs.pref_tid, i32),
-            pref_weight=cv(arrs.pref_weight, f32), pref_valid=cv(arrs.pref_valid, u8))
+            pref_weight=cv(arrs.pref_weight, f32), pref_valid=u8(arrs.pref_valid))
     dev = nodes.device
-    # scratch, written before it is read within each launch sequence, so
-    # the calls over the same arrays share it (they run in stream order)
+    # scratch, written before it is read within each launch pair, so the
+    # chunks and the calls over the same arrays share it (stream order)
     scratch = static.get("fold_scratch")
-    if scratch is None or scratch["list"].numel() < (k1 + 1) * c:
+    if scratch is None or scratch["list"].numel() < chunk:
         scratch = static["fold_scratch"] = dict(
-            off=torch.empty(((k1 + 1) * (b + 1),), dtype=torch.int32, device=dev),
-            list=torch.empty(((k1 + 1) * c,), dtype=torch.int32, device=dev),
+            off=torch.empty((n + 1,), dtype=torch.int32, device=dev),
+            list=torch.empty((chunk,), dtype=torch.int32, device=dev),
             dom_terms=torch.empty((max(1, k1 * d * t_w),), dtype=torch.float32, device=dev),
             dom_pref=torch.empty((max(1, k1 * d * ap * t2),), dtype=torch.float32, device=dev))
     tensors = {**static["fold"], **carry, **scratch, "nodes": nodes}
+    if mask is not None:
+        tensors["mask"] = mask
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"forced_fold: {name} is on {t.device}, not {dev}")
     args = FoldArgs(
-        **{f: tensors[f].data_ptr() for f in _FOLD_PTRS},
-        n=n, r=r, sg=sg, pt=pt, lk=lk, t=t_w, ap=ap, t2=t2, k1=k1, d=d, b=b, p0=p0, c=c,
-        flags=fold_flags(cfg, state))
+        **{f: (tensors[f].data_ptr() if f in tensors else None) for f in _FOLD_PTRS},
+        n=n, r=r, sg=sg, pt=pt, lk=lk, t=t_w, ap=ap, t2=t2, k1=k1, d=d, p0=p0, c=chunk,
+        flags=flags, **{w: (getattr(state, f).shape[-1] if getattr(state, f).dim() > 1 else 0)
+                        for w, f in (("g", "gpu_used"), ("v", "vg_used"), ("e", "sdev_taken"),
+                                     ("nsv", "svol_on_node"))},
+        npv=state.pv_taken.shape[0])
     lib = _fold_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.forced_fold_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"forced_fold launch failed: CUDA error {err}")
-    LAUNCHES["forced_fold"] += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        for lo in range(p0, p1, _PREFIX_CHUNK):
+            if lo > p0:  # the chunks after the first: `dst` in place
+                args.p0, args.c = lo, min(lo + _PREFIX_CHUNK, p1) - lo
+                args.nodes = tensors["nodes"].data_ptr() + 4 * (lo - p0)
+                if mask is not None:
+                    args.mask = tensors["mask"].data_ptr() + (lo - p0)
+                for f in shapes:
+                    setattr(args, "in_" + f, getattr(args, f))
+            err = lib.forced_fold_launch(ctypes.byref(args), stream)
+            if err:
+                raise RuntimeError(f"forced_fold launch failed: CUDA error {err}")
+            LAUNCHES["forced_fold"] += 1

@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -54,10 +56,13 @@ from open_simulator_tpu_torch import simulator as tsimulator
 from open_simulator_tpu_torch.cli.main import main as port_main
 from open_simulator_tpu_torch.engine import scheduler as tsched
 from open_simulator_tpu_torch.engine import waves as TW
+from open_simulator_tpu_torch.kernels import build as tbuild
+from open_simulator_tpu_torch.kernels import step as tstep
 from open_simulator_tpu_torch.k8s import loader as tloader
 from open_simulator_tpu_torch.k8s import objects as tobjects
 from open_simulator_tpu_torch.telemetry import explain as texplain
 from open_simulator_tpu_torch.testing.synthetic import device_resource_manifests
+from open_simulator_tpu_torch.testing.synthetic import synthetic_snapshot as tsynthetic
 from tests.test_torch_devres import encode_manifests
 
 TOPK = ("topk_node", "topk_score", "topk_parts")
@@ -138,6 +143,57 @@ def test_scan_equals_reference(name, mode):
             k = jcfg.forced_prefix
             assert k > 0 and (got.topk_node[:k] == -1).all()
             assert (got.topk_node[k:, 0] >= 0).any()
+
+
+# the kernel ranks the top-k in passes of kernels/step.TOPK_PASS candidates:
+# K at the pass width, one past it and past two passes, on a rich cluster
+# of identical nodes (ties) with infeasible ones (fillers)
+TOPK_PASS_KS = (tstep.TOPK_PASS, tstep.TOPK_PASS + 1, 2 * tstep.TOPK_PASS + 1)
+
+
+@pytest.mark.parametrize("k", TOPK_PASS_KS)
+def test_topk_pass_widths_equal_reference(k):
+    snap = jsynthetic(24, 40, 0, rich=True, bound=0.2)
+    tsnap = tp.port_snapshot(snap)
+    jcfg = jsched.make_config(snap, explain_topk=k)
+    active = snap.arrays.active & (np.arange(snap.n_nodes) % 4 == 0)  # 6 of 24 nodes
+    ref = jsched.schedule_pods(jsched.device_arrays(snap), jnp.asarray(active), jcfg,
+                               waves=None)
+    got = tsched.schedule_pods(tsnap.arrays, active, tp.torch_cfg(jcfg), device="cpu")
+    assert_outputs_equal(outputs(ref), {k_: getattr(got, k_).numpy() for k_ in OUTS})
+    assert got.topk_node.shape == (snap.n_pods, k)
+    stepped = got.topk_node[jcfg.forced_prefix:]
+    # fewer feasible nodes than K: the fillers are ranked too, by index
+    assert (got.topk_score[jcfg.forced_prefix:, -1] <= -1e37).all()
+    assert len({tuple(r) for r in stepped[:, :2].tolist()}) < len(stepped)  # ties
+
+
+def test_explain_key_rows_pin_the_shared_memory_widths():
+    """Under explain_topk the kernel's shared memory holds the masked
+    scores' row and the top-k's key rows (kernels/step.TOPK_WORDS words:
+    TOPK_LISTS + 5 rows of TOPK_PASS 8-byte keys, the .cu's kTopkPass and
+    kTopkLists); the jitter alone and the builds without explain hold
+    neither."""
+    src = (Path(tbuild.CSRC_DIR) / "plain_step.cu").read_text(encoding="utf-8")
+    consts = dict(re.findall(r"constexpr int (kTopk\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items() if k != "kTopkWords"} == {
+        "kTopkPass": tstep.TOPK_PASS, "kTopkLists": tstep.TOPK_LISTS}
+    assert "2 * (kTopkLists + 4 + 1) * kTopkPass" in src
+    assert tstep.TOPK_WORDS == 2 * (tstep.TOPK_LISTS + 5) * tstep.TOPK_PASS == 336
+    snap = tsynthetic(24, 64, rich=True)
+    arrs = tsched.device_arrays(snap.arrays, "cpu")
+    base_cfg = tsched.make_config(snap)
+    flags = tstep._flags(base_cfg, tsched.init_state(arrs, base_cfg), False)
+    base = tstep.smem_widths(arrs, base_cfg, flags)
+    assert base.keys == 0
+    for over, keys, rows in (({"explain_topk": 3}, tstep.TOPK_WORDS, 1),
+                             ({"explain_topk": 2 * tstep.TOPK_PASS + 1}, tstep.TOPK_WORDS, 1),
+                             ({"tie_break_seed": 7}, 0, 0)):
+        w = tstep.smem_widths(arrs, tsched.make_config(snap, **over), flags)
+        assert (w.keys, w.rows - base.rows) == (keys, rows), over
+        for sl in (1, 320):
+            assert (tstep.smem_bytes(w, sl, False) - tstep.smem_bytes(base, sl, False)
+                    == 4 * (keys + rows * sl))
 
 
 def test_score_part_names_equal_reference():

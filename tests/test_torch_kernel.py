@@ -986,6 +986,73 @@ def test_forced_fold_equals_plain_on_card(cuda_device, case):
         assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
 
 
+def _hostname_only_snapshot():
+    """A cluster whose every term and preference is hostname-keyed, with
+    its topology keys cut to none (K1 = 0): the fold has no domain."""
+    nodes = [make_valid_node(Node.from_dict({"metadata": {"name": f"n{i}"}, "status": {
+        "allocatable": {"cpu": "16", "memory": "64Gi", "pods": "110"}}})) for i in range(24)]
+    pods = []
+    for i in range(160):
+        term = {"labelSelector": {"matchLabels": {"app": f"a{i % 3}"}},
+                "topologyKey": "kubernetes.io/hostname"}
+        pods.append(Pod.from_dict({
+            "metadata": {"name": f"p{i}", "namespace": "default", "labels": {"app": f"a{i % 3}"}},
+            "spec": {"containers": [{"name": "c", "resources": {"requests": {
+                "cpu": f"{100 + i % 7 * 50}m", "memory": "128Mi"}}}],
+                "affinity": {"podAntiAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": [term] if i % 2 else [],
+                    "preferredDuringSchedulingIgnoredDuringExecution": [
+                        {"weight": 5, "podAffinityTerm": term}]}}}}))
+    snap = encode_cluster(nodes, pods)
+    a = snap.arrays
+    assert not a.term_key.any() and not (a.pref_key * a.pref_valid).any()
+    return dataclasses.replace(snap, arrays=dataclasses.replace(a, topo_onehot=a.topo_onehot[:0]))
+
+
+FOLD_EDGE_CASES = {**FOLD_CASES, "k1=0": _hostname_only_snapshot}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FOLD_EDGE_CASES))
+@pytest.mark.parametrize("edge", [1, 31, 32, 33, 4096, "one-node"])
+def test_forced_fold_edges_equal_plain_on_card(cuda_device, case, edge):
+    """One chunk of c pods (1, a warp's width and its neighbours, a whole
+    4,096-pod chunk), or a whole chunk bound to one node, folded by the
+    kernel and by its plain version into a carry that already holds
+    counts: every carry field equal (bf16 and f32 carries; K1 = 0)."""
+    snap = FOLD_EDGE_CASES[case]()
+    cfg = sched.make_config(snap, compact_carry=case != "rich-f32")
+    fields = {f: getattr(snap.arrays, f) for f in snap.arrays.__dataclass_fields__}
+    n_pods = sched._PREFIX_CHUNK
+    reps = -(-n_pods // snap.n_pods)
+    for f in sched.POD_FIELDS:
+        fields[f] = np.ascontiguousarray(np.concatenate([fields[f]] * reps)[:n_pods])
+    a = fields
+    plain = ~((a["gpu_cnt"] > 0) | np.any(a["lvm_req"] > 0, axis=1)
+              | np.any(a["sdev_req"] > 0, axis=1) | np.any(a["wfc_valid"], axis=1)
+              | np.any(a["svol_id"] >= 0, axis=1))
+    rng = np.random.default_rng(7)
+    if edge == "one-node":
+        c, nodes = n_pods, np.where(plain, snap.n_nodes // 2, -1)
+        assert (a["req"][plain].sum(0) < 2 ** 24).all()  # every sum exact
+    else:
+        c = edge
+        nodes = np.where(plain & (rng.random(n_pods) < 0.8),
+                         rng.integers(0, snap.n_nodes, n_pods), -1)
+    nodes = torch.from_numpy(nodes[:c].astype(np.int32))
+    arrs = sched.device_arrays(type(snap.arrays)(**fields), cuda_device)
+    pre = torch.where(torch.from_numpy(plain), arrs.forced_node.cpu().clamp_min(0), -1)
+    base = sched.init_state(arrs, cfg)
+    wave.forced_fold_cuda(arrs, cfg, base, 0, n_pods, pre.int().to(cuda_device))
+    st_k, st_p = _clone(base), _clone(base)
+    wave.forced_fold_cuda(arrs, cfg, st_k, 0, c, nodes.to(cuda_device))
+    wave.forced_fold_torch(arrs, cfg, st_p, 0, c, nodes.to(cuda_device))
+    torch.cuda.synchronize()
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    assert (st_k.headroom != base.headroom).any() or not (nodes >= 0).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["dom_count", "rich"])
 @pytest.mark.parametrize("fresh", [False, True])
@@ -1583,3 +1650,147 @@ def test_schedule_lanes_with_extensions_on_card_equals_cpu(cuda_device, case):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(got.state, f).cpu(), getattr(want.state, f)), f
+
+
+# ---- the top-k's passes ------------------------------------------------------
+
+# the top-k's passes (kernels/step.TOPK_PASS candidates a cluster round):
+# K of 1 and 3 (one pass), at the pass width, one past it, past two passes,
+# and K = N; ties (identical synthetic nodes, no jitter), fewer feasible
+# nodes than K (the bound, device-resource and tiny inputs), a NaN
+# extension score. No input holds a -0.0 masked score: the score starts
+# from +0.0 (scores.resource_scores_fused) and a round-to-nearest sum is
+# -0.0 only when every addend is; the +0/-0 order of the key is held to
+# lax.top_k on the CPU (tests/test_torch_explain.py).
+TOPK_KS = (1, 3, step.TOPK_PASS, step.TOPK_PASS + 1, 2 * step.TOPK_PASS + 1, "N")
+TOPK_DEPTH = 48  # pods a launch
+
+
+def _topk_runs(snap, cfg, device, columns=False, ext=False, n_lanes=2):
+    """The kernel and the plain step over the first TOPK_DEPTH pods after
+    the prefix, from a template carry (with the preemption columns, or
+    seeded extension rows with a NaN score every third pod)."""
+    from open_simulator_tpu_torch.testing.synthetic import random_extension_rows
+
+    arrs = sched.device_arrays(snap.arrays, device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0])[:n_lanes]
+    active = torch.from_numpy(masks).to(device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    p0 = cfg.forced_prefix
+    if p0:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, p0)
+    p1 = min(snap.n_pods, p0 + TOPK_DEPTH)
+    kw = {}
+    if columns:
+        dis, nom = preemption_columns(snap.arrays.forced_node, masks[0], seed=4)
+        kw.update(disabled=torch.from_numpy(dis).to(device),
+                  nominated=torch.from_numpy(nom.astype(np.int32)).to(device))
+    if ext:
+        ok, raw = random_extension_rows(cfg, n_lanes, p1 - p0, n, seed=3, nan=True)
+        kw.update(ext_ok=ok.to(device), ext_raw=raw.to(device))
+    runs = []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        carry = sched.lane_carry(tmpl, n_lanes)
+        outs = fn(arrs, active, hoist, inv, carry, cfg, p0, p1, template=tmpl, **kw)
+        torch.cuda.synchronize()
+        runs.append((outs, carry))
+    return runs
+
+
+def _topk(k, n_nodes):
+    return n_nodes if k == "N" else k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPLAIN_SNAPSHOTS))
+@pytest.mark.parametrize("k", TOPK_KS)
+@pytest.mark.parametrize("columns", [False, True])
+def test_topk_passes_equal_plain_step_on_card(cuda_device, case, k, columns):
+    """Each scan build's explain twin, and with the preemption columns
+    its "+columns+explain" twin, at every K of TOPK_KS: the top-k
+    tensors, every output and carry field equal the plain step's, bit
+    for bit, and the fillers past the feasible nodes are ranked too."""
+    snap = EXPLAIN_SNAPSHOTS[case]()
+    over = dict(forced_prefix=0) if columns else {}
+    cfg = sched.make_config(snap, explain_topk=_topk(k, snap.n_nodes), **over)
+    runs = _topk_runs(snap, cfg, cuda_device, columns=columns)
+    _assert_runs_equal(runs)
+    out = runs[0][0]
+    assert out.topk_node.shape[2] == min(cfg.explain_topk, snap.n_nodes)
+    assert (out.topk_node >= 0).all() and (out.topk_node[..., 0] >= 0).all()
+    if k == "N":
+        assert (out.topk_score <= -1e37).any()  # fewer feasible nodes than K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXT_CASES))
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_passes_with_extension_rows_on_card(cuda_device, case, k):
+    """The scan builds' explain twins with the extension rows: seeded rows,
+    a NaN score every third pod (it keys above every node, as in the
+    pick), at every K of TOPK_KS, equal to the plain step."""
+    snap = EXT_CASES[case]()
+    cfg = _ext_cfg(snap, explain_topk=_topk(k, snap.n_nodes))
+    runs = _topk_runs(snap, cfg, cuda_device, ext=True)
+    _assert_ext_runs_equal(runs)
+    assert runs[0][0].topk_score.isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_passes_frozen_equal_plain_on_card(cuda_device, case, k):
+    """The "+frozen+explain" builds over the first two waves of a pools
+    GRID, at every K of TOPK_KS: equal to the plain step's frozen form."""
+    snap = wave_pools_snapshot(96, 768, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap, explain_topk=_topk(k, snap.n_nodes))
+    lo, _, kind, w = wave_plans.waves_for(snap.arrays, cfg).segments[0]
+    assert kind == wave_plans.GRID
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    active = torch.from_numpy(np.stack([np.ones(n, bool), np.arange(n) % 5 != 2])).to(cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, 2)
+    step.copy_template(st, tmpl)
+    for w0 in range(lo, lo + 2 * w, w):
+        st_p = _clone(st)
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, w0, w0 + w, frozen=True)
+        out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, w0, w0 + w,
+                                      frozen=True)
+        torch.cuda.synchronize()
+        _assert_runs_equal([(out_k, st), (out_p, st_p)])
+        pick = out_k.gpu_pick if cfg.enable_gpu else None
+        wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out_k.node, pick)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLEET_CASES))
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_passes_fleet_equal_plain_on_card(cuda_device, case, k):
+    """The fleet builds' explain twins (three clusters of one shape, one
+    launch) at every K of TOPK_KS: equal to the plain fleet."""
+    snap = FLEET_CASES[case]()
+    cfg = sched.make_config(snap, explain_topk=_topk(k, snap.n_nodes))
+    kp = cfg.forced_prefix
+    lanes_k, lanes_p = _fleet(snap, cfg, 3, cuda_device), _fleet(snap, cfg, 3, cuda_device)
+    out_k = step.plain_step_fleet_cuda(lanes_k, cfg, kp, kp + TOPK_DEPTH)
+    out_p = step.plain_step_fleet_torch(lanes_p, cfg, kp, kp + TOPK_DEPTH)
+    torch.cuda.synchronize()
+    for ok, op, lk, lp in zip(out_k, out_p, lanes_k, lanes_p):
+        _assert_runs_equal([(ok, lk.state), (op, lp.state)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rich", [False, True])
+@pytest.mark.parametrize("k", TOPK_KS)
+def test_topk_passes_in_the_wide_library_on_card(cuda_device, rich, k):
+    """The wide library's explain builds (the walks past their widths) at
+    every K of TOPK_KS: equal to the plain step."""
+    snap = _wide_devres(rich)
+    cfg = sched.make_config(snap, explain_topk=_topk(k, snap.n_nodes))
+    runs = _topk_runs(snap, cfg, cuda_device)
+    assert step.LAST_PLAN.wide
+    _assert_runs_equal(runs)
