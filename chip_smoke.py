@@ -513,9 +513,11 @@ def instantiations(build_log, suffix=""):
 
 def geometry_fields(plan):
     """One launch's geometry (kernels/step.LaunchPlan) as JSON fields."""
+    from open_simulator_tpu_torch.kernels.step import placement_name
+
     return {"cluster": plan.cluster, "threads": plan.threads, "slice": plan.slice_len,
-            "headroom_in_smem": plan.headroom, "smem_bytes": plan.smem,
-            "resident_clusters": plan.resident}
+            "headroom_in_smem": plan.headroom, "staged": placement_name(plan),
+            "smem_bytes": plan.smem, "resident_clusters": plan.resident}
 
 
 def geometry(plan):
@@ -3896,6 +3898,30 @@ def main() -> int:
             raise SystemExit(f"geometry {label}: the last slice is not ragged ({plan_e})")
         if label.startswith("odd") and plan_e.cluster < 2:
             raise SystemExit(f"geometry {label}: the 3 lanes ran without clusters ({plan_e})")
+
+    # the staged regions (kernels/step.plan_launch): the rich cluster at 509
+    # nodes (no class row starts 16-byte aligned) and the device-resource
+    # one on 3 lanes, the plan held to each staging it can take (every
+    # region, the node rows alone, none)
+    real_placements = step.PLACEMENTS
+    for label, snap_s, names in (
+            ("rich-509x1024", synthetic_snapshot(509, 1024, rich=True), ("all", "node", "none")),
+            # (the device-resource builds stage no class rows)
+            ("devres-509x1024", device_resource_snapshot(509, 1024), ("node", "none"))):
+        cfg_s = sched.make_config(snap_s)
+        n_s = snap_s.n_nodes
+        masks_s = np.stack([np.ones(n_s, bool), np.arange(n_s) % 3 != 1, rng.rand(n_s) < 0.75])
+        for name in names:
+            stage = step.PLACEMENT_NAMES[name]
+            step.PLACEMENTS = step.placements_held_to(stage)
+            try:
+                errs.append(parity(torch, sched, step, f"staged-{name}-{label}", snap_s.arrays,
+                                   cfg_s, masks_s, n_pods=EARLIER_DEPTH)[2])
+            finally:
+                step.PLACEMENTS = real_placements
+            if step.LAST_PLAN.stage != stage:
+                raise SystemExit(f"staged input {name}-{label}: the plan staged "
+                                 f"{step.placement_name(step.LAST_PLAN)}")
 
     # the wave form of the three instantiations beside the pools path's
     # <0,0>: pools clusters with the inter-pod terms, with GPU share, and

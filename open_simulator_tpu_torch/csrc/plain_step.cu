@@ -19,12 +19,18 @@
 // term paint and the preferred-term paint over the bound node's domain.
 //
 // What bounds it on this card: latency, not bytes or operations (the
-// kernel runs thousands of times over its operations bound at one lane,
-// PERF.md). Each pod's pick depends on the previous pod's bind, so the P
-// pods of a lane form one dependent chain, and per pod each thread walks
-// its nodes through chains of dependent loads (a few thousand cycles a
-// node) between the cross-node reductions: a pod takes about the nodes a
-// thread walks times that, plus the reductions.
+// kernel runs thousands of times over its operations bound at one lane and
+// 65-190x at 64 lanes, PERF.md). Each pod's pick depends on the previous
+// pod's bind, so the P pods of a lane form one dependent chain, and per
+// pod each thread walks its nodes, each through a chain of dependent loads
+// and arithmetic, between the cross-node reductions: a pod takes about the
+// nodes a thread walks times that chain, plus the reductions. At 64 lanes
+// (C = 2: 2,592 nodes a block, 6-7 a thread, 12-16 warps an SM) the node
+// walk of phase 1 was 59-81% of a pod, 4.1k-13.8k cycles a node a thread,
+// and the column read of phase 0b another 28% on the rich cluster; with
+// the staged regions below, 3.4k (north star), 9.9k (rich) and 12.8k
+// (device resources): 12-13% less a 64-lane launch, 6% with the
+// device-resource ops (PERF.md).
 //
 // Design: one thread-block cluster of C blocks per lane (grid S x C,
 // launched with cudaLaunchKernelEx and a cluster dimension). The launcher
@@ -47,9 +53,38 @@
 // phase 2 (no global scratch), and the block's slice of headroom lives in
 // shared memory for the whole launch when it fits (the launcher decides).
 // What stays: at one lane the two or three cluster rounds are about a
-// third of a pod; at 64 lanes (C = 2) each SM still walks 2,592 nodes, with
-// 12-14 warps (a spill-free build needs 112-163 registers a thread, which
-// caps a block at 512 threads, 384 with the device-resource walks).
+// third of a pod. At 64 lanes a node's chain holds what the staging cannot
+// take off it: the carry reads (group_count at hostname-keyed columns,
+// term_block at the hit terms, pref_paint, ports_used, the device-resource
+// carries) and the arithmetic (the Simon and GPU rows' IEEE divides, the
+// rounded score sums), with 3-4 warps a scheduler to hide them: a
+// spill-free build needs 112-168 registers a thread (a block of at most
+// 512 threads, 384 with the device-resource walks), so no build fits two
+// blocks an SM (at __launch_bounds__(threads, 2) ptxas spills and the
+// launch is 10-14% slower).
+//
+// The staged regions (kernels/step.py:plan_launch chooses; PERF.md):
+// the loads of a node's chain that do not depend on the carry are taken
+// off it. The pod's scalars are one row of a host-built pod_pack (a 16-byte
+// record a carry column: group, key, the valid / self / soft / hard bits,
+// maxSkew or the preferred term's id and weight; the request; the hit list
+// hit_w wide; the ports, match groups and preferred hits as bytes), and
+// each pod's class rows (node-affinity score, taint prefer, class affinity
+// and taint) one row of a pack cut into the plan's block slices, each
+// padded to 16 nodes (RES_STAGE_CLASS): one thread issues 1-D bulk copies
+// (cp.async.bulk, completing on the buffer's mbarrier) of the next pod's
+// rows right after this pod's phase-0 barrier, when every thread is past
+// the pod that last read that buffer, into two buffers by the pod's place
+// in the loop; the first pod's copies fly during the lane prologue, and
+// every thread waits on its pod's barrier after phase 0's barrier. The
+// slice's node-static rows (active, unschedulable, inv_alloc's two
+// columns, spec_id, node_dom, has_key) are copied once a launch in the
+// lane prologue (RES_STAGE_NODE). A plan whose slice cannot hold them
+// drops the class rows first, then the node rows, and reads them where
+// they lie; the frozen form and the extension loop's one-pod launches
+// stage neither (their one pod would not repay the copy), the
+// device-resource builds no class rows, `<1,1>` no node rows (registers:
+// that code is compiled out of those builds).
 //
 // Ownership. A node's carry rows (headroom, ports, group_count, term_block,
 // pref_paint and the device-resource rows) are read and written only by the
@@ -241,18 +276,25 @@ namespace {
 constexpr bool kWideLib = PLAIN_STEP_WIDE != 0;
 
 // block size caps, so that ptxas keeps each instantiation in registers (no
-// spill): 128 registers a thread, 170 with the device-resource walks; the
+// spill): 128 registers a thread, 168 with the device-resource walks; the
 // fleet builds (their StepArgs in shared memory, not in the constant bank)
-// and the wide library's builds take 168 and 255; the launcher picks the
-// block size under the cap (kernels/step.py:max_threads)
+// and the wide library's builds take 168 and 255, and so do the explain
+// library's scan builds and its device-resource builds (the top-k's lists
+// and part rows beside the staged regions); the launcher picks the block
+// size under the cap (kernels/step.py:max_threads)
 constexpr int kMaxThreads = 512;
 constexpr int kMaxThreadsDevRes = 384;
 constexpr int kMaxThreadsWide = 384;
 constexpr int kMaxThreadsWideDevRes = 256;
+constexpr int kMaxThreadsExplain = 384;
+constexpr int kMaxThreadsExplainDevRes = 256;
 
-__host__ __device__ constexpr int max_threads_of(bool devres, bool wide) {
+__host__ __device__ constexpr int max_threads_of(bool devres, bool wide, bool explain = false,
+                                                 bool frozen = false) {
   return wide ? (devres ? kMaxThreadsWideDevRes : kMaxThreadsWide)
-              : (devres ? kMaxThreadsDevRes : kMaxThreads);
+       : (explain && devres) ? kMaxThreadsExplainDevRes
+       : (explain && !frozen) ? kMaxThreadsExplain
+       : (devres ? kMaxThreadsDevRes : kMaxThreads);
 }
 constexpr int kMaxCluster = 16;     // blocks per lane (16 is non-portable)
 // the explain top-k: a pass ranks up to kTopkPass candidates a pod in one
@@ -326,6 +368,8 @@ constexpr int kNeedMin = 4;   // min over hostname-eligible nodes (hard spread)
 constexpr int RES_HEADROOM = 1;     // the block's headroom slice lives in shared memory
 constexpr int RES_DOM_GLOBAL = 2;   // the dom_count replicas live in global memory
 constexpr int RES_COLS_GLOBAL = 4;  // the column-read partials live in global memory
+constexpr int RES_STAGE_NODE = 8;   // the slice's node-static rows staged once a launch
+constexpr int RES_STAGE_CLASS = 16; // each pod's class rows staged by bulk copies, one pod ahead
 
 }  // namespace
 
@@ -492,6 +536,15 @@ struct StepArgs {
   // the lane stride of the output rows (P' for outputs of the launch's own
   // pods; larger where a launch writes into rows of a longer output)
   int ls;
+  // the staged regions' sources (kernels/step.py): each pod's region as
+  // the kernel stages it (PodLay; its hit list hit_w wide, -1 past its
+  // last; hit_w 0: the pod reads hit_ptr / hit_idx), and under
+  // RES_STAGE_CLASS each class's rows packed per block slice of slp = sl
+  // rounded up to 16 nodes; both the sources of the bulk copies
+  const int32_t* pod_pack;            // [P, PodLay.words]
+  const uint8_t* cls_pack;            // [C, cl, 10 * slp]: node-affinity score and taint
+                                      // prefer (f32), class affinity and taint (u8)
+  int hit_w;
 };
 
 }  // extern "C"
@@ -647,12 +700,57 @@ __device__ void block_copy(void* dst, const void* src, size_t n) {
   }
 }
 
+// The pod region: the pod's scalars, one pod's row of the host-built
+// pod_pack, copied in by a bulk copy one pod ahead (into a buffer by the
+// pod's place in the loop, so a copy never rewrites rows a thread still
+// reads in the previous pod's phase 3). First one 16-byte record a carry column,
+// over the [aff | anti | spread | pref] slot axis (one shared load a term):
+//   affinity   {group, key, valid | self << 1, 0}
+//   anti       {group, key, valid, 0}
+//   spread     {group, key, soft | hard << 1, maxSkew (f32 bits)}
+//   preferred  {group, key, valid ? pref_tid : -1, weight (f32 bits)}
+// then word rows, then byte rows (offsets from the region's base; a
+// parity's size is a multiple of 4 words, so both stay 16-byte aligned).
+// Mirrored in kernels/step.py:pod_words.
+struct PodLay {
+  // words after the records: resources, the padded hit list
+  int req, hits;
+  // bytes after the words
+  int ports, match, hpref;
+  int words;   // a parity's size in 4-byte words
+};
+
+__host__ __device__ inline PodLay pod_lay(const StepArgs& a) {
+  PodLay l;
+  int w = 0;
+  w += 4 * (a.a + a.b + a.cs + a.ap);  // the term records
+  l.req = w; w += a.r;
+  l.hits = w; w += a.hit_w;
+  int b = 0;
+  l.ports = b; b += a.pt;
+  l.match = b; b += a.sg;
+  l.hpref = b; b += a.t2;
+  l.words = (w + (b + 3) / 4 + 3) & ~3;
+  const int at = 4 * w;  // byte rows follow the words
+  l.ports += at; l.match += at; l.hpref += at;
+  return l;
+}
+
+// the class rows' buffer of one pod (RES_STAGE_CLASS), in bytes: the
+// node-affinity score and the taint prefer as f32, the class affinity and
+// taint as u8, each slp long
+__host__ __device__ inline int slp_of(const StepArgs& a) { return (a.sl + 15) & ~15; }
+__host__ __device__ inline int cls_bytes(const StepArgs& a) { return 10 * slp_of(a); }
+
 // A block's dynamic shared memory: offsets of 4-byte words, then of bytes
 // after them. Mirrored in kernels/step.py:smem_bytes.
 struct Layout {
   int keys;    // the top-k's key rows (StepArgs.topk > 0, explain library):
                // [kTopkLists][kTopkPass] lists, [2][2][kTopkPass] the block's
                // merged list by pod and pass parity, [kTopkPass] candidates
+  int cls;     // [2][cls_bytes] the class rows by pod parity (RES_STAGE_CLASS;
+               // 16-byte aligned, the bulk copies' destination)
+  int pod;     // [2][PodLay.words] the pod region by pod parity
   int fail;    // [2][OPS] first-fail histogram, by pod parity
   int dpart;   // [2][Q*D + 2Q] column-read partials: sums, totals, minima
   int merged;  // [Q*D + 2Q] the cluster's column sums, totals, minima
@@ -666,8 +764,12 @@ struct Layout {
                // the block's raw extension scores, then (Ef > 0) [SL] each
                // node's first failing filter extension, -1 none
   int hr;      // [SL*R] f32 headroom slice (RES_HEADROOM)
+  int node;    // (RES_STAGE_NODE) [2][SL] f32 inv_alloc's two columns, [SL]
+               // spec_id, [K1][SL] node_dom
   int flag;    // byte offset: [SL] feasibility flags
   int pv;      // byte offset: [Npv] pv_taken replica (device-resource, F_PV_MATCH)
+  int nbyte;   // byte offset: (RES_STAGE_NODE) [SL] active, [SL] unschedulable,
+               // [K][SL] has_key
   int bytes;   // total
 };
 
@@ -678,10 +780,15 @@ __host__ __device__ inline int score_rows(int flags) {
 __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   const int q = a.a + a.b + a.cs + a.ap;
   const int qd = q * a.d + 2 * q;
+  const bool node = a.res & RES_STAGE_NODE;
   Layout l;
   int w = 0;
   l.keys = w;  // first: 8-byte keys at the region's 16-byte alignment
   w += (PLAIN_STEP_EXPLAIN && a.topk > 0) ? kTopkWords : 0;
+  l.cls = w;   // (a multiple of 4 words: kTopkWords is)
+  w += (a.res & RES_STAGE_CLASS) ? 2 * cls_bytes(a) / 4 : 0;
+  l.pod = w;
+  w += 2 * pod_lay(a).words;
   l.fail = w;
   w += 2 * a.ops;
   // (the column-read partials and the dom_count replica take no shared
@@ -704,9 +811,12 @@ __host__ __device__ inline Layout layout_of(const StepArgs& a) {
   w += 3 * a.ered + 3 * a.es + (a.es + (a.ef ? 1 : 0)) * a.sl;
   l.hr = w;
   w += (a.res & RES_HEADROOM) ? a.sl * a.r : 0;
+  l.node = w;
+  w += node ? (3 + a.k1) * a.sl : 0;
   l.flag = 4 * w;
   l.pv = l.flag + a.sl;
-  l.bytes = l.pv + (((a.flags & kDevResFlags) && (a.flags & F_PV_MATCH)) ? a.npv : 0);
+  l.nbyte = l.pv + (((a.flags & kDevResFlags) && (a.flags & F_PV_MATCH)) ? a.npv : 0);
+  l.bytes = l.nbyte + (node ? (2 + a.k) * a.sl : 0);
   return l;
 }
 
@@ -754,21 +864,13 @@ __device__ int column_need(const StepArgs& a, int fl, int p, int q, int key) {
 }
 
 // the domain count of carry column q at node n: hostname-keyed columns
-// read the node's own count, others the per-domain sum (0 without the key)
+// read the node's own count, others the per-domain sum at `dm`, the node's
+// domain under the key (0 without the key, dm -1)
 __device__ __forceinline__ float column_count(const StepArgs& a, const int* s_dacc, int q,
-                                              int g, int key, int n, size_t gc_base,
+                                              int g, int key, int n, int dm, size_t gc_base,
                                               bool bf16) {
   if (key == 0) return cnt_load(a.group_count, gc_base + (size_t)n * a.sg + g, bf16);
-  const int dm = a.node_dom[(size_t)(key - 1) * a.n + n];
   return dm >= 0 ? (float)s_dacc[q * a.d + dm] : 0.0f;
-}
-
-// does node m share `fin`'s domain under non-hostname key `key`? (the
-// reference's sd_all row; a node without the key shares none)
-__device__ __forceinline__ bool same_domain(const StepArgs& a, int key, int fin, int m) {
-  const int32_t* dom_of = a.node_dom + (size_t)(key - 1) * a.n;
-  const int df = dom_of[fin];
-  return df >= 0 && dom_of[m] == df;
 }
 
 // ---- the device-resource ops (kDevRes) ------------------------------------
@@ -1256,6 +1358,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // the traced weights: the lane's row of w_lane, read once in the lane
   // prologue (with w_lane null the score code reads the scalars instead)
   __shared__ float s_w[kWeights];
+  // the two buffers' barriers: the bulk copies of a pod's region (and
+  // class rows) complete its buffer's current phase
+  __shared__ __align__(8) unsigned long long s_cbar[2];
 
   // (an instantiation without kDevRes is launched only when no
   // device-resource flag is set, and reads none of them)
@@ -1270,6 +1375,65 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   const size_t nl = hi - lo;
 
   const uint8_t* active = a.active + (size_t)lane * N;
+  // the staged regions: the pod's scalars (always) and each pod's class
+  // rows (RES_STAGE_CLASS), bulk copies one pod ahead into a buffer by the
+  // pod's place in the loop; the slice's node-static rows (RES_STAGE_NODE)
+  // once a launch, in the lane prologue; unstaged, the rows are read from
+  // global memory where they lie. The frozen form (one pod a cluster)
+  // stages neither, the device-resource builds no class rows and the build
+  // with both slices' gates no node rows either: that code is compiled out
+  // of those builds (registers)
+  constexpr bool kStageNode = !kFrozen && !(kInterpod && kDevRes);
+  constexpr bool kStageClass = !kFrozen && !kDevRes;
+  const PodLay pl = pod_lay(a);
+  int* const s_podb = s_dyn + lay.pod;
+  const bool nst = kStageNode && (a.res & RES_STAGE_NODE);
+  const bool cst = kStageClass && (a.res & RES_STAGE_CLASS);
+  float* const s_ia = reinterpret_cast<float*>(s_dyn + lay.node);  // [2][SL]
+  int* const s_spec = s_dyn + lay.node + 2 * SL;
+  int* const s_ndom = s_spec + SL;                                   // [K1][SL]
+  uint8_t* const s_act = reinterpret_cast<uint8_t*>(s_dyn) + lay.nbyte;
+  uint8_t* const s_uns = s_act + SL;
+  uint8_t* const s_hk = s_uns + SL;                                  // [K][SL]
+  uint8_t* const s_cls = reinterpret_cast<uint8_t*>(s_dyn + lay.cls);
+  const int slp = slp_of(a), cbytes = cls_bytes(a);
+  // node n's domain under the non-hostname key kk + 1, and whether it has key
+  auto ndom = [&](int kk, int n) -> int {
+    return nst ? s_ndom[kk * SL + (n - lo)] : a.node_dom[(size_t)kk * N + n];
+  };
+  auto nhas = [&](int key, int n) -> bool {
+    return nst ? s_hk[key * SL + (n - lo)] != 0 : a.has_key[(size_t)key * N + n] != 0;
+  };
+  // the bulk copies of the cluster's i-th pod (pod pp, class cid) into
+  // buffer i & 1: its pod region and (RES_STAGE_CLASS) its class rows,
+  // completing that buffer's barrier phase i >> 1 (one thread)
+  auto fetch = [&](int i, int pp, int cid) {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_cbar[i & 1]);
+    const int pbytes = 4 * pl.words;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(pbytes + (cst ? cbytes : 0)) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"((unsigned)__cvta_generic_to_shared(s_podb + (i & 1) * pl.words)),
+        "l"(a.pod_pack + (size_t)pp * pl.words), "r"(pbytes), "r"(bar) : "memory");
+    if (cst)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"((unsigned)__cvta_generic_to_shared(s_cls + (i & 1) * cbytes)),
+          "l"(a.cls_pack + ((size_t)cid * C + rank) * cbytes), "r"(cbytes), "r"(bar)
+          : "memory");
+  };
+  auto wait_pod = [&](int i) {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_cbar[i & 1]);
+    const unsigned par = (unsigned)(i >> 1) & 1u;
+    unsigned done = 0;
+    while (!done)
+      asm volatile(
+          "{ .reg .pred P1; mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2; "
+          "selp.u32 %0, 1, 0, P1; }"
+          : "=r"(done) : "r"(bar), "r"(par) : "memory");
+  };
   const float* log_dom = a.log_dom + (size_t)lane * a.k;
   const uint8_t* elig_host_l = a.elig_host + (size_t)lane * a.c * N;
   const uint8_t* domain_has_l = a.domain_has + (size_t)lane * a.c * a.k1 * D;
@@ -1329,9 +1493,20 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
   };
 
-  // ---- the lane prologue: this block's slice of the lane's carry (and its
-  // replicas of the lane-wide state) from the template, or the replicas and
-  // shared-memory rows from the lane's carry
+  // ---- the lane prologue: the first pod's copies (the barriers set up
+  // first; the prologue's barrier shows every thread them), then this
+  // block's slice of the lane's carry (and its replicas of the lane-wide
+  // state) from the template, or the replicas and shared-memory rows from
+  // the lane's carry, while the copies fly
+  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out : a.p0;
+  const int p_end = kFrozen ? p_first + 1 : a.p1;
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(&s_cbar[b])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fetch(0, p_first, cst ? a.class_id[p_first] : 0);
+  }
   if (!kFrozen && (a.flags & F_TEMPLATE)) {
     const size_t gc_el = bf16 ? 2 : 4, tb_el = tb_bf16 ? 2 : 4;
     block_copy(hr_l, a.tmpl_headroom + (size_t)lo * R, nl * R * sizeof(float));
@@ -1368,23 +1543,43 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // conditional, ptxas spills <0,0>+columns at its 128-register cap)
   if (tid < kWeights) s_w[tid] = a.w_lane ? a.w_lane[(size_t)lane * kWeights + tid]
                                           : scalar_weight(a, tid);
+  // the slice's node-static rows, once a launch (RES_STAGE_NODE)
+  if (nst) {
+    const int nn = (int)nl;
+    for (int ln = tid; ln < nn; ln += B) {
+      const int n = lo + ln;
+      s_ia[ln] = a.inv_alloc[(size_t)n * R + a.ci];
+      s_ia[SL + ln] = a.inv_alloc[(size_t)n * R + a.mi];
+      s_spec[ln] = a.spec_id[n];
+      s_act[ln] = active[n];
+      s_uns[ln] = a.unschedulable[n];
+    }
+    for (int i = tid; i < a.k1 * nn; i += B)
+      s_ndom[(i / nn) * SL + i % nn] = a.node_dom[(size_t)(i / nn) * N + lo + i % nn];
+    for (int i = tid; i < a.k * nn; i += B)
+      s_hk[(i / nn) * SL + i % nn] = a.has_key[(size_t)(i / nn) * N + lo + i % nn];
+  }
   __syncthreads();
   mark(0);
 
-  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out : a.p0;
-  for (int p = p_first; p < (kFrozen ? p_first + 1 : a.p1); ++p) {
+  for (int p = p_first; p < p_end; ++p) {
     const int j = p - a.p0;
     const int par = j & 1;  // the pod's parity: which partial buffers it uses
-    const float* req = a.req + (size_t)p * R;
+    const int lp = p - p_first;  // the pod's place in this cluster's loop (its buffer lp & 1)
+    // the pod's staged scalars and class rows
+    int* const sp = s_podb + (lp & 1) * pl.words;
+    const uint8_t* const sb = reinterpret_cast<const uint8_t*>(sp);
+    const float* req = reinterpret_cast<const float*>(sp + pl.req);
+    const uint8_t* pports = sb + pl.ports;
+    const uint8_t* match = sb + pl.match;
+    const int4* const terms = reinterpret_cast<const int4*>(sp);  // [Q] term records
+    const uint8_t* const cb = s_cls + (lp & 1) * cbytes;
+    const float* const cbf = reinterpret_cast<const float*>(cb);
     const int cid = a.class_id[p];
     const int forced = a.forced_node[p];
-    const uint8_t* pports = a.ports + (size_t)p * PT;
-    const uint8_t* match = a.match_groups + (size_t)p * SG;
-    const int32_t* sgrp = a.spread_group + (size_t)p * CS;
-    const int32_t* skey = a.spread_key + (size_t)p * CS;
-    const float* sskew = a.spread_skew + (size_t)p * CS;
-    const uint8_t* ssoft = a.spread_soft + (size_t)p * CS;
-    const uint8_t* shard = a.spread_hard + (size_t)p * CS;
+    // the next pod's class, for its copies after phase 0
+    const bool prefetch = tid == 0 && p + 1 < p_end;
+    const int cid_next = (cst && prefetch) ? a.class_id[p + 1] : 0;
     const uint8_t* elig_host = elig_host_l + (size_t)cid * N;
     const int vcid = kDevRes ? a.vol_cid[p] : 0;
     const bool pv_missing = kDevRes && a.vol_pv_missing[p];
@@ -1397,7 +1592,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     int* const epart = s_epart + par * a.ered;
     bool any_soft = false;
     if (use_sp)
-      for (int c = 0; c < CS; ++c) any_soft |= ssoft[c] != 0;
+      for (int c = 0; c < CS; ++c) any_soft |= a.spread_soft[(size_t)p * CS + c] != 0;
 
     // ---- phase 0: zero this parity's partials (the other parity's may
     // still be read by the other blocks), and what each carry column of
@@ -1424,6 +1619,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       }
     }
     __syncthreads();
+    // the pod's region and class rows have landed; every thread is past the
+    // previous pod, so its buffer is free for the next pod's copies
+    wait_pod(lp);
+    if (prefetch) fetch(lp + 1, p + 1, cid_next);
 
     // ---- phase 0b: the batched carry-column read (group_count path):
     // each block's per-domain sums, totals and eligible minima of the
@@ -1434,16 +1633,14 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       for (int q = 0; q < Q; ++q) {
         const int need = s_qneed[q];
         if (!need) continue;
-        int g, key;
-        column_of(a, p, q, g, key);
-        const int32_t* dom_of = key > 0 ? a.node_dom + (size_t)(key - 1) * N : nullptr;
+        const int g = terms[q].x, key = terms[q].y;
         int tot = 0, mn = INT_MAX;
         for (int it = 0; it < iters; ++it) {
           const int n = lo + it * B + tid;
           int v = 0, dm = -1;
           if (n < hi) {
             v = (int)cnt_load(a.group_count, gc_base + (size_t)n * SG + g, bf16);
-            if (need & kNeedDom) dm = dom_of[n];
+            if (need & kNeedDom) dm = ndom(key - 1, n);
             if ((need & kNeedMin) && elig_host[n]) mn = min(mn, v);
             tot += v;
           }
@@ -1483,8 +1680,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     // 0 when no eligible node has the key
     if (fl & F_SPH) {
       for (int c = tid; c < CS; c += B) {
-        if (!shard[c]) continue;
-        const int key = skey[c];
+        const int4 sc = terms[s_base + c];
+        if (!(sc.z & 2)) continue;  // not DoNotSchedule
+        const int key = sc.y;
         float mv = kBig;
         if (gc_path) {
           const int q = s_base + c;
@@ -1499,7 +1697,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
           const int kk = a.k1 == 1 ? 0 : max(key - 1, 0);
           const uint8_t* dhas = domain_has_l + ((size_t)cid * a.k1 + kk) * D;
           for (int dd = 0; dd < D; ++dd)
-            if (dhas[dd]) mv = fminf(mv, dom_count[((size_t)kk * D + dd) * SG + sgrp[c]]);
+            if (dhas[dd]) mv = fminf(mv, dom_count[((size_t)kk * D + dd) * SG + sc.x]);
         }
         s_minval[c] = any_elig_l[(size_t)cid * a.k + key] ? mv : 0.0f;
       }
@@ -1537,16 +1735,19 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       int charged_op = -1;
       if (n < hi) {
         // the node's inputs that depend on nothing else, loaded together
-        // ahead of the filter chain's branches (one latency, not several)
+        // ahead of the filter chain's branches (one latency, not several;
+        // none where they are staged)
         const size_t cn = (size_t)cid * N + n;
-        const bool act = active[n] != 0;
-        const bool unsched = (fl & F_UNSCHED) && a.unschedulable[n];
-        const bool aff_ok = !(fl & F_CLASS_AFF) || a.class_affinity[cn];
-        const bool taint_ok = !(fl & F_CLASS_TAINT) || a.class_taint[cn];
-        const float na_score = (fl & F_NA) ? a.class_node_aff_score[cn] : 0.0f;
-        const float tt_prefer = (fl & F_TT) ? a.class_taint_prefer[cn] : 0.0f;
-        const float ia_c = a.inv_alloc[(size_t)n * R + a.ci], ia_m = a.inv_alloc[(size_t)n * R + a.mi];
-        const int spec = (fl & F_SI) ? a.spec_id[n] : 0;
+        const bool act = (nst ? s_act[ln] : active[n]) != 0;
+        const bool unsched = (fl & F_UNSCHED) && (nst ? s_uns[ln] : a.unschedulable[n]);
+        const bool aff_ok = !(fl & F_CLASS_AFF) || (cst ? cb[8 * slp + ln] : a.class_affinity[cn]);
+        const bool taint_ok = !(fl & F_CLASS_TAINT) || (cst ? cb[9 * slp + ln] : a.class_taint[cn]);
+        const float na_score = (fl & F_NA) ? (cst ? cbf[ln] : a.class_node_aff_score[cn]) : 0.0f;
+        const float tt_prefer =
+            (fl & F_TT) ? (cst ? cbf[slp + ln] : a.class_taint_prefer[cn]) : 0.0f;
+        const float ia_c = nst ? s_ia[ln] : a.inv_alloc[(size_t)n * R + a.ci];
+        const float ia_m = nst ? s_ia[SL + ln] : a.inv_alloc[(size_t)n * R + a.mi];
+        const int spec = (fl & F_SI) ? (nst ? s_spec[ln] : a.spec_id[n]) : 0;
         const float* hr = hr_l + (size_t)ln * R;
         int ff = -1;
         if (unsched) {
@@ -1575,12 +1776,12 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
         // own term) the node has the key
         if (ff < 0 && (fl & F_AFF)) {
           for (int q = 0; q < a.a; ++q) {
-            const size_t o = (size_t)p * a.a + q;
-            if (!a.aff_valid[o]) continue;
-            const int g = a.aff_group[o], key = a.aff_key[o];
-            const float dc = column_count(a, s_dacc, q, g, key, n, gc_base, bf16);
-            const bool ok = a.has_key[(size_t)key * N + n] &&
-                            (dc > 0.0f || (s_qtot[q] == 0 && a.aff_self[o]));
+            const int4 tm = terms[q];
+            if (!(tm.z & 1)) continue;
+            const int key = tm.y;
+            const float dc = column_count(a, s_dacc, q, tm.x, key, n,
+                                          key ? ndom(key - 1, n) : -1, gc_base, bf16);
+            const bool ok = nhas(key, n) && (dc > 0.0f || (s_qtot[q] == 0 && (tm.z & 2)));
             if (!ok) {
               ff = 4 + R;
               break;
@@ -1592,31 +1793,43 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
         if (ff < 0 && (fl & F_ANTI)) {
           bool bad = false;
           for (int q = 0; q < a.b && !bad; ++q) {
-            const size_t o = (size_t)p * a.b + q;
-            if (!a.anti_valid[o]) continue;
-            bad = column_count(a, s_dacc, a.a + q, a.anti_group[o], a.anti_key[o], n,
-                               gc_base, bf16) != 0.0f;
+            const int4 tm = terms[a.a + q];
+            if (!tm.z) continue;
+            const int key = tm.y;
+            bad = column_count(a, s_dacc, a.a + q, tm.x, key, n,
+                               key ? ndom(key - 1, n) : -1, gc_base, bf16) != 0.0f;
           }
-          for (int i = a.hit_ptr[p]; i < a.hit_ptr[p + 1] && !bad; ++i)
-            bad = cnt_load(a.term_block, tb_base + (size_t)n * a.t + a.hit_idx[i], tb_bf16) > 0.0f;
+          // the hit terms: staged (-1 past the pod's last), or the host's lists
+          if (a.hit_w) {
+            for (int i = 0; i < a.hit_w && !bad; ++i) {
+              const int t = sp[pl.hits + i];
+              if (t < 0) break;
+              bad = cnt_load(a.term_block, tb_base + (size_t)n * a.t + t, tb_bf16) > 0.0f;
+            }
+          } else {
+            for (int i = a.hit_ptr[p]; i < a.hit_ptr[p + 1] && !bad; ++i)
+              bad = cnt_load(a.term_block, tb_base + (size_t)n * a.t + a.hit_idx[i], tb_bf16) > 0.0f;
+          }
           if (bad) ff = 5 + R;
         }
         // hard spread: skew = count + self-match - minimum <= maxSkew on
         // nodes holding every constraint's key
         if (ff < 0 && (fl & F_SPH)) {
           for (int c = 0; c < CS; ++c) {
-            if (!shard[c]) continue;
-            const int key = skey[c], g = sgrp[c];
+            const int4 tm = terms[s_base + c];
+            if (!(tm.z & 2)) continue;
+            const int key = tm.y, g = tm.x;
             float dc;
             if (gc_path) {
-              dc = column_count(a, s_dacc, s_base + c, g, key, n, gc_base, bf16);
+              dc = column_count(a, s_dacc, s_base + c, g, key, n, key ? ndom(key - 1, n) : -1,
+                                gc_base, bf16);
             } else {
               const int kk = a.k1 == 1 ? 0 : max(key - 1, 0);
-              const int dm = a.node_dom[(size_t)kk * N + n];
+              const int dm = ndom(kk, n);
               dc = dm >= 0 ? dom_count[((size_t)kk * D + dm) * SG + g] : 0.0f;
             }
             const float skew = __fsub_rn(__fadd_rn(dc, match[g] ? 1.0f : 0.0f), s_minval[c]);
-            if (!(a.has_key[(size_t)key * N + n] && skew <= sskew[c])) {
+            if (!(nhas(key, n) && skew <= __int_as_float(tm.w))) {
               ff = 6 + R;
               break;
             }
@@ -1677,16 +1890,15 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
           if (fl & F_IP) {
             float raw = 0.0f;
             for (int t = 0; t < a.t2; ++t)
-              if (a.hit_pref[(size_t)p * a.t2 + t])
-                raw = __fadd_rn(raw, pref_paint[(size_t)n * a.t2 + t]);
+              if (sb[pl.hpref + t]) raw = __fadd_rn(raw, pref_paint[(size_t)n * a.t2 + t]);
             for (int q = 0; q < a.ap; ++q) {
-              const size_t o = (size_t)p * a.ap + q;
-              if (!a.pref_valid[o]) continue;
-              const int key = a.pref_key[o];
-              const float dc = column_count(a, s_dacc, p_base + q, a.pref_group[o], key, n,
-                                            gc_base, bf16);
-              const float hk = a.has_key[(size_t)key * N + n] ? 1.0f : 0.0f;
-              raw = __fadd_rn(raw, __fmul_rn(__fmul_rn(a.pref_weight[o], dc), hk));
+              const int4 tm = terms[p_base + q];
+              if (tm.z < 0) continue;
+              const int key = tm.y;
+              const float dc = column_count(a, s_dacc, p_base + q, tm.x, key, n,
+                                            key ? ndom(key - 1, n) : -1, gc_base, bf16);
+              const float hk = nhas(key, n) ? 1.0f : 0.0f;
+              raw = __fadd_rn(raw, __fmul_rn(__fmul_rn(__int_as_float(tm.w), dc), hk));
             }
             sc_ip[ln] = raw;
             m_plo = fminf(m_plo, raw);
@@ -1697,20 +1909,22 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
             float sraw = 0.0f;
             bool sok = true;
             for (int c = 0; c < CS; ++c) {
-              if (!ssoft[c]) continue;
-              const int kid = skey[c];
-              const int g = sgrp[c];
+              const int4 tm = terms[s_base + c];
+              if (!(tm.z & 1)) continue;  // not ScheduleAnyway
+              const int kid = tm.y;
+              const int g = tm.x;
               float dc;
               if (gc_path) {
-                dc = column_count(a, s_dacc, s_base + c, g, kid, n, gc_base, bf16);
+                dc = column_count(a, s_dacc, s_base + c, g, kid, n, kid ? ndom(kid - 1, n) : -1,
+                                  gc_base, bf16);
               } else {
                 const int kk = a.k1 == 1 ? 0 : max(kid - 1, 0);
-                const int dm = a.node_dom[(size_t)kk * N + n];
+                const int dm = ndom(kk, n);
                 dc = dm >= 0 ? dom_count[((size_t)kk * D + dm) * SG + g] : 0.0f;
               }
               sraw = __fadd_rn(sraw, __fadd_rn(__fmul_rn(dc, log_dom[kid]),
-                                               __fsub_rn(sskew[c], 1.0f)));
-              sok = sok && a.has_key[(size_t)kid * N + n];
+                                               __fsub_rn(__int_as_float(tm.w), 1.0f)));
+              sok = sok && nhas(kid, n);
             }
             sc_spread[ln] = sraw;
             if (sok) {
@@ -1918,10 +2132,11 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       if (parts) parts[0] = score;
       if (fl & F_NA)
         add(__fmul_rn((a.w_lane ? s_w[3] : a.w_na),
-                      __fmul_rn(a.class_node_aff_score[(size_t)cid * N + n], inv_na)));
+                      __fmul_rn(cst ? cbf[ln] : a.class_node_aff_score[(size_t)cid * N + n],
+                                inv_na)));
       if (fl & F_TT)
         add(__fmul_rn((a.w_lane ? s_w[4] : a.w_tt), __fsub_rn(100.0f, __fmul_rn(
-            a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
+            cst ? cbf[slp + ln] : a.class_taint_prefer[(size_t)cid * N + n], inv_tt))));
       if (fl & F_IP)
         add(__fmul_rn((a.w_lane ? s_w[5] : a.w_ip),
                       __fmul_rn(__fsub_rn(sc_ip[ln], ip_lo), inv_ip)));
@@ -2112,6 +2327,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       // written by the one thread that owns the node ((m - lo) % B of the
       // owner block), so a cell's adds run in the reference's slot order
       const bool fin_thread = own && (fin - lo) % B == tid;
+      // (a node m of the slice shares fin's domain df under the key when
+      // its own domain is df; a node without the key shares none: the
+      // reference's sd_all row)
       if (fl & F_ANTI) {
         for (int i = a.own_ptr[p]; i < a.own_ptr[p + 1]; ++i) {
           const int t = a.own_idx[i];
@@ -2120,17 +2338,18 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
             if (fin_thread) cnt_inc(a.term_block, tb_base + (size_t)fin * a.t + t, tb_bf16);
             continue;
           }
-          for (int m = lo + tid; m < hi; m += B)
-            if (same_domain(a, key, fin, m)) cnt_inc(a.term_block, tb_base + (size_t)m * a.t + t, tb_bf16);
+          const int df = a.node_dom[(size_t)(key - 1) * N + fin];
+          for (int m = lo + tid; m < hi && df >= 0; m += B)
+            if (ndom(key - 1, m) == df) cnt_inc(a.term_block, tb_base + (size_t)m * a.t + t, tb_bf16);
         }
       }
       if (fl & F_PREF) {
         for (int q = 0; q < a.ap; ++q) {
-          const size_t po = (size_t)p * a.ap + q;
-          if (!a.pref_valid[po]) continue;
-          const int key = a.pref_key[po];
-          const int t = a.pref_tid[po];
-          const float w = a.pref_weight[po];
+          const int4 tm = terms[p_base + q];
+          if (tm.z < 0) continue;
+          const int key = tm.y;
+          const int t = tm.z;
+          const float w = __int_as_float(tm.w);
           if (key == 0) {
             if (fin_thread) {
               float* cell = pref_paint + (size_t)fin * a.t2 + t;
@@ -2138,8 +2357,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
             }
             continue;
           }
-          for (int m = lo + tid; m < hi; m += B) {
-            if (!same_domain(a, key, fin, m)) continue;
+          const int df = a.node_dom[(size_t)(key - 1) * N + fin];
+          for (int m = lo + tid; m < hi && df >= 0; m += B) {
+            if (ndom(key - 1, m) != df) continue;
             float* cell = pref_paint + (size_t)m * a.t2 + t;
             *cell = __fadd_rn(*cell, w);
           }
@@ -2173,7 +2393,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
 }
 
 template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
-__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib), 1)
+__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib, kExplain, kFrozen), 1)
     plain_step_kernel(const StepArgs a) {
   step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false>(a);
 }
@@ -2253,12 +2473,13 @@ cudaError_t prepare(void (*kernel)(StepArgs), const StepArgs* args, size_t smem)
 }
 
 bool geometry_ok(const StepArgs* args) {
-  if (!explain_ok(args)) return false;
+  if (!explain_ok(args) || args->hit_w < 0) return false;
   // the walk window and the regions in global memory are the wide library's
   if (!kWideLib && (args->walk || (args->res & (RES_DOM_GLOBAL | RES_COLS_GLOBAL))))
     return false;
   const int c = args->cl;
-  const int max_bt = max_threads_of(args->flags & kDevResFlags, args->fleet || kWideLib);
+  const int max_bt = max_threads_of(args->flags & kDevResFlags, args->fleet || kWideLib,
+                                    kExplainLib, args->frozen);
   return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&
          args->bt <= max_bt && args->bt % 32 == 0 && args->sl >= 1 &&
          (long long)args->sl * c >= args->n;
@@ -2310,6 +2531,14 @@ extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
 // caller must check it.
 extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
+  // the staged regions' sources, and only the stagings a build has
+  // (none frozen or with both slices' gates, no class rows with the
+  // device-resource ops)
+  const bool devres = args->flags & kDevResFlags, both = devres && (args->flags & kInterpodFlags);
+  if (!args->pod_pack || ((args->res & RES_STAGE_CLASS) && !args->cls_pack) ||
+      ((args->res & RES_STAGE_CLASS) && devres) ||
+      ((args->res & (RES_STAGE_NODE | RES_STAGE_CLASS)) && (args->frozen || both)))
+    return (int)cudaErrorInvalidValue;
   if (args->frozen && (args->disabled || args->nominated || (args->flags & F_TEMPLATE) ||
                        args->cycles))
     return (int)cudaErrorInvalidValue;

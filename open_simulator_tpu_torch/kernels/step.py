@@ -99,7 +99,11 @@ the lane count, the node count and the card's occupancy answer, and
 ``smem_bytes`` is the per-block shared-memory accounting it checks; where a
 block's shared memory cannot hold the dom_count replica or the
 column-read partials, the plan puts them in global memory, one region
-per block (``scratch_bytes``), as it does the headroom rows.
+per block (``scratch_bytes``), as it does the headroom rows. Where a
+block's shared memory holds them, the plan also stages the slice's
+node-static rows once a launch and each pod's class rows one pod ahead
+(``PLACEMENTS``: those are the first regions it drops; ``class_packs``);
+every pod's scalars reach the kernel by bulk copy from ``pod_pack``.
 ``LAST_PLAN`` holds the geometry of the latest launch. The frozen form
 runs one cluster per (lane, pod) under the same plan.
 """
@@ -108,6 +112,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -145,6 +150,16 @@ INTERPOD_FLAGS = F_AFF | F_ANTI | F_SPH | F_IP | F_PREF
 DEVRES_FLAGS = F_GPU | F_STORAGE | F_VOL_STATIC | F_PV_MATCH | F_VOL_LIMITS | F_VOL_DEDUP
 # StepArgs.res bits (csrc/plain_step.cu)
 RES_HEADROOM, RES_DOM_GLOBAL, RES_COLS_GLOBAL = 1, 2, 4
+RES_STAGE_NODE, RES_STAGE_CLASS = 8, 16
+STAGE_ALL = RES_STAGE_NODE | RES_STAGE_CLASS
+# the staged regions a plan can take (its LaunchPlan.stage), by name
+PLACEMENT_NAMES = {"none": 0, "node": RES_STAGE_NODE, "class": RES_STAGE_CLASS, "all": STAGE_ALL}
+UNSTAGED = 0
+# a pod's hit terms are staged in its pod region up to this many terms
+# (the width of hit_terms: 97 in the rich north-star cluster at any
+# size); past it the region holds no list and the kernel reads the
+# host's lists (hit_ptr / hit_idx), chosen from the widths before a launch
+MAX_HITS_STAGED = 128
 
 _PTRS = ("inv_alloc", "unschedulable", "class_affinity", "class_taint",
          "class_node_aff_score", "class_taint_prefer", "spec_id", "spec_alloc",
@@ -195,6 +210,7 @@ _SMEM_LIMIT = 200 * 1024
 # blocks is non-portable, and the card may refuse it)
 MAX_THREADS, MAX_THREADS_DEVRES = 512, 384
 MAX_THREADS_WIDE, MAX_THREADS_WIDE_DEVRES = 384, 256
+MAX_THREADS_EXPLAIN, MAX_THREADS_EXPLAIN_DEVRES = 384, 256
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
 # the explain top-k (kTopkPass, kTopkLists in the .cu): a pass ranks up to
 # TOPK_PASS candidates a pod in one cluster round; its lists take
@@ -217,23 +233,34 @@ class SmemWidths(NamedTuple):
     npv: int    # the pv_taken replica (0 without PV matching)
     ext: int = 0  # the extension minima and normalizers (3 * ered + 3 * Es)
     keys: int = 0  # the top-k's key rows, in words (TOPK_WORDS under explain_topk)
+    pod: int = 0   # the pod region, in words (pod_words)
+    node_w: int = 0  # the staged node rows' words a node: inv_alloc's two columns,
+                     # spec_id and K1 node_dom rows (RES_STAGE_NODE)
+    node_b: int = 0  # and their bytes a node: active, unschedulable, K has_key rows
+    cls: int = 0   # a pod's class rows, bytes a node of the padded slice (RES_STAGE_CLASS)
 
 
 def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool = False,
-               cols_global: bool = False) -> int:
+               cols_global: bool = False, stage: int = 0) -> int:
     """A block's dynamic shared memory for these widths and a slice of
     `slice_len` nodes, its headroom rows in shared memory or not, its
-    dom_count replica and its column-read partials in global memory or not
-    (mirrors layout_of in the .cu): the top-k's key rows, the histogram
-    and the column-read partials twice (by pod parity), the merged column
-    read, the column needs, the hard-spread minima, the dom_count replica,
-    the slice's raw scores (and headroom) as 4-byte words, then its flags
-    and the pv_taken replica as bytes."""
+    dom_count replica and its column-read partials in global memory or not,
+    and the `stage` regions (RES_STAGE_* bits) staged (mirrors layout_of in
+    the .cu): the top-k's key rows, the class rows twice (by pod parity,
+    each slice padded to 16 nodes), the pod region, the histogram and the
+    column-read partials twice, the merged column read, the column needs,
+    the hard-spread minima, the dom_count replica, the slice's raw scores
+    (and headroom, and the staged node rows) as 4-byte words, then its
+    flags, the pv_taken replica and the staged node rows' bytes."""
     qd = w.q * w.d + 2 * w.q
-    words = (w.keys + 2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
+    slp = _cdiv(slice_len, 16) * 16
+    node = slice_len if stage & RES_STAGE_NODE else 0
+    words = (w.keys + (2 * w.cls * slp // 4 if stage & RES_STAGE_CLASS else 0) + 2 * w.pod
+             + 2 * w.ops + (0 if cols_global else 2 * qd) + qd + w.q + w.cs
              + (0 if dom_global else w.dom)
-             + w.rows * slice_len + w.ext + (slice_len * w.r if headroom else 0))
-    return 4 * words + slice_len + w.npv
+             + w.rows * slice_len + w.ext + (slice_len * w.r if headroom else 0)
+             + w.node_w * node)
+    return 4 * words + slice_len + w.npv + w.node_b * node
 
 
 class LaunchPlan(NamedTuple):
@@ -249,21 +276,45 @@ class LaunchPlan(NamedTuple):
     dom_global: bool = False   # each block's dom_count replica lives in global memory
     cols_global: bool = False  # its column-read partials live in global memory
     wide: bool = False         # the wide library's builds (global regions, walk window)
+    stage: int = 0             # the staged regions (RES_STAGE_* bits)
 
 
 # where plan_launch puts a block's regions, in the order it tries them:
 # (headroom rows in shared memory, dom_count replica in global memory,
-# column-read partials in global memory); the first that fits wins
-PLACEMENTS = ((True, False, False), (False, False, False), (False, True, False),
-              (False, False, True), (False, True, True))
+# column-read partials in global memory, the staged regions); the first
+# that fits wins. The staged regions are the first thing dropped: the class
+# rows' copies, then the node rows; then the headroom rows leave shared
+# memory, then (the wide library only) the replica and the partials.
+PLACEMENTS = ((True, False, False, STAGE_ALL), (True, False, False, RES_STAGE_NODE),
+              (True, False, False, UNSTAGED), (False, False, False, UNSTAGED),
+              (False, True, False, UNSTAGED), (False, False, True, UNSTAGED),
+              (False, True, True, UNSTAGED))
 
 
-def max_threads(flags: int, fleet: bool = False, wide: bool = False) -> int:
+def placement_name(plan: "LaunchPlan") -> str:
+    """The PLACEMENT_NAMES name of a plan's staged regions."""
+    return next(k for k, v in PLACEMENT_NAMES.items() if v == plan.stage)
+
+
+def placements_held_to(stage: int) -> tuple:
+    """PLACEMENTS with every staged placement held to `stage` (the other
+    placements as they are): what a measurement or a test sets to run a
+    launch under one staging."""
+    return tuple(dict.fromkeys(pl[:3] + (stage if pl[3] else 0,) for pl in PLACEMENTS))
+
+
+def max_threads(flags: int, fleet: bool = False, wide: bool = False, explain: bool = False,
+                frozen: bool = False) -> int:
     """The block size cap of the instantiation these flags launch (a fleet
-    build, or a build of the wide library, takes the smaller cap)."""
+    build, or a build of the wide library, takes the smaller cap; so do
+    the explain builds of the scan, and every explain build with the
+    device-resource ops)."""
+    devres = bool(flags & DEVRES_FLAGS)
     if fleet or wide:
-        return MAX_THREADS_WIDE_DEVRES if flags & DEVRES_FLAGS else MAX_THREADS_WIDE
-    return MAX_THREADS_DEVRES if flags & DEVRES_FLAGS else MAX_THREADS
+        return MAX_THREADS_WIDE_DEVRES if devres else MAX_THREADS_WIDE
+    if explain and (devres or not frozen):
+        return MAX_THREADS_EXPLAIN_DEVRES if devres else MAX_THREADS_EXPLAIN
+    return MAX_THREADS_DEVRES if devres else MAX_THREADS
 
 
 def block_geometry(n_nodes: int, cluster: int, cap: int = MAX_THREADS) -> Tuple[int, int]:
@@ -291,25 +342,26 @@ def plan_launch(n_lanes: int, n_nodes: int, w: SmemWidths,
     """The launch geometry: the largest cluster size C in CLUSTER_SIZES
     whose block fits its shared memory and whose `n_lanes` clusters the card
     holds at once (`occupancy(C, threads, slice_len, headroom, dom_global,
-    cols_global)`, the card's cudaOccupancyMaxActiveClusters, 0 where it
-    cannot place one); where no size holds every lane at once, the smallest
-    size that fits (its lanes run in waves). Blocks have at most `cap`
-    threads (``max_threads``). Each size takes the first of `placements`
-    that fits (PLACEMENTS: the headroom rows in shared memory where they
-    fit, else in global memory, then the dom_count replica, then the
-    column-read partials, then both, in global memory per block). Raises
-    ValueError when no cluster size fits even so."""
+    cols_global, stage)`, the card's cudaOccupancyMaxActiveClusters, 0 where
+    it cannot place one); where no size holds every lane at once, the
+    smallest size that fits (its lanes run in waves). Blocks have at most
+    `cap` threads (``max_threads``). Each size takes the first of
+    `placements` that fits (PLACEMENTS: every region staged where they fit,
+    then without the class rows' copies, then without the node rows, then
+    the headroom rows in global memory, then the dom_count replica, then
+    the column-read partials, then both, in global memory per block).
+    Raises ValueError when no cluster size fits even so."""
     fits = []
     for c in CLUSTER_SIZES:
         sl, threads = block_geometry(n_nodes, c, cap)
-        for hr, dg, cg in placements:
-            smem = smem_bytes(w, sl, hr, dg, cg)
+        for hr, dg, cg, stage in placements:
+            smem = smem_bytes(w, sl, hr, dg, cg, stage)
             if smem <= _SMEM_LIMIT:
                 break
         else:
             continue  # this size's slices do not fit
-        plan = LaunchPlan(c, threads, sl, hr, smem, occupancy(c, threads, sl, hr, dg, cg),
-                          dg, cg)
+        plan = LaunchPlan(c, threads, sl, hr, smem,
+                          occupancy(c, threads, sl, hr, dg, cg, stage), dg, cg, stage=stage)
         if plan.resident >= n_lanes:
             return plan
         fits.append(plan)
@@ -346,7 +398,9 @@ class StepArgs(ctypes.Structure):
                    ("walk_w", ctypes.c_int), ("dom_spill", ctypes.c_void_p),
                    ("col_spill", ctypes.c_void_p)]
                 + [(f, ctypes.c_void_p) for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")]
-                + [(f, ctypes.c_int) for f in ("ef", "es", "ered", "ls")])
+                + [(f, ctypes.c_int) for f in ("ef", "es", "ered", "ls")]
+                + [(f, ctypes.c_void_p) for f in ("pod_pack", "cls_pack")]
+                + [("hit_w", ctypes.c_int)])
 
 
 # ExtensionOp.normalize -> StepArgs.ext_norm
@@ -653,6 +707,26 @@ def _check_index(name: str, t: torch.Tensor, bound: int) -> None:
         raise ValueError(f"plain_step: {name} holds {int(t.max())}, past its bound {bound}")
 
 
+def hit_width(arrs, cfg: EngineConfig) -> int:
+    """The width of each pod's staged hit-term list (StepArgs.hit_w): the
+    terms' count, where the anti-affinity row is live and it is at most
+    MAX_HITS_STAGED; else 0, and the kernel reads the host's lists."""
+    t = arrs.hit_terms.shape[1]
+    return t if cfg.enable_anti_affinity and t <= MAX_HITS_STAGED else 0
+
+
+def pod_words(arrs, cfg: EngineConfig) -> int:
+    """The pod region's 4-byte words (kernel: pod_lay): a 4-word record a
+    carry column (affinity, anti-affinity, spread and preferred terms),
+    the resources and the hit list; then its byte rows (ports, match
+    groups, preferred hits) rounded up to words, the whole to 4 words."""
+    q = sum(getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group", "spread_group",
+                                               "pref_group"))
+    words = 4 * q + arrs.alloc.shape[1] + hit_width(arrs, cfg)
+    bytes_ = arrs.ports.shape[1] + arrs.match_groups.shape[1] + arrs.hit_pref.shape[1]
+    return _cdiv(words + _cdiv(bytes_, 4), 4) * 4
+
+
 def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
     """The widths of a launch's shared memory under its StepArgs flags."""
     k1, _, d = arrs.topo_onehot.shape
@@ -669,7 +743,10 @@ def smem_widths(arrs, cfg: EngineConfig, flags: int) -> SmemWidths:
         r=arrs.alloc.shape[1],
         npv=arrs.pv_node_ok.shape[0] if flags & DEVRES_FLAGS and flags & F_PV_MATCH else 0,
         ext=3 * rows.ered + 3 * len(rows.scores),
-        keys=TOPK_WORDS if cfg.explain_topk else 0)
+        keys=TOPK_WORDS if cfg.explain_topk else 0,
+        pod=pod_words(arrs, cfg),
+        node_w=3 + k1, node_b=2 + arrs.has_key.shape[0],
+        cls=10)
 
 
 def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:
@@ -681,13 +758,31 @@ def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:
                                                       False) > _SMEM_LIMIT
 
 
+def placements_for(wide: bool, one_pod: bool = False, flags: int = 0) -> tuple:
+    """The PLACEMENTS a launch may take: the replica and the partials stay
+    in shared memory outside the wide library; a launch of one pod a
+    cluster (the frozen form, the extension loop's) stages no node or
+    class rows, whose copies would cost it more than its one pod reads;
+    the device-resource builds stage no class rows, and the build with
+    both slices' gates (`<1,1>`) no node rows either (the kernel compiles
+    those stagings out of them: registers)."""
+    devres, both = bool(flags & DEVRES_FLAGS), bool(flags & DEVRES_FLAGS and flags & INTERPOD_FLAGS)
+    allowed = 0 if one_pod or both else (RES_STAGE_NODE if devres else STAGE_ALL)
+    return tuple(dict.fromkeys(pl[:3] + (pl[3] & allowed,) for pl in PLACEMENTS
+                               if wide or not (pl[1] or pl[2])))
+
+
 def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
-             occupancy: Callable[..., int], fleet: bool = False) -> LaunchPlan:
+             occupancy: Callable[..., int], fleet: bool = False,
+             one_pod: bool = False, frozen: bool = False) -> LaunchPlan:
     """``plan_launch`` for a launch of these arrays under these flags: the
-    wide library's builds and placements where ``needs_wide``."""
+    wide library's builds and placements where ``needs_wide``; `one_pod`
+    for launches of one pod a cluster (``placements_for``), `frozen` for
+    the frozen form's builds (``max_threads``)."""
     wide = needs_wide(arrs, cfg, flags)
     plan = plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
-                       max_threads(flags, fleet, wide), PLACEMENTS if wide else PLACEMENTS[:2])
+                       max_threads(flags, fleet, wide, explain_on(cfg), frozen),
+                       placements_for(wide, one_pod, flags))
     return plan._replace(wide=wide)
 
 
@@ -710,15 +805,15 @@ def _set_geometry(args: StepArgs, plan) -> None:
     args.cl, args.bt, args.sl = plan.cluster, plan.threads, plan.slice_len
     args.res = ((RES_HEADROOM if plan.headroom else 0)
                 | (RES_DOM_GLOBAL if plan.dom_global else 0)
-                | (RES_COLS_GLOBAL if plan.cols_global else 0))
+                | (RES_COLS_GLOBAL if plan.cols_global else 0) | plan.stage)
 
 
 def _card_occupancy(lib: ctypes.CDLL, args: StepArgs):
     """plan_launch's occupancy answer on the current card."""
     def occupancy(cluster: int, threads: int, slice_len: int, headroom: bool,
-                  dom_global: bool = False, cols_global: bool = False) -> int:
+                  dom_global: bool = False, cols_global: bool = False, stage: int = 0) -> int:
         _set_geometry(args, LaunchPlan(cluster, threads, slice_len, headroom, 0, 0,
-                                       dom_global, cols_global))
+                                       dom_global, cols_global, stage=stage))
         n = ctypes.c_int(0)
         err = lib.plain_step_clusters(ctypes.byref(args), ctypes.byref(n))
         if err:
@@ -807,6 +902,7 @@ def _static_inputs(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: to
         anti_key=i32(arrs.anti_key),
         anti_valid=u8(arrs.anti_valid),
         hit_ptr=hit_ptr, hit_idx=hit_idx, own_ptr=own_ptr, own_idx=own_idx,
+        pod_pack=pod_pack(arrs, cfg, hit_ptr, hit_idx),
         pref_group=i32(arrs.pref_group),
         pref_key=i32(arrs.pref_key),
         pref_weight=f32(arrs.pref_weight),
@@ -835,6 +931,115 @@ def _static_inputs(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: to
                              (n_lanes, n_cls, k1, d))),
         any_elig=u8(_check("any_elig", hoist.any_elig, torch.bool, (n_lanes, n_cls, k))),
     )
+
+
+def padded_lists(ptr: torch.Tensor, idx: torch.Tensor, width: int) -> torch.Tensor:
+    """(ptr [P+1], idx) lists -> [P, width] i32 rows, each list's entries
+    then -1 (every list at most `width` long)."""
+    n_rows = ptr.shape[0] - 1
+    out = torch.full((n_rows, width), -1, dtype=torch.int32, device=ptr.device)
+    if idx.numel():
+        counts = (ptr[1:] - ptr[:-1]).long()
+        rows = torch.repeat_interleave(torch.arange(n_rows, device=ptr.device), counts)
+        out[rows, torch.arange(idx.numel(), device=ptr.device) - ptr[:-1].long()[rows]] = idx
+    return out
+
+
+def pod_pack(arrs, cfg: EngineConfig, hit_ptr: torch.Tensor,
+             hit_idx: torch.Tensor) -> torch.Tensor:
+    """[P, pod_words] i32: each pod's region as the kernel stages it (its
+    pod_lay), the source of the bulk copy that brings it in, one pod
+    ahead: a 4-word record a carry column over the [aff | anti | spread |
+    pref] slot axis ({group, key, valid | self << 1, 0}, {group, key,
+    valid, 0}, {group, key, soft | hard << 1, maxSkew's f32 bits},
+    {group, key, valid ? pref_tid : -1, weight's f32 bits}), the request's
+    f32 bits, the hit list (``hit_width`` wide, -1 past its last), then the
+    ports, match groups and preferred hits as bytes, zeros to the end."""
+    n_pods = arrs.req.shape[0]
+    dev = arrs.req.device
+
+    def i32(t):
+        return t.to(torch.int32)
+
+    def bits(t):
+        return t.to(torch.float32).contiguous().view(torch.int32)
+
+    soft, hard = arrs.spread_valid & ~arrs.spread_hard, arrs.spread_valid & arrs.spread_hard
+    records = [
+        torch.stack([i32(arrs.aff_group), i32(arrs.aff_key),
+                     i32(arrs.aff_valid) | (i32(arrs.aff_self) << 1),
+                     torch.zeros_like(i32(arrs.aff_group))], -1),
+        torch.stack([i32(arrs.anti_group), i32(arrs.anti_key), i32(arrs.anti_valid),
+                     torch.zeros_like(i32(arrs.anti_group))], -1),
+        torch.stack([i32(arrs.spread_group), i32(arrs.spread_key), i32(soft) | (i32(hard) << 1),
+                     bits(arrs.spread_skew)], -1),
+        torch.stack([i32(arrs.pref_group), i32(arrs.pref_key),
+                     torch.where(arrs.pref_valid, i32(arrs.pref_tid), -1),
+                     bits(arrs.pref_weight)], -1)]
+    hit_w = hit_width(arrs, cfg)
+    q = sum(r.shape[1] for r in records)
+    words = [torch.cat(records, 1).reshape(n_pods, 4 * q), bits(arrs.req)]
+    if hit_w:
+        words.append(padded_lists(hit_ptr, hit_idx, hit_w))
+    bytes_ = torch.cat([arrs.ports.to(torch.uint8), arrs.match_groups.to(torch.uint8),
+                        arrs.hit_pref.to(torch.uint8)], 1)
+    bytes_ = torch.cat([bytes_, torch.zeros((n_pods, -bytes_.shape[1] % 4), dtype=torch.uint8,
+                                            device=dev)], 1).contiguous()
+    words.append(bytes_.view(torch.int32))
+    out = torch.zeros((n_pods, pod_words(arrs, cfg)), dtype=torch.int32, device=dev)
+    body = torch.cat(words, 1)
+    out[:, :body.shape[1]] = body
+    return out
+
+
+def class_packs(arrs, plan: LaunchPlan) -> torch.Tensor:
+    """The bulk copies' source of a plan that stages the class rows
+    (RES_STAGE_CLASS): each class's rows cut into the plan's block slices,
+    each slice padded to slp = slice_len rounded up to 16 nodes (so every
+    copy starts and ends 16-byte aligned), [C, cl, 10 * slp] bytes: the
+    node-affinity score and the taint prefer as f32, the class affinity
+    and taint as u8."""
+    n, sl, cl = arrs.alloc.shape[0], plan.slice_len, plan.cluster
+    slp = _cdiv(sl, 16) * 16
+
+    def sliced(t, dtype):
+        full = torch.zeros((t.shape[0], cl * sl), dtype=dtype, device=t.device)
+        full[:, :n] = t
+        out = torch.zeros((t.shape[0], cl, slp), dtype=dtype, device=t.device)
+        out[:, :, :sl] = full.view(-1, cl, sl)
+        return out.view(torch.uint8)
+
+    return torch.cat([sliced(arrs.class_node_aff_score, torch.float32),
+                      sliced(arrs.class_taint_prefer, torch.float32),
+                      sliced(arrs.class_affinity, torch.uint8),
+                      sliced(arrs.class_taint, torch.uint8)], dim=2).contiguous()
+
+
+def _stage_sources(args: StepArgs, arrs, plan: LaunchPlan, static: dict) -> Optional[torch.Tensor]:
+    """Point `args` at the class pack a plan's staged class rows copy from
+    (kept in `static` per geometry); returns it (to outlive the launch)."""
+    if not plan.stage & RES_STAGE_CLASS:
+        args.cls_pack = None
+        return None
+    key = ("cls_pack", plan.slice_len, plan.cluster)
+    if key not in static:
+        static[key] = class_packs(arrs, plan)
+    args.cls_pack = static[key].data_ptr()
+    return static[key]
+
+
+# the class packs of each fleet lane's arrays, kept while the arrays live:
+# a campaign's launches over the same lanes build them once
+_LANE_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def lane_packs(arrs) -> dict:
+    """The dict ``_stage_sources`` keeps a fleet lane's class packs in:
+    one per arrays object, as a one-lane launch keeps them in `inputs`."""
+    packs = _LANE_PACKS.get(arrs)
+    if packs is None:
+        packs = _LANE_PACKS[arrs] = {}
+    return packs
 
 
 def walk_width(arrs, cfg: EngineConfig) -> int:
@@ -1038,7 +1243,8 @@ def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
         frozen=int(frozen),
         **{f: (tensors[f].data_ptr() if f in tensors else None)
            for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")},
-        ef=len(rows.filters), es=len(rows.scores), ered=rows.ered, ls=ls)
+        ef=len(rows.filters), es=len(rows.scores), ered=rows.ered, ls=ls,
+        pod_pack=tensors["pod_pack"].data_ptr(), hit_w=hit_width(arrs, cfg))
     return args, tensors
 
 
@@ -1112,7 +1318,8 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         key = (flags, n_clusters, frozen)
         plan = static["plans"].get(key)
         if plan is None:
-            plan = plan_for(arrs, cfg, flags, n_clusters, _card_occupancy(lib, args))
+            plan = plan_for(arrs, cfg, flags, n_clusters, _card_occupancy(lib, args),
+                            one_pod=frozen, frozen=frozen)
             static["plans"][key] = plan
     if (frozen and n_out > 1
             and scratch_bytes(arrs, cfg, flags, plan, n_clusters, True) > _SCRATCH_LIMIT):
@@ -1124,6 +1331,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
         return StepOutputs(*(torch.cat(pair, 1) for pair in zip(*halves)))
     _set_geometry(args, plan)
     keep = _scratch(args, arrs, cfg, flags, plan, n_clusters, dev, frozen)
+    _stage_sources(args, arrs, plan, static)
     _fire(lib, args, plan, dev, "plain_step")
     del keep  # freed in stream order: the next use of the memory follows the launch
     _count(plan, explain, frozen, weights is not None, bool(cfg.extensions))
@@ -1197,10 +1405,11 @@ def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
                                          None, None, disabled, nominated, False, static,
                                          weights, ok, raw, out=out)
             with torch.cuda.device(dev):
-                key = (flags, n_lanes, False)
+                key = (flags, n_lanes, "one pod")
                 plan = static["plans"].get(key)
                 if plan is None:
-                    plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args))
+                    plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args),
+                                    one_pod=True)
                     static["plans"][key] = plan
                 stream = torch.cuda.current_stream(dev).cuda_stream
             _set_geometry(args, plan)
@@ -1320,14 +1529,16 @@ def plain_step_fleet_cuda(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
     _set_geometry(head, plan)
     keep = _scratch(head, arrs0, cfg, flags, plan, n_lanes, dev)
     blob = bytearray()
-    for args, _ in built:
+    for (args, _), ln in zip(built, lanes):
         args.fleet = 1
         _set_geometry(args, plan)
+        keep.append(_stage_sources(args, ln.arrs, plan, lane_packs(ln.arrs)))
         args.walk, args.walk_w = head.walk, head.walk_w
         args.dom_spill, args.col_spill = head.dom_spill, head.col_spill
         blob += bytes(args)
     lanes_dev = torch.frombuffer(blob, dtype=torch.uint8).to(dev)
     head.lanes = lanes_dev.data_ptr()
+    head.cls_pack = built[0][0].cls_pack
     _fire(lib, head, plan, dev, "plain_step_fleet")
     del keep, lanes_dev  # freed in stream order, after the launch
     LAUNCHES["plain_step_fleet" + ("_explain" if explain else "")] += 1

@@ -210,6 +210,30 @@ def test_block_size_cap_follows_the_instantiation(kind, cap):
     assert plan.threads > cap // 2
 
 
+def test_explain_builds_take_their_caps():
+    """The explain library's scan builds take 384 threads a block (168
+    registers), its device-resource builds 256 (255), its frozen builds
+    without them the scan's 512; the caps are the .cu's, and the launcher's
+    plan for an explain config uses them."""
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    caps = dict(re.findall(r"constexpr int (kMaxThreads\w*) = (\d+);", src))
+    assert int(caps["kMaxThreadsExplain"]) == step.MAX_THREADS_EXPLAIN == 384
+    assert int(caps["kMaxThreadsExplainDevRes"]) == step.MAX_THREADS_EXPLAIN_DEVRES == 256
+    assert step.max_threads(0, explain=True) == 384
+    assert step.max_threads(0, explain=True, frozen=True) == step.MAX_THREADS
+    assert step.max_threads(step.F_GPU, explain=True, frozen=True) == 256
+    assert step.max_threads(step.F_GPU, fleet=True, explain=True) == step.MAX_THREADS_WIDE_DEVRES
+    snap = synthetic_snapshot(2000, 64, rich=True)
+    cfg = sched.make_config(snap, explain_topk=3)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    st = sched.init_state(arrs, cfg)
+    flags = step._flags(cfg, sched.SimState(**{f: getattr(st, f)[None]
+                                               for f in sched.STATE_FIELDS}), True)
+    plan = step.plan_for(arrs, cfg, flags, 2, lambda c, *_: 0 if c > 1 else 132)
+    assert plan.threads <= 384 < step.plan_for(arrs, cfg._replace(explain_topk=0), flags, 2,
+                                               lambda c, *_: 0 if c > 1 else 132).threads
+
+
 def test_launch_plan_keeps_headroom_in_shared_memory_where_it_fits():
     """One lane per block (C = 1) at 5,184 nodes: with rich widths the
     raw scores fit, the headroom rows do not; at C = 16 both do."""
@@ -1794,3 +1818,394 @@ def test_topk_passes_in_the_wide_library_on_card(cuda_device, rich, k):
     runs = _topk_runs(snap, cfg, cuda_device)
     assert step.LAST_PLAN.wide
     _assert_runs_equal(runs)
+
+
+# ---- the staged regions: the pod's scalars, the node rows, the class rows --
+
+
+def _c_sum(exprs, env):
+    """The sum of C width expressions (`a.x`, `dev ? a.x : 0`) under env."""
+    total = 0
+    for e in exprs:
+        e = re.sub(r"(\w+) \? ([^:]+) : (\w+)", r"(\2 if \1 else \3)", e)
+        total += eval(re.sub(r"a\.(\w+)", r"env['\1']", e), {"env": env}, dict(env))
+    return total
+
+
+@pytest.mark.parametrize("kind", ["northstar", "rich", "devres"])
+def test_pod_words_mirror_the_kernels_pod_region(kind):
+    """pod_words is pod_lay's size: the term records and word rows, then
+    the byte rows rounded up to words, the whole to 4 words, read from the
+    .cu and evaluated at the snapshot's widths."""
+    snap = {"northstar": lambda: synthetic_snapshot(40, 64),
+            "rich": lambda: synthetic_snapshot(40, 64, rich=True),
+            "devres": lambda: device_resource_snapshot(40, 96)}[kind]()
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    st = sched.init_state(arrs, cfg)
+    flags = step._flags(cfg, sched.SimState(**{f: getattr(st, f)[None]
+                                               for f in sched.STATE_FIELDS}), True)
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    body = re.search(r"inline PodLay pod_lay\(const StepArgs& a\) \{(.*?)\n\}", src, re.S).group(1)
+    a = arrs
+    env = dict(r=a.alloc.shape[1], cs=a.spread_group.shape[1], a=a.aff_group.shape[1],
+               b=a.anti_group.shape[1], ap=a.pref_group.shape[1], pt=a.ports.shape[1],
+               sg=a.match_groups.shape[1], t2=a.hit_pref.shape[1], lv=a.lvm_req.shape[1],
+               ev=a.sdev_req.shape[1], lw=a.wfc_ccid.shape[1], lk=a.vol_limit_req.shape[1],
+               lsv=a.svol_id.shape[1], hit_w=step.hit_width(arrs, cfg),
+               dev=bool(flags & step.DEVRES_FLAGS))
+    words = _c_sum(re.findall(r"\bw \+= ([^;]+);", body), env)
+    bytes_ = _c_sum(re.findall(r"\bb \+= ([^;]+);", body), env)
+    assert step.pod_words(arrs, cfg) == -(-(words + -(-bytes_ // 4)) // 4) * 4
+    assert "l.words = (w + (b + 3) / 4 + 3) & ~3;" in body
+    assert step.smem_widths(arrs, cfg, flags).pod == step.pod_words(arrs, cfg)
+    if kind == "rich":
+        assert env["hit_w"] == a.hit_terms.shape[1] > 0
+    assert step.hit_width(arrs, cfg._replace(enable_anti_affinity=False)) == 0
+
+
+def test_smem_bytes_counts_the_staged_regions():
+    """smem_bytes mirrors layout_of's staged regions: the pod region twice
+    (always), the class rows twice at the slice padded to 16 nodes
+    (RES_STAGE_CLASS), the node rows' words and bytes a node
+    (RES_STAGE_NODE); the .cu's layout_of, slp_of and cls_bytes say the
+    same."""
+    w = step.SmemWidths(ops=5, q=3, d=4, cs=2, dom=24, rows=5, r=6, npv=7, pod=9, node_w=4,
+                        node_b=3, cls=10)
+    base = step.smem_bytes(w, 10, True)
+    assert base == step.smem_bytes(w._replace(pod=0), 10, True) + 4 * 2 * 9
+    assert base == step.smem_bytes(w._replace(node_w=0, node_b=0, cls=0), 10, True)
+    assert step.smem_bytes(w, 10, True, stage=step.RES_STAGE_NODE) == base + 4 * 4 * 10 + 3 * 10
+    assert step.smem_bytes(w, 10, True, stage=step.RES_STAGE_CLASS) == base + 2 * 10 * 16
+    assert step.smem_bytes(w, 33, False, stage=step.STAGE_ALL) == (
+        step.smem_bytes(w, 33, False) + 2 * 10 * 48 + 4 * 4 * 33 + 3 * 33)
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    body = re.search(r"inline Layout layout_of\(const StepArgs& a\) \{(.*?)\n\}", src, re.S).group(1)
+    for part in ("2 * cls_bytes(a) / 4", "2 * pod_lay(a).words", "(3 + a.k1) * a.sl",
+                 "(2 + a.k) * a.sl", "RES_STAGE_CLASS", "RES_STAGE_NODE"):
+        assert part in body, part
+    assert "return (a.sl + 15) & ~15;" in src
+    assert "inline int cls_bytes(const StepArgs& a) { return 10 * slp_of(a); }" in src
+    bits = dict(re.findall(r"constexpr int (RES_\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in bits.items()} == {
+        n: getattr(step, n) for n in ("RES_HEADROOM", "RES_DOM_GLOBAL", "RES_COLS_GLOBAL",
+                                      "RES_STAGE_NODE", "RES_STAGE_CLASS")}
+
+
+def test_placements_drop_the_staged_regions_first():
+    """PLACEMENTS tries every region staged, then drops the class rows'
+    copies, then the node rows, and only then the placements of before
+    (headroom out of shared memory, the replica and partials in global
+    memory); a launch outside the wide library never puts those in global
+    memory, and a one-pod launch stages nothing."""
+    stages = [pl[3] for pl in step.PLACEMENTS]
+    assert stages[:3] == [step.STAGE_ALL, step.RES_STAGE_NODE, step.UNSTAGED]
+    assert not any(stages[3:])
+    assert [pl[:3] for pl in step.PLACEMENTS[2:]] == [
+        (True, False, False), (False, False, False), (False, True, False),
+        (False, False, True), (False, True, True)]
+    assert step.placements_for(False) == step.PLACEMENTS[:4]
+    assert step.placements_for(True) == step.PLACEMENTS
+    assert step.placements_for(False, one_pod=True) == (
+        (True, False, False, 0), (False, False, False, 0))
+    assert all(not pl[3] for pl in step.placements_for(True, one_pod=True))
+    assert [pl[3] for pl in step.placements_for(False, flags=step.F_GPU)] == [
+        step.RES_STAGE_NODE, step.UNSTAGED, step.UNSTAGED]
+    assert [pl[3] for pl in step.placements_for(False, flags=step.F_GPU | step.F_AFF)] == [
+        step.UNSTAGED, step.UNSTAGED]
+    assert set(step.PLACEMENT_NAMES.values()) == {0, step.RES_STAGE_NODE,
+                                                  step.RES_STAGE_CLASS, step.STAGE_ALL}
+
+
+@pytest.mark.parametrize("stage", [step.STAGE_ALL, step.RES_STAGE_NODE, step.UNSTAGED])
+def test_launch_plan_drops_staged_regions_that_do_not_fit(stage, monkeypatch):
+    """64 lanes of 5,184 nodes (C = 2, 2,592-node slices): with room for
+    exactly one of the staged placements, the plan takes it, the headroom
+    rows still in shared memory; one byte less and it takes the next."""
+    w = _WIDTHS._replace(pod=40, node_w=4, node_b=4, cls=10)
+    need = step.smem_bytes(w, 2592, True, stage=stage)
+    monkeypatch.setattr(step, "_SMEM_LIMIT", need)
+    plan = step.plan_launch(64, 5184, w, lambda c, *_: _OCCUPANCY[c],
+                            placements=step.placements_for(False))
+    assert (plan.cluster, plan.slice_len, plan.stage, plan.headroom) == (2, 2592, stage, True)
+    assert plan.smem == need and step.placement_name(plan) in step.PLACEMENT_NAMES
+    monkeypatch.setattr(step, "_SMEM_LIMIT", need - 1)
+    nxt = step.plan_launch(64, 5184, w, lambda c, *_: _OCCUPANCY[c],
+                           placements=step.placements_for(False))
+    order = step.placements_for(False)
+    at = next(i for i, pl in enumerate(order) if pl == (True, False, False, stage))
+    assert (nxt.headroom, nxt.dom_global, nxt.cols_global, nxt.stage) == order[at + 1]
+
+
+def test_64_lane_plan_takes_a_larger_cluster_at_two_blocks_an_sm():
+    """Where the card holds two blocks an SM (an occupancy answer twice
+    the one-block one), the 64-lane plan takes C = 4: half the nodes a
+    block, the same warps a block, twice the warps an SM."""
+    one_block = step.plan_launch(64, 5184, _WIDTHS, lambda c, *_: _OCCUPANCY[c])
+    two = {c: 2 * 132 // c for c in step.CLUSTER_SIZES}
+    two_blocks = step.plan_launch(64, 5184, _WIDTHS, lambda c, *_: two[c])
+    assert (one_block.cluster, one_block.slice_len, one_block.threads) == (2, 2592, 448)
+    assert (two_blocks.cluster, two_blocks.slice_len, two_blocks.threads) == (4, 1296, 448)
+    assert two_blocks.resident >= 64
+
+
+@pytest.mark.parametrize("kind", ["rich", "devres"])
+def test_pod_pack_and_class_packs(kind):
+    """The bulk copies' host-built sources: each pod's region (its term
+    records, request bits, padded hit list, then the port, match-group and
+    preferred-hit bytes, pod_words wide), and each class's rows cut into
+    the plan's block slices, padded to 16 nodes, f32 rows then byte rows."""
+    snap = (synthetic_snapshot(50, 64, rich=True) if kind == "rich"
+            else device_resource_snapshot(50, 96))
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    ptr, idx = step.term_lists(arrs.hit_terms)
+    pack = step.pod_pack(arrs, cfg, ptr, idx)
+    assert pack.shape == (snap.n_pods, step.pod_words(arrs, cfg)) and pack.dtype == torch.int32
+    a_, b_, cs, ap = (getattr(arrs, f).shape[1] for f in ("aff_group", "anti_group",
+                                                          "spread_group", "pref_group"))
+    q, r, hit_w = a_ + b_ + cs + ap, arrs.alloc.shape[1], step.hit_width(arrs, cfg)
+    assert bool(hit_w) == (kind == "rich")
+    for p in range(0, snap.n_pods, 7):
+        rec = pack[p, :4 * q].view(q, 4)
+        for i in range(a_):
+            assert rec[i].tolist() == [int(arrs.aff_group[p, i]), int(arrs.aff_key[p, i]),
+                                       int(arrs.aff_valid[p, i]) | int(arrs.aff_self[p, i]) << 1, 0]
+        for c in range(cs):
+            row = rec[a_ + b_ + c]
+            soft = bool(arrs.spread_valid[p, c] and not arrs.spread_hard[p, c])
+            hard = bool(arrs.spread_valid[p, c] and arrs.spread_hard[p, c])
+            assert row[:3].tolist() == [int(arrs.spread_group[p, c]), int(arrs.spread_key[p, c]),
+                                        int(soft) | int(hard) << 1]
+            assert row[3:].view(torch.float32).item() == float(arrs.spread_skew[p, c])
+        for i in range(ap):
+            row = rec[a_ + b_ + cs + i]
+            assert int(row[2]) == (int(arrs.pref_tid[p, i]) if arrs.pref_valid[p, i] else -1)
+        assert torch.equal(pack[p, 4 * q:4 * q + r].view(torch.float32), arrs.req[p].float())
+        n_hit = int(ptr[p + 1] - ptr[p])
+        hits = pack[p, 4 * q + r:4 * q + r + hit_w]
+        assert hits[:n_hit].tolist() == idx[ptr[p]:ptr[p + 1]].tolist()
+        assert (hits[n_hit:] == -1).all()
+        raw = pack[p, 4 * q + r + hit_w:].contiguous().view(torch.uint8)
+        pt, sg, t2 = arrs.ports.shape[1], arrs.match_groups.shape[1], arrs.hit_pref.shape[1]
+        want = torch.cat([arrs.ports[p], arrs.match_groups[p], arrs.hit_pref[p]]).to(torch.uint8)
+        assert torch.equal(raw[:pt + sg + t2], want) and not raw[pt + sg + t2:].any()
+    plan = step.LaunchPlan(4, 32, 13, True, 0, 0, stage=step.STAGE_ALL)
+    cls = step.class_packs(arrs, plan)
+    n_cls, slp = arrs.class_affinity.shape[0], 16
+    assert cls.shape == (n_cls, 4, 10 * slp) and cls.dtype == torch.uint8
+    for c in range(n_cls):
+        for rk in range(4):
+            row = cls[c, rk]
+            na, tt = row[:4 * slp].view(torch.float32), row[4 * slp:8 * slp].view(torch.float32)
+            aff, taint = row[8 * slp:9 * slp], row[9 * slp:]
+            lo, hi = rk * 13, min(rk * 13 + 13, 50)
+            assert torch.equal(na[:hi - lo], arrs.class_node_aff_score[c, lo:hi].float())
+            assert torch.equal(tt[:hi - lo], arrs.class_taint_prefer[c, lo:hi].float())
+            assert torch.equal(aff[:hi - lo], arrs.class_affinity[c, lo:hi].to(torch.uint8))
+            assert torch.equal(taint[:hi - lo], arrs.class_taint[c, lo:hi].to(torch.uint8))
+            for t in (na, tt, aff, taint):
+                assert not t[hi - lo:].any()
+
+
+def _staged_runs(snap, cfg, masks, device, spans, monkeypatch=None, stage=None):
+    """The kernel and the plain step over the same pod spans in turn (each
+    span a launch on the carry the last one left), from the template:
+    (outputs of each span, carry) for each; with `stage`, plan_launch held
+    to that staging."""
+    if stage is not None:
+        monkeypatch.setattr(step, "PLACEMENTS", step.placements_held_to(stage))
+    arrs = sched.device_arrays(snap.arrays, device)
+    active = torch.from_numpy(masks).to(device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    if cfg.forced_prefix:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, cfg.forced_prefix)
+    runs, plans = [], []
+    for fn in (step.plain_step_cuda, step.plain_step_torch):
+        st = sched.lane_carry(tmpl, len(masks))
+        outs, inputs = [], {}
+        for i, (p0, p1) in enumerate(spans):
+            kw = {"inputs": inputs} if fn is step.plain_step_cuda else {}
+            outs.append(fn(arrs, active, hoist, inv, st, cfg, p0, p1,
+                           template=tmpl if i == 0 else None, **kw))
+            if fn is step.plain_step_cuda:
+                plans.append(step.LAST_PLAN)
+        torch.cuda.synchronize()
+        runs.append((outs, st))
+    (outs_k, st_k), (outs_p, st_p) = runs
+    for ok, op in zip(outs_k, outs_p):
+        for a, b in zip(ok, op):
+            assert torch.equal(a, b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f), getattr(st_p, f)), f
+    return outs_k, plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [step.STAGE_ALL, step.RES_STAGE_NODE, step.UNSTAGED])
+def test_staged_unaligned_slices_equal_plain_on_card(cuda_device, stage, monkeypatch):
+    """The rich cluster at 509 nodes (no class row starts 16-byte aligned)
+    on 3 lanes, each staging the plan can take: bit for bit the plain
+    step, and the plan records the staging it ran."""
+    snap = synthetic_snapshot(509, 384, rich=True)
+    cfg = sched.make_config(snap)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 1, np.arange(n) % 4 != 0])
+    outs, plans = _staged_runs(snap, cfg, masks, cuda_device, [(cfg.forced_prefix, snap.n_pods)],
+                               monkeypatch, stage)
+    assert plans[0].stage == stage and plans[0].cluster > 1
+    assert (outs[0].node >= 0).any()
+
+
+@pytest.mark.cuda
+def test_staged_class_changing_every_pod_on_card(cuda_device):
+    """A class that changes every pod (the rich cluster's classes dealt
+    round robin): every pod's copies land in the other buffer, each pod
+    reads its own class rows; bit for bit the plain step."""
+    snap = synthetic_snapshot(96, 512, rich=True)
+    n_cls = snap.arrays.class_affinity.shape[0]
+    cid = (np.arange(snap.n_pods) % n_cls).astype(snap.arrays.class_id.dtype)
+    snap = dataclasses.replace(snap, arrays=dataclasses.replace(snap.arrays, class_id=cid))
+    cfg = sched.make_config(snap)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 3])
+    outs, plans = _staged_runs(snap, cfg, masks, cuda_device, [(cfg.forced_prefix, snap.n_pods)])
+    assert plans[0].stage == step.STAGE_ALL and n_cls > 2
+    assert (outs[0].node >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["<1,0>", "<0,1>"])
+def test_staged_one_pod_and_later_launches_on_card(cuda_device, case):
+    """A launch of one pod (its region and class rows copied in the
+    prologue, no pod ahead), then one from p0 > 0 on the carry it left,
+    then the rest: bit for bit the plain step over the same spans (the
+    device-resource build stages no class rows)."""
+    snap = (synthetic_snapshot(96, 384, rich=True) if case == "<1,0>"
+            else device_resource_snapshot(96, 512))
+    cfg = sched.make_config(snap)
+    k, n = cfg.forced_prefix, snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0])
+    spans = [(k, k + 1), (k + 1, k + 37), (k + 37, snap.n_pods)]
+    outs, plans = _staged_runs(snap, cfg, masks, cuda_device, spans)
+    want = step.RES_STAGE_NODE if case == "<0,1>" else step.STAGE_ALL
+    assert all(pl.stage == want for pl in plans)
+    assert step.instantiation(cfg, sched.init_state(sched.device_arrays(snap.arrays, "cpu"),
+                                                    cfg)) == case
+
+
+@pytest.mark.cuda
+def test_staged_beside_unstaged_launch_on_card(cuda_device, monkeypatch):
+    """The same launch staged (the plan's own choice) and held unstaged:
+    equal outputs and carries, each equal to the plain step."""
+    snap = synthetic_snapshot(200, 512, rich=True, bound=0.2)
+    cfg = sched.make_config(snap)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 4 != 1])
+    span = [(cfg.forced_prefix, snap.n_pods)]
+    staged, plans_s = _staged_runs(snap, cfg, masks, cuda_device, span)
+    unstaged, plans_u = _staged_runs(snap, cfg, masks, cuda_device, span, monkeypatch,
+                                     step.UNSTAGED)
+    assert plans_s[0].stage == step.STAGE_ALL and plans_u[0].stage == step.UNSTAGED
+    assert plans_s[0].smem > plans_u[0].smem
+    for a, b in zip(staged[0], unstaged[0]):
+        assert torch.equal(a, b)
+
+
+def _many_term_snapshot(n_terms, n_nodes=64, n_pods=384):
+    """A cluster of `n_terms` required anti-affinity terms: pod i carries
+    app a{i % n_terms} and keeps off the zone (even i) or the node (odd
+    i) of app a{(i + 1) % n_terms}, so every pod hits one of n_terms
+    distinct (group, key) terms."""
+    from open_simulator_tpu_torch.encode.snapshot import encode_cluster
+    from open_simulator_tpu_torch.k8s.loader import make_valid_node
+    from open_simulator_tpu_torch.k8s.objects import Node, Pod
+
+    rng = np.random.RandomState(3)
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+    nodes = [Node.from_dict({
+        "metadata": {"name": f"n{i}", "labels": {zone: f"z{i % 16}", host: f"n{i}"}},
+        "status": {"allocatable": {"cpu": "16", "memory": "64Gi", "pods": 110}}})
+        for i in range(n_nodes)]
+    pods = []
+    for i in range(n_pods):
+        g = i % n_terms
+        spec = {"containers": [{"name": "c", "resources": {"requests": {
+                    "cpu": f"{rng.randint(100, 1500)}m",
+                    "memory": f"{rng.randint(64, 2048)}Mi"}}}],
+                "affinity": {"podAntiAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": [{
+                        "labelSelector": {"matchLabels": {"app": f"a{(g + 1) % n_terms}"}},
+                        "topologyKey": zone if g % 2 == 0 else host}]}}}
+        pods.append(Pod.from_dict({"metadata": {"name": f"p{i}", "namespace": "default",
+                                                "labels": {"app": f"a{g}"}},
+                                   "spec": spec}))
+    return encode_cluster([make_valid_node(n) for n in nodes], pods)
+
+
+@pytest.mark.parametrize("n_terms", [step.MAX_HITS_STAGED, step.MAX_HITS_STAGED + 12])
+def test_hit_lists_past_the_staged_width_stay_in_global_memory(n_terms):
+    """Up to MAX_HITS_STAGED hit terms each pod's list is part of its
+    staged region; past it the region holds none (hit_w 0: the kernel
+    reads hit_ptr / hit_idx), and the pod pack is that much narrower."""
+    snap = _many_term_snapshot(n_terms)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    assert cfg.enable_anti_affinity and arrs.hit_terms.shape[1] == n_terms
+    assert arrs.hit_terms.any(1).all()
+    staged = n_terms <= step.MAX_HITS_STAGED
+    assert step.hit_width(arrs, cfg) == (n_terms if staged else 0)
+    hit_ptr, hit_idx = step.term_lists(arrs.hit_terms)
+    pack = step.pod_pack(arrs, cfg, hit_ptr, hit_idx)
+    assert pack.shape == (snap.n_pods, step.pod_words(arrs, cfg))
+    without = step.pod_words(arrs, cfg._replace(enable_anti_affinity=False))
+    assert step.pod_words(arrs, cfg) - without == (-(-n_terms // 4) * 4 if staged else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_terms", [step.MAX_HITS_STAGED, step.MAX_HITS_STAGED + 12])
+def test_hit_lists_past_the_staged_width_equal_plain_on_card(cuda_device, n_terms):
+    """The anti-affinity cluster at MAX_HITS_STAGED hit terms (each pod's
+    list staged) and past it (read from hit_ptr / hit_idx), on 2 lanes,
+    one pod then the rest: bit for bit the plain step."""
+    snap = _many_term_snapshot(n_terms)
+    cfg = sched.make_config(snap)
+    k, n = cfg.forced_prefix, snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 2])
+    outs, plans = _staged_runs(snap, cfg, masks, cuda_device,
+                               [(k, k + 1), (k + 1, snap.n_pods)])
+    assert plans[-1].stage == step.STAGE_ALL
+    assert (outs[-1].node >= 0).any() and outs[-1].fail_counts.sum() > 0
+
+
+@pytest.mark.cuda
+def test_staged_devres_64_lanes_on_card(cuda_device):
+    """plain_step<0,1> over 64 lanes of the capacity sweep's counts: lanes
+    0, 21, 42 and 63 of the 64-lane launch equal the plain step over those
+    lanes alone."""
+    from open_simulator_tpu_torch.parallel.sweep import active_masks_for_counts
+
+    snap = device_resource_snapshot(192, 448, max_new=64)
+    cfg = sched.make_config(snap)
+    masks = active_masks_for_counts(snap, [min(i % 65, 64) for i in range(64)])
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.apply_forced_prefix(arrs, cfg, sched.init_state(arrs, cfg), cfg.forced_prefix)
+    p0 = cfg.forced_prefix
+    active = torch.from_numpy(masks).to(cuda_device)
+    st_k = sched.lane_carry(tmpl, 64)
+    out_k = step.plain_step_cuda(arrs, active, sched.hoist_of(arrs, active), inv, st_k, cfg, p0,
+                                 snap.n_pods, template=tmpl)
+    assert step.LAST_PLAN.stage != step.UNSTAGED
+    pick = [0, 21, 42, 63]
+    sub = active[pick]
+    st_p = sched.lane_carry(tmpl, len(pick))
+    out_p = step.plain_step_torch(arrs, sub, sched.hoist_of(arrs, sub), inv, st_p, cfg, p0,
+                                  snap.n_pods, template=tmpl)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a[pick], b)
+    for f in sched.STATE_FIELDS:
+        assert torch.equal(getattr(st_k, f)[pick], getattr(st_p, f)), f
+    assert step.instantiation(cfg, tmpl) == "<0,1>"

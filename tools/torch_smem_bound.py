@@ -12,7 +12,8 @@ launch had before the wide library), without and with the dom_count
 replica (K1 = 1 key, Sg = 8 selector groups); then the largest D once the
 plan puts the replica or the column-read partials in global memory. The
 other widths: 17 filter ops (3 resources), one spread constraint, four
-raw-score rows, no PV replica. Host arithmetic only; needs no card.
+raw-score rows, no PV replica, the pod region, nothing staged. Host
+arithmetic only; needs no card.
 """
 
 from __future__ import annotations
@@ -35,8 +36,11 @@ def main() -> int:
 
     def d_max(q: int, dom: bool, dom_global: bool = False, cols_global: bool = False) -> int:
         def fits(d: int) -> bool:
+            # (the pod region: q term records, 3 resources, a port, the
+            # groups and a preferred term's bytes; kernels/step.pod_words)
+            pod = -(-(4 * q + 3 + -(-(2 + args.groups) // 4)) // 4) * 4
             w = step.SmemWidths(ops=17, q=q, d=d, cs=1, dom=d * args.groups if dom else 0,
-                                rows=4, r=3, npv=0)
+                                rows=4, r=3, npv=0, pod=pod)
             return step.smem_bytes(w, sl, False, dom_global, cols_global) <= step._SMEM_LIMIT
 
         lo, hi = 0, 1
