@@ -33,12 +33,14 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
 
 1. the card's name and power limit (nvidia-smi);
 2. the kernel build, one nvcc per library (``plain_step``, its explain
-   twin ``plain_step_explain`` and the wide library's two,
-   ``plain_step_wide`` and ``plain_step_wide_explain``, built from the
-   same source, ``wave_merge``, ``forced_fold``), started together, with
-   ptxas's registers and spills of each of the 24 ``plain_step``
-   instantiations, the 8 fleet builds and the wide library's 32, each of
-   the 24 beside their counts before the fleet form (no build may spill);
+   twin ``plain_step_explain``, the extension library's two,
+   ``plain_step_ext`` and ``plain_step_ext_explain``, and the wide
+   library's two, ``plain_step_wide`` and ``plain_step_wide_explain``,
+   built from the same source, ``wave_merge``, ``forced_fold``), started
+   together, with ptxas's registers and spills of each of the 24
+   ``plain_step`` instantiations, the 8 fleet builds, the 16 extension
+   builds and the wide library's 32, each of the 24 beside their counts
+   before the fleet form (no build may spill);
 3. kernel vs plain step, exact equality of node, fail counts, feasible
    counts, GPU and PV picks and all twelve carry fields, each side
    starting its lanes from the template carry through its lane prologue,
@@ -122,12 +124,16 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    north-star cluster with five torch extension ops
    (``testing.synthetic.synthetic_extensions``: a filter of the arrays,
    one of the pod slice, a "minmax", a "max" of the carry and a "none"
-   score), launch counts reset and read (one launch a pod), its per-pod
-   loop timed, the extension reason rows' totals and the placements'
-   digest; the first ``PARITY_PREFIX`` pods again with each pod's rows
-   recorded, their launches replayed with the stream primed (the device
-   time a launch), the kernel against the plain step through the same
-   per-pod loop, and the same one-lane launch without extensions timed;
+   score), launch counts and the loop's counters reset and read (one
+   launch a pod, the loop one captured CUDA graph replayed for every pod
+   after the first, never eager), its per-pod loop timed, the extension
+   reason rows' totals and the placements' digest; the first
+   ``PARITY_PREFIX`` pods again through the engine's loop, the graph's
+   replays from the template with the stream primed (the device time a
+   pod, the card's idle share), the launches alone back to back with the
+   cursor's steps (the device time a launch), the kernel against the plain step through
+   the same per-pod loop, and the same one-lane launch without
+   extensions (a build without their code) timed;
    then ``northstar-preempt``: launch counts reset, ``simulate()`` on the
    north-star cluster with PriorityClasses (batch, prod for one pod in
    four, system), a minAvailable 90% budget over app=a0 and an app of
@@ -203,7 +209,7 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    device memory, its geometry and its per-phase cycle shares (on the
    north-star snapshot, then ``capacity-northstar-ext-64``: the extension
    ops through ``capacity_sweep`` over its first ``EXT_SWEEP_PODS`` pods,
-   64 lanes, one launch a pod, lanes 0 and 63 over the first
+   64 lanes, one launch a pod through the captured graph, lanes 0 and 63 over the first
    ``EXT_SWEEP_PARITY`` pods against the plain step and the sweep); lanes at
    counts 0, 21, 42 and 63 against one-lane launches, bit for bit; the
    64-lane hoist and the forced-prefix fold (4,096 pods pinned where
@@ -228,7 +234,9 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    explain builds
    ``plain_step_explain`` and ``plain_step_frozen_explain``, and the
    per-lane weight row ``plain_step_weights``, and the fleet form
-   ``plain_step_fleet``, and the extension rows ``plain_step_ext``, with each plain_step instantiation's registers,
+   ``plain_step_fleet``, and the extension rows ``plain_step_ext``, with
+   its 16 builds of the libraries ``plain_step_ext`` and
+   ``plain_step_ext_explain``), with each plain_step instantiation's registers,
    stack and spills, and their change against the builds before the fleet
    form), then the
    device line.
@@ -477,19 +485,25 @@ LAUNCHED = tuple(f"<{i},{d}>{c}{x}" for x in ("", "+explain")
 # the fleet builds (plain_step_fleet_kernel<kInterpod, kDevRes, kExplain>)
 FLEET_BUILDS = tuple(f"<{i},{d}>+fleet{x}" for x in ("", "+explain")
                      for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
+# the scan builds with the extension rows (kExt), in the libraries
+# plain_step_ext and plain_step_ext_explain
+EXT_BUILDS = tuple(f"<{i},{d}>{c}{x}+ext" for x in ("", "+explain") for c in ("", "+columns")
+                   for i, d in ((0, 0), (1, 0), (0, 1), (1, 1)))
 
 
 def instantiations(build_log, suffix=""):
     """{"<I,D>", "<I,D>+columns", "<I,D>+frozen" or "<I,D>+fleet", each
     with "+explain" in the explain libraries, and `suffix` ("+wide" for the
-    wide libraries): {registers, stack_bytes, spill_store_bytes,
-    spill_load_bytes}} of each plain_step instantiation, from ptxas's -v
-    report in the build log."""
+    wide libraries, "+ext" for the extension libraries): {registers,
+    stack_bytes, spill_store_bytes, spill_load_bytes}} of each plain_step
+    instantiation, from ptxas's -v report in the build log (the sixth
+    flag, kExt, is the library's)."""
     import re
 
     out, name = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", line)
+        m = re.search(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])ELb[01]E",
+                      line)
         if m:
             name = (f"<{m.group(1)},{m.group(2)}>" + ("+columns" if m.group(3) == "1" else "")
                     + ("+frozen" if m.group(4) == "1" else "")
@@ -3448,17 +3462,51 @@ def ext_scan(torch, sched, arrs_np, masks_np, cfg, n_pods, plain):
     return outs, carry, time.perf_counter() - t0
 
 
+def graph_kernel_ms(torch, reset, graph, n):
+    """The plain_step kernel's device ms over `n` replays of `graph` after
+    `reset()`, from the profiler's kernel times (CUPTI); None where the
+    profiler fails or sees no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                graph.replay()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                 if "plain_step_kernel" in e.key)
+    except RuntimeError as err:
+        log(f"profiler: {err}")
+        return None
+    return us / 1e3 if us else None
+
+
+def graph_path(label, counts, n_pods):
+    """The extension loop ran as one captured CUDA graph, replayed for
+    every pod after the first, and never eagerly."""
+    if (counts["graphs"], counts["replays"], counts["eager"]) != (1, n_pods - 1, 0):
+        raise SystemExit(f"{label}: the extension loop did not run as one graph replayed for "
+                         f"its {n_pods} pods: {counts}")
+
+
 def ext_path(torch, sched, step, simulate, cluster_of, ops, label):
     """northstar-ext: simulate() on the north-star cluster with five torch
     extension ops (every kind: a filter of the arrays, one of the pod
     slice, a "minmax" score, a "max" score of the carry, a "none" score),
-    launch counts reset just before and read just after (one kernel
-    launch a pod), its per-pod loop timed inside it (the host time a
-    pod); the first PARITY_PREFIX pods again with each pod's rows recorded, then
-    their launches replayed with the stream primed (the device time a
-    launch), the kernel's outputs and carry against the plain step
-    through the same per-pod loop; the same one-lane launch without
-    extensions timed beside it."""
+    launch counts and the loop's counters reset just before and read just
+    after (one kernel launch a pod; one CUDA graph, replayed for every pod
+    after the first, no eager loop), its per-pod loop timed inside it (the
+    loop's wall a pod); the first PARITY_PREFIX pods again through the
+    engine's loop (``ExtensionLoop``), then the graph's replays from the
+    template with the stream primed (the device time a pod, and with the
+    loop's wall the card's idle share), the launches alone, back to
+    back with the cursor's steps, and the profiler's kernel times inside
+    the replays (the device time a launch), the kernel's outputs and carry
+    against the plain step through the same per-pod loop; the same
+    one-lane launch without extensions (a build without their code) timed
+    beside it."""
     import hashlib
 
     import numpy as np
@@ -3494,6 +3542,7 @@ def ext_path(torch, sched, step, simulate, cluster_of, ops, label):
         f"launches={launches}")
     if launches["plain_step_ext"] != n_pods or launches["plain_step"] != n_pods:
         raise SystemExit(f"{label}: {launches} launches, not one a pod")
+    graph_path(label, launches, n_pods)
     if len(result.scheduled_pods) + len(result.unscheduled_pods) != n_pods:
         raise SystemExit(f"{label}: simulate() lost pods")
     cfg = sched.make_config(snap, extensions=ops)
@@ -3510,51 +3559,85 @@ def ext_path(torch, sched, step, simulate, cluster_of, ops, label):
         raise SystemExit(f"{label}: simulate() ran the per-pod loop {len(scan_s)} times")
     dev = torch.device("cuda")
 
-    # the first PARITY_PREFIX pods with each pod's rows recorded, then their
-    # launches alone, the stream primed
+    # the first PARITY_PREFIX pods through the engine's loop, its pieces
+    # apart: the first pod eagerly, the second captured, the graph replayed
+    # for the rest (host-timed); then the replays again from the template
+    # with the stream primed (the device time a pod: the callables' kernels,
+    # the launch, the cursor's step), and the launches alone, each pod's
+    # rows recorded, back to back with the cursor's steps, the stream
+    # primed, and the profiler's kernel times inside the replays (the
+    # device time a launch)
     r = PARITY_PREFIX
     arrs = sched.device_arrays(snap.arrays, dev)
     active = torch.from_numpy(snap.arrays.active).to(dev)[None]
     hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
     tmpl = sched.init_state(arrs, cfg)
     carry = sched.lane_carry(tmpl, 1)
-    i32 = torch.int32
-    outs_k = step.StepOutputs(
-        torch.empty((1, r), dtype=i32, device=dev),
-        torch.empty((1, r, cfg.n_ops), dtype=i32, device=dev),
-        torch.empty((1, r), dtype=i32, device=dev), torch.empty((1, r, 0), dtype=i32, device=dev),
-        torch.empty((1, r, 0), dtype=i32, device=dev), torch.empty((1, r, 0), dtype=i32, device=dev),
-        torch.empty((1, r, 0), dtype=torch.float32, device=dev),
-        torch.empty((1, r, 0, 0), dtype=torch.float32, device=dev))
-    step.copy_template(carry, tmpl)
-    launch = step.pod_launcher(arrs, active, hoist, inv, carry, cfg, outs_k, 0)
-    rows_of = sched.extension_rows_fn(cfg)
-    cols = sched.pod_columns(arrs, cfg, None, None)
-    fields = tuple(getattr(carry, f) for f in sched.STATE_FIELDS)
-    rec = []
+    loop = sched.ExtensionLoop(arrs, active, hoist, inv, carry, tmpl, cfg, 0, r, None, None, None)
+    outs_k = loop.outs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for p in range(r):
-        ok, raw = rows_of(fields, arrs, sched.PodSlice(cols, p))
-        rec.append((ok[:, None], raw[:, None]))
-        launch(p, *rec[-1])
+    loop.pod(0)
+    graph = loop.capture(1)
+    if graph is None:
+        raise SystemExit(f"{label}: the extension ops could not be captured")
+    for _ in range(1, r):
+        graph.replay()
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     got = {snap.pods[i].key: snap.node_names[int(nd)]
            for i, nd in enumerate(outs_k.node[0].cpu().tolist()) if nd >= 0}
     if got != {k: v for k, v in placed.items() if k in {p.key for p in snap.pods[:r]}}:
-        raise SystemExit(f"{label}: the recorded loop and simulate() placed pods differently")
+        raise SystemExit(f"{label}: the loop's first {r} pods and simulate() placed pods "
+                         "differently")
     st_k = clone_state(sched, carry)
-    times = []
+    out_snap = [o.clone() for o in outs_k]
+    pod_ms = []
     for _ in range(3):
         step.copy_template(carry, tmpl)
+        loop.cursor.fill_(0)
         torch.cuda.synchronize()
-        times.append(cuda_ms(torch, lambda: [launch(p, *rec[p]) for p in range(r)],
-                             prime_ms=0.1 * r))
-    equal_replay, _ = compare(torch, [], [], carry, st_k)
+        pod_ms.append(cuda_ms(torch, lambda: [graph.replay() for _ in range(r)],
+                              prime_ms=0.05 * r))
+    equal_replay, _ = compare(torch, outs_k, out_snap, carry, st_k)
     if not equal_replay:
-        raise SystemExit(f"{label}: the replayed launches left another carry")
-    device_ms = min(times)
+        raise SystemExit(f"{label}: the graph replayed from pod 0 left other outputs or carry")
+    # the rows recorded against the live carry, then the launches (and the
+    # cursor's steps) back to back from the template
+    step.copy_template(carry, tmpl)
+    loop.cursor.fill_(0)
+    rec = []
+    for p in range(r):
+        ok, raw = loop.rows_of(loop.fields, arrs, loop.x)
+        rec.append((ok[:, None], raw[:, None]))
+        loop.launch(p, *rec[-1])
+        loop.cursor.add_(1)
+    def back_to_back():
+        for p in range(r):
+            loop.launch(p, *rec[p])
+            loop.cursor.add_(1)
+
+    def reset():
+        step.copy_template(carry, tmpl)
+        loop.cursor.fill_(0)
+
+    times = []
+    for _ in range(3):
+        reset()
+        torch.cuda.synchronize()
+        times.append(cuda_ms(torch, back_to_back, prime_ms=1.0 * r))
+    equal_launch, _ = compare(torch, outs_k, out_snap, carry, st_k)
+    if not equal_launch:
+        raise SystemExit(f"{label}: the launches alone left other outputs or carry")
+    # the launch's own device time: the profiler's kernel times inside the
+    # graph's replays; where it sees none, the launches back to back (each
+    # followed by the cursor's step, which costs the cluster launch more
+    # than the graph does) stand for it
+    kernel_ms = graph_kernel_ms(torch, reset, graph, r)
+    device_ms, ms_method = ((kernel_ms, "the profiler's kernel time inside the graph's replays")
+                            if kernel_ms else
+                            (min(times), "the launches and cursor steps back to back"))
+    del graph, loop
     # the plain step through the same per-pod loop
     outs_p, st_p, plain_s = ext_scan(torch, sched, snap.arrays, snap.arrays.active[None], cfg, r,
                                      plain=True)
@@ -3576,11 +3659,18 @@ def ext_path(torch, sched, step, simulate, cluster_of, ops, label):
     ext_w = ext_rows_work(1, r, n_nodes, len(rows.filters), len(rows.scores))
     bound = bound_of((work[0] + ext_w[0], work[1] + ext_w[1]))
     rows_bound = bound_of(ext_w)
+    device_pod_us = min(pod_ms) * 1e3 / r
     res = {
         "launches": launches["plain_step_ext"], "pods": n_pods, "simulate_s": wall,
+        "graphs": launches["graphs"], "graph_replays": launches["replays"],
+        "eager_loops": launches["eager"],
         "scan_s": scan_s[0], "host_us_per_pod": scan_s[0] / n_pods * 1e6,
+        "device_us_per_pod": device_pod_us, "device_pod_ms_runs": pod_ms,
+        "idle_share": 1.0 - device_pod_us * n_pods / (scan_s[0] * 1e6),
         "loop_us_per_pod": loop_s / r * 1e6, "device_us_per_launch": device_ms * 1e3 / r,
-        "device_ms_runs": times, "no_ext_launch_ms": min(plain_ms),
+        "device_us_per_launch_by": ms_method,
+        "back_to_back_us_per_launch": min(times) * 1e3 / r, "back_to_back_ms_runs": times,
+        "no_ext_launch_ms": min(plain_ms),
         "no_ext_us_per_pod": min(plain_ms) * 1e3 / n_pods, "no_ext_runs": plain_ms,
         "digest": digest, "ext_reason_totals": ext_totals,
         "scheduled": len(result.scheduled_pods), "max_abs_err": err,
@@ -3597,10 +3687,14 @@ def ext_sweep_path(torch, sched, step, sweep, snap_full, ops, label):
     """capacity-northstar-ext-64: capacity_sweep with the extension ops on
     the capacity-northstar snapshot (5,120 + 64 nodes) over its first
     EXT_SWEEP_PODS pods, 64 lanes vmapped through the callables, launch
-    counts reset just before and read just after (one launch a pod); then
-    lanes 0 and 63 over the first EXT_SWEEP_PARITY pods, the kernel
-    against the plain step through the same per-pod loop, and against the
-    sweep's own lanes."""
+    counts reset just before and read just after (one launch a pod, the
+    loop one graph replayed for every pod after the first); the device
+    time a pod at 64 lanes (the loop's graph over the first
+    EXT_SWEEP_PARITY pods replayed with the stream primed; against the
+    sweep's wall, which holds more than the loop, an upper bound of the
+    card's idle share); then lanes 0 and 63 over the first
+    EXT_SWEEP_PARITY pods, the kernel against the plain step through the
+    same per-pod loop, and against the sweep's own lanes."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -3618,6 +3712,30 @@ def ext_sweep_path(torch, sched, step, sweep, snap_full, ops, label):
     launches = read_counts()
     if launches["plain_step_ext"] != EXT_SWEEP_PODS:
         raise SystemExit(f"{label}: {launches} launches, not one a pod")
+    graph_path(label, launches, EXT_SWEEP_PODS)
+    # the device time a pod at 64 lanes: the loop's graph over the first
+    # EXT_SWEEP_PARITY pods, replayed from the template with the stream primed
+    dev = torch.device("cuda")
+    arrs = sched.device_arrays(sched.slice_pods(snap.arrays, 0, EXT_SWEEP_PARITY), dev)
+    active = torch.from_numpy(sweep.active_masks_for_counts(snap, counts)).to(dev)
+    tmpl = sched.init_state(arrs, cfg)
+    carry = sched.lane_carry(tmpl, CAPACITY_LANES)
+    loop = sched.ExtensionLoop(arrs, active, sched.hoist_of(arrs, active),
+                               sched.inv_alloc_of(arrs.alloc), carry, tmpl, cfg, 0,
+                               EXT_SWEEP_PARITY, None, None, None)
+    loop.pod(0)
+    graph = loop.capture(1)
+    if graph is None:
+        raise SystemExit(f"{label}: the extension ops could not be captured")
+    pod_ms = []
+    for _ in range(3):
+        step.copy_template(carry, tmpl)
+        loop.cursor.fill_(0)
+        torch.cuda.synchronize()
+        pod_ms.append(cuda_ms(torch, lambda: [graph.replay() for _ in range(EXT_SWEEP_PARITY)],
+                              prime_ms=0.05 * EXT_SWEEP_PARITY))
+    device_pod_us = min(pod_ms) * 1e3 / EXT_SWEEP_PARITY
+    del graph, loop, carry
     masks = sweep.active_masks_for_counts(snap, [counts[0], counts[-1]])
     outs_k, st_k, t_k = ext_scan(torch, sched, snap.arrays, masks, cfg, EXT_SWEEP_PARITY, False)
     outs_p, st_p, t_p = ext_scan(torch, sched, snap.arrays, masks, cfg, EXT_SWEEP_PARITY, True)
@@ -3626,8 +3744,11 @@ def ext_sweep_path(torch, sched, step, sweep, snap_full, ops, label):
     if not equal or not np.array_equal(outs_k[0].cpu().numpy(), sweep_nodes):
         raise SystemExit(f"{label}: lanes 0 and 63 disagree with the plain step or the sweep")
     res = {"launches": launches["plain_step_ext"], "lanes": CAPACITY_LANES,
-           "pods": EXT_SWEEP_PODS, "sweep_s": wall,
-           "host_us_per_pod": wall / EXT_SWEEP_PODS * 1e6, "best_count": plan.best_count,
+           "pods": EXT_SWEEP_PODS, "sweep_s": wall, "graph_replays": launches["replays"],
+           "host_us_per_pod": wall / EXT_SWEEP_PODS * 1e6,
+           "device_us_per_pod": device_pod_us, "device_pod_ms_runs": pod_ms,
+           "idle_share_upper": 1.0 - device_pod_us * EXT_SWEEP_PODS / (wall * 1e6),
+           "best_count": plan.best_count,
            "parity": {"lanes": 2, "pods": EXT_SWEEP_PARITY, "ms": t_k * 1e3,
                       "plain_ms": t_p * 1e3, "max_abs_err": err}}
     log(f"{label}: {res} phase_s={time.perf_counter() - t_phase:.1f}")
@@ -3675,7 +3796,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    COUNTERS.extend([step.LAUNCHES, wave.LAUNCHES])
+    COUNTERS.extend([step.LAUNCHES, wave.LAUNCHES, sched.EXTENSION_LOOP])
     dev_name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {dev_name}")
@@ -3726,13 +3847,15 @@ def main() -> int:
     insts = {**instantiations(build.BUILD_LOG.get("plain_step", "")),
              **instantiations(build.BUILD_LOG.get("plain_step_explain", "")),
              **instantiations(build.BUILD_LOG.get("plain_step_wide", ""), "+wide"),
-             **instantiations(build.BUILD_LOG.get("plain_step_wide_explain", ""), "+wide")}
+             **instantiations(build.BUILD_LOG.get("plain_step_wide_explain", ""), "+wide"),
+             **instantiations(build.BUILD_LOG.get("plain_step_ext", ""), "+ext"),
+             **instantiations(build.BUILD_LOG.get("plain_step_ext_explain", ""), "+ext")}
     log(f"build plain_step instantiations: {insts}")
     moved = {k: insts.get(k, {}).get("registers", 0) - r for k, r in BASE_REGISTERS.items()}
     log(f"build: registers against the builds before the fleet form: "
         f"{ {k: d for k, d in moved.items() if d} } (every other build unchanged)")
     every = LAUNCHED + FLEET_BUILDS
-    every += tuple(k + "+wide" for k in every)
+    every += tuple(k + "+wide" for k in every) + EXT_BUILDS
     spilled = [k for k in every if k not in insts or insts[k]["spill_store_bytes"]]
     if spilled:
         raise SystemExit(f"build: plain_step {spilled} spill registers (or were not reported)")
@@ -4274,7 +4397,9 @@ def main() -> int:
         "score_rows_replace": "open_simulator_tpu/engine/scheduler.py:1171",
         "add_order_replaces": "open_simulator_tpu/engine/scheduler.py:1214",
         "launches": ext_p["launches"],
-        "instantiations": {k: {**insts.get(k, {}), "parity": v} for k, v in ext_par.items()},
+        "instantiations": {(k if k.endswith("+wide") else k + "+ext"):
+                           {**insts.get(k if k.endswith("+wide") else k + "+ext", {}),
+                            "parity": v} for k, v in ext_par.items()},
         "max_abs_err": max([ext_p["max_abs_err"], ext_sweep["parity"]["max_abs_err"]]
                            + [v["max_abs_err"] for v in ext_par.values()]),
         "pods": same_e["pods"], "ms": same_e["ms"], "plain_ms": same_e["plain_ms"],

@@ -221,10 +221,20 @@
 // w_e x (raw - lo) x inv after the GPU row, in registration order, in the
 // function that sums the score (so explain's parts carry the rows). A NaN
 // final score keys above every node, so the pod stays unbound, as the
-// reference's max leaves it. They are runtime pointers (null: no
-// extension), not a template flag, and only the scan builds read them
-// (kExt): a wave plan is dropped under extensions, and a fleet runs them
-// serially.
+// reference's max leaves it. The rows are the sixth template flag, kExt,
+// and a build of their own: compiled with PLAIN_STEP_EXT=1 this file is the
+// library plain_step_ext (plain_step_ext_explain with PLAIN_STEP_EXPLAIN=1)
+// of the eight scan builds with the rows (a wave plan is dropped under
+// extensions, and a fleet runs them serially), so the scan builds of the
+// other libraries carry none of their code or shared memory; the wide
+// library keeps them in its scan builds, gated at run time on ef / es.
+// The engine's loop launches them one pod at a time, replayed as a CUDA
+// graph (engine/scheduler._extension_scan): a launch with StepArgs.cursor
+// set runs the one pod the device cursor names (every block reads it in
+// the prologue), writes output row *cursor - p0 and reads row 0 of
+// [S, 1, Ef, N] / [S, 1, Es, N] rows, so one captured launch serves every
+// pod; the engine advances the cursor in a step of its own after the
+// launch, never inside it (at 64 lanes other clusters may still read it).
 //
 // The fleet form (plain_step_fleet_kernel, four builds a library; replaces
 // the reference's run_fleet_batched, exec_cache.py:837): each lane is a
@@ -262,18 +272,24 @@ namespace cg = cooperative_groups;
 
 // which library this compilation is: PLAIN_STEP_EXPLAIN 0 the builds
 // without explain, 1 the kExplain builds; PLAIN_STEP_WIDE 1 the builds with
-// the walk window and the regions in global memory (kernels/build.py
-// passes -DPLAIN_STEP_EXPLAIN=1 and -DPLAIN_STEP_WIDE=1)
+// the walk window and the regions in global memory; PLAIN_STEP_EXT 1 the
+// scan builds with the extension rows (kernels/build.py passes
+// -DPLAIN_STEP_EXPLAIN=1, -DPLAIN_STEP_WIDE=1 and -DPLAIN_STEP_EXT=1)
 #ifndef PLAIN_STEP_EXPLAIN
 #define PLAIN_STEP_EXPLAIN 0
 #endif
 #ifndef PLAIN_STEP_WIDE
 #define PLAIN_STEP_WIDE 0
 #endif
+#ifndef PLAIN_STEP_EXT
+#define PLAIN_STEP_EXT 0
+#endif
 
 namespace {
 
 constexpr bool kWideLib = PLAIN_STEP_WIDE != 0;
+constexpr bool kExtLib = PLAIN_STEP_EXT != 0;
+static_assert(!(kWideLib && kExtLib), "the wide library keeps its own extension rows");
 
 // block size caps, so that ptxas keeps each instantiation in registers (no
 // spill): 128 registers a thread, 168 with the device-resource walks; the
@@ -288,12 +304,16 @@ constexpr int kMaxThreadsWide = 384;
 constexpr int kMaxThreadsWideDevRes = 256;
 constexpr int kMaxThreadsExplain = 384;
 constexpr int kMaxThreadsExplainDevRes = 256;
+// the extension library's scan builds (<1,0>+columns spills 8 bytes at
+// 128 registers with the rows and the cursor)
+constexpr int kMaxThreadsExt = 384;
 
 __host__ __device__ constexpr int max_threads_of(bool devres, bool wide, bool explain = false,
-                                                 bool frozen = false) {
+                                                 bool frozen = false, bool ext = false) {
   return wide ? (devres ? kMaxThreadsWideDevRes : kMaxThreadsWide)
        : (explain && devres) ? kMaxThreadsExplainDevRes
        : (explain && !frozen) ? kMaxThreadsExplain
+       : ext ? kMaxThreadsExt
        : (devres ? kMaxThreadsDevRes : kMaxThreads);
 }
 constexpr int kMaxCluster = 16;     // blocks per lane (16 is non-portable)
@@ -545,6 +565,11 @@ struct StepArgs {
   const uint8_t* cls_pack;            // [C, cl, 10 * slp]: node-affinity score and taint
                                       // prefer (f32), class affinity and taint (u8)
   int hit_w;
+  // the one-pod launches of the extension loop (kExt builds only; null
+  // otherwise): the pod's index on the card, read by every block, so a
+  // captured launch runs whichever pod the cursor names; the pod writes
+  // output row *cursor - p0 (p1 - p0 = ls rows) and reads extension row 0
+  const int32_t* cursor;              // [1]
 };
 
 }  // extern "C"
@@ -1301,17 +1326,18 @@ __device__ __forceinline__ float scalar_weight(const StepArgs& a, int i) {
 // this block's cluster serves: the body of plain_step_kernel, and with
 // kFleet of plain_step_fleet_kernel, where `a` is the lane's own StepArgs,
 // built as for a one-lane launch over its own cluster (lane index 0).
-template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kFleet>
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kFleet,
+          bool kExt>
 __device__ __forceinline__ void step_body(const StepArgs& a) {
+  // the extension rows: the scan builds only (a wave plan is dropped under
+  // extensions, and a fleet runs them serially)
+  static_assert(!(kExt && (kFrozen || kFleet)), "extension rows in a scan build only");
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
   // (+ interpod lo/hi) (+ GPU lo/hi)
   constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
   constexpr int kLive = kDevRes ? kRows : (kInterpod ? kRows - 2 : kRows - 4);
   // the raw-score rows in shared memory: base, spread, Simon (+ interpod) (+ GPU)
   constexpr int kRowGpu = kInterpod ? 4 : 3;
-  // the extension rows: the scan builds only (a wave plan is dropped under
-  // extensions, and a fleet runs them serially)
-  constexpr bool kExt = !kFrozen && !kFleet;
   cg::cluster_group cluster = cg::this_cluster();
   const int N = a.n, R = a.r, D = a.d, SG = a.sg, PT = a.pt, CS = a.cs;
   const int Q = a.a + a.b + a.cs + a.ap;
@@ -1498,8 +1524,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // block's slice of the lane's carry (and its replicas of the lane-wide
   // state) from the template, or the replicas and shared-memory rows from
   // the lane's carry, while the copies fly
-  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out : a.p0;
-  const int p_end = kFrozen ? p_first + 1 : a.p1;
+  // (an extension build's one-pod launch: the pod the device cursor names)
+  const bool at_cursor = kExt && a.cursor != nullptr;
+  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out
+                              : (at_cursor ? *a.cursor : a.p0);
+  const int p_end = (kFrozen || at_cursor) ? p_first + 1 : a.p1;
+  // the extension rows' pods a lane: the launch's, or the cursor's one
+  const size_t ext_n = at_cursor ? 1 : n_out;
   if (tid == 0) {
     for (int b = 0; b < 2; ++b)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
@@ -1715,7 +1746,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     // chain (each thread reads back its own nodes' entries)
     if constexpr (kExt) {
       if (a.ef) {
-        const uint8_t* eo = a.ext_ok + ((size_t)lane * n_out + j) * a.ef * N;
+        const uint8_t* eo = a.ext_ok + ((size_t)lane * ext_n + lp) * a.ef * N;
         for (int it = 0; it < iters; ++it) {
           const int n = lo + it * B + tid;
           if (n >= hi) break;
@@ -1984,7 +2015,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     // nodes' feasibility flags, and phase 2 its own nodes' scores)
     if constexpr (kExt) {
       if (a.es) {
-        const float* er = a.ext_raw + ((size_t)lane * n_out + j) * a.es * N;
+        const float* er = a.ext_raw + ((size_t)lane * ext_n + lp) * a.es * N;
         for (int e = 0, row = 0; e < a.es; ++e) {
           const int kind = a.ext_norm[e];
           const float* raw = er + (size_t)e * N;
@@ -2392,10 +2423,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   cluster.sync();
 }
 
-template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain>
-__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib, kExplain, kFrozen), 1)
+template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kExt>
+__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib, kExplain, kFrozen, kExt), 1)
     plain_step_kernel(const StepArgs a) {
-  step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false>(a);
+  step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false, kExt>(a);
 }
 
 // The fleet form (replaces the reference's run_fleet_batched,
@@ -2412,36 +2443,44 @@ __global__ void __launch_bounds__(max_threads_of(kDevRes, true), 1)
   __shared__ __align__(16) StepArgs s_lane;
   block_copy(&s_lane, a.lanes + blockIdx.x / a.cl, sizeof(StepArgs));
   __syncthreads();
-  step_body<kInterpod, kDevRes, false, false, kExplain, true>(s_lane);
+  step_body<kInterpod, kDevRes, false, false, kExplain, true, false>(s_lane);
 }
 
 // the instantiation a launch runs: the frozen wave form (never with the
 // preemption columns: the planner's plan is dropped under them), the
-// column builds, or the plain scan; kExplain is this library's
+// column builds, or the plain scan; kExplain is this library's, and so is
+// kExt in the scan builds (the extension library holds only those; the
+// wide library keeps the rows in its scan builds)
 constexpr bool kExplainLib = PLAIN_STEP_EXPLAIN != 0;
+constexpr bool kExtScan = kExtLib || kWideLib;
 
 void (*kernel_of(const StepArgs* args))(StepArgs) {
-  constexpr bool X = kExplainLib;
+  constexpr bool X = kExplainLib, E = kExtScan;
   const bool interpod = args->flags & kInterpodFlags, devres = args->flags & kDevResFlags;
+#if PLAIN_STEP_EXT
+  // (the extension library builds neither the fleet nor the frozen form)
+  if (args->fleet || args->frozen) return nullptr;
+#else
   if (args->fleet)
     return devres ? (interpod ? plain_step_fleet_kernel<true, true, X>
                               : plain_step_fleet_kernel<false, true, X>)
                   : (interpod ? plain_step_fleet_kernel<true, false, X>
                               : plain_step_fleet_kernel<false, false, X>);
   if (args->frozen)
-    return devres ? (interpod ? plain_step_kernel<true, true, false, true, X>
-                              : plain_step_kernel<false, true, false, true, X>)
-                  : (interpod ? plain_step_kernel<true, false, false, true, X>
-                              : plain_step_kernel<false, false, false, true, X>);
+    return devres ? (interpod ? plain_step_kernel<true, true, false, true, X, false>
+                              : plain_step_kernel<false, true, false, true, X, false>)
+                  : (interpod ? plain_step_kernel<true, false, false, true, X, false>
+                              : plain_step_kernel<false, false, false, true, X, false>);
+#endif
   if (args->disabled || args->nominated)
-    return devres ? (interpod ? plain_step_kernel<true, true, true, false, X>
-                              : plain_step_kernel<false, true, true, false, X>)
-                  : (interpod ? plain_step_kernel<true, false, true, false, X>
-                              : plain_step_kernel<false, false, true, false, X>);
-  return devres ? (interpod ? plain_step_kernel<true, true, false, false, X>
-                            : plain_step_kernel<false, true, false, false, X>)
-                : (interpod ? plain_step_kernel<true, false, false, false, X>
-                            : plain_step_kernel<false, false, false, false, X>);
+    return devres ? (interpod ? plain_step_kernel<true, true, true, false, X, E>
+                              : plain_step_kernel<false, true, true, false, X, E>)
+                  : (interpod ? plain_step_kernel<true, false, true, false, X, E>
+                              : plain_step_kernel<false, false, true, false, X, E>);
+  return devres ? (interpod ? plain_step_kernel<true, true, false, false, X, E>
+                            : plain_step_kernel<false, true, false, false, X, E>)
+                : (interpod ? plain_step_kernel<true, false, false, false, X, E>
+                            : plain_step_kernel<false, false, false, false, X, E>);
 }
 
 // a launch asks for explain or the jitter exactly when it is this
@@ -2479,7 +2518,7 @@ bool geometry_ok(const StepArgs* args) {
     return false;
   const int c = args->cl;
   const int max_bt = max_threads_of(args->flags & kDevResFlags, args->fleet || kWideLib,
-                                    kExplainLib, args->frozen);
+                                    kExplainLib, args->frozen, kExtLib);
   return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&
          args->bt <= max_bt && args->bt % 32 == 0 && args->sl >= 1 &&
          (long long)args->sl * c >= args->n;
@@ -2513,6 +2552,7 @@ extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
   *n = 0;
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   const size_t smem = layout_of(*args).bytes;
   cudaError_t e = prepare(kernel, args, smem);
   if (e != cudaSuccess) return (int)e;
@@ -2545,18 +2585,30 @@ extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   if (args->fleet && (!args->lanes || args->frozen || args->disabled || args->nominated ||
                       args->cycles))
     return (int)cudaErrorInvalidValue;
-  // the extension rows: the scan builds only, every pointer of a row kind
-  // its count needs, and an output stride that holds the launch's pods
+  // the extension rows and the pod cursor: the scan builds of the
+  // extension library (which takes no launch without rows) and of the wide
+  // one only, every pointer of a row kind its count needs, and an output
+  // stride that holds the launch's pods
   const int n_out = args->p1 - args->p0;
-  if ((args->ef || args->es) && (args->frozen || args->fleet)) return (int)cudaErrorInvalidValue;
+  const bool ext = args->ef || args->es;
+  if ((ext || args->cursor) && (!kExtScan || args->frozen || args->fleet))
+    return (int)cudaErrorInvalidValue;
+  if (kExtLib && !ext) return (int)cudaErrorInvalidValue;
   if (args->ef < 0 || args->es < 0 || (args->ef && !args->ext_ok) ||
       (args->es && !(args->ext_raw && args->ext_w && args->ext_norm)) ||
       args->ered < 0 || args->ered > 2 * args->es || args->ls < n_out ||
       (args->ef + args->es && args->ops < args->ef))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   const size_t smem = layout_of(*args).bytes;
+  // (setting a function attribute is no stream work: relaxed, it may run
+  // while the stream is captured into a CUDA graph, as PyTorch's allocator
+  // does its cudaMalloc)
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  cudaThreadExchangeStreamCaptureMode(&mode);
   cudaError_t e = prepare(kernel, args, smem);
+  cudaThreadExchangeStreamCaptureMode(&mode);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =

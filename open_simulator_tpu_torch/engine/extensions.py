@@ -27,12 +27,27 @@ preemption columns; False and -1 without them), and ``gcr_gid`` /
 ``gcr_key`` where the step reads group_count columns. They return an [N]
 bool mask or an [N] f32 score on that device.
 
-They run once per pod on the host side of the step: the engine evaluates
-them against the live carry and hands the rows to the kernel
+They run once per pod, before the step: the engine evaluates them
+against the live carry and hands the rows to the kernel
 (``engine/scheduler._extension_scan``), each callable vmapped over the
 lanes of a launch (``torch.func.vmap``), so they must be vmappable: torch
 ops only, no ``.item()`` and no Python control flow on tensor values (the
 reference's jit-traceability rule).
+
+On the card the loop runs as a CUDA graph (the port's counterpart of the
+reference tracing the callables into its ``lax.scan``): the first pod
+runs eagerly, the second pod's work (the vmapped callables, the kernel
+launch, the step of the device cursor that ``x`` is cut at) is captured,
+and the graph is replayed for every later pod. So they must also be
+capturable: torch ops on the card only, with no host round trip (no
+``.item()``, ``.tolist()``, ``.cpu()``, printing a tensor,
+``torch.tensor(...)`` or another copy from host memory), no
+synchronisation and no new stream; a Python value a callable reads (a
+global, a counter) is read once, at capture, and tensors it closes over
+must live as long as the loop. A callable that breaks the rule is named
+in a logged warning and the loop runs eagerly, a host round trip a pod
+(``engine.scheduler.EXTENSION_LOOP["eager"]`` counts such loops); on the
+CPU the loop always runs eagerly.
 
 Usage (the reference's two worked examples)::
 

@@ -35,6 +35,8 @@ wave through the step's frozen form and one ``kernels/wave.wave_merge``.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import warnings
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -55,6 +57,8 @@ from open_simulator_tpu_torch.ops.domains import ActiveHoist, hoist_active_stats
 # and requests go up to 2^24, and TF32 keeps integers exact only to 2^11.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+_log = logging.getLogger(__name__)
 
 # The K score-plugin weights, in the order the traced-weights mode
 # (EngineConfig.traced_weights) takes them: the reference's WEIGHT_FIELDS,
@@ -1158,17 +1162,21 @@ def _launch(arrs: SnapshotArrays, masks: np.ndarray, cfg: EngineConfig, device,
 
 
 class PodSlice(Mapping):
-    """Pod p's slice of the step's per-pod inputs, the `x` an extension
+    """The slice of the step's per-pod inputs at the pod `cursor` names
+    (an int32 [1] tensor on the columns' device), the `x` an extension
     callable reads: every key of the reference's ``_pod_xs``
     (``POD_FIELDS``), ``_pod_index``, ``_disabled``, ``_nominated`` and,
     where the step reads group_count columns, ``gcr_gid`` / ``gcr_key``.
-    A read-only mapping: a key's row is cut when it is read."""
+    A read-only mapping: a key's row is cut when it is read, on the device
+    (``index_select``, no host read of the cursor), so a read captured into
+    a CUDA graph follows the cursor on every replay; the row has the
+    column's dtype and its shape past the pod axis."""
 
-    def __init__(self, cols: Dict[str, torch.Tensor], p: int):
-        self._cols, self._p = cols, p
+    def __init__(self, cols: Dict[str, torch.Tensor], cursor: torch.Tensor):
+        self._cols, self._cursor = cols, cursor
 
     def __getitem__(self, key: str) -> torch.Tensor:
-        return self._cols[key][self._p]
+        return self._cols[key].index_select(0, self._cursor)[0]
 
     def __iter__(self):
         return iter(self._cols)
@@ -1228,48 +1236,152 @@ def extension_rows_fn(cfg: EngineConfig):
     return call
 
 
+# the card's extension loops: CUDA graphs captured, pods replayed, and
+# loops run eagerly because a callable could not be captured (each logged)
+EXTENSION_LOOP: Dict[str, int] = {"graphs": 0, "replays": 0, "eager": 0}
+_CAPTURE_RULE = (
+    "an extension callable is captured into a CUDA graph once and replayed "
+    "for every pod: torch ops on the card only, no host round trip (no "
+    ".item(), .tolist(), .cpu(), print of a tensor, torch.tensor(...) or "
+    "copy from host memory), no synchronisation, no tensor value read "
+    "into Python; Python values are read once, at capture")
+
+
+def _capture(fn) -> torch.cuda.CUDAGraph:
+    """`fn`'s work captured into a CUDA graph (nothing of it runs)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def _uncapturable(cfg: EngineConfig, fields, arrs: SnapshotArrays, x) -> list:
+    """The (op name, kind) of each extension callable whose vmapped call
+    cannot be captured alone."""
+    bad = []
+    for e in cfg.extensions:
+        for kind, fn in (("filter_fn", e.filter_fn), ("score_fn", e.score_fn)):
+            if fn is None:
+                continue
+            lanes = torch.func.vmap(lambda f, a, xx, fn=fn: fn(SimState(*f), a, xx),
+                                    in_dims=(0, None, None))
+            try:
+                with warnings.catch_warnings():  # (a callable of views captures no node)
+                    warnings.simplefilter("ignore")
+                    _capture(lambda: lanes(fields, arrs, x))
+            except Exception:  # noqa: BLE001 — any refusal names the callable
+                bad.append((e.name, kind))
+    return bad
+
+
+class ExtensionLoop:
+    """The per-pod loop under extension ops over pods [k, n_pods), its
+    pieces apart so that a measurement can drive them: `outs`, the step's
+    outputs (row p - k for pod p, buffers allocated once); `cursor`, the
+    int32 [1] device tensor that names the next pod; ``pod(p)``, pod p's
+    work: every callable evaluated against each lane's carry as it stands
+    (after pod p - 1's bind, in stream order), the device arrays and the
+    ``PodSlice`` at the cursor, vmapped over the lanes, their rows handed
+    to the step of pod p (``kernels/step.pod_launcher``: the kernel on the
+    card, the plain step on the CPU or with ``plain=True``), then the
+    cursor's step to p + 1; ``capture()``, one pod's work captured into a
+    CUDA graph (on the card, after a first ``pod``), which replays the pod
+    the cursor names: the carry, the arrays, the columns, the cursor and
+    the outputs keep their addresses from the capture to the last replay.
+    `carry` is written from `template` first."""
+
+    def __init__(self, arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
+                 inv_alloc: torch.Tensor, carry: SimState, template: SimState,
+                 cfg: EngineConfig, k: int, n_pods: int, disabled: Optional[torch.Tensor],
+                 nominated: Optional[torch.Tensor], weights: Optional[torch.Tensor],
+                 plain: bool = False):
+        from open_simulator_tpu_torch.kernels import step as step_kernels
+
+        dev = active.device
+        n_lanes, n_out = active.shape[0], n_pods - k
+        g_w, lw = step_kernels.pick_widths(arrs, cfg)
+        k_top, c_parts = topk_widths(arrs, cfg)
+        i32 = torch.int32
+        fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
+                if cfg.fail_reasons
+                else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
+        self.outs = step_kernels.StepOutputs(
+            torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
+            torch.empty((n_lanes, n_out), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
+            torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
+            torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev))
+        step_kernels.copy_template(carry, template)
+        self.cfg, self.arrs, self.n_out = cfg, arrs, n_out
+        self.cursor = torch.full((1,), k, dtype=i32, device=dev)
+        self.launch = step_kernels.pod_launcher(arrs, active, hoist, inv_alloc, carry, cfg,
+                                                self.outs, k, self.cursor, disabled=disabled,
+                                                nominated=nominated, weights=weights,
+                                                plain=plain)
+        self.rows_of = extension_rows_fn(cfg)
+        self.x = PodSlice(pod_columns(arrs, cfg, disabled, nominated), self.cursor)
+        self.fields = tuple(getattr(carry, f) for f in STATE_FIELDS)
+
+    def pod(self, p: int) -> None:
+        ok, raw = self.rows_of(self.fields, self.arrs, self.x)
+        self.launch(p, None if ok is None else ok[:, None], None if raw is None else raw[:, None])
+        self.cursor.add_(1)
+
+    def capture(self, p: int) -> Optional[torch.cuda.CUDAGraph]:
+        """Pod p's work (and, replayed, the work of the pod the cursor
+        names) captured into a CUDA graph; nothing of it runs. None, with a
+        logged warning that names the callables and the capture rule
+        (``EXTENSION_LOOP["eager"]``), where a callable cannot be captured;
+        a capture that fails with every callable capturable alone raises."""
+        try:
+            return _capture(lambda: self.pod(p))
+        except Exception as err:  # noqa: BLE001 — a callable's refusal, named below
+            bad = _uncapturable(self.cfg, self.fields, self.arrs, self.x)
+            if not bad:
+                raise  # the loop's own work: a fault of the port
+            EXTENSION_LOOP["eager"] += 1
+            _log.warning("extension ops %s cannot be captured (%s: %s); the loop runs "
+                         "eagerly, a host round trip a pod. The capture rule: %s",
+                         ", ".join(f"{name!r} ({kind})" for name, kind in bad),
+                         type(err).__name__, err, _CAPTURE_RULE)
+            return None
+
+
 def _extension_scan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
                     inv_alloc: torch.Tensor, carry: SimState, template: SimState,
                     cfg: EngineConfig, k: int, n_pods: int,
                     disabled: Optional[torch.Tensor], nominated: Optional[torch.Tensor],
-                    weights: Optional[torch.Tensor], plain: bool = False):
+                    weights: Optional[torch.Tensor], plain: bool = False,
+                    graph: bool = True):
     """The scan over pods [k, n_pods) under extension ops, one launch a
-    pod: before pod p every callable is evaluated against each lane's
-    carry as it stands (after pod p - 1's bind, in stream order), the
-    device arrays and pod p's ``PodSlice``, vmapped over the lanes; their
-    rows go to the step of pod p (``kernels/step.pod_launcher``: the kernel
-    on the card, the plain step on the CPU or with ``plain=True``), which
-    writes its outputs into row p - k of buffers allocated once. `carry`
-    is written from `template` first. Returns the step's outputs for
+    pod (``ExtensionLoop``). On the card (``graph=True``) the first pod
+    runs eagerly (it warms the callables and the allocator and builds the
+    launch), the second pod's work is captured into a CUDA graph and the
+    graph is replayed for it and every later pod
+    (``EXTENSION_LOOP["graphs"]``, ``["replays"]``); where a callable
+    cannot be captured, or with ``graph=False``, on the CPU and with
+    ``plain=True``, every pod runs eagerly. Returns the step's outputs for
     those pods."""
-    from open_simulator_tpu_torch.kernels import step as step_kernels
-
-    dev = active.device
-    n_lanes, n_out = active.shape[0], n_pods - k
-    g_w, lw = step_kernels.pick_widths(arrs, cfg)
-    k_top, c_parts = topk_widths(arrs, cfg)
-    i32 = torch.int32
-    fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
-            if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
-    outs = step_kernels.StepOutputs(
-        torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
-        torch.empty((n_lanes, n_out), dtype=i32, device=dev),
-        torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
-        torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
-        torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
-        torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
-        torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev))
-    step_kernels.copy_template(carry, template)
-    launch = step_kernels.pod_launcher(arrs, active, hoist, inv_alloc, carry, cfg, outs, k,
-                                       disabled=disabled, nominated=nominated, weights=weights,
-                                       plain=plain)
-    rows_of = extension_rows_fn(cfg)
-    cols = pod_columns(arrs, cfg, disabled, nominated)
-    fields = tuple(getattr(carry, f) for f in STATE_FIELDS)
-    for p in range(k, n_pods):
-        ok, raw = rows_of(fields, arrs, PodSlice(cols, p))
-        launch(p, None if ok is None else ok[:, None], None if raw is None else raw[:, None])
-    return tuple(outs)
+    loop = ExtensionLoop(arrs, active, hoist, inv_alloc, carry, template, cfg, k, n_pods,
+                         disabled, nominated, weights, plain)
+    if loop.n_out <= 0:
+        return tuple(loop.outs)
+    loop.pod(k)
+    replayed = None
+    if graph and active.device.type == "cuda" and not plain and loop.n_out > 1:
+        replayed = loop.capture(k + 1)
+    if replayed is None:
+        for p in range(k + 1, n_pods):
+            loop.pod(p)
+        return tuple(loop.outs)
+    EXTENSION_LOOP["graphs"] += 1
+    for _ in range(k + 1, n_pods):
+        replayed.replay()
+        loop.launch.count()
+    EXTENSION_LOOP["replays"] += loop.n_out - 1
+    return tuple(loop.outs)
 
 
 def schedule_pods(arrs: SnapshotArrays, active: np.ndarray, cfg: EngineConfig,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes``; a source may also be
 compiled again with extra defines into a library of another name
-(``VARIANTS``: ``plain_step.cu``'s explain builds, and its wide builds,
-for the launches past its per-thread walk widths or its shared memory). Libraries land in
+(``VARIANTS``: ``plain_step.cu``'s explain builds, its scan builds with the
+extension rows, and its wide builds, for the launches past its per-thread
+walk widths or its shared memory). Libraries land in
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of their source and flags, so an edited source rebuilds
 and an unchanged one is reused within and across processes. Nothing is
@@ -38,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # another library's source
 VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "plain_step_explain": ("plain_step", ("-DPLAIN_STEP_EXPLAIN=1",)),
+    "plain_step_ext": ("plain_step", ("-DPLAIN_STEP_EXT=1",)),
+    "plain_step_ext_explain": ("plain_step", ("-DPLAIN_STEP_EXPLAIN=1", "-DPLAIN_STEP_EXT=1")),
     "plain_step_wide": ("plain_step", ("-DPLAIN_STEP_WIDE=1",)),
     "plain_step_wide_explain": ("plain_step", ("-DPLAIN_STEP_EXPLAIN=1", "-DPLAIN_STEP_WIDE=1")),
 }

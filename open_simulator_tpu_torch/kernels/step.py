@@ -71,12 +71,16 @@ Under ``cfg.extensions`` a launch takes the extension rows the engine
 evaluated against the carry (``engine.scheduler._extension_scan``):
 ``ext_ok`` [S, P', Ef, N] bool, each filter extension's mask, and
 ``ext_raw`` [S, P', Es, N] f32, each score extension's raw score, in
-registration order; the kernel gets them as runtime pointers (null
-without extensions), with each score row's f32 weight and normalize kind,
-so the 24 builds serve both. ``pod_launcher`` is the engine's per-pod
-form: it builds the ``StepArgs`` once and patches each pod's into them,
-writing the outputs into rows of full-length buffers
-(``LAUNCHES["plain_step_ext"]`` counts its launches).
+registration order; the kernel gets them as pointers, with each score
+row's f32 weight and normalize kind, and runs the builds of the library
+``plain_step_ext`` (``plain_step_ext_explain``): the eight scan builds
+compiled with the rows (kExt), so the other libraries' scan builds carry
+none of their code (the wide library keeps them, gated at run time).
+``pod_launcher`` is the engine's per-pod form: it builds the ``StepArgs``
+once and each launch runs the pod a device cursor names, writing its
+outputs into row ``cursor - p_base`` of full-length buffers, so one
+launch captured into a CUDA graph serves every pod
+(``LAUNCHES["plain_step_ext"]`` counts its launches, one a replay).
 
 ``plain_step`` launches the kernel for CUDA tensors and runs the plain
 torch step only for CPU tensors; it never falls back from one to the
@@ -111,7 +115,6 @@ runs one cluster per (lane, pod) under the same plan.
 from __future__ import annotations
 
 import ctypes
-import math
 import weakref
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -211,6 +214,7 @@ _SMEM_LIMIT = 200 * 1024
 MAX_THREADS, MAX_THREADS_DEVRES = 512, 384
 MAX_THREADS_WIDE, MAX_THREADS_WIDE_DEVRES = 384, 256
 MAX_THREADS_EXPLAIN, MAX_THREADS_EXPLAIN_DEVRES = 384, 256
+MAX_THREADS_EXT = 384  # kMaxThreadsExt: the extension library's scan builds
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
 # the explain top-k (kTopkPass, kTopkLists in the .cu): a pass ranks up to
 # TOPK_PASS candidates a pod in one cluster round; its lists take
@@ -304,16 +308,18 @@ def placements_held_to(stage: int) -> tuple:
 
 
 def max_threads(flags: int, fleet: bool = False, wide: bool = False, explain: bool = False,
-                frozen: bool = False) -> int:
+                frozen: bool = False, ext: bool = False) -> int:
     """The block size cap of the instantiation these flags launch (a fleet
     build, or a build of the wide library, takes the smaller cap; so do
-    the explain builds of the scan, and every explain build with the
-    device-resource ops)."""
+    the explain builds of the scan, every explain build with the
+    device-resource ops, and the extension library's scan builds)."""
     devres = bool(flags & DEVRES_FLAGS)
     if fleet or wide:
         return MAX_THREADS_WIDE_DEVRES if devres else MAX_THREADS_WIDE
     if explain and (devres or not frozen):
         return MAX_THREADS_EXPLAIN_DEVRES if devres else MAX_THREADS_EXPLAIN
+    if ext:
+        return MAX_THREADS_EXT
     return MAX_THREADS_DEVRES if devres else MAX_THREADS
 
 
@@ -400,7 +406,7 @@ class StepArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")]
                 + [(f, ctypes.c_int) for f in ("ef", "es", "ered", "ls")]
                 + [(f, ctypes.c_void_p) for f in ("pod_pack", "cls_pack")]
-                + [("hit_w", ctypes.c_int)])
+                + [("hit_w", ctypes.c_int), ("cursor", ctypes.c_void_p)])
 
 
 # ExtensionOp.normalize -> StepArgs.ext_norm
@@ -758,39 +764,49 @@ def needs_wide(arrs, cfg: EngineConfig, flags: int) -> bool:
                                                       False) > _SMEM_LIMIT
 
 
-def placements_for(wide: bool, one_pod: bool = False, flags: int = 0) -> tuple:
+def placements_for(wide: bool, one_pod: bool = False, flags: int = 0,
+                   headroom: bool = True) -> tuple:
     """The PLACEMENTS a launch may take: the replica and the partials stay
     in shared memory outside the wide library; a launch of one pod a
     cluster (the frozen form, the extension loop's) stages no node or
     class rows, whose copies would cost it more than its one pod reads;
     the device-resource builds stage no class rows, and the build with
     both slices' gates (`<1,1>`) no node rows either (the kernel compiles
-    those stagings out of them: registers)."""
+    those stagings out of them: registers). With `headroom` False no
+    placement keeps the headroom rows in shared memory (the extension
+    loop's one-pod launches: the slice copied in and all written back for
+    the one row the bind changes cost a launch about 1,000 cycles of its
+    prologue, PERF.md §6)."""
     devres, both = bool(flags & DEVRES_FLAGS), bool(flags & DEVRES_FLAGS and flags & INTERPOD_FLAGS)
     allowed = 0 if one_pod or both else (RES_STAGE_NODE if devres else STAGE_ALL)
     return tuple(dict.fromkeys(pl[:3] + (pl[3] & allowed,) for pl in PLACEMENTS
-                               if wide or not (pl[1] or pl[2])))
+                               if (wide or not (pl[1] or pl[2])) and (headroom or not pl[0])))
 
 
 def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
              occupancy: Callable[..., int], fleet: bool = False,
              one_pod: bool = False, frozen: bool = False) -> LaunchPlan:
     """``plan_launch`` for a launch of these arrays under these flags: the
-    wide library's builds and placements where ``needs_wide``; `one_pod`
-    for launches of one pod a cluster (``placements_for``), `frozen` for
-    the frozen form's builds (``max_threads``)."""
+    wide library's builds and placements where ``needs_wide``, the
+    extension library's cap under ``cfg.extensions``; `one_pod`
+    for launches of one pod a cluster (``placements_for``; the extension
+    loop's keep the headroom rows in global memory), `frozen` for the
+    frozen form's builds (``max_threads``)."""
     wide = needs_wide(arrs, cfg, flags)
+    ext = bool(cfg.extensions) and not (fleet or frozen)
     plan = plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
-                       max_threads(flags, fleet, wide, explain_on(cfg), frozen),
-                       placements_for(wide, one_pod, flags))
+                       max_threads(flags, fleet, wide, explain_on(cfg), frozen, ext),
+                       placements_for(wide, one_pod, flags, headroom=not (ext and one_pod)))
     return plan._replace(wide=wide)
 
 
-def _library(explain: bool = False, wide: bool = False) -> ctypes.CDLL:
+def _library(explain: bool = False, wide: bool = False, ext: bool = False) -> ctypes.CDLL:
     """The kernel's library: the twelve builds and the four fleet builds,
-    or their explain twins; the wide library's builds past the walk widths
-    or the shared memory."""
-    lib = build.load("plain_step" + ("_wide" if wide else "") + ("_explain" if explain else ""))
+    or their explain twins; with `ext`, the eight scan builds with the
+    extension rows; the wide library's builds (the rows gated at run time)
+    past the walk widths or the shared memory."""
+    lib = build.load("plain_step" + ("_wide" if wide else ("_ext" if ext else ""))
+                     + ("_explain" if explain else ""))
     args_p = ctypes.POINTER(StepArgs)
     lib.plain_step_launch.argtypes = [args_p, ctypes.c_void_p]
     lib.plain_step_launch.restype = ctypes.c_int
@@ -1312,7 +1328,7 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
                                  phase_cycles, disabled, nominated, frozen, static, weights,
                                  ext_ok, ext_raw)
     explain = explain_on(cfg)
-    lib = _library(explain, needs_wide(arrs, cfg, flags))
+    lib = _library(explain, needs_wide(arrs, cfg, flags), bool(cfg.extensions))
     n_clusters = n_lanes * n_out if frozen else n_lanes
     with torch.cuda.device(dev):
         key = (flags, n_clusters, frozen)
@@ -1358,20 +1374,26 @@ _OUT_PTRS = ("out_node", "out_fail", "out_feasible", "out_gpu_pick", "out_vol_pi
 
 def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
                  state: SimState, cfg: EngineConfig, out: StepOutputs, p_base: int,
-                 disabled: Optional[torch.Tensor] = None,
+                 cursor: torch.Tensor, disabled: Optional[torch.Tensor] = None,
                  nominated: Optional[torch.Tensor] = None,
-                 weights: Optional[torch.Tensor] = None, inputs: Optional[dict] = None,
-                 plain: bool = False) -> Callable[..., None]:
+                 weights: Optional[torch.Tensor] = None, plain: bool = False,
+                 phase_cycles: Optional[torch.Tensor] = None) -> Callable[..., None]:
     """The step one pod at a time over the lanes of `state` (the carry,
     updated in place, read by the extension callables between launches):
     returns ``launch(p, ext_ok, ext_raw)``, which runs pod p with its
     [S, 1, Ef, N] / [S, 1, Es, N] extension rows (None where the config
     registers no extension of the kind) and writes its outputs into row
     ``p - p_base`` of `out`, StepOutputs of [S, P'', ...] buffers. On the
-    card the StepArgs are built at the first pod and patched for each
-    later one (the pod, the rows, the output offsets), one kernel launch a
-    pod on the current stream; on the CPU, or with ``plain=True`` (the
-    yardstick on the card), the plain step."""
+    card the kernel reads the pod from `cursor`, an int32 [1] tensor that
+    the caller keeps equal to p (and advances after each launch, in stream
+    order): the StepArgs are built at the first pod and only the rows'
+    pointers change after it, so the launch can be captured into a CUDA
+    graph and replayed for every later pod (it goes on the current stream,
+    the capturing one under capture, and counts in LAUNCHES only outside a
+    capture; ``launch.count()`` counts one replay). Given `phase_cycles`
+    (an [S, len(PHASES)] int64 tensor on the card), each launch writes its
+    pod's cycles per phase there. On the CPU, or with ``plain=True`` (the
+    yardstick on the card), the plain step of pod p."""
     dev = active.device
     n_lanes = active.shape[0]
     if plain or dev.type == "cpu":
@@ -1387,12 +1409,13 @@ def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
     if dev.type != "cuda":
         raise ValueError(f"no plain_step for device {dev}")
     check_weights(cfg, weights, n_lanes)
+    _check("cursor", cursor, torch.int32, (1,))
+    if cursor.device != dev:
+        raise ValueError(f"plain_step: cursor is on {cursor.device}, not {dev}")
     flags = _flags(cfg, state, False)
     plan_for(arrs, cfg, flags, n_lanes, lambda *_: n_lanes)  # raises where nothing fits
-    static = inputs if inputs is not None else {}
     explain = explain_on(cfg)
-    lib = _library(explain, needs_wide(arrs, cfg, flags))
-    words = [math.prod(t.shape[2:]) for t in out]  # 4-byte words of a pod's row
+    lib = _library(explain, needs_wide(arrs, cfg, flags), True)
     built: Dict[str, object] = {}
 
     def launch(p: int, ext_ok=None, ext_raw=None) -> None:
@@ -1401,38 +1424,33 @@ def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
         ok = None if ext_ok is None else ext_ok.contiguous()
         raw = None if ext_raw is None else ext_raw.contiguous()
         if not built:
-            args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p, p + 1,
-                                         None, None, disabled, nominated, False, static,
-                                         weights, ok, raw, out=out)
+            args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p_base,
+                                         p_base + 1, None, phase_cycles, disabled, nominated,
+                                         False, {}, weights, ok, raw, out=out)
             with torch.cuda.device(dev):
-                key = (flags, n_lanes, "one pod")
-                plan = static["plans"].get(key)
-                if plan is None:
-                    plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args),
-                                    one_pod=True)
-                    static["plans"][key] = plan
-                stream = torch.cuda.current_stream(dev).cuda_stream
+                plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args),
+                                one_pod=True)
             _set_geometry(args, plan)
-            built.update(args=args, tensors=tensors, plan=plan, stream=stream,
-                         keep=_scratch(args, arrs, cfg, flags, plan, n_lanes, dev),
-                         base={f: getattr(args, f) for f in _OUT_PTRS})
+            args.p1, args.cursor = p_base + out.node.shape[1], cursor.data_ptr()
+            built.update(args=args, tensors=tensors, plan=plan,
+                         keep=_scratch(args, arrs, cfg, flags, plan, n_lanes, dev))
             if lib.plain_step_smem(ctypes.byref(args)) != plan.smem:
                 raise RuntimeError("plain_step: smem_bytes and the kernel's layout_of disagree")
         args, plan = built["args"], built["plan"]
-        row = p - p_base
-        args.p0, args.p1 = p, p + 1
-        for f, w in zip(_OUT_PTRS, words):
-            b = built["base"][f]
-            setattr(args, f, None if b is None else b + 4 * w * row)
         args.ext_ok = None if ok is None else ok.data_ptr()
         args.ext_raw = None if raw is None else raw.data_ptr()
-        err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(built["stream"]))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.plain_step_launch(ctypes.byref(args), ctypes.c_void_p(stream))
         if err:
             raise RuntimeError(f"plain_step launch failed: CUDA error {err} ({plan})")
         # (ok and raw are freed in stream order: their memory's next use
-        # follows this launch)
-        _count(plan, explain, False, weights is not None, bool(cfg.extensions))
+        # follows this launch; under capture they live in the graph's pool)
+        if not torch.cuda.is_current_stream_capturing():
+            launch.count()
         LAST_PLAN = plan
+
+    launch.count = lambda: _count(built["plan"], explain, False, weights is not None, True)
     return launch
 
 

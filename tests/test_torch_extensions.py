@@ -17,7 +17,10 @@ node feasible, every raw score negative); a NaN score; a score that
 reads the carry, at two lanes with different masks; a rich config (the
 group_count and the dom_count carries both kept) and a device-resource
 one; the preemption columns, and ``simulate()`` under the preemption
-pass; explain with K = 3; a forced prefix kept by an override;
+pass; explain with K = 3; the loop's device-cursor pod slice, read by
+ops of the pod's class, request, index and preemption columns, under a
+forced-prefix shift, at two lanes, beside a NaN score and with the
+columns; a forced prefix kept by an override;
 ``simulate()``, ``Simulator``, the sweeps, ``explain_result``,
 ``run_replay`` and a campaign with extensions; and
 ``--default-scheduler-config`` on ``apply`` and ``explain`` against the
@@ -108,7 +111,25 @@ J_NAN = jext.ExtensionOp(name="nan-at-node-3", normalize="minmax", score_fn=lamb
 T_NAN = text.ExtensionOp(name="nan-at-node-3", normalize="minmax", score_fn=lambda s, a, x: (
     torch.where((torch.arange(a.alloc.shape[0]) == 3) & (x["_pod_index"] % 3 == 0), torch.nan,
                 1.0)))
-PAIRS = {"neg": (J_NEG, T_NEG), "one": (J_ONE, T_ONE), "nan": (J_NAN, T_NAN)}
+# ops that read the pod slice beyond _pod_index: a filter of the pod's
+# class and index, a score of its request, index and preemption columns
+# (small integers, so both packages' sums are exact)
+J_XF = jext.ExtensionOp(name="node(s) rejected by the class policy", filter_fn=lambda s, a, x: (
+    (jnp.arange(a.alloc.shape[0]) + x["class_id"] + x["_pod_index"]) % 4 != 1))
+T_XF = text.ExtensionOp(name="node(s) rejected by the class policy", filter_fn=lambda s, a, x: (
+    (torch.arange(a.alloc.shape[0]) + x["class_id"] + x["_pod_index"]) % 4 != 1))
+J_XS = jext.ExtensionOp(name="pod-slice-pattern", weight=0.5, score_fn=lambda s, a, x: (
+    ((jnp.arange(a.alloc.shape[0]) + x["_pod_index"]) % 7).astype(jnp.float32) * 10.0
+    + (x["req"][0] > 500.0).astype(jnp.float32) * (jnp.arange(a.alloc.shape[0]) % 2) * 5.0
+    + (jnp.maximum(x["_nominated"], 0) % 3).astype(jnp.float32)
+    + x["_disabled"].astype(jnp.float32) * 2.0))
+T_XS = text.ExtensionOp(name="pod-slice-pattern", weight=0.5, score_fn=lambda s, a, x: (
+    ((torch.arange(a.alloc.shape[0]) + x["_pod_index"]) % 7).to(torch.float32) * 10.0
+    + (x["req"][0] > 500.0).to(torch.float32) * (torch.arange(a.alloc.shape[0]) % 2) * 5.0
+    + (torch.clamp_min(x["_nominated"], 0) % 3).to(torch.float32)
+    + x["_disabled"].to(torch.float32) * 2.0))
+PAIRS = {"neg": (J_NEG, T_NEG), "one": (J_ONE, T_ONE), "nan": (J_NAN, T_NAN),
+         "xf": (J_XF, T_XF), "xs": (J_XS, T_XS)}
 
 _SNAPS: dict = {}
 
@@ -412,6 +433,55 @@ def test_forced_prefix_override_shifts_the_pod_index():
     k = jsched.make_config(snap).forced_prefix
     _, got, cfg = run_both("bound", forced_prefix=k)
     assert cfg.forced_prefix == k > 0
+
+
+def test_pod_slice_cuts_each_column_at_the_cursor():
+    """The cursor-form PodSlice: each key's row is the column's row at the
+    pod the cursor names, with the column's dtype and its shape past the
+    pod axis, and it follows the cursor as the loop steps it."""
+    _, tsnap = snapshot("rich")
+    cfg = tsched.make_config(tsnap, extensions=T_EXTS)
+    arrs = tsched.device_arrays(tsnap.arrays, "cpu")
+    cols = tsched.pod_columns(arrs, cfg, None, None)
+    assert {"_pod_index", "_disabled", "_nominated", "gcr_gid", "gcr_key"} <= set(cols)
+    cursor = torch.tensor([3], dtype=torch.int32)
+    x = tsched.PodSlice(cols, cursor)
+    assert set(x) == set(cols) and len(x) == len(cols)
+    for p in (3, 4):
+        for key, col in cols.items():
+            row = x[key]
+            assert row.dtype == col.dtype and row.shape == col[p].shape, key
+            assert torch.equal(row, col[p]), key
+        assert int(x["_pod_index"]) == p
+        cursor.add_(1)
+
+
+@pytest.mark.parametrize("case", ["prefix", "two-lanes", "nan", "columns"])
+def test_cursor_pod_slice_equals_reference(case):
+    """The loop's device-cursor PodSlice against the reference's xs, with
+    ops that read the pod's class, request, index and preemption columns:
+    under a forced-prefix shift of the pod index, beside a score of the
+    carry at two lanes, beside a NaN score, and with the preemption
+    columns."""
+    extra = ("xf", "xs")
+    if case == "prefix":
+        snap, _ = snapshot("bound")
+        k = jsched.make_config(snap).forced_prefix
+        _, got, cfg = run_both("bound", (1,), extra, forced_prefix=k)
+        assert cfg.forced_prefix == k > 0
+    elif case == "two-lanes":
+        snap, _ = snapshot("plain")
+        n = snap.n_nodes
+        masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0])
+        _, got, _ = run_both("plain", (3,), extra, masks=masks)
+        assert not torch.equal(got.node[0], got.node[1])
+    elif case == "nan":
+        _, got, _ = run_both("plain", (2,), ("nan",) + extra)
+        assert (got.node[::3] == -1).any()
+    else:
+        _, got, _ = run_both("plain", (0,), extra, columns=True)
+        assert (got.node == -3).any()
+    assert (got.node >= 0).any()
 
 
 # ---- the entry points -----------------------------------------------------------

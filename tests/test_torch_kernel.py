@@ -25,7 +25,10 @@ builds, a different row in each lane, one all zeros, and through
 ``schedule_lanes``; the extension rows (seeded masks and raw scores, a
 NaN among them) through the 16 scan builds and the wide library, the
 "max" row's edges, and the per-pod loop of ``schedule_lanes`` with torch
-extension ops against the CPU's. Without CUDA they skip
+extension ops against the CPU's; the loop captured as a CUDA graph with
+the pod on the device against the eager loop and the plain step (each
+kExt build, pod counts of 1, 2, 3 and 37, 64 lanes) and a callable that
+cannot be captured. Without CUDA they skip
 with the reason; the binding checks and the launch plan's tests (cluster
 size, block size, node slices, shared-memory accounting) run everywhere.
 """
@@ -208,6 +211,26 @@ def test_block_size_cap_follows_the_instantiation(kind, cap):
     assert plan.cluster == 1 and plan.slice_len == snap.n_nodes
     assert plan.threads == step.block_geometry(snap.n_nodes, 1, cap)[1]
     assert plan.threads > cap // 2
+
+
+def test_extension_builds_take_their_cap():
+    """The extension library's scan builds take 384 threads a block (168
+    registers), the .cu's cap; the launcher plans a config with extension
+    ops (and only such a config) under it, the fleet and the wide library
+    under theirs."""
+    src = Path(SOURCE).read_text(encoding="utf-8")
+    caps = dict(re.findall(r"constexpr int (kMaxThreadsExt\w*) = (\d+);", src))
+    assert int(caps["kMaxThreadsExt"]) == step.MAX_THREADS_EXT == 384
+    assert step.max_threads(0, ext=True) == step.max_threads(step.F_GPU, ext=True) == 384
+    assert step.max_threads(0, explain=True, ext=True) == 384
+    assert step.max_threads(0, wide=True, ext=True) == step.MAX_THREADS_WIDE
+    snap = synthetic_snapshot(2000, 64)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    for cfg, cap in ((_ext_cfg(snap), 384), (sched.make_config(snap), step.MAX_THREADS)):
+        flags = step._flags(cfg, sched.init_state(arrs, cfg), False)
+        plan = step.plan_for(arrs, cfg, flags, 1, lambda c, *_: 132 if c == 1 else 0)
+        assert plan.cluster == 1 and plan.threads <= cap
+        assert plan.threads == step.block_geometry(snap.n_nodes, 1, cap)[1]
 
 
 def test_explain_builds_take_their_caps():
@@ -682,13 +705,16 @@ def test_merge_struct_and_flags_match_the_c_source():
 def test_plain_step_kernel_has_the_frozen_instantiations():
     """kernel_of picks the frozen form from StepArgs.frozen, never with
     the columns: four frozen builds beside the eight scan builds (in each
-    library; the fifth flag, kExplain, is the library's)."""
+    library; the fifth flag, kExplain, is the library's, and so is the
+    sixth, kExt, in the scan builds: never in the frozen form)."""
     src = Path(SOURCE).read_text(encoding="utf-8")
     insts = set(re.findall(r"plain_step_kernel<(true|false), (true|false), (true|false), "
-                           r"(true|false), X>", src))
+                           r"(true|false), X, (false|E)>", src))
     assert len(insts) == 12
     assert {i[:3] for i in insts if i[3] == "true"} == {
         (a, b, "false") for a in ("true", "false") for b in ("true", "false")}
+    assert {i[4] for i in insts if i[3] == "true"} == {"false"}
+    assert {i[4] for i in insts if i[3] == "false"} == {"E"}
 
 
 def _clone(st):
@@ -1294,8 +1320,8 @@ def test_plain_step_kernel_has_the_fleet_instantiations():
     src = Path(SOURCE).read_text(encoding="utf-8")
     insts = set(re.findall(r"plain_step_fleet_kernel<(true|false), (true|false), X>", src))
     assert insts == {(i, d) for i in ("true", "false") for d in ("true", "false")}
-    assert "step_body<kInterpod, kDevRes, false, false, kExplain, true>(s_lane)" in src
-    assert "step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false>(a)" in src
+    assert "step_body<kInterpod, kDevRes, false, false, kExplain, true, false>(s_lane)" in src
+    assert "step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false, kExt>(a)" in src
 
 
 def _fleet(snap, cfg, n_lanes, device, p1=None):
@@ -1534,7 +1560,11 @@ def test_extension_rows_are_checked_before_a_launch():
 def test_extension_layout_is_in_the_kernel_source():
     src = Path(SOURCE).read_text(encoding="utf-8")
     assert "w += 3 * a.ered + 3 * a.es + (a.es + (a.ef ? 1 : 0)) * a.sl;" in src
-    assert "constexpr bool kExt = !kFrozen && !kFleet;" in src
+    # the rows are a build of their own: the extension library's scan
+    # builds and the wide library's, never the frozen form or the fleet
+    assert "constexpr bool kExtScan = kExtLib || kWideLib;" in src
+    assert 'static_assert(!(kExt && (kFrozen || kFleet)), "extension rows in a scan build only");' in src
+    assert build.VARIANTS["plain_step_ext"] == ("plain_step", ("-DPLAIN_STEP_EXT=1",))
     assert step.EXT_NORMALIZE == {"none": 0, "minmax": 1, "max": 2}
 
 
@@ -1674,6 +1704,124 @@ def test_schedule_lanes_with_extensions_on_card_equals_cpu(cuda_device, case):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(got.state, f).cpu(), getattr(want.state, f)), f
+
+
+# ---- the extension loop as a CUDA graph -----------------------------------------
+
+LOOP_MODES = ("graph", "eager", "plain")
+
+
+def _loop_runs(snap, cfg, device, n_lanes=2, columns=False, n_out=None, seed=0):
+    """The engine's extension loop (``sched._extension_scan``) over the
+    pods after the prefix (the first `n_out` of them), from a template
+    carry, three ways on the card: the captured graph replayed, the eager
+    loop (a launch a pod from the host) and the plain step through the
+    same loop; each with the loop's counters and launches it added."""
+    arrs = sched.device_arrays(snap.arrays, device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 3 != 0, np.arange(n) % 4 != 1])
+    masks = np.resize(masks, (n_lanes, n))
+    active = torch.from_numpy(masks).to(device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    p0 = cfg.forced_prefix
+    if p0:
+        tmpl = sched.apply_forced_prefix(arrs, cfg, tmpl, p0)
+    p1 = snap.n_pods if n_out is None else p0 + n_out
+    dis = nom = None
+    if columns:
+        d, m = preemption_columns(snap.arrays.forced_node, masks[0], seed=seed)
+        dis, nom = torch.from_numpy(d).to(device), torch.from_numpy(m.astype(np.int32)).to(device)
+    runs = {}
+    for mode in LOOP_MODES:
+        carry = sched.lane_carry(tmpl, n_lanes)
+        loop0, launch0 = dict(sched.EXTENSION_LOOP), dict(step.LAUNCHES)
+        outs = sched._extension_scan(arrs, active, hoist, inv, carry, tmpl, cfg, p0, p1, dis,
+                                     nom, None, plain=mode == "plain", graph=mode == "graph")
+        torch.cuda.synchronize()
+        runs[mode] = ((step.StepOutputs(*outs), carry),
+                      {k: v - loop0[k] for k, v in sched.EXTENSION_LOOP.items()},
+                      step.LAUNCHES["plain_step_ext"] - launch0["plain_step_ext"])
+    return runs, p1 - p0
+
+
+def _assert_loops_equal(runs, n_out):
+    """The graph path equals the eager loop and the plain step, bit for
+    bit; it captured one graph, replayed it for every pod after the first
+    and counted one launch a pod, as the eager loop did."""
+    _assert_ext_runs_equal([runs["graph"][0], runs["eager"][0]])
+    _assert_ext_runs_equal([runs["graph"][0], runs["plain"][0]])
+    replays = n_out - 1 if n_out > 1 else 0
+    assert runs["graph"][1] == {"graphs": int(n_out > 1), "replays": replays, "eager": 0}
+    assert runs["eager"][1] == runs["plain"][1] == {"graphs": 0, "replays": 0, "eager": 0}
+    assert runs["graph"][2] == runs["eager"][2] == n_out and runs["plain"][2] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXT_CASES))
+@pytest.mark.parametrize("columns", [False, True])
+@pytest.mark.parametrize("explain", [False, True])
+def test_extension_graph_equals_eager_and_plain_on_card(cuda_device, case, columns, explain):
+    """Every kExt build (<I,D>, +columns, +explain) through the engine's
+    loop at two lanes: the graph replayed with the pod on the device
+    equals the eager loop and the plain step, every output and carry
+    field."""
+    snap = EXT_CASES[case]()
+    over = dict(explain_topk=3, tie_break_seed=5) if explain else {}
+    cfg = _ext_cfg(snap, **over)
+    want = case + ("+columns" if columns else "") + ("+explain" if explain else "")
+    st = sched.init_state(sched.device_arrays(snap.arrays, "cpu"), cfg)
+    assert step.instantiation(cfg, st, columns=columns) == want
+    runs, n_out = _loop_runs(snap, cfg, cuda_device, columns=columns)
+    _assert_loops_equal(runs, n_out)
+    out = runs["graph"][0][0]
+    assert (out.node >= 0).any() and out.fail_counts[..., cfg.n_ops - 2:].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [1, 2, 3, 37])
+def test_extension_graph_pod_counts_on_card(cuda_device, n_out):
+    """Pod counts that no unroll divides (and one pod, which captures
+    nothing), after a forced prefix that shifts the cursor."""
+    snap = synthetic_snapshot(96, 160, bound=0.2)
+    cfg = _ext_cfg(snap, forced_prefix=sched.make_config(snap).forced_prefix)
+    assert cfg.forced_prefix > 0
+    runs, got = _loop_runs(snap, cfg, cuda_device, n_out=n_out)
+    assert got == n_out
+    _assert_loops_equal(runs, n_out)
+
+
+@pytest.mark.cuda
+def test_extension_graph_at_64_lanes_on_card(cuda_device):
+    """64 lanes vmapped through the callables, each lane its own mask:
+    the graph path equals the eager loop and the plain step."""
+    snap = synthetic_snapshot(96, 160, rich=True, bound=0.2)
+    cfg = _ext_cfg(snap)
+    runs, n_out = _loop_runs(snap, cfg, cuda_device, n_lanes=64, n_out=48)
+    _assert_loops_equal(runs, n_out)
+
+
+@pytest.mark.cuda
+def test_uncapturable_callable_runs_eagerly_on_card(cuda_device, caplog):
+    """A callable that copies from host memory cannot be captured: the
+    loop names it in a logged warning, counts an eager loop and runs every
+    pod eagerly, to the plain step's outputs."""
+    from open_simulator_tpu_torch.engine.extensions import ExtensionOp
+    from open_simulator_tpu_torch.testing.synthetic import synthetic_extensions
+
+    host_copy = ExtensionOp(name="host-copy", weight=1.0, score_fn=lambda state, arrs, x: (
+        torch.tensor([float(i % 3) for i in range(arrs.alloc.shape[0])],
+                     device=arrs.alloc.device)))
+    snap = synthetic_snapshot(96, 160, bound=0.2)
+    cfg = sched.make_config(snap, extensions=synthetic_extensions() + (host_copy,))
+    with caplog.at_level("WARNING", logger=sched.__name__):
+        runs, n_out = _loop_runs(snap, cfg, cuda_device, n_out=24)
+    _assert_ext_runs_equal([runs["graph"][0], runs["plain"][0]])
+    assert runs["graph"][1] == {"graphs": 0, "replays": 0, "eager": 1}
+    assert runs["graph"][2] == n_out
+    msg = " ".join(r.getMessage() for r in caplog.records)
+    assert "'host-copy' (score_fn)" in msg and "capture rule" in msg
+    assert "prefer-free-cpu" not in msg
 
 
 # ---- the top-k's passes ------------------------------------------------------
@@ -1915,6 +2063,24 @@ def test_placements_drop_the_staged_regions_first():
         step.UNSTAGED, step.UNSTAGED]
     assert set(step.PLACEMENT_NAMES.values()) == {0, step.RES_STAGE_NODE,
                                                   step.RES_STAGE_CLASS, step.STAGE_ALL}
+
+
+def test_extension_one_pod_launches_keep_headroom_in_global_memory():
+    """The extension loop's one-pod launches never copy the headroom slice
+    into shared memory (nor write it all back); the frozen form's one-pod
+    launches and the scans keep the placements they had."""
+    assert step.placements_for(False, one_pod=True, headroom=False) == ((False, False, False, 0),)
+    assert all(not pl[0] for pl in step.placements_for(True, one_pod=True, headroom=False))
+    snap = synthetic_snapshot(96, 160, bound=0.2)
+    arrs = sched.device_arrays(snap.arrays, "cpu")
+    occupancy = lambda *_: 64  # noqa: E731
+    for cfg, one_pod, frozen, hr in ((_ext_cfg(snap), True, False, False),
+                                     (_ext_cfg(snap), False, False, True),
+                                     (sched.make_config(snap), True, True, True),
+                                     (sched.make_config(snap), False, False, True)):
+        flags = step._flags(cfg, sched.init_state(arrs, cfg), False)
+        plan = step.plan_for(arrs, cfg, flags, 1, occupancy, one_pod=one_pod, frozen=frozen)
+        assert plan.headroom is hr, (cfg.extensions, one_pod, frozen)
 
 
 @pytest.mark.parametrize("stage", [step.STAGE_ALL, step.RES_STAGE_NODE, step.UNSTAGED])

@@ -264,6 +264,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
     assert build.kernel_names() == ["forced_fold", "plain_step", "plain_step_explain",
+                                    "plain_step_ext", "plain_step_ext_explain",
                                     "plain_step_wide", "plain_step_wide_explain", "wave_merge"]
 
 

@@ -289,6 +289,17 @@ def test_simulate_under_traced_weights_equals_reference(name):
     assert result_digest(got)["digest"] == result_digest(ref)["digest"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _reference_executables_released():
+    """The reference's searches here compile the executables of
+    tests/test_tune.py's cluster into its process-wide cache; drop them
+    when this module ends, so that a later test on the same worker that
+    counts its own compiles (test_tune_grid_one_executable_and_brute_force_pareto)
+    starts from the cache it would find without this file."""
+    yield
+    jexec.EXEC_CACHE.clear()
+
+
 # ---- the search -------------------------------------------------------------
 
 

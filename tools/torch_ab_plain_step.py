@@ -36,12 +36,18 @@ another plain_step.cu with this tree's layout and plan (a variant of this
 tree's source, such as a copy at other launch bounds). Each added
 source's ptxas line is printed (the scan builds' registers and spills).
 
-``--ext PODS`` times the extension loop's launches instead (northstar-ext:
-one lane, the five ``synthetic_extensions`` ops, one launch a pod through
-``kernels/step.pod_launcher``): the first PODS pods' extension rows are
-recorded against the live carry once, then each side replays their PODS
-launches from the template with the stream primed (the device alone),
-in turns; printed as us of device a launch.
+``--ext PODS`` times the extension loop instead (northstar-ext: one lane,
+the five ``synthetic_extensions`` ops, one launch a pod), over the first
+PODS pods (``ext_ab``): the loop's host time a pod, in turns, of this
+tree's graph path (``engine/scheduler._extension_scan``), its eager loop,
+its graph path with the one-pod launches' headroom rows in shared memory
+(a variant: the parent's plan) and the other source's loop (a pod slice cut with a host
+index, ``StepArgs`` patched a pod, as a source without the device cursor
+ran it); each side's launches alone (us of device a launch and a one-element
+add, back to back between CUDA events, the stream primed), the graph's replays (us of
+device a pod), and with ``--cycles`` each side's cycles a pod by phase in
+one-pod launches beside the scan's over the same pods and rows. This
+tree's extension launches run the library ``plain_step_ext``.
 
 ``--fleet LANES`` times fleet-16's batched launch instead: LANES of
 ``write_synthetic_fleet``'s 1,024 x 10,240 clusters through the
@@ -77,6 +83,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -171,9 +178,19 @@ def main(argv=None) -> int:
     explain = bool(args.topk or args.seed)
     if explain:
         kinds["explain"] = build.VARIANTS["plain_step_explain"][1]
+    if args.ext:
+        kinds["ext"] = build.VARIANTS["plain_step_ext"][1]
+    # a source with the extension rows in builds of their own (and the
+    # device cursor) takes its extension launches from that library
+    with_ext = {}
+    for name, src in sources.items():
+        with open(src, encoding="utf-8") as f:
+            with_ext[name] = "PLAIN_STEP_EXT" in f.read()
     procs = {}
     for name, src in sources.items():
         for kd, extra in kinds.items():
+            if kd == "ext" and not with_ext[name]:
+                continue
             flags = (*build.NVCC_FLAGS, *extra)
             with open(src, "rb") as f:
                 digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
@@ -207,7 +224,7 @@ def main(argv=None) -> int:
     with open(sources["other"], encoding="utf-8") as f:
         other_text = f.read()
     other_keys = "kTopkPass" in other_text
-    other_stages = "RES_STAGE_POD" in other_text
+    other_stages = "pod_pack" in other_text
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -246,8 +263,8 @@ def main(argv=None) -> int:
 
     def use(name):
         src = "this" if name in variants else name
-        step._library = lambda explain=False, wide=False, lib=libs[src]: lib[
-            "explain" if explain else "plain"]
+        step._library = lambda explain=False, wide=False, ext=False, lib=libs[src]: lib[
+            "ext" if ext and "ext" in lib else ("explain" if explain else "plain")]
         # the other source's layout: no key rows before the top-k had them,
         # no pod region before the staged regions
         drop = {}
@@ -273,11 +290,13 @@ def main(argv=None) -> int:
 
     try:
         if args.ext:
-            return ext_ab(args, torch, sched, step, snap, sides, order, use)
+            return ext_ab(args, torch, sched, step, snap, use, with_ext["this"])
         if args.fleet:
-            # a source from before the staged regions reads a StepArgs that
-            # ends where their pointers begin (fields are only appended)
-            record = (ctypes.sizeof(step.StepArgs) if other_stages
+            # a source from before the staged regions (or the device
+            # cursor) reads a StepArgs that ends where their pointers begin
+            # (fields are only appended)
+            record = (ctypes.sizeof(step.StepArgs) if "int32_t* cursor;" in other_text
+                      else step.StepArgs.cursor.offset if other_stages
                       else step.StepArgs.pod_pack.offset)
             return fleet_ab(args, torch, sched, step, sides, order, use, record)
         for label, masks_np in cases.items():
@@ -366,9 +385,80 @@ def main(argv=None) -> int:
     return 0
 
 
-def ext_ab(args, torch, sched, step, snap, sides, order, use) -> int:
-    """--ext: the extension loop's launches of each side, replayed from the
-    recorded rows with the stream primed, in turns."""
+class _IntSlice(dict):
+    """Pod p's slice cut with a host index, as a loop without the device
+    cursor cut it (a read-only view of each column's row p)."""
+
+    def __init__(self, cols, p):
+        super().__init__()
+        self._cols, self._p = cols, p
+
+    def __getitem__(self, key):
+        return self._cols[key][self._p]
+
+    def __iter__(self):
+        return iter(self._cols)
+
+    def __len__(self):
+        return len(self._cols)
+
+
+def patched_launcher(torch, step, arrs, active, hoist, inv, state, cfg, out, cycles=None):
+    """The per-pod launch of a source without the device cursor: the
+    StepArgs built at the first pod, then each pod's p0, p1, output rows
+    and extension rows patched in, one launch a pod on the current stream
+    (its own loop's protocol, on its own library)."""
+    import math
+
+    lib = step._library(step.explain_on(cfg), False, False)
+    flags = step._flags(cfg, state, False)
+    words = [math.prod(t.shape[2:]) for t in out]
+    built = {}
+
+    def launch(p, ok, raw):
+        if not built:
+            args, tensors = step._launch_args(arrs, active, hoist, inv, state, cfg, p, p + 1,
+                                              None, cycles, None, None, False, {}, None, ok,
+                                              raw, out=out)
+            plan = step.plan_for(arrs, cfg, flags, 1, step._card_occupancy(lib, args),
+                                 one_pod=True)
+            step._set_geometry(args, plan)
+            built.update(args=args, tensors=tensors, plan=plan,
+                         base={f: getattr(args, f) for f in step._OUT_PTRS})
+        args = built["args"]
+        args.p0, args.p1 = p, p + 1
+        for f, w in zip(step._OUT_PTRS, words):
+            b = built["base"][f]
+            setattr(args, f, None if b is None else b + 4 * w * p)
+        args.ext_ok, args.ext_raw = ok.data_ptr(), raw.data_ptr()
+        err = lib.plain_step_launch(ctypes.byref(args),
+                                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"other launch failed: CUDA error {err}")
+        step.LAST_PLAN = built["plan"]
+    return launch
+
+
+def ext_ab(args, torch, sched, step, snap, use, cursor) -> int:
+    """--ext: northstar-ext's extension loop over the first PODS pods,
+    each way in turns: this tree's graph path (the first pod eager, one
+    pod captured, the graph replayed), this tree's eager loop, the same
+    graph path with the one-pod launches' headroom rows in shared memory
+    where they fit (the parent's plan, a variant), and the other source's
+    loop (a pod slice cut with a host index, StepArgs patched a pod): host
+    us a pod (the loop's wall, synchronised). Then each side's launches
+    alone, from rows recorded against the live carry, back to back with a
+    one-element add after each (the cursor's step; the other side's
+    launch does not read it) between two CUDA events, the stream primed
+    (device us a launch), the graph's replays from
+    the template with the stream primed, in turns with the variant's
+    (device us a pod: the callables' kernels, the launch, the cursor's
+    step) and the profiler's kernel times by name over the same replays,
+    and with --cycles each side's
+    cycles a pod by phase in one-pod launches beside the scan's (one
+    launch over the same pods with the same rows). The other source's
+    one-pod launches take the plan it took (the headroom rows in shared
+    memory where they fit)."""
     from open_simulator_tpu_torch.testing.synthetic import synthetic_extensions
 
     dev = torch.device("cuda")
@@ -380,54 +470,209 @@ def ext_ab(args, torch, sched, step, snap, sides, order, use) -> int:
     n = min(args.ext, snap.n_pods)
     rows_of = sched.extension_rows_fn(cfg)
     cols = sched.pod_columns(arrs, cfg, None, None)
-    launchers, outs, carries, rec = {}, {}, {}, []
-    for name in sides:
-        use(name)
-        carries[name] = sched.lane_carry(tmpl, 1)
-        step.copy_template(carries[name], tmpl)
-        outs[name] = step.StepOutputs(*(torch.empty((1, n) + shape, dtype=dt, device=dev)
-                                        for shape, dt in (((), torch.int32),
-                                                          ((cfg.n_ops,), torch.int32),
-                                                          ((), torch.int32), ((0,), torch.int32),
-                                                          ((0,), torch.int32), ((0,), torch.int32),
-                                                          ((0,), torch.float32),
-                                                          ((0, 0), torch.float32))))
-        launchers[name] = step.pod_launcher(arrs, active, hoist, inv, carries[name], cfg,
-                                            outs[name], 0, inputs={})
-    use("other")
-    fields = tuple(getattr(carries["other"], f) for f in sched.STATE_FIELDS)
-    for p in range(n):  # the rows, against the other side's live carry
-        ok, raw = rows_of(fields, arrs, sched.PodSlice(cols, p))
-        rec.append((ok[:, None], raw[:, None]))
-        launchers["other"](p, *rec[-1])
+    real_placements = step.placements_for
+
+    def hr_shared(wide, one_pod=False, flags=0, headroom=True):
+        return real_placements(wide, one_pod, flags)  # the headroom rows where they fit
+
+    def this_loop(graph, hrs=False):
+        use("this")
+        step.placements_for = hr_shared if hrs else real_placements
+        carry = sched.lane_carry(tmpl, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = sched._extension_scan(arrs, active, hoist, inv, carry, tmpl, cfg, 0, n, None,
+                                     None, None, graph=graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step.placements_for = real_placements
+        return wall, outs[0], carry
+
+    def other_loop():
+        use("other")
+        step.placements_for = hr_shared  # the other source's plan
+        carry = sched.lane_carry(tmpl, 1)
+        step.copy_template(carry, tmpl)
+        out = sched.ExtensionLoop(arrs, active, hoist, inv, carry, tmpl, cfg, 0, n, None, None,
+                                  None, plain=True).outs  # buffers only
+        launch = patched_launcher(torch, step, arrs, active, hoist, inv, carry, cfg, out)
+        fields = tuple(getattr(carry, f) for f in sched.STATE_FIELDS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in range(n):
+            ok, raw = rows_of(fields, arrs, _IntSlice(cols, p))
+            launch(p, ok[:, None], raw[:, None])
+        torch.cuda.synchronize()
+        step.placements_for = real_placements
+        return time.perf_counter() - t0, out[0], carry
+
+    loops = {"this, graph": lambda: this_loop(True), "this, eager": lambda: this_loop(False),
+             "this, graph, headroom in shared memory": lambda: this_loop(True, True),
+             "other, its loop": other_loop}
+    if not cursor:
+        raise SystemExit("--ext: this tree's plain_step.cu has no device cursor")
+    names = list(loops)
+    turns = names + names[::-1]
+    walls = {k: [] for k in names}
+    ref = None
+    for _ in range(args.rounds):
+        for k in turns:
+            wall, node, carry = loops[k]()
+            walls[k].append(wall)
+            got = (node.clone(), [getattr(carry, f).clone() for f in sched.STATE_FIELDS])
+            if ref is None:
+                ref = got
+            elif not (torch.equal(ref[0], got[0])
+                      and all(torch.equal(a, b) for a, b in zip(ref[1], got[1]))):
+                print(f"extension loop: {k} differs", file=sys.stderr)
+                return 1
+    for k in names:
+        t = min(walls[k])
+        print(f"extension loop, {n} pods, {k}: host {t * 1e6 / n:.3f} us a pod (min of "
+              f"{len(walls[k])}; runs {[round(x * 1e6 / n, 3) for x in walls[k]]}); outputs "
+              "and carry equal", flush=True)
+
+    # the launches alone: rows recorded once against the live carry
+    use("this")
+    carry = sched.lane_carry(tmpl, 1)
+    loop = sched.ExtensionLoop(arrs, active, hoist, inv, carry, tmpl, cfg, 0, n, None, None,
+                               None)
+    rec = []
+    for p in range(n):
+        ok, raw = rows_of(loop.fields, arrs, loop.x)
+        rec.append((ok[:, None].clone(), raw[:, None].clone()))
+        loop.launch(p, *rec[-1])
+        loop.cursor.add_(1)
     torch.cuda.synchronize()
-    times = {name: [] for name in sides}
+
+    def alone(name, hrs=False, cycles=None):
+        use(name)
+        step.placements_for = hr_shared if hrs else real_placements
+        c = sched.lane_carry(tmpl, 1)
+        step.copy_template(c, tmpl)
+        out = sched.ExtensionLoop(arrs, active, hoist, inv, c, tmpl, cfg, 0, n, None, None,
+                                  None, plain=True).outs
+        cur = torch.zeros((1,), dtype=torch.int32, device=dev)
+        if name == "other":
+            launch = patched_launcher(torch, step, arrs, active, hoist, inv, c, cfg, out, cycles)
+        else:
+            launch = step.pod_launcher(arrs, active, hoist, inv, c, cfg, out, 0, cur,
+                                       phase_cycles=cycles)
+        per = torch.zeros((len(step.PHASES),), dtype=torch.float64)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(1.0 * n * 1_980_000))  # the launches queue behind the spin
+        ev0.record()
+        for p in range(n):
+            launch(p, *rec[p])
+            cur.add_(1)  # the cursor's step (the other side's launch does not read it)
+            if cycles is not None:
+                torch.cuda.synchronize()
+                per += cycles[0].double().cpu()
+        ev1.record()
+        torch.cuda.synchronize()
+        step.placements_for = real_placements
+        return ev0.elapsed_time(ev1), per / n, out[0], step.LAST_PLAN
+
+    sides = {"this": ("this", False), "this, headroom in shared memory": ("this", True),
+             "other": ("other", True)}
+    times = {k: [] for k in sides}
     plans = {}
     for _ in range(args.rounds):
-        for name in order:
-            use(name)
-            step.copy_template(carries[name], tmpl)
+        for k in list(sides) + list(sides)[::-1]:
+            ms, _, node, plans[k] = alone(*sides[k])
+            times[k].append(ms)
+            if not torch.equal(node, ref[0]):
+                print(f"extension launches: {k} differs", file=sys.stderr)
+                return 1
+    for k in sides:
+        t, pl = min(times[k]), plans[k]
+        print(f"extension launches alone, {n} one-pod launches and cursor steps back to "
+              f"back, {k}: {t * 1e3 / n:.3f} us a "
+              f"launch ({t / min(times['other']) - 1:+.4f} against other); runs "
+              f"{[round(x * 1e3 / n, 3) for x in times[k]]}; plan C={pl.cluster} "
+              f"threads={pl.threads} headroom_in_smem={pl.headroom} "
+              f"staged={step.placement_name(pl)} smem={pl.smem}; outputs equal", flush=True)
+
+    # the graph's replays from the template, the stream primed, each plan
+    # in turns; then the profiler's kernel times over the same replays
+    # (CUPTI; "not measured" where it sees no device time)
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs = {}
+    for k, hrs in (("this", False), ("this, headroom in shared memory", True)):
+        use("this")
+        step.placements_for = hr_shared if hrs else real_placements
+        c = sched.lane_carry(tmpl, 1)
+        lp = sched.ExtensionLoop(arrs, active, hoist, inv, c, tmpl, cfg, 0, n, None, None, None)
+        lp.pod(0)
+        graphs[k] = (lp, c, lp.capture(1))
+        step.placements_for = real_placements
+    pods = {k: [] for k in graphs}
+    for _ in range(args.rounds):
+        for k in list(graphs) + list(graphs)[::-1]:
+            lp, c, graph = graphs[k]
+            step.copy_template(c, tmpl)
+            lp.cursor.fill_(0)
             torch.cuda.synchronize()
+            torch.cuda._sleep(int(0.05 * n * 1_980_000))
             ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(int(0.1 * n * 1_980_000))  # the launches queue behind the spin
             ev0.record()
-            for p in range(n):
-                launchers[name](p, *rec[p])
+            for _ in range(n):
+                graph.replay()
             ev1.record()
             torch.cuda.synchronize()
-            times[name].append(ev0.elapsed_time(ev1))
-            plans[name] = step.LAST_PLAN
-    for name in sides[1:]:
-        if not torch.equal(outs[name].node, outs["other"].node):
-            print(f"extension launches: {name} and other differ", file=sys.stderr)
-            return 1
-    for name in sides:
-        t = min(times[name])
-        print(f"extension loop, {n} one-pod launches, {name}: min {t:.3f} ms "
-              f"({t * 1e3 / n:.3f} us a launch; {t / min(times['other']) - 1:+.4f} against "
-              f"other); runs {[round(x, 3) for x in times[name]]}; plan C={plans[name].cluster} "
-              f"threads={plans[name].threads} staged={step.placement_name(plans[name])}; "
-              "outputs equal", flush=True)
+            pods[k].append(ev0.elapsed_time(ev1))
+            if not torch.equal(lp.outs.node, ref[0]):
+                print(f"extension graph replays differ ({k})", file=sys.stderr)
+                return 1
+    for k, (lp, c, graph) in graphs.items():
+        print(f"extension graph, {k}, {n} replays from the template, the stream primed: "
+              f"{min(pods[k]) * 1e3 / n:.3f} us of device a pod (runs "
+              f"{[round(x * 1e3 / n, 3) for x in pods[k]]}); outputs equal", flush=True)
+        step.copy_template(c, tmpl)
+        lp.cursor.fill_(0)
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    graph.replay()
+                torch.cuda.synchronize()
+            kernels = sorted(((e.key, e.count, getattr(e, "device_time_total", 0.0))
+                              for e in prof.key_averages()), key=lambda x: -x[2])
+        except RuntimeError as err:  # the sandboxed card may refuse CUPTI
+            kernels = []
+            print(f"extension graph: the profiler failed ({err})", flush=True)
+        busy = sum(x[2] for x in kernels)
+        if not busy:
+            print("extension graph, kernel times by name: not measured (the profiler saw no "
+                  "device time)", flush=True)
+        else:
+            print(f"extension graph, {k}, kernel times by name over {n} replays: "
+                  f"{busy / n:.3f} us of kernels a pod, {len(kernels)} names; "
+                  + "; ".join(f"{name[:60]} x{cnt / n:g} {t / n:.3f} us a pod"
+                              for name, cnt, t in kernels[:24]), flush=True)
+    del graphs
+
+    if args.cycles:
+        for k, (name, hrs) in sides.items():
+            cyc = torch.zeros((1, len(step.PHASES)), dtype=torch.int64, device=dev)
+            _, per, _, _ = alone(name, hrs, cyc)
+            print(f"extension launches, {k}: cycles a one-pod launch by phase "
+                  + ", ".join(f"{ph} {v:.1f}" for ph, v in zip(step.PHASES, per.tolist()))
+                  + f"; total {float(per.sum()):.1f}", flush=True)
+        use("this")
+        c = sched.lane_carry(tmpl, 1)
+        cyc = torch.zeros((1, len(step.PHASES)), dtype=torch.int64, device=dev)
+        ok = torch.cat([r[0] for r in rec], 1)
+        raw = torch.cat([r[1] for r in rec], 1)
+        step.plain_step_cuda(arrs, active, hoist, inv, c, cfg, 0, n, template=tmpl,
+                             phase_cycles=cyc, ext_ok=ok, ext_raw=raw)
+        per = (cyc[0].double() / n).tolist()
+        print(f"extension scan (one launch over the {n} pods, the same rows), this: cycles a "
+              "pod by phase " + ", ".join(f"{ph} {v:.1f}" for ph, v in zip(step.PHASES, per))
+              + f"; total {sum(per):.1f}; plan C={step.LAST_PLAN.cluster} "
+              f"threads={step.LAST_PLAN.threads}", flush=True)
     return 0
 
 

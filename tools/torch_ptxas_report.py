@@ -7,10 +7,12 @@ Compiles every library of ``open_simulator_tpu_torch/csrc`` (one nvcc per
 library, started together, as ``kernels/build.build_all``) and prints one
 line per kernel function: its library, its name (the ``plain_step``
 builds as ``<kInterpod,kDevRes>`` with ``+columns``, ``+frozen``,
-``+fleet`` and ``+explain``), registers, stack frame and spill bytes.
-``--beside`` (repeatable) compiles another ``plain_step.cu`` (an earlier
-commit's) with the same flags, both libraries, and prints each build's
-registers beside the package's. Exits 1 if any kernel of the package spills.
+``+fleet``, ``+explain`` and ``+ext``), registers, stack frame and spill
+bytes. ``--beside`` (repeatable) compiles another ``plain_step.cu`` (an
+earlier commit's) with the same flags, both libraries, and prints each
+build's registers beside the package's, and beside the package's twin
+with the extension rows (``plain_step_ext``, ``plain_step_ext_explain``)
+where there is one. Exits 1 if any kernel of the package spills.
 Needs nvcc (the machine with the card).
 """
 
@@ -25,7 +27,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-_STEP = re.compile(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E")
+_STEP = re.compile(r"plain_step_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E"
+                   r"(?:Lb([01])E)?")
 _FLEET = re.compile(r"plain_step_fleet_kernelILb([01])ELb([01])ELb([01])E")
 _FUNC = re.compile(r"Compiling entry function '(\w+)'|Function properties for (\w+)")
 
@@ -34,9 +37,9 @@ def kernel_name(mangled: str) -> str:
     """A plain_step build's short name, else the mangled name."""
     m = _STEP.search(mangled)
     if m:
-        i, d, c, f, x = m.groups()
+        i, d, c, f, x, e = m.groups()
         return (f"<{i},{d}>" + ("+columns" if c == "1" else "") + ("+frozen" if f == "1" else "")
-                + ("+explain" if x == "1" else ""))
+                + ("+explain" if x == "1" else "") + ("+ext" if e == "1" else ""))
     m = _FLEET.search(mangled)
     if m:
         i, d, x = m.groups()
@@ -107,11 +110,17 @@ def main() -> int:
     for src in args.beside:
         beside[src] = build_beside(src)
         for lib, kernels in beside[src].items():
+            ext_lib = lib.replace("plain_step", "plain_step_ext", 1)
             for name, r in sorted(kernels.items()):
-                now = report.get(lib, {}).get(name, {})
-                print(f"beside {os.path.basename(src)} {lib:20s} {name:28s} registers "
-                      f"{r.get('registers')} -> {now.get('registers')} spill_stores "
-                      f"{r.get('spill_store_bytes')} -> {now.get('spill_store_bytes')}")
+                for now_lib, now_name in ((lib, name), (ext_lib, name + "+ext")):
+                    now = report.get(now_lib, {}).get(now_name)
+                    if now is None and now_lib != lib:
+                        continue
+                    now = now or {}
+                    print(f"beside {os.path.basename(src)} {lib:20s} {name:28s} registers "
+                          f"{r.get('registers')} -> {now.get('registers')} ({now_lib} "
+                          f"{now_name}) spill_stores {r.get('spill_store_bytes')} -> "
+                          f"{now.get('spill_store_bytes')}")
     if beside:
         report["beside"] = beside
     spilled = []
