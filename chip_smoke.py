@@ -79,7 +79,10 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    waves, each frozen launch's outputs on lanes 0 and 63 against the
    plain step's frozen form and each merge against the plain merge on
    every lane and carry field; the same with the top-k and the jitter
-   on ("+frozen+explain"); then the wide library: the device-resource
+   on ("+frozen+explain"), at the launch plan's group size; then one
+   wave of every frozen build (``<0,0>`` too, and each explain twin) at
+   one pod a cluster, at a group of 3 (straddling the 32-pod wave's end)
+   and, with a weight row a lane, at the plan's; then the wide library: the device-resource
    cluster at 1,024 x 2,048 widened to 9 volume groups, 33 exclusive
    devices and 9 WaitForFirstConsumer claims a pod
    (``testing.widen_device_resources``; ``<0,1>`` and ``<1,1>``) against
@@ -151,13 +154,17 @@ Phases, in order (any failure exits nonzero; each prints its wall time):
    wall, prior placements kept except the victims, the final placements
    equal to simulate()'s; then ``pools``: launch counts reset,
    ``simulate()`` at one lane, counts read (one frozen launch and one
-   merge per wave, no scan launch), the plan and its ``wave_id`` /
+   merge per wave, no scan launch, the wave loop one CUDA graph replayed
+   for all but its first wave), the plan and its ``wave_id`` /
    ``wave_batched`` decode checked, the planner timed; the wave path's
    kernels timed (each launch between CUDA events, min of 3) beside the
    scan kernel over the same pods, outputs and every carry field equal
-   to the scan's, placements equal to simulate()'s; the first 16 waves
-   against the plain versions; the bench's 64-lane ``schedule_lanes``
-   with the plan against the scan's; the same cluster with 64 new-node
+   to the scan's, placements equal to simulate()'s; the engine's wave
+   loop (its graph against its eager loop: the wall a wave, the graph's
+   replays' wall and device time a wave, the card's idle share in them);
+   the first 16 waves against the plain versions; the bench's 64-lane
+   ``schedule_lanes`` with the plan against the scan's (the one 64-lane
+   frozen launch's bound, the loop again at 64 lanes); the same cluster with 64 new-node
    slots through ``capacity_sweep`` (64 lanes), the same sweep under the
    traced weights at the config's own vector (``pools-traced``: every
    frozen launch with the weight row, the constant sweep's plan digest) and
@@ -249,6 +256,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -339,6 +347,31 @@ def read_counts() -> dict:
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
+
+
+class GcClock:
+    """The cyclic garbage collector's pauses on the host clock (its
+    ``gc.callbacks``): ``since(mark())`` says how much of a wall the
+    collector took, and in how many full (generation-2) passes."""
+
+    def __init__(self) -> None:
+        self.s, self.full, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+
+    def mark(self):
+        return self.s, self.full
+
+    def since(self, mark) -> str:
+        return f"gc pauses {self.s - mark[0]:.3f} s ({self.full - mark[1]} full)"
+
+
+GC = GcClock()
 
 
 def card_line() -> str:
@@ -531,7 +564,7 @@ def geometry_fields(plan):
 
     return {"cluster": plan.cluster, "threads": plan.threads, "slice": plan.slice_len,
             "headroom_in_smem": plan.headroom, "staged": placement_name(plan),
-            "smem_bytes": plan.smem, "resident_clusters": plan.resident}
+            "smem_bytes": plan.smem, "resident_clusters": plan.resident, "group": plan.group}
 
 
 def geometry(plan):
@@ -1545,15 +1578,34 @@ def merge_work(a, cfg, n_lanes, lo, hi, gpu):
     return nbytes, n_lanes * cells * c
 
 
-def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np, n_waves):
+class HeldGroup:
+    """The frozen form's group size held to `g` (``kernels/step.
+    frozen_group``) inside the block (None: the plan's own)."""
+
+    def __init__(self, step, g):
+        self.step, self.g = step, g
+
+    def __enter__(self):
+        self.real = self.step.frozen_group
+        if self.g is not None:
+            self.step.frozen_group = lambda *a, **k: self.g
+
+    def __exit__(self, *exc):
+        self.step.frozen_group = self.real
+
+
+def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np, n_waves,
+                group=None, weights=None):
     """The wave form on the card against its plain versions, over the first
     `n_waves` waves of the plan's first GRID on every lane of `masks_np`:
     each frozen launch's outputs on the first and last lane against the
     plain step's frozen form on those two lanes (and the carry left as it
     was), then the merge kernel against the plain merge on every lane and
-    carry field. Returns the instantiation, the wave width, the pods and
-    lanes, the kernels' and plain versions' times over those waves and the
-    largest difference."""
+    carry field. `group` holds the frozen form's group size (None: the
+    plan's); `weights` ([S, K] f32 on the card, under the traced weights)
+    is every launch's weight row. Returns the instantiation, the group
+    size, the wave width, the pods and lanes, the kernels' and plain
+    versions' times over those waves and the largest difference."""
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     plan = waves_mod.waves_for(snap.arrays, cfg)
@@ -1575,16 +1627,21 @@ def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np,
     inputs, merge_inputs = {}, {}
     ms_k = ms_p = ms_m = ms_mp = err = 0.0
     equal = True
+    groups = set()
     for w0 in range(lo, lo + n_waves * w, w):
         w1 = w0 + w
         sub = sched.SimState(**{f: getattr(st, f)[ends].clone() for f in sched.STATE_FIELDS})
         got = []
-        ms_k += cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
-            arrs, active, hoist, inv, st, cfg, w0, w1, frozen=True, inputs=inputs)), prime_ms=2)
+        with HeldGroup(step, group):
+            ms_k += cuda_ms(torch, lambda: got.append(step.plain_step_cuda(
+                arrs, active, hoist, inv, st, cfg, w0, w1, frozen=True, inputs=inputs,
+                weights=weights)), prime_ms=2)
+        groups.add(step.LAST_PLAN.group)
         out_k = got[0]
         t0 = time.perf_counter()
         out_p = step.plain_step_torch(arrs, active[ends], sub_hoist, inv, sub, cfg, w0, w1,
-                                      frozen=True)
+                                      frozen=True,
+                                      weights=None if weights is None else weights[ends])
         torch.cuda.synchronize()
         ms_p += (time.perf_counter() - t0) * 1e3
         ok, e = compare(torch, [x[ends] for x in out_k], out_p,
@@ -1604,8 +1661,11 @@ def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np,
         equal &= ok
         err = max(err, e)
     placed = int((st.headroom != tmpl.headroom[None]).any(2).sum())
+    if group is not None and groups != {group}:
+        raise SystemExit(f"wave parity {label}: the launches took groups {groups}, not {group}")
     log(f"wave parity {label} {inst}: lanes={n_lanes} waves={n_waves} of width {w} "
-        f"{geometry(step.LAST_PLAN)} frozen kernel {ms_k:.3f} ms, plain (lanes 0 and "
+        f"weights={weights is not None} {geometry(step.LAST_PLAN)} frozen kernel {ms_k:.3f} ms, "
+        f"plain (lanes 0 and "
         f"{n_lanes - 1}) {ms_p:.1f} ms; merge kernel {ms_m:.3f} ms, plain merge {ms_mp:.1f} ms; "
         f"nodes with binds {placed} equal={equal} max_abs_err={err} "
         f"phase_s={time.perf_counter() - t_phase:.1f}")
@@ -1614,9 +1674,68 @@ def wave_parity(torch, sched, step, wave, waves_mod, label, snap, cfg, masks_np,
                          "disagree")
     if not placed:
         raise SystemExit(f"wave parity {label}: no wave bound a pod")
-    return {"instantiation": inst, "lanes": n_lanes, "waves": n_waves, "width": w,
+    return {"instantiation": inst, "group": step.LAST_PLAN.group, "lanes": n_lanes,
+            "waves": n_waves, "width": w, "weights": weights is not None,
             "pods": n_waves * w, "frozen_ms": ms_k, "frozen_plain_ms": ms_p, "merge_ms": ms_m,
             "merge_plain_ms": ms_mp, "max_abs_err": err}
+
+
+def wave_loop_timing(torch, sched, step, arrs, act, hst, inv, tmpl, cfg, plan, n_pods, label):
+    """The engine's wave loop (``engine/scheduler._run_wave_plan``) over the
+    plan's one GRID on `act`'s lanes: its wall a wave with the CUDA graph
+    and eagerly (host clock, synchronised; in turns, two runs each; the
+    outputs and carry equal), then one captured wave's replays
+    (``WaveRuns``): their wall a wave (host clock) and their device time a
+    wave (CUDA events, the stream primed), and the card's idle share in
+    the replays (1 - device / wall)."""
+    (lo, hi, kind, w), = plan.segments
+    n_waves, n_lanes = (hi - lo) // w, act.shape[0]
+    walls, got = {True: [], False: []}, {}
+    for graph in (True, False, False, True):
+        carry = sched.lane_carry(tmpl, n_lanes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = sched._run_wave_plan(arrs, act, hst, inv, carry, tmpl, cfg, plan, 0, n_pods,
+                                    graph=graph)
+        torch.cuda.synchronize()
+        walls[graph].append(time.perf_counter() - t0)
+        got[graph] = (outs, carry)
+    equal, err = compare(torch, got[True][0][:5], got[False][0][:5], got[True][1], got[False][1])
+    if not equal:
+        raise SystemExit(f"main path {label}: the wave loop's graph and its eager loop disagree")
+    carry = sched.lane_carry(tmpl, n_lanes)
+    step.copy_template(carry, tmpl)
+    runs = sched.WaveRuns(arrs, act, hst, inv, carry, cfg, 0, n_pods)
+    runs.cursor.fill_(lo)
+    runs.wave(w)
+    replayed = runs.capture(w)
+    n = n_waves - 1
+    rep_wall, rep_dev = [], []
+    for _ in range(2):
+        step.copy_template(carry, tmpl)
+        runs.cursor.fill_(lo + w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            replayed.replay()
+        torch.cuda.synchronize()
+        rep_wall.append((time.perf_counter() - t0) * 1e3 / n)
+        step.copy_template(carry, tmpl)
+        runs.cursor.fill_(lo + w)
+        rep_dev.append(cuda_ms(torch, lambda: [replayed.replay() for _ in range(n)],
+                               prime_ms=PRIME_MS * 2) / n)
+    out = {"waves": n_waves, "graph_ms_per_wave": min(walls[True]) * 1e3 / n_waves,
+           "eager_ms_per_wave": min(walls[False]) * 1e3 / n_waves,
+           "replay_wall_ms_per_wave": min(rep_wall), "replay_device_ms_per_wave": min(rep_dev),
+           "idle_share": 1 - min(rep_dev) / min(rep_wall), "equal": equal}
+    log(f"main path {label}: the wave loop, {n_lanes} lane(s), {n_waves} waves: graph "
+        f"{out['graph_ms_per_wave']:.4f} ms of wall a wave (runs "
+        f"{[round(x * 1e3 / n_waves, 4) for x in walls[True]]}), eager "
+        f"{out['eager_ms_per_wave']:.4f} ms (runs {[round(x * 1e3 / n_waves, 4) for x in walls[False]]}); "
+        f"the graph's {n} replays {out['replay_wall_ms_per_wave'] * 1e3:.3f} us of wall a wave, "
+        f"{out['replay_device_ms_per_wave'] * 1e3:.3f} us of device (the stream primed): the card "
+        f"idles {out['idle_share']:.4f} of them; graph and eager outputs and carry equal: {equal}")
+    return out
 
 
 def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cluster_cls,
@@ -1635,16 +1754,18 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
 
     from open_simulator_tpu_torch.testing.synthetic import synthetic_objects, synthetic_snapshot
 
-    t_phase = time.perf_counter()
+    t_phase, gc0 = time.perf_counter(), GC.mark()
     nodes, pods, _ = synthetic_objects(POOLS["nodes"], POOLS["pods"], pools=POOLS["pools"])
     cluster = cluster_cls(nodes=nodes, pods=pods)
-    log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s")
+    log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s, "
+        f"{GC.since(gc0)}")
     reset_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0, gc0 = time.perf_counter(), GC.mark()
     result = simulate(cluster, [], device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    gc_wall = GC.since(gc0)
     launches = read_counts()
     snap = result.snapshot
     n_pods = snap.n_pods
@@ -1656,8 +1777,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
     plan = waves_mod.waves_for(snap.arrays, cfg, n_pods_total=n_total)
     wid, wbat = plan.pod_waves()
     log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
-        f"scheduled={len(result.scheduled_pods)} launches={launches} plan {plan.stats()} "
-        f"segments={plan.segments} planner_s={planner_s:.3f}")
+        f"({gc_wall}) scheduled={len(result.scheduled_pods)} launches={launches} plan "
+        f"{plan.stats()} segments={plan.segments} planner_s={planner_s:.3f}")
     if tuple(fresh) != tuple(plan) or plan.segments != ((0, n_pods, waves_mod.GRID,
                                                          POOLS["pools"]),):
         raise SystemExit(f"main path {label}: not the one GRID of width {POOLS['pools']}")
@@ -1665,6 +1786,9 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
             plan.n_waves, plan.n_waves, 0):
         raise SystemExit(f"main path {label}: launches {launches}, not one frozen step and one "
                          f"merge for each of the {plan.n_waves} waves")
+    if (launches["wave_graphs"], launches["wave_replays"]) != (1, plan.n_waves - 1):
+        raise SystemExit(f"main path {label}: the wave loop did not replay one CUDA graph for "
+                         f"all but its first wave ({launches})")
     if not (np.array_equal(result.wave_id, wid[:n_pods])
             and np.array_equal(result.wave_batched, wbat[:n_pods])):
         raise SystemExit(f"main path {label}: wave_id / wave_batched are not the plan's")
@@ -1749,6 +1873,9 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
         raise SystemExit(f"main path {label}: the timed wave run and simulate() placed pods "
                          "differently")
 
+    loop_1 = wave_loop_timing(torch, sched, step, arrs, active, hoist, inv, tmpl, cfg, plan,
+                              n_pods, label)
+
     # the first WAVE_SAME waves, one lane: the kernels' outputs and the carry
     # after the last merge against their plain versions
     q = WAVE_SAME * w
@@ -1825,6 +1952,16 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
     eq64, err64 = compare(torch, lanes_w[:5], lanes_scan[:5], lanes_w.state, lanes_scan.state)
     if not eq64 or lane_launches["plain_step_frozen"] != lplan.n_waves:
         raise SystemExit(f"main path {label}: the 64-lane wave run is not the scan's")
+    if lane_launches["wave_replays"] != lplan.n_waves - 1:
+        raise SystemExit(f"main path {label}: the 64-lane wave loop ran eagerly "
+                         f"({lane_launches})")
+    # the bound of one 64-lane frozen launch (the first wave): each lane's
+    # carry and tables read once, the pods' rows and the outputs
+    fb64 = bound_of(frozen_work(sched, snap.arrays, lcfg, 0, w,
+                                [tuple(x[s, :w].cpu().numpy() for x in lanes_w[:3])
+                                 for s in range(CAPACITY_LANES)]))
+    log(f"main path {label}: one {CAPACITY_LANES}-lane frozen launch (the first wave): bound "
+        f"{fb64[2]:.5f} ms ({fb64[3]}: bytes={fb64[0]} ops={fb64[1]})")
     del lanes_w, lanes_scan
     masks_t = torch.from_numpy(masks).to(dev)
     hoist64 = sched.hoist_of(arrs, masks_t)
@@ -1845,6 +1982,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
         f"kernel {min(scan64):.3f} ms (min of 3: {[round(t, 3) for t in scan64]}, "
         f"{geometry(step.LAST_PLAN)})")
     del dev64, carry64
+    loop_64 = wave_loop_timing(torch, sched, step, arrs, masks_t, hoist64, inv, tmpl, lcfg, lplan,
+                               n_pods, f"{label}-{CAPACITY_LANES}")
 
     # the same cluster with 64 new-node slots: capacity_sweep and its bisection
     snap_n = synthetic_snapshot(POOLS["nodes"], POOLS["pods"], max_new=CAPACITY_LANES,
@@ -1860,7 +1999,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
     sweep_launches = read_counts()
     splan = waves_mod.waves_for(snap_n.arrays, cfg_n._replace(fail_reasons=False),
                                 n_pods_total=n_total)
-    if sweep_launches["plain_step_frozen"] != splan.n_waves or not all(cap.all_scheduled):
+    if (sweep_launches["plain_step_frozen"] != splan.n_waves or not all(cap.all_scheduled)
+            or sweep_launches["wave_replays"] != splan.n_waves - 1):
         raise SystemExit(f"capacity {label}: the sweep ran {sweep_launches} or left pods out")
     # pools-traced: the same sweep under the traced weights at the
     # config's own vector, every launch with the [64, K] weight row (the
@@ -1879,7 +2019,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
                                                               traced_weights=True),
                                 n_pods_total=n_total)
     if (digest_t != digest or traced_launches["plain_step_weights"] != n_launch
-            or traced_launches["plain_step_frozen"] != tplan.n_waves):
+            or traced_launches["plain_step_frozen"] != tplan.n_waves
+            or traced_launches["wave_replays"] != tplan.n_waves - 1):
         raise SystemExit(f"capacity {label}-traced: plan {digest_t} (constant {digest}), "
                          f"launches {traced_launches}")
     log(f"capacity {label}-traced-64: capacity_sweep traced_weights=True wall_s={traced_s:.3f} "
@@ -1915,7 +2056,7 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
         "scheduled": len(result.scheduled_pods),
         "wave_ms": wave_ms, "wave_ms_runs": wave_runs, "device_ms": dev_ms,
         "frozen_ms": sum(frozen_ms), "merge_ms": sum(merge_ms),
-        "frozen_geometry": geometry_fields(plan_1),
+        "frozen_geometry": geometry_fields(plan_1), "loop": loop_1,
         "scan_ms": min(scan_runs), "scan_ms_runs": scan_runs,
         "frozen_bound_ms": full_fb[2], "frozen_bound_by": full_fb[3],
         "max_abs_err": max(err, same_err, err64, par["max_abs_err"]),
@@ -1927,7 +2068,8 @@ def pools_path(torch, sched, step, wave, waves_mod, buckets, simulate, sweep, cl
                       "merge_bound_by": mb[3]},
         "lanes_64": {"wall_s": lanes_s, "scan_wall_s": lanes_scan_s, "launches": lane_launches,
                      "device_ms": dev64_ms, "frozen_ms": sum(frozen64),
-                     "merge_ms": sum(merge64), "scan_ms": min(scan64),
+                     "merge_ms": sum(merge64), "scan_ms": min(scan64), "loop": loop_64,
+                     "frozen_bound_ms": fb64[2], "frozen_bound_by": fb64[3],
                      "frozen_geometry": geometry_fields(plan_64)},
         "sweep_64": {"wall_s": sweep_s, "launches": sweep_launches, "plan_digest": digest},
         "sweep_64_traced": {"wall_s": traced_s, "launches": traced_launches,
@@ -2349,28 +2491,34 @@ def pools_explain_path(torch, sched, step, wave, waves_mod, buckets, simulate, c
 
     from open_simulator_tpu_torch.testing.synthetic import synthetic_objects
 
-    t_phase = time.perf_counter()
+    t_phase, gc0 = time.perf_counter(), GC.mark()
     nodes, pods, _ = synthetic_objects(POOLS["nodes"], POOLS["pods"], pools=POOLS["pools"])
     cluster = cluster_cls(nodes=nodes, pods=pods)
+    log(f"main path {label}: cluster objects built in {time.perf_counter() - t_phase:.1f}s, "
+        f"{GC.since(gc0)}")
     reset_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0, gc0 = time.perf_counter(), GC.mark()
     result = simulate(cluster, [], device="cuda", config_overrides={"explain_topk": EXPLAIN_K})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    gc_wall = GC.since(gc0)
     launches = read_counts()
     snap = result.snapshot
     n_pods = snap.n_pods
     cfg = sched.make_config(snap, explain_topk=EXPLAIN_K)
     plan = waves_mod.waves_for(snap.arrays, cfg, n_pods_total=buckets.bucket_pods(n_pods))
     log(f"main path {label}: simulate() {snap.n_nodes} nodes x {n_pods} pods wall_s={wall:.3f} "
-        f"scheduled={len(result.scheduled_pods)} launches={launches} plan {plan.stats()}")
+        f"({gc_wall}) scheduled={len(result.scheduled_pods)} launches={launches} plan "
+        f"{plan.stats()}")
     if (launches["plain_step_frozen_explain"], launches["wave_merge"],
             launches["plain_step_explain"], launches["plain_step"]) != (
             plan.n_waves, plan.n_waves, 0, 0) or plan.segments != (
-            (0, n_pods, waves_mod.GRID, POOLS["pools"]),):
+            (0, n_pods, waves_mod.GRID, POOLS["pools"]),) or (
+            launches["wave_graphs"], launches["wave_replays"]) != (1, plan.n_waves - 1):
         raise SystemExit(f"main path {label}: launches {launches}, not one frozen explain "
-                         f"launch and one merge for each of the {plan.n_waves} waves")
+                         f"launch and one merge for each of the {plan.n_waves} waves, all but "
+                         "the first replayed from one CUDA graph")
     par = wave_parity(torch, sched, step, wave, waves_mod, f"{label}-first-{WAVE_SAME}-waves",
                       snap, cfg, np.asarray(snap.arrays.active)[None], WAVE_SAME)
     if par["instantiation"] != "<0,0>+frozen+explain":
@@ -3765,6 +3913,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    gc.callbacks.append(GC)
     try:
         from open_simulator_tpu_torch import core
         from open_simulator_tpu_torch.core import simulate
@@ -3796,7 +3945,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    COUNTERS.extend([step.LAUNCHES, wave.LAUNCHES, sched.EXTENSION_LOOP])
+    COUNTERS.extend([step.LAUNCHES, wave.LAUNCHES, sched.EXTENSION_LOOP, sched.WAVE_LOOP])
     dev_name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {dev_name}")
@@ -4048,9 +4197,13 @@ def main() -> int:
 
     # the wave form of the three instantiations beside the pools path's
     # <0,0>: pools clusters with the inter-pod terms, with GPU share, and
-    # with both, 64 lanes, the first waves against the plain versions
-    wave_par = {}
-    for inst, kw in (("<1,0>", dict(interpod=True)), ("<0,1>", dict(gpu=True)),
+    # with both, 64 lanes, the first waves against the plain versions at the
+    # plan's group; then every frozen build (the four gate combinations and
+    # their explain twins) at one pod a cluster and at a group of 3 (the
+    # last of a 32-pod wave's groups holds 2), and at the plan's group with
+    # a weight row a lane: one wave each
+    wave_par, group_par = {}, []
+    for inst, kw in (("<0,0>", {}), ("<1,0>", dict(interpod=True)), ("<0,1>", dict(gpu=True)),
                      ("<1,1>", dict(gpu=True, interpod=True))):
         snap_w = wave_pools_snapshot(512, 4096, 32, **kw)
         n_w = snap_w.n_nodes
@@ -4059,12 +4212,26 @@ def main() -> int:
         for over, name in (({}, inst + "+frozen"),
                            ({"explain_topk": EXPLAIN_K, "tie_break_seed": TIE_SEED},
                             inst + "+frozen+explain")):
-            got = wave_parity(torch, sched, step, wave, waves_mod, f"pools-512x4096-{name}",
-                              snap_w, sched.make_config(snap_w, **over), masks_w,
-                              WAVE_PARITY_WAVES)
-            if got["instantiation"] != name:
-                raise SystemExit(f"wave parity {name}: ran {got['instantiation']}")
-            wave_par[got["instantiation"]] = got
+            runs = [(None, False, WAVE_PARITY_WAVES)] if inst != "<0,0>" else []
+            for group, traced, n_waves in runs + [(1, False, 1), (3, False, 1), (None, True, 1)]:
+                cfg_g = sched.make_config(snap_w, traced_weights=traced, **over)
+                w_g = None
+                if traced:
+                    w_g = torch.from_numpy(
+                        (np.tile(sched.weight_vector(cfg_g), (CAPACITY_LANES, 1))
+                         * rng.uniform(0.5, 1.5, (CAPACITY_LANES, 1))).astype(np.float32)
+                    ).to("cuda")
+                tag = "" if group is None and not traced else (
+                    f"-G{group or 'plan'}" + ("-weights" if traced else ""))
+                got = wave_parity(torch, sched, step, wave, waves_mod,
+                                  f"pools-512x4096-{name}{tag}", snap_w, cfg_g, masks_w,
+                                  n_waves, group=group, weights=w_g)
+                if got["instantiation"] != name:
+                    raise SystemExit(f"wave parity {name}: ran {got['instantiation']}")
+                if tag:
+                    group_par.append(got)
+                else:
+                    wave_par[got["instantiation"]] = got
 
     # the device-resource walks past their per-thread widths (the wide
     # library): the device-resource cluster widened to 9 volume groups, 33
@@ -4233,16 +4400,21 @@ def main() -> int:
         "replaces": "open_simulator_tpu/engine/scheduler.py:581",
         "launches": pools_p["launches"]["plain_step_frozen"],
         "instantiations": frozen_insts,
-        "max_abs_err": max([pools_p["max_abs_err"]] + [v["max_abs_err"] for v in wave_par.values()]),
+        "max_abs_err": max([pools_p["max_abs_err"]] + [v["max_abs_err"] for v in wave_par.values()]
+                           + [v["max_abs_err"] for v in group_par]),
         "pods": same_w["pods"], "ms": same_w["frozen_ms"], "plain_ms": same_w["frozen_plain_ms"],
         "bound_ms": same_w["frozen_bound_ms"], "bound_by": same_w["frozen_bound_by"],
         "library_ms": None, "paths": {"pools": pools_p},
+        "group_parity": [{k: v[k] for k in ("instantiation", "group", "weights", "lanes",
+                                            "pods", "max_abs_err")} for v in group_par],
         "parity": f"bit-exact vs the plain step's frozen form over the first {WAVE_SAME} waves "
                   "of the one-lane pools run and the first "
                   f"{WAVE_PARITY_WAVES} waves of lanes 0 and 63 of the pools sweep (<0,0>) and "
                   "of 64-lane pools 512x4096 with inter-pod terms (<1,0>), GPU share (<0,1>) "
-                  "and both (<1,1>); the pools wave runs equal the scan in every output and "
-                  "carry field",
+                  "and both (<1,1>), at the plan's group; one wave of every frozen build at "
+                  "groups of 1 and 3 and, with a weight row a lane, at the plan's; the pools "
+                  "wave runs (graph and eager loops) equal the scan in every output and carry "
+                  "field",
     }, {
         "name": "wave_merge", "route": "cuda",
         "source": "open_simulator_tpu_torch/csrc/wave_merge.cu",

@@ -81,10 +81,10 @@
 // columns, spec_id, node_dom, has_key) are copied once a launch in the
 // lane prologue (RES_STAGE_NODE). A plan whose slice cannot hold them
 // drops the class rows first, then the node rows, and reads them where
-// they lie; the frozen form and the extension loop's one-pod launches
-// stage neither (their one pod would not repay the copy), the
-// device-resource builds no class rows, `<1,1>` no node rows (registers:
-// that code is compiled out of those builds).
+// they lie; the extension loop's one-pod launches stage neither (their one
+// pod would not repay the copy), the device-resource builds no class rows,
+// `<1,1>` no node rows (registers: that code is compiled out of those
+// builds); the frozen form stages as the scan does, a group's pods at once.
 //
 // Ownership. A node's carry rows (headroom, ports, group_count, term_block,
 // pref_paint and the device-resource rows) are read and written only by the
@@ -143,14 +143,17 @@
 // replaces the reference's _grid_step and the BATCH segment's
 // jax.vmap(step(frozen, .)), scheduler.py:581-590, :627-635): the wave
 // planner (engine/waves.py) has proved a run of pods carry-independent, so
-// each pod is evaluated against the lane's wave-start carry. The grid is
-// S x P' clusters, cluster j of lane s running phases 0 to round B of pod
-// p0 + j and writing its phase-3 outputs (node, reason row, feasible count,
-// GPU pick against the wave-start gpu_used, PV picks -1), with no lane
-// prologue, no bind and no write-back: the carry is only read, and the wave
-// merge (csrc/wave_merge.cu) folds the binds in afterwards. It is built
-// only without the columns (a plan is dropped under them), so the eight
-// scan builds keep their code.
+// each pod is evaluated against the lane's wave-start carry, which the
+// launch only reads; the wave merge (csrc/wave_merge.cu) folds the binds
+// in afterwards. It is a body of its own (frozen_body, below the scan's):
+// a cluster serves one lane and a group of StepArgs.grp of its pods, so
+// the prologue, the staged rows, each node's carry reads and the cluster
+// rounds are paid once a group (its comment has the design; PERF.md the
+// measurement that led to it: at 64 lanes one pod a cluster ran 2,048
+// clusters in 16 rounds). It is built only without the columns (a plan is
+// dropped under them), so the eight scan builds keep their code. With
+// StepArgs.cursor it reads its wave's first pod from the card (the engine's
+// wave loop, replayed as a CUDA graph).
 //
 // Explain and the seeded tie-break (the fifth template flag, kExplain;
 // replaces the reference's explain top-k and tie-break jitter,
@@ -204,7 +207,8 @@
 // 0 x value in its place in the sum, as in the reference.
 //
 // Per-phase cycle counts (StepArgs.cycles, null unless asked): thread 0 of
-// rank 0 reads clock64() at each phase boundary and sums over the pods.
+// rank 0 reads clock64() at each phase boundary and sums over the pods (the
+// frozen form: of each lane's first cluster, over its group).
 //
 // The extension rows (StepArgs.ext_ok / ext_raw; replaces the reference's
 // out-of-tree extension ops in _step, scheduler.py:1051-1054, :1171-1184,
@@ -295,9 +299,9 @@ static_assert(!(kWideLib && kExtLib), "the wide library keeps its own extension 
 // spill): 128 registers a thread, 168 with the device-resource walks; the
 // fleet builds (their StepArgs in shared memory, not in the constant bank)
 // and the wide library's builds take 168 and 255, and so do the explain
-// library's scan builds and its device-resource builds (the top-k's lists
-// and part rows beside the staged regions); the launcher picks the block
-// size under the cap (kernels/step.py:max_threads)
+// library's builds (the top-k's lists and part rows beside the staged
+// regions; its grouped frozen builds spill 4 bytes at 128); the launcher
+// picks the block size under the cap (kernels/step.py:max_threads)
 constexpr int kMaxThreads = 512;
 constexpr int kMaxThreadsDevRes = 384;
 constexpr int kMaxThreadsWide = 384;
@@ -309,10 +313,10 @@ constexpr int kMaxThreadsExplainDevRes = 256;
 constexpr int kMaxThreadsExt = 384;
 
 __host__ __device__ constexpr int max_threads_of(bool devres, bool wide, bool explain = false,
-                                                 bool frozen = false, bool ext = false) {
+                                                 bool ext = false) {
   return wide ? (devres ? kMaxThreadsWideDevRes : kMaxThreadsWide)
        : (explain && devres) ? kMaxThreadsExplainDevRes
-       : (explain && !frozen) ? kMaxThreadsExplain
+       : explain ? kMaxThreadsExplain
        : ext ? kMaxThreadsExt
        : (devres ? kMaxThreadsDevRes : kMaxThreads);
 }
@@ -516,7 +520,8 @@ struct StepArgs {
   // the launch geometry (kernels/step.py:plan_launch): cluster size,
   // threads per block, nodes per block slice, residency bits (RES_*)
   int cl, bt, sl, res;
-  // the frozen wave form (kFrozen): one cluster per (lane, pod), no bind
+  // the frozen wave form (kFrozen): a cluster per lane and group of pods,
+  // no bind
   int frozen;
   // explain and the tie-break (kExplain): K candidates (0 off) of C score
   // rows each; the jitter on (1) under PRNGKey(seed) = (key0, key1)
@@ -565,11 +570,18 @@ struct StepArgs {
   const uint8_t* cls_pack;            // [C, cl, 10 * slp]: node-affinity score and taint
                                       // prefer (f32), class affinity and taint (u8)
   int hit_w;
-  // the one-pod launches of the extension loop (kExt builds only; null
-  // otherwise): the pod's index on the card, read by every block, so a
-  // captured launch runs whichever pod the cursor names; the pod writes
-  // output row *cursor - p0 (p1 - p0 = ls rows) and reads extension row 0
+  // the one-pod launches of the extension loop (kExt builds) and the
+  // frozen form's waves (null otherwise): the pod's index on the card, read
+  // by every block, so a captured launch runs whichever pod the cursor
+  // names; a pod p writes output row p - p0 (p1 - p0 = ls rows), and the
+  // extension loop's reads extension row 0
   const int32_t* cursor;              // [1]
+  // the frozen form's groups (kFrozen; kernels/step.py:frozen_group): each
+  // cluster evaluates up to grp of the launch's npod pods, which start at
+  // pod p0 + poff, or with the cursor at pod *cursor + poff (a launch
+  // captured into the wave loop's CUDA graph); pod p writes output row
+  // p - p0
+  int grp, npod, poff;
 };
 
 }  // extern "C"
@@ -1322,16 +1334,15 @@ __device__ __forceinline__ float scalar_weight(const StepArgs& a, int i) {
   }
 }
 
-// The step over the launch's pods for the lane (frozen: the lane and pod)
-// this block's cluster serves: the body of plain_step_kernel, and with
-// kFleet of plain_step_fleet_kernel, where `a` is the lane's own StepArgs,
-// built as for a one-lane launch over its own cluster (lane index 0).
-template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kFleet,
-          bool kExt>
+// The scan over the launch's pods for the lane this block's cluster
+// serves: the body of plain_step_kernel's scan builds, and with kFleet of
+// plain_step_fleet_kernel, where `a` is the lane's own StepArgs, built as
+// for a one-lane launch over its own cluster (lane index 0).
+template <bool kInterpod, bool kDevRes, bool kCols, bool kExplain, bool kFleet, bool kExt>
 __device__ __forceinline__ void step_body(const StepArgs& a) {
   // the extension rows: the scan builds only (a wave plan is dropped under
   // extensions, and a fleet runs them serially)
-  static_assert(!(kExt && (kFrozen || kFleet)), "extension rows in a scan build only");
+  static_assert(!(kExt && kFleet), "extension rows in a scan build only");
   // the normalizer rows: node affinity, taint, spread lo/hi, Simon lo/hi
   // (+ interpod lo/hi) (+ GPU lo/hi)
   constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
@@ -1344,9 +1355,8 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   const int QD = Q * D + 2 * Q;
   const int C = a.cl, B = blockDim.x, SL = a.sl;
   const int rank = (int)cluster.block_rank();
-  // the frozen form: cluster j of lane s evaluates pod p0 + j (grid S x P')
   // (a fleet lane's StepArgs points at its own cluster's arrays)
-  const int lane = kFleet ? 0 : (kFrozen ? (int)(blockIdx.x / C) / (a.p1 - a.p0) : blockIdx.x / C);
+  const int lane = kFleet ? 0 : blockIdx.x / C;
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
@@ -1405,12 +1415,11 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // rows (RES_STAGE_CLASS), bulk copies one pod ahead into a buffer by the
   // pod's place in the loop; the slice's node-static rows (RES_STAGE_NODE)
   // once a launch, in the lane prologue; unstaged, the rows are read from
-  // global memory where they lie. The frozen form (one pod a cluster)
-  // stages neither, the device-resource builds no class rows and the build
-  // with both slices' gates no node rows either: that code is compiled out
-  // of those builds (registers)
-  constexpr bool kStageNode = !kFrozen && !(kInterpod && kDevRes);
-  constexpr bool kStageClass = !kFrozen && !kDevRes;
+  // global memory where they lie. The device-resource builds stage no
+  // class rows and the build with both slices' gates no node rows either:
+  // that code is compiled out of those builds (registers)
+  constexpr bool kStageNode = !(kInterpod && kDevRes);
+  constexpr bool kStageClass = !kDevRes;
   const PodLay pl = pod_lay(a);
   int* const s_podb = s_dyn + lay.pod;
   const bool nst = kStageNode && (a.res & RES_STAGE_NODE);
@@ -1470,11 +1479,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   uint8_t* ports_used = a.ports_used + (size_t)lane * N * PT;
   float* const dom_g = a.dom_count + (size_t)lane * a.k1 * D * SG;
   // the dom_count replica: in shared memory, or (RES_DOM_GLOBAL, the wide
-  // library only) in this block's region of dom_spill; the frozen form
-  // only reads the lane's own
+  // library only) in this block's region of dom_spill
   const bool dom_glob = kWideLib && (a.res & RES_DOM_GLOBAL);
   float* const dom_count = dom_rep
-      ? (dom_glob ? (kFrozen ? dom_g : a.dom_spill + (size_t)blockIdx.x * a.k1 * D * SG)
+      ? (dom_glob ? a.dom_spill + (size_t)blockIdx.x * a.k1 * D * SG
                   : reinterpret_cast<float*>(s_dyn + lay.dom))
       : dom_g;
   const size_t gc_base = (size_t)lane * N * SG;
@@ -1526,9 +1534,8 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // the lane's carry, while the copies fly
   // (an extension build's one-pod launch: the pod the device cursor names)
   const bool at_cursor = kExt && a.cursor != nullptr;
-  const int p_first = kFrozen ? a.p0 + (int)(blockIdx.x / C) % n_out
-                              : (at_cursor ? *a.cursor : a.p0);
-  const int p_end = (kFrozen || at_cursor) ? p_first + 1 : a.p1;
+  const int p_first = at_cursor ? *a.cursor : a.p0;
+  const int p_end = at_cursor ? p_first + 1 : a.p1;
   // the extension rows' pods a lane: the launch's, or the cursor's one
   const size_t ext_n = at_cursor ? 1 : n_out;
   if (tid == 0) {
@@ -1538,7 +1545,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     fetch(0, p_first, cst ? a.class_id[p_first] : 0);
   }
-  if (!kFrozen && (a.flags & F_TEMPLATE)) {
+  if (a.flags & F_TEMPLATE) {
     const size_t gc_el = bf16 ? 2 : 4, tb_el = tb_bf16 ? 2 : 4;
     block_copy(hr_l, a.tmpl_headroom + (size_t)lo * R, nl * R * sizeof(float));
     block_copy(ports_used + (size_t)lo * PT, a.tmpl_ports_used + (size_t)lo * PT, nl * PT);
@@ -1566,8 +1573,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
   } else {
     if (hr_res) block_copy(hr_l, headroom_g + (size_t)lo * R, nl * R * sizeof(float));
-    if (dom_rep && !(kFrozen && dom_glob))
-      block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
+    if (dom_rep) block_copy(dom_count, dom_g, (size_t)a.k1 * D * SG * sizeof(float));
     if (pv_rep) block_copy(L.pv_taken, pv_g, (size_t)a.npv);
   }
   // (filled from the scalars too when w_lane is null: with the fill made
@@ -2321,8 +2327,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
 
     // ---- phase 3: forced-node fast path, outputs, bind. A node's rows are
     // written by its owner block; the replicas by every block alike. A
-    // victim's node is -3, so it binds nothing. The frozen form writes the
-    // outputs and binds nothing (the wave merge does)
+    // victim's node is -3, so it binds nothing
     const unsigned long long pick = s_pick;
     const bool any_feasible = pick_score(pick) > kNegInf;
     const int fin = victim ? -3
@@ -2332,7 +2337,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       a.out_node[orow] = fin;
       a.out_feasible[orow] = (fail && !victim) ? s_fin_cnt : 0;
     }
-    if (!kFrozen && fin >= 0) {
+    if (fin >= 0) {
       if (own) {
         float* hf = hr_l + (size_t)(fin - lo) * R;
         for (int i = tid; i < R; i += B) hf[i] = __fsub_rn(hf[i], req[i]);
@@ -2398,11 +2403,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       }
     }
     if constexpr (kDevRes) {
-      if constexpr (kFrozen) {
-        if (tid == 0) dev_pick(a, L, fl, p, fin, orow, own, rank == 0);
-      } else {
-        if (tid == 0) dev_bind(a, L, fl, p, fin, orow, own, rank == 0);
-      }
+      if (tid == 0) dev_bind(a, L, fl, p, fin, orow, own, rank == 0);
     }
     if (counted) __syncthreads();
     mark(6);
@@ -2410,13 +2411,968 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   }
 
   // write back what lived in shared memory: the headroom slice, and (rank
-  // 0; the replicas are equal) the lane-wide state (the frozen form wrote
-  // none of it)
+  // 0; the replicas are equal) the lane-wide state
   __syncthreads();
-  if (!kFrozen && hr_res) block_copy(headroom_g + (size_t)lo * R, hr_l, nl * R * sizeof(float));
-  if (!kFrozen && rank == 0 && dom_rep)
-    block_copy(dom_g, dom_count, (size_t)a.k1 * D * SG * sizeof(float));
-  if (!kFrozen && rank == 0 && pv_rep) block_copy(pv_g, L.pv_taken, (size_t)a.npv);
+  if (hr_res) block_copy(headroom_g + (size_t)lo * R, hr_l, nl * R * sizeof(float));
+  if (rank == 0 && dom_rep) block_copy(dom_g, dom_count, (size_t)a.k1 * D * SG * sizeof(float));
+  if (rank == 0 && pv_rep) block_copy(pv_g, L.pv_taken, (size_t)a.npv);
+  if (timed)
+    for (int i = 0; i < kPhases; ++i) a.cycles[(size_t)lane * kPhases + i] = s_cyc[i];
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+// ---- the frozen wave form (kFrozen) ---------------------------------------
+
+// each pod's normalizers, from round A's minima (phase 2 and the top-k's
+// parts read them): inv_na, inv_tt, inv_sp, base_sp, c1, si_lo, inv_si,
+// ip_lo, inv_ip, gp_lo, inv_gp, gp_w
+constexpr int kNorm = 12;
+
+// The frozen form's dynamic shared memory, for a group of G = StepArgs.grp
+// pods: offsets of 4-byte words, then of bytes after them. Mirrored in
+// kernels/step.py:frozen_smem_bytes.
+struct FrozenLayout {
+  int keys;    // the top-k's key rows (StepArgs.topk > 0, explain library):
+               // [kTopkLists][kTopkPass] lists, [2][kTopkPass] a later pass's
+               // merged list by pass parity, [kTopkPass] candidates, then
+               // [G][kTopkPass] each pod's first-pass list
+  int pick;    // [G] the block's argmax keys, [G] the cluster's picks (8 bytes each)
+  int cls;     // [G][cls_bytes] each pod's class rows (RES_STAGE_CLASS; 16-byte aligned)
+  int pod;     // [G][PodLay.words] each pod's region (one bulk copy)
+  int fail;    // [G][OPS] first-fail histograms
+  int part;    // [G][kRows + 1] the block's minima (fkey) and feasible count
+  int fin;     // [G][kRows + 1] the cluster's minima and feasible count
+  int nrm;     // [G][kNorm] each pod's normalizers
+  int pkey;    // [G][2] each pod's folded PRNG key (the jitter)
+  int sca;     // [G][4] each pod's class, forced node, soft spread and GPU request
+  int dpart;   // [G][Q*D + 2Q] column-read partials (not RES_COLS_GLOBAL)
+  int merged;  // [G][Q*D + 2Q] the cluster's column sums, totals, minima
+  int qneed;   // [G][Q] kNeed* bits
+  int minval;  // [G][Cs] f32 hard-spread minima
+  int dom;     // [K1*D*Sg] f32 dom_count replica (F_DOM, not RES_DOM_GLOBAL)
+  int sc;      // [G][rows][SL] f32 raw scores (+ the top-k's masked final scores)
+  int hr;      // [SL*R] f32 headroom slice (RES_HEADROOM)
+  int node;    // (RES_STAGE_NODE) [2][SL] f32 inv_alloc's two columns, [SL]
+               // spec_id, [K1][SL] node_dom
+  int flag;    // byte offset: [G][SL] feasibility flags
+  int pv;      // byte offset: [Npv] pv_taken replica (device-resource, F_PV_MATCH)
+  int nbyte;   // byte offset: (RES_STAGE_NODE) [SL] active, [SL] unschedulable,
+               // [K][SL] has_key
+  int bytes;   // total
+};
+
+__host__ __device__ inline FrozenLayout frozen_layout_of(const StepArgs& a) {
+  const int g = a.grp;
+  const int q = a.a + a.b + a.cs + a.ap;
+  const int qd = q * a.d + 2 * q;
+  const bool node = a.res & RES_STAGE_NODE;
+  const bool topk = PLAIN_STEP_EXPLAIN && a.topk > 0;
+  FrozenLayout l;
+  int w = 0;
+  l.keys = w;  // first: 8-byte keys at the region's 16-byte alignment
+  w += topk ? 2 * (kTopkLists + 3 + g) * kTopkPass : 0;
+  l.pick = w;
+  w += 4 * g;
+  l.cls = w;   // (a multiple of 4 words: so are the regions before it)
+  w += (a.res & RES_STAGE_CLASS) ? g * cls_bytes(a) / 4 : 0;
+  l.pod = w;
+  w += g * pod_lay(a).words;
+  l.fail = w;
+  w += g * a.ops;
+  l.part = w;
+  w += g * (kRows + 1);
+  l.fin = w;
+  w += g * (kRows + 1);
+  l.nrm = w;
+  w += g * kNorm;
+  l.pkey = w;
+  w += 2 * g;
+  l.sca = w;
+  w += 4 * g;
+  l.dpart = w;
+  w += (kWideLib && (a.res & RES_COLS_GLOBAL)) ? 0 : g * qd;
+  l.merged = w;
+  w += g * qd;
+  l.qneed = w;
+  w += g * q;
+  l.minval = w;
+  w += g * a.cs;
+  l.dom = w;
+  w += ((a.flags & F_DOM) && !(kWideLib && (a.res & RES_DOM_GLOBAL))) ? a.k1 * a.d * a.sg : 0;
+  l.sc = w;
+  w += g * (score_rows(a.flags) + (topk ? 1 : 0)) * a.sl;
+  l.hr = w;
+  w += (a.res & RES_HEADROOM) ? a.sl * a.r : 0;
+  l.node = w;
+  w += node ? (3 + a.k1) * a.sl : 0;
+  l.flag = 4 * w;
+  l.pv = l.flag + g * a.sl;
+  l.nbyte = l.pv + (((a.flags & kDevResFlags) && (a.flags & F_PV_MATCH)) ? a.npv : 0);
+  l.bytes = l.nbyte + (node ? (2 + a.k) * a.sl : 0);
+  return l;
+}
+
+// The frozen wave form (replaces the reference's _grid_step and the BATCH
+// segment's jax.vmap(step(frozen, .)), scheduler.py:581-590, :627-635):
+// every pod of the wave is evaluated against the lane's wave-start carry,
+// which nothing changes during the launch, and nothing is bound (the wave
+// merge, csrc/wave_merge.cu, folds the binds in afterwards). A cluster
+// serves one lane and a group of up to G = StepArgs.grp consecutive pods of
+// the launch (kernels/step.py:frozen_group picks G), so what the group's
+// pods share is done once a cluster, not once a pod:
+//  - the prologue: one bulk copy brings the G pods' regions (consecutive
+//    rows of pod_pack) and one each their class rows (RES_STAGE_CLASS,
+//    from class_packs), all completing on one mbarrier (phase 0), while
+//    the block copies the lane's read-only wave-start carry (the headroom
+//    slice, the dom_count and pv_taken replicas) and stages the slice's
+//    node-static rows (RES_STAGE_NODE) once;
+//  - phase 1 walks the block's nodes once: each node's rows that no pod
+//    changes are read once, then the G pods are evaluated against them,
+//    each pod into its own raw-score rows, flags, first-fail histogram and
+//    minima partials (a warp's minima are folded into the pod's partials
+//    after each node stride, so no G-wide array lives in registers);
+//  - one cluster barrier a group for the column read (round C), one for
+//    the minima, counts and histograms (round A) and one for the picks
+//    (round B), over partial arrays G wide; each pod's normalizers are
+//    computed once, by lane 0 of the warp that reduced its minima;
+//  - phase 2 scores each pod over the block's nodes from shared memory and
+//    folds its (score, lowest index) key into the pod's key.
+// Each pod's arithmetic is the scan's, in the reference's order, so the
+// outputs are those of one pod a cluster bit for bit. The outputs: node,
+// fail row, feasible count, the GPU pick against the wave-start gpu_used
+// (dev_pick), PV picks -1; under kExplain the top-k candidates (the first
+// pass of each pod rides round B, later passes take a barrier each) and
+// the jitter. Cycles (StepArgs.cycles): thread 0 of rank 0 of each lane's
+// first cluster, for its group.
+template <bool kInterpod, bool kDevRes, bool kExplain>
+__device__ __forceinline__ void frozen_body(const StepArgs& a) {
+  constexpr int kRowsT = kDevRes ? kRows : kRows - 2;
+  constexpr int kLive = kDevRes ? kRows : (kInterpod ? kRows - 2 : kRows - 4);
+  constexpr int kRowGpu = kInterpod ? 4 : 3;
+  // the stagings the scan's builds of these gates have (registers)
+  constexpr bool kStageNode = !(kInterpod && kDevRes);
+  constexpr bool kStageClass = !kDevRes;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = a.n, R = a.r, D = a.d, SG = a.sg, PT = a.pt, CS = a.cs;
+  const int Q = a.a + a.b + a.cs + a.ap;
+  const int QD = Q * D + 2 * Q;
+  const int C = a.cl, B = blockDim.x, SL = a.sl, G = a.grp;
+  const int rank = (int)cluster.block_rank();
+  // cluster j serves lane j / n_grp and its group j % n_grp: pods
+  // [pg, pg + ng), output rows p - p0
+  const int n_grp = (a.npod + G - 1) / G;
+  const int lane = (int)(blockIdx.x / C) / n_grp, gi = (int)(blockIdx.x / C) % n_grp;
+  const int pg = (a.cursor ? *a.cursor : a.p0) + a.poff + gi * G;
+  const int ng = min(G, a.npod - gi * G);
+  const int tid = threadIdx.x;
+  const int wid = tid >> 5;
+  const int lid = tid & 31;
+  const int lo = min(rank * SL, N), hi = min(lo + SL, N);
+  const int iters = (hi - lo + B - 1) / B;
+  const FrozenLayout lay = frozen_layout_of(a);
+  extern __shared__ __align__(16) int s_dyn[];
+  const int rows = score_rows(a.flags) + ((kExplain && a.topk > 0) ? 1 : 0);
+  unsigned long long* const s_key = reinterpret_cast<unsigned long long*>(s_dyn + lay.pick);
+  unsigned long long* const s_pick = s_key + G;
+  uint8_t* const s_cls = reinterpret_cast<uint8_t*>(s_dyn + lay.cls);
+  int* const s_podb = s_dyn + lay.pod;
+  int* const s_fail = s_dyn + lay.fail;
+  int* const s_part = s_dyn + lay.part;
+  int* const s_fin = s_dyn + lay.fin;
+  float* const s_nrm = reinterpret_cast<float*>(s_dyn + lay.nrm);
+  unsigned* const s_pkey = reinterpret_cast<unsigned*>(s_dyn + lay.pkey);
+  // each pod's scalars read after the prologue: its class, forced node,
+  // whether a soft spread constraint is valid, whether it asks for GPUs
+  int* const s_sca = s_dyn + lay.sca;
+  // the column-read partials: in shared memory, or (RES_COLS_GLOBAL, the
+  // wide library only) in this block's region of col_spill, G wide
+  const bool cols_glob = kWideLib && (a.res & RES_COLS_GLOBAL);
+  int* const s_dpart = cols_glob ? a.col_spill + (size_t)blockIdx.x * G * QD : s_dyn + lay.dpart;
+  int* const s_dacc = s_dyn + lay.merged;
+  int* const s_qneed = s_dyn + lay.qneed;
+  float* const s_minval = reinterpret_cast<float*>(s_dyn + lay.minval);
+  float* const s_sc = reinterpret_cast<float*>(s_dyn + lay.sc);
+  uint8_t* const s_flag = reinterpret_cast<uint8_t*>(s_dyn) + lay.flag;
+  __shared__ long long s_cyc[kPhases + 1];  // the phases, then the last mark
+  __shared__ float s_w[kWeights];
+  // the barrier the group's bulk copies complete
+  __shared__ __align__(8) unsigned long long s_cbar;
+
+  const int fl = kInterpod ? a.flags : (a.flags & ~kInterpodFlags);
+  const bool fail = fl & F_FAIL, use_sp = fl & F_SP, gc_path = fl & F_GC;
+  const bool bf16 = fl & F_GC_BF16, tb_bf16 = fl & F_TB_BF16;
+  const bool dom_rep = fl & F_DOM, hr_res = a.res & RES_HEADROOM;
+  const bool pv_rep = kDevRes && (fl & F_PV_MATCH);
+  const int s_base = a.a + a.b;      // first spread column
+  const int p_base = s_base + CS;    // first preferred-term column
+  const size_t nl = hi - lo;
+  const uint8_t* active = a.active + (size_t)lane * N;
+  const PodLay pl = pod_lay(a);
+  const bool nst = kStageNode && (a.res & RES_STAGE_NODE);
+  const bool cst = kStageClass && (a.res & RES_STAGE_CLASS);
+  float* const s_ia = reinterpret_cast<float*>(s_dyn + lay.node);  // [2][SL]
+  int* const s_spec = s_dyn + lay.node + 2 * SL;
+  int* const s_ndom = s_spec + SL;                                   // [K1][SL]
+  uint8_t* const s_act = reinterpret_cast<uint8_t*>(s_dyn) + lay.nbyte;
+  uint8_t* const s_uns = s_act + SL;
+  uint8_t* const s_hk = s_uns + SL;                                  // [K][SL]
+  const int slp = slp_of(a), cbytes = cls_bytes(a);
+  auto ndom = [&](int kk, int n) -> int {
+    return nst ? s_ndom[kk * SL + (n - lo)] : a.node_dom[(size_t)kk * N + n];
+  };
+  auto nhas = [&](int key, int n) -> bool {
+    return nst ? s_hk[key * SL + (n - lo)] != 0 : a.has_key[(size_t)key * N + n] != 0;
+  };
+  const float* log_dom = a.log_dom + (size_t)lane * a.k;
+  const uint8_t* elig_host_l = a.elig_host + (size_t)lane * a.c * N;
+  const uint8_t* domain_has_l = a.domain_has + (size_t)lane * a.c * a.k1 * D;
+  const uint8_t* any_elig_l = a.any_elig + (size_t)lane * a.c * a.k;
+  const float* const headroom_g = a.headroom + (size_t)lane * N * R;
+  // headroom row of node n: hr_l + (n - lo) * R, in shared memory or not
+  float* const hr_l = hr_res ? reinterpret_cast<float*>(s_dyn + lay.hr)
+                             : const_cast<float*>(headroom_g) + (size_t)lo * R;
+  const uint8_t* ports_used = a.ports_used + (size_t)lane * N * PT;
+  const float* const dom_g = a.dom_count + (size_t)lane * a.k1 * D * SG;
+  // the dom_count replica in shared memory, or (RES_DOM_GLOBAL, the wide
+  // library only) the lane's own, which the launch only reads
+  const bool dom_glob = kWideLib && (a.res & RES_DOM_GLOBAL);
+  const float* const dom_count =
+      (dom_rep && !dom_glob) ? reinterpret_cast<const float*>(s_dyn + lay.dom) : dom_g;
+  const size_t gc_base = (size_t)lane * N * SG;
+  const size_t tb_base = (size_t)lane * N * a.t;
+  const float* pref_paint = a.pref_paint + (size_t)lane * N * a.t2;
+  const int topk = kExplain ? a.topk : 0;
+  const bool jitter = kExplain && a.jitter;
+  uint8_t* const pv_g = kDevRes ? a.pv_taken + (size_t)lane * a.npv : nullptr;
+  const DevLane L = kDevRes
+      ? DevLane{a.gpu_used + (size_t)lane * N * a.g, a.vg_used + (size_t)lane * N * a.v,
+                a.sdev_taken + (size_t)lane * N * a.e,
+                pv_rep ? reinterpret_cast<uint8_t*>(s_dyn) + lay.pv : pv_g,
+                a.vol_cnt + (size_t)lane * N * a.lk, a.svol_on_node + (size_t)lane * N * a.nsv}
+      : DevLane{};
+
+  // the cycle counts: thread 0 of rank 0 of the lane's first cluster
+  // charges the cycles since the last mark to phase k; with them on, each
+  // phase ends at a block barrier
+  const bool counted = a.cycles != nullptr;
+  const bool timed = counted && rank == 0 && tid == 0 && gi == 0;
+  if (timed) {
+    for (int i = 0; i < kPhases; ++i) s_cyc[i] = 0;
+    s_cyc[kPhases] = clock64();
+  }
+  auto mark = [&](int k) {
+    if (timed) {
+      const long long t = clock64();
+      s_cyc[k] += t - s_cyc[kPhases];
+      s_cyc[kPhases] = t;
+    }
+  };
+
+  // ---- the prologue: the group's copies (the barrier set up first; the
+  // prologue's barrier shows every thread it), then the lane's read-only
+  // carry rows and the node-static rows, while the copies fly
+  if (tid == 0) {
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_cbar);
+    const int pbytes = 4 * pl.words * ng;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(pbytes + (cst ? ng * cbytes : 0)) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"((unsigned)__cvta_generic_to_shared(s_podb)),
+        "l"(a.pod_pack + (size_t)pg * pl.words), "r"(pbytes), "r"(bar) : "memory");
+    if (cst)
+      for (int g = 0; g < ng; ++g)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"((unsigned)__cvta_generic_to_shared(s_cls + (size_t)g * cbytes)),
+            "l"(a.cls_pack + ((size_t)a.class_id[pg + g] * C + rank) * cbytes), "r"(cbytes),
+            "r"(bar) : "memory");
+  }
+  // (by the block's last threads: thread 0 is issuing the bulk copies)
+  for (int g = B - 1 - tid; g < ng; g += B) {
+    const int p = pg + g;
+    bool any_soft = false;
+    if (use_sp)
+      for (int c = 0; c < CS; ++c) any_soft |= a.spread_soft[(size_t)p * CS + c] != 0;
+    s_sca[4 * g] = a.class_id[p];
+    s_sca[4 * g + 1] = a.forced_node[p];
+    s_sca[4 * g + 2] = any_soft;
+    s_sca[4 * g + 3] = kDevRes && a.gpu_cnt[p] > 0.0f;
+  }
+  if (hr_res) block_copy(hr_l, headroom_g + (size_t)lo * R, nl * R * sizeof(float));
+  if (dom_rep && !dom_glob)
+    block_copy(const_cast<float*>(dom_count), dom_g, (size_t)a.k1 * D * SG * sizeof(float));
+  if (pv_rep) block_copy(L.pv_taken, pv_g, (size_t)a.npv);
+  if (tid < kWeights) s_w[tid] = a.w_lane ? a.w_lane[(size_t)lane * kWeights + tid]
+                                          : scalar_weight(a, tid);
+  if (nst) {
+    const int nn = (int)nl;
+    for (int ln = tid; ln < nn; ln += B) {
+      const int n = lo + ln;
+      s_ia[ln] = a.inv_alloc[(size_t)n * R + a.ci];
+      s_ia[SL + ln] = a.inv_alloc[(size_t)n * R + a.mi];
+      s_spec[ln] = a.spec_id[n];
+      s_act[ln] = active[n];
+      s_uns[ln] = a.unschedulable[n];
+    }
+    for (int i = tid; i < a.k1 * nn; i += B)
+      s_ndom[(i / nn) * SL + i % nn] = a.node_dom[(size_t)(i / nn) * N + lo + i % nn];
+    for (int i = tid; i < a.k * nn; i += B)
+      s_hk[(i / nn) * SL + i % nn] = a.has_key[(size_t)(i / nn) * N + lo + i % nn];
+  }
+  // ---- phase 0: zero the group's partials, fold each pod's PRNG key, and
+  // what each carry column of each pod needs from the column read
+  for (int i = tid; i < ng * a.ops; i += B) s_fail[i] = 0;
+  for (int i = tid; i < ng * (kRows + 1); i += B) s_part[i] = i % (kRows + 1) < kRows ? INT_MAX : 0;
+  for (int g = tid; g < ng; g += B) s_key[g] = 0;
+  if constexpr (kExplain) {
+    if (jitter)  // fold_in(PRNGKey(seed), p): the hash of (0, p)
+      for (int g = tid; g < ng; g += B) {
+        unsigned x0 = 0, x1 = (unsigned)(pg + g);
+        threefry2x32(a.key0, a.key1, x0, x1);
+        s_pkey[2 * g] = x0;
+        s_pkey[2 * g + 1] = x1;
+      }
+  }
+  if (gc_path) {
+    for (int i = tid; i < ng * QD; i += B) s_dpart[i] = i % QD < Q * D + Q ? 0 : INT_MAX;
+    for (int i = tid; i < ng * Q; i += B) {
+      int g, key;
+      column_of(a, pg + i / Q, i % Q, g, key);
+      s_qneed[i] = column_need(a, fl, pg + i / Q, i % Q, key);
+    }
+  }
+  __syncthreads();
+  mark(0);
+  {  // the group's regions and class rows have landed
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_cbar);
+    unsigned done = 0;
+    while (!done)
+      asm volatile(
+          "{ .reg .pred P1; mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], 0; "
+          "selp.u32 %0, 1, 0, P1; }"
+          : "=r"(done) : "r"(bar) : "memory");
+  }
+
+  // ---- phase 0b: the batched carry-column read (group_count path) of
+  // every pod of the group, then round C over the cluster, once a group
+  if (gc_path && Q) {
+    for (int g = 0; g < ng; ++g) {
+      const int4* const terms = reinterpret_cast<const int4*>(s_podb + g * pl.words);
+      const uint8_t* elig_host = elig_host_l + (size_t)s_sca[4 * g] * N;
+      int* const dpart = s_dpart + g * QD;
+      for (int q = 0; q < Q; ++q) {
+        const int need = s_qneed[g * Q + q];
+        if (!need) continue;
+        const int gr = terms[q].x, key = terms[q].y;
+        int tot = 0, mn = INT_MAX;
+        for (int it = 0; it < iters; ++it) {
+          const int n = lo + it * B + tid;
+          int v = 0, dm = -1;
+          if (n < hi) {
+            v = (int)cnt_load(a.group_count, gc_base + (size_t)n * SG + gr, bf16);
+            if (need & kNeedDom) dm = ndom(key - 1, n);
+            if ((need & kNeedMin) && elig_host[n]) mn = min(mn, v);
+            tot += v;
+          }
+          if (need & kNeedDom) {
+            const unsigned peers = __match_any_sync(kFull, dm);
+            const int sum = __reduce_add_sync(peers, v);
+            if (dm >= 0 && sum && lid == __ffs(peers) - 1) atomicAdd(&dpart[q * D + dm], sum);
+          }
+        }
+        if (need & kNeedTot) {
+          tot = __reduce_add_sync(kFull, tot);
+          if (lid == 0 && tot) atomicAdd(&dpart[Q * D + q], tot);
+        }
+        if (need & kNeedMin) {
+          mn = __reduce_min_sync(kFull, mn);
+          if (lid == 0) atomicMin(&dpart[Q * D + Q + q], mn);
+        }
+      }
+    }
+    cluster.sync();
+    for (int i = tid; i < ng * QD; i += B) {
+      const int g = i / QD, ii = i % QD;
+      const bool is_sum = ii < Q * D, is_tot = !is_sum && ii < Q * D + Q;
+      const int q = is_sum ? ii / D : (is_tot ? ii - Q * D : ii - Q * D - Q);
+      if (!(s_qneed[g * Q + q] & (is_sum ? kNeedDom : (is_tot ? kNeedTot : kNeedMin)))) continue;
+      int v = (is_sum || is_tot) ? 0 : INT_MAX;
+      for (int r = 0; r < C; ++r) {
+        const int x = cols_glob ? __ldcg(s_dpart + (ptrdiff_t)(r - rank) * G * QD + i)
+                                : cluster.map_shared_rank(s_dpart, r)[i];
+        v = (is_sum || is_tot) ? v + x : min(v, x);
+      }
+      s_dacc[i] = v;
+    }
+    __syncthreads();
+  }
+
+  // ---- phase 0c: each pod's hard-spread minimum per constraint
+  if (fl & F_SPH) {
+    for (int i = tid; i < ng * CS; i += B) {
+      const int g = i / CS, c = i % CS;
+      const int4 sc = reinterpret_cast<const int4*>(s_podb + g * pl.words)[s_base + c];
+      if (!(sc.z & 2)) continue;  // not DoNotSchedule
+      const int key = sc.y, cid = s_sca[4 * g];
+      float mv = kBig;
+      if (gc_path) {
+        const int q = s_base + c;
+        const int* const dacc = s_dacc + g * QD;
+        if (key == 0) {
+          if (dacc[Q * D + Q + q] != INT_MAX) mv = (float)dacc[Q * D + Q + q];
+        } else {
+          const uint8_t* dhas = domain_has_l + ((size_t)cid * a.k1 + (key - 1)) * D;
+          for (int dd = 0; dd < D; ++dd)
+            if (dhas[dd]) mv = fminf(mv, (float)dacc[q * D + dd]);
+        }
+      } else {
+        const int kk = a.k1 == 1 ? 0 : max(key - 1, 0);
+        const uint8_t* dhas = domain_has_l + ((size_t)cid * a.k1 + kk) * D;
+        for (int dd = 0; dd < D; ++dd)
+          if (dhas[dd]) mv = fminf(mv, dom_count[((size_t)kk * D + dd) * SG + sc.x]);
+      }
+      s_minval[i] = any_elig_l[(size_t)cid * a.k + key] ? mv : 0.0f;
+    }
+    __syncthreads();
+  }
+  mark(1);
+
+  // ---- phase 1: each node's rows read once, then each pod of the group
+  // against them: filters, first-fail histogram, raw scores into the pod's
+  // rows, the pod's minima (past the walks' widths, their verdicts first)
+  if constexpr (kDevRes && kWideLib) {
+    if (a.walk)
+      for (int g = 0; g < ng; ++g) walk_verdicts(a, L, fl, pg + g, lo, hi, s_flag + (size_t)g * SL);
+  }
+  for (int it = 0; it < iters; ++it) {
+    const int n = lo + it * B + tid;
+    const int ln = n - lo;
+    const bool in = n < hi;
+    // the node's rows that no pod of the wave changes
+    bool act = false, unsched = false;
+    float ia_c = 0.0f, ia_m = 0.0f;
+    int spec = 0;
+    if (in) {
+      act = (nst ? s_act[ln] : active[n]) != 0;
+      unsched = (fl & F_UNSCHED) && (nst ? s_uns[ln] : a.unschedulable[n]);
+      ia_c = nst ? s_ia[ln] : a.inv_alloc[(size_t)n * R + a.ci];
+      ia_m = nst ? s_ia[SL + ln] : a.inv_alloc[(size_t)n * R + a.mi];
+      spec = (fl & F_SI) ? (nst ? s_spec[ln] : a.spec_id[n]) : 0;
+    }
+    const float* hr = hr_l + (size_t)ln * R;
+    for (int g = 0; g < ng; ++g) {
+      const int p = pg + g;
+      const int* const sp = s_podb + g * pl.words;
+      const uint8_t* const sb = reinterpret_cast<const uint8_t*>(sp);
+      const float* req = reinterpret_cast<const float*>(sp + pl.req);
+      const uint8_t* pports = sb + pl.ports;
+      const uint8_t* match = sb + pl.match;
+      const int4* const terms = reinterpret_cast<const int4*>(sp);
+      const uint8_t* const cb = s_cls + (size_t)g * cbytes;
+      const float* const cbf = reinterpret_cast<const float*>(cb);
+      const int cid = s_sca[4 * g];
+      const int* const dacc = s_dacc + g * QD;
+      const int* const qtot = dacc + Q * D;
+      float* const sc_g = s_sc + (size_t)g * rows * SL;
+      uint8_t* const flag_g = s_flag + (size_t)g * SL;
+      float m_na = kBig, m_tt = kBig, m_slo = kBig, m_shi = kBig, m_ilo = kBig, m_ihi = kBig;
+      float m_plo = kBig, m_phi = kBig, m_glo = kBig, m_ghi = kBig;
+      int cnt = 0, charged_op = -1;
+      if (in) {
+        const size_t cn = (size_t)cid * N + n;
+        const bool aff_ok = !(fl & F_CLASS_AFF) || (cst ? cb[8 * slp + ln] : a.class_affinity[cn]);
+        const bool taint_ok = !(fl & F_CLASS_TAINT) || (cst ? cb[9 * slp + ln] : a.class_taint[cn]);
+        const float na_score = (fl & F_NA) ? (cst ? cbf[ln] : a.class_node_aff_score[cn]) : 0.0f;
+        const float tt_prefer =
+            (fl & F_TT) ? (cst ? cbf[slp + ln] : a.class_taint_prefer[cn]) : 0.0f;
+        int ff = -1;
+        if (unsched) {
+          ff = 0;
+        } else if (!aff_ok) {
+          ff = 1;
+        } else if (!taint_ok) {
+          ff = 2;
+        } else {
+          if (fl & F_PORTS) {
+            for (int t = 0; t < PT; ++t)
+              if (pports[t] && ports_used[(size_t)n * PT + t]) {
+                ff = 3;
+                break;
+              }
+          }
+          if (ff < 0)
+            for (int r = 0; r < R; ++r)
+              if (!(req[r] <= hr[r])) {
+                ff = 4 + r;
+                break;
+              }
+        }
+        if (ff < 0 && (fl & F_AFF)) {
+          for (int q = 0; q < a.a; ++q) {
+            const int4 tm = terms[q];
+            if (!(tm.z & 1)) continue;
+            const int key = tm.y;
+            const float dc = column_count(a, dacc, q, tm.x, key, n,
+                                          key ? ndom(key - 1, n) : -1, gc_base, bf16);
+            const bool ok = nhas(key, n) && (dc > 0.0f || (qtot[q] == 0 && (tm.z & 2)));
+            if (!ok) {
+              ff = 4 + R;
+              break;
+            }
+          }
+        }
+        if (ff < 0 && (fl & F_ANTI)) {
+          bool bad = false;
+          for (int q = 0; q < a.b && !bad; ++q) {
+            const int4 tm = terms[a.a + q];
+            if (!tm.z) continue;
+            const int key = tm.y;
+            bad = column_count(a, dacc, a.a + q, tm.x, key, n,
+                               key ? ndom(key - 1, n) : -1, gc_base, bf16) != 0.0f;
+          }
+          if (a.hit_w) {
+            for (int i = 0; i < a.hit_w && !bad; ++i) {
+              const int t = sp[pl.hits + i];
+              if (t < 0) break;
+              bad = cnt_load(a.term_block, tb_base + (size_t)n * a.t + t, tb_bf16) > 0.0f;
+            }
+          } else {
+            for (int i = a.hit_ptr[p]; i < a.hit_ptr[p + 1] && !bad; ++i)
+              bad = cnt_load(a.term_block, tb_base + (size_t)n * a.t + a.hit_idx[i], tb_bf16) > 0.0f;
+          }
+          if (bad) ff = 5 + R;
+        }
+        if (ff < 0 && (fl & F_SPH)) {
+          for (int c = 0; c < CS; ++c) {
+            const int4 tm = terms[s_base + c];
+            if (!(tm.z & 2)) continue;
+            const int key = tm.y, gr = tm.x;
+            float dc;
+            if (gc_path) {
+              dc = column_count(a, dacc, s_base + c, gr, key, n, key ? ndom(key - 1, n) : -1,
+                                gc_base, bf16);
+            } else {
+              const int kk = a.k1 == 1 ? 0 : max(key - 1, 0);
+              const int dm = ndom(kk, n);
+              dc = dm >= 0 ? dom_count[((size_t)kk * D + dm) * SG + gr] : 0.0f;
+            }
+            const float skew =
+                __fsub_rn(__fadd_rn(dc, match[gr] ? 1.0f : 0.0f), s_minval[g * CS + c]);
+            if (!(nhas(key, n) && skew <= __int_as_float(tm.w))) {
+              ff = 6 + R;
+              break;
+            }
+          }
+        }
+        if constexpr (kDevRes) {
+          const int vcid = a.vol_cid[p];
+          if (ff < 0 && (fl & F_GPU) && !gpu_fits(a, L, p, n)) ff = 7 + R;
+          if (ff < 0 && (fl & F_STORAGE) &&
+              ((kWideLib && a.walk) ? (flag_g[ln] & 4) != 0
+                      : !(lvm_pack(a, L, p, n, nullptr) && device_match(a, L, p, n, nullptr))))
+            ff = 8 + R;
+          if (ff < 0 && (fl & F_VOL_STATIC)) {
+            const size_t cv = (size_t)vcid * N + n;
+            if (!a.class_vol_node[cv]) ff = 9 + R;
+            else if (!a.class_vol_zone[cv]) ff = 10 + R;
+            else if (!a.class_vol_bind[cv]) ff = 11 + R;
+          }
+          if (ff < 0 && (fl & F_PV_MATCH) &&
+              ((kWideLib && a.walk) ? (flag_g[ln] & 8) != 0 : !wfc_fits(a, L.pv_taken, p, n)))
+            ff = 11 + R;
+          if (ff < 0 && (fl & F_VOL_STATIC) && a.vol_pv_missing[p]) ff = 12 + R;
+          if (ff < 0 && (fl & F_VOL_LIMITS) && !limits_ok(a, L, fl, p, n)) ff = 13 + R;
+        }
+        const bool mask = act && ff < 0;
+        if (act && ff >= 0) charged_op = ff;
+        uint8_t flag = mask ? 1 : 0;
+        if (fl & F_NA) m_na = fminf(m_na, mask ? -na_score : 0.0f);
+        if (fl & F_TT) m_tt = fminf(m_tt, mask ? -tt_prefer : 0.0f);
+        if (mask) {
+          ++cnt;
+          const float h_c = __fmul_rn(__fsub_rn(hr[a.ci], req[a.ci]), ia_c);
+          const float h_m = __fmul_rn(__fsub_rn(hr[a.mi], req[a.mi]), ia_m);
+          float base = 0.0f;
+          if (fl & F_BAL)
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[0] : a.w_bal), __fmul_rn(
+                __fsub_rn(1.0f, __fmul_rn(fabsf(__fsub_rn(h_c, h_m)), 0.5f)), 100.0f)));
+          if (fl & F_LEAST)
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[1] : a.w_least), __fmul_rn(
+                __fadd_rn(fmaxf(h_c, 0.0f), fmaxf(h_m, 0.0f)), 50.0f)));
+          if (fl & F_MOST)
+            base = __fadd_rn(base, __fmul_rn((a.w_lane ? s_w[2] : a.w_most),
+                                             __fmul_rn(__fadd_rn(
+                __fmul_rn(clamp01(__fsub_rn(1.0f, h_c)), ia_c > 0.0f ? 1.0f : 0.0f),
+                __fmul_rn(clamp01(__fsub_rn(1.0f, h_m)), ia_m > 0.0f ? 1.0f : 0.0f)),
+                50.0f)));
+          sc_g[ln] = base;
+          if (fl & F_IP) {
+            float raw = 0.0f;
+            for (int t = 0; t < a.t2; ++t)
+              if (sb[pl.hpref + t]) raw = __fadd_rn(raw, pref_paint[(size_t)n * a.t2 + t]);
+            for (int q = 0; q < a.ap; ++q) {
+              const int4 tm = terms[p_base + q];
+              if (tm.z < 0) continue;
+              const int key = tm.y;
+              const float dc = column_count(a, dacc, p_base + q, tm.x, key, n,
+                                            key ? ndom(key - 1, n) : -1, gc_base, bf16);
+              const float hk = nhas(key, n) ? 1.0f : 0.0f;
+              raw = __fadd_rn(raw, __fmul_rn(__fmul_rn(__int_as_float(tm.w), dc), hk));
+            }
+            sc_g[3 * SL + ln] = raw;
+            m_plo = fminf(m_plo, raw);
+            m_phi = fminf(m_phi, -raw);
+          }
+          if (use_sp) {
+            float sraw = 0.0f;
+            bool sok = true;
+            for (int c = 0; c < CS; ++c) {
+              const int4 tm = terms[s_base + c];
+              if (!(tm.z & 1)) continue;  // not ScheduleAnyway
+              const int kid = tm.y;
+              const int gr = tm.x;
+              float dc;
+              if (gc_path) {
+                dc = column_count(a, dacc, s_base + c, gr, kid, n, kid ? ndom(kid - 1, n) : -1,
+                                  gc_base, bf16);
+              } else {
+                const int kk = a.k1 == 1 ? 0 : max(kid - 1, 0);
+                const int dm = ndom(kk, n);
+                dc = dm >= 0 ? dom_count[((size_t)kk * D + dm) * SG + gr] : 0.0f;
+              }
+              sraw = __fadd_rn(sraw, __fadd_rn(__fmul_rn(dc, log_dom[kid]),
+                                               __fsub_rn(__int_as_float(tm.w), 1.0f)));
+              sok = sok && nhas(kid, n);
+            }
+            sc_g[SL + ln] = sraw;
+            if (sok) {
+              flag |= 2;
+              m_slo = fminf(m_slo, sraw);
+              m_shi = fminf(m_shi, -sraw);
+            }
+          }
+          if (fl & F_SI) {
+            const float* sa = a.spec_alloc + (size_t)spec * R;
+            float mx = 0.0f;
+            for (int r = 0; r < R; ++r) {
+              const float avail = __fsub_rn(sa[r], req[r]);
+              const float rq = req[r];
+              float sh = avail != 0.0f ? __fdiv_rn(rq, avail) : (rq != 0.0f ? 1.0f : 0.0f);
+              sh = rq > 0.0f ? clamp01(sh) : 0.0f;
+              mx = r == 0 ? sh : fmaxf(mx, sh);
+            }
+            const float raw_si = __fmul_rn(mx, 100.0f);
+            sc_g[2 * SL + ln] = raw_si;
+            m_ilo = fminf(m_ilo, raw_si);
+            m_ihi = fminf(m_ihi, -raw_si);
+          }
+          if constexpr (kDevRes) {
+            if (fl & F_GPU) {
+              const float raw_gp = gpu_raw(a, L, p, n);
+              sc_g[kRowGpu * SL + ln] = raw_gp;
+              m_glo = fminf(m_glo, raw_gp);
+              m_ghi = fminf(m_ghi, -raw_gp);
+            }
+          }
+        }
+        flag_g[ln] = flag;
+      }
+      if (fail) {
+        // warp-aggregated histogram add: one shared atomic per distinct op
+        const unsigned peers = __match_any_sync(kFull, charged_op);
+        if (charged_op >= 0 && lid == __ffs(peers) - 1)
+          atomicAdd(&s_fail[g * a.ops + charged_op], __popc(peers));
+      }
+      // this node stride's minima and count into the pod's partials
+      int* const part = s_part + g * (kRows + 1);
+      const float mins[kRows] = {m_na, m_tt, m_slo, m_shi, m_ilo, m_ihi, m_plo, m_phi, m_glo,
+                                 m_ghi};
+#pragma unroll
+      for (int q = 0; q < kLive; ++q) {
+        const float v = warp_min(mins[q]);
+        if (lid == 0) atomicMin(&part[q], fkey(v));
+      }
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lid == 0 && cnt) atomicAdd(&part[kRows], cnt);
+    }
+  }
+  if (counted) {
+    __syncthreads();
+    mark(2);
+  }
+
+  // ---- round A, once a group: each pod's minima and feasible count over
+  // the cluster (a warp a pod, one lane per block), and from them the
+  // pod's normalizers (that warp's lane 0); the first-fail histograms into
+  // the output (each (pod, op) summed over the blocks by one thread of one
+  // block)
+  auto normalize = [&](int g) {
+    const float* const fin = reinterpret_cast<const float*>(s_fin + g * (kRows + 1));
+    const bool any_soft = s_sca[4 * g + 2];
+    const float hi_na = -fin[0];
+    const float hi_tt = -fin[1];
+    const float sp_min = fin[2];
+    const float sp_max = -fin[3];
+    const float soft_f = any_soft ? 1.0f : 0.0f;
+    const bool sp_pos = sp_max > 0.0f;
+    const float si_lo = fin[4];
+    const float si_rng = __fsub_rn(-fin[5], si_lo);
+    const float ip_lo = kInterpod ? fin[6] : 0.0f;
+    const float ip_rng = kInterpod ? __fsub_rn(-fin[7], ip_lo) : 0.0f;
+    const float gp_lo = kDevRes ? fin[kRowsT - 2] : 0.0f;
+    const float gp_rng = kDevRes ? __fsub_rn(-fin[kRowsT - 1], gp_lo) : 0.0f;
+    float* const nv = s_nrm + g * kNorm;
+    nv[0] = hi_na > 0.0f ? __fdiv_rn(100.0f, hi_na) : 0.0f;
+    nv[1] = hi_tt > 0.0f ? __fdiv_rn(100.0f, hi_tt) : 0.0f;
+    nv[2] = __fmul_rn(sp_pos ? __fdiv_rn(100.0f, fmaxf(sp_max, 1e-9f)) : 0.0f, soft_f);
+    nv[3] = __fmul_rn(sp_pos ? 0.0f : 100.0f, soft_f);
+    nv[4] = __fadd_rn(sp_max, sp_min);
+    nv[5] = si_lo;
+    nv[6] = si_rng > 0.0f ? __fdiv_rn(100.0f, si_rng) : 0.0f;
+    nv[7] = ip_lo;
+    nv[8] = ip_rng > 0.0f ? __fdiv_rn(100.0f, ip_rng) : 0.0f;
+    nv[9] = gp_lo;
+    nv[10] = gp_rng > 0.0f ? __fdiv_rn(100.0f, gp_rng) : 0.0f;
+    // a pod without a GPU request scores 0 on the GPU row
+    nv[11] = kDevRes ? __fmul_rn((a.w_lane ? s_w[8] : a.w_gpu),
+                                 s_sca[4 * g + 3] ? 1.0f : 0.0f) : 0.0f;
+  };
+  cluster.sync();
+  for (int g = wid; g < ng; g += B >> 5) {
+    const int* rp = lid < C ? cluster.map_shared_rank(s_part + g * (kRows + 1), lid) : nullptr;
+    int v[kLive];
+#pragma unroll
+    for (int q = 0; q < kLive; ++q) v[q] = rp ? rp[q] : INT_MAX;
+    const int c = __reduce_add_sync(kFull, rp ? rp[kRows] : 0);
+#pragma unroll
+    for (int q = 0; q < kLive; ++q) {
+      const int mq = __reduce_min_sync(kFull, v[q]);
+      if (lid == 0) s_fin[g * (kRows + 1) + q] = __float_as_int(fkey_inv(mq));
+    }
+    if (lid == 0) {
+      s_fin[g * (kRows + 1) + kRows] = c;
+      normalize(g);
+    }
+  }
+  if (fail) {
+    for (int i = rank + tid * C; i < ng * a.ops; i += B * C) {
+      int sum = 0;
+      for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(s_fail, r)[i];
+      a.out_fail[((size_t)lane * a.ls + (pg + i / a.ops - a.p0)) * a.ops + i % a.ops] = sum;
+    }
+  }
+  __syncthreads();
+  mark(3);
+
+  // ---- phase 2, a pod at a time over the block's nodes: the final score
+  // in the reference's add order, the pod's (score, lowest index) key
+  // the final score of pod g at node n (slice index ln) from its
+  // normalizers `nv`: its weighted score rows in the reference's add order
+  // (resources, node affinity, taint, interpod, spread, Simon, GPU), summed
+  // left to right; given `parts`, each live row is also written there,
+  // `stride` apart (the explain candidates' breakdown)
+  auto score_of = [&](const float (&nv)[kNorm], int g, int n, int ln, uint8_t flag, float* parts,
+                      int stride) -> float {
+    const float* const sc_g = s_sc + (size_t)g * rows * SL;
+    const uint8_t* const cb = s_cls + (size_t)g * cbytes;
+    const float* const cbf = reinterpret_cast<const float*>(cb);
+    const size_t cn = (size_t)s_sca[4 * g] * N + n;
+    float score = sc_g[ln];
+    int c = 0;
+    auto add = [&](float v) {
+      if (parts) parts[(size_t)(++c) * stride] = v;
+      score = __fadd_rn(score, v);
+    };
+    if (parts) parts[0] = score;
+    if (fl & F_NA)
+      add(__fmul_rn((a.w_lane ? s_w[3] : a.w_na),
+                    __fmul_rn(cst ? cbf[ln] : a.class_node_aff_score[cn], nv[0])));
+    if (fl & F_TT)
+      add(__fmul_rn((a.w_lane ? s_w[4] : a.w_tt), __fsub_rn(100.0f, __fmul_rn(
+          cst ? cbf[slp + ln] : a.class_taint_prefer[cn], nv[1]))));
+    if (fl & F_IP)
+      add(__fmul_rn((a.w_lane ? s_w[5] : a.w_ip),
+                    __fmul_rn(__fsub_rn(sc_g[3 * SL + ln], nv[7]), nv[8])));
+    if (use_sp) {
+      const float v = (flag & 2)
+          ? __fadd_rn(nv[3], __fmul_rn(__fsub_rn(nv[4], sc_g[SL + ln]), nv[2]))
+          : 0.0f;
+      add(__fmul_rn((a.w_lane ? s_w[6] : a.w_sp), v));
+    }
+    if (fl & F_SI)
+      add(__fmul_rn((a.w_lane ? s_w[7] : a.w_si),
+                    __fmul_rn(__fsub_rn(sc_g[2 * SL + ln], nv[5]), nv[6])));
+    if constexpr (kDevRes) {
+      if (fl & F_GPU)
+        add(__fmul_rn(nv[11], __fmul_rn(__fsub_rn(sc_g[kRowGpu * SL + ln], nv[9]), nv[10])));
+    }
+    return score;
+  };
+  auto load_norm = [&](int g, float (&nv)[kNorm]) {
+#pragma unroll
+    for (int i = 0; i < kNorm; ++i) nv[i] = s_nrm[g * kNorm + i];
+  };
+  // the top-k (kExplain, topk > 0): each pod's masked final scores in its
+  // last row; the lists, passes and candidates as in the scan
+  unsigned long long* const s_wl = reinterpret_cast<unsigned long long*>(s_dyn + lay.keys);
+  unsigned long long* const s_tk = s_wl + kTopkLists * kTopkPass;  // [2][kTopkPass]
+  unsigned long long* const s_cand = s_tk + 2 * kTopkPass;
+  unsigned long long* const s_first = s_cand + kTopkPass;           // [G][kTopkPass]
+  auto ms_of = [&](int g) { return s_sc + ((size_t)g * rows + rows - 1) * SL; };
+  // the largest key of this thread's nodes below `below` (0: none)
+  auto key_below = [&](const float* ms, unsigned long long below) {
+    unsigned long long b = 0;
+    for (int it = 0; it < iters; ++it) {
+      const int n = lo + it * B + tid;
+      if (n >= hi) break;
+      const unsigned long long tk = topk_key(ms[n - lo], n);
+      if (tk < below && tk > b) b = tk;
+    }
+    return b;
+  };
+  // a pass before its barrier: each warp's `m` largest keys by repeated
+  // warp maxima, then warp 0 merges the block's warp lists into `dst`
+  auto pass_lists = [&](const float* ms, unsigned long long mine, int m,
+                        unsigned long long* dst) {
+    unsigned long long* const wl = s_wl + wid * kTopkPass;
+    for (int r = 0; r < m; ++r) {
+      const unsigned long long t = warp_max_key(mine);
+      if (lid == 0) wl[r] = t;
+      if (t && mine == t) mine = key_below(ms, t);
+    }
+    __syncthreads();
+    if (wid == 0) merge_lists(s_wl, B >> 5, m, dst, lid);
+  };
+  // a pass after its barrier (warp 0): the C blocks' m keys each, read
+  // through distributed shared memory, merged into the pass's candidates
+  auto pass_pick = [&](const unsigned long long* src, int m) {
+    const int n_keys = C * m;
+    for (int i = lid; i < n_keys; i += 64) {
+      const int j = i + 32;
+      const unsigned long long k0 = *cluster.map_shared_rank(src + i % m, i / m);
+      const unsigned long long k1 =
+          j < n_keys ? *cluster.map_shared_rank(src + j % m, j / m) : 0;
+      s_wl[(i / m) * kTopkPass + i % m] = k0;
+      if (j < n_keys) s_wl[(j / m) * kTopkPass + j % m] = k1;
+    }
+    __syncwarp();
+    merge_lists(s_wl, C, m, s_cand, lid);
+  };
+  for (int g = 0; g < ng; ++g) {
+    float nv[kNorm];
+    load_norm(g, nv);
+    const uint8_t* const flag_g = s_flag + (size_t)g * SL;
+    float* const ms_g = ms_of(g);
+    unsigned long long best = 0, tbest = 0;
+    for (int it = 0; it < iters; ++it) {
+      const int n = lo + it * B + tid;
+      if (n >= hi) break;
+      const int ln = n - lo;
+      const uint8_t flag = flag_g[ln];
+      float ms = kNegInf;
+      if (flag & 1) {
+        ms = score_of(nv, g, n, ln, flag, nullptr, 0);
+        // the tie-break: the integer score scale, then the jitter
+        if (jitter) ms = __fadd_rn(rintf(ms), jitter_of(s_pkey[2 * g], s_pkey[2 * g + 1], n));
+      }
+      // nodes ascend per thread: a tie keys lower for the later node
+      const unsigned long long k = pick_key(ms, n);
+      if (k > best) best = k;
+      if constexpr (kExplain) {
+        if (topk) {
+          ms_g[ln] = ms;
+          const unsigned long long tk = topk_key(ms, n);
+          if (tk > tbest) tbest = tk;
+        }
+      }
+    }
+    best = warp_max_u64(best);
+    if (lid == 0 && best) atomicMax(&s_key[g], best);
+    if constexpr (kExplain) {
+      if (topk) {
+        __syncthreads();  // the warp lists are free (warp 0 merged the last pod's)
+        pass_lists(ms_g, tbest, min(topk, kTopkPass), s_first + g * kTopkPass);
+      }
+    }
+  }
+  if (counted) {
+    __syncthreads();
+    mark(4);
+  }
+
+  // ---- round B, once a group: each pod's pick over the cluster (a warp a
+  // pod); with the top-k, each pod's first pass rides it
+  cluster.sync();
+  for (int g = wid; g < ng; g += B >> 5) {
+    const unsigned long long k = lid < C ? *cluster.map_shared_rank(&s_key[g], lid) : 0;
+    const unsigned long long top = warp_max_u64(k);
+    if (lid == 0) s_pick[g] = top;
+  }
+  __syncthreads();
+  // the top-k's candidates, a pod at a time: after each pass, candidate
+  // r0 + c's row is written by lane c of the last warp of the block that
+  // owns the node; pass i >= 1 takes the largest keys below pass i - 1's
+  // last, its buffers alternating by the launch's pass count (a block
+  // rewrites one only after every block has passed the next pass's barrier)
+  if constexpr (kExplain) {
+    for (int g = 0, later = 0; g < ng && topk; ++g) {
+      float nv[kNorm];
+      load_norm(g, nv);
+      const float* const ms_g = ms_of(g);
+      const size_t orow = (size_t)lane * a.ls + (pg + g - a.p0);
+      for (int pass = 0, r0 = 0; r0 < topk; ++pass, r0 += kTopkPass) {
+        const int m = min(topk - r0, kTopkPass);
+        if (pass == 0) {
+          if (wid == 0) pass_pick(s_first + g * kTopkPass, m);
+        } else {
+          unsigned long long* const dst = s_tk + (later++ & 1) * kTopkPass;
+          pass_lists(ms_g, key_below(ms_g, s_cand[kTopkPass - 1]), m, dst);
+          cluster.sync();
+          if (wid == 0) pass_pick(dst, m);
+        }
+        __syncthreads();
+        const int cand = tid - (B - 32);
+        const int w = cand >= 0 && cand < m ? pick_node(s_cand[cand]) : -1;
+        if (w >= lo && w < hi) {
+          const size_t o = orow * topk + r0 + cand;
+          const float v = ms_g[w - lo];
+          a.out_topk_node[o] = w;
+          a.out_topk_score[o] = v;
+          float* parts = a.out_topk_parts + orow * a.n_parts * topk + r0 + cand;
+          if (v > kNegInf) {
+            score_of(nv, g, w, w - lo, s_flag[(size_t)g * SL + w - lo], parts, topk);
+          } else {
+            for (int c = 0; c < a.n_parts; ++c) parts[(size_t)c * topk] = 0.0f;
+          }
+        }
+        __syncthreads();  // the lists and the candidates are free again
+      }
+    }
+  }
+  mark(5);
+
+  // ---- phase 3: each pod's outputs (a thread a pod): the forced node or
+  // the pick, the feasible count, the device-resource picks; nothing binds
+  for (int g = tid; g < ng; g += B) {
+    const int p = pg + g;
+    const unsigned long long pick = s_pick[g];
+    const bool any_feasible = pick_score(pick) > kNegInf;
+    const int forced = s_sca[4 * g + 1];
+    const int fin = forced >= 0 ? forced : ((forced == -1 && any_feasible) ? pick_node(pick) : -1);
+    const size_t orow = (size_t)lane * a.ls + (p - a.p0);
+    if (rank == 0) {
+      a.out_node[orow] = fin;
+      a.out_feasible[orow] = fail ? s_fin[g * (kRows + 1) + kRows] : 0;
+    }
+    if constexpr (kDevRes) dev_pick(a, L, fl, p, fin, orow, fin >= lo && fin < hi, rank == 0);
+  }
+  if (counted) __syncthreads();
+  mark(6);
   if (timed)
     for (int i = 0; i < kPhases; ++i) a.cycles[(size_t)lane * kPhases + i] = s_cyc[i];
   // no block leaves while another may still read its shared memory
@@ -2424,9 +3380,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
 }
 
 template <bool kInterpod, bool kDevRes, bool kCols, bool kFrozen, bool kExplain, bool kExt>
-__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib, kExplain, kFrozen, kExt), 1)
+__global__ void __launch_bounds__(max_threads_of(kDevRes, kWideLib, kExplain, kExt), 1)
     plain_step_kernel(const StepArgs a) {
-  step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false, kExt>(a);
+  static_assert(!(kFrozen && (kCols || kExt)), "the frozen form has no columns and no rows");
+  if constexpr (kFrozen)
+    frozen_body<kInterpod, kDevRes, kExplain>(a);
+  else
+    step_body<kInterpod, kDevRes, kCols, kExplain, false, kExt>(a);
 }
 
 // The fleet form (replaces the reference's run_fleet_batched,
@@ -2443,7 +3403,7 @@ __global__ void __launch_bounds__(max_threads_of(kDevRes, true), 1)
   __shared__ __align__(16) StepArgs s_lane;
   block_copy(&s_lane, a.lanes + blockIdx.x / a.cl, sizeof(StepArgs));
   __syncthreads();
-  step_body<kInterpod, kDevRes, false, false, kExplain, true, false>(s_lane);
+  step_body<kInterpod, kDevRes, false, kExplain, true, false>(s_lane);
 }
 
 // the instantiation a launch runs: the frozen wave form (never with the
@@ -2494,9 +3454,14 @@ bool explain_ok(const StepArgs* args) {
 }
 
 // the clusters a launch runs: one per lane (a fleet: per lane's StepArgs),
-// or per (lane, pod) frozen
+// or frozen one per lane and group of its pods
 int clusters_of(const StepArgs* args) {
-  return args->frozen ? args->s * (args->p1 - args->p0) : args->s;
+  return args->frozen ? args->s * ((args->npod + args->grp - 1) / args->grp) : args->s;
+}
+
+// a block's dynamic shared memory: the frozen form's layout, or the scan's
+int smem_of(const StepArgs* args) {
+  return args->frozen ? frozen_layout_of(*args).bytes : layout_of(*args).bytes;
 }
 
 // the kernel's attributes for a launch of this geometry: a cluster over 8
@@ -2518,7 +3483,7 @@ bool geometry_ok(const StepArgs* args) {
     return false;
   const int c = args->cl;
   const int max_bt = max_threads_of(args->flags & kDevResFlags, args->fleet || kWideLib,
-                                    kExplainLib, args->frozen, kExtLib);
+                                    kExplainLib, kExtLib);
   return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0 && args->bt >= 32 &&
          args->bt <= max_bt && args->bt % 32 == 0 && args->sl >= 1 &&
          (long long)args->sl * c >= args->n;
@@ -2543,7 +3508,7 @@ cudaLaunchConfig_t config_of(const StepArgs* args, size_t smem, cudaLaunchAttrib
 }  // namespace
 
 // The dynamic shared memory a block of this launch needs (bytes).
-extern "C" int plain_step_smem(const StepArgs* args) { return layout_of(*args).bytes; }
+extern "C" int plain_step_smem(const StepArgs* args) { return smem_of(args); }
 
 // How many clusters of args->cl blocks of args->bt threads the card holds
 // at once (cudaOccupancyMaxActiveClusters) into *n; 0 when it cannot place
@@ -2553,7 +3518,7 @@ extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
   if (!kernel) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout_of(*args).bytes;
+  const size_t smem = smem_of(args);
   cudaError_t e = prepare(kernel, args, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
@@ -2572,26 +3537,31 @@ extern "C" int plain_step_clusters(const StepArgs* args, int* n) {
 extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
   if (!geometry_ok(args)) return (int)cudaErrorInvalidValue;
   // the staged regions' sources, and only the stagings a build has
-  // (none frozen or with both slices' gates, no class rows with the
-  // device-resource ops)
+  // (none with both slices' gates, no class rows with the device-resource
+  // ops)
   const bool devres = args->flags & kDevResFlags, both = devres && (args->flags & kInterpodFlags);
   if (!args->pod_pack || ((args->res & RES_STAGE_CLASS) && !args->cls_pack) ||
       ((args->res & RES_STAGE_CLASS) && devres) ||
-      ((args->res & (RES_STAGE_NODE | RES_STAGE_CLASS)) && (args->frozen || both)))
+      ((args->res & (RES_STAGE_NODE | RES_STAGE_CLASS)) && both))
     return (int)cudaErrorInvalidValue;
+  // the frozen form: no template or column, groups of at least one pod, and
+  // (without the cursor, whose pods the host cannot see) its pods inside
+  // [p0, p1)
   if (args->frozen && (args->disabled || args->nominated || (args->flags & F_TEMPLATE) ||
-                       args->cycles))
+                       args->grp < 1 || args->npod < 1 || args->poff < 0 ||
+                       (!args->cursor && args->p0 + args->poff + args->npod > args->p1)))
     return (int)cudaErrorInvalidValue;
   if (args->fleet && (!args->lanes || args->frozen || args->disabled || args->nominated ||
                       args->cycles))
     return (int)cudaErrorInvalidValue;
-  // the extension rows and the pod cursor: the scan builds of the
-  // extension library (which takes no launch without rows) and of the wide
-  // one only, every pointer of a row kind its count needs, and an output
-  // stride that holds the launch's pods
+  // the extension rows: the scan builds of the extension library (which
+  // takes no launch without rows) and of the wide one only, every pointer
+  // of a row kind its count needs, and an output stride that holds the
+  // launch's pods; the device cursor: those scan builds, or the frozen form
   const int n_out = args->p1 - args->p0;
   const bool ext = args->ef || args->es;
-  if ((ext || args->cursor) && (!kExtScan || args->frozen || args->fleet))
+  if (ext && (!kExtScan || args->frozen || args->fleet)) return (int)cudaErrorInvalidValue;
+  if (args->cursor && (args->fleet || !(args->frozen || kExtScan)))
     return (int)cudaErrorInvalidValue;
   if (kExtLib && !ext) return (int)cudaErrorInvalidValue;
   if (args->ef < 0 || args->es < 0 || (args->ef && !args->ext_ok) ||
@@ -2601,7 +3571,7 @@ extern "C" int plain_step_launch(const StepArgs* args, void* stream) {
     return (int)cudaErrorInvalidValue;
   void (*kernel)(StepArgs) = kernel_of(args);
   if (!kernel) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout_of(*args).bytes;
+  const size_t smem = smem_of(args);
   // (setting a function attribute is no stream work: relaxed, it may run
   // while the stream is captured into a CUDA graph, as PyTorch's allocator
   // does its cudaMalloc)

@@ -29,6 +29,12 @@
 // gives its bits; a bf16 carry adds the f32 sum rounded to bf16 once, as the
 // reference's astype does.
 //
+// The engine's wave loop (engine/scheduler._run_wave_plan) launches it with
+// MergeArgs.cursor set: the wave's first pod is read on the card, so one
+// launch captured into a CUDA graph merges whichever wave the cursor names,
+// its binds read from the loop's full-length output buffers; the
+// arithmetic is the same.
+//
 // What bounds it on this card: bytes. Each thread reads its cell and the
 // wave's node row (the same addresses across a warp, so one load serves
 // it) and, for each pod bound at its node, that pod's value; the work per
@@ -87,6 +93,13 @@ struct MergeArgs {
   float* pref_paint;             // [S, N, T2]
   float* gpu_used;               // [S, N, G]
   int n, r, sg, mg, pt, lk, t, ot, ap, t2, g, k1, d, s, p0, c, node_stride, flags;
+  // the wave loop's merge, captured into a CUDA graph (null otherwise): the
+  // wave's first pod is *cursor, not p0, and its nodes and GPU picks are
+  // rows *cursor - row_base of the loop's full-length [S, ls] buffers
+  // (nodes node_stride = ls apart, gpu_pick ls x G apart); without it they
+  // are the wave's own (gpu_pick c x G apart)
+  const int32_t* cursor;
+  int row_base, ls;
 };
 
 }  // extern "C"
@@ -137,7 +150,10 @@ __device__ __forceinline__ void add_count(void* base, size_t idx, float sum, boo
 __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a) {
   const int lane = blockIdx.y;
   long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t* nodes = a.nodes + (size_t)lane * a.node_stride;
+  // the wave's first pod and its row in the binds' buffers
+  const int p0 = a.cursor ? *a.cursor : a.p0;
+  const int row = a.cursor ? p0 - a.row_base : 0;
+  const int32_t* nodes = a.nodes + (size_t)lane * a.node_stride + row;
   const int N = a.n, fl = a.flags;
   const size_t ln = (size_t)lane * N;
 
@@ -146,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
     const int n = (int)(cell / a.r), col = (int)(cell % a.r);
     float sum = 0.0f;
     for (int i = 0; i < a.c; ++i)
-      if (nodes[i] == n) sum = __fadd_rn(sum, a.req[(size_t)(a.p0 + i) * a.r + col]);
+      if (nodes[i] == n) sum = __fadd_rn(sum, a.req[(size_t)(p0 + i) * a.r + col]);
     float* h = a.headroom + (ln + n) * a.r + col;
     *h = __fsub_rn(*h, sum);
     return;
@@ -158,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
       const int n = (int)(cell / a.sg), g = (int)(cell % a.sg);
       float sum = 0.0f;
       for (int i = 0; i < a.c; ++i)
-        if (nodes[i] == n) sum = __fadd_rn(sum, group_of(a, a.p0 + i, g));
+        if (nodes[i] == n) sum = __fadd_rn(sum, group_of(a, p0 + i, g));
       add_count(a.group_count, (ln + n) * a.sg + g, sum, fl & M_GC_BF16);
       return;
     }
@@ -174,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
       float sum = 0.0f;
       for (int i = 0; i < a.c; ++i) {
         const int nd = nodes[i];
-        if (nd >= 0 && dom[nd] == dd) sum = __fadd_rn(sum, group_of(a, a.p0 + i, g));
+        if (nd >= 0 && dom[nd] == dd) sum = __fadd_rn(sum, group_of(a, p0 + i, g));
       }
       float* q = a.dom_count + (size_t)lane * a.k1 * a.d * a.sg + cell;
       *q = __fadd_rn(*q, sum);
@@ -188,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
       const int n = (int)(cell / a.pt), t = (int)(cell % a.pt);
       bool any = false;
       for (int i = 0; i < a.c; ++i)
-        any |= nodes[i] == n && a.ports[(size_t)(a.p0 + i) * a.pt + t] != 0;
+        any |= nodes[i] == n && a.ports[(size_t)(p0 + i) * a.pt + t] != 0;
       if (any) a.ports_used[(ln + n) * a.pt + t] = 1;
       return;
     }
@@ -200,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
       const int n = (int)(cell / a.lk), k = (int)(cell % a.lk);
       float sum = 0.0f;
       for (int i = 0; i < a.c; ++i)
-        if (nodes[i] == n) sum = __fadd_rn(sum, a.vol_limit_req[(size_t)(a.p0 + i) * a.lk + k]);
+        if (nodes[i] == n) sum = __fadd_rn(sum, a.vol_limit_req[(size_t)(p0 + i) * a.lk + k]);
       float* q = a.vol_cnt + (ln + n) * a.lk + k;
       *q = __fadd_rn(*q, sum);
       return;
@@ -215,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
       float sum = 0.0f;
       for (int i = 0; i < a.c; ++i) {
         const int nd = nodes[i];
-        if (nd >= 0 && same_domain(a, key, nd, n)) sum = __fadd_rn(sum, term_of(a, a.p0 + i, t));
+        if (nd >= 0 && same_domain(a, key, nd, n)) sum = __fadd_rn(sum, term_of(a, p0 + i, t));
       }
       add_count(a.term_block, (ln + n) * a.t + t, sum, fl & M_TB_BF16);
       return;
@@ -232,7 +248,7 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
         float sum = 0.0f;
         for (int i = 0; i < a.c; ++i) {
           const int nd = nodes[i];
-          const size_t o = (size_t)(a.p0 + i) * a.ap + s;
+          const size_t o = (size_t)(p0 + i) * a.ap + s;
           if (nd < 0 || !a.pref_valid[o] || a.pref_tid[o] != t2) continue;
           if (same_domain(a, a.pref_key[o], nd, n)) sum = __fadd_rn(sum, a.pref_weight[o]);
         }
@@ -247,11 +263,11 @@ __global__ void __launch_bounds__(kThreads) wave_merge_kernel(const MergeArgs a)
     span = (long long)N * a.g;
     if (cell < span) {
       const int n = (int)(cell / a.g), g = (int)(cell % a.g);
-      const int32_t* pick = a.gpu_pick + (size_t)lane * a.c * a.g;
+      const int32_t* pick = a.gpu_pick + ((size_t)lane * a.ls + row) * a.g;
       float sum = 0.0f;
       for (int i = 0; i < a.c; ++i)
         if (nodes[i] == n)
-          sum = __fadd_rn(sum, __fmul_rn((float)pick[(size_t)i * a.g + g], a.gpu_mem[a.p0 + i]));
+          sum = __fadd_rn(sum, __fmul_rn((float)pick[(size_t)i * a.g + g], a.gpu_mem[p0 + i]));
       float* q = a.gpu_used + (ln + n) * a.g + g;
       *q = __fadd_rn(*q, sum);
     }

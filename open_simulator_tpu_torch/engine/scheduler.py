@@ -920,37 +920,134 @@ def _const_outputs(arrs: SnapshotArrays, cfg: EngineConfig, lo: int, hi: int):
             torch.zeros((c, c_parts, k_top), dtype=torch.float32, device=dev))
 
 
+# the card's wave loops: CUDA graphs captured (one a run of waves of one
+# width) and the waves replayed through them
+WAVE_LOOP: Dict[str, int] = {"wave_graphs": 0, "wave_replays": 0}
+
+
+def output_buffers(arrs: SnapshotArrays, cfg: EngineConfig, n_lanes: int, n_out: int, dev):
+    """The step's [S, P', ...] outputs of a loop that writes them row by
+    row (the wave loop, the extension loop), allocated once (the fail
+    counts a zero-stride view without reason accounting)."""
+    from open_simulator_tpu_torch.kernels import step as step_kernels
+
+    g_w, lw = step_kernels.pick_widths(arrs, cfg)
+    k_top, c_parts = topk_widths(arrs, cfg)
+    i32 = torch.int32
+    fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
+            if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
+    return step_kernels.StepOutputs(
+        torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
+        torch.empty((n_lanes, n_out), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
+        torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
+        torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev))
+
+
+class WaveRuns:
+    """The batched waves of ``_run_wave_plan`` over pods [k, ...), their
+    pieces apart so that a measurement can drive them: `outs`, the step's
+    full-length outputs (row p - k for pod p); `cursor`, the int32 [1]
+    tensor on the carry's device that names the next wave's first pod;
+    ``wave(w)``, one wave of width w: the frozen step of the pods the
+    cursor names against the carry (``kernels/step.wave_launcher``), the
+    merge of their binds (``kernels/wave.merge_launcher``), then the
+    cursor's step by w (the launches and their plans and scratch built at
+    a width's first wave); ``capture(w)``, one wave's work captured into a
+    CUDA graph (on the card, after a first ``wave(w)``), which replays the
+    wave the cursor names; ``run(lo, n, w, graph)``, n waves of width w
+    from pod lo."""
+
+    def __init__(self, arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
+                 inv_alloc: torch.Tensor, carry: SimState, cfg: EngineConfig, k: int,
+                 n_pods: int, weights: Optional[torch.Tensor] = None):
+        dev = active.device
+        self.args = (arrs, active, hoist, inv_alloc, carry, cfg)
+        self.k, self.weights = k, weights
+        self.outs = output_buffers(arrs, cfg, active.shape[0], n_pods - k, dev)
+        self.cursor = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.merge_inputs: Dict[str, Any] = {}
+        self.launchers: Dict[int, tuple] = {}
+
+    def wave(self, w: int) -> None:
+        from open_simulator_tpu_torch.kernels import step as step_kernels
+        from open_simulator_tpu_torch.kernels import wave as wave_kernels
+
+        if w not in self.launchers:
+            arrs, active, hoist, inv_alloc, carry, cfg = self.args
+            self.launchers[w] = (
+                step_kernels.wave_launcher(arrs, active, hoist, inv_alloc, carry, cfg,
+                                           self.outs, self.k, self.cursor, w, self.weights),
+                wave_kernels.merge_launcher(arrs, cfg, carry, self.outs.node,
+                                            self.outs.gpu_pick if cfg.enable_gpu else None,
+                                            self.k, self.cursor, w, self.merge_inputs))
+        launch, merge = self.launchers[w]
+        launch()
+        merge()
+        self.cursor.add_(w)
+
+    def capture(self, w: int) -> torch.cuda.CUDAGraph:
+        """One wave's work captured (nothing of it runs); raises, naming the
+        launches, where it cannot be captured."""
+        try:
+            return _capture(lambda: self.wave(w))
+        except Exception as err:
+            raise RuntimeError(
+                f"the wave loop's frozen plain_step launch, wave_merge launch and cursor step "
+                f"(waves of {w} pods) could not be captured into a CUDA graph: "
+                f"{type(err).__name__}: {err}") from err
+
+    def run(self, lo: int, n_waves: int, w: int, graph: bool) -> None:
+        self.cursor.fill_(lo)
+        self.wave(w)
+        if not (graph and self.cursor.device.type == "cuda") or n_waves == 1:
+            for _ in range(n_waves - 1):
+                self.wave(w)
+            return
+        replayed = self.capture(w)
+        WAVE_LOOP["wave_graphs"] += 1
+        launch, merge = self.launchers[w]
+        for _ in range(n_waves - 1):
+            replayed.replay()
+            launch.count()
+            merge.count()
+        WAVE_LOOP["wave_replays"] += n_waves - 1
+
+
 def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHoist,
                    inv_alloc: torch.Tensor, carry: SimState, template: SimState,
                    cfg: EngineConfig, waves, k: int, n_pods: int,
-                   weights: Optional[torch.Tensor] = None):
+                   weights: Optional[torch.Tensor] = None, graph: bool = True):
     """Run the plan's segments over pods [k, n_pods) on every lane of
     `carry` (written from `template` first, by the first scan launch's
     lane prologue or, where a wave comes first, by a copy), every launch
     with the lanes' [S, K] `weights` under the traced weights. Returns the
-    step's (node, fail_counts, feasible, gpu_pick, vol_pick) for those
-    pods. A segment past the real pods (the reference's padded tail) is
-    skipped: it binds nothing. No launch falls back to another path."""
+    step's outputs for those pods. A segment past the real pods (the
+    reference's padded tail) is skipped: it binds nothing.
+
+    A GRID segment's waves, and a BATCH segment's chunks of _WAVE_CHUNK
+    pods, are runs of waves of one width (``WaveRuns``): a wave is the
+    frozen step and the merge, both reading the wave's first pod from an
+    int32 device cursor and the step writing straight into the
+    full-length outputs, then the cursor's step by the width. On the card
+    (``graph=True``) a run's first wave runs eagerly (it builds the
+    launches, their plans and scratch), the second wave's work is captured
+    into a CUDA graph and the graph is replayed for it and every later
+    wave of the run (``WAVE_LOOP``); a capture that fails raises, naming
+    the launches: the card has no eager fallback. With ``graph=False`` and
+    on the CPU (the plain versions, the cursor a CPU tensor) every wave
+    runs eagerly. A BATCH segment's shorter last chunk is a run of one
+    wave. No launch falls back to another path."""
     from open_simulator_tpu_torch.engine import waves as wave_mod
     from open_simulator_tpu_torch.kernels import step as step_kernels
     from open_simulator_tpu_torch.kernels import wave as wave_kernels
 
-    dev = active.device
-    n_lanes, n_out = active.shape[0], n_pods - k
-    g_w, lw = step_kernels.pick_widths(arrs, cfg)
-    k_top, c_parts = topk_widths(arrs, cfg)
-    i32 = torch.int32
-    fail = (torch.empty((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
-            if cfg.fail_reasons else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
-    outs = [torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
-            torch.empty((n_lanes, n_out), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
-            torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev)]
+    n_lanes = active.shape[0]
+    runs = WaveRuns(arrs, active, hoist, inv_alloc, carry, cfg, k, n_pods, weights)
+    outs = runs.outs
     step_inputs: Dict[str, Any] = {}
-    merge_inputs: Dict[str, Any] = {}
     pending = template
 
     def put(lo: int, hi: int, out) -> None:
@@ -958,13 +1055,6 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
         for i, (dst, src) in enumerate(zip(outs, out)):
             if i != 1 or cfg.fail_reasons:
                 dst[:, a:b] = src
-
-    def wave(lo: int, hi: int) -> None:
-        out = step_kernels.plain_step(arrs, active, hoist, inv_alloc, carry, cfg, lo, hi,
-                                      frozen=True, inputs=step_inputs, weights=weights)
-        wave_kernels.wave_merge(arrs, cfg, carry, lo, hi, out[0],
-                                out[3] if cfg.enable_gpu else None, inputs=merge_inputs)
-        put(lo, hi, out)
 
     for lo, hi, kind, w in waves.segments:
         hi = min(hi, n_pods)
@@ -986,14 +1076,18 @@ def _run_wave_plan(arrs: SnapshotArrays, active: torch.Tensor, hoist: ActiveHois
                 for s0 in range(lo, hi, _PREFIX_CHUNK):
                     s1 = min(s0 + _PREFIX_CHUNK, hi)
                     wave_kernels.wave_merge(arrs, cfg, carry, s0, s1,
-                                            arrs.forced_node[s0:s1].to(i32).contiguous(),
-                                            None, inputs=merge_inputs)
+                                            arrs.forced_node[s0:s1].to(torch.int32)
+                                            .contiguous(), None, inputs=runs.merge_inputs)
         elif kind == wave_mod.GRID:
-            for w0 in range(lo, hi, w):
-                wave(w0, w0 + w)
+            if (hi - lo) % w:
+                raise ValueError(f"a GRID segment of {hi - lo} pods is not waves of {w}")
+            runs.run(lo, (hi - lo) // w, w, graph)
         else:  # BATCH: one wave, in chunks of _WAVE_CHUNK pods
-            for s0 in range(lo, hi, _WAVE_CHUNK):
-                wave(s0, min(s0 + _WAVE_CHUNK, hi))
+            full = (hi - lo) // _WAVE_CHUNK
+            if full:
+                runs.run(lo, full, _WAVE_CHUNK, graph)
+            if lo + full * _WAVE_CHUNK < hi:
+                runs.run(lo + full * _WAVE_CHUNK, 1, hi - lo - full * _WAVE_CHUNK, graph)
     if pending is not None:
         step_kernels.copy_template(carry, pending)
     return tuple(outs)
@@ -1298,24 +1392,11 @@ class ExtensionLoop:
         from open_simulator_tpu_torch.kernels import step as step_kernels
 
         dev = active.device
-        n_lanes, n_out = active.shape[0], n_pods - k
-        g_w, lw = step_kernels.pick_widths(arrs, cfg)
-        k_top, c_parts = topk_widths(arrs, cfg)
-        i32 = torch.int32
-        fail = (torch.zeros((n_lanes, n_out, cfg.n_ops), dtype=i32, device=dev)
-                if cfg.fail_reasons
-                else step_kernels.no_fail_counts(n_lanes, n_out, cfg.n_ops, dev))
-        self.outs = step_kernels.StepOutputs(
-            torch.empty((n_lanes, n_out), dtype=i32, device=dev), fail,
-            torch.empty((n_lanes, n_out), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, g_w), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, lw), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, k_top), dtype=i32, device=dev),
-            torch.empty((n_lanes, n_out, k_top), dtype=torch.float32, device=dev),
-            torch.empty((n_lanes, n_out, c_parts, k_top), dtype=torch.float32, device=dev))
+        n_out = n_pods - k
+        self.outs = output_buffers(arrs, cfg, active.shape[0], n_out, dev)
         step_kernels.copy_template(carry, template)
         self.cfg, self.arrs, self.n_out = cfg, arrs, n_out
-        self.cursor = torch.full((1,), k, dtype=i32, device=dev)
+        self.cursor = torch.full((1,), k, dtype=torch.int32, device=dev)
         self.launch = step_kernels.pod_launcher(arrs, active, hoist, inv_alloc, carry, cfg,
                                                 self.outs, k, self.cursor, disabled=disabled,
                                                 nominated=nominated, weights=weights,

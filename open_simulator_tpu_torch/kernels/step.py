@@ -109,7 +109,12 @@ node-static rows once a launch and each pod's class rows one pod ahead
 (``PLACEMENTS``: those are the first regions it drops; ``class_packs``);
 every pod's scalars reach the kernel by bulk copy from ``pod_pack``.
 ``LAST_PLAN`` holds the geometry of the latest launch. The frozen form
-runs one cluster per (lane, pod) under the same plan.
+runs one cluster per lane and group of its pods: ``plan_for`` plans the
+geometry of one pod a cluster, then takes the group size
+(``frozen_group``: the largest group whose rows fit a block's shared
+memory, ``frozen_smem_bytes``, while the lanes' groups still fill the
+card); ``wave_launcher`` is the engine's wave-loop form, the wave's first
+pod read from a device cursor.
 """
 
 from __future__ import annotations
@@ -267,6 +272,62 @@ def smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool =
     return 4 * words + slice_len + w.npv + w.node_b * node
 
 
+# the frozen form's per-pod normalizers and the minima rows (kNorm, kRows
+# in the .cu)
+K_NORM, K_ROWS = 12, 10
+
+
+def frozen_smem_bytes(w: SmemWidths, slice_len: int, headroom: bool, dom_global: bool = False,
+                      cols_global: bool = False, stage: int = 0, group: int = 1) -> int:
+    """A frozen block's dynamic shared memory for a group of `group` pods
+    (mirrors frozen_layout_of in the .cu): the top-k's key rows (with each
+    pod's first-pass list), then a pod's argmax keys, class rows (each
+    slice padded to 16 nodes), region, histogram, minima partials, the
+    cluster's minima, normalizers, PRNG key, scalars (class, forced node,
+    soft spread, GPU request), column-read partials
+    and merged read, needs, hard-spread minima and score rows, `group`
+    times; the dom_count replica, the headroom and node rows once; then the
+    pods' flags, the pv_taken replica and the node rows' bytes."""
+    qd = w.q * w.d + 2 * w.q
+    slp = _cdiv(slice_len, 16) * 16
+    node = slice_len if stage & RES_STAGE_NODE else 0
+    per_pod = (4 + (w.cls * slp // 4 if stage & RES_STAGE_CLASS else 0) + w.pod + w.ops
+               + 2 * (K_ROWS + 1) + K_NORM + 2 + 4 + (0 if cols_global else qd) + qd + w.q
+               + w.cs + w.rows * slice_len)
+    words = ((2 * (TOPK_LISTS + 3 + group) * TOPK_PASS if w.keys else 0) + group * per_pod
+             + (0 if dom_global else w.dom) + (slice_len * w.r if headroom else 0)
+             + w.node_w * node)
+    return 4 * words + group * slice_len + w.npv + w.node_b * node
+
+
+def frozen_group(n_lanes: int, n_pods: int, resident: int,
+                 smem_of: Callable[[int], int]) -> int:
+    """The frozen form's group size G: the largest G whose group fits a
+    block's shared memory (`smem_of(G)` <= the budget) and still leaves
+    S x ceil(P' / G) clusters at least as many as the card holds at once
+    (`resident`, at the plan's geometry); 1 where even one pod a cluster
+    leaves fewer (the clusters then run in one round). Then, over the same
+    number of rounds of `resident` clusters, as many groups as those
+    rounds hold: the least G that needs no more rounds (a cluster's time
+    grows with its pods; a round's is its slowest cluster's)."""
+    best = 1
+    for g in range(2, n_pods + 1):
+        if smem_of(g) > _SMEM_LIMIT or n_lanes * _cdiv(n_pods, g) < resident:
+            break
+        best = g
+    if best == 1:
+        return 1
+    rounds = _cdiv(n_lanes * _cdiv(n_pods, best), resident)
+    return _cdiv(n_pods, min(n_pods, rounds * resident // n_lanes))
+
+
+def frozen_cost(n_lanes: int, n_pods: int, resident: int, group: int) -> int:
+    """Pods a cluster times rounds of the card's resident clusters: the
+    frozen launch's length in one pod's cluster time, as the plan weighs
+    it (the fixed part of a cluster aside)."""
+    return group * _cdiv(n_lanes * _cdiv(n_pods, group), resident)
+
+
 class LaunchPlan(NamedTuple):
     """One launch's geometry: S clusters of `cluster` blocks of `threads`
     threads; block `rank` of a lane owns nodes [rank * slice_len,
@@ -281,6 +342,7 @@ class LaunchPlan(NamedTuple):
     cols_global: bool = False  # its column-read partials live in global memory
     wide: bool = False         # the wide library's builds (global regions, walk window)
     stage: int = 0             # the staged regions (RES_STAGE_* bits)
+    group: int = 1             # the frozen form's pods a cluster (frozen_group)
 
 
 # where plan_launch puts a block's regions, in the order it tries them:
@@ -308,15 +370,14 @@ def placements_held_to(stage: int) -> tuple:
 
 
 def max_threads(flags: int, fleet: bool = False, wide: bool = False, explain: bool = False,
-                frozen: bool = False, ext: bool = False) -> int:
+                ext: bool = False) -> int:
     """The block size cap of the instantiation these flags launch (a fleet
     build, or a build of the wide library, takes the smaller cap; so do
-    the explain builds of the scan, every explain build with the
-    device-resource ops, and the extension library's scan builds)."""
+    the explain builds and the extension library's scan builds)."""
     devres = bool(flags & DEVRES_FLAGS)
     if fleet or wide:
         return MAX_THREADS_WIDE_DEVRES if devres else MAX_THREADS_WIDE
-    if explain and (devres or not frozen):
+    if explain:
         return MAX_THREADS_EXPLAIN_DEVRES if devres else MAX_THREADS_EXPLAIN
     if ext:
         return MAX_THREADS_EXT
@@ -344,7 +405,9 @@ def node_slices(plan: LaunchPlan, n_nodes: int) -> List[Tuple[int, int]]:
 
 def plan_launch(n_lanes: int, n_nodes: int, w: SmemWidths,
                 occupancy: Callable[..., int],
-                cap: int = MAX_THREADS, placements=PLACEMENTS) -> LaunchPlan:
+                cap: int = MAX_THREADS, placements=PLACEMENTS,
+                smem: Callable[..., int] = smem_bytes,
+                sizes: Optional[Tuple[int, ...]] = None) -> LaunchPlan:
     """The launch geometry: the largest cluster size C in CLUSTER_SIZES
     whose block fits its shared memory and whose `n_lanes` clusters the card
     holds at once (`occupancy(C, threads, slice_len, headroom, dom_global,
@@ -356,24 +419,27 @@ def plan_launch(n_lanes: int, n_nodes: int, w: SmemWidths,
     then without the class rows' copies, then without the node rows, then
     the headroom rows in global memory, then the dom_count replica, then
     the column-read partials, then both, in global memory per block).
-    Raises ValueError when no cluster size fits even so."""
+    Raises ValueError when no cluster size fits even so. `smem` is the
+    layout's accounting (``smem_bytes``; the frozen form's at one pod a
+    cluster, ``frozen_smem_bytes``), `sizes` the cluster sizes tried
+    (CLUSTER_SIZES)."""
     fits = []
-    for c in CLUSTER_SIZES:
+    for c in sizes or CLUSTER_SIZES:
         sl, threads = block_geometry(n_nodes, c, cap)
         for hr, dg, cg, stage in placements:
-            smem = smem_bytes(w, sl, hr, dg, cg, stage)
-            if smem <= _SMEM_LIMIT:
+            need = smem(w, sl, hr, dg, cg, stage)
+            if need <= _SMEM_LIMIT:
                 break
         else:
             continue  # this size's slices do not fit
-        plan = LaunchPlan(c, threads, sl, hr, smem,
+        plan = LaunchPlan(c, threads, sl, hr, need,
                           occupancy(c, threads, sl, hr, dg, cg, stage), dg, cg, stage=stage)
         if plan.resident >= n_lanes:
             return plan
         fits.append(plan)
     if not fits:
         sl = block_geometry(n_nodes, CLUSTER_SIZES[0])[0]
-        need = smem_bytes(w, sl, False, True, True)
+        need = smem(w, sl, False, True, True)
         raise ValueError(
             f"plain_step: {w.ops} ops, {w.q} carry columns x {w.d} domains and "
             f"{sl}-node slices need {need} bytes of shared memory, over the block's "
@@ -406,7 +472,8 @@ class StepArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in ("ext_ok", "ext_raw", "ext_w", "ext_norm")]
                 + [(f, ctypes.c_int) for f in ("ef", "es", "ered", "ls")]
                 + [(f, ctypes.c_void_p) for f in ("pod_pack", "cls_pack")]
-                + [("hit_w", ctypes.c_int), ("cursor", ctypes.c_void_p)])
+                + [("hit_w", ctypes.c_int), ("cursor", ctypes.c_void_p)]
+                + [(f, ctypes.c_int) for f in ("grp", "npod", "poff")])
 
 
 # ExtensionOp.normalize -> StepArgs.ext_norm
@@ -499,16 +566,13 @@ def plain_step(arrs, active: torch.Tensor, hoist: ActiveHoist,
     raise ValueError(f"no plain_step for device {active.device}")
 
 
-def _check_frozen(template, disabled, nominated, phase_cycles=None,
-                  cfg: Optional[EngineConfig] = None) -> None:
+def _check_frozen(template, disabled, nominated, cfg: Optional[EngineConfig] = None) -> None:
     if template is not None or disabled is not None or nominated is not None:
         raise ValueError("plain_step: the frozen wave form takes no template and no "
                          "preemption column")
     if cfg is not None and cfg.extensions:
         raise ValueError("plain_step: the frozen wave form takes no extension rows (a wave "
                          "plan is dropped under extensions)")
-    if phase_cycles is not None:
-        raise ValueError("plain_step: the frozen wave form has no cycle counts")
 
 
 def check_weights(cfg: EngineConfig, weights: Optional[torch.Tensor],
@@ -785,19 +849,63 @@ def placements_for(wide: bool, one_pod: bool = False, flags: int = 0,
 
 def plan_for(arrs, cfg: EngineConfig, flags: int, n_lanes: int,
              occupancy: Callable[..., int], fleet: bool = False,
-             one_pod: bool = False, frozen: bool = False) -> LaunchPlan:
+             one_pod: bool = False, frozen: bool = False, n_pods: int = 1) -> LaunchPlan:
     """``plan_launch`` for a launch of these arrays under these flags: the
     wide library's builds and placements where ``needs_wide``, the
-    extension library's cap under ``cfg.extensions``; `one_pod`
-    for launches of one pod a cluster (``placements_for``; the extension
-    loop's keep the headroom rows in global memory), `frozen` for the
-    frozen form's builds (``max_threads``)."""
+    extension library's cap under ``cfg.extensions``; `one_pod` for the
+    extension loop's launches of one pod a cluster (``placements_for``:
+    the headroom rows in global memory). `frozen`: the frozen form's
+    builds (``max_threads``) over `n_pods` pods a lane, its layout
+    (``frozen_smem_bytes``), the scan's stagings, the geometry planned for
+    S x P' clusters of one pod (where they all fit at once, at the
+    smallest cluster size that gives its threads as few nodes each), then
+    the staging and the group size (``frozen_group``, ``frozen_cost``)."""
     wide = needs_wide(arrs, cfg, flags)
     ext = bool(cfg.extensions) and not (fleet or frozen)
-    plan = plan_launch(n_lanes, arrs.alloc.shape[0], smem_widths(arrs, cfg, flags), occupancy,
-                       max_threads(flags, fleet, wide, explain_on(cfg), frozen, ext),
-                       placements_for(wide, one_pod, flags, headroom=not (ext and one_pod)))
-    return plan._replace(wide=wide)
+    w = smem_widths(arrs, cfg, flags)
+    placements = placements_for(wide, one_pod, flags, headroom=not (ext and one_pod))
+    if not frozen:
+        plan = plan_launch(n_lanes, arrs.alloc.shape[0], w, occupancy,
+                           max_threads(flags, fleet, wide, explain_on(cfg), ext), placements)
+        return plan._replace(wide=wide)
+    cap = max_threads(flags, fleet, wide, explain_on(cfg))
+    n_clusters, n = n_lanes * n_pods, arrs.alloc.shape[0]
+    plan = plan_launch(n_clusters, n, w, occupancy, cap, placements, frozen_smem_bytes)
+    if plan.resident >= n_clusters:
+        # every one-pod cluster fits at once: the smallest cluster whose
+        # threads still hold as few nodes each and whose clusters all fit
+        # at once (one lane: a cluster's rounds wait on fewer blocks)
+        per = _cdiv(plan.slice_len, plan.threads)
+        for c in sorted(sz for sz in CLUSTER_SIZES if sz < plan.cluster):
+            sl, threads = block_geometry(n, c, cap)
+            if _cdiv(sl, threads) != per:
+                continue
+            try:
+                small = plan_launch(n_clusters, n, w, occupancy, cap, placements,
+                                    frozen_smem_bytes, sizes=(c,))
+            except ValueError:  # its slice does not fit a block's shared memory
+                continue
+            if small.resident >= n_clusters:
+                plan = small
+                break
+
+    def smem_of(stage: int):
+        return lambda g: frozen_smem_bytes(w, plan.slice_len, plan.headroom, plan.dom_global,
+                                           plan.cols_global, stage, g)
+
+    # each staging the geometry allows, by the launch's length (pods a
+    # cluster times rounds; ties keep the more staged): a group's staged
+    # class rows can cost it pods, and with them a round
+    stages = [pl[3] for pl in placements if pl[:3] == (plan.headroom, plan.dom_global,
+                                                        plan.cols_global)]
+    stages = [st for st in stages if smem_of(st)(1) <= _SMEM_LIMIT]
+    groups = {st: frozen_group(n_lanes, n_pods, plan.resident, smem_of(st)) for st in stages}
+    stage = min(stages, key=lambda st: frozen_cost(n_lanes, n_pods, plan.resident, groups[st]))
+    if groups[stage] == 1:
+        # one pod a cluster stages nothing: its one pod would not repay the copies
+        stage = min(stages)
+    return plan._replace(wide=wide, group=groups[stage], stage=stage,
+                         smem=smem_of(stage)(groups[stage]))
 
 
 def _library(explain: bool = False, wide: bool = False, ext: bool = False) -> ctypes.CDLL:
@@ -819,6 +927,7 @@ def _library(explain: bool = False, wide: bool = False, ext: bool = False) -> ct
 
 def _set_geometry(args: StepArgs, plan) -> None:
     args.cl, args.bt, args.sl = plan.cluster, plan.threads, plan.slice_len
+    args.grp = plan.group
     args.res = ((RES_HEADROOM if plan.headroom else 0)
                 | (RES_DOM_GLOBAL if plan.dom_global else 0)
                 | (RES_COLS_GLOBAL if plan.cols_global else 0) | plan.stage)
@@ -1074,19 +1183,21 @@ def scratch_bytes(arrs, cfg: EngineConfig, flags: int, plan: LaunchPlan, n_clust
     """The global memory a launch of `n_clusters` clusters under `plan`
     takes besides its inputs and outputs: each block's dom_count replica
     and column-read partials where the plan put them there (the frozen
-    form reads the lane's dom_count itself), and the walks' windows."""
+    form reads the lane's dom_count itself, and keeps its group's column
+    partials, not two pods'), and the walks' windows."""
     k1, _, d = arrs.topo_onehot.shape
     w = smem_widths(arrs, cfg, flags)
     blocks = n_clusters * plan.cluster
     words = ((k1 * d * arrs.match_groups.shape[1] if plan.dom_global and flags & F_DOM
               and not frozen else 0)
-             + (2 * (w.q * w.d + 2 * w.q) if plan.cols_global else 0)
+             + ((plan.group if frozen else 2) * (w.q * w.d + 2 * w.q) if plan.cols_global
+                else 0)
              + walk_width(arrs, cfg) * plan.threads)
     return 4 * blocks * words
 
 
 # a frozen launch whose scratch would pass this runs as launches over
-# fewer pods each (its clusters are one per lane and pod)
+# fewer groups each (its clusters are one per lane and group)
 _SCRATCH_LIMIT = 1 << 30
 
 
@@ -1108,24 +1219,11 @@ def _scratch(args: StepArgs, arrs, cfg: EngineConfig, flags: int, plan: LaunchPl
 
     args.dom_spill = (alloc(k1 * d * arrs.match_groups.shape[1], torch.float32)
                       if plan.dom_global and flags & F_DOM and not frozen else None)
-    args.col_spill = (alloc(2 * (w.q * w.d + 2 * w.q), torch.int32)
+    args.col_spill = (alloc((plan.group if frozen else 2) * (w.q * w.d + 2 * w.q), torch.int32)
                       if plan.cols_global else None)
     args.walk_w = walk_width(arrs, cfg)
     args.walk = alloc(args.walk_w * plan.threads, torch.int32) if args.walk_w else None
     return keep
-
-
-def _empty_outputs(arrs, cfg: EngineConfig, n_lanes: int, dev) -> StepOutputs:
-    gp_w, vp_w = pick_widths(arrs, cfg)
-    k_top, c_parts = scheduler.topk_widths(arrs, cfg)
-    empty = torch.empty((n_lanes, 0), dtype=torch.int32, device=dev)
-    return StepOutputs(
-        empty, no_fail_counts(n_lanes, 0, cfg.n_ops, dev), empty,
-        torch.empty((n_lanes, 0, gp_w), dtype=torch.int32, device=dev),
-        torch.empty((n_lanes, 0, vp_w), dtype=torch.int32, device=dev),
-        torch.empty((n_lanes, 0, k_top), dtype=torch.int32, device=dev),
-        torch.empty((n_lanes, 0, k_top), dtype=torch.float32, device=dev),
-        torch.empty((n_lanes, 0, c_parts, k_top), dtype=torch.float32, device=dev))
 
 
 def _launch_args(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
@@ -1298,21 +1396,22 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     """Launch the ``plain_step`` kernel: one thread-block cluster per lane
     (``plan_launch``), the pod loop inside the kernel, the carry updated in
     place on the current stream (with a `template`, first written from it
-    by the lane prologue); frozen, one cluster per (lane, pod) and the
-    carry only read. Given `phase_cycles`, an [S, len(PHASES)] int64
-    tensor on the card, the kernel writes each lane's cycles per phase
-    into it. `disabled` and `nominated` go to the kernel as pointers (null
-    when None). `inputs`, a dict the caller keeps across launches over the
-    same arrays, lanes and config, holds the converted inputs and the
-    launch plans after the first call. `weights` ([S, K] f32, under the
-    traced weights only) goes to the kernel as ``w_lane``, and the
-    extension rows `ext_ok` / `ext_raw` (under ``cfg.extensions`` only) as
-    theirs. Regions the
-    plan puts in global memory, and the device-resource walks past their
-    per-thread widths, get scratch of their own (``scratch_bytes``)."""
+    by the lane prologue); frozen, the engine's wave launch
+    (``wave_launcher``, its cursor at p0) of pods [p0, p1) into new
+    outputs. Given `phase_cycles`, an [S, len(PHASES)] int64 tensor on the
+    card, the kernel writes each lane's cycles per phase (frozen: its first
+    cluster's, over its group) into it. `disabled` and `nominated` go to
+    the kernel as pointers (null when None). `inputs`, a dict the caller
+    keeps across launches over the same arrays, lanes and config, holds the
+    converted inputs and the launch plans after the first call. `weights`
+    ([S, K] f32, under the traced weights only) goes to the kernel as
+    ``w_lane``, and the extension rows `ext_ok` / `ext_raw` (under
+    ``cfg.extensions`` only) as theirs. Regions the plan puts in global
+    memory, and the device-resource walks past their per-thread widths,
+    get scratch of their own (``scratch_bytes``)."""
     global LAST_PLAN
     if frozen:
-        _check_frozen(template, disabled, nominated, phase_cycles, cfg)
+        _check_frozen(template, disabled, nominated, cfg=cfg)
     dev = active.device
     n_lanes, n_out = active.shape[0], p1 - p0
     check_weights(cfg, weights, n_lanes)
@@ -1322,37 +1421,45 @@ def plain_step_cuda(arrs, active: torch.Tensor, hoist: ActiveHoist,
     if n_out <= 0:
         if template is not None:
             copy_template(state, template)
-        return _empty_outputs(arrs, cfg, n_lanes, dev)
+        return scheduler.output_buffers(arrs, cfg, n_lanes, 0, dev)
     static = inputs if inputs is not None else {}
+    if frozen:
+        out = scheduler.output_buffers(arrs, cfg, n_lanes, n_out, dev)
+        cursor = torch.full((1,), p0, dtype=torch.int32, device=dev)
+        wave_launcher(arrs, active, hoist, inv_alloc, state, cfg, out, p0, cursor, n_out, weights,
+                      phase_cycles=phase_cycles, inputs=static)()
+        return out
     args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p0, p1, template,
-                                 phase_cycles, disabled, nominated, frozen, static, weights,
+                                 phase_cycles, disabled, nominated, False, static, weights,
                                  ext_ok, ext_raw)
     explain = explain_on(cfg)
     lib = _library(explain, needs_wide(arrs, cfg, flags), bool(cfg.extensions))
-    n_clusters = n_lanes * n_out if frozen else n_lanes
     with torch.cuda.device(dev):
-        key = (flags, n_clusters, frozen)
+        key = (flags, n_lanes)
         plan = static["plans"].get(key)
         if plan is None:
-            plan = plan_for(arrs, cfg, flags, n_clusters, _card_occupancy(lib, args),
-                            one_pod=frozen, frozen=frozen)
+            plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args))
             static["plans"][key] = plan
-    if (frozen and n_out > 1
-            and scratch_bytes(arrs, cfg, flags, plan, n_clusters, True) > _SCRATCH_LIMIT):
-        # one cluster per (lane, pod): half the pods, half the scratch
-        mid = p0 + n_out // 2
-        halves = [plain_step_cuda(arrs, active, hoist, inv_alloc, state, cfg, lo, hi,
-                                  frozen=True, inputs=static, weights=weights)
-                  for lo, hi in ((p0, mid), (mid, p1))]
-        return StepOutputs(*(torch.cat(pair, 1) for pair in zip(*halves)))
     _set_geometry(args, plan)
-    keep = _scratch(args, arrs, cfg, flags, plan, n_clusters, dev, frozen)
     _stage_sources(args, arrs, plan, static)
+    keep = _scratch(args, arrs, cfg, flags, plan, n_lanes, dev)
     _fire(lib, args, plan, dev, "plain_step")
+    _count(plan, explain, False, weights is not None, bool(cfg.extensions))
     del keep  # freed in stream order: the next use of the memory follows the launch
-    _count(plan, explain, frozen, weights is not None, bool(cfg.extensions))
     LAST_PLAN = plan
     return _outputs(tensors, cfg, n_lanes, n_out, dev)
+
+
+def frozen_parts(arrs, cfg: EngineConfig, flags: int, plan: LaunchPlan, n_lanes: int,
+                 n_pods: int) -> List[Tuple[int, int]]:
+    """The (first pod's offset, pods) of each launch of a frozen launch of
+    `n_pods` pods: one, or where its scratch (``scratch_bytes``, one
+    cluster per lane and group) would pass _SCRATCH_LIMIT, as many as keep
+    each under it, cut at group boundaries."""
+    n_grp = _cdiv(n_pods, plan.group)
+    need = scratch_bytes(arrs, cfg, flags, plan, n_lanes * n_grp, True)
+    per = _cdiv(n_grp, max(1, _cdiv(need, _SCRATCH_LIMIT))) * plan.group
+    return [(lo, min(per, n_pods - lo)) for lo in range(0, n_pods, per)]
 
 
 def _count(plan: LaunchPlan, explain: bool, frozen: bool, weights: bool, ext: bool) -> None:
@@ -1454,6 +1561,88 @@ def pod_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torc
     return launch
 
 
+def wave_launcher(arrs, active: torch.Tensor, hoist: ActiveHoist, inv_alloc: torch.Tensor,
+                  state: SimState, cfg: EngineConfig, out: StepOutputs, p_base: int,
+                  cursor: torch.Tensor, width: int,
+                  weights: Optional[torch.Tensor] = None,
+                  phase_cycles: Optional[torch.Tensor] = None,
+                  inputs: Optional[dict] = None) -> Callable[[], None]:
+    """The frozen form of the step, as the engine's wave loop launches it:
+    returns ``launch()``, which evaluates the `width` pods from the one the
+    int32 [1] `cursor` names against every lane's carry in `state` (only
+    read) and writes their outputs into rows ``cursor - p_base`` of `out`,
+    StepOutputs of [S, P'', ...] buffers. On the card the StepArgs, the
+    plan (``plan_for`` with its group size; kept in `inputs` where given,
+    as ``plain_step_cuda``'s) and the scratch are built here, once, and
+    the kernel reads the wave's first pod from the cursor, so the launch
+    can be captured into a CUDA graph and replayed for every later wave of
+    the width (it goes on the current stream and counts in LAUNCHES
+    outside a capture; ``launch.count()`` counts one replay). A launch
+    whose scratch would pass _SCRATCH_LIMIT is cut at group boundaries
+    (``frozen_parts``). Given `phase_cycles` (an [S,
+    len(PHASES)] int64 tensor on the card), each launch writes each lane's
+    first cluster's cycles per phase there. On the CPU, the plain step's
+    frozen form of the pods the cursor names."""
+    dev = active.device
+    if dev.type == "cpu":
+        def launch_plain() -> None:
+            p = int(cursor)
+            got = plain_step_torch(arrs, active, hoist, inv_alloc, state, cfg, p, p + width,
+                                   frozen=True, weights=weights)
+            row = p - p_base
+            for i, (dst, src) in enumerate(zip(out, got)):
+                if i != 1 or cfg.fail_reasons:
+                    dst[:, row:row + width] = src
+        launch_plain.count = lambda: None
+        return launch_plain
+    if dev.type != "cuda":
+        raise ValueError(f"no plain_step for device {dev}")
+    n_lanes = active.shape[0]
+    _check_frozen(None, None, None, cfg=cfg)
+    check_weights(cfg, weights, n_lanes)
+    _check("cursor", cursor, torch.int32, (1,))
+    if cursor.device != dev:
+        raise ValueError(f"plain_step: cursor is on {cursor.device}, not {dev}")
+    flags = _flags(cfg, state, False)
+    explain = explain_on(cfg)
+    lib = _library(explain, needs_wide(arrs, cfg, flags))
+    static = inputs if inputs is not None else {}
+    args, tensors = _launch_args(arrs, active, hoist, inv_alloc, state, cfg, p_base,
+                                 p_base + width, None, phase_cycles, None, None, True, static,
+                                 weights, out=out)
+    key = (flags, n_lanes, width, True)
+    plan = static["plans"].get(key)
+    if plan is None:
+        with torch.cuda.device(dev):
+            plan = plan_for(arrs, cfg, flags, n_lanes, _card_occupancy(lib, args), frozen=True,
+                            n_pods=width)
+        static["plans"][key] = plan
+    _set_geometry(args, plan)
+    _stage_sources(args, arrs, plan, static)
+    parts = frozen_parts(arrs, cfg, flags, plan, n_lanes, width)
+    args.npod = max(npod for _, npod in parts)
+    keep = _scratch(args, arrs, cfg, flags, plan, n_lanes * _cdiv(args.npod, plan.group), dev,
+                    True)
+    args.p1, args.cursor = p_base + out.node.shape[1], cursor.data_ptr()
+
+    def launch() -> None:
+        global LAST_PLAN
+        for poff, npod in parts:
+            args.poff, args.npod = poff, npod
+            _fire(lib, args, plan, dev, "plain_step")
+        if not torch.cuda.is_current_stream_capturing():
+            launch.count()
+        LAST_PLAN = plan
+
+    def count() -> None:
+        for _ in parts:
+            _count(plan, explain, True, weights is not None, False)
+
+    launch.count = count
+    launch.keep = (tensors, static, keep)  # what the launches point at lives as long
+    return launch
+
+
 # ---- the fleet form: one cluster per lane, each lane its own cluster ------
 
 
@@ -1532,7 +1721,7 @@ def plain_step_fleet_cuda(lanes: List[FleetLane], cfg: EngineConfig, p0: int,
         out = []
         for ln in lanes:
             copy_template(ln.state, ln.template)
-            out.append(_empty_outputs(ln.arrs, cfg, 1, dev))
+            out.append(scheduler.output_buffers(ln.arrs, cfg, 1, 0, dev))
         return out
     built = [_launch_args(ln.arrs, ln.active, ln.hoist, ln.inv_alloc, ln.state, cfg, p0, p1,
                           ln.template, None, None, None, False, {}, None) for ln in lanes]

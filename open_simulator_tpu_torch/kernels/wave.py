@@ -27,7 +27,10 @@ as the reference's ``astype`` does.
 
 ``wave_merge`` launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back from one to the other.
-``LAUNCHES["wave_merge"]`` counts the kernel's launches.
+``LAUNCHES["wave_merge"]`` counts the kernel's launches. ``merge_launcher``
+is the engine's wave-loop form: the wave's first pod read from a device
+cursor, its binds from the loop's full-length outputs, so one launch
+captured into a CUDA graph merges every wave.
 
 ``forced_fold`` is the same fold for one carry and many pods, few a
 node: the forced binds of ``engine.scheduler.apply_forced_mask`` (the
@@ -74,7 +77,8 @@ _INTS = ("n", "r", "sg", "mg", "pt", "lk", "t", "ot", "ap", "t2", "g", "k1", "d"
 
 class MergeArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
-                + [(f, ctypes.c_int) for f in _INTS])
+                + [(f, ctypes.c_int) for f in _INTS]
+                + [("cursor", ctypes.c_void_p), ("row_base", ctypes.c_int), ("ls", ctypes.c_int)])
 
 
 def wave_merge(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
@@ -219,8 +223,21 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
     in pod order. `inputs`, a dict the caller keeps across launches over
     the same arrays, holds the converted node and pod arrays after the
     first call."""
+    args, _ = _merge_args(arrs, cfg, state, p1 - p0, nodes, gpu_pick, inputs, p0=p0)
+    if args is not None:
+        _fire(args, nodes.device)
+        LAUNCHES["wave_merge"] += 1
+
+
+def _merge_args(arrs, cfg: EngineConfig, state: SimState, c: int, nodes: torch.Tensor,
+                gpu_pick: Optional[torch.Tensor], inputs: Optional[dict], p0: int = 0,
+                rows: Optional[int] = None):
+    """The MergeArgs of a merge of `c` pods from p0 after the checks, and
+    the tensors they point at. `rows` (the wave loop's merge): `nodes` is
+    [S, rows] and `gpu_pick` [S, rows, G], the loop's full-length buffers;
+    else they are the wave's own ([S, c] or a shared [c])."""
     n, r = arrs.alloc.shape
-    n_lanes, c = state.headroom.shape[0], p1 - p0
+    n_lanes = state.headroom.shape[0]
     k1, _, d = arrs.topo_onehot.shape
     sg, pt, lk = arrs.match_groups.shape[1], arrs.ports.shape[1], arrs.vol_limit_cap.shape[1]
     t_w, t2, g_w = arrs.own_terms.shape[1], arrs.hit_pref.shape[1], arrs.gpu_slot.shape[1]
@@ -228,14 +245,15 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
     for name, dt in (("group_count", gc_dt), ("term_block", tb_dt)):
         if dt not in (torch.bfloat16, torch.float32):
             raise ValueError(f"wave_merge: {name} dtype {dt}")
-    if nodes.dim() == 1:
+    width = c if rows is None else rows
+    if nodes.dim() == 1 and rows is None:
         _check("nodes", nodes, torch.int32, (c,))
         stride = 0
     else:
-        _check("nodes", nodes, torch.int32, (n_lanes, c))
-        stride = c
+        _check("nodes", nodes, torch.int32, (n_lanes, width))
+        stride = width
     if gpu_pick is not None:
-        _check("gpu_pick", gpu_pick, torch.int32, (n_lanes, c, g_w))
+        _check("gpu_pick", gpu_pick, torch.int32, (n_lanes, width, g_w))
     carry = dict(
         headroom=_check("headroom", state.headroom, torch.float32, (n_lanes, n, r)),
         group_count=_check("group_count", state.group_count, gc_dt, (n_lanes, n, sg)),
@@ -246,7 +264,7 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
         pref_paint=_check("pref_paint", state.pref_paint, torch.float32, (n_lanes, n, t2)),
         gpu_used=_check("gpu_used", state.gpu_used, torch.float32, (n_lanes, n, g_w)))
     if c <= 0:
-        return
+        return None, None
     static = inputs if inputs is not None else {}
     if not static:
         static.update(_static_inputs(arrs))
@@ -262,14 +280,60 @@ def wave_merge_cuda(arrs, cfg: EngineConfig, state: SimState, p0: int, p1: int,
         n=n, r=r, sg=sg, mg=arrs.match_gid.shape[1], pt=pt, lk=lk, t=t_w,
         ot=arrs.own_tid.shape[1], ap=arrs.pref_group.shape[1], t2=t2, g=g_w, k1=k1, d=d,
         s=n_lanes, p0=p0, c=c, node_stride=stride,
-        flags=merge_flags(cfg, state, gpu_pick is not None))
+        flags=merge_flags(cfg, state, gpu_pick is not None), ls=width)
+    return args, tensors
+
+
+def _fire(args: MergeArgs, dev) -> None:
+    """Launch `args` on `dev`'s current stream; raises on a refused launch."""
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wave_merge_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"wave_merge launch failed: CUDA error {err}")
-    LAUNCHES["wave_merge"] += 1
+
+
+def merge_launcher(arrs, cfg: EngineConfig, state: SimState, nodes: torch.Tensor,
+                   gpu_pick: Optional[torch.Tensor], p_base: int, cursor: torch.Tensor,
+                   width: int, inputs: Optional[dict] = None):
+    """The merge of the wave loop: returns ``merge()``, which folds the
+    `width` pods from the one the int32 [1] `cursor` names into every lane
+    of `state`, their nodes and GPU picks at rows ``cursor - p_base`` of
+    the loop's full-length buffers `nodes` ([S, P'']) and `gpu_pick`
+    ([S, P'', G] or None). On the card the kernel reads the cursor, so the
+    launch can be captured into a CUDA graph and replayed for every later
+    wave (it counts in LAUNCHES outside a capture; ``merge.count()``
+    counts one replay); on the CPU, the plain merge of the pods the cursor
+    names."""
+    if nodes.device.type == "cpu":
+        def merge_plain() -> None:
+            p = int(cursor)
+            rows = slice(p - p_base, p - p_base + width)
+            wave_merge_torch(arrs, cfg, state, p, p + width, nodes[:, rows],
+                             None if gpu_pick is None else gpu_pick[:, rows])
+        merge_plain.count = lambda: None
+        return merge_plain
+    if nodes.device.type != "cuda":
+        raise ValueError(f"no wave_merge for device {nodes.device}")
+    _check("cursor", cursor, torch.int32, (1,))
+    args, tensors = _merge_args(arrs, cfg, state, width, nodes, gpu_pick, inputs,
+                                rows=nodes.shape[1])
+    if args is None:
+        raise ValueError("wave_merge: a wave of no pods")
+    args.cursor, args.row_base = cursor.data_ptr(), p_base
+
+    def merge() -> None:
+        _fire(args, nodes.device)
+        if not torch.cuda.is_current_stream_capturing():
+            merge.count()
+
+    def count() -> None:
+        LAUNCHES["wave_merge"] += 1
+
+    merge.count = count
+    merge.tensors = tensors  # (kept alive with the launcher)
+    return merge
 
 
 # ---- the forced fold -----------------------------------------------------

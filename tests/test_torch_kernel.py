@@ -234,17 +234,16 @@ def test_extension_builds_take_their_cap():
 
 
 def test_explain_builds_take_their_caps():
-    """The explain library's scan builds take 384 threads a block (168
-    registers), its device-resource builds 256 (255), its frozen builds
-    without them the scan's 512; the caps are the .cu's, and the launcher's
-    plan for an explain config uses them."""
+    """The explain library's builds take 384 threads a block (168
+    registers; its grouped frozen builds spill at 128), its
+    device-resource builds 256 (255); the caps are the .cu's, and the
+    launcher's plan for an explain config uses them."""
     src = Path(SOURCE).read_text(encoding="utf-8")
     caps = dict(re.findall(r"constexpr int (kMaxThreads\w*) = (\d+);", src))
     assert int(caps["kMaxThreadsExplain"]) == step.MAX_THREADS_EXPLAIN == 384
     assert int(caps["kMaxThreadsExplainDevRes"]) == step.MAX_THREADS_EXPLAIN_DEVRES == 256
     assert step.max_threads(0, explain=True) == 384
-    assert step.max_threads(0, explain=True, frozen=True) == step.MAX_THREADS
-    assert step.max_threads(step.F_GPU, explain=True, frozen=True) == 256
+    assert step.max_threads(step.F_GPU, explain=True) == 256
     assert step.max_threads(step.F_GPU, fleet=True, explain=True) == step.MAX_THREADS_WIDE_DEVRES
     snap = synthetic_snapshot(2000, 64, rich=True)
     cfg = sched.make_config(snap, explain_topk=3)
@@ -1320,8 +1319,8 @@ def test_plain_step_kernel_has_the_fleet_instantiations():
     src = Path(SOURCE).read_text(encoding="utf-8")
     insts = set(re.findall(r"plain_step_fleet_kernel<(true|false), (true|false), X>", src))
     assert insts == {(i, d) for i in ("true", "false") for d in ("true", "false")}
-    assert "step_body<kInterpod, kDevRes, false, false, kExplain, true, false>(s_lane)" in src
-    assert "step_body<kInterpod, kDevRes, kCols, kFrozen, kExplain, false, kExt>(a)" in src
+    assert "step_body<kInterpod, kDevRes, false, kExplain, true, false>(s_lane)" in src
+    assert "step_body<kInterpod, kDevRes, kCols, kExplain, false, kExt>(a)" in src
 
 
 def _fleet(snap, cfg, n_lanes, device, p1=None):
@@ -1563,7 +1562,9 @@ def test_extension_layout_is_in_the_kernel_source():
     # the rows are a build of their own: the extension library's scan
     # builds and the wide library's, never the frozen form or the fleet
     assert "constexpr bool kExtScan = kExtLib || kWideLib;" in src
-    assert 'static_assert(!(kExt && (kFrozen || kFleet)), "extension rows in a scan build only");' in src
+    assert 'static_assert(!(kExt && kFleet), "extension rows in a scan build only");' in src
+    assert ('static_assert(!(kFrozen && (kCols || kExt)), "the frozen form has no columns and '
+            'no rows");') in src
     assert build.VARIANTS["plain_step_ext"] == ("plain_step", ("-DPLAIN_STEP_EXT=1",))
     assert step.EXT_NORMALIZE == {"none": 0, "minmax": 1, "max": 2}
 
@@ -2375,3 +2376,258 @@ def test_staged_devres_64_lanes_on_card(cuda_device):
     for f in sched.STATE_FIELDS:
         assert torch.equal(getattr(st_k, f)[pick], getattr(st_p, f)), f
     assert step.instantiation(cfg, tmpl) == "<0,1>"
+
+
+# ---- the frozen form's groups and the wave loop's CUDA graph ----------------
+
+# each group size a test holds the frozen form to: one pod a cluster, a
+# group that straddles the wave's end (3 of an 8-pod wave: 3, 3, 2), the
+# whole wave in one cluster, and the launch plan's own (frozen_group)
+GROUPS = {"one": 1, "straddle": 3, "wave": 8, "plan": None}
+# the frozen builds' explain modes: off, the top-k in one pass with the
+# jitter, and the top-k over two passes
+FROZEN_EXPLAIN = {"off": {}, "topk3-seed": dict(explain_topk=3, tie_break_seed=7),
+                  "topk10": dict(explain_topk=10)}
+
+
+def _force_group(monkeypatch, g):
+    """Hold the frozen form's group size to g (None: the plan's) and, with
+    it, its clusters to 4 blocks (the plan would take one at these sizes)."""
+    if g is not None:
+        monkeypatch.setattr(step, "frozen_group", lambda *a, **k: g)
+        monkeypatch.setattr(step, "CLUSTER_SIZES", (16, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("mode", sorted(FROZEN_EXPLAIN))
+@pytest.mark.parametrize("case", sorted(FROZEN_CASES))
+def test_grouped_frozen_builds_equal_plain_on_card(cuda_device, case, mode, weights, group,
+                                                   monkeypatch):
+    """Every frozen build (each gate combination, its explain twin, with and
+    without the weight row) at each group size: the first two waves of a
+    pools GRID on three lanes equal the plain step's frozen form, outputs
+    and carry, bit for bit (the plan's own G on 64 lanes, lanes 0 and 63)."""
+    _force_group(monkeypatch, GROUPS[group])
+    snap = wave_pools_snapshot(96, 768, 8, **FROZEN_CASES[case])
+    cfg = sched.make_config(snap, traced_weights=weights, **FROZEN_EXPLAIN[mode])
+    lo, _, kind, w = wave_plans.waves_for(snap.arrays, cfg).segments[0]
+    assert kind == wave_plans.GRID and w == 8
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 2, np.arange(n) % 7 != 3])
+    if group == "plan":
+        masks = np.stack([masks[i % 3] for i in range(64)])
+    ends = [0, len(masks) - 1]
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    wm = _weight_matrix(cfg, cuda_device)[:1].expand(len(masks), -1).contiguous() \
+        if weights else None
+    if weights:
+        wm = wm * torch.linspace(0.5, 1.5, len(masks), device=cuda_device)[:, None]
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, len(masks))
+    step.copy_template(st, tmpl)
+    before = dict(step.LAUNCHES)
+    for w0 in range(lo, lo + 2 * w, w):
+        out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, w0, w0 + w, frozen=True,
+                                     weights=wm)
+        sub = sched.SimState(**{f: getattr(st, f)[ends].clone() for f in sched.STATE_FIELDS})
+        out_p = step.plain_step_torch(arrs, active[ends], type(hoist)(*(x[ends] for x in hoist)),
+                                      inv, sub, cfg, w0, w0 + w, frozen=True,
+                                      weights=None if wm is None else wm[ends])
+        torch.cuda.synchronize()
+        if GROUPS[group]:
+            assert (step.LAST_PLAN.group, step.LAST_PLAN.cluster) == (GROUPS[group], 4)
+        _assert_runs_equal([([x[ends] for x in out_k],
+                             sched.SimState(**{f: getattr(st, f)[ends]
+                                               for f in sched.STATE_FIELDS})),
+                            (out_p, sub)])
+        pick = out_k.gpu_pick if cfg.enable_gpu else None
+        wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out_k.node, pick)
+    name = "plain_step_frozen" + ("_explain" if step.explain_on(cfg) else "")
+    assert step.LAUNCHES[name] == before[name] + 2
+    assert (st.headroom != tmpl.headroom[None]).any()
+
+
+@pytest.mark.cuda
+def test_frozen_plan_groups_pods_at_64_lanes_on_card(cuda_device):
+    """The launch plan's own G at 64 lanes of a 1,024-node pools cluster
+    (32-pod waves: more one-pod clusters than the card holds) is past 1,
+    and the grouped launch equals the plain step's frozen form on lanes 0
+    and 63."""
+    snap = wave_pools_snapshot(1024, 2048, 32)
+    cfg = sched.make_config(snap, fail_reasons=False)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.ones((64, snap.n_nodes), dtype=torch.bool, device=cuda_device)
+    active[1::2, ::7] = False
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    st = sched.lane_carry(tmpl, 64)
+    step.copy_template(st, tmpl)
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, st, cfg, 0, 32, frozen=True)
+    plan = step.LAST_PLAN
+    ends = [0, 63]
+    sub = sched.SimState(**{f: getattr(st, f)[ends].clone() for f in sched.STATE_FIELDS})
+    out_p = step.plain_step_torch(arrs, active[ends], type(hoist)(*(x[ends] for x in hoist)),
+                                  inv, sub, cfg, 0, 32, frozen=True)
+    torch.cuda.synchronize()
+    assert plan.group > 1 and 64 * -(-32 // plan.group) >= plan.resident, plan
+    for name, a, b in zip(step.StepOutputs._fields, out_k, out_p):
+        assert torch.equal(a[ends], b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("region", ["walk", "cols"])
+def test_frozen_launch_split_by_groups_on_card(cuda_device, region, monkeypatch):
+    """A frozen launch whose scratch passes the limit (lowered here) runs as
+    launches over whole groups of 3 pods into the same outputs, equal to
+    the plain step's frozen form: the device-resource walks' windows, and
+    the column-read partials in global memory."""
+    from open_simulator_tpu_torch.testing.synthetic import many_domain_snapshot
+
+    _force_group(monkeypatch, 3)
+    if region == "walk":
+        snap = _wide_devres(False)
+    else:
+        snap = many_domain_snapshot(120, 320, 24, affinity=True)
+    cfg = sched.make_config(snap)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    masks = np.stack([np.ones(snap.n_nodes, bool), np.arange(snap.n_nodes) % 5 != 2])
+    active = torch.from_numpy(masks).to(cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+    lanes = sched.lane_carry(tmpl, 2)
+    flags = step._flags(cfg, lanes, False)
+    if region == "cols":
+        w = step.smem_widths(arrs, cfg, flags)
+        sl = step.block_geometry(snap.n_nodes, 16)[0]
+        monkeypatch.setattr(step, "_SMEM_LIMIT", step.smem_bytes(w, sl, False, False, True))
+    assert step.needs_wide(arrs, cfg, flags)
+    plan = step.plan_for(arrs, cfg, flags, 2, lambda *_: 2, frozen=True, n_pods=8)
+    assert plan.group == 3 and (plan.cols_global or step.walk_width(arrs, cfg))
+    monkeypatch.setattr(step, "_SCRATCH_LIMIT",
+                        step.scratch_bytes(arrs, cfg, flags, plan, 2, True))
+    assert len(step.frozen_parts(arrs, cfg, flags, plan, 2, 8)) == 3
+    step.copy_template(lanes, tmpl)
+    st_p = _clone(lanes)
+    before = step.LAUNCHES["plain_step_frozen"]
+    out_k = step.plain_step_cuda(arrs, active, hoist, inv, lanes, cfg, 40, 48, frozen=True)
+    out_p = step.plain_step_torch(arrs, active, hoist, inv, st_p, cfg, 40, 48, frozen=True)
+    torch.cuda.synchronize()
+    assert step.LAST_PLAN.wide and step.LAUNCHES["plain_step_frozen"] == before + 3
+    _assert_runs_equal([(out_k, lanes), (out_p, st_p)])
+
+
+# the wave loop's inputs: a GRID, a BATCH segment (three 20-pod waves, in
+# chunks of 8: two through one graph, the last 4 a run of their own), the
+# traced weights and the explain builds
+WAVE_LOOPS = {"grid": (lambda: wave_pools_snapshot(96, 768, 8), {}, None),
+              "grid-interpod-gpu": (lambda: wave_pools_snapshot(96, 768, 8, gpu=True,
+                                                                interpod=True), {}, None),
+              "batch": (lambda: wave_pools_snapshot(40, 60, 20), {}, 8),
+              "traced": (lambda: wave_pools_snapshot(96, 768, 8),
+                         dict(traced_weights=True), None),
+              "explain": (lambda: wave_pools_snapshot(96, 768, 8, interpod=True),
+                          dict(explain_topk=3, tie_break_seed=7), None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WAVE_LOOPS))
+def test_wave_loop_graph_equals_eager_on_card(cuda_device, case, monkeypatch):
+    """_run_wave_plan on three lanes: the loop replayed as a CUDA graph (the
+    wave on the device cursor, the outputs straight into the full-length
+    buffers) equals the eager loop and the CPU's plain loop in every output
+    and carry field, bit for bit; one graph a run of waves of one width,
+    replayed for all but the run's first wave."""
+    make, over, chunk = WAVE_LOOPS[case]
+    if chunk:
+        monkeypatch.setattr(sched, "_WAVE_CHUNK", chunk)
+    snap = make()
+    cfg = sched.make_config(snap, **over)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    kinds = {s[2] for s in plan.segments}
+    assert (wave_plans.BATCH if case == "batch" else wave_plans.GRID) in kinds
+    n = snap.n_nodes
+    masks = np.stack([np.ones(n, bool), np.arange(n) % 5 != 2, np.arange(n) % 7 != 3])
+    wmat = None
+    if cfg.traced_weights:
+        wmat = np.tile(sched.weight_vector(cfg), (3, 1)) * np.array([[1.0], [0.5], [2.0]])
+    runs = {}
+    for label, dev, graph in (("graph", cuda_device, True), ("eager", cuda_device, False),
+                              ("cpu", torch.device("cpu"), False)):
+        arrs = sched.device_arrays(snap.arrays, dev)
+        active = torch.from_numpy(masks).to(dev)
+        hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+        tmpl = sched.init_state(arrs, cfg)
+        carry = sched.lane_carry(tmpl, 3)
+        w_t = None if wmat is None else torch.from_numpy(wmat.astype(np.float32)).to(dev)
+        before = dict(sched.WAVE_LOOP)
+        outs = sched._run_wave_plan(arrs, active, hoist, inv, carry, tmpl, cfg, plan, 0,
+                                    snap.n_pods, weights=w_t, graph=graph)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[label] = ([o.cpu() for o in outs],
+                       {f: getattr(carry, f).cpu() for f in sched.STATE_FIELDS},
+                       {k: sched.WAVE_LOOP[k] - before[k] for k in before})
+    waves_of = [(hi - lo) // w if kind == wave_plans.GRID else
+                -(-(hi - lo) // chunk) for lo, hi, kind, w in plan.segments
+                if kind in (wave_plans.GRID, wave_plans.BATCH)]
+    graphs = runs["graph"][2]
+    if case == "batch":  # each wave: two chunks of 8 through a graph, then 4
+        assert graphs == {"wave_graphs": len(waves_of), "wave_replays": len(waves_of)}
+    else:
+        assert graphs == {"wave_graphs": 1, "wave_replays": waves_of[0] - 1}
+    assert runs["eager"][2] == {"wave_graphs": 0, "wave_replays": 0}
+    for label in ("eager", "cpu"):
+        for name, a, b in zip(step.StepOutputs._fields, runs["graph"][0], runs[label][0]):
+            assert torch.equal(a, b), (label, name)
+        for f in sched.STATE_FIELDS:
+            assert torch.equal(runs["graph"][1][f], runs[label][1][f]), (label, f)
+    assert (runs["graph"][0][0] >= 0).any()
+
+
+@pytest.mark.cuda
+def test_simulate_wave_ids_through_the_graph_on_card(cuda_device):
+    """simulate() on a pools cluster through the graph loop: the placements,
+    reasons and wave_id of the CPU's eager plain loop."""
+    from open_simulator_tpu_torch.core import simulate
+    from open_simulator_tpu_torch.k8s.loader import ClusterResources
+    from open_simulator_tpu_torch.testing.synthetic import wave_pools_objects
+
+    nodes, pods = wave_pools_objects(48, 384, 8, gpu=True)
+    before = dict(sched.WAVE_LOOP)
+    got = {dev: simulate(ClusterResources(nodes=nodes, pods=pods), [], device=dev)
+           for dev in ("cuda", "cpu")}
+    assert sched.WAVE_LOOP["wave_graphs"] > before["wave_graphs"]
+    a, b = got["cuda"], got["cpu"]
+    assert np.array_equal(a.wave_id, b.wave_id) and np.array_equal(a.wave_batched,
+                                                                   b.wave_batched)
+    assert {sp.pod.key: sp.node_name for sp in a.scheduled_pods} == {
+        sp.pod.key: sp.node_name for sp in b.scheduled_pods}
+    assert {u.pod.key: u.reason for u in a.unscheduled_pods} == {
+        u.pod.key: u.reason for u in b.unscheduled_pods}
+    assert a.wave_batched.any()
+
+
+@pytest.mark.cuda
+def test_wave_loop_capture_failure_names_the_launches_on_card(cuda_device, monkeypatch):
+    """A wave whose work cannot be captured raises, naming the loop's
+    launches: the card has no eager fallback."""
+    snap = wave_pools_snapshot(96, 768, 8)
+    cfg = sched.make_config(snap)
+    plan = wave_plans.waves_for(snap.arrays, cfg)
+    arrs = sched.device_arrays(snap.arrays, cuda_device)
+    active = torch.ones((1, snap.n_nodes), dtype=torch.bool, device=cuda_device)
+    hoist, inv = sched.hoist_of(arrs, active), sched.inv_alloc_of(arrs.alloc)
+    tmpl = sched.init_state(arrs, cfg)
+
+    def refuse(fn):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(sched, "_capture", refuse)
+    with pytest.raises(RuntimeError, match="wave loop's frozen plain_step launch, wave_merge "
+                                           "launch and cursor step"):
+        sched._run_wave_plan(arrs, active, hoist, inv, sched.lane_carry(tmpl, 1), tmpl, cfg,
+                             plan, 0, snap.n_pods)

@@ -5,7 +5,7 @@ one card: this tree's ``csrc/plain_step.cu`` and another source of it
 
     python3 tools/torch_ab_plain_step.py --other <dir> [--rich | --devres] [--weights]
         [--topk K [--prefix PODS]] [--cycles] [--variant NAME=PLACEMENT ...]
-        [--also NAME=SOURCE ...] [--seed S] [--ext PODS | --fleet LANES]
+        [--also NAME=SOURCE ...] [--seed S] [--ext PODS | --fleet LANES | --waves]
 
 `<dir>` holds the other ``plain_step.cu``, or is a checkout of another
 commit (``git archive <rev> | tar -x -C <dir>``). Both sources are
@@ -55,6 +55,23 @@ campaign's host pipeline (``campaign/lanes._prepare``), each side's fleet
 kernel (``kernels/step.plain_step_fleet_cuda``) over every pod after the
 forced prefix, the kernel alone between CUDA events, in turns; every
 lane's placements and carry must be equal.
+
+``--waves`` times the wave path instead, on the reference bench's pools
+preset (1,024 nodes x 10,240 pods in 32 pools: one GRID of 320 waves of
+32), at one lane and at 64 lanes (``waves_ab``): each side's frozen
+launches and this tree's merges, every wave between CUDA events with the
+stream primed every 16 waves (device us a launch), in turns; each side's
+launch plan (cluster size, group size, clusters a launch, resident
+clusters, rounds); at one lane this tree's launches with the plan held
+to each cluster size (a second pass, the first converting the inputs);
+the wave loop's wall a wave, in turns, of this tree's
+graph path (``engine/scheduler._run_wave_plan``), its eager loop and the
+parent's loop (each wave a ``plain_step`` call on the other source, a
+merge and the eight slice copies), then the graph's replays alone (wall
+and device time a wave, the card's idle share); with ``--cycles`` each side's cycles a
+pod by phase of the lane's first cluster (a source whose frozen form has
+no cycle counts is skipped); and this tree's plan for each frozen build
+at 64 lanes on ``wave_pools_snapshot`` clusters of the preset's size.
 
 ``--topk K`` times the explain builds instead (both sources compiled
 again with ``-DPLAIN_STEP_EXPLAIN=1``): one lane, each side launched with
@@ -145,6 +162,8 @@ def main(argv=None) -> int:
                     help="time the extension loop's one-pod launches over this many pods")
     ap.add_argument("--fleet", type=int, default=0, metavar="LANES",
                     help="time fleet-16's batched launch of this many clusters")
+    ap.add_argument("--waves", action="store_true",
+                    help="time the wave path (frozen launches, merges, the loop) on pools")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -176,7 +195,7 @@ def main(argv=None) -> int:
         variants[name] = step.PLACEMENT_NAMES[placement]
     kinds = {"plain": ()}
     explain = bool(args.topk or args.seed)
-    if explain:
+    if explain or args.waves:
         kinds["explain"] = build.VARIANTS["plain_step_explain"][1]
     if args.ext:
         kinds["ext"] = build.VARIANTS["plain_step_ext"][1]
@@ -231,7 +250,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     snap = None
-    if not args.fleet:  # the fleet's clusters are fleet_ab's
+    if not (args.fleet or args.waves):  # those clusters are fleet_ab's and waves_ab's
         if args.devres:
             snap = device_resource_snapshot(args.nodes, args.pods, max_new=args.lanes)
         else:
@@ -257,6 +276,26 @@ def main(argv=None) -> int:
             if not explain:
                 cases[f"{args.lanes} lanes"] = active_masks_for_counts(snap, counts)
     real_library, real_widths, real_places = step._library, step.smem_widths, step.PLACEMENTS
+    real_plan_for, real_fire = step.plan_for, step._fire
+    # a source from before the frozen form's groups runs one pod a cluster,
+    # unstaged, laid out as the scan (its own plan), and takes no device
+    # cursor: its launch runs the pods from p0, where the cursor points
+    other_groups = "int grp, npod, poff;" in other_text
+
+    def fire_without_cursor(lib, args_, plan, dev_, what):
+        if args_.frozen:
+            args_.cursor = None
+        real_fire(lib, args_, plan, dev_, what)
+
+    def one_pod_plan_for(arrs_, cfg_, flags, n_lanes, occupancy, fleet=False, one_pod=False,
+                         frozen=False, n_pods=1):
+        if not frozen:
+            return real_plan_for(arrs_, cfg_, flags, n_lanes, occupancy, fleet, one_pod)
+        wide = step.needs_wide(arrs_, cfg_, flags)
+        return step.plan_launch(
+            n_lanes * n_pods, arrs_.alloc.shape[0], step.smem_widths(arrs_, cfg_, flags),
+            occupancy, step.max_threads(flags, fleet, wide, step.explain_on(cfg_)),
+            step.placements_for(wide, True, flags))._replace(wide=wide)
     sides = ["other", "this", *variants, *[n for n in sources if n not in ("other", "this")]]
     order = sides + sides[::-1][1:-1] + ["other"] if len(sides) > 2 else [
         "other", "this", "this", "other"]
@@ -275,6 +314,10 @@ def main(argv=None) -> int:
         step.smem_widths = (lambda *a, **k: real_widths(*a, **k)._replace(**drop)) if drop \
             else real_widths
         step.PLACEMENTS = real_places
+        step.plan_for = (one_pod_plan_for if name == "other" and not other_groups
+                         else real_plan_for)
+        step._fire = (fire_without_cursor if name == "other" and not other_groups
+                      else real_fire)
         if name in variants:
             step.PLACEMENTS = step.placements_held_to(variants[name])
         elif name == "other" and not other_stages:
@@ -291,6 +334,8 @@ def main(argv=None) -> int:
     try:
         if args.ext:
             return ext_ab(args, torch, sched, step, snap, use, with_ext["this"])
+        if args.waves:
+            return waves_ab(args, torch, sched, step, sides, order, use, other_text)
         if args.fleet:
             # a source from before the staged regions (or the device
             # cursor) reads a StepArgs that ends where their pointers begin
@@ -381,7 +426,7 @@ def main(argv=None) -> int:
                               for s in sides), flush=True)
     finally:
         step._library, step.smem_widths = real_library, real_widths
-        step.PLACEMENTS = real_places
+        step.PLACEMENTS, step.plan_for = real_places, real_plan_for
     return 0
 
 
@@ -673,6 +718,283 @@ def ext_ab(args, torch, sched, step, snap, use, cursor) -> int:
               "pod by phase " + ", ".join(f"{ph} {v:.1f}" for ph, v in zip(step.PHASES, per))
               + f"; total {sum(per):.1f}; plan C={step.LAST_PLAN.cluster} "
               f"threads={step.LAST_PLAN.threads}", flush=True)
+    return 0
+
+
+def waves_ab(args, torch, sched, step, sides, order, use, other_text) -> int:
+    """--waves: the wave path on the pools preset, at one lane (reasons
+    on, as simulate() runs it) and at 64 lanes (reasons off, as the
+    bench's schedule_lanes runs it)."""
+    import numpy as np
+
+    from open_simulator_tpu_torch.engine import waves as waves_mod
+    from open_simulator_tpu_torch.kernels import wave
+    from open_simulator_tpu_torch.testing.synthetic import (
+        synthetic_snapshot,
+        wave_pools_snapshot,
+    )
+
+    dev = torch.device("cuda")
+    snap = synthetic_snapshot(1024, 10240, pools=32)
+    n_pods = snap.n_pods
+    arrs = sched.device_arrays(snap.arrays, dev)
+    inv = sched.inv_alloc_of(arrs.alloc)
+    looped = hasattr(sched, "WAVE_LOOP")  # this tree's loop replays a CUDA graph
+    for label, n_lanes, reasons in (("1 lane", 1, True), ("64 lanes", 64, False)):
+        cfg = sched.make_config(snap, fail_reasons=reasons)
+        plan = waves_mod.waves_for(snap.arrays, cfg)
+        (lo, hi, kind, w), = plan.segments
+        assert kind == waves_mod.GRID and lo == 0 and hi == n_pods, plan.segments
+        n_waves = (hi - lo) // w
+        masks_np = np.ones((n_lanes, snap.n_nodes), bool)
+        masks = torch.from_numpy(masks_np).to(dev)
+        hoist = sched.hoist_of(arrs, masks)
+        tmpl = sched.init_state(arrs, cfg)
+        frozen = {n: [] for n in sides}
+        merges, outs, plans, inputs = [], {}, {}, {n: {} for n in sides}
+        merge_inputs: dict = {}
+        for _ in range(args.rounds):
+            for name in order:
+                use(name)
+                st = sched.lane_carry(tmpl, n_lanes)
+                step.copy_template(st, tmpl)
+                evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                       for _ in range(n_waves)]
+                nodes = []
+                for j, w0 in enumerate(range(lo, hi, w)):
+                    if j % 16 == 0:
+                        torch.cuda.synchronize()
+                        torch.cuda._sleep(int(10 * 1_980_000))
+                    evs[j][0].record()
+                    out = step.plain_step_cuda(arrs, masks, hoist, inv, st, cfg, w0, w0 + w,
+                                               frozen=True, inputs=inputs[name])
+                    evs[j][1].record()
+                    wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out[0], None,
+                                         inputs=merge_inputs)
+                    evs[j][2].record()
+                    nodes.append(out[0])
+                torch.cuda.synchronize()
+                frozen[name].append(sum(a.elapsed_time(b) for a, b, _ in evs) / n_waves)
+                merges.append(sum(b.elapsed_time(c) for _, b, c in evs) / n_waves)
+                outs[name] = (torch.cat(nodes, 1), [getattr(st, f).clone()
+                                                    for f in sched.STATE_FIELDS])
+                plans[name] = step.LAST_PLAN
+        for name in sides[1:]:
+            a, b = outs["other"], outs[name]
+            if not (torch.equal(a[0], b[0]) and all(torch.equal(x, y)
+                                                    for x, y in zip(a[1], b[1]))):
+                print(f"waves, {label}: {name} and other differ", file=sys.stderr)
+                return 1
+        for name in sides:
+            pl = plans[name]
+            grp = getattr(pl, "group", 1)
+            clusters = n_lanes * -(-w // grp)
+            t = min(frozen[name])
+            print(f"waves, {label}, {n_waves} waves of {w}, frozen launch, {name}: "
+                  f"{t * 1e3:.3f} us a launch (min of {len(frozen[name])} runs, each the mean "
+                  f"of its {n_waves} launches; {t / min(frozen['other']) - 1:+.4f} against "
+                  f"other); runs {[round(x * 1e3, 3) for x in frozen[name]]}; plan "
+                  f"C={pl.cluster} threads={pl.threads} G={grp} clusters={clusters} "
+                  f"resident_clusters={pl.resident} rounds={-(-clusters // max(pl.resident, 1))} "
+                  f"staged={step.placement_name(pl)} smem={pl.smem}; outputs and carry equal",
+                  flush=True)
+        print(f"waves, {label}, merge (this tree's wave_merge): {min(merges) * 1e3:.3f} us a "
+              f"launch (min of {len(merges)} runs)", flush=True)
+        if n_lanes == 1:
+            # this tree's frozen launches with the plan held to each cluster
+            # size (the plan takes the smallest whose threads hold a node
+            # each and whose clusters all fit at once)
+            use("this")
+            real_sizes = step.CLUSTER_SIZES
+            try:
+                for c in real_sizes:
+                    step.CLUSTER_SIZES = (c,)
+                    ins = {}
+                    # (a first pass converts the inputs and builds the plan)
+                    for _ in range(2):
+                        st = sched.lane_carry(tmpl, n_lanes)
+                        step.copy_template(st, tmpl)
+                        ms, nodes = [], []
+                        for j, w0 in enumerate(range(lo, hi, w)):
+                            if j % 16 == 0:
+                                torch.cuda.synchronize()
+                                torch.cuda._sleep(int(10 * 1_980_000))
+                            ev0 = torch.cuda.Event(enable_timing=True)
+                            ev1 = torch.cuda.Event(enable_timing=True)
+                            ev0.record()
+                            out = step.plain_step_cuda(arrs, masks, hoist, inv, st, cfg, w0,
+                                                       w0 + w, frozen=True, inputs=ins)
+                            ev1.record()
+                            wave.wave_merge_cuda(arrs, cfg, st, w0, w0 + w, out[0], None,
+                                                 inputs=merge_inputs)
+                            ms.append((ev0, ev1))
+                            nodes.append(out[0])
+                        torch.cuda.synchronize()
+                    same = torch.equal(torch.cat(nodes, 1), outs["this"][0])
+                    pl = step.LAST_PLAN
+                    print(f"waves, {label}, this, clusters held to {c} blocks: "
+                          f"{sum(a.elapsed_time(b) for a, b in ms) / n_waves * 1e3:.3f} us a "
+                          f"launch; plan C={pl.cluster} threads={pl.threads} "
+                          f"nodes/thread={-(-pl.slice_len // pl.threads)} "
+                          f"resident_clusters={pl.resident}; outputs equal: {same}",
+                          flush=True)
+            finally:
+                step.CLUSTER_SIZES = real_sizes
+        if args.cycles:
+            for name in sides:
+                use(name)
+                st = sched.lane_carry(tmpl, n_lanes)
+                step.copy_template(st, tmpl)
+                tot = torch.zeros((len(step.PHASES),), dtype=torch.float64)
+                pods = 0
+                try:
+                    for w0 in range(lo, hi, w):
+                        cyc = torch.zeros((n_lanes, len(step.PHASES)), dtype=torch.int64,
+                                          device=dev)
+                        step.plain_step_cuda(arrs, masks, hoist, inv, st, cfg, w0, w0 + w,
+                                             frozen=True, phase_cycles=cyc)
+                        tot += cyc[0].double().cpu()
+                        pods += min(getattr(step.LAST_PLAN, "group", 1), w)
+                except RuntimeError as err:  # a frozen form without the cycle counts
+                    print(f"waves, {label}, {name}: no cycle counts ({err})", flush=True)
+                    continue
+                per = (tot / pods).tolist()
+                print(f"waves, {label}, {name}: cycles a pod by phase (the lane's first "
+                      f"cluster, {pods // n_waves} pods of it a wave) "
+                      + ", ".join(f"{ph} {v:.1f}" for ph, v in zip(step.PHASES, per))
+                      + f"; total {sum(per):.1f}", flush=True)
+        # the wave loop's wall a wave, in turns: this tree's graph path, its
+        # eager loop, the parent's loop (the other source's frozen launches,
+        # a merge and the slice copies a wave)
+        def this_loop(graph):
+            use("this")
+            carry = sched.lane_carry(tmpl, n_lanes)
+            kw = {"graph": graph} if looped else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sched._run_wave_plan(arrs, masks, hoist, inv, carry, tmpl, cfg, plan, 0,
+                                       n_pods, **kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, got[0], carry
+
+        def parent_loop():
+            # the parent's _run_wave_plan on a GRID: a plain_step call, a
+            # merge and the eight slice copies (put) a wave
+            use("other")
+            carry = sched.lane_carry(tmpl, n_lanes)
+            step.copy_template(carry, tmpl)
+            g_w, lw = step.pick_widths(arrs, cfg)
+            k_top, c_parts = sched.topk_widths(arrs, cfg)
+            i32 = torch.int32
+            fail = (torch.empty((n_lanes, n_pods, cfg.n_ops), dtype=i32, device=dev)
+                    if cfg.fail_reasons else None)
+            bufs = [torch.empty((n_lanes, n_pods), dtype=i32, device=dev), fail,
+                    torch.empty((n_lanes, n_pods), dtype=i32, device=dev),
+                    torch.empty((n_lanes, n_pods, g_w), dtype=i32, device=dev),
+                    torch.empty((n_lanes, n_pods, lw), dtype=i32, device=dev),
+                    torch.empty((n_lanes, n_pods, k_top), dtype=i32, device=dev),
+                    torch.empty((n_lanes, n_pods, k_top), dtype=torch.float32, device=dev),
+                    torch.empty((n_lanes, n_pods, c_parts, k_top), dtype=torch.float32,
+                                device=dev)]
+            ins, m_ins = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for w0 in range(lo, hi, w):
+                out = step.plain_step_cuda(arrs, masks, hoist, inv, carry, cfg, w0, w0 + w,
+                                           frozen=True, inputs=ins)
+                wave.wave_merge_cuda(arrs, cfg, carry, w0, w0 + w, out[0], None,
+                                     inputs=m_ins)
+                for i, (dst, src) in enumerate(zip(bufs, out)):
+                    if i != 1 or cfg.fail_reasons:
+                        dst[:, w0:w0 + w] = src
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, bufs[0], carry
+
+        loops = {"this, eager": lambda: this_loop(False), "other, its loop": parent_loop}
+        if looped:
+            loops = {"this, graph": lambda: this_loop(True), **loops}
+        names = list(loops)
+        walls = {k: [] for k in names}
+        ref = None
+        for _ in range(args.rounds):
+            for k in names + names[::-1]:
+                wall, node, carry = loops[k]()
+                walls[k].append(wall)
+                got = (node.clone(), [getattr(carry, f).clone() for f in sched.STATE_FIELDS])
+                if ref is None:
+                    ref = got
+                elif not (torch.equal(ref[0], got[0])
+                          and all(torch.equal(x, y) for x, y in zip(ref[1], got[1]))):
+                    print(f"wave loop, {label}: {k} differs", file=sys.stderr)
+                    return 1
+        for k in names:
+            t = min(walls[k])
+            print(f"wave loop, {label}, {n_waves} waves, {k}: {t * 1e3 / n_waves:.3f} ms of "
+                  f"wall a wave (min of {len(walls[k])}; runs "
+                  f"{[round(x * 1e3 / n_waves, 3) for x in walls[k]]}); outputs and carry equal",
+                  flush=True)
+        if looped:
+            # the graph's replays alone: the host's wall a wave (synchronised
+            # at the end), then the device's (the stream primed), and the
+            # card's idle share in the replays
+            use("this")
+            carry = sched.lane_carry(tmpl, n_lanes)
+            step.copy_template(carry, tmpl)
+            runs = sched.WaveRuns(arrs, masks, hoist, inv, carry, cfg, 0, n_pods)
+            runs.cursor.fill_(lo)
+            runs.wave(w)
+            graph = runs.capture(w)
+            n = n_waves - 1
+            r_walls, devs = [], []
+            for _ in range(args.rounds):
+                step.copy_template(carry, tmpl)
+                runs.cursor.fill_(lo + w)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    graph.replay()
+                torch.cuda.synchronize()
+                r_walls.append((time.perf_counter() - t0) / n)
+                step.copy_template(carry, tmpl)
+                runs.cursor.fill_(lo + w)
+                torch.cuda.synchronize()
+                torch.cuda._sleep(int(0.02 * n * 1_980_000))
+                ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                for _ in range(n):
+                    graph.replay()
+                ev1.record()
+                torch.cuda.synchronize()
+                devs.append(ev0.elapsed_time(ev1) / n)
+            wall, dev_ms = min(r_walls), min(devs)
+            print(f"wave loop, {label}, this, the graph's {n} replays: {wall * 1e6:.3f} us of "
+                  f"wall a wave, {dev_ms * 1e3:.3f} us of device a wave (the stream primed); "
+                  f"the card idles {1 - dev_ms * 1e-3 / wall:.4f} of the replays; runs "
+                  f"wall {[round(x * 1e6, 3) for x in r_walls]} device "
+                  f"{[round(x * 1e3, 3) for x in devs]}", flush=True)
+    # this tree's plan for each frozen build at 64 lanes, on clusters of the
+    # preset's size
+    use("this")
+    for over, name in (({}, "<0,0>"), ({"interpod": True}, "<1,0>"), ({"gpu": True}, "<0,1>"),
+                       ({"gpu": True, "interpod": True}, "<1,1>")):
+        wsnap = wave_pools_snapshot(1024, 2048, 32, **over)
+        wcfg = sched.make_config(wsnap, fail_reasons=False)
+        for mode, c in (("", wcfg), ("+explain", wcfg._replace(explain_topk=3))):
+            warrs = sched.device_arrays(wsnap.arrays, dev)
+            wmask = torch.ones((64, wsnap.n_nodes), dtype=torch.bool, device=dev)
+            st = sched.lane_carry(sched.init_state(warrs, c), 64)
+            step.copy_template(st, sched.init_state(warrs, c))
+            step.plain_step_cuda(warrs, wmask, sched.hoist_of(warrs, wmask),
+                                 sched.inv_alloc_of(warrs.alloc), st, c, 0, 32, frozen=True)
+            torch.cuda.synchronize()
+            pl = step.LAST_PLAN
+            grp = getattr(pl, "group", 1)
+            clusters = 64 * -(-32 // grp)
+            print(f"frozen build {step.instantiation(c, st, frozen=True)} ({name}{mode}), 64 "
+                  f"lanes x 32 pods: C={pl.cluster} threads={pl.threads} G={grp} "
+                  f"clusters={clusters} resident_clusters={pl.resident} "
+                  f"rounds={-(-clusters // max(pl.resident, 1))} "
+                  f"staged={step.placement_name(pl)} smem={pl.smem}", flush=True)
     return 0
 
 
